@@ -1,0 +1,167 @@
+"""Conditional flow-matching mel decoder: DiT vector field + Euler solve.
+
+Counterpart of the JAX ``models/cfm.py`` (``init_params``, ``_t_embed``,
+``_ln``, ``_frame_pos_embed``, ``vector_field``, ``upsample_tokens``,
+``sample_mel``). Trunk matmuls run in ``cfg.dtype``; layer-norm statistics,
+softmax, the adaLN modulation and the ODE state stay f32, as there.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import sdpa
+from ..utils.config import CFMConfig
+from ..weights import normal
+
+Params = Dict
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def init_params(cfg: CFMConfig, generator: torch.Generator) -> Params:
+    D, M, Fd, L = cfg.dim, cfg.n_mels, cfg.ffn_dim, cfg.n_layers
+    dev = generator.device
+
+    def dense(fan_in, shape):
+        return normal(shape, generator, 1.0 / math.sqrt(fan_in))
+
+    return {
+        "in_proj": dense(2 * M + 1, (2 * M + 1, D)),
+        "tok_emb": dense(D, (cfg.token_vocab_size, D)),
+        "spk_proj": dense(cfg.spk_dim, (cfg.spk_dim, D)),
+        "t_proj1": dense(256, (256, D)),
+        "t_proj2": dense(D, (D, D)),
+        "layers": {
+            "mod": torch.zeros((L, D, 6 * D), device=dev),
+            "wq": dense(D, (L, D, D)),
+            "wk": dense(D, (L, D, D)),
+            "wv": dense(D, (L, D, D)),
+            "wo": dense(D, (L, D, D)),
+            "w_up": dense(D, (L, D, Fd)),
+            "w_down": dense(Fd, (L, Fd, D)),
+        },
+        "out_norm_scale": torch.ones((D,), device=dev),
+        "out_proj": torch.zeros((D, M), device=dev),
+    }
+
+
+def _t_embed(t: torch.Tensor, dim: int = 256) -> torch.Tensor:
+    """Sinusoidal embedding of flow time t in [0, 1] -> [B, dim]."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, device=t.device) / half)
+    ang = t[:, None] * 1000.0 * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _ln(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def _frame_pos_embed(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Absolute-position sinusoid [B, F] -> [B, F, dim]."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def vector_field(
+    params: Params, cfg: CFMConfig,
+    x_t: torch.Tensor,          # [B, F, M]
+    t: torch.Tensor,            # [B]
+    token_cond: torch.Tensor,   # [B, F, D]
+    spk: torch.Tensor,          # [B, spk_dim]
+    prompt_mel: torch.Tensor,   # [B, F, M]
+    prompt_mask: torch.Tensor,  # [B, F]
+    frame_mask: torch.Tensor,   # [B, F]
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    B, Fr, M = x_t.shape
+    D = cfg.dim
+    dt = _DTYPES[cfg.dtype]
+    h = torch.cat([x_t, prompt_mel, prompt_mask[..., None]], dim=-1) @ params["in_proj"]
+    if positions is None:
+        positions = torch.arange(Fr, device=x_t.device)[None, :].expand(B, Fr)
+    h = h + token_cond + (spk @ params["spk_proj"])[:, None, :]
+    h = (h + _frame_pos_embed(positions, D).to(h.dtype)).to(dt)
+    temb = F.silu(_t_embed(t) @ params["t_proj1"]) @ params["t_proj2"]
+    n_heads = cfg.n_heads
+    hd = D // n_heads
+    attn_mask = (frame_mask[:, None, None, :] > 0) & (frame_mask[:, None, :, None] > 0)
+    lp = params["layers"]
+    for l in range(cfg.n_layers):
+        mod = F.silu(temb) @ lp["mod"][l]
+        sh1, sc1, g1, sh2, sc2, g2 = (m.to(dt) for m in mod.chunk(6, dim=-1))
+        x = _ln(h) * (1 + sc1[:, None]) + sh1[:, None]
+        q = (x @ lp["wq"][l].to(dt)).reshape(B, Fr, n_heads, hd)
+        k = (x @ lp["wk"][l].to(dt)).reshape(B, Fr, n_heads, hd)
+        v = (x @ lp["wv"][l].to(dt)).reshape(B, Fr, n_heads, hd)
+        att = sdpa(q, k, v, attn_mask).reshape(B, Fr, D)
+        h = h + g1[:, None] * (att @ lp["wo"][l].to(dt))
+        x = _ln(h) * (1 + sc2[:, None]) + sh2[:, None]
+        up = F.gelu(x @ lp["w_up"][l].to(dt), approximate="tanh")
+        h = h + g2[:, None] * (up @ lp["w_down"][l].to(dt))
+    h = _ln(h).float() * params["out_norm_scale"]
+    return h @ params["out_proj"]
+
+
+def upsample_tokens(params: Params, tokens: torch.Tensor, upsample: int) -> torch.Tensor:
+    """[B, T_tok] -> [B, T_tok * upsample, D] token conditioning."""
+    emb = params["tok_emb"][tokens.long()]
+    return torch.repeat_interleave(emb, upsample, dim=1)
+
+
+def sample_mel(
+    params: Params, cfg: CFMConfig,
+    generator: Optional[torch.Generator],
+    token_cond: torch.Tensor,   # [B, F, D]
+    spk: torch.Tensor,
+    prompt_mel: torch.Tensor,   # [B, F, M]
+    prompt_mask: torch.Tensor,  # [B, F]
+    frame_mask: torch.Tensor,   # [B, F]
+    use_cfg: bool = True,
+    positions: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fixed-step Euler solve t: 0 -> 1 from ``noise`` (drawn from
+    ``generator`` when not given), optionally with classifier-free guidance
+    batched as one 2B estimator call per step. Prompt frames are overwritten
+    with the given mel."""
+    B, Fr, _ = token_cond.shape
+    M = cfg.n_mels
+    dev = token_cond.device
+    if noise is None:
+        x = torch.randn((B, Fr, M), generator=generator, device=dev, dtype=torch.float32)
+    else:
+        x = noise.to(device=dev, dtype=torch.float32)
+    dt = 1.0 / cfg.n_steps
+    if positions is None:
+        positions = torch.arange(Fr, device=dev)[None, :].expand(B, Fr)
+    if use_cfg:
+        tc2 = torch.cat([token_cond, torch.zeros_like(token_cond)], dim=0)
+        spk2 = torch.cat([spk, spk], dim=0)
+        pm2 = torch.cat([prompt_mel, prompt_mel], dim=0)
+        pk2 = torch.cat([prompt_mask, prompt_mask], dim=0)
+        fm2 = torch.cat([frame_mask, frame_mask], dim=0)
+        pos2 = torch.cat([positions, positions], dim=0)
+        for i in range(cfg.n_steps):
+            t = torch.full((2 * B,), float(i), dtype=torch.float32, device=dev) * dt
+            v2 = vector_field(params, cfg, torch.cat([x, x], dim=0), t, tc2, spk2,
+                              pm2, pk2, fm2, pos2)
+            v = (1 + cfg.cfg_scale) * v2[:B] - cfg.cfg_scale * v2[B:]
+            x = x + dt * v
+    else:
+        for i in range(cfg.n_steps):
+            t = torch.full((B,), float(i), dtype=torch.float32, device=dev) * dt
+            v = vector_field(params, cfg, x, t, token_cond, spk, prompt_mel,
+                             prompt_mask, frame_mask, positions)
+            x = x + dt * v
+    pm = prompt_mask[..., None]
+    return x * (1 - pm) + prompt_mel * pm

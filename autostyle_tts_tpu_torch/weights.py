@@ -1,0 +1,182 @@
+"""Weights carried across from the JAX package, and the port's own init.
+
+- ``load_npz`` reads the flat-key ``.npz`` format of the JAX package's
+  ``utils/checkpoint.py`` (keys such as ``token_lm/layers/wqkv``; numeric
+  path segments are list indices; a ``q``/``s`` pair is an int8 tensor).
+- ``from_jax_tree`` turns the JAX ``EngineParams.tree()`` (leaves as numpy)
+  into the port's parameter tree: nested dicts and lists of tensors.
+- ``init_params`` draws random full-width weights with the same shapes and
+  scales as the JAX ``init_params`` functions, from an explicit generator.
+- ``QTensor`` / ``quantize`` / ``quantize_tree``: int8 weight-only
+  quantization with per-output-channel scales, bit-identical to the JAX
+  ``ops/quant.py`` (``torch.round`` rounds half to even like ``jnp.round``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .utils.config import Config
+
+_FLAT_SEP = "/"
+
+
+class QTensor(NamedTuple):
+    q: torch.Tensor       # int8, same shape as the original weight
+    s: torch.Tensor       # f32 scale, shape = weight.shape[:-2] + (1, out)
+
+
+def quantize(w: torch.Tensor) -> QTensor:
+    """Symmetric int8 with one scale per output channel (absmax over the
+    contraction dim, axis -2; leading stack dims keep their own scales)."""
+    w = w.float()
+    absmax = w.abs().amax(dim=-2, keepdim=True)
+    scale = torch.clamp(absmax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return QTensor(q=q, s=scale)
+
+
+_QUANT_NAMES = ("wqkv", "wq", "wk", "wv", "wo", "w_gate_up", "w_gate", "w_up",
+                "w_down", "lm_head", "speech_head")
+
+
+def quantize_tree(params: Dict, names: Tuple[str, ...] = _QUANT_NAMES) -> Dict:
+    """Quantize the projection weights of a transformer param tree; embeddings
+    and norms stay f32. Walks dicts only, as the JAX ``quantize_tree`` does."""
+
+    def walk(d: Any) -> Any:
+        if isinstance(d, dict):
+            return {
+                k: quantize(v)
+                if k in names and isinstance(v, torch.Tensor) and v.ndim >= 2
+                else walk(v)
+                for k, v in d.items()
+            }
+        return d
+
+    return walk(params)
+
+
+# ----------------------------------------------------------------------------- trees
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """Apply ``fn`` to every tensor leaf (QTensor fields included)."""
+    if isinstance(tree, QTensor):
+        return QTensor(q=fn(tree.q), s=fn(tree.s))
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def to_device(tree: Any, device) -> Any:
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def tree_from_numpy(x: Any) -> Any:
+    # JAX QTensor leaves arrive as a NamedTuple with fields (q, s)
+    if getattr(x, "_fields", None) == ("q", "s"):
+        return QTensor(q=tree_from_numpy(x.q), s=tree_from_numpy(x.s))
+    if isinstance(x, dict):
+        return {k: tree_from_numpy(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [tree_from_numpy(v) for v in x]
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _check(name: str, t: Any, shape: Tuple[int, ...]) -> None:
+    got = tuple((t.q if isinstance(t, QTensor) else t).shape)
+    if got != shape:
+        raise ValueError(f"{name}: shape {got} != config shape {shape}")
+
+
+def from_jax_tree(tree: Dict, cfg: Config, device=None) -> Dict:
+    """JAX ``EngineParams.tree()`` with numpy leaves -> the port's tree of
+    tensors (on ``device``, default CPU). The token-LM and CFM shapes are
+    checked against ``cfg``."""
+    out = tree_from_numpy(tree)
+    tl = cfg.token_lm
+    L, D, F = tl.n_layers, tl.dim, tl.ffn_dim
+    H, K, hd = tl.n_heads, tl.n_kv_heads, tl.head_dim
+    lm = out["token_lm"]
+    _check("token_lm/layers/wqkv", lm["layers"]["wqkv"], (L, D, (H + 2 * K) * hd))
+    _check("token_lm/layers/wo", lm["layers"]["wo"], (L, H * hd, D))
+    _check("token_lm/layers/w_gate_up", lm["layers"]["w_gate_up"], (L, D, 2 * F))
+    _check("token_lm/layers/w_down", lm["layers"]["w_down"], (L, F, D))
+    _check("token_lm/speech_emb", lm["speech_emb"], (tl.speech_vocab_size, D))
+    _check("token_lm/speech_head", lm["speech_head"], (D, tl.speech_vocab_size))
+    c = cfg.cfm
+    _check("cfm/layers/wq", out["cfm"]["layers"]["wq"], (c.n_layers, c.dim, c.dim))
+    _check("cfm/out_proj", out["cfm"]["out_proj"], (c.dim, c.n_mels))
+    return out if device is None else to_device(out, device)
+
+
+def load_npz(path: str) -> Dict:
+    """Flat-key ``.npz`` (JAX ``utils/checkpoint.save_pytree`` format) ->
+    nested dicts/lists of numpy arrays, ready for ``from_jax_tree``."""
+    p = str(path) if str(path).endswith(".npz") else str(path) + ".npz"
+    root: Dict = {}
+    with np.load(p) as data:
+        for key in data.files:
+            node = root
+            parts = key.split(_FLAT_SEP)
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = data[key]
+
+    def fix(node: Any) -> Any:
+        if not isinstance(node, dict):
+            return node
+        node = {k: fix(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        if set(node) == {"q", "s"}:
+            return QTensor(q=node["q"], s=node["s"])
+        return node
+
+    return fix(root)
+
+
+# ----------------------------------------------------------------------------- init
+
+
+def init_params(cfg: Config, generator: torch.Generator) -> Dict:
+    """Random weights for the slice's modules (token LM, CFM, vocoder) with
+    the JAX init's shapes and scales, drawn on ``generator.device``. The
+    speaker encoder and speech tokenizer are outside the slice and stay
+    empty."""
+    from .models import cfm, token_lm, vocoder
+
+    return {
+        "token_lm": token_lm.init_params(cfg.token_lm, generator),
+        "cfm": cfm.init_params(cfg.cfm, generator),
+        "vocoder": vocoder.init_params(cfg.vocoder, generator),
+        "speaker": {},
+        "speech_tokenizer": {},
+    }
+
+
+def normal(shape, generator: torch.Generator, scale: float = 1.0) -> torch.Tensor:
+    return torch.randn(
+        shape, generator=generator, device=generator.device, dtype=torch.float32
+    ) * scale
+
+
+def uniform(shape, generator: torch.Generator, lo: float, hi: float) -> torch.Tensor:
+    u = torch.rand(
+        shape, generator=generator, device=generator.device, dtype=torch.float32
+    )
+    return lo + (hi - lo) * u
+
+
+def truncated_normal(
+    shape, generator: torch.Generator, scale: float, bound: float = 3.0
+) -> torch.Tensor:
+    t = torch.empty(shape, device=generator.device, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -bound, bound, generator=generator)
+    return t * scale

@@ -1,0 +1,116 @@
+"""Port parity for the acoustic half of the slice (CFM and iSTFT vocoder),
+in f32 at tiny widths. Tolerance: rtol 1e-5 (atol 1e-5 where values cross
+zero); both sides compute in f32 with the JAX matmul precision at
+``highest``, so only summation order differs."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from autostyle_tts_tpu.models import cfm as jcfm
+from autostyle_tts_tpu.models import vocoder as jvoc
+from autostyle_tts_tpu.ops import stft as jstft
+from autostyle_tts_tpu.utils.config import tiny_config as jtiny
+from autostyle_tts_tpu_torch.models import cfm as tcfm
+from autostyle_tts_tpu_torch.models import vocoder as tvoc
+from autostyle_tts_tpu_torch.ops import stft as tstft
+from autostyle_tts_tpu_torch.weights import tree_from_numpy
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _cfm_params(cfg, seed=0):
+    """JAX init, with the zero-initialized adaLN modulation and output
+    projection filled so that every layer contributes."""
+    p = jax.tree_util.tree_map(np.asarray, jcfm.init_params(jax.random.PRNGKey(seed), cfg))
+    rng = np.random.default_rng(seed)
+    p["layers"]["mod"] = (rng.standard_normal(p["layers"]["mod"].shape) * 0.05).astype(np.float32)
+    p["out_proj"] = (rng.standard_normal(p["out_proj"].shape) * 0.1).astype(np.float32)
+    return p, tree_from_numpy(p)
+
+
+def _cfm_inputs(cfg, B=2, Fr=24, seed=1):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    pmask = (np.arange(Fr)[None, :] < np.asarray([6, 9])[:B, None]).astype(np.float32)
+    fmask = (np.arange(Fr)[None, :] < np.asarray([24, 19])[:B, None]).astype(np.float32)
+    return dict(token_cond=f(B, Fr, cfg.dim), spk=f(B, cfg.spk_dim),
+                prompt_mel=f(B, Fr, cfg.n_mels) * pmask[..., None],
+                prompt_mask=pmask, frame_mask=fmask)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def test_vector_field_matches():
+    cfg = jtiny().cfm
+    jp, tp = _cfm_params(cfg)
+    inp = _cfm_inputs(cfg)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 24, cfg.n_mels)).astype(np.float32)
+    t = np.asarray([0.25, 0.7], np.float32)
+    want = np.asarray(jcfm.vector_field(jp, cfg, jnp.asarray(x), jnp.asarray(t),
+                                        **{k: jnp.asarray(v) for k, v in inp.items()}))
+    got = tcfm.vector_field(tp, cfg, _t(x), _t(t), **{k: _t(v) for k, v in inp.items()})
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("use_cfg,n_steps", [(True, 4), (False, 2)])
+def test_sample_mel_matches_with_injected_noise(use_cfg, n_steps):
+    cfg = dataclasses.replace(jtiny().cfm, n_steps=n_steps)
+    jp, tp = _cfm_params(cfg, seed=3)
+    inp = _cfm_inputs(cfg)
+    key = jax.random.PRNGKey(9)
+    want = np.asarray(jcfm.sample_mel(jp, cfg, key, use_cfg=use_cfg,
+                                      **{k: jnp.asarray(v) for k, v in inp.items()}))
+    noise = np.asarray(jax.random.normal(key, (2, 24, cfg.n_mels), jnp.float32))
+    got = tcfm.sample_mel(tp, cfg, None, use_cfg=use_cfg, noise=_t(noise),
+                          **{k: _t(v) for k, v in inp.items()})
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_upsample_tokens_matches():
+    cfg = jtiny().cfm
+    jp, tp = _cfm_params(cfg)
+    tok = np.random.default_rng(0).integers(0, cfg.token_vocab_size, (2, 7)).astype(np.int32)
+    want = np.asarray(jcfm.upsample_tokens(jp, jnp.asarray(tok), 2))
+    np.testing.assert_array_equal(tcfm.upsample_tokens(tp, _t(tok), 2).numpy(), want)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(128, 32), (1920, 480)])
+def test_istft_overlap_add_matches(n_fft, hop):
+    rng = np.random.default_rng(4)
+    n_bins = n_fft // 2 + 1
+    sr = rng.standard_normal((2, 11, n_bins)).astype(np.float32)
+    si = rng.standard_normal((2, 11, n_bins)).astype(np.float32)
+    want = np.asarray(jstft.istft_overlap_add(jnp.asarray(sr), jnp.asarray(si), n_fft, hop))
+    got = tstft.istft_overlap_add(_t(sr), _t(si), n_fft, hop).numpy()
+    assert got.shape == (2, 11 * hop)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def _istft_cfg():
+    c = jtiny()
+    return dataclasses.replace(c.vocoder, kind="istft", istft_hop=c.audio.hop_length,
+                               istft_n_fft=4 * c.audio.hop_length, istft_channels=32,
+                               istft_blocks=2)
+
+
+def test_apply_istft_matches():
+    vcfg = _istft_cfg()
+    jp = jax.tree_util.tree_map(np.asarray, jvoc.init_params(jax.random.PRNGKey(5), vcfg))
+    mel = np.random.default_rng(5).standard_normal((2, 13, vcfg.n_mels)).astype(np.float32)
+    want = np.asarray(jvoc.apply(jp, vcfg, jnp.asarray(mel)))
+    got = tvoc.apply(tree_from_numpy(jp), vcfg, _t(mel)).numpy()
+    assert got.shape == (2, 13 * vcfg.istft_hop)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_vocoder_hifigan_kind_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tvoc.apply({}, jtiny().vocoder, torch.zeros((1, 4, 16)))
