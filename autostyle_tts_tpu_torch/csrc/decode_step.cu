@@ -1,8 +1,14 @@
-// One B=1 decode step of the int8 speech-token LM, as a chain of kernels
-// launched by one host function (sm_90a).
+// One B=1 decode step of the int8 / int4 speech-token LM, as a chain of
+// kernels launched by one host function (sm_90a), and its two half-layers as
+// entry points of their own.
 //
-// Replaces: autostyle_tts_tpu/ops/pallas_decode.py::mega_decode_step
-// (_mega_kernel), int8 variant: embedding row of the previous token, RoPE
+// Replaces, of autostyle_tts_tpu/ops/pallas_decode.py:
+//   attn_step (_attn_kernel): rmsnorm, int8 QKV GEMV, RoPE, cache row write
+//     at slot t, attention over [off, t) plus the current token, int8 wo +
+//     residual  ->  norm_gemv_kernel, attn_kernel, gemv_residual_kernel;
+//   mlp_step (_mlp_kernel): rmsnorm, int8 gate|up, silu(g)*u, int8 down +
+//     residual  ->  gate_up_kernel, gemv_residual_kernel;
+//   mega_decode_step (_mega_kernel), int8 and int4: embedding row of the previous token, RoPE
 // from max(t-off, 0), L layers (rmsnorm, int8 QKV GEMV with post-scales,
 // RoPE, cache row write at slot t, attention over [off, t) plus the current
 // token, int8 wo + residual, rmsnorm, int8 gate|up, silu(g)*u, int8 down +
@@ -31,6 +37,13 @@
 // Random bits come from Philox4x32-10 keyed by the step's seed, counter =
 // vocab id; the plain twin in ops/decode_step.py draws the same bits.
 // A persistent single kernel, wgmma and CUDA-graph capture are later work.
+//
+// int4 (BITS = 4): the TPU layout pairs output channels (c, c + C/2) in a
+// byte so that Mosaic can unpack without shifts. Here a byte holds two
+// consecutive contraction elements of one output-major row, both
+// offset-binary (value + 8; low nibble = even index), so a warp still
+// streams one contiguous row, now of C/2 bytes, 32 elements per 16-byte
+// load, and unpacks with a mask and a shift. Scales stay per output channel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,27 +130,44 @@ __device__ void rmsnorm_to_smem(const bf16* __restrict__ h, const float* __restr
   __syncthreads();
 }
 
-// One warp: out[r] = sum_c W_r[c] * x_s[c] for ROWS int8 rows of length C
-// (C % 16 == 0, rows 16-byte aligned), 16 bytes per lane per load.
+// Bytes of a weight row of C elements at BITS bits each.
+template <int BITS>
+__host__ __device__ __forceinline__ size_t row_bytes(int C) { return (size_t)C * BITS / 8; }
+
+// One warp: out[r] = sum_c W_r[c] * x_s[c] for ROWS rows of C elements at
+// BITS bits (8: int8; 4: two offset-binary nibbles a byte, low = even
+// index). 16 bytes per lane per load: C % 16 == 0 for int8, C % 32 == 0 for
+// int4, rows 16-byte aligned.
+template <int BITS>
 __device__ __forceinline__ void rows_dot(const int8_t* const* wr, const float* x_s,
                                          int C, float* out) {
+  constexpr int EPL = 16 * 8 / BITS;   // elements per 16-byte load
   const int lane = threadIdx.x & 31;
   float acc[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-  for (int c = lane * 16; c < C; c += 32 * 16) {
-    float xv[16];
+  for (int c = lane * EPL; c < C; c += 32 * EPL) {
+    float xv[EPL];
 #pragma unroll
-    for (int e = 0; e < 16; e += 4) {
+    for (int e = 0; e < EPL; e += 4) {
       const float4 x4 = *reinterpret_cast<const float4*>(x_s + c + e);
       xv[e] = x4.x; xv[e + 1] = x4.y; xv[e + 2] = x4.z; xv[e + 3] = x4.w;
     }
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      const int4 pk = __ldg(reinterpret_cast<const int4*>(wr[r] + c));
-      const int8_t* b = reinterpret_cast<const int8_t*>(&pk);
+      const int4 pk = __ldg(reinterpret_cast<const int4*>(wr[r] + row_bytes<BITS>(c)));
+      if constexpr (BITS == 8) {
+        const int8_t* b = reinterpret_cast<const int8_t*>(&pk);
 #pragma unroll
-      for (int e = 0; e < 16; ++e) acc[r] += (float)b[e] * xv[e];
+        for (int e = 0; e < 16; ++e) acc[r] += (float)b[e] * xv[e];
+      } else {
+        const uint8_t* b = reinterpret_cast<const uint8_t*>(&pk);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          acc[r] += (float)((int)(b[e] & 15) - 8) * xv[2 * e];
+          acc[r] += (float)((int)(b[e] >> 4) - 8) * xv[2 * e + 1];
+        }
+      }
     }
   }
 #pragma unroll
@@ -150,7 +180,8 @@ __global__ void embed_kernel(const int* __restrict__ tok, const bf16* __restrict
   for (int i = threadIdx.x; i < D; i += blockDim.x) h[i] = emb[row + i];
 }
 
-// out[r] = (W[r] . bf16(rmsnorm(h) * nw)) * s[r], r < R.  W: [R, D] int8.
+// out[r] = (W[r] . bf16(rmsnorm(h) * nw)) * s[r], r < R.  W: [R, D] at BITS.
+template <int BITS>
 __global__ void __launch_bounds__(THREADS)
 norm_gemv_kernel(const bf16* __restrict__ h, const float* __restrict__ nw, float eps,
                  const int8_t* __restrict__ W, const float* __restrict__ s,
@@ -163,9 +194,9 @@ norm_gemv_kernel(const bf16* __restrict__ h, const float* __restrict__ nw, float
   if (r0 >= R) return;
   const int8_t* wr[ROWS];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) wr[r] = W + (size_t)min(r0 + r, R - 1) * D;
+  for (int r = 0; r < ROWS; ++r) wr[r] = W + (size_t)min(r0 + r, R - 1) * row_bytes<BITS>(D);
   float o[ROWS];
-  rows_dot(wr, x_s, D, o);
+  rows_dot<BITS>(wr, x_s, D, o);
   if ((threadIdx.x & 31) == 0) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r)
@@ -174,6 +205,7 @@ norm_gemv_kernel(const bf16* __restrict__ h, const float* __restrict__ nw, float
 }
 
 // act[i] = bf16(silu(g_i) * u_i), g_i/u_i = rows i and F+i of W . x.
+template <int BITS>
 __global__ void __launch_bounds__(THREADS)
 gate_up_kernel(const bf16* __restrict__ h, const float* __restrict__ nw, float eps,
                const int8_t* __restrict__ W, const float* __restrict__ s,
@@ -184,9 +216,10 @@ gate_up_kernel(const bf16* __restrict__ h, const float* __restrict__ nw, float e
   rmsnorm_to_smem(h, nw, eps, D, x_s, red);
   const int i = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (i >= F) return;
-  const int8_t* wr[ROWS] = {W + (size_t)i * D, W + (size_t)(F + i) * D};
+  const int8_t* wr[ROWS] = {W + (size_t)i * row_bytes<BITS>(D),
+                            W + (size_t)(F + i) * row_bytes<BITS>(D)};
   float o[ROWS];
-  rows_dot(wr, x_s, D, o);
+  rows_dot<BITS>(wr, x_s, D, o);
   if ((threadIdx.x & 31) == 0) {
     const float g = o[0] * s[i];
     const float u = o[1] * s[F + i];
@@ -194,7 +227,8 @@ gate_up_kernel(const bf16* __restrict__ h, const float* __restrict__ nw, float e
   }
 }
 
-// h[r] = bf16(h[r] + (W[r] . x) * s[r]).  W: [D, C] int8, x: [C] bf16.
+// h[r] = bf16(h[r] + (W[r] . x) * s[r]).  W: [D, C] at BITS, x: [C] bf16.
+template <int BITS>
 __global__ void __launch_bounds__(THREADS)
 gemv_residual_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ W,
                      const float* __restrict__ s, bf16* __restrict__ h, int D, int C) {
@@ -205,9 +239,9 @@ gemv_residual_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ W,
   if (r0 >= D) return;
   const int8_t* wr[ROWS];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) wr[r] = W + (size_t)min(r0 + r, D - 1) * C;
+  for (int r = 0; r < ROWS; ++r) wr[r] = W + (size_t)min(r0 + r, D - 1) * row_bytes<BITS>(C);
   float o[ROWS];
-  rows_dot(wr, x_s, C, o);
+  rows_dot<BITS>(wr, x_s, C, o);
   if ((threadIdx.x & 31) == 0) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r)
@@ -352,21 +386,130 @@ sample_kernel(const float* __restrict__ logits, int V, int pad_id, int bos_id,
 
 inline int blocks(int n, int per) { return (n + per - 1) / per; }
 
-}  // namespace
-
 #define LAUNCH_CHECK()                          \
   do {                                          \
     const cudaError_t e = cudaGetLastError();   \
     if (e != cudaSuccess) return (int)e;        \
   } while (0)
 
-// One decode step. Weights are output-major int8: wqkv [L,3N,D], wo [L,D,N],
+// Attention half-layer of one layer: h <- h + wo . attn(rmsnorm(h)), cache
+// row t written in place. Scratch: qkv f32 [3N], attn bf16 [N].
+template <int BITS>
+int attn_half(bf16* h, const float* nw, const int8_t* wqkv, const float* wqs,
+              const int8_t* wo, const float* wos, const float* invf, bf16* kc, bf16* vc,
+              float* qkv, bf16* attn, int D, int H, int hd, int S, int t, int off,
+              float eps, float scale, cudaStream_t st) {
+  const int N = H * hd;
+  const size_t norm_smem = (size_t)(D + 32) * sizeof(float);
+  const size_t attn_smem = (size_t)(3 * hd + 32 + S) * sizeof(float);
+  norm_gemv_kernel<BITS><<<blocks(3 * N, WARPS * ROWS), THREADS, norm_smem, st>>>(
+      h, nw, eps, wqkv, wqs, qkv, 3 * N, D);
+  LAUNCH_CHECK();
+  attn_kernel<<<H, THREADS, attn_smem, st>>>(qkv, invf, kc, vc, attn, N, hd, t, off, scale);
+  LAUNCH_CHECK();
+  gemv_residual_kernel<BITS><<<blocks(D, WARPS * ROWS), THREADS, (size_t)N * sizeof(float), st>>>(
+      attn, wo, wos, h, D, N);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+// MLP half-layer of one layer: h <- h + down . (silu(g) * u). Scratch: act
+// bf16 [F].
+template <int BITS>
+int mlp_half(bf16* h, const float* nw, const int8_t* wgu, const float* wgus,
+             const int8_t* wd, const float* wds, bf16* act, int D, int F, float eps,
+             cudaStream_t st) {
+  const size_t norm_smem = (size_t)(D + 32) * sizeof(float);
+  gate_up_kernel<BITS><<<blocks(F, WARPS), THREADS, norm_smem, st>>>(h, nw, eps, wgu, wgus, act, F, D);
+  LAUNCH_CHECK();
+  gemv_residual_kernel<BITS><<<blocks(D, WARPS * ROWS), THREADS, (size_t)F * sizeof(float), st>>>(
+      act, wd, wds, h, D, F);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+template <int BITS>
+int mega_step(const int* tok_in, const bf16* emb, const float* invf,
+              const float* attn_norm, const int8_t* wqkv, const float* wqs,
+              const int8_t* wo, const float* wos, const float* mlp_norm,
+              const int8_t* wgu, const float* wgus, const int8_t* wd, const float* wds,
+              const float* final_norm, const int8_t* head, const float* head_s,
+              bf16* k_all, bf16* v_all, bf16* h, float* qkv, bf16* attn, bf16* act,
+              float* logits, int* tok_out, int L, int D, int H, int hd, int F, int V, int S,
+              int t, int off, int suppress, int seed, float eps, float scale,
+              int pad_id, int bos_id, int eos_id, int greedy, float temperature,
+              int top_k, cudaStream_t st) {
+  const int N = H * hd;
+  embed_kernel<<<1, 256, 0, st>>>(tok_in, emb, h, D);
+  LAUNCH_CHECK();
+  for (int l = 0; l < L; ++l) {
+    int rc = attn_half<BITS>(
+        h, attn_norm + (size_t)l * D, wqkv + (size_t)l * 3 * N * row_bytes<BITS>(D),
+        wqs + (size_t)l * 3 * N, wo + (size_t)l * D * row_bytes<BITS>(N), wos + (size_t)l * D,
+        invf, k_all + (size_t)l * S * N, v_all + (size_t)l * S * N, qkv, attn,
+        D, H, hd, S, t, off, eps, scale, st);
+    if (rc) return rc;
+    rc = mlp_half<BITS>(
+        h, mlp_norm + (size_t)l * D, wgu + (size_t)l * 2 * F * row_bytes<BITS>(D),
+        wgus + (size_t)l * 2 * F, wd + (size_t)l * D * row_bytes<BITS>(F), wds + (size_t)l * D,
+        act, D, F, eps, st);
+    if (rc) return rc;
+  }
+  const size_t norm_smem = (size_t)(D + 32) * sizeof(float);
+  norm_gemv_kernel<BITS><<<blocks(V, WARPS * ROWS), THREADS, norm_smem, st>>>(
+      h, final_norm, eps, head, head_s, logits, V, D);
+  LAUNCH_CHECK();
+  const size_t sample_smem = (size_t)(2 * V + 32) * sizeof(float);
+  sample_kernel<<<1, SAMPLE_THREADS, sample_smem, st>>>(
+      logits, V, pad_id, bos_id, eos_id, suppress, greedy, temperature, top_k,
+      (uint32_t)seed, tok_out);
+  LAUNCH_CHECK();
+  return 0;
+}
+
+}  // namespace
+
+#define DISPATCH_BITS(fn, ...)                    \
+  do {                                            \
+    if (bits == 8) return fn<8>(__VA_ARGS__);     \
+    if (bits == 4) return fn<4>(__VA_ARGS__);     \
+    return (int)cudaErrorInvalidValue;            \
+  } while (0)
+
+// All entry points: `bits` is 8 (int8 weights, one value a byte) or 4 (two
+// offset-binary values a byte along the contraction axis, low nibble = even
+// index); weights are output-major rows; every pointer is device memory on
+// `stream`'s device; the return value is the first CUDA error (or
+// cudaErrorInvalidValue for another `bits`).
+
+// One attention half-layer. h bf16 [D] and the caches kc/vc bf16 [S, N]
+// (row t) are updated in place. wqkv [3N, D], wo [D, N]; scales f32 [3N],
+// [D]; nw f32 [D]; invf f32 [hd/2]; scratch qkv f32 [3N], attn bf16 [N].
+extern "C" int attn_step(void* h, const void* nw, const void* wqkv, const void* wqs,
+                         const void* wo, const void* wos, const void* invf, void* kc,
+                         void* vc, void* qkv, void* attn, int D, int H, int hd, int S,
+                         int t, int off, float eps, float scale, int bits, void* stream) {
+  DISPATCH_BITS(attn_half, (bf16*)h, (const float*)nw, (const int8_t*)wqkv, (const float*)wqs,
+            (const int8_t*)wo, (const float*)wos, (const float*)invf, (bf16*)kc, (bf16*)vc,
+            (float*)qkv, (bf16*)attn, D, H, hd, S, t, off, eps, scale, (cudaStream_t)stream);
+}
+
+// One MLP half-layer. h bf16 [D] is updated in place. wgu [2F, D] (gate
+// rows then up rows), wd [D, F]; scales f32 [2F], [D]; scratch act bf16 [F].
+extern "C" int mlp_step(void* h, const void* nw, const void* wgu, const void* wgus,
+                        const void* wd, const void* wds, void* act, int D, int F,
+                        float eps, int bits, void* stream) {
+  DISPATCH_BITS(mlp_half, (bf16*)h, (const float*)nw, (const int8_t*)wgu, (const float*)wgus,
+            (const int8_t*)wd, (const float*)wds, (bf16*)act, D, F, eps, (cudaStream_t)stream);
+}
+
+// One decode step. Weights stacked over layers: wqkv [L,3N,D], wo [L,D,N],
 // wgu [L,2F,D] (gate rows then up rows), wd [L,D,F], head [V,D]; scales f32
 // [L,3N], [L,D], [L,2F], [L,D], [V]; norms f32 [L,D] / [D]; emb bf16 [V,D];
 // invf f32 [hd/2]. Caches k_all/v_all bf16 [L,S,N] are updated in place at
 // row t. Scratch: h bf16 [D] (holds the last layer's residual on return),
 // qkv f32 [3N], attn bf16 [N], act bf16 [F], logits f32 [V]. tok_in and
-// tok_out are int32 [1] on the device. Returns the first CUDA error.
+// tok_out are int32 [1] on the device.
 extern "C" int mega_decode_step(
     const void* tok_in, const void* emb, const void* invf,
     const void* attn_norm, const void* wqkv, const void* wqs,
@@ -378,48 +521,14 @@ extern "C" int mega_decode_step(
     int L, int D, int H, int hd, int F, int V, int S,
     int t, int off, int suppress, int seed, float eps, float scale,
     int pad_id, int bos_id, int eos_id, int greedy, float temperature,
-    int top_k, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int N = H * hd;
-  auto* hb = (bf16*)h;
-  auto* qkvf = (float*)qkv;
-  auto* attnb = (bf16*)attn;
-  auto* actb = (bf16*)act;
-  auto i8 = [](const void* p) { return (const int8_t*)p; };
-  auto f32 = [](const void* p) { return (const float*)p; };
-
-  embed_kernel<<<1, 256, 0, st>>>((const int*)tok_in, (const bf16*)emb, hb, D);
-  LAUNCH_CHECK();
-  const size_t norm_smem = (size_t)(D + 32) * sizeof(float);
-  const size_t attn_smem = (size_t)(3 * hd + 32 + S) * sizeof(float);
-  for (int l = 0; l < L; ++l) {
-    bf16* kc = (bf16*)k_all + (size_t)l * S * N;
-    bf16* vc = (bf16*)v_all + (size_t)l * S * N;
-    norm_gemv_kernel<<<blocks(3 * N, WARPS * ROWS), THREADS, norm_smem, st>>>(
-        hb, f32(attn_norm) + (size_t)l * D, eps, i8(wqkv) + (size_t)l * 3 * N * D,
-        f32(wqs) + (size_t)l * 3 * N, qkvf, 3 * N, D);
-    LAUNCH_CHECK();
-    attn_kernel<<<H, THREADS, attn_smem, st>>>(qkvf, f32(invf), kc, vc, attnb, N, hd,
-                                              t, off, scale);
-    LAUNCH_CHECK();
-    gemv_residual_kernel<<<blocks(D, WARPS * ROWS), THREADS, (size_t)N * sizeof(float), st>>>(
-        attnb, i8(wo) + (size_t)l * D * N, f32(wos) + (size_t)l * D, hb, D, N);
-    LAUNCH_CHECK();
-    gate_up_kernel<<<blocks(F, WARPS), THREADS, norm_smem, st>>>(
-        hb, f32(mlp_norm) + (size_t)l * D, eps, i8(wgu) + (size_t)l * 2 * F * D,
-        f32(wgus) + (size_t)l * 2 * F, actb, F, D);
-    LAUNCH_CHECK();
-    gemv_residual_kernel<<<blocks(D, WARPS * ROWS), THREADS, (size_t)F * sizeof(float), st>>>(
-        actb, i8(wd) + (size_t)l * D * F, f32(wds) + (size_t)l * D, hb, D, F);
-    LAUNCH_CHECK();
-  }
-  norm_gemv_kernel<<<blocks(V, WARPS * ROWS), THREADS, norm_smem, st>>>(
-      hb, f32(final_norm), eps, i8(head), f32(head_s), (float*)logits, V, D);
-  LAUNCH_CHECK();
-  const size_t sample_smem = (size_t)(2 * V + 32) * sizeof(float);
-  sample_kernel<<<1, SAMPLE_THREADS, sample_smem, st>>>(
-      (const float*)logits, V, pad_id, bos_id, eos_id, suppress, greedy, temperature,
-      top_k, (uint32_t)seed, (int*)tok_out);
-  LAUNCH_CHECK();
-  return 0;
+    int top_k, int bits, void* stream) {
+  DISPATCH_BITS(mega_step, (const int*)tok_in, (const bf16*)emb, (const float*)invf,
+            (const float*)attn_norm, (const int8_t*)wqkv, (const float*)wqs,
+            (const int8_t*)wo, (const float*)wos, (const float*)mlp_norm,
+            (const int8_t*)wgu, (const float*)wgus, (const int8_t*)wd, (const float*)wds,
+            (const float*)final_norm, (const int8_t*)head, (const float*)head_s,
+            (bf16*)k_all, (bf16*)v_all, (bf16*)h, (float*)qkv, (bf16*)attn, (bf16*)act,
+            (float*)logits, (int*)tok_out, L, D, H, hd, F, V, S, t, off, suppress, seed,
+            eps, scale, pad_id, bos_id, eos_id, greedy, temperature, top_k,
+            (cudaStream_t)stream);
 }

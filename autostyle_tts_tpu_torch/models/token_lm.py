@@ -1,25 +1,30 @@
 """Speech-token LM: (text, style prompt, timbre) -> discrete speech tokens.
 
-Counterpart of the JAX ``models/token_lm.py`` on the main path:
-``core_config``, ``init_params``, ``build_prefix``, ``pad_prefix``,
-``generate_speech(_from_ids)`` with the decode loop of ``_generate_fused``
-over the decode-step kernel, and ``mega_decode_params`` (int8) in the
-kernel's output-major layout. Prefix layout, as there:
+Counterpart of the JAX ``models/token_lm.py``: ``core_config``,
+``init_params``, ``build_prefix``, ``pad_prefix``,
+``generate_speech(_from_ids)`` with both flavours of the decode loop of
+``_generate_fused``, ``mega_decode_params`` (int8, or int4 with
+``bits=4``) in the kernels' output-major layout and
+``unstack_decode_params`` (per-layer views of it). Prefix layout, as there:
 
     [SPK] [text: prompt_text ++ tts_text] [BOS_s] [style speech tokens] | gen...
 
-The decode loop runs on the host: one decode-step op per token and one
-host read of the sampled token for the EOS check.
+The decode loop runs on the host. With a dict of ``mega_decode_params`` it
+is one decode-step op per token, which samples in its kernel, and one host
+read of the token for the EOS check. With a list of
+``unstack_decode_params`` it is an ``attn_step`` and an ``mlp_step`` per
+layer and token, the speech head in plain PyTorch and the host sampler.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import torch
 
 from ..ops.attention import rope_inv_freq
-from ..ops.decode_step import decode_scratch, mega_decode_step
+from ..ops.decode_step import (WEIGHT_KEYS, attn_step, decode_scratch, mega_decode_step,
+                               mlp_step, pack4, weight_bits)
 from ..ops.sampling import SamplerConfig, sample
 from ..utils.config import TokenLMConfig, TransformerConfig
 from ..utils.timing import Stopwatch
@@ -50,11 +55,14 @@ def init_params(cfg: TokenLMConfig, generator: torch.Generator) -> Params:
     return p
 
 
-def mega_decode_params(params: Params, cfg: TokenLMConfig) -> Dict[str, torch.Tensor]:
+def mega_decode_params(params: Params, cfg: TokenLMConfig, bits: int = 8) -> Dict[str, torch.Tensor]:
     """The int8 weights in the decode kernel's layout, built once: every
     projection output-major ([rows, in], one contiguous int8 row per output
     channel) with its scales as [L, rows]; gate rows then up rows; the
-    speech embedding in bf16; the RoPE inverse frequencies."""
+    speech embedding in bf16; the RoPE inverse frequencies. ``bits=4``
+    re-quantizes every weight stream to 4 bits (``requantize_int4``)."""
+    if bits not in (8, 4):
+        raise ValueError(f"mega_decode_params: bits must be 8 or 4, got {bits}")
     lp = params["layers"]
     for name in ("wqkv", "wo", "w_gate_up", "w_down"):
         if not isinstance(lp[name], QTensor):
@@ -78,7 +86,67 @@ def mega_decode_params(params: Params, cfg: TokenLMConfig) -> Dict[str, torch.Te
     mp["attn_norm"] = lp["attn_norm"].float().contiguous()
     mp["mlp_norm"] = lp["mlp_norm"].float().contiguous()
     mp["final_norm"] = params["final_norm"].float().contiguous()
-    return mp
+    return mp if bits == 8 else requantize_int4(mp)
+
+
+_SCALE_OF = {"wqkv": "wqs", "wo": "wos", "wgu": "wgus", "wd": "wds", "head": "head_s"}
+
+
+def requantize4(q8: torch.Tensor, s8: torch.Tensor):
+    """One int8 stream [..., rows, C] with scales [..., rows] at 4 bits:
+    w = q8 * s8, s4 = max(absmax over the contraction, 1e-8) / 7 per output
+    channel, q4 = clip(round(w / s4), -7, 7). The values equal the JAX
+    packer's (``_pack4_lanes``; its shared down-projection scale is this
+    same absmax over the whole contraction). Returns (q4 int8, s4 f32)."""
+    w = q8.float() * s8.float()[..., None]
+    s4 = torch.clamp(w.abs().amax(dim=-1), min=1e-8) / 7.0
+    q4 = torch.clamp(torch.round(w / s4[..., None]), -7, 7).to(torch.int8)
+    return q4, s4
+
+
+def requantize_int4(mp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """int8 ``mega_decode_params`` -> the same dict with every weight
+    stream (qkv, wo, gate|up, down, head) re-quantized to 4 bits and packed
+    two contraction elements a byte (``ops/decode_step.pack4``): half the
+    weight bytes per step. Embedding, norms and scales stay bf16 / f32. The
+    port's own rule replaces the reference's lane rule: every contraction
+    width must be even (the kernel asks for multiples of 32 on the card);
+    anything else raises, nothing falls back to int8."""
+    if weight_bits(mp) != 8:
+        raise ValueError("requantize_int4: the params are packed already")
+    out = dict(mp)
+    for name in WEIGHT_KEYS:
+        q4, out[_SCALE_OF[name]] = requantize4(mp[name], mp[_SCALE_OF[name]])
+        out[name] = pack4(q4).contiguous()
+    return out
+
+
+def unstack_decode_params(params: Params, cfg: TokenLMConfig) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer int8 weights for ``attn_step`` / ``mlp_step``, output-major.
+    When ``params`` went through ``share_decode_weights`` these are views of
+    the decode kernel's one int8 copy; otherwise each projection is
+    transposed into a copy here."""
+    lp = params["layers"]
+    for name in ("wqkv", "wo", "w_gate_up", "w_down"):
+        if not isinstance(lp[name], QTensor):
+            raise NotImplementedError(
+                "the decode kernels take int8 weights only (quantize_lm_int8=True); "
+                "the scanned non-int8 decode is ROADMAP.md queue A"
+            )
+
+    def row_major(t: QTensor, l: int):
+        return t.q[l].transpose(-1, -2).contiguous(), t.s[l].squeeze(-2).contiguous()
+
+    layers = []
+    for l in range(cfg.n_layers):
+        lw = {"attn_norm": lp["attn_norm"][l].float().contiguous(),
+              "mlp_norm": lp["mlp_norm"][l].float().contiguous()}
+        lw["wqkv"], lw["wqs"] = row_major(lp["wqkv"], l)
+        lw["wo"], lw["wos"] = row_major(lp["wo"], l)
+        lw["wgu"], lw["wgus"] = row_major(lp["w_gate_up"], l)
+        lw["wd"], lw["wds"] = row_major(lp["w_down"], l)
+        layers.append(lw)
+    return layers
 
 
 _SHARED = {"wqkv": ("wqkv", "wqs"), "wo": ("wo", "wos"),
@@ -170,6 +238,9 @@ def _mask_logits(logits: torch.Tensor, cfg: TokenLMConfig, suppress_eos: bool) -
     return logits
 
 
+DecodeParams = Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]
+
+
 def generate_speech(
     params: Params,
     cfg: TokenLMConfig,
@@ -177,31 +248,37 @@ def generate_speech(
     generator: Optional[torch.Generator],
     *,
     max_new_tokens: int,
-    decode_params: Dict[str, torch.Tensor],
+    decode_params: DecodeParams,
     sampler: SamplerConfig = SamplerConfig(temperature=1.0, top_k=25),
     min_tokens: int = 2,
+    fused: bool = True,
     clock: Optional[Stopwatch] = None,
 ) -> SpeechGen:
-    """B=1 prefill (flash attention) + decode over the decode-step op.
+    """B=1 prefill (flash attention) + decode over the decode kernels.
 
-    Token 0 comes from the prefill logits through ``sample``; tokens 1..
-    from the decode step, which samples in its kernel. The loop stops after
-    EOS (later slots stay pad); ``lengths`` counts the tokens before EOS;
-    EOS is masked while fewer than ``min_tokens`` were drawn. The cache is
-    bf16 (an int8 KV cache is not used on this path, as in the reference's
-    fused decode)."""
+    ``decode_params`` picks the flavour, as in the reference: a dict
+    (``mega_decode_params``) runs one decode-step op per token; a list
+    (``unstack_decode_params``) runs the per-layer ``attn_step`` /
+    ``mlp_step`` pair with the plain head and the host sampler. Either way
+    the loop stops after EOS (later slots stay pad), ``lengths`` counts the
+    tokens before EOS, and EOS is masked while fewer than ``min_tokens``
+    were drawn. The cache is bf16 (an int8 KV cache is not used on this
+    path, as in the reference's fused decode)."""
     ccfg = core_config(cfg)
     B, P, D = prefix.embeds.shape
+    if not fused:
+        raise NotImplementedError("the scanned decode (fused=False): ROADMAP.md queue A "
+                                  "(scanned non-int8 / B>1 decode)")
     if B != 1:
         raise NotImplementedError("B>1 generation: ROADMAP.md queue A (batched staged path)")
     if ccfg.n_heads != ccfg.n_kv_heads:
         raise NotImplementedError("GQA token LM (H != K): ROADMAP.md queue A (scanned decode)")
-    if not sampler.greedy and sampler.top_p < 1.0:
+    mega = isinstance(decode_params, dict)
+    if mega and not sampler.greedy and sampler.top_p < 1.0:
         raise NotImplementedError("top-p decode: ROADMAP.md queue A (scanned decode)")
     dev = prefix.embeds.device
     clock = clock or Stopwatch(dev)
     S_max = -(-(P + max_new_tokens + 1) // 8) * 8
-    eos, padt = cfg.speech_eos, cfg.speech_pad
     with clock.span("prefill"):
         cache = core.make_cache(ccfg, B, S_max, dev)
         offset = (P - prefix.length).to(torch.int32)
@@ -211,13 +288,33 @@ def generate_speech(
             offset=offset, cache=cache,
         )
         next_logits = core.matmul_any(hidden[:, -1], params["speech_head"])
-        tok = sample(_mask_logits(next_logits, cfg, 0 < min_tokens), sampler, generator)
         off0 = int(offset[0])
-        seeds = torch.randint(0, 2 ** 31 - 1, (max_new_tokens,), generator=generator,
-                              device=dev).tolist()
     L = ccfg.n_layers
     k_all = cache["k"].view(L, S_max, -1)
     v_all = cache["v"].view(L, S_max, -1)
+    loop = _decode_mega if mega else _decode_layers
+    toks = loop(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator,
+                P=P, off0=off0, max_new_tokens=max_new_tokens, sampler=sampler,
+                min_tokens=min_tokens, clock=clock)
+    eos, padt = cfg.speech_eos, cfg.speech_pad
+    gen_len = sum(1 for t in toks if t != eos)
+    out = torch.full((1, max_new_tokens), padt, dtype=torch.int32)
+    out[0, : len(toks)] = torch.tensor(toks, dtype=torch.int32)
+    return SpeechGen(tokens=out.to(dev), lengths=torch.tensor([gen_len], dtype=torch.int32, device=dev),
+                     decode_steps=len(toks) - 1 if mega else gen_len)
+
+
+def _decode_mega(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator, *,
+                 P, off0, max_new_tokens, sampler, min_tokens, clock) -> List[int]:
+    """Token 0 from the prefill logits through ``sample``; tokens 1.. from
+    the decode step, which samples in its kernel: the step for token i feeds
+    token i-1 at cache slot P + i - 1."""
+    dev = k_all.device
+    eos = cfg.speech_eos
+    with clock.span("prefill"):
+        tok = sample(_mask_logits(next_logits, cfg, 0 < min_tokens), sampler, generator)
+        seeds = torch.randint(0, 2 ** 31 - 1, (max_new_tokens,), generator=generator,
+                              device=dev).tolist()
     toks = [int(tok[0])]
     with clock.span("decode"):
         tok_prev = tok.to(torch.int32).reshape(1)
@@ -228,17 +325,49 @@ def generate_speech(
                 tok_prev, decode_params, k_all, v_all, P + i - 1, off0,
                 i < min_tokens, seeds[i],
                 n_heads=ccfg.n_heads, head_dim=ccfg.head_dim, eps=ccfg.norm_eps,
-                pad_id=padt, bos_id=cfg.speech_bos, eos_id=eos,
+                pad_id=cfg.speech_pad, bos_id=cfg.speech_bos, eos_id=eos,
                 greedy=sampler.greedy, temperature=sampler.temperature,
                 top_k=sampler.top_k, scratch=scratch,
             )
             toks.append(int(tok_prev[0]))
             i += 1
-    gen_len = sum(1 for t in toks if t != eos)
-    out = torch.full((1, max_new_tokens), padt, dtype=torch.int32)
-    out[0, : len(toks)] = torch.tensor(toks, dtype=torch.int32)
-    return SpeechGen(tokens=out.to(dev), lengths=torch.tensor([gen_len], dtype=torch.int32, device=dev),
-                     decode_steps=len(toks) - 1)
+    return toks
+
+
+def _decode_layers(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator, *,
+                   P, off0, max_new_tokens, sampler, min_tokens, clock) -> List[int]:
+    """The per-layer flavour: token i is sampled on the host from the
+    previous logits (the caller's generator is the random stream), then the
+    layers run it at cache slot P + i and the head gives the next logits.
+    After EOS nothing more runs."""
+    dev = k_all.device
+    eos = cfg.speech_eos
+    if len(decode_params) != ccfg.n_layers:
+        raise ValueError(f"decode_params has {len(decode_params)} layers, the LM {ccfg.n_layers}")
+    invf = rope_inv_freq(ccfg.head_dim, ccfg.rope_theta, device=dev)
+    emb = params["speech_emb"]
+    kw = dict(n_heads=ccfg.n_heads, head_dim=ccfg.head_dim, eps=ccfg.norm_eps)
+    toks: List[int] = []
+    cur_logits = next_logits
+    with clock.span("decode"):
+        lw0 = decode_params[0]
+        scratch = {"qkv": torch.empty((lw0["wqkv"].shape[0],), dtype=torch.float32, device=dev),
+                   "attn": torch.empty((lw0["wo"].shape[1],), dtype=torch.bfloat16, device=dev),
+                   "act": torch.empty((lw0["wd"].shape[1],), dtype=torch.bfloat16, device=dev)}
+        for i in range(max_new_tokens):
+            tok = sample(_mask_logits(cur_logits, cfg, i < min_tokens), sampler, generator)
+            toks.append(int(tok[0]))
+            if toks[-1] == eos:
+                break
+            h = emb[toks[-1]].to(torch.bfloat16)[None].contiguous()
+            for l, lw in enumerate(decode_params):
+                attn_step(h, lw["attn_norm"], lw["wqkv"], lw["wqs"], lw["wo"], lw["wos"], invf,
+                          k_all[l], v_all[l], P + i, off0, scratch=scratch, **kw)
+                mlp_step(h, lw["mlp_norm"], lw["wgu"], lw["wgus"], lw["wd"], lw["wds"],
+                         eps=ccfg.norm_eps, scratch=scratch)
+            hf = core.rmsnorm(h, params["final_norm"], ccfg.norm_eps)
+            cur_logits = core.matmul_any(hf, params["speech_head"])
+    return toks
 
 
 def generate_speech_from_ids(
@@ -252,9 +381,10 @@ def generate_speech_from_ids(
     generator: Optional[torch.Generator],
     *,
     max_new_tokens: int,
-    decode_params: Dict[str, torch.Tensor],
+    decode_params: DecodeParams,
     sampler: SamplerConfig = SamplerConfig(temperature=1.0, top_k=25),
     min_tokens: int = 2,
+    fused: bool = True,
     pad_multiple: int = 128,
     clock: Optional[Stopwatch] = None,
 ) -> SpeechGen:
@@ -264,5 +394,5 @@ def generate_speech_from_ids(
     return generate_speech(
         params, cfg, pre, generator, max_new_tokens=max_new_tokens,
         decode_params=decode_params, sampler=sampler, min_tokens=min_tokens,
-        clock=clock,
+        fused=fused, clock=clock,
     )

@@ -14,7 +14,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv import conv1d, layer_norm
+from ..ops.conv import conv1d, conv1d_init, layer_norm, layer_norm_init
 from ..ops.stft import istft_overlap_add
 from ..utils.config import VocoderConfig
 from ..weights import uniform
@@ -30,12 +30,6 @@ def _require_istft(cfg: VocoderConfig) -> None:
         )
 
 
-def _conv_init(generator, in_ch: int, out_ch: int, kernel: int) -> dict:
-    std = 1.0 / math.sqrt(in_ch * kernel)
-    return {"w": uniform((kernel, in_ch, out_ch), generator, -std, std),
-            "b": uniform((out_ch,), generator, -std, std)}
-
-
 def init_params(cfg: VocoderConfig, generator: torch.Generator) -> Params:
     _require_istft(cfg)
     C = cfg.istft_channels
@@ -48,14 +42,14 @@ def init_params(cfg: VocoderConfig, generator: torch.Generator) -> Params:
                 "b": torch.zeros((o,), device=dev)}
 
     p: Params = {
-        "pre": _conv_init(generator, cfg.n_mels, C, 7),
+        "pre": conv1d_init(generator, cfg.n_mels, C, 7),
         "blocks": [],
         "head": dense(C, 2 * n_bins),
     }
     for _ in range(cfg.istft_blocks):
         p["blocks"].append({
-            "conv": _conv_init(generator, C, C, cfg.istft_kernel),
-            "ln": {"scale": torch.ones((C,), device=dev), "bias": torch.zeros((C,), device=dev)},
+            "conv": conv1d_init(generator, C, C, cfg.istft_kernel),
+            "ln": layer_norm_init(C, dev),
             "pw1": dense(C, 3 * C),
             "pw2": dense(3 * C, C),
         })

@@ -1,24 +1,38 @@
 """1-D conv and layer norm in the channels-last layout [B, T, C].
 
-Counterpart of the JAX ``ops/conv.py`` (``conv1d``, ``layer_norm``).
-Weights keep the JAX layout: conv ``w`` [kernel, C_in, C_out], ``b`` [C_out].
+Counterpart of the JAX ``ops/conv.py`` (``conv1d``, ``conv1d_init``,
+``layer_norm``, ``layer_norm_init``). Weights keep the JAX layout: conv
+``w`` [kernel, C_in, C_out], ``b`` [C_out].
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from ..weights import uniform
 
-def conv1d(x: torch.Tensor, p: dict, dilation: int = 1) -> torch.Tensor:
-    """Stride-1 conv with SAME padding (XLA's split: the extra pad goes
-    right), channels-last in and out, f32 accumulation, x.dtype out."""
+
+def conv1d_init(generator: torch.Generator, in_ch: int, out_ch: int, kernel: int) -> dict:
+    std = 1.0 / math.sqrt(in_ch * kernel)
+    return {"w": uniform((kernel, in_ch, out_ch), generator, -std, std),
+            "b": uniform((out_ch,), generator, -std, std)}
+
+
+def conv1d(x: torch.Tensor, p: dict, stride: int = 1, dilation: int = 1) -> torch.Tensor:
+    """Conv with XLA's SAME padding: ceil(T / stride) outputs, the total pad
+    max((out - 1) * stride + (k - 1) * dilation + 1 - T, 0) split with the
+    extra sample on the right. Channels-last in and out, f32 accumulation,
+    x.dtype out."""
     w = p["w"]
-    k = w.shape[0]
-    total = (k - 1) * dilation
+    k, T = w.shape[0], x.shape[1]
+    n_out = -(-T // stride)
+    total = max((n_out - 1) * stride + (k - 1) * dilation + 1 - T, 0)
     left = total // 2
     xt = F.pad(x.float().transpose(1, 2), (left, total - left))
-    y = F.conv1d(xt, w.float().permute(2, 1, 0), p["b"].float(), dilation=dilation)
+    y = F.conv1d(xt, w.float().permute(2, 1, 0), p["b"].float(), stride=stride, dilation=dilation)
     return y.transpose(1, 2).to(x.dtype)
 
 
@@ -27,3 +41,7 @@ def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def layer_norm_init(dim: int, device=None) -> dict:
+    return {"scale": torch.ones((dim,), device=device), "bias": torch.zeros((dim,), device=device)}

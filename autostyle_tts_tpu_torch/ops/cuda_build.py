@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("flash_attn", "decode_step")
+KERNEL_SOURCES = ("flash_attn", "decode_step", "log_mel")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], Callable[..., int]] = {}

@@ -1,22 +1,155 @@
-"""GEMM iSTFT: inverse real DFT as two matmuls plus a windowed overlap-add.
+"""GEMM-native mel/STFT frontend and iSTFT.
 
-Counterpart of the JAX ``ops/stft.py`` (``_hann``, ``_istft_basis``,
-``_ola_envelope``, ``istft_overlap_add``). The bases are built once per size
-in numpy, as there.
+Counterpart of the JAX ``ops/stft.py``: the DFT is two matrix products
+against a windowed cos/sin basis, the iSTFT two products plus a windowed
+overlap-add. The bases are built once per size in numpy, as there, and
+moved to a device once per (device, size).
+
+``log_mel_spectrogram`` has no ``impl=`` switch: it always goes through
+``ops/log_mel.fused_log_mel``, which launches the fused kernel for a CUDA
+tensor and takes its plain version for a CPU tensor. Both JAX branches
+compute this same function.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .log_mel import fused_log_mel
 
 
 def _hann(n: int) -> np.ndarray:
     """Periodic Hann window."""
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_basis(n_fft: int, win_length: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Windowed real-DFT basis (cos, sin), each [win_length, n_bins]: a
+    periodic Hann window folded in, the window centred inside the n_fft
+    frame (np.fft.rfft of the zero-padded windowed frame)."""
+    n_bins = n_fft // 2 + 1
+    window = _hann(win_length)
+    pad = (n_fft - win_length) // 2
+    t = np.arange(win_length) + pad
+    k = np.arange(n_bins)
+    ang = 2.0 * np.pi * np.outer(t, k) / n_fft
+    cos = (np.cos(ang) * window[:, None]).astype(np.float32)
+    sin = (-np.sin(ang) * window[:, None]).astype(np.float32)
+    return cos, sin
+
+
+@functools.lru_cache(maxsize=None)
+def mel_filterbank(
+    sr: int, n_fft: int, n_mels: int, fmin: float = 0.0, fmax: Optional[float] = None
+) -> np.ndarray:
+    """Slaney-style triangular mel filterbank [n_bins, n_mels] (area-normed)."""
+    fmax = fmax or sr / 2.0
+    n_bins = n_fft // 2 + 1
+    min_log_hz, min_log_mel, logstep = 1000.0, 15.0, np.log(6.4) / 27.0
+
+    def hz_to_mel(f):
+        f = np.asarray(f, dtype=np.float64)
+        return np.where(f >= min_log_hz,
+                        min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+                        3.0 * f / 200.0)
+
+    def mel_to_hz(m):
+        m = np.asarray(m, dtype=np.float64)
+        return np.where(m >= min_log_mel, min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                        200.0 * m / 3.0)
+
+    mel_pts = np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2)
+    hz_pts = mel_to_hz(mel_pts)
+    fft_freqs = np.linspace(0.0, sr / 2.0, n_bins)
+    fb = np.zeros((n_bins, n_mels), dtype=np.float64)
+    for m in range(n_mels):
+        lo, c, hi = hz_pts[m], hz_pts[m + 1], hz_pts[m + 2]
+        up = (fft_freqs - lo) / max(c - lo, 1e-10)
+        down = (hi - fft_freqs) / max(hi - c, 1e-10)
+        fb[:, m] = np.maximum(0.0, np.minimum(up, down))
+    fb *= (2.0 / (hz_pts[2:] - hz_pts[:-2]))[None, :]
+    return fb.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_basis_on(device: torch.device, n_fft: int, win_length: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    cos_b, sin_b = _dft_basis(n_fft, win_length)
+    return torch.from_numpy(cos_b).to(device), torch.from_numpy(sin_b).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _mel_filterbank_on(device: torch.device, sr: int, n_fft: int, n_mels: int, fmin: float,
+                       fmax: Optional[float]) -> torch.Tensor:
+    return torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin, fmax)).to(device)
+
+
+def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """[..., T] -> [..., n_frames, frame_length] strided frames (a view).
+    Callers apply any centre padding themselves."""
+    return x.unfold(-1, frame_length, hop)
+
+
+def num_frames(
+    t: int, n_fft: int, hop: int, win_length: Optional[int] = None, center: bool = True
+) -> int:
+    win_length = win_length or n_fft
+    if center:
+        t = t + 2 * (n_fft // 2)
+    return 1 + (t - win_length) // hop
+
+
+def _reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad the last axis by ``pad`` on both sides (any rank)."""
+    lead = x.shape[:-1]
+    y = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")
+    return y.reshape(lead + (y.shape[-1],))
+
+
+def power_spectrogram(
+    x: torch.Tensor, n_fft: int, hop: int, win_length: Optional[int] = None,
+    center: bool = True,
+) -> torch.Tensor:
+    """[..., T] -> [..., n_frames, n_bins] power spectrogram via matmul DFT."""
+    win_length = win_length or n_fft
+    cos_b, sin_b = _dft_basis_on(x.device, n_fft, win_length)
+    if center:
+        x = _reflect_pad(x, n_fft // 2)
+    frames = frame_signal(x.float(), win_length, hop)
+    re = torch.matmul(frames, cos_b)
+    im = torch.matmul(frames, sin_b)
+    return re * re + im * im
+
+
+def log_mel_spectrogram(
+    x: torch.Tensor,
+    sr: int,
+    n_fft: int,
+    hop: int,
+    win_length: Optional[int] = None,
+    n_mels: int = 80,
+    fmin: float = 0.0,
+    fmax: Optional[float] = None,
+    center: bool = True,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """[..., T] -> [..., n_frames, n_mels] natural-log mel spectrogram
+    through ``fused_log_mel`` (the kernel on a CUDA tensor)."""
+    win_length = win_length or n_fft
+    cos_b, sin_b = _dft_basis_on(x.device, n_fft, win_length)
+    fb = _mel_filterbank_on(x.device, sr, n_fft, n_mels, fmin, fmax)
+    if center:   # librosa/torch convention: reflect-pad n_fft//2 each side
+        x = _reflect_pad(x, n_fft // 2)
+    frames = frame_signal(x.float(), win_length, hop)
+    lead = frames.shape[:-2]
+    f3 = frames.reshape((-1,) + frames.shape[-2:]).contiguous()
+    out = fused_log_mel(f3, cos_b, sin_b, fb, eps=eps)
+    return out.reshape(lead + out.shape[-2:])
 
 
 @functools.lru_cache(maxsize=None)

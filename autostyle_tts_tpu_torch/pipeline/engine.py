@@ -1,28 +1,40 @@
-"""Synthesis engine: one B=1 request whose prompts come from the style DB.
+"""Synthesis engine: B=1 requests whose prompts are wavs or style-DB rows.
 
-Counterpart of the JAX ``pipeline/engine.py`` on its main path:
-``inference_tts_with_st`` / ``synthesize_batch`` -> ``_synthesize_one``:
+Counterpart of the JAX ``pipeline/engine.py`` for its non-streaming B=1
+entry points (``inference_tts_with_st``, ``inference_zero_shot``,
+``inference_sft`` with ``register_speaker`` / ``save_speakers`` /
+``load_speakers``, ``synthesize_batch`` at B=1), all through
+``_synthesize_one``:
 
-1. token-LM prefill (flash-attention kernel) and decode (decode-step kernel),
+0. for a wav prompt, ``prompt_features`` -> ``featurize``: 16 kHz log-mel
+   (fused log-mel kernel) -> speech tokenizer + speaker encoder; resample to
+   24 kHz -> 24 kHz log-mel (the kernel again);
+1. token-LM prefill (flash-attention kernel) and decode (decode-step kernel,
+   int8 or, with ``cfg.quantize_lm_int4``, int4),
 2. flow-conditioning assembly and the CFM Euler solve (``mel_body``),
 3. the iSTFT vocoder and the crop to the generated region.
 
 The engine returns f32 wavs. The STYLE prompt drives the LM prosody prefix;
 the TIMBRE prompt supplies the speaker embedding and the flow prompt
-(tokens + mel). Everything outside this path raises ``NotImplementedError``
-naming its ROADMAP.md item rather than taking another path.
+(tokens + mel). Everything outside these paths raises
+``NotImplementedError`` naming its ROADMAP.md item rather than taking
+another path.
 """
 
 from __future__ import annotations
 
 import bisect
+import json
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Sequence
+from pathlib import Path
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..models import cfm, frontend, token_lm, vocoder
+from ..models import cfm, frontend, speaker, speech_tokenizer, token_lm, vocoder
+from ..ops import stft
+from ..ops.resample import resample
 from ..retrieval.store import StyleStore
 from ..utils.config import Config
 from ..utils.device import DeviceLike, resolve_device
@@ -32,6 +44,7 @@ from ..weights import init_params, quantize_tree, to_device
 TEXT_BUCKETS = (32, 64, 128, 256, 512)
 TOKEN_BUCKETS = (32, 64, 128, 256)
 GEN_BUCKETS = (64, 128, 256, 512)
+PROMPT_SECONDS = (1, 2, 4, 8, 16, 30)   # prompt wavs are padded to one of these lengths
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -64,7 +77,7 @@ class EngineParams:
 
 @dataclass
 class PromptFeatures:
-    """Features of one prompt (style or timbre), host numpy arrays."""
+    """Features of one prompt wav (style or timbre), host numpy arrays."""
 
     tokens: np.ndarray        # [T_tok] int32 speech tokens (25 Hz)
     spk: np.ndarray           # [spk_dim]
@@ -115,6 +128,32 @@ def mel_body(
     return mel, tok_lens
 
 
+def featurize(
+    params: "EngineParams", cfg: Config,
+    wav16: torch.Tensor,    # [B, T16] zero-padded 16 kHz prompt wavs
+    length: torch.Tensor,   # [B] real lengths in samples
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (speech tokens [B, T_tok], token mask, speaker embedding
+    [B, spk_dim], 24 kHz prompt mel [B, F, n_mels])."""
+    a = cfg.audio
+    # 16 kHz mel (100 Hz frames) for the tokenizer and the speaker encoder
+    mel16 = stft.log_mel_spectrogram(
+        wav16, a.prompt_sample_rate, a.prompt_n_fft, a.prompt_hop_length,
+        a.prompt_win_length, n_mels=a.prompt_n_mels, fmax=a.prompt_fmax,
+    )
+    frames = torch.arange(mel16.shape[1], device=wav16.device)[None, :]
+    fmask16 = (frames < (length.long()[:, None] // a.prompt_hop_length) + 1).float()
+    tok = speech_tokenizer.apply(params.speech_tokenizer, cfg.speech_tokenizer, mel16, fmask16)
+    spk = speaker.apply(params.speaker, cfg.speaker, mel16, fmask16)
+    # target-space mel (24 kHz, 50 Hz frames) for the CFM prompt
+    wav24 = resample(wav16, a.prompt_sample_rate, a.sample_rate)
+    mel24 = stft.log_mel_spectrogram(
+        wav24, a.sample_rate, a.n_fft, a.hop_length, a.win_length,
+        n_mels=a.n_mels, fmax=a.fmax,
+    )
+    return tok.tokens, tok.token_mask, spk, mel24
+
+
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
 
@@ -135,13 +174,11 @@ class Engine:
             raise ValueError("vocoder upsampling must equal audio.hop_length "
                              "(mel frames map 1:1 onto output samples)")
         if not cfg.quantize_lm_int8:
-            raise _not_in_slice("a non-int8 token LM", "queue A, scanned non-int8 / B>1 decode")
+            raise _not_in_slice("a non-int8 token LM", "queue A item 3, scanned non-int8 / B>1 decode")
         if cfg.token_lm.n_heads != cfg.token_lm.n_kv_heads:
-            raise _not_in_slice("a GQA token LM (H != K)", "queue A, scanned non-int8 / B>1 decode")
-        if getattr(cfg, "quantize_lm_int4", False):
-            raise _not_in_slice("the int4 decode megakernel", "queue B, int4 megakernel")
+            raise _not_in_slice("a GQA token LM (H != K)", "queue A item 3, scanned non-int8 / B>1 decode")
         if getattr(cfg, "speculative_gamma", 0) > 0:
-            raise _not_in_slice("speculative decoding (speculative_gamma)", "queue A, speculative decode")
+            raise _not_in_slice("speculative decoding (speculative_gamma)", "queue A item 5, speculative decode")
         self.cfg = cfg
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -149,12 +186,17 @@ class Engine:
         params = EngineParams.from_tree(to_device(params.tree(), self.device))
         # int8 weight-only LM, quantized at init as the reference does; the
         # decode kernel's output-major copy is built once here, and the
-        # prefill reads views of it (no second int8 copy is kept)
+        # prefill reads views of it (no second int8 copy is kept). With
+        # quantize_lm_int4 only the decode step's weights are re-quantized:
+        # the prefill keeps the int8 copy, as in the reference.
         lm = quantize_tree(params.token_lm)
-        self._mega_params = token_lm.mega_decode_params(lm, cfg.token_lm)
-        params.token_lm = token_lm.share_decode_weights(lm, self._mega_params)
+        mega8 = token_lm.mega_decode_params(lm, cfg.token_lm)
+        params.token_lm = token_lm.share_decode_weights(lm, mega8)
         del lm
+        self._mega_params = (token_lm.requantize_int4(mega8)
+                             if getattr(cfg, "quantize_lm_int4", False) else mega8)
         self.params = params
+        self.speakers: Dict[str, PromptFeatures] = {}
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 17)
         fcfg = getattr(cfg, "frontend", None)
         self.text_tokenizer = frontend.make_tokenizer(fcfg)
@@ -163,15 +205,47 @@ class Engine:
         if cfg.token_lm.text_vocab_size < need_vocab:
             raise ValueError(f"token_lm.text_vocab_size={cfg.token_lm.text_vocab_size} < "
                              f"frontend vocab {need_vocab}")
-        # per-stage milliseconds of the last request (prefill, decode, cfm, vocoder)
+        # per-stage milliseconds of the last request (featurize when a
+        # prompt came as a wav, prefill, decode, cfm, vocoder)
         self.last_timings: Dict[str, float] = {}
         self.last_decode_steps = 0
         self.last_gen_len = 0
 
     # ------------------------------------------------------------------ prompts
 
-    def prompt_features(self, wavs_16k):
-        raise _not_in_slice("prompt featurization from wavs", "queue A item 8, with kernel 5")
+    def prompt_features(self, wavs_16k: Sequence[np.ndarray],
+                        clock: Optional[Stopwatch] = None) -> List[PromptFeatures]:
+        """Featurize a batch of 16 kHz prompt wavs: padded to one length
+        bucket, one device batch, one host fetch. ``clock`` (a request's
+        stopwatch) gets the time under its ``featurize`` span."""
+        a = self.cfg.audio
+        wavs = [np.asarray(w, np.float32).reshape(-1) for w in wavs_16k]
+        lens = [len(w) for w in wavs]
+        T = _bucket(max(lens), tuple(a.prompt_sample_rate * s for s in PROMPT_SECONDS))
+        batch = np.zeros((len(wavs), T), np.float32)
+        for i, w in enumerate(wavs):
+            batch[i, : min(len(w), T)] = w[:T]
+        clock = clock or Stopwatch(self.device)
+        with clock.span("featurize"):
+            tokens, _, spk, mel24 = featurize(
+                self.params, self.cfg, self._tensor(batch, torch.float32),
+                self._tensor(lens, torch.int32))
+            # one host fetch for all outputs (token ids are exact in f32)
+            flat = torch.cat([tokens.float().reshape(-1), spk.float().reshape(-1),
+                              mel24.float().reshape(-1)]).cpu().numpy()
+        n_t, n_s = tokens.numel(), spk.numel()
+        tokens_h = flat[:n_t].astype(np.int32).reshape(tuple(tokens.shape))
+        spk_h = flat[n_t : n_t + n_s].reshape(tuple(spk.shape))
+        mel_h = flat[n_t + n_s :].reshape(tuple(mel24.shape))
+        hop_tokens = a.prompt_hop_length * int(np.prod(self.cfg.speech_tokenizer.strides))
+        mel24_per_sec = a.sample_rate // a.hop_length
+        out = []
+        for i, n in enumerate(lens):
+            n_tok = max(1, min(n // hop_tokens, tokens_h.shape[1]))
+            n_f24 = max(1, min(int(n / a.prompt_sample_rate * mel24_per_sec), mel_h.shape[1]))
+            out.append(PromptFeatures(tokens=tokens_h[i, :n_tok], spk=spk_h[i],
+                                      mel24=mel_h[i, :n_f24]))
+        return out
 
     def prompt_features_from_store(self, store: StyleStore, indices) -> List[PromptFeatures]:
         """Precomputed prompt features of a StyleStore's rows (no wav loads,
@@ -189,10 +263,18 @@ class Engine:
                                       spk=a["spk"][i], mel24=a["prompt_mel"][i, :n_mel]))
         return out
 
-    def _as_features(self, x) -> PromptFeatures:
-        if isinstance(x, PromptFeatures):
-            return x
-        return self.prompt_features([np.asarray(x).reshape(-1)])[0]
+    def _resolve_prompts(self, prompts: Sequence, clock: Stopwatch) -> List[PromptFeatures]:
+        """Each prompt as ``PromptFeatures``: those given as wavs are
+        featurized in one batch, and one wav OBJECT given several times
+        (``[wav] * n`` for a fixed prompt) is featurized once."""
+        order: Dict[int, int] = {}
+        pending: List[np.ndarray] = []
+        for w in prompts:
+            if not isinstance(w, PromptFeatures) and id(w) not in order:
+                order[id(w)] = len(pending)
+                pending.append(np.asarray(w).reshape(-1))
+        feats = self.prompt_features(pending, clock) if pending else []
+        return [w if isinstance(w, PromptFeatures) else feats[order[id(w)]] for w in prompts]
 
     # ------------------------------------------------------------------ synthesis
 
@@ -208,14 +290,16 @@ class Engine:
         language: Optional[str],
         max_seconds: float,
         cfm_noise: Optional[np.ndarray] = None,
+        clock: Optional[Stopwatch] = None,
     ) -> List[np.ndarray]:
         """One B=1 request: LM generate, flow conditioning + CFM solve,
-        vocoder, crop to the generated region."""
+        vocoder, crop to the generated region. ``clock`` may already hold
+        the request's ``featurize`` span."""
         cfg = self.cfg
         tl = cfg.token_lm
         up, hop, M = cfg.cfm.upsample, cfg.audio.hop_length, cfg.cfm.n_mels
         tok, tn = self.text_tokenizer, self.normalize_numbers
-        full = (style_text + " " + text).strip()
+        full = (style_text + " " + text).strip() if style_text else text
         text_ids, text_lens = frontend.encode_batch(
             [full], [language] if language else None,
             width=_bucket(len(frontend.encode(full, tokenizer=tok, numbers=tn)), TEXT_BUCKETS),
@@ -236,7 +320,7 @@ class Engine:
 
         i32, f32 = torch.int32, torch.float32
         spk = self._tensor(flow_feat.spk[None], f32)
-        clock = Stopwatch(self.device)
+        clock = clock or Stopwatch(self.device)
         gen = token_lm.generate_speech_from_ids(
             self.params.token_lm, tl, self._tensor(text_ids, i32),
             self._tensor(text_lens, i32), self._tensor(sty, i32),
@@ -260,32 +344,83 @@ class Engine:
         self.last_gen_len = int(gen.lengths[0])
         return [out]
 
+    def _one(self, text: str, style_text: str, style, timbre, stream: bool,
+             max_seconds: float, cfm_noise: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+        if stream:
+            raise _not_in_slice("streaming synthesis", "queue A item 4, streaming")
+        clock = Stopwatch(self.device)
+        sty, tim = self._resolve_prompts([style, timbre], clock)
+        wav = self._synthesize_one(text, style_text, sty, tim, None, max_seconds,
+                                   cfm_noise=cfm_noise, clock=clock)[0]
+        return {"tts_speech": wav[None, :]}
+
+    def inference_zero_shot(
+        self, tts_text: str, prompt_text: str, prompt_speech_16k,
+        stream: bool = False, max_seconds: float = 20.0,
+        cfm_noise: Optional[np.ndarray] = None,
+    ) -> Iterator[Dict[str, np.ndarray]]:
+        """Zero-shot TTS: one 16 kHz wav (or its precomputed
+        ``PromptFeatures``) supplies both prosody and identity."""
+        yield self._one(tts_text, prompt_text, prompt_speech_16k, prompt_speech_16k,
+                        stream, max_seconds, cfm_noise)
+
     def inference_tts_with_st(
         self, tts_text: str, style_wav_text: str, style_wav, timbre_wav,
         stream: bool = False, max_seconds: float = 20.0,
         cfm_noise: Optional[np.ndarray] = None,
     ) -> Iterator[Dict[str, np.ndarray]]:
         """Style/timbre-split synthesis. ``style_wav``/``timbre_wav`` are
-        precomputed ``PromptFeatures`` (the style-DB serving path).
-        ``cfm_noise`` [1, F, n_mels] replaces the CFM's initial noise (to
-        reproduce a reference run); by default it is drawn from the engine's
-        generator."""
-        if stream:
-            raise _not_in_slice("streaming synthesis", "queue A, streaming")
-        sty = self._as_features(style_wav)
-        tim = self._as_features(timbre_wav)
-        wav = self._synthesize_one(tts_text, style_wav_text, sty, tim, None, max_seconds,
-                                   cfm_noise=cfm_noise)[0]
-        yield {"tts_speech": wav[None, :]}
+        16 kHz wavs or precomputed ``PromptFeatures`` (the style-DB serving
+        path, which skips featurization). ``cfm_noise`` [1, F, n_mels]
+        replaces the CFM's initial noise (to reproduce a reference run); by
+        default it is drawn from the engine's generator."""
+        yield self._one(tts_text, style_wav_text, style_wav, timbre_wav, stream,
+                        max_seconds, cfm_noise)
+
+    def register_speaker(self, spk_id: str, prompt_speech_16k: np.ndarray) -> None:
+        self.speakers[spk_id] = self.prompt_features([prompt_speech_16k])[0]
+
+    def save_speakers(self, path) -> None:
+        """Persist the registered speakers (tokens / mel / spk per id) as
+        ``<path>.npz`` + ``<path>.meta.json``, the reference's format."""
+        base = str(path).removesuffix(".npz")
+        Path(base).parent.mkdir(parents=True, exist_ok=True)
+        arrays = {}
+        order = sorted(self.speakers)
+        for i, sid in enumerate(order):
+            f = self.speakers[sid]
+            arrays[f"tok_{i}"] = f.tokens
+            arrays[f"spk_{i}"] = f.spk
+            arrays[f"mel_{i}"] = f.mel24
+        np.savez(base + ".npz", **arrays)
+        with open(base + ".meta.json", "w", encoding="utf-8") as fh:
+            json.dump(order, fh)
+
+    def load_speakers(self, path) -> None:
+        base = str(path).removesuffix(".npz")
+        with open(base + ".meta.json", encoding="utf-8") as fh:
+            order = json.load(fh)
+        with np.load(base + ".npz") as data:
+            for i, sid in enumerate(order):
+                self.speakers[sid] = PromptFeatures(
+                    tokens=data[f"tok_{i}"], spk=data[f"spk_{i}"], mel24=data[f"mel_{i}"])
+
+    def inference_sft(
+        self, tts_text: str, spk_id: str, stream: bool = False, max_seconds: float = 20.0,
+        cfm_noise: Optional[np.ndarray] = None,
+    ) -> Iterator[Dict[str, np.ndarray]]:
+        """Registered-speaker TTS."""
+        f = self.speakers[spk_id]
+        yield self._one(tts_text, "", f, f, stream, max_seconds, cfm_noise)
 
     def synthesize_batch(
         self, tts_texts: List[str], style_texts: List[str], style_wavs: List,
         timbre_wavs: List, max_seconds: float = 20.0,
     ) -> List[np.ndarray]:
-        """Batched tts_with_st; the port serves B=1 only."""
+        """Batched tts_with_st; the port serves B=1 only. Items are wavs or
+        ``PromptFeatures``; a wav object passed as both style and timbre is
+        featurized once."""
         if len(tts_texts) != 1:
-            raise _not_in_slice("B>1 synthesis", "queue A, scanned non-int8 / B>1 decode")
-        return self._synthesize_one(
-            tts_texts[0], style_texts[0], self._as_features(style_wavs[0]),
-            self._as_features(timbre_wavs[0]), None, max_seconds,
-        )
+            raise _not_in_slice("B>1 synthesis", "queue A item 3, scanned non-int8 / B>1 decode")
+        return [self._one(tts_texts[0], style_texts[0], style_wavs[0], timbre_wavs[0],
+                          False, max_seconds)["tts_speech"][0]]

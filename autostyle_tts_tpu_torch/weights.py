@@ -97,8 +97,8 @@ def _check(name: str, t: Any, shape: Tuple[int, ...]) -> None:
 
 def from_jax_tree(tree: Dict, cfg: Config, device=None) -> Dict:
     """JAX ``EngineParams.tree()`` with numpy leaves -> the port's tree of
-    tensors (on ``device``, default CPU). The token-LM and CFM shapes are
-    checked against ``cfg``."""
+    tensors (on ``device``, default CPU). The token-LM, CFM, speech-tokenizer
+    and speaker-encoder shapes are checked against ``cfg``."""
     out = tree_from_numpy(tree)
     tl = cfg.token_lm
     L, D, F = tl.n_layers, tl.dim, tl.ffn_dim
@@ -113,6 +113,20 @@ def from_jax_tree(tree: Dict, cfg: Config, device=None) -> Dict:
     c = cfg.cfm
     _check("cfm/layers/wq", out["cfm"]["layers"]["wq"], (c.n_layers, c.dim, c.dim))
     _check("cfm/out_proj", out["cfm"]["out_proj"], (c.dim, c.n_mels))
+    st = cfg.speech_tokenizer
+    tok = out["speech_tokenizer"]
+    if len(tok["sub"]) != len(st.strides) or len(tok["enc"]) != st.n_layers:
+        raise ValueError(f"speech_tokenizer: {len(tok['sub'])} sub / {len(tok['enc'])} enc layers "
+                         f"!= config {len(st.strides)} / {st.n_layers}")
+    _check("speech_tokenizer/sub/0/conv/w", tok["sub"][0]["conv"]["w"], (4, st.n_mels, st.dim))
+    _check("speech_tokenizer/enc/0/w_up", tok["enc"][0]["w_up"], (st.dim, st.ffn_dim))
+    _check("speech_tokenizer/codebook", tok["codebook"], (st.codebook_size, st.dim))
+    sp = cfg.speaker
+    spk = out["speaker"]
+    if len(spk["blocks"]) != sp.n_blocks:
+        raise ValueError(f"speaker: {len(spk['blocks'])} blocks != config {sp.n_blocks}")
+    _check("speaker/stem/w", spk["stem"]["w"], (5, sp.n_mels, sp.channels))
+    _check("speaker/head/w", spk["head"]["w"], (2 * sp.channels, sp.emb_dim))
     return out if device is None else to_device(out, device)
 
 
@@ -146,18 +160,16 @@ def load_npz(path: str) -> Dict:
 
 
 def init_params(cfg: Config, generator: torch.Generator) -> Dict:
-    """Random weights for the slice's modules (token LM, CFM, vocoder) with
-    the JAX init's shapes and scales, drawn on ``generator.device``. The
-    speaker encoder and speech tokenizer are outside the slice and stay
-    empty."""
-    from .models import cfm, token_lm, vocoder
+    """Random weights for every module of the engine with the JAX init's
+    shapes and scales, drawn on ``generator.device``."""
+    from .models import cfm, speaker, speech_tokenizer, token_lm, vocoder
 
     return {
         "token_lm": token_lm.init_params(cfg.token_lm, generator),
         "cfm": cfm.init_params(cfg.cfm, generator),
         "vocoder": vocoder.init_params(cfg.vocoder, generator),
-        "speaker": {},
-        "speech_tokenizer": {},
+        "speaker": speaker.init_params(cfg.speaker, generator),
+        "speech_tokenizer": speech_tokenizer.init_params(cfg.speech_tokenizer, generator),
     }
 
 

@@ -11,13 +11,21 @@ Phases (any failure exits non-zero):
 2. build the CUDA kernels from ``autostyle_tts_tpu_torch/csrc`` (nvcc,
    one process per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it, and time both (CUDA events), beside one
-   library call where one computes the same function;
-4. drive the main path: the flagship configuration with an int8 token LM,
-   random weights from a seeded generator, a style DB of 6144-d rows with
-   precomputed prompt artifacts, and 4 B=1 requests through
-   ``Engine.inference_tts_with_st``; check every wav and read the kernels'
-   launch counts;
+   shapes the main paths give it, and time both (CUDA events), beside one
+   library call where one computes the same function: flash attention, the
+   decode step with int8 and with int4 weights, its two half-layers
+   (``attn_step``, ``mlp_step``) and the fused log-mel at both prompt shapes;
+4. drive the main paths at the flagship configuration with an int8 token
+   LM and random weights from a seeded generator, the kernels' launch counts
+   set to 0 before each path and read after it:
+   A. a style DB of 6144-d rows whose prompt artifacts are featurized from
+      four synthetic 3 s wavs, 4 B=1 DB-served requests through
+      ``Engine.inference_tts_with_st``, then one request with raw wavs, one
+      through ``inference_zero_shot`` and one registered speaker through
+      ``inference_sft``; every wav is checked;
+   B. one ``generate_speech`` in the per-layer flavour (``attn_step`` /
+      ``mlp_step`` per layer and token) for 32 tokens;
+   C. a second engine with ``quantize_lm_int4`` and two requests;
 5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Float32 matrix products and convolutions run in full f32 (TF32 off).
@@ -33,26 +41,33 @@ import time
 import numpy as np
 import torch
 
-from autostyle_tts_tpu_torch.ops import cuda_build, decode_step, flash_attn
+from autostyle_tts_tpu_torch.ops import cuda_build, decode_step, flash_attn, log_mel, stft
+from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
 from autostyle_tts_tpu_torch.models import token_lm
+from autostyle_tts_tpu_torch.pipeline import rag
 from autostyle_tts_tpu_torch.pipeline.engine import Engine
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
 from autostyle_tts_tpu_torch.utils.config import CFMConfig, Config
-from autostyle_tts_tpu_torch.weights import quantize_tree
+from autostyle_tts_tpu_torch.utils.timing import Stopwatch
+from autostyle_tts_tpu_torch.weights import QTensor, quantize_tree
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time a function can
 # take is max(bytes / HBM rate, operations / peak rate of their type)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
+F32_FLOP_PER_S = 67e12    # outside the tensor cores
 
 # tolerances of the kernel-vs-plain phases (both on the card, same inputs)
 FLASH_ATOL = 2e-2     # bf16 output, |out| < 4: two bf16 ulps
 DECODE_RTOL = 2e-2    # bf16 residual over 14 layers: a few ulps of max|h|
 LOGIT_GAP = 5e-2      # the greedy token must agree where the top-2 gap is wider
+LOGMEL_ATOL = 1e-3    # log units: f32 sums over the window in another order
 
 FLASH_SRC = "autostyle_tts_tpu_torch/csrc/flash_attn.cu"
 DECODE_SRC = "autostyle_tts_tpu_torch/csrc/decode_step.cu"
+LOGMEL_SRC = "autostyle_tts_tpu_torch/csrc/log_mel.cu"
+KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def check(cond: bool, what: str) -> None:
@@ -115,13 +130,31 @@ def flash_case(B, T, H, K, hd, offsets, gen):
 # ----------------------------------------------------------------------------- decode step
 
 
-def decode_case(cfg: Config, steps: int, gen):
-    """Teacher-forced decode steps on flagship int8 weights: the kernel and
-    the plain step each advance their own copy of one cache."""
+def four_bit_exact(lm):
+    """The int8 LM rounded onto 15 levels at the same absmax (q * 7 / 127,
+    the scale grown by 127 / 7) with one 7 per output channel, so that the
+    4-bit re-quantization reproduces these weights exactly."""
+    def fix(t):
+        q = torch.clamp(torch.round(t.q.float() * (7.0 / 127.0)), -7, 7).to(torch.int8)
+        q[..., 0, :] = 7
+        return QTensor(q=q, s=t.s * (127.0 / 7.0))
+    layers = {k: fix(v) if isinstance(v, QTensor) else v for k, v in lm["layers"].items()}
+    return dict(lm, layers=layers, speech_head=fix(lm["speech_head"]))
+
+
+def decode_case(cfg: Config, steps: int, gen, bits: int = 8):
+    """Teacher-forced decode steps on flagship weights (int8, or 4-bit-exact
+    ones packed as int4): the kernel and the plain step each advance their
+    own copy of one cache. Returns the record and, for the half-layer
+    phases, the params and the kernel's cache."""
     dev = torch.device("cuda")
     tl = cfg.token_lm
     lm = quantize_tree(token_lm.init_params(tl, gen))
-    mp = token_lm.mega_decode_params(lm, tl)
+    if bits == 4:
+        lm = four_bit_exact(lm)
+    mp = token_lm.mega_decode_params(lm, tl, bits=bits)
+    del lm
+    mp_plain = decode_step.unpack_decode_params(mp)   # int8-valued rows for the plain step
     L, N, D, F, V = tl.n_layers, tl.dim, tl.dim, tl.ffn_dim, tl.speech_vocab_size
     P, max_new, off = 256, 128, 100
     S = -(-(P + max_new + 1) // 8) * 8
@@ -143,10 +176,10 @@ def decode_case(cfg: Config, steps: int, gen):
         for mode, skw in (("greedy", dict(greedy=True)), ("sampled", sampled)):
             # each mode writes row t again from the same inputs
             hk, tk = decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, i < 2, 1000 + i, **kw, **skw)
-            hp, tp = decode_step.mega_decode_step_plain(tin, mp, k_plain, v_plain, t, off, i < 2, 1000 + i, **kw, **skw)
+            hp, tp = decode_step.mega_decode_step_plain(tin, mp_plain, k_plain, v_plain, t, off, i < 2, 1000 + i, **kw, **skw)
             torch.cuda.synchronize()
             y = decode_step.sample_scores_plain(
-                decode_step.head_logits_plain(hp, mp, tl.norm_eps), pad_id=tl.speech_pad,
+                decode_step.head_logits_plain(hp, mp_plain, tl.norm_eps), pad_id=tl.speech_pad,
                 bos_id=tl.speech_bos, eos_id=tl.speech_eos, suppress=i < 2, seed=1000 + i,
                 **{"greedy": True, "temperature": 1.0, "top_k": 0, **skw})
             top2 = torch.topk(y, 2).values
@@ -170,38 +203,131 @@ def decode_case(cfg: Config, steps: int, gen):
     scratch = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev)   # as the decode loop holds it
     ms = time_ms(lambda: decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, False, 7,
                                                       **kw, **sampled, scratch=scratch), 50)
-    plain_ms = time_ms(lambda: decode_step.mega_decode_step_plain(tin, mp, k_plain, v_plain, t, off, False, 7, **kw, **sampled), 5, warmup=1)
-    w_int8 = L * (3 * N * D + D * N + 2 * F * D + D * F) + V * D
+    plain_ms = time_ms(lambda: decode_step.mega_decode_step_plain(tin, mp_plain, k_plain, v_plain, t, off, False, 7, **kw, **sampled), 5, warmup=1)
+    n_weights = L * (3 * N * D + D * N + 2 * F * D + D * F) + V * D
     scales = 4 * (L * (3 * N + D + 2 * F + D) + V) + 4 * (2 * L * D + D)
     n_keys = t - off
     cache_bytes = 2 * L * n_keys * N * 2 + 2 * L * N * 2
-    nbytes = w_int8 + scales + D * 2 + cache_bytes + D * 2 + 4
-    ops = 2 * w_int8 + 4 * L * N * (n_keys + 1)
+    nbytes = n_weights * bits // 8 + scales + D * 2 + cache_bytes + D * 2 + 4
+    ops = 2 * n_weights + 4 * L * N * (n_keys + 1)
     b, by = bound_ms(nbytes, ops, INT8_OP_PER_S)
-    return dict(max_abs_err=max(h_err, cache_err), ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=b, bound_by=by, steps=steps, decisive=checked, h_max=h_scale,
-                bytes_per_step=nbytes, cache_slots=S, t=t)
+    rec = dict(max_abs_err=max(h_err, cache_err), ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=b, bound_by=by, bits=bits, steps=steps, decisive=checked, h_max=h_scale,
+               bytes_per_step=nbytes, cache_slots=S, t=t)
+    return rec, mp, (k_kern, v_kern, t, off)
+
+
+def half_layer_case(cfg: Config, mp, cache, gen):
+    """``attn_step`` and ``mlp_step`` on layer 0's views of the decode
+    case's int8 weights and its cache state, each against its plain
+    version from the same residual."""
+    dev = torch.device("cuda")
+    tl = cfg.token_lm
+    k_all, v_all, t, off = cache
+    D, N, F = tl.dim, tl.n_heads * tl.head_dim, tl.ffn_dim
+    kw = dict(n_heads=tl.n_heads, head_dim=tl.head_dim, eps=tl.norm_eps)
+    scratch = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev)
+    h0 = (torch.randn((1, D), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    a_args = (mp["attn_norm"][0], mp["wqkv"][0], mp["wqs"][0], mp["wo"][0], mp["wos"][0], mp["invf"])
+    m_args = (mp["mlp_norm"][0], mp["wgu"][0], mp["wgus"][0], mp["wd"][0], mp["wds"][0])
+    k1, v1 = k_all[0].clone(), v_all[0].clone()
+    k2, v2 = k1.clone(), v1.clone()
+    h = h0.clone()
+    decode_step.attn_step(h, *a_args, k1, v1, t, off, scratch=scratch, **kw)
+    want = decode_step.attn_step_plain(h0, *a_args, k2, v2, t, off, **kw)
+    torch.cuda.synchronize()
+    scale = max(float(want.float().abs().max()), 1.0)
+    a_err = max(float((h.float() - want.float()).abs().max()),
+                float((k1[t].float() - k2[t].float()).abs().max()),
+                float((v1[t].float() - v2[t].float()).abs().max()))
+    check(a_err <= DECODE_RTOL * scale, f"attn_step err {a_err} (max|h| {scale})")
+    rest = torch.arange(k1.shape[0], device=dev) != t
+    check(torch.equal(k1[rest], k2[rest]) and torch.equal(v1[rest], v2[rest]), "attn_step wrote outside its row")
+    hm = want.clone()
+    decode_step.mlp_step(hm, *m_args, eps=tl.norm_eps, scratch=scratch)
+    want_m = decode_step.mlp_step_plain(want, *m_args, eps=tl.norm_eps)
+    torch.cuda.synchronize()
+    m_scale = max(float(want_m.float().abs().max()), 1.0)
+    m_err = float((hm.float() - want_m.float()).abs().max())
+    check(m_err <= DECODE_RTOL * m_scale, f"mlp_step err {m_err} (max|h| {m_scale})")
+
+    # each timed call adds to the same residual in place: the values move,
+    # the bytes streamed per call do not
+    a_ms = time_ms(lambda: decode_step.attn_step(h, *a_args, k1, v1, t, off, scratch=scratch, **kw), 200)
+    a_plain = time_ms(lambda: decode_step.attn_step_plain(h0, *a_args, k2, v2, t, off, **kw), 20)
+    m_ms = time_ms(lambda: decode_step.mlp_step(hm, *m_args, eps=tl.norm_eps, scratch=scratch), 200)
+    m_plain = time_ms(lambda: decode_step.mlp_step_plain(want, *m_args, eps=tl.norm_eps), 20)
+    n_keys = t - off
+    a_bytes = (3 * N * D + D * N) + 4 * (3 * N + D) + 4 * D + 2 * tl.head_dim + 2 * 2 * D \
+        + 2 * n_keys * N * 2 + 2 * N * 2
+    a_b, a_by = bound_ms(a_bytes, 2 * (3 * N * D + D * N) + 4 * N * (n_keys + 1), INT8_OP_PER_S)
+    m_bytes = 3 * F * D + 4 * (2 * F + D) + 4 * D + 2 * 2 * D
+    m_b, m_by = bound_ms(m_bytes, 2 * 3 * F * D, INT8_OP_PER_S)
+    return (dict(max_abs_err=a_err, ms=a_ms, plain_ms=a_plain, library_ms=None, bound_ms=a_b,
+                 bound_by=a_by, h_max=scale, t=t, live_keys=n_keys),
+            dict(max_abs_err=m_err, ms=m_ms, plain_ms=m_plain, library_ms=None, bound_ms=m_b,
+                 bound_by=m_by, h_max=m_scale))
+
+
+# ----------------------------------------------------------------------------- log-mel
+
+
+def log_mel_case(B, T, win, n_fft, sr, n_mels, fmax, gen):
+    """The fused log-mel kernel against its three-matmul plain version on
+    frames of one of the two prompt legs."""
+    dev = torch.device("cuda")
+    frames = torch.randn((B, T, win), generator=gen, device=dev) * 0.1
+    cos_b, sin_b = stft._dft_basis_on(dev, n_fft, win)
+    fb = stft._mel_filterbank_on(dev, sr, n_fft, n_mels, 0.0, fmax)
+    got = log_mel.fused_log_mel(frames, cos_b, sin_b, fb)
+    want = log_mel.fused_log_mel_plain(frames, cos_b, sin_b, fb)
+    torch.cuda.synchronize()
+    check(got.shape == (B, T, n_mels) and bool(torch.isfinite(got).all()), "log-mel shape / finiteness")
+    err = float((got - want).abs().max())
+    ms = time_ms(lambda: log_mel.fused_log_mel(frames, cos_b, sin_b, fb), 200)
+    plain_ms = time_ms(lambda: log_mel.fused_log_mel_plain(frames, cos_b, sin_b, fb), 50)
+    n_bins = fb.shape[0]
+    nbytes = 4 * (frames.numel() + cos_b.numel() + sin_b.numel() + fb.numel() + got.numel())
+    ops = 2 * 2 * B * T * win * n_bins + 3 * B * T * n_bins + 2 * B * T * n_bins * n_mels
+    b, by = bound_ms(nbytes, ops, F32_FLOP_PER_S)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b, bound_by=by,
+                shape=[B, T, win, n_bins, n_mels])
 
 
 # ----------------------------------------------------------------------------- main path
 
 
-def build_store(cfg: Config, rows: int, gen) -> StyleStore:
-    """A style DB whose rows carry precomputed prompt artifacts: 75 speech
-    tokens (3 s), 150 x 80 prompt mel, a 192-d speaker embedding."""
+def synthetic_wav(seed: int, seconds: float = 3.0, sr: int = 16000) -> np.ndarray:
+    """A seeded stand-in for a prompt recording: a few sinusoids with slow
+    amplitude envelopes plus noise, in [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    x = 0.02 * rng.standard_normal(t.shape)
+    for _ in range(5):
+        f0, a, fm = rng.uniform(90, 3000), rng.uniform(0.05, 0.2), rng.uniform(0.5, 4.0)
+        x += a * (0.6 + 0.4 * np.sin(2 * np.pi * fm * t)) * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 6.28))
+    return np.clip(x, -1.0, 1.0).astype(np.float32)
+
+
+def build_store(eng: Engine, cfg: Config, rows: int, gen) -> StyleStore:
+    """A style DB whose rows carry prompt artifacts featurized at insert
+    time from synthetic 3 s wavs: 75 speech tokens, 150 x 80 prompt mel and
+    a 192-d speaker embedding per row."""
     rng = np.random.default_rng(int(torch.randint(0, 2 ** 31, (1,), generator=gen, device="cuda")))
     store = StyleStore(dim=cfg.retrieval.dim, capacity=64)
     store.insert(rng.standard_normal((rows, cfg.retrieval.dim)).astype(np.float32),
                  [{"file_id": f"style_{i}", "text": f"This is style line number {i}."}
                   for i in range(rows)])
-    n_tok, n_mel, M = 75, 150, cfg.cfm.n_mels
-    store.artifacts = {
-        "speech_tokens": rng.integers(0, 4096, (rows, n_tok)).astype(np.int32),
-        "speech_token_lens": np.full((rows,), n_tok, np.int64),
-        "prompt_mel": (rng.standard_normal((rows, n_mel, M)) - 4.0).astype(np.float32),
-        "prompt_mel_lens": np.full((rows,), n_mel, np.int64),
-        "spk": rng.standard_normal((rows, cfg.speaker.emb_dim)).astype(np.float32),
-    }
+    store.artifacts = rag.prompt_artifacts(eng, [synthetic_wav(100 + i) for i in range(rows)], batch=2)
+    a = store.artifacts
+    check(a["speech_tokens"].shape == (rows, 75) and bool((a["speech_token_lens"] == 75).all()),
+          f"store tokens {a['speech_tokens'].shape} / lens {a['speech_token_lens']}, expected 75 per row")
+    check(a["prompt_mel"].shape == (rows, 150, cfg.cfm.n_mels) and bool((a["prompt_mel_lens"] == 150).all()),
+          f"store mel {a['prompt_mel'].shape}, expected 150 frames per row")
+    check(a["spk"].shape == (rows, cfg.speaker.emb_dim) and bool(np.isfinite(a["prompt_mel"]).all())
+          and np.allclose(np.linalg.norm(a["spk"], axis=1), 1.0, atol=1e-3), "store spk / mel values")
+    check(int(a["speech_tokens"].min()) >= 0 and int(a["speech_tokens"].max()) < cfg.speech_tokenizer.codebook_size,
+          "store tokens outside the codebook")
     return store
 
 
@@ -213,58 +339,144 @@ TEXTS = [
 ]
 
 
-def main_path(cfg: Config, gen):
+def reset_counts() -> None:
+    flash_attn.flash_attention.launches = 0
+    decode_step.mega_decode_step.launches = 0
+    decode_step.mega_decode_step.launches_int4 = 0
+    decode_step.attn_step.launches = 0
+    decode_step.mlp_step.launches = 0
+    log_mel.fused_log_mel.launches = 0
+
+
+def read_counts() -> dict:
+    return {"flash_attention": flash_attn.flash_attention.launches,
+            "mega_decode_step": decode_step.mega_decode_step.launches,
+            "mega_decode_step_int4": decode_step.mega_decode_step.launches_int4,
+            "attn_step": decode_step.attn_step.launches,
+            "mlp_step": decode_step.mlp_step.launches,
+            "fused_log_mel": log_mel.fused_log_mel.launches}
+
+
+def run_request(eng: Engine, cfg: Config, kind: str, call) -> dict:
+    """Time one request, check its wav, and return its record."""
+    t0 = time.perf_counter()
+    wav = next(call())["tts_speech"]
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    n = eng.last_gen_len
+    tm = eng.last_timings
+    check(wav.shape == (1, n * cfg.cfm.upsample * cfg.audio.hop_length),
+          f"{kind}: wav shape {wav.shape} != gen_len {n} x {cfg.cfm.upsample * cfg.audio.hop_length}")
+    check(n > 0 and bool(np.isfinite(wav).all()), f"{kind}: wav empty or not finite")
+    rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
+    check(rms > 1e-4, f"{kind}: wav is silent (rms {rms})")
+    rec = dict(
+        kind=kind, wall_ms=wall_ms, featurize_ms=tm.get("featurize"), prefill_ms=tm["prefill"],
+        decode_ms=tm["decode"], decode_steps=eng.last_decode_steps,
+        decode_ms_per_step=tm["decode"] / max(eng.last_decode_steps, 1),
+        cfm_ms=tm["cfm"], vocoder_ms=tm["vocoder"], gen_len=n,
+        audio_s=wav.shape[1] / cfg.audio.sample_rate, rms=rms)
+    print("request", json.dumps(rec), flush=True)
+    return rec
+
+
+def engine_on_card(cfg: Config):
     dev = torch.device("cuda")
     mem0 = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     eng = Engine(cfg, seed=0)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    engine_gb = (torch.cuda.memory_allocated(dev) - mem0) / 1e9   # weights the engine holds
-    store = build_store(cfg, 4, gen)
+    return eng, time.perf_counter() - t0, (torch.cuda.memory_allocated(dev) - mem0) / 1e9
+
+
+def path_a(cfg: Config, gen):
+    """Prompts from wavs: the DB's artifacts featurized at insert time, four
+    DB-served requests, then raw-wav, zero-shot and registered-speaker
+    requests."""
+    reset_counts()
+    eng, init_s, engine_gb = engine_on_card(cfg)
+    store = build_store(eng, cfg, 4, gen)
     rng = np.random.default_rng(1)
     requests = []
-    flash_attn.flash_attention.launches = 0
-    decode_step.mega_decode_step.launches = 0
     for text in TEXTS:
-        t0 = time.perf_counter()
         hits = store.search(rng.standard_normal((1, cfg.retrieval.dim)).astype(np.float32), k=2)[0]
         sty, tim = eng.prompt_features_from_store(store, [hits[0].index, hits[1].index])
-        out = next(eng.inference_tts_with_st(text, hits[0].text, sty, tim, max_seconds=5))
-        wav = out["tts_speech"]
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        n = eng.last_gen_len
-        tm = eng.last_timings
-        check(wav.shape == (1, n * cfg.cfm.upsample * cfg.audio.hop_length),
-              f"wav shape {wav.shape} != gen_len {n} x {cfg.cfm.upsample * cfg.audio.hop_length}")
-        check(n > 0 and bool(np.isfinite(wav).all()), "wav empty or not finite")
-        rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
-        check(rms > 1e-4, f"wav is silent (rms {rms})")
-        requests.append(dict(
-            wall_ms=wall_ms, prefill_ms=tm["prefill"], decode_ms=tm["decode"],
-            decode_steps=eng.last_decode_steps,
-            decode_ms_per_step=tm["decode"] / max(eng.last_decode_steps, 1),
-            cfm_ms=tm["cfm"], vocoder_ms=tm["vocoder"], gen_len=n,
-            audio_s=wav.shape[1] / cfg.audio.sample_rate, rms=rms))
-        print("request", json.dumps(requests[-1]), flush=True)
-    launches = {"flash_attention": flash_attn.flash_attention.launches,
-                "mega_decode_step": decode_step.mega_decode_step.launches}
-    check(all(v > 0 for v in launches.values()), f"a kernel of the main path never launched: {launches}")
-    return dict(init_s=init_s, engine_gb=engine_gb, requests=requests, launches=launches,
-                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-                profile=profile_request(eng, store, cfg))
+        requests.append(run_request(eng, cfg, "db_served", lambda: eng.inference_tts_with_st(
+            text, hits[0].text, sty, tim, max_seconds=5)))
+    n_mel0 = log_mel.fused_log_mel.launches
+    style_wav, timbre_wav = synthetic_wav(7), synthetic_wav(8)
+    requests.append(run_request(eng, cfg, "raw_wavs", lambda: eng.inference_tts_with_st(
+        TEXTS[0], "A calm reading voice.", style_wav, timbre_wav, max_seconds=5)))
+    check(log_mel.fused_log_mel.launches == n_mel0 + 2,
+          "one prompt_features call must launch fused_log_mel twice (16 kHz leg, 24 kHz leg)")
+    requests.append(run_request(eng, cfg, "zero_shot", lambda: eng.inference_zero_shot(
+        TEXTS[1], "A calm reading voice.", style_wav, max_seconds=5)))
+    eng.register_speaker("narrator", timbre_wav)
+    requests.append(run_request(eng, cfg, "registered_speaker", lambda: eng.inference_sft(
+        TEXTS[2], "narrator", max_seconds=5)))
+    check(all(r["featurize_ms"] is not None for r in requests[4:6]) and requests[6]["featurize_ms"] is None,
+          "featurize span missing from a wav request (or present in a registered-speaker one)")
+    launches = read_counts()
+    for name in ("flash_attention", "mega_decode_step", "fused_log_mel"):
+        check(launches[name] > 0, f"path A never launched {name}: {launches}")
+    return eng, store, dict(init_s=init_s, engine_gb=engine_gb, requests=requests, launches=launches,
+                            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def profile_request(eng: Engine, store: StyleStore, cfg: Config):
-    """One more request under torch.profiler: device time per kernel name
-    and the device's idle share of the request's wall time."""
+def path_b(eng: Engine, store: StyleStore, cfg: Config, gen, n_tokens: int = 32):
+    """The per-layer decode flavour: one ``generate_speech`` over per-layer
+    views of the engine's int8 weights, EOS masked throughout."""
+    dev = torch.device("cuda")
+    tl = cfg.token_lm
+    layers = token_lm.unstack_decode_params(eng.params.token_lm, tl)
+    check(layers[3]["wqkv"].data_ptr() == eng._mega_params["wqkv"][3].data_ptr(),
+          "unstack_decode_params copied the weights instead of viewing them")
+    text = torch.randint(16, 200, (1, 64), generator=gen, device=dev).to(torch.int32)
+    sty = torch.tensor(store.artifacts["speech_tokens"][:1], dtype=torch.int32, device=dev)
+    spk = torch.tensor(store.artifacts["spk"][:1], dtype=torch.float32, device=dev)
+    clock = Stopwatch(dev)
+    reset_counts()
+    out = token_lm.generate_speech_from_ids(
+        eng.params.token_lm, tl, text, torch.tensor([64], device=dev), sty,
+        torch.tensor([sty.shape[1]], device=dev), spk, eng.generator, max_new_tokens=n_tokens,
+        decode_params=layers, sampler=SamplerConfig(temperature=1.0, top_k=25), min_tokens=n_tokens,
+        clock=clock)
+    launches = read_counts()
+    toks = out.tokens[0].tolist()
+    check(int(out.lengths[0]) == n_tokens and all(0 <= t < 4096 for t in toks), f"list flavour tokens {toks}")
+    check(launches["attn_step"] == n_tokens * tl.n_layers and launches["mlp_step"] == n_tokens * tl.n_layers
+          and launches["mega_decode_step"] == 0, f"path B launches {launches}")
+    return dict(tokens=n_tokens, prefill_ms=clock.ms["prefill"], decode_ms=clock.ms["decode"],
+                decode_ms_per_token=clock.ms["decode"] / n_tokens, launches=launches)
+
+
+def path_c(cfg: Config, store: StyleStore):
+    """The int4 decode step: a second engine with ``quantize_lm_int4``."""
+    cfg4 = serving_config()
+    cfg4.quantize_lm_int4 = True
+    reset_counts()
+    eng4, init_s, engine_gb = engine_on_card(cfg4)
+    check(decode_step.weight_bits(eng4._mega_params) == 4, "the int4 engine holds no int4 decode weights")
+    requests = []
+    for text, (a, b) in zip(TEXTS[:2], ((0, 1), (2, 3))):
+        sty, tim = eng4.prompt_features_from_store(store, [a, b])
+        requests.append(run_request(eng4, cfg4, "int4_db_served", lambda: eng4.inference_tts_with_st(
+            text, store.meta[a]["text"], sty, tim, max_seconds=5)))
+    launches = read_counts()
+    check(launches["mega_decode_step_int4"] > 0 and launches["mega_decode_step"] == 0
+          and launches["flash_attention"] > 0, f"path C launches {launches}")
+    return dict(init_s=init_s, engine_gb=engine_gb, requests=requests, launches=launches)
+
+
+def profile_request(eng: Engine, style, timbre):
+    """One more request (prompts as given: store features or raw wavs) under
+    torch.profiler: device time per kernel name and the device's idle share
+    of the request's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    sty, tim = eng.prompt_features_from_store(store, [0, 1])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        next(eng.inference_tts_with_st(TEXTS[0], "style", sty, tim, max_seconds=5))
+        next(eng.inference_tts_with_st(TEXTS[0], "style", style, timbre, max_seconds=5))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -275,7 +487,8 @@ def profile_request(eng: Engine, store: StyleStore, cfg: Config):
         us, n = by_name.get(name, (0.0, 0))
         by_name[name] = (us + evt.time_range.elapsed_us(), n + 1)
     busy_us = sum(us for us, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    top = ranked[:12] + [kv for kv in ranked[12:] if "log_mel" in kv[0]]
     return dict(
         wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
         device_idle_share=(1.0 - busy_us / wall_us) if busy_us else "not measured",
@@ -317,30 +530,65 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     cfg = serving_config()
-    tl = cfg.token_lm
+    tl, a = cfg.token_lm, cfg.audio
     flash_main = flash_case(1, 256, tl.n_heads, tl.n_kv_heads, tl.head_dim, [62], gen)
     flash_gqa = flash_case(2, 256, tl.n_heads, 4, tl.head_dim, [0, 101], gen)
     for name, r in (("prefill", flash_main), ("gqa", flash_gqa)):
         print(f"flash {name}", json.dumps(r), flush=True)
         check(r["max_abs_err"] <= FLASH_ATOL, f"flash {name}: err {r['max_abs_err']} > {FLASH_ATOL}")
-    dec = decode_case(cfg, 16, gen)
-    print("decode", json.dumps(dec), flush=True)
+    # the two legs of one prompt_features call on 3 s wavs in the 4 s bucket, B = 2
+    n16 = stft.num_frames(4 * a.prompt_sample_rate, a.prompt_n_fft, a.prompt_hop_length, a.prompt_win_length)
+    n24 = stft.num_frames(4 * a.sample_rate, a.n_fft, a.hop_length, a.win_length)
+    mel16 = log_mel_case(2, n16, a.prompt_win_length, a.prompt_n_fft, a.prompt_sample_rate,
+                         a.prompt_n_mels, a.prompt_fmax, gen)
+    mel24 = log_mel_case(2, n24, a.win_length, a.n_fft, a.sample_rate, a.n_mels, a.fmax, gen)
+    for name, r in (("16k", mel16), ("24k", mel24)):
+        print(f"log_mel {name}", json.dumps(r), flush=True)
+        check(r["max_abs_err"] <= LOGMEL_ATOL, f"log_mel {name}: err {r['max_abs_err']} > {LOGMEL_ATOL}")
+    dec, mp8, cache8 = decode_case(cfg, 16, gen)
+    print("decode int8", json.dumps(dec), flush=True)
+    attn_rec, mlp_rec = half_layer_case(cfg, mp8, cache8, gen)
+    print("attn_step", json.dumps(attn_rec), flush=True)
+    print("mlp_step", json.dumps(mlp_rec), flush=True)
+    del mp8, cache8
+    dec4, _, _ = decode_case(cfg, 16, gen, bits=4)
+    print("decode int4", json.dumps(dec4), flush=True)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    e2e = main_path(cfg, gen)
-    print("e2e", json.dumps({k: v for k, v in e2e.items() if k not in ("requests", "profile")}), flush=True)
-    print("profile", json.dumps(e2e["profile"]), flush=True)
+    eng, store, pa = path_a(cfg, gen)
+    print("path A", json.dumps({k: v for k, v in pa.items() if k != "requests"}), flush=True)
+    print("profile db_served", json.dumps(profile_request(
+        eng, *eng.prompt_features_from_store(store, [0, 1]))), flush=True)
+    print("profile raw_wavs", json.dumps(profile_request(eng, synthetic_wav(7), synthetic_wav(8))), flush=True)
+    pb = path_b(eng, store, cfg, gen)
+    print("path B", json.dumps(pb), flush=True)
+    pc = path_c(cfg, store)
+    print("path C", json.dumps({k: v for k, v in pc.items() if k != "requests"}), flush=True)
+    step8 = [r["decode_ms_per_step"] for r in pa["requests"][1:4]]
+    step4 = [r["decode_ms_per_step"] for r in pc["requests"]]
+    print("int4 vs int8", json.dumps(dict(
+        engine_gb_int8=pa["engine_gb"], engine_gb_int4=pc["engine_gb"],
+        decode_ms_per_step_int8=step8, decode_ms_per_step_int4=step4,
+        kernel_ms_int8=dec["ms"], kernel_ms_int4=dec4["ms"])), flush=True)
 
+    def entry(name, source, replaces, launches, rec):
+        return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                    **{k: rec[k] for k in KERNEL_KEYS})
+
+    jax_decode = "autostyle_tts_tpu/ops/pallas_decode.py"
     kernels = [
-        dict(name="flash_attention", route="cuda", source=FLASH_SRC,
-             replaces="autostyle_tts_tpu/ops/pallas_attn.py:76",
-             launches=e2e["launches"]["flash_attention"],
-             **{k: flash_main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
-        dict(name="mega_decode_step", route="cuda", source=DECODE_SRC,
-             replaces="autostyle_tts_tpu/ops/pallas_decode.py:701",
-             launches=e2e["launches"]["mega_decode_step"],
-             **{k: dec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        entry("flash_attention", FLASH_SRC, "autostyle_tts_tpu/ops/pallas_attn.py:76",
+              pa["launches"]["flash_attention"], flash_main),
+        entry("attn_step", DECODE_SRC, f"{jax_decode}:190", pb["launches"]["attn_step"], attn_rec),
+        entry("mlp_step", DECODE_SRC, f"{jax_decode}:299", pb["launches"]["mlp_step"], mlp_rec),
+        entry("mega_decode_step", DECODE_SRC, f"{jax_decode}:701", pa["launches"]["mega_decode_step"], dec),
+        entry("mega_decode_step_int4", DECODE_SRC, f"{jax_decode}:701",
+              pc["launches"]["mega_decode_step_int4"], dec4),
+        entry("fused_log_mel", LOGMEL_SRC, "autostyle_tts_tpu/ops/pallas_mel.py:35",
+              pa["launches"]["fused_log_mel"], mel24),
     ]
+    check(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on its path: {kernels}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,7 @@ from autostyle_tts_tpu.retrieval import StyleStore as JStyleStore
 from autostyle_tts_tpu.utils import config as jconfig
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
 from autostyle_tts_tpu_torch.pipeline import engine as tengine
+from autostyle_tts_tpu_torch.pipeline import rag as trag
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
 from autostyle_tts_tpu_torch.utils import config as tconfig
 from autostyle_tts_tpu_torch.weights import from_jax_tree, quantize_tree
@@ -160,11 +161,14 @@ def test_engine_out_of_slice_paths_raise():
     for call in (
         lambda: next(eng.inference_tts_with_st("a", "b", f, f, stream=True)),
         lambda: eng.synthesize_batch(["a", "b"], ["", ""], [f, f], [f, f]),
-        lambda: eng.prompt_features([np.zeros(1600, np.float32)]),
-        lambda: next(eng.inference_tts_with_st("a", "b", np.zeros(1600), f)),
+        lambda: next(eng.inference_zero_shot("a", "b", f, stream=True)),
+        lambda: trag.build_style_db(None, [], engine=eng, wavs=[]),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
+    # prompts from wavs are inside the port now
+    feats = eng.prompt_features([np.zeros(1600, np.float32)])
+    assert len(feats) == 1 and feats[0].spk.shape == (cfg.speaker.emb_dim,)
     for field, value in (("quantize_lm_int8", False), ("speculative_gamma", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tengine.Engine(dataclasses.replace(cfg, **{field: value}), device="cpu")

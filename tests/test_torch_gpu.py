@@ -9,7 +9,9 @@ that machine does not need):
 
 Tolerances: bf16 outputs, two bf16 ulps at the values' scale (flash);
 the decode step's residual and cache rows within 2e-2 of max(|h|, 1) after
-two layers, and the same greedy and sampled token.
+two layers, and the same greedy and sampled token (int8 and int4); one
+half-layer's residual within 2e-2 of max(|h|, 1); the fused log-mel within
+1e-3 in log units of the three-matmul version (f32 sums in another order).
 """
 
 import pytest
@@ -17,7 +19,9 @@ import torch
 
 from autostyle_tts_tpu_torch.models import token_lm
 from autostyle_tts_tpu_torch.ops import decode_step
+from autostyle_tts_tpu_torch.ops import stft
 from autostyle_tts_tpu_torch.ops.flash_attn import flash_attention, flash_attention_plain
+from autostyle_tts_tpu_torch.ops.log_mel import fused_log_mel, fused_log_mel_plain
 from autostyle_tts_tpu_torch.utils.config import tiny_config
 from autostyle_tts_tpu_torch.weights import quantize_tree
 
@@ -63,12 +67,15 @@ def test_flash_kernel_rejects_f32(cuda):
         flash_attention(q, q, q, torch.zeros((1,), dtype=torch.int32, device=cuda))
 
 
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("greedy", [True, False])
-def test_decode_step_kernel_matches_plain(cuda, greedy):
+def test_decode_step_kernel_matches_plain(cuda, greedy, bits):
     cfg = tiny_config().token_lm
     g = torch.Generator(device=cuda).manual_seed(1)
     lm = quantize_tree(token_lm.init_params(cfg, g))
-    mp = token_lm.mega_decode_params(lm, cfg)
+    mp = token_lm.mega_decode_params(lm, cfg, bits=bits)
+    count = "launches" if bits == 8 else "launches_int4"
+    n0 = getattr(decode_step.mega_decode_step, count)
     L, N, S, off = cfg.n_layers, cfg.dim, 48, 4
     k1 = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
     v1 = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
@@ -87,6 +94,117 @@ def test_decode_step_kernel_matches_plain(cuda, greedy):
         assert int(tk[0]) == int(tp[0])
         tok = tp
     assert torch.equal(k1[:, :20], k2[:, :20]) and torch.equal(v1[:, 26:], v2[:, 26:])
+    assert getattr(decode_step.mega_decode_step, count) == n0 + 6
+
+
+def test_half_layer_kernels_match_plain(cuda):
+    """attn_step and mlp_step on one layer's views of the stacked weights:
+    residual, new cache row, untouched rows, launch counts."""
+    cfg = tiny_config().token_lm
+    g = torch.Generator(device=cuda).manual_seed(3)
+    lm = quantize_tree(token_lm.init_params(cfg, g))
+    mp = token_lm.mega_decode_params(lm, cfg)
+    layers = token_lm.unstack_decode_params(token_lm.share_decode_weights(lm, mp), cfg)
+    assert layers[1]["wqkv"].data_ptr() == mp["wqkv"][1].data_ptr()   # views, no copy
+    lw = layers[1]
+    N, S, t, off = cfg.dim, 48, 21, 4
+    k1 = (torch.randn((S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    v1 = (torch.randn((S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    k2, v2 = k1.clone(), v1.clone()
+    h0 = (torch.randn((1, cfg.dim), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=cfg.norm_eps)
+    args = (lw["attn_norm"], lw["wqkv"], lw["wqs"], lw["wo"], lw["wos"], mp["invf"])
+    na, nm = decode_step.attn_step.launches, decode_step.mlp_step.launches
+    h = h0.clone()
+    out = decode_step.attn_step(h, *args, k1, v1, t, off, **kw)
+    assert out.data_ptr() == h.data_ptr()    # in place
+    want = decode_step.attn_step_plain(h0, *args, k2, v2, t, off, **kw)
+    torch.cuda.synchronize()
+    scale = max(want.float().abs().max().item(), 1.0)
+    assert (h.float() - want.float()).abs().max().item() <= 2e-2 * scale
+    assert (k1[t].float() - k2[t].float()).abs().max().item() <= 2e-2 * scale
+    assert (v1[t].float() - v2[t].float()).abs().max().item() <= 2e-2 * scale
+    rest = [s for s in range(S) if s != t]
+    assert torch.equal(k1[rest], k2[rest]) and torch.equal(v1[rest], v2[rest])
+    margs = (lw["mlp_norm"], lw["wgu"], lw["wgus"], lw["wd"], lw["wds"])
+    h = want.clone()
+    decode_step.mlp_step(h, *margs, eps=cfg.norm_eps)
+    want2 = decode_step.mlp_step_plain(want, *margs, eps=cfg.norm_eps)
+    torch.cuda.synchronize()
+    assert (h.float() - want2.float()).abs().max().item() <= 2e-2 * max(want2.float().abs().max().item(), 1.0)
+    assert (decode_step.attn_step.launches, decode_step.mlp_step.launches) == (na + 1, nm + 1)
+
+
+def test_half_layer_kernels_raise_on_wrong_layout(cuda):
+    cfg = tiny_config().token_lm
+    D = cfg.dim
+    h = torch.zeros((1, D), dtype=torch.bfloat16, device=cuda)
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt, device=cuda)
+    kc = z(16, D, dt=torch.bfloat16)
+    with pytest.raises(ValueError, match="wqkv"):   # input-major weight
+        decode_step.attn_step(h, z(D), z(D, 3 * D, dt=torch.int8), z(3 * D), z(D, D, dt=torch.int8),
+                              z(D), z(cfg.head_dim // 2), kc, kc.clone(), 3, 0,
+                              n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=1e-5)
+    with pytest.raises(ValueError, match="wgu"):
+        decode_step.mlp_step(h, z(D), z(D, 2 * cfg.ffn_dim, dt=torch.int8), z(2 * cfg.ffn_dim),
+                             z(D, cfg.ffn_dim, dt=torch.int8), z(D), eps=1e-5)
+
+
+def test_generate_list_flavour_matches_mega_greedy(cuda):
+    """On the card: the per-layer flavour and the decode-step flavour give
+    the same greedy tokens over a short run."""
+    from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
+
+    cfg = tiny_config().token_lm
+    g = torch.Generator(device=cuda).manual_seed(4)
+    lm = quantize_tree(token_lm.init_params(cfg, g))
+    mp = token_lm.mega_decode_params(lm, cfg)
+    lm = token_lm.share_decode_weights(lm, mp)
+    text = torch.randint(16, 200, (1, 10), generator=g, device=cuda).int()
+    sty = torch.randint(0, 64, (1, 6), generator=g, device=cuda).int()
+    spk = torch.randn((1, cfg.spk_dim), generator=g, device=cuda)
+    ten, six = torch.tensor([10], device=cuda), torch.tensor([6], device=cuda)
+    kw = dict(max_new_tokens=12, sampler=SamplerConfig(greedy=True))
+    a = token_lm.generate_speech_from_ids(lm, cfg, text, ten, sty, six, spk, None, decode_params=mp, **kw)
+    b = token_lm.generate_speech_from_ids(lm, cfg, text, ten, sty, six, spk, None,
+                                          decode_params=token_lm.unstack_decode_params(lm, cfg), **kw)
+    assert a.tokens.tolist() == b.tokens.tolist()
+
+
+@pytest.mark.parametrize("B,T,win,n_fft,sr", [(2, 401, 400, 400, 16000), (2, 201, 1024, 1024, 24000),
+                                              (1, 13, 64, 64, 1600), (3, 130, 80, 128, 2400)])
+def test_fused_log_mel_kernel_matches_plain(cuda, B, T, win, n_fft, sr):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    frames = torch.randn((B, T, win), generator=g, device=cuda) * 0.1
+    cos_b, sin_b = stft._dft_basis_on(cuda, n_fft, win)
+    fb = stft._mel_filterbank_on(cuda, sr, n_fft, 80, 0.0, None)
+    n0 = fused_log_mel.launches
+    got = fused_log_mel(frames, cos_b, sin_b, fb)
+    assert fused_log_mel.launches == n0 + 1
+    want = fused_log_mel_plain(frames, cos_b, sin_b, fb)
+    torch.cuda.synchronize()
+    assert got.shape == (B, T, 80) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-3
+
+
+def test_log_mel_spectrogram_on_card_launches_kernel(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((2, 16000), generator=g, device=cuda) * 0.1
+    n0 = fused_log_mel.launches
+    got = stft.log_mel_spectrogram(x, 16000, 400, 160, 400, n_mels=80, fmax=8000.0)
+    assert fused_log_mel.launches == n0 + 1
+    want = stft.log_mel_spectrogram(x.cpu(), 16000, 400, 160, 400, n_mels=80, fmax=8000.0)
+    assert got.shape == (2, 101, 80)
+    assert (got.cpu() - want).abs().max().item() <= 1e-3
+
+
+def test_fused_log_mel_raises_beyond_shared_memory(cuda):
+    frames = torch.zeros((1, 4, 4096), device=cuda)
+    basis = torch.zeros((4096, 2049), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_log_mel(frames, basis, basis, torch.zeros((2049, 80), device=cuda))
+    with pytest.raises(ValueError, match="contiguous f32"):
+        fused_log_mel(frames.double(), basis, basis, torch.zeros((2049, 80), device=cuda))
 
 
 

@@ -222,3 +222,258 @@ def test_sampler_transform_matches_jax(temperature, top_k, top_p):
     assert bool(np.all(want[np.arange(3), picks.numpy()] > -1e29))
     assert sample(torch.from_numpy(logits), SamplerConfig(greedy=True)).tolist() == \
         np.argmax(logits, -1).tolist()
+
+
+# ------------------------------------------------- half-layers, list flavour, int4
+#
+# attn_step / mlp_step: the tolerance of the JAX package's own tests of these
+# kernels (rtol 0.05, atol 0.02 on bf16 outputs); rows of the cache other than
+# row t must be untouched. Greedy tokens must be equal. The int4 values
+# (q4, s4) must equal the JAX packer's exactly: the same f32 operations in
+# the same order on the same int8 weights.
+
+
+def _port_rows(qt):
+    """JAX input-major QTensor -> the port's output-major int8 rows + scales."""
+    q = torch.tensor(np.asarray(qt.q)).transpose(-1, -2).contiguous()
+    return q, torch.tensor(np.asarray(qt.s)).squeeze(-2).contiguous()
+
+
+def test_attn_step_plain_matches_pallas_interpret():
+    from autostyle_tts_tpu.ops.attention import rope_table as jrope_table
+    from autostyle_tts_tpu.ops.pallas_decode import attn_step as jattn_step
+    from autostyle_tts_tpu.ops.quant import quantize as jquantize
+    from autostyle_tts_tpu_torch.ops.attention import rope_inv_freq
+
+    H, hd, S, t, off = 4, 16, 24, 9, 3
+    D = H * hd
+    rng = np.random.default_rng(0)
+    h = (rng.standard_normal((1, D)) * 0.5).astype(np.float32)
+    norm = (1.0 + 0.1 * rng.standard_normal((1, D))).astype(np.float32)
+    wqkv = jquantize(jnp.asarray(rng.standard_normal((D, 3 * D)) * 0.02, jnp.float32))
+    wo = jquantize(jnp.asarray(rng.standard_normal((D, D)) * 0.02, jnp.float32))
+    k0 = (rng.standard_normal((S, D)) * 0.3).astype(np.float32)   # slots outside [off, t) are garbage
+    v0 = (rng.standard_normal((S, D)) * 0.3).astype(np.float32)
+    cos_tab, sin_tab = jrope_table(64, hd)
+    cosf = jnp.tile(jnp.concatenate([cos_tab[t - off]] * 2), H)[None, :]
+    sinf = jnp.tile(jnp.concatenate([sin_tab[t - off]] * 2), H)[None, :]
+    want_h, want_k, want_v = jattn_step(
+        jnp.asarray(h, jnp.bfloat16), jnp.asarray(norm), wqkv, wo, cosf, sinf,
+        jnp.asarray(k0, jnp.bfloat16), jnp.asarray(v0, jnp.bfloat16), jnp.int32(t), jnp.int32(off),
+        n_heads=H, head_dim=hd, eps=1e-5, interpret=True)
+
+    th = torch.from_numpy(h).to(torch.bfloat16)
+    tk, tv = torch.from_numpy(k0).to(torch.bfloat16), torch.from_numpy(v0).to(torch.bfloat16)
+    k_before, v_before = tk.clone(), tv.clone()
+    decode_step.attn_step.launches = 0
+    out = decode_step.attn_step(th, torch.from_numpy(norm[0]), *_port_rows(wqkv), *_port_rows(wo),
+                                rope_inv_freq(hd), tk, tv, t, off, n_heads=H, head_dim=hd, eps=1e-5)
+    assert decode_step.attn_step.launches == 0 and out.data_ptr() == th.data_ptr()   # plain, in place
+    np.testing.assert_allclose(th.float().numpy(), np.asarray(want_h, np.float32), rtol=0.05, atol=0.02)
+    np.testing.assert_allclose(tk[t].float().numpy(), np.asarray(want_k[t], np.float32), rtol=0.05, atol=0.02)
+    np.testing.assert_allclose(tv[t].float().numpy(), np.asarray(want_v[t], np.float32), rtol=0.05, atol=0.02)
+    rest = [s for s in range(S) if s != t]
+    assert torch.equal(tk[rest], k_before[rest]) and torch.equal(tv[rest], v_before[rest])
+    np.testing.assert_array_equal(tk[rest].float().numpy(), np.asarray(want_k, np.float32)[rest])
+
+
+def test_mlp_step_plain_matches_pallas_interpret():
+    from autostyle_tts_tpu.ops.pallas_decode import mlp_step as jmlp_step
+    from autostyle_tts_tpu.ops.quant import quantize as jquantize
+
+    D, F = 64, 128
+    rng = np.random.default_rng(1)
+    h = (rng.standard_normal((1, D)) * 0.5).astype(np.float32)
+    norm = (1.0 + 0.1 * rng.standard_normal((1, D))).astype(np.float32)
+    wgu = jquantize(jnp.asarray(rng.standard_normal((D, 2 * F)) * 0.02, jnp.float32))
+    wdn = jquantize(jnp.asarray(rng.standard_normal((F, D)) * 0.02, jnp.float32))
+    want = jmlp_step(jnp.asarray(h, jnp.bfloat16), jnp.asarray(norm), wgu, wdn, eps=1e-5,
+                     tile_f=64, interpret=True)
+    th = torch.from_numpy(h).to(torch.bfloat16)
+    decode_step.mlp_step.launches = 0
+    decode_step.mlp_step(th, torch.from_numpy(norm[0]), *_port_rows(wgu), *_port_rows(wdn), eps=1e-5)
+    assert decode_step.mlp_step.launches == 0
+    np.testing.assert_allclose(th.float().numpy(), np.asarray(want, np.float32), rtol=0.05, atol=0.02)
+
+
+def test_half_layers_non_cpu_tensor_never_falls_back():
+    h = torch.zeros((1, 64), dtype=torch.bfloat16, device="meta")
+    z = torch.zeros((4,), device="meta")
+    with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
+        decode_step.mlp_step(h, z, z, z, z, z, eps=1e-5)
+    with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
+        decode_step.attn_step(h, z, z, z, z, z, z, torch.zeros((8, 64), device="meta"),
+                              torch.zeros((8, 64), device="meta"), 1, 0, n_heads=4, head_dim=16, eps=1e-5)
+
+
+def _generate_inputs(cfg, seed):
+    rng = np.random.default_rng(seed)
+    text = rng.integers(16, 200, (1, 10)).astype(np.int32)
+    sty = rng.integers(0, 64, (1, 6)).astype(np.int32)
+    spk = rng.standard_normal((1, cfg.spk_dim)).astype(np.float32)
+    return text, sty, spk
+
+
+def _port_generate(tp, decode_params, text, sty, spk, n, **kw):
+    tcfg = tiny_config().token_lm
+    return tlm.generate_speech_from_ids(
+        tp, tcfg, torch.from_numpy(text), torch.tensor([10]), torch.from_numpy(sty),
+        torch.tensor([6]), torch.from_numpy(spk), None, max_new_tokens=n,
+        decode_params=decode_params, sampler=SamplerConfig(greedy=True), **kw)
+
+
+def test_list_flavour_greedy_matches_jax_scan_and_mega_flavour():
+    cfg, jp, tp = _tiny_lm(3)
+    tcfg = tiny_config().token_lm
+    text, sty, spk = _generate_inputs(cfg, 3)
+    want = jlm.generate_speech_from_ids(
+        jp, cfg, jnp.asarray(text), jnp.asarray([10]), jnp.asarray(sty), jnp.asarray([6]),
+        jnp.asarray(spk), jax.random.PRNGKey(0), max_new_tokens=24,
+        sampler=JSampler(greedy=True), fused=False)
+    mp = tlm.mega_decode_params(tp, tcfg)
+    shared = tlm.share_decode_weights(tp, mp)
+    layers = tlm.unstack_decode_params(shared, tcfg)
+    assert len(layers) == tcfg.n_layers
+    assert layers[1]["wd"].data_ptr() == mp["wd"][1].data_ptr()      # views of the one int8 copy
+    copied = tlm.unstack_decode_params(tp, tcfg)                     # input-major params: copies
+    assert torch.equal(copied[1]["wd"], layers[1]["wd"]) and torch.equal(copied[0]["wqs"], layers[0]["wqs"])
+    got_list = _port_generate(shared, layers, text, sty, spk, 24)
+    got_mega = _port_generate(shared, mp, text, sty, spk, 24)
+    np.testing.assert_array_equal(got_list.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got_list.tokens.numpy(), got_mega.tokens.numpy())
+    assert int(got_list.lengths[0]) == int(want.lengths[0]) == int(got_mega.lengths[0])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _port_generate(shared, layers, text, sty, spk, 24, fused=False)
+
+
+def test_list_flavour_stops_at_eos_and_draws_from_the_generator(monkeypatch):
+    """Token i is sampled on the host from the previous logits, then runs at
+    slot P + i; the loop ends at EOS without running the layers again."""
+    cfg = tiny_config().token_lm
+    _, _, tp = _tiny_lm(4)
+    layers = tlm.unstack_decode_params(tp, cfg)
+    slots = []
+    real = decode_step.attn_step
+
+    def spy(h, *a, **kw):
+        slots.append(a[8])
+        return real(h, *a, **kw)
+
+    monkeypatch.setattr(tlm, "attn_step", spy)
+    script = iter([5, 7, cfg.speech_eos])
+    suppressed = []
+
+    def scripted(logits, sampler, generator):
+        suppressed.append(bool(logits[0, cfg.speech_eos] <= -1e29))
+        return torch.tensor([next(script)], dtype=torch.int32)
+
+    monkeypatch.setattr(tlm, "sample", scripted)
+    text = torch.randint(16, 200, (1, 8), generator=torch.Generator().manual_seed(0)).int()
+    out = tlm.generate_speech_from_ids(
+        tp, cfg, text, torch.tensor([8]), torch.zeros((1, 4), dtype=torch.int32), torch.tensor([4]),
+        torch.zeros((1, cfg.spk_dim)), None, max_new_tokens=16, decode_params=layers, min_tokens=2)
+    assert out.tokens[0, :3].tolist() == [5, 7, cfg.speech_eos]
+    assert all(t == cfg.speech_pad for t in out.tokens[0, 3:].tolist())
+    assert int(out.lengths[0]) == 2 and out.decode_steps == 2
+    assert slots == [128, 128, 129, 129]          # 2 tokens x 2 layers at P, P + 1
+    assert suppressed == [True, True, False]
+
+
+def _unpack_jax_int4(packed):
+    """The JAX byte layout (signed high nibble, offset-binary low nibble,
+    output channels (c, c + C/2) per byte) -> int values [..., C]."""
+    v = np.asarray(packed).astype(np.int32)
+    hi = np.floor_divide(v, 16)
+    lo = v - 16 * hi - 8
+    return np.concatenate([lo, hi], axis=-1)
+
+
+def test_int4_values_and_scales_equal_jax_packer():
+    cfg, jp, tp = _tiny_lm(5)
+    tcfg = tiny_config().token_lm
+    L, D, F, V, tf = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.speech_vocab_size, 64
+    jm = jlm.mega_decode_params(jp, cfg, tile_f=tf, bits=4)
+    tm = tlm.mega_decode_params(tp, tcfg, bits=4)
+    assert decode_step.weight_bits(tm) == 4 and tm["wqkv"].dtype == torch.int8
+    assert tm["wqkv"].shape == (L, 3 * D, D // 2) and tm["wd"].shape == (L, D, F // 2)
+    got = {k: decode_step.unpack4(tm[k]).numpy() for k in decode_step.WEIGHT_KEYS}
+    # un-permute the JAX layouts into output-major rows
+    q = _unpack_jax_int4(jm["wqkv3"])                                   # [L, 3, D, N]
+    want = {"wqkv": q.transpose(0, 1, 3, 2).reshape(L, 3 * D, D)}
+    want["wo"] = _unpack_jax_int4(jm["wo"]).transpose(0, 2, 1)           # [L, N, D] -> [L, D, N]
+    gu = _unpack_jax_int4(jm["wgu_t"])                                  # [L, JM, D, 2*tf]
+    g = gu[..., :tf].transpose(0, 1, 3, 2).reshape(L, F, D)
+    u = gu[..., tf:].transpose(0, 1, 3, 2).reshape(L, F, D)
+    want["wgu"] = np.concatenate([g, u], axis=1)
+    want["wd"] = _unpack_jax_int4(jm["wd_t"]).reshape(L, F, D).transpose(0, 2, 1)
+    head = _unpack_jax_int4(jm["head_t"])                               # [JH, D, TV]
+    want["head"] = head.transpose(1, 0, 2).reshape(D, -1)[:, :V].T
+    for k in decode_step.WEIGHT_KEYS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    gs = np.asarray(jm["wgus_t"])                                       # [L, JM, 1, 2*tf]
+    scales = {
+        "wqs": np.asarray(jm["wqs3"]).reshape(L, 3 * D),
+        "wos": np.asarray(jm["wos"]).reshape(L, D),
+        "wgus": np.concatenate([gs[..., :tf].reshape(L, F), gs[..., tf:].reshape(L, F)], axis=1),
+        "wds": np.asarray(jm["wds"]).reshape(L, D),
+        "head_s": np.asarray(jm["head_s"]).transpose(1, 0, 2).reshape(-1)[:V],
+    }
+    for k, w in scales.items():
+        np.testing.assert_array_equal(tm[k].numpy(), w, err_msg=k)
+    for k in ("emb", "invf", "attn_norm", "mlp_norm", "final_norm"):     # untouched by the packing
+        assert tm[k].dtype != torch.int8
+    with pytest.raises(ValueError, match="packed already"):
+        tlm.requantize_int4(tm)
+    with pytest.raises(ValueError, match="even"):
+        decode_step.pack4(torch.zeros((2, 3), dtype=torch.int8))
+    r = torch.randint(-8, 8, (3, 5, 32), generator=torch.Generator().manual_seed(0)).to(torch.int8)
+    assert torch.equal(decode_step.unpack4(decode_step.pack4(r)), r)
+
+
+def test_generate_int4_matches_int8_on_four_bit_exact_weights():
+    """Weights made 4-bit exact (q in [-7, 7], one 7 per output channel):
+    the int4 decode must give the int8 decode's greedy tokens, in the port
+    and against the JAX megakernel with bits=4 (interpret mode)."""
+    from autostyle_tts_tpu.ops.quant import QTensor as JQTensor
+
+    cfg = jtiny().token_lm
+    tcfg = tiny_config().token_lm
+    jp = jquantize_tree(jlm.init_params(jax.random.PRNGKey(5), cfg))
+    jp = jax.tree_util.tree_map(
+        lambda t: JQTensor(q=jnp.clip(t.q, -7, 7).at[..., 0, :].set(7), s=t.s) if isinstance(t, JQTensor) else t,
+        jp, is_leaf=lambda x: isinstance(x, JQTensor))
+    tp = tree_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    text, sty, spk = _generate_inputs(cfg, 5)
+    want = jlm.generate_speech_from_ids(
+        jp, cfg, jnp.asarray(text), jnp.asarray([10]), jnp.asarray(sty), jnp.asarray([6]),
+        jnp.asarray(spk), jax.random.PRNGKey(13), max_new_tokens=12, sampler=JSampler(greedy=True),
+        fused=True, decode_params=jlm.mega_decode_params(jp, cfg, tile_f=64, bits=4))
+    mp8 = tlm.mega_decode_params(tp, tcfg)
+    mp4 = tlm.requantize_int4(mp8)
+    np.testing.assert_allclose(mp4["wqs"].numpy(), mp8["wqs"].numpy(), rtol=1e-6)
+    assert torch.equal(decode_step.unpack4(mp4["wgu"]), mp8["wgu"])
+    got8 = _port_generate(tp, mp8, text, sty, spk, 12)
+    got4 = _port_generate(tp, mp4, text, sty, spk, 12)
+    np.testing.assert_array_equal(got4.tokens.numpy(), got8.tokens.numpy())
+    np.testing.assert_array_equal(got4.tokens.numpy(), np.asarray(want.tokens))
+    assert int(got4.lengths[0]) == int(got8.lengths[0]) == int(want.lengths[0])
+
+
+def test_engine_with_int4_serves_and_keeps_int8_prefill():
+    import dataclasses
+
+    from autostyle_tts_tpu_torch.pipeline import engine as tengine
+    from autostyle_tts_tpu_torch.utils.config import tiny_config as full_tiny
+
+    cfg = full_tiny()
+    cfg.quantize_lm_int8 = cfg.quantize_lm_int4 = True
+    cfg.vocoder = dataclasses.replace(
+        cfg.vocoder, kind="istft", istft_hop=cfg.audio.hop_length,
+        istft_n_fft=4 * cfg.audio.hop_length, istft_channels=32, istft_blocks=2)
+    eng = tengine.Engine(cfg, device="cpu")
+    assert decode_step.weight_bits(eng._mega_params) == 4
+    assert eng.params.token_lm["layers"]["wqkv"].q.shape[-2:] == (cfg.token_lm.dim, 3 * cfg.token_lm.dim)
+    f = tengine.PromptFeatures(tokens=np.arange(5, dtype=np.int32), spk=np.zeros(16, np.float32),
+                               mel24=np.zeros((10, 16), np.float32))
+    wav = next(eng.inference_tts_with_st("hi", "style", f, f, max_seconds=1.0))["tts_speech"]
+    assert wav.shape[1] > 0 and np.isfinite(wav).all()
