@@ -24,7 +24,7 @@ import torch
 
 from ..ops.attention import rope_inv_freq
 from ..ops.decode_step import (WEIGHT_KEYS, attn_step, decode_scratch, mega_decode_step,
-                               mlp_step, pack4, weight_bits)
+                               mlp_step, pack4, part_shape, weight_bits)
 from ..ops.sampling import SamplerConfig, sample
 from ..utils.config import TokenLMConfig, TransformerConfig
 from ..utils.timing import Stopwatch
@@ -318,7 +318,8 @@ def _decode_mega(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, ge
     toks = [int(tok[0])]
     with clock.span("decode"):
         tok_prev = tok.to(torch.int32).reshape(1)
-        scratch = decode_scratch(decode_params, ccfg.n_heads, ccfg.head_dim, dev)
+        # the kernel's buffers and plan; the plain step (a CPU cache) takes none
+        scratch = decode_scratch(decode_params, ccfg.n_heads, ccfg.head_dim, dev) if dev.type == "cuda" else None
         i = 1
         while i < max_new_tokens and toks[-1] != eos:
             _, tok_prev = mega_decode_step(
@@ -351,9 +352,12 @@ def _decode_layers(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, 
     cur_logits = next_logits
     with clock.span("decode"):
         lw0 = decode_params[0]
-        scratch = {"qkv": torch.empty((lw0["wqkv"].shape[0],), dtype=torch.float32, device=dev),
-                   "attn": torch.empty((lw0["wo"].shape[1],), dtype=torch.bfloat16, device=dev),
-                   "act": torch.empty((lw0["wd"].shape[1],), dtype=torch.bfloat16, device=dev)}
+        scratch = None     # the kernels' buffers; the plain half-layers (a CPU cache) take none
+        if dev.type == "cuda":
+            scratch = {"qkv": torch.empty((lw0["wqkv"].shape[0],), dtype=torch.float32, device=dev),
+                       "part": torch.empty(part_shape(ccfg.n_heads, ccfg.head_dim), dtype=torch.float32,
+                                           device=dev),
+                       "act": torch.empty((lw0["wd"].shape[1],), dtype=torch.bfloat16, device=dev)}
         for i in range(max_new_tokens):
             tok = sample(_mask_logits(cur_logits, cfg, i < min_tokens), sampler, generator)
             toks.append(int(tok[0]))

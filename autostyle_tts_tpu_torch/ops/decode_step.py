@@ -1,4 +1,4 @@
-"""B=1 decode of the speech-token LM: the CUDA kernel chains and plain twins.
+"""B=1 decode of the speech-token LM: the CUDA kernels and their plain twins.
 
 Counterpart of the JAX ``ops/pallas_decode.py``: ``mega_decode_step`` (the
 whole step, int8 or int4 weights), ``attn_step`` and ``mlp_step`` (its two
@@ -8,6 +8,13 @@ residual takes the ``*_plain`` version, which rounds at the same points as
 the kernels; a CUDA one launches the kernels or raises. ``launches`` on each
 wrapper counts launched ops (``mega_decode_step.launches`` the int8 steps,
 ``mega_decode_step.launches_int4`` the int4 steps).
+
+The kernels split the attention over the live cache slots into partials per
+(head, split) and merge them in the ``wo`` projection's prologue, and their
+sampler finds the top-k threshold two distinct values a round;
+``attn_vector_split_plain`` and ``topk_threshold_tiled`` are that arithmetic
+in plain PyTorch, held against ``attn_vector_plain`` and
+``topk_threshold_plain`` by the CPU tests.
 
 Weights come from ``models/token_lm.mega_decode_params`` (output-major, one
 row per output channel) and ``unstack_decode_params`` (per-layer views of
@@ -22,7 +29,7 @@ sampled step is reproducible across them.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,12 +37,19 @@ import torch
 from .cuda_build import check, function
 
 NEG_INF = -1e30
-# The kernels keep per-step vectors in at most 48 KB of dynamic shared
-# memory: the sampler two f32 rows of V, the attention one f32 score per
-# cache slot. Beyond these sizes the wrapper raises.
+# A GEMV block keeps its input vector (and, where it normalises the
+# residual, the norm weights) as f32 in at most 48 KB of dynamic shared
+# memory; the sampler keeps 32 logits a thread in the registers of 256
+# threads. Beyond these sizes the wrapper raises.
 SMEM_FLOATS = 48 * 1024 // 4 - 32
-_ARGTYPES = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 11 + [ctypes.c_float] * 2
-             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+MAX_VOCAB = 8192
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # hd / 8 lanes span one cache row
+# The split rule of the plain split attention (``attn_splits``): the one the
+# kernels were written with. The buffers the kernels get are sized from the
+# built library (``part_shape``), not from these.
+SPLIT_KEYS = 24     # slots per split ...
+MAX_SPLITS = 16     # ... until this many splits; then the splits grow
+_STEP_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ATTN_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
                   + [ctypes.c_int, ctypes.c_void_p])
 _MLP_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -113,13 +127,62 @@ def gumbel_uniform(seed: int, n: int) -> np.ndarray:
     return b24 * np.float32(1.0 / (1 << 24)) + np.float32(1e-9)
 
 
+def topk_threshold_plain(y: torch.Tensor, top_k: int) -> torch.Tensor:
+    """The reference's top-k threshold: strip every value tied at the running
+    max (to -1e30) k-1 times; the max of the rest is the k-th value."""
+    cur = y.clone()
+    for _ in range(top_k - 1):
+        cur = torch.where(cur >= cur.max(), torch.full_like(cur, NEG_INF), cur)
+    return cur.max()
+
+
+def _merge_top2(a: Tuple[float, float], b: Tuple[float, float]) -> Tuple[float, float]:
+    """The two largest distinct values of two such pairs (-inf = none)."""
+    hi, lo_c = max(a[0], b[0]), min(a[0], b[0])
+    lo = max(a[1], b[1])
+    if lo_c < hi:
+        lo = max(lo, lo_c)
+    return hi, lo
+
+
+def topk_threshold_tiled(y: torch.Tensor, top_k: int, n_threads: int = 1024) -> torch.Tensor:
+    """The same threshold the way the kernel's sampler finds it: thread i
+    holds y[i::n_threads]; a round takes each thread's two largest distinct
+    values, merges them over the block and strips both levels (one level in
+    a last odd round); after k-1 levels the block max is the k-th largest
+    distinct value, raised to -1e30 (what stripped entries hold in the
+    reference) when k >= 2."""
+    inf = float("inf")
+    tiles = [y[i::n_threads].tolist() for i in range(min(n_threads, y.shape[0]))]
+    left = top_k - 1
+    while left > 0:
+        top = (-inf, -inf)
+        for vals in tiles:
+            h1 = h2 = -inf
+            for v in vals:
+                if v > h1:
+                    h1, h2 = v, h1
+                elif h2 < v < h1:
+                    h2 = v
+            top = _merge_top2(top, (h1, h2))
+        cut = top[1] if left >= 2 and top[1] > -inf else top[0]
+        tiles = [[-inf if v >= cut else v for v in vals] for vals in tiles]
+        left -= 2
+    thr = max(max(vals) for vals in tiles)
+    if top_k >= 2:
+        thr = max(thr, NEG_INF)
+    return torch.tensor(thr, dtype=y.dtype, device=y.device)
+
+
 def sample_scores_plain(
     logits: torch.Tensor, *, pad_id: int, bos_id: int, eos_id: int,
     suppress: bool, greedy: bool, temperature: float, top_k: int, seed: int,
+    threshold=topk_threshold_plain,
 ) -> torch.Tensor:
     """The kernel's sampler up to its final argmax: mask, temperature, top-k
-    threshold with the reference's tie rule, Gumbel noise. Returns the
-    scores [V] whose argmax (smallest id at the maximum) is the token."""
+    threshold with the reference's tie rule (``threshold``: the reference's
+    loop or the kernel's tiled search), Gumbel noise. Returns the scores [V]
+    whose argmax (smallest id at the maximum) is the token."""
     V = logits.shape[0]
     fid = torch.arange(V, device=logits.device)
     bad = (fid == pad_id) | (fid == bos_id) | ((fid == eos_id) & bool(suppress))
@@ -127,10 +190,7 @@ def sample_scores_plain(
     if not greedy:
         y = y / np.float32(max(temperature, 1e-6))
         if top_k and top_k > 0:
-            cur = y.clone()
-            for _ in range(top_k - 1):
-                cur = torch.where(cur >= cur.max(), torch.full_like(cur, NEG_INF), cur)
-            y = torch.where(y < cur.max(), torch.full_like(y, NEG_INF), y)
+            y = torch.where(y < threshold(y, top_k), torch.full_like(y, NEG_INF), y)
         u = torch.from_numpy(gumbel_uniform(seed, V)).to(y.device)
         y = y - torch.log(-torch.log(u))
     return y
@@ -161,15 +221,77 @@ def head_logits_plain(h: torch.Tensor, mp: Dict[str, torch.Tensor], eps: float) 
     return (mp["head"].float() @ xn) * mp["head_s"]
 
 
+def attn_splits(n: int, cap: int = MAX_SPLITS) -> int:
+    """Splits the kernels cut n live slots into: the half-layer kernels cap
+    them at MAX_SPLITS, the whole step's kernel at its blocks per head (SMs
+    // heads), so that a block has one (head, split) at most."""
+    return min(MAX_SPLITS, max(1, cap), max(1, -(-n // SPLIT_KEYS)))
+
+
+def split_bounds(n: int) -> List[Tuple[int, int]]:
+    """The kernels' partition of slots 0..n-1 (relative to ``off``): equal
+    splits of ceil(n / splits) slots, the last one ragged."""
+    ns = attn_splits(n)
+    per = -(-n // ns)
+    return [(min(n, s * per), min(n, (s + 1) * per)) for s in range(ns)]
+
+
+def attn_vector_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kc: torch.Tensor, vc: torch.Tensor) -> torch.Tensor:
+    """Attention of one token (q, k, v f32 [H, hd], unrounded) over the live
+    cache rows kc/vc f32 [n, H, hd] and itself -> f32 [H, hd], before the
+    bf16 rounding."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("shd,hd->hs", kc, q) * scale
+    cur = (q * k).sum(-1) * scale
+    m = torch.maximum(logits.max(-1).values, cur) if logits.shape[1] else cur
+    p = torch.exp(logits - m[:, None])
+    pc = torch.exp(cur - m)
+    denom = p.sum(-1) + pc
+    num = torch.einsum("hs,shd->hd", p, vc)
+    return (num + pc[:, None] * v) / denom[:, None]
+
+
+def attn_vector_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            kc: torch.Tensor, vc: torch.Tensor,
+                            bounds: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The same vector the way the kernels compute it: one unnormalised
+    partial (acc [H, hd], running max m, sum l) per split ``(j0, j1)`` of
+    the live rows, the current token folded into the first split from its
+    f32 k/v, and the merge of the ``wo`` prologue: M = max m_s,
+    sum(acc_s e^(m_s - M)) / sum(l_s e^(m_s - M)). ``bounds`` may be any
+    partition of [0, n); empty splits are allowed."""
+    scale = q.shape[-1] ** -0.5
+    H = q.shape[0]
+    accs, ms, ls = [], [], []
+    for i, (j0, j1) in enumerate(bounds or [(0, 0)]):
+        s = torch.einsum("shd,hd->hs", kc[j0:j1], q) * scale
+        m = s.max(-1).values if j1 > j0 else torch.full((H,), NEG_INF, dtype=q.dtype, device=q.device)
+        p = torch.exp(s - m[:, None])
+        l, acc = p.sum(-1), torch.einsum("hs,shd->hd", p, vc[j0:j1])
+        if i == 0:
+            cur = (q * k).sum(-1) * scale
+            m2 = torch.maximum(m, cur)
+            wa, pc = torch.exp(m - m2), torch.exp(cur - m2)
+            m, l, acc = m2, l * wa + pc, acc * wa[:, None] + pc[:, None] * v
+        accs.append(acc), ms.append(m), ls.append(l)
+    m_all, l_all, acc_all = torch.stack(ms, 1), torch.stack(ls, 1), torch.stack(accs, 1)
+    w = torch.exp(m_all - m_all.max(1, keepdim=True).values)
+    return (acc_all * w[..., None]).sum(1) / (l_all * w).sum(1)[:, None]
+
+
 def attn_step_plain(
     h: torch.Tensor, attn_norm: torch.Tensor, wqkv: torch.Tensor, wqs: torch.Tensor,
     wo: torch.Tensor, wos: torch.Tensor, invf: torch.Tensor,
     k_cache: torch.Tensor, v_cache: torch.Tensor, t: int, off: int, *,
     n_heads: int, head_dim: int, eps: float,
+    bounds: Optional[Sequence[Tuple[int, int]]] = None,
 ) -> torch.Tensor:
     """Plain twin of the attention half-layer: h [1, D] bf16 -> new h
     [1, D] bf16; writes row t of k_cache/v_cache [S, H*hd] in place.
-    Weights are int8-valued output-major rows (wqkv [3N, D], wo [D, N])."""
+    Weights are int8-valued output-major rows (wqkv [3N, D], wo [D, N]).
+    With ``bounds`` the attention is computed split by split
+    (``attn_vector_split_plain``), else in one piece."""
     H, hd = n_heads, head_dim
     N = H * hd
     hf = h.float().reshape(-1)
@@ -184,15 +306,9 @@ def attn_step_plain(
     v_cache[t] = v.reshape(N).to(v_cache.dtype)
     kc = k_cache[off:t].float().view(-1, H, hd)
     vc = v_cache[off:t].float().view(-1, H, hd)
-    scale = hd ** -0.5
-    logits = torch.einsum("shd,hd->hs", kc, q) * scale
-    cur = (q * k).sum(-1) * scale
-    m = torch.maximum(logits.max(-1).values, cur) if logits.shape[1] else cur
-    p = torch.exp(logits - m[:, None])
-    pc = torch.exp(cur - m)
-    denom = p.sum(-1) + pc
-    num = torch.einsum("hs,shd->hd", p, vc)
-    attn = ((num + pc[:, None] * v) / denom[:, None]).reshape(N).to(torch.bfloat16).float()
+    vec = attn_vector_plain(q, k, v, kc, vc) if bounds is None else \
+        attn_vector_split_plain(q, k, v, kc, vc, bounds)
+    attn = vec.reshape(N).to(torch.bfloat16).float()
     return (hf + (wo.float() @ attn) * wos).to(torch.bfloat16)[None]
 
 
@@ -242,22 +358,71 @@ def mega_decode_step_plain(
 # ----------------------------------------------------------------------------- kernel
 
 
-def _scratch_spec(D: int, N: int, F: int, V: int):
+class _Plan(ctypes.Structure):
+    """Field by field the ``DecodePlan`` of csrc/decode_step.cu."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in MP_KEYS]
+                + [(k, ctypes.c_void_p) for k in ("k_all", "v_all", "h", "qkv", "part", "act",
+                                                  "logits", "tok_out", "bar", "stamps")]
+                + [(k, ctypes.c_int) for k in ("L", "D", "H", "hd", "F", "V", "S", "pad_id", "bos_id",
+                                               "eos_id", "greedy", "top_k", "bits")]
+                + [(k, ctypes.c_float) for k in ("eps", "scale", "temperature")])
+
+
+class DecodeScratch(dict):
+    """The step kernel's per-step buffers (a dict of tensors) and, once a
+    decode step has run on them, its plan: the checked pointers and
+    constants of that step's params, cache and sampler, so later steps pass
+    only what changes."""
+
+    def __init__(self, tensors):
+        super().__init__(tensors)
+        self.plan = None      # (_Plan, address of it, pointers it was made from, constants)
+
+
+def part_shape(n_heads: int, head_dim: int) -> Tuple[int, int, int]:
+    """Shape of the attention partials buffer (f32) the built kernels take:
+    per head, the most splits they make, each acc[hd], m, l and padding."""
+    max_splits, pad = (function("decode_step", name, [])() for name in
+                       ("decode_max_splits", "decode_part_pad"))
+    return (n_heads, max_splits, head_dim + pad)
+
+
+def _scratch_spec(D: int, H: int, hd: int, F: int, V: int):
     return {
-        "h": ((1, D), torch.bfloat16), "qkv": ((3 * N,), torch.float32),
-        "attn": ((N,), torch.bfloat16), "act": ((F,), torch.bfloat16),
-        "logits": ((V,), torch.float32), "tok": ((1,), torch.int32),
+        "h": ((1, D), torch.bfloat16), "qkv": ((3 * H * hd,), torch.float32),
+        "part": (part_shape(H, hd), torch.float32), "act": ((F,), torch.bfloat16),
+        "logits": ((V,), torch.float32), "tok": ((1,), torch.int32), "bar": ((1,), torch.int32),
     }
 
 
 def decode_scratch(mp: Dict[str, torch.Tensor], n_heads: int, head_dim: int,
-                   device) -> Dict[str, torch.Tensor]:
-    """The kernel chain's per-step buffers, to allocate once per request and
-    pass to every step: h [1, D] bf16, qkv f32, attn and act bf16, logits
-    f32, tok [1] int32."""
-    spec = _scratch_spec(mp["emb"].shape[1], n_heads * head_dim,
+                   device, stamps: bool = False) -> DecodeScratch:
+    """The step kernel's buffers on a CUDA device, to allocate once per
+    request and pass to every step: h [1, D] bf16, qkv f32, the attention
+    partials f32, act bf16, logits f32, tok [1] int32 and the grid barrier's
+    counter. The first step on it checks every tensor once and keeps the
+    plan here; a later step with other params, caches or sampler raises.
+    ``stamps`` adds an int64 buffer [5 L + 3, SMs, 2] in which every block of
+    the kernel records, in nanoseconds of the card's timer, when it arrived
+    at and when it left each grid barrier; the slot after the last barrier
+    holds the step's end."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"decode scratch: the kernels' buffers live on a CUDA device, not on {device}")
+    weight_bits(mp)   # raises on rows that fit neither width
+    spec = _scratch_spec(mp["emb"].shape[1], n_heads, head_dim,
                          mp["wgu"].shape[1] // 2, mp["head"].shape[0])
-    return {k: torch.empty(shape, dtype=dt, device=device) for k, (shape, dt) in spec.items()}
+    scratch = DecodeScratch({k: torch.empty(shape, dtype=dt, device=device)
+                             for k, (shape, dt) in spec.items()})
+    if stamps:
+        scratch["stamps"] = torch.zeros(_stamps_shape(mp["wqkv"].shape[0], device), dtype=torch.int64,
+                                        device=device)
+    return scratch
+
+
+def _stamps_shape(n_layers: int, device) -> Tuple[int, int, int]:
+    """One slot per grid barrier (5 a layer, the head, the sampler) and one
+    for the step's end, per block (one block an SM), arrival and leave."""
+    return (5 * n_layers + 3, torch.cuda.get_device_properties(device).multi_processor_count, 2)
 
 
 def _check_tensors(what: str, dev, want: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]]) -> None:
@@ -271,20 +436,28 @@ def _check_tensors(what: str, dev, want: Dict[str, Tuple[torch.Tensor, tuple, to
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
 
 
-def _check_widths(what: str, bits: int, **widths: int) -> None:
-    """Every contraction width a warp streams in 16-byte loads."""
+def _check_widths(what: str, bits: int, hd: Optional[int] = None, **widths: int) -> None:
+    """Every contraction width a warp streams in 16-byte loads, the head
+    width the attention's lanes span (where there is attention), and the
+    shared-memory cap."""
     mult = 16 * 8 // bits   # elements per 16-byte load
     bad = {k: v for k, v in widths.items() if v % mult}
     if bad:
         raise ValueError(f"{what}: {bad} must be multiples of {mult} at {bits} bits")
+    if hd is not None and hd not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {hd} not in {HEAD_DIMS}")
+    span = 32 * mult        # the vector is laid out in rows of 32 loads: lengths round up to them
+    padded = {k: -(-v // span) * span for k, v in widths.items()}
+    if max(padded.values()) > SMEM_FLOATS or padded["D"] + widths["D"] > SMEM_FLOATS:
+        raise ValueError(f"{what}: widths {widths} beyond the kernel's shared-memory cap {SMEM_FLOATS}")
 
 
-def _launch(tok_in, mp, k_all, v_all, t, off, suppress, seed, *, n_heads,
-            head_dim, eps, pad_id, bos_id, eos_id, greedy, temperature, top_k,
-            scratch):
+def _make_plan(mp, k_all, v_all, scratch: DecodeScratch, const: tuple):
+    """Check every tensor and width of a decode step once and pack what the
+    C entry point needs into a ``_Plan``."""
     what = "mega_decode_step"
+    H, hd, eps, pad_id, bos_id, eos_id, greedy, temperature, top_k = const
     L, S, N = k_all.shape
-    H, hd = n_heads, head_dim
     D = mp["emb"].shape[1]
     V = mp["head"].shape[0]
     F = mp["wgu"].shape[1] // 2
@@ -292,9 +465,9 @@ def _launch(tok_in, mp, k_all, v_all, t, off, suppress, seed, *, n_heads,
     bits = weight_bits(mp)
     if N != H * hd:
         raise ValueError(f"{what}: cache width {N} != n_heads*head_dim {H * hd} (GQA is not supported)")
-    _check_widths(what, bits, D=D, N=N, F=F)
-    if hd % 2:
-        raise ValueError(f"{what}: head_dim {hd} must be even")
+    _check_widths(what, bits, hd, D=D, N=N, F=F)
+    if V > MAX_VOCAB:
+        raise ValueError(f"{what}: vocab {V} beyond the sampler's {MAX_VOCAB}")
     i8, f32, bf = torch.int8, torch.float32, torch.bfloat16
     shapes = {
         "emb": ((V, D), bf), "invf": ((hd // 2,), f32),
@@ -309,32 +482,65 @@ def _launch(tok_in, mp, k_all, v_all, t, off, suppress, seed, *, n_heads,
     want = {name: (mp[name], shape, dtype) for name, (shape, dtype) in shapes.items()}
     want["k_all"] = (k_all, (L, S, N), bf)
     want["v_all"] = (v_all, (L, S, N), bf)
+    for name, (shape, dtype) in _scratch_spec(D, H, hd, F, V).items():
+        if name not in scratch:
+            raise ValueError(f"{what}: scratch lacks {name!r} (make it with decode_scratch)")
+        want[f"scratch {name}"] = (scratch[name], shape, dtype)
+    if "stamps" in scratch:
+        want["scratch stamps"] = (scratch["stamps"], _stamps_shape(L, dev), torch.int64)
+    _check_tensors(what, dev, want)
+    plan = _Plan(**{k: mp[k].data_ptr() for k in MP_KEYS},
+                 k_all=k_all.data_ptr(), v_all=v_all.data_ptr(),
+                 h=scratch["h"].data_ptr(), qkv=scratch["qkv"].data_ptr(),
+                 part=scratch["part"].data_ptr(), act=scratch["act"].data_ptr(),
+                 logits=scratch["logits"].data_ptr(), tok_out=scratch["tok"].data_ptr(),
+                 bar=scratch["bar"].data_ptr(),
+                 stamps=scratch["stamps"].data_ptr() if "stamps" in scratch else None,
+                 L=L, D=D, H=H, hd=hd, F=F, V=V, S=S, pad_id=pad_id, bos_id=bos_id, eos_id=eos_id,
+                 greedy=int(bool(greedy)), top_k=int(top_k), bits=bits,
+                 eps=float(eps), scale=hd ** -0.5, temperature=float(temperature))
+    return plan, ctypes.addressof(plan), _plan_pointers(mp, k_all, v_all, scratch), const
+
+
+def _plan_pointers(mp, k_all, v_all, scratch) -> tuple:
+    """What a plan's raw pointers were read from: a step compares this with
+    its own arguments, so a tensor replaced since (in ``mp``, in the
+    scratch, or another cache) raises instead of running on a stale one."""
+    return (tuple(mp[k].data_ptr() for k in MP_KEYS) + tuple(v.data_ptr() for v in scratch.values())
+            + (k_all.data_ptr(), v_all.data_ptr()) + tuple(k_all.shape))
+
+
+def _launch(tok_in, mp, k_all, v_all, t, off, suppress, seed, *, n_heads,
+            head_dim, eps, pad_id, bos_id, eos_id, greedy, temperature, top_k,
+            scratch):
+    what = "mega_decode_step"
+    dev = k_all.device
     if scratch is None:
         scratch = decode_scratch(mp, n_heads, head_dim, dev)
-    for name, (shape, dtype) in _scratch_spec(D, N, F, V).items():
-        want[f"scratch {name}"] = (scratch[name], shape, dtype)
-    _check_tensors(what, dev, want)
-    if 2 * V > SMEM_FLOATS or S + 3 * hd > SMEM_FLOATS:
-        raise ValueError(f"{what}: vocab {V} / cache {S} beyond the kernel's shared-memory cap")
+    elif not isinstance(scratch, DecodeScratch):
+        scratch = DecodeScratch(scratch)      # checked on every step
+    const = (n_heads, head_dim, eps, pad_id, bos_id, eos_id, greedy, temperature, top_k)
+    if scratch.plan is None:
+        scratch.plan = _make_plan(mp, k_all, v_all, scratch, const)
+    plan, plan_ptr, plan_pointers, plan_const = scratch.plan
+    if plan_const != const or plan_pointers != _plan_pointers(mp, k_all, v_all, scratch):
+        raise ValueError(f"{what}: this scratch was planned for other params, caches, buffers or "
+                         f"sampler settings; make one per (params, cache) with decode_scratch")
+    S = plan.S
     if not (0 <= off <= t < S):
         raise ValueError(f"{what}: need 0 <= off ({off}) <= t ({t}) < S ({S})")
-    if not (tok_in.is_cuda and tok_in.dtype == torch.int32 and tok_in.device == dev):
-        raise ValueError(f"{what}: tok_in must be an int32 tensor on the cache's device")
-    h, qkv, attn, act, logits, tok_out = (scratch[k] for k in ("h", "qkv", "attn", "act", "logits", "tok"))
-    ptrs = [tok_in.contiguous().data_ptr()] + [mp[k].data_ptr() for k in MP_KEYS] + [
-        k_all.data_ptr(), v_all.data_ptr(), h.data_ptr(), qkv.data_ptr(),
-        attn.data_ptr(), act.data_ptr(), logits.data_ptr(), tok_out.data_ptr()]
-    fn = function("decode_step", "mega_decode_step", _ARGTYPES)
-    rc = fn(*ptrs, L, D, H, hd, F, V, S, int(t), int(off), int(bool(suppress)),
-            int(seed) & 0x7FFFFFFF, float(eps), hd ** -0.5, pad_id, bos_id, eos_id,
-            int(bool(greedy)), float(temperature), int(top_k), bits,
-            torch.cuda.current_stream(dev).cuda_stream)
+    if not (tok_in.is_cuda and tok_in.dtype == torch.int32 and tok_in.device == dev
+            and tok_in.numel() == 1):
+        raise ValueError(f"{what}: tok_in must be an int32 [1] tensor on the cache's device")
+    rc = function("decode_step", "mega_decode_step", _STEP_ARGTYPES)(
+        plan_ptr, tok_in.data_ptr(), int(t), int(off), int(bool(suppress)),
+        int(seed) & 0x7FFFFFFF, torch.cuda.current_stream(dev).cuda_stream)
     check(rc, what)
-    if bits == 8:
+    if plan.bits == 8:
         mega_decode_step.launches += 1
     else:
         mega_decode_step.launches_int4 += 1
-    return h, tok_out
+    return scratch["h"], scratch["tok"]
 
 
 def mega_decode_step(
@@ -355,7 +561,9 @@ def mega_decode_step(
     On the card both are ``scratch`` buffers (``decode_scratch``; allocated
     per call when it is None), so the next step on the same scratch
     overwrites them. The next step may take the returned token as its
-    ``tok_in``. A CPU step ignores ``scratch``."""
+    ``tok_in``. A scratch serves one (params, cache, sampler settings): its
+    first step checks them and later steps only compare their addresses, so
+    a step with others raises. A CPU step ignores ``scratch``."""
     kw = dict(n_heads=n_heads, head_dim=head_dim, eps=eps, pad_id=pad_id,
               bos_id=bos_id, eos_id=eos_id, greedy=greedy,
               temperature=temperature, top_k=top_k)
@@ -387,8 +595,9 @@ def attn_step(
     """One decode attention half-layer (int8 weights). Unlike the JAX
     function, which returns new arrays, this one updates ``h`` and row ``t``
     of the caches in place and returns ``h``. ``scratch`` may hold the
-    kernel's ``qkv`` f32 [3N] and ``attn`` bf16 [N] buffers (as
-    ``decode_scratch`` makes them); they are allocated per call otherwise."""
+    kernels' ``qkv`` f32 [3N] and ``part`` f32 ``part_shape(H, hd)`` buffers
+    (as ``decode_scratch`` makes them); they are allocated per call
+    otherwise."""
     kw = dict(n_heads=n_heads, head_dim=head_dim, eps=eps)
     if h.device.type == "cpu":
         h.copy_(attn_step_plain(h, attn_norm, wqkv, wqs, wo, wos, invf, k_cache, v_cache, t, off, **kw))
@@ -400,27 +609,24 @@ def attn_step(
     D = h.shape[-1]
     if N != H * hd:
         raise ValueError(f"{what}: cache width {N} != n_heads*head_dim {H * hd} (GQA is not supported)")
-    _check_widths(what, 8, D=D, N=N)
-    if hd % 2:
-        raise ValueError(f"{what}: head_dim {hd} must be even")
+    _check_widths(what, 8, hd, D=D, N=N)
     f32, bf, i8 = torch.float32, torch.bfloat16, torch.int8
     qkv = scratch["qkv"] if scratch else torch.empty((3 * N,), dtype=f32, device=dev)
-    attn = scratch["attn"] if scratch else torch.empty((N,), dtype=bf, device=dev)
+    pshape = part_shape(H, hd)
+    part = scratch["part"] if scratch else torch.empty(pshape, dtype=f32, device=dev)
     _check_tensors(what, dev, {
         "h": (h, (1, D), bf), "attn_norm": (attn_norm, (D,), f32),
         "wqkv": (wqkv, (3 * N, D), i8), "wqs": (wqs, (3 * N,), f32),
         "wo": (wo, (D, N), i8), "wos": (wos, (D,), f32), "invf": (invf, (hd // 2,), f32),
         "k_cache": (k_cache, (S, N), bf), "v_cache": (v_cache, (S, N), bf),
-        "scratch qkv": (qkv, (3 * N,), f32), "scratch attn": (attn, (N,), bf),
+        "scratch qkv": (qkv, (3 * N,), f32), "scratch part": (part, pshape, f32),
     })
-    if S + 3 * hd > SMEM_FLOATS:
-        raise ValueError(f"{what}: cache {S} beyond the kernel's shared-memory cap")
     if not (0 <= off <= t < S):
         raise ValueError(f"{what}: need 0 <= off ({off}) <= t ({t}) < S ({S})")
     rc = function("decode_step", "attn_step", _ATTN_ARGTYPES)(
         h.data_ptr(), attn_norm.data_ptr(), wqkv.data_ptr(), wqs.data_ptr(), wo.data_ptr(),
         wos.data_ptr(), invf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        qkv.data_ptr(), attn.data_ptr(), D, H, hd, S, int(t), int(off), float(eps),
+        qkv.data_ptr(), part.data_ptr(), D, H, hd, S, int(t), int(off), float(eps),
         hd ** -0.5, 8, torch.cuda.current_stream(dev).cuda_stream)
     check(rc, what)
     attn_step.launches += 1

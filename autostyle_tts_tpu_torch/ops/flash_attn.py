@@ -15,7 +15,7 @@ import torch
 from .attention import causal_mask, sdpa
 from .cuda_build import check, function
 
-HEAD_DIMS = (16, 32, 64)   # head widths the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128)   # head widths the kernel is instantiated for
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -28,6 +28,13 @@ def flash_attention_plain(
     valid = slot[None, :] >= offset.to(q.device).long()[:, None]
     mask = causal_mask(T, S, device=q.device) & valid[:, None, None, :]
     return sdpa(q, k, v, mask)
+
+
+def launch_blocks(B: int, T: int, H: int) -> int:
+    """Thread blocks one call launches on the card: one per (batch row,
+    head, tile of query rows), the tile height asked of the built library."""
+    rows = function("flash_attn", "flash_attn_block_rows", [])()
+    return -(-T // rows) * H * B
 
 
 def _launch(q, k, v, offset) -> torch.Tensor:

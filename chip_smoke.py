@@ -12,9 +12,14 @@ Phases (any failure exits non-zero):
    one process per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it, and time both (CUDA events), beside one
-   library call where one computes the same function: flash attention, the
-   decode step with int8 and with int4 weights, its two half-layers
-   (``attn_step``, ``mlp_step``) and the fused log-mel at both prompt shapes;
+   library call where one computes the same function: flash attention (the
+   prefill shape, a GQA batch and the embedder's hd = 128 geometry), the
+   decode step with int8 and with int4 weights (the int8 step's device time
+   is broken down by phase from the kernel's own barrier timestamps), its
+   two half-layers
+   (``attn_step``, ``mlp_step``, timed over all layers' weights in turn so
+   they stream from device memory) and the fused log-mel at both prompt
+   shapes;
 4. drive the main paths at the flagship configuration with an int8 token
    LM and random weights from a seeded generator, the kernels' launch counts
    set to 0 before each path and read after it:
@@ -33,6 +38,7 @@ Float32 matrix products and convolutions run in full f32 (TF32 off).
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -61,7 +67,8 @@ F32_FLOP_PER_S = 67e12    # outside the tensor cores
 # tolerances of the kernel-vs-plain phases (both on the card, same inputs)
 FLASH_ATOL = 2e-2     # bf16 output, |out| < 4: two bf16 ulps
 DECODE_RTOL = 2e-2    # bf16 residual over 14 layers: a few ulps of max|h|
-LOGIT_GAP = 5e-2      # the greedy token must agree where the top-2 gap is wider
+LOGIT_GAP = 5e-2      # the token must agree where the top-2 gap (and the top-k margin) is wider
+HEAD_ATOL = 1e-4      # the kernel's logits against the plain head on its own residual (f32 sums in another order)
 LOGMEL_ATOL = 1e-3    # log units: f32 sums over the window in another order
 
 FLASH_SRC = "autostyle_tts_tpu_torch/csrc/flash_attn.cu"
@@ -87,6 +94,20 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_host_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean host milliseconds to enqueue fn() (no wait for the device in
+    the timed loop; the queue is drained before and after)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return host
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -124,7 +145,8 @@ def flash_case(B, T, H, K, hd, offsets, gen):
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 + off.numel() * 4
     b, by = bound_ms(nbytes, 4.0 * hd * n_pairs, BF16_FLOP_PER_S)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=b, bound_by=by, shape=[B, T, H, K, hd], offsets=list(offsets))
+                bound_ms=b, bound_by=by, shape=[B, T, H, K, hd], offsets=list(offsets),
+                blocks=flash_attn.launch_blocks(B, T, H))
 
 
 # ----------------------------------------------------------------------------- decode step
@@ -140,6 +162,29 @@ def four_bit_exact(lm):
         return QTensor(q=q, s=t.s * (127.0 / 7.0))
     layers = {k: fix(v) if isinstance(v, QTensor) else v for k, v in lm["layers"].items()}
     return dict(lm, layers=layers, speech_head=fix(lm["speech_head"]))
+
+
+def decisive(logits, tl, suppress: bool, seed: int, skw: dict) -> bool:
+    """Whether the plain sampler's token on these logits must also be the
+    kernel's: the winner leads by more than LOGIT_GAP, and (top-k sampling)
+    it still wins by that much when the top-k threshold moves LOGIT_GAP
+    either way, so that no entry near the threshold decides the step. The
+    kernel's logits may differ from the plain step's by a few bf16 roundings
+    of the residual (held to DECODE_RTOL); on every step its head is held to
+    the plain head on its own residual (HEAD_ATOL) and its sampler to the
+    plain sampler on its own logits (equality)."""
+    kw = dict(pad_id=tl.speech_pad, bos_id=tl.speech_bos, eos_id=tl.speech_eos, suppress=suppress,
+              seed=seed, **{"greedy": True, "temperature": 1.0, "top_k": 0, **skw})
+    shifts = (0.0,) if kw["greedy"] or kw["top_k"] <= 0 else (-LOGIT_GAP, 0.0, LOGIT_GAP)
+    winners = set()
+    for shift in shifts:
+        y = decode_step.sample_scores_plain(
+            logits, **kw, threshold=lambda y, k: decode_step.topk_threshold_plain(y, k) + shift)
+        top2 = torch.topk(y, 2)
+        if float(top2.values[0] - top2.values[1]) <= LOGIT_GAP:
+            return False
+        winners.add(int(top2.indices[0]))
+    return len(winners) == 1
 
 
 def decode_case(cfg: Config, steps: int, gen, bits: int = 8):
@@ -167,23 +212,36 @@ def decode_case(cfg: Config, steps: int, gen, bits: int = 8):
     kw = dict(n_heads=tl.n_heads, head_dim=tl.head_dim, eps=tl.norm_eps, pad_id=tl.speech_pad,
               bos_id=tl.speech_bos, eos_id=tl.speech_eos)
     sampled = dict(greedy=False, temperature=1.0, top_k=25)
-    h_err = cache_err = 0.0
+    h_err = cache_err = head_err = logit_err = 0.0
     h_scale = 0.0
     checked = {"greedy": 0, "sampled": 0}
+    loop_scratch = {mode: decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev)
+                    for mode in checked}    # a scratch serves one sampler setting
     for i, tok in enumerate(toks):
         t = P + i
         tin = torch.tensor([tok], dtype=torch.int32, device=dev)
         for mode, skw in (("greedy", dict(greedy=True)), ("sampled", sampled)):
             # each mode writes row t again from the same inputs
-            hk, tk = decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, i < 2, 1000 + i, **kw, **skw)
+            hk, tk = decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, i < 2, 1000 + i,
+                                                  **kw, **skw, scratch=loop_scratch[mode])
             hp, tp = decode_step.mega_decode_step_plain(tin, mp_plain, k_plain, v_plain, t, off, i < 2, 1000 + i, **kw, **skw)
             torch.cuda.synchronize()
-            y = decode_step.sample_scores_plain(
-                decode_step.head_logits_plain(hp, mp_plain, tl.norm_eps), pad_id=tl.speech_pad,
-                bos_id=tl.speech_bos, eos_id=tl.speech_eos, suppress=i < 2, seed=1000 + i,
+            # the kernel's head alone: its logits against the plain head on its own residual
+            logits_p = decode_step.head_logits_plain(hp, mp_plain, tl.norm_eps)
+            logits_k = loop_scratch[mode]["logits"]
+            head_err = max(head_err, float(
+                (logits_k - decode_step.head_logits_plain(hk, mp_plain, tl.norm_eps)).abs().max()))
+            logit_err = max(logit_err, float((logits_k - logits_p).abs().max()))
+            # the kernel's sampler alone: on the kernel's own logits the plain
+            # sampler must pick the same token on every step
+            on_kernel_logits = decode_step.sample_plain(
+                logits_k, pad_id=tl.speech_pad, bos_id=tl.speech_bos,
+                eos_id=tl.speech_eos, suppress=i < 2, seed=1000 + i,
                 **{"greedy": True, "temperature": 1.0, "top_k": 0, **skw})
-            top2 = torch.topk(y, 2).values
-            if float(top2[0] - top2[1]) > LOGIT_GAP:
+            check(int(tk[0]) == on_kernel_logits,
+                  f"decode step {i} ({mode}): the kernel's sampler picked {int(tk[0])}, the plain "
+                  f"sampler {on_kernel_logits} from the same logits")
+            if decisive(logits_p, tl, i < 2, 1000 + i, skw):
                 check(int(tk[0]) == int(tp[0]),
                       f"decode step {i} ({mode}): kernel token {int(tk[0])} != plain {int(tp[0])}")
                 checked[mode] += 1
@@ -196,13 +254,32 @@ def decode_case(cfg: Config, steps: int, gen, bits: int = 8):
     check(cache_err <= DECODE_RTOL * max(c_scale, 1.0), f"decode cache err {cache_err}")
     check(torch.equal(k_kern[:, :off], k_plain[:, :off]) and torch.equal(k_kern[:, P + steps:], k_plain[:, P + steps:]),
           "decode step wrote outside its row")
-    check(checked["greedy"] >= steps // 2, f"too few decisive greedy steps: {checked}")
+    check(head_err <= HEAD_ATOL, f"decode head: logits err {head_err} on the kernel's own residual")
+    check(min(checked.values()) >= steps // 2, f"too few decisive steps: {checked}")
 
     t = P + 64   # mid-generation
     tin = torch.tensor([toks[0]], dtype=torch.int32, device=dev)
-    scratch = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev)   # as the decode loop holds it
-    ms = time_ms(lambda: decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, False, 7,
-                                                      **kw, **sampled, scratch=scratch), 50)
+    # the timing state, on a scratch of its own (as the decode loop holds one), checked once more
+    hp, tp = decode_step.mega_decode_step_plain(tin, mp_plain, k_plain, v_plain, t, off, False, 7, **kw, **sampled)
+    scratch = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev)
+    step = lambda: decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, False, 7, **kw, **sampled,
+                                                scratch=scratch)
+    hk, tk = step()
+    torch.cuda.synchronize()
+    mid_err = max(float((hk.float() - hp.float()).abs().max()),
+                  float((k_kern[:, t].float() - k_plain[:, t].float()).abs().max()),
+                  float((v_kern[:, t].float() - v_plain[:, t].float()).abs().max()))
+    check(mid_err <= DECODE_RTOL * max(float(hp.float().abs().max()), 1.0),
+          f"decode step at slot {t} ({bits} bits): err {mid_err} against the plain step")
+    if decisive(decode_step.head_logits_plain(hp, mp_plain, tl.norm_eps), tl, False, 7, sampled):
+        check(int(tk[0]) == int(tp[0]), f"decode step at slot {t}: token {int(tk[0])} != plain {int(tp[0])}")
+    ms = time_ms(step, 100)
+    host_ms = time_host_ms(step, 50)
+    stamped = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev, stamps=True)
+    steps_of = dict(
+        step=step, stamps=stamped["stamps"],
+        stamped=lambda: decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, False, 7, **kw, **sampled,
+                                                     scratch=stamped))
     plain_ms = time_ms(lambda: decode_step.mega_decode_step_plain(tin, mp_plain, k_plain, v_plain, t, off, False, 7, **kw, **sampled), 5, warmup=1)
     n_weights = L * (3 * N * D + D * N + 2 * F * D + D * F) + V * D
     scales = 4 * (L * (3 * N + D + 2 * F + D) + V) + 4 * (2 * L * D + D)
@@ -211,16 +288,61 @@ def decode_case(cfg: Config, steps: int, gen, bits: int = 8):
     nbytes = n_weights * bits // 8 + scales + D * 2 + cache_bytes + D * 2 + 4
     ops = 2 * n_weights + 4 * L * N * (n_keys + 1)
     b, by = bound_ms(nbytes, ops, INT8_OP_PER_S)
-    rec = dict(max_abs_err=max(h_err, cache_err), ms=ms, plain_ms=plain_ms, library_ms=None,
-               bound_ms=b, bound_by=by, bits=bits, steps=steps, decisive=checked, h_max=h_scale,
-               bytes_per_step=nbytes, cache_slots=S, t=t)
-    return rec, mp, (k_kern, v_kern, t, off)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rec = dict(max_abs_err=max(h_err, cache_err, mid_err), ms=ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=b, bound_by=by, bits=bits, steps=steps, decisive=checked,
+               h_max=h_scale, head_logits_err=head_err, logits_err_vs_plain_step=logit_err,
+               bytes_per_step=nbytes, cache_slots=S, t=t, live_keys=n_keys,
+               attn_blocks=dict(half_layer=tl.n_heads * decode_step.attn_splits(n_keys),
+                                step=tl.n_heads * decode_step.attn_splits(n_keys, sms // tl.n_heads)),
+               host_enqueue_ms=host_ms)
+    return rec, mp, (k_kern, v_kern, t, off), steps_of
+
+
+LAYER_PHASES = ("qkv", "attention", "wo", "gate_up", "down")   # a layer's grid barriers, in order
+
+
+def barrier_times(step, stamps: torch.Tensor, n_layers: int, steps: int = 10) -> dict:
+    """Where the decode step's device time goes, from the timestamps its
+    blocks leave at every grid barrier (``decode_scratch(..., stamps=True)``;
+    ``step`` runs one step on that scratch): per phase, the microseconds
+    from the last block's arrival at the barrier before it to the median
+    block's leaving it (``barrier_us``: the barrier itself and whatever the
+    leaving poll queues behind) and from leaving it to the slowest block's
+    arrival at the next (``body_us``: prologue, dot products, epilogue);
+    means over the layers and over ``steps`` steps."""
+    step()
+    n_bar = 5 * n_layers + 2
+    acc = np.zeros((2, n_bar))
+    total = 0.0
+    for _ in range(steps):
+        step()
+        torch.cuda.synchronize()
+        st = stamps.cpu().numpy().astype(np.float64)
+        arrive, leave = st[:n_bar, :, 0], st[:n_bar, :, 1]
+        nxt = st[1:n_bar + 1, :, 0]
+        acc[0] += np.median(leave, axis=1) - arrive.max(axis=1)
+        acc[1] += (nxt - leave).max(axis=1)
+        total += st[n_bar, :, 0].max() - arrive[0].min()
+    acc /= steps * 1e3
+    rec = {}
+    for i, name in enumerate(LAYER_PHASES):
+        idx = np.arange(i, 5 * n_layers, 5)
+        rec[name] = dict(barrier_us=float(acc[0, idx].mean()), body_us=float(acc[1, idx].mean()))
+    for i, name in ((5 * n_layers, "head"), (5 * n_layers + 1, "sampler")):
+        rec[name] = dict(barrier_us=float(acc[0, i]), body_us=float(acc[1, i]))
+    rec["step_us"] = total / steps / 1e3
+    rec["barriers_us"] = float(acc[0].sum())
+    rec["bodies_us"] = float(acc[1].sum())
+    return rec
 
 
 def half_layer_case(cfg: Config, mp, cache, gen):
     """``attn_step`` and ``mlp_step`` on layer 0's views of the decode
     case's int8 weights and its cache state, each against its plain
-    version from the same residual."""
+    version from the same residual; timed over all layers' weights and
+    caches in turn (more than the L2 holds, so they stream from device
+    memory as in a step) and, under ``ms_one_layer``, on layer 0 alone."""
     dev = torch.device("cuda")
     tl = cfg.token_lm
     k_all, v_all, t, off = cache
@@ -253,9 +375,22 @@ def half_layer_case(cfg: Config, mp, cache, gen):
 
     # each timed call adds to the same residual in place: the values move,
     # the bytes streamed per call do not
-    a_ms = time_ms(lambda: decode_step.attn_step(h, *a_args, k1, v1, t, off, scratch=scratch, **kw), 200)
+    a_one = time_ms(lambda: decode_step.attn_step(h, *a_args, k1, v1, t, off, scratch=scratch, **kw), 200)
+    m_one = time_ms(lambda: decode_step.mlp_step(hm, *m_args, eps=tl.norm_eps, scratch=scratch), 200)
+    L = tl.n_layers
+    a_all = [(mp["attn_norm"][l], mp["wqkv"][l], mp["wqs"][l], mp["wo"][l], mp["wos"][l], mp["invf"])
+             for l in range(L)]
+    m_all = [(mp["mlp_norm"][l], mp["wgu"][l], mp["wgus"][l], mp["wd"][l], mp["wds"][l]) for l in range(L)]
+    la, lm = itertools.cycle(range(L)), itertools.cycle(range(L))
+
+    def attn_next():
+        l = next(la)
+        decode_step.attn_step(h, *a_all[l], k_all[l], v_all[l], t, off, scratch=scratch, **kw)
+
+    a_ms = time_ms(attn_next, 20 * L, warmup=L)
+    m_ms = time_ms(lambda: decode_step.mlp_step(hm, *m_all[next(lm)], eps=tl.norm_eps, scratch=scratch),
+                   20 * L, warmup=L)
     a_plain = time_ms(lambda: decode_step.attn_step_plain(h0, *a_args, k2, v2, t, off, **kw), 20)
-    m_ms = time_ms(lambda: decode_step.mlp_step(hm, *m_args, eps=tl.norm_eps, scratch=scratch), 200)
     m_plain = time_ms(lambda: decode_step.mlp_step_plain(want, *m_args, eps=tl.norm_eps), 20)
     n_keys = t - off
     a_bytes = (3 * N * D + D * N) + 4 * (3 * N + D) + 4 * D + 2 * tl.head_dim + 2 * 2 * D \
@@ -264,9 +399,9 @@ def half_layer_case(cfg: Config, mp, cache, gen):
     m_bytes = 3 * F * D + 4 * (2 * F + D) + 4 * D + 2 * 2 * D
     m_b, m_by = bound_ms(m_bytes, 2 * 3 * F * D, INT8_OP_PER_S)
     return (dict(max_abs_err=a_err, ms=a_ms, plain_ms=a_plain, library_ms=None, bound_ms=a_b,
-                 bound_by=a_by, h_max=scale, t=t, live_keys=n_keys),
+                 bound_by=a_by, h_max=scale, t=t, live_keys=n_keys, ms_one_layer=a_one),
             dict(max_abs_err=m_err, ms=m_ms, plain_ms=m_plain, library_ms=None, bound_ms=m_b,
-                 bound_by=m_by, h_max=m_scale))
+                 bound_by=m_by, h_max=m_scale, ms_one_layer=m_one))
 
 
 # ----------------------------------------------------------------------------- log-mel
@@ -533,7 +668,10 @@ def main() -> int:
     tl, a = cfg.token_lm, cfg.audio
     flash_main = flash_case(1, 256, tl.n_heads, tl.n_kv_heads, tl.head_dim, [62], gen)
     flash_gqa = flash_case(2, 256, tl.n_heads, 4, tl.head_dim, [0, 101], gen)
-    for name, r in (("prefill", flash_main), ("gqa", flash_gqa)):
+    emb = cfg.embedder     # the reference's kernel also serves the embedder trunk, at hd = 128
+    flash_128 = flash_case(1, 256, emb.n_heads, emb.n_kv_heads, emb.head_dim, [62],
+                           torch.Generator(device="cuda").manual_seed(1235))
+    for name, r in (("prefill", flash_main), ("gqa", flash_gqa), ("embedder hd128", flash_128)):
         print(f"flash {name}", json.dumps(r), flush=True)
         check(r["max_abs_err"] <= FLASH_ATOL, f"flash {name}: err {r['max_abs_err']} > {FLASH_ATOL}")
     # the two legs of one prompt_features call on 3 s wavs in the 4 s bucket, B = 2
@@ -545,32 +683,43 @@ def main() -> int:
     for name, r in (("16k", mel16), ("24k", mel24)):
         print(f"log_mel {name}", json.dumps(r), flush=True)
         check(r["max_abs_err"] <= LOGMEL_ATOL, f"log_mel {name}: err {r['max_abs_err']} > {LOGMEL_ATOL}")
-    dec, mp8, cache8 = decode_case(cfg, 16, gen)
+    dec, mp8, cache8, steps8 = decode_case(cfg, 16, gen)
     print("decode int8", json.dumps(dec), flush=True)
     attn_rec, mlp_rec = half_layer_case(cfg, mp8, cache8, gen)
     print("attn_step", json.dumps(attn_rec), flush=True)
     print("mlp_step", json.dumps(mlp_rec), flush=True)
-    del mp8, cache8
-    dec4, _, _ = decode_case(cfg, 16, gen, bits=4)
+    dec4, _, _, steps4 = decode_case(cfg, 16, gen, bits=4)
     print("decode int4", json.dumps(dec4), flush=True)
+    # the two widths in turns within one stretch; then the int8 step by phase
+    turns = {8: 0.0, 4: 0.0}
+    for bits, steps in ((8, steps8), (4, steps4), (4, steps4), (8, steps8)):
+        turns[bits] += 0.5 * time_ms(steps["step"], 50)
+    layers_as_half_layers_ms = tl.n_layers * (attn_rec["ms"] + mlp_rec["ms"])
+    print("decode phases", json.dumps(dict(
+        ms_in_turns_int8=turns[8], ms_in_turns_int4=turns[4], host_enqueue_ms=dec["host_enqueue_ms"],
+        phases_us=barrier_times(steps8["stamped"], steps8["stamps"], tl.n_layers),
+        layers_as_half_layer_calls_ms=layers_as_half_layers_ms,
+        attn_blocks=dec["attn_blocks"], flash_blocks=flash_main["blocks"],
+        flash_ms=flash_main["ms"], flash_library_ms=flash_main["library_ms"])), flush=True)
+    del mp8, cache8, steps8, steps4
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     eng, store, pa = path_a(cfg, gen)
     print("path A", json.dumps({k: v for k, v in pa.items() if k != "requests"}), flush=True)
-    print("profile db_served", json.dumps(profile_request(
-        eng, *eng.prompt_features_from_store(store, [0, 1]))), flush=True)
-    print("profile raw_wavs", json.dumps(profile_request(eng, synthetic_wav(7), synthetic_wav(8))), flush=True)
     pb = path_b(eng, store, cfg, gen)
     print("path B", json.dumps(pb), flush=True)
     pc = path_c(cfg, store)
     print("path C", json.dumps({k: v for k, v in pc.items() if k != "requests"}), flush=True)
+    print("profile db_served", json.dumps(profile_request(
+        eng, *eng.prompt_features_from_store(store, [0, 1]))), flush=True)
+    print("profile raw_wavs", json.dumps(profile_request(eng, synthetic_wav(7), synthetic_wav(8))), flush=True)
     step8 = [r["decode_ms_per_step"] for r in pa["requests"][1:4]]
     step4 = [r["decode_ms_per_step"] for r in pc["requests"]]
     print("int4 vs int8", json.dumps(dict(
         engine_gb_int8=pa["engine_gb"], engine_gb_int4=pc["engine_gb"],
         decode_ms_per_step_int8=step8, decode_ms_per_step_int4=step4,
-        kernel_ms_int8=dec["ms"], kernel_ms_int4=dec4["ms"])), flush=True)
+        kernel_ms_int8=turns[8], kernel_ms_int4=turns[4])), flush=True)
 
     def entry(name, source, replaces, launches, rec):
         return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,

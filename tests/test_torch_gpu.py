@@ -35,11 +35,16 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("H,K,hd,offsets", [(4, 4, 64, [0, 37]), (8, 2, 32, [5, 130]),
-                                            (4, 1, 16, [64, 0])])
-def test_flash_kernel_matches_plain(cuda, H, K, hd, offsets):
+@pytest.mark.parametrize("T,H,K,hd,offsets", [
+    (192, 4, 4, 64, [0, 37]), (192, 8, 2, 32, [5, 130]), (192, 4, 1, 16, [64, 0]),
+    (192, 4, 4, 128, [0, 37]), (192, 8, 2, 128, [5, 130]),     # hd = 128, plain and GQA
+    (150, 4, 4, 64, [0, 70]), (45, 4, 2, 128, [3, 44]),        # T not a multiple of the tile
+    (192, 4, 4, 64, [63, 64]), (192, 4, 2, 32, [31, 32]),      # offset at the edges of a tile
+    (192, 4, 4, 64, [65, 127]),                                # ... and inside one
+])
+def test_flash_kernel_matches_plain(cuda, T, H, K, hd, offsets):
     g = torch.Generator(device=cuda).manual_seed(0)
-    B, T = len(offsets), 192
+    B = len(offsets)
     q = torch.randn((B, T, H, hd), generator=g, device=cuda).to(torch.bfloat16)
     k = torch.randn((B, T, K, hd), generator=g, device=cuda).to(torch.bfloat16)
     v = torch.randn((B, T, K, hd), generator=g, device=cuda).to(torch.bfloat16)
@@ -56,7 +61,7 @@ def test_flash_kernel_matches_plain(cuda, H, K, hd, offsets):
 def test_flash_kernel_raises_for_unbuilt_head_dim(cuda):
     """A head width the kernel is not built for raises on the card; nothing
     takes the plain version there."""
-    q = torch.zeros((1, 128, 2, 128), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((1, 128, 2, 48), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q, torch.zeros((1,), dtype=torch.int32, device=cuda))
 
@@ -70,31 +75,99 @@ def test_flash_kernel_rejects_f32(cuda):
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("greedy", [True, False])
 def test_decode_step_kernel_matches_plain(cuda, greedy, bits):
+    """Six consecutive steps, each reading the rows the kernel itself wrote
+    before; then single steps at live-slot counts t - off in {0, 1, 7, 220,
+    S - 1 - off}: the empty cache, one split, and every split count up to
+    the cap."""
     cfg = tiny_config().token_lm
     g = torch.Generator(device=cuda).manual_seed(1)
     lm = quantize_tree(token_lm.init_params(cfg, g))
     mp = token_lm.mega_decode_params(lm, cfg, bits=bits)
     count = "launches" if bits == 8 else "launches_int4"
     n0 = getattr(decode_step.mega_decode_step, count)
-    L, N, S, off = cfg.n_layers, cfg.dim, 48, 4
+    L, N, S, off = cfg.n_layers, cfg.dim, 448, 4
     k1 = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
     v1 = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
     k2, v2 = k1.clone(), v1.clone()
     kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=cfg.norm_eps,
               pad_id=cfg.speech_pad, bos_id=cfg.speech_bos, eos_id=cfg.speech_eos,
               greedy=greedy, temperature=0.8, top_k=5)
+    scratch = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda)
     tok = torch.tensor([3], dtype=torch.int32, device=cuda)
-    for i, t in enumerate(range(20, 26)):
-        hk, tk = decode_step.mega_decode_step(tok, mp, k1, v1, t, off, i == 0, 77 + i, **kw)
+
+    def step(i, t):
+        hk, tk = decode_step.mega_decode_step(tok, mp, k1, v1, t, off, i == 0, 77 + i, scratch=scratch, **kw)
         hp, tp = decode_step.mega_decode_step_plain(tok, mp, k2, v2, t, off, i == 0, 77 + i, **kw)
         torch.cuda.synchronize()
         scale = max(hp.float().abs().max().item(), 1.0)
-        assert (hk.float() - hp.float()).abs().max().item() <= 2e-2 * scale
-        assert (k1[:, t].float() - k2[:, t].float()).abs().max().item() <= 2e-2 * scale
-        assert int(tk[0]) == int(tp[0])
-        tok = tp
-    assert torch.equal(k1[:, :20], k2[:, :20]) and torch.equal(v1[:, 26:], v2[:, 26:])
-    assert getattr(decode_step.mega_decode_step, count) == n0 + 6
+        assert (hk.float() - hp.float()).abs().max().item() <= 2e-2 * scale, t
+        assert (k1[:, t].float() - k2[:, t].float()).abs().max().item() <= 2e-2 * scale, t
+        assert (v1[:, t].float() - v2[:, t].float()).abs().max().item() <= 2e-2 * scale, t
+        assert int(tk[0]) == int(tp[0]), t
+        return tp
+
+    for i, t in enumerate(range(20, 26)):
+        tok = step(i, t)
+    rest = [s for s in range(S) if not 20 <= s < 26]
+    assert torch.equal(k1[:, rest], k2[:, rest]) and torch.equal(v1[:, rest], v2[:, rest])
+    slots = [off + n for n in (0, 1, 7, 220, S - 1 - off)]
+    for i, t in enumerate(slots):
+        # a single step each: it starts from the plain step's rows (those of the six steps too)
+        k1.copy_(k2), v1.copy_(v2)
+        tok = step(6 + i, t)
+    written = set(range(20, 26)) | set(slots)
+    rest = [s for s in range(S) if s not in written]
+    assert torch.equal(k1[:, rest], k2[:, rest]) and torch.equal(v1[:, rest], v2[:, rest])
+    assert getattr(decode_step.mega_decode_step, count) == n0 + 6 + len(slots)
+
+
+def test_decode_step_scratch_planned_for_other_tensors_raises(cuda):
+    """A scratch keeps the plan of its first step: other params (a tensor
+    replaced inside the same dict too), another cache, a replaced buffer or
+    other sampler settings raise instead of running on stale pointers; a
+    scratch of the wrong shapes raises at its first step."""
+    cfg = tiny_config().token_lm
+    g = torch.Generator(device=cuda).manual_seed(8)
+    lm = quantize_tree(token_lm.init_params(cfg, g))
+    mp = token_lm.mega_decode_params(lm, cfg)
+    L, N, S = cfg.n_layers, cfg.dim, 48
+    k = torch.zeros((L, S, N), dtype=torch.bfloat16, device=cuda)
+    v = torch.zeros_like(k)
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=cfg.norm_eps,
+              pad_id=cfg.speech_pad, bos_id=cfg.speech_bos, eos_id=cfg.speech_eos)
+    tok = torch.tensor([3], dtype=torch.int32, device=cuda)
+    scratch = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda)
+    decode_step.mega_decode_step(tok, mp, k, v, 5, 0, False, 1, scratch=scratch, **kw)
+    decode_step.mega_decode_step(tok, mp, k, v, 6, 0, False, 2, scratch=scratch, **kw)   # same plan
+    decode_step.mega_decode_step(tok, dict(mp), k, v, 6, 0, False, 2, scratch=scratch, **kw)   # same tensors
+    n0 = decode_step.mega_decode_step.launches
+    with pytest.raises(ValueError, match="planned for other"):
+        decode_step.mega_decode_step(tok, dict(mp, wo=mp["wo"].clone()), k, v, 7, 0, False, 3,
+                                     scratch=scratch, **kw)
+    old = mp["wgu"]
+    mp["wgu"] = old.clone()                 # replaced inside the dict the plan was made from
+    with pytest.raises(ValueError, match="planned for other"):
+        decode_step.mega_decode_step(tok, mp, k, v, 7, 0, False, 3, scratch=scratch, **kw)
+    mp["wgu"] = old
+    with pytest.raises(ValueError, match="planned for other"):
+        decode_step.mega_decode_step(tok, mp, k.clone(), v, 7, 0, False, 3, scratch=scratch, **kw)
+    with pytest.raises(ValueError, match="planned for other"):
+        decode_step.mega_decode_step(tok, mp, k, v, 7, 0, False, 3, scratch=scratch,
+                                     **dict(kw, greedy=False, top_k=5))
+    old = scratch["act"]
+    scratch["act"] = torch.empty_like(old)  # a buffer replaced after the first step
+    with pytest.raises(ValueError, match="planned for other"):
+        decode_step.mega_decode_step(tok, mp, k, v, 7, 0, False, 3, scratch=scratch, **kw)
+    scratch["act"] = old
+    with pytest.raises(ValueError, match="off"):
+        decode_step.mega_decode_step(tok, mp, k, v, S, 0, False, 3, scratch=scratch, **kw)
+    bad = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda)
+    bad["part"] = bad["part"][:, :1].contiguous()
+    with pytest.raises(ValueError, match="part"):
+        decode_step.mega_decode_step(tok, mp, k, v, 7, 0, False, 3, scratch=bad, **kw)
+    assert decode_step.mega_decode_step.launches == n0
+    decode_step.mega_decode_step(tok, mp, k, v, 7, 0, False, 3, scratch=scratch, **kw)   # restored: runs
+    torch.cuda.synchronize()
 
 
 def test_half_layer_kernels_match_plain(cuda):
@@ -107,7 +180,7 @@ def test_half_layer_kernels_match_plain(cuda):
     layers = token_lm.unstack_decode_params(token_lm.share_decode_weights(lm, mp), cfg)
     assert layers[1]["wqkv"].data_ptr() == mp["wqkv"][1].data_ptr()   # views, no copy
     lw = layers[1]
-    N, S, t, off = cfg.dim, 48, 21, 4
+    N, S, t, off = cfg.dim, 448, 321, 4     # 317 live slots: 14 splits
     k1 = (torch.randn((S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
     v1 = (torch.randn((S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
     k2, v2 = k1.clone(), v1.clone()
@@ -207,7 +280,6 @@ def test_fused_log_mel_raises_beyond_shared_memory(cuda):
         fused_log_mel(frames.double(), basis, basis, torch.zeros((2049, 80), device=cuda))
 
 
-
 def test_decode_step_scratch_reuse_matches_fresh(cuda):
     """The decode loop's pattern: one scratch for every step, the returned
     token fed back as the next step's input. Same tokens and cache as
@@ -232,3 +304,29 @@ def test_decode_step_scratch_reuse_matches_fresh(cuda):
         assert tok_shared.data_ptr() == scratch["tok"].data_ptr()
         assert int(tok_shared[0]) == int(tok_fresh[0])
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+def test_decode_step_stamps_cover_every_barrier(cuda):
+    """``decode_scratch(..., stamps=True)``: every block of the step's
+    kernel leaves an arrival and a later leave time at each of its 5 L + 2
+    grid barriers, nobody leaves a barrier before the last block arrived,
+    and the slot after them holds the step's end."""
+    cfg = tiny_config().token_lm
+    g = torch.Generator(device=cuda).manual_seed(9)
+    mp = token_lm.mega_decode_params(quantize_tree(token_lm.init_params(cfg, g)), cfg)
+    L, N, S = cfg.n_layers, cfg.dim, 48
+    k = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    v = k.clone()
+    scratch = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda, stamps=True)
+    tok = torch.tensor([3], dtype=torch.int32, device=cuda)
+    decode_step.mega_decode_step(tok, mp, k, v, 30, 4, False, 1, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+                                 eps=cfg.norm_eps, pad_id=cfg.speech_pad, bos_id=cfg.speech_bos,
+                                 eos_id=cfg.speech_eos, scratch=scratch)
+    torch.cuda.synchronize()
+    st = scratch["stamps"].cpu()
+    n_bar = 5 * L + 2
+    assert st.shape[0] == n_bar + 1 and st.shape[2] == 2
+    arrive, leave = st[:n_bar, :, 0], st[:n_bar, :, 1]
+    assert bool((arrive > 0).all()) and bool((leave >= arrive).all())
+    assert bool((leave.min(dim=1).values >= arrive.max(dim=1).values).all())
+    assert bool((arrive[1:] >= leave[:-1]).all()) and bool((st[n_bar, :, 0] >= leave[-1]).all())

@@ -477,3 +477,143 @@ def test_engine_with_int4_serves_and_keeps_int8_prefill():
                                mel24=np.zeros((10, 16), np.float32))
     wav = next(eng.inference_tts_with_st("hi", "style", f, f, max_seconds=1.0))["tts_speech"]
     assert wav.shape[1] > 0 and np.isfinite(wav).all()
+
+
+# ------------------------------------------- split attention and tiled sampler
+
+
+def _attn_vector_inputs(n, seed=0, H=4, hd=16):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    # scores a few units wide, so the running max really moves between splits
+    return f(H, hd) * 3.0, f(H, hd), f(H, hd), f(n, H, hd), f(n, H, hd)
+
+
+def _even_bounds(n, splits):
+    per = -(-n // splits) if n else 0
+    return [(min(n, s * per), min(n, (s + 1) * per)) for s in range(splits)]
+
+
+@pytest.mark.parametrize("n,bounds", [
+    (40, _even_bounds(40, 1)), (40, _even_bounds(40, 2)), (40, _even_bounds(40, 3)),
+    (40, _even_bounds(40, 8)),
+    (37, [(0, 16), (16, 32), (32, 37)]),            # ragged last split
+    (37, [(0, 1), (1, 30), (30, 30), (30, 37)]),    # an empty split in the middle
+    (5, _even_bounds(5, 8)),                        # more splits than slots
+    (0, [(0, 0)]), (0, []),                         # t == off: the current token alone
+], ids=["1", "2", "3", "8", "ragged", "empty-split", "5-in-8", "t==off", "t==off-no-bounds"])
+def test_attn_split_merge_matches_one_piece(n, bounds):
+    """Partials over any partition of the live slots, merged as the wo
+    prologue merges them, equal the one-piece attention to 1e-6 in f32,
+    before the bf16 rounding."""
+    q, k, v, kc, vc = _attn_vector_inputs(n)
+    want = decode_step.attn_vector_plain(q, k, v, kc, vc)
+    got = decode_step.attn_vector_split_plain(q, k, v, kc, vc, bounds)
+    assert got.shape == want.shape == (4, 16)
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 23, 24, 25, 220, 383, 384, 385, 1000])
+def test_split_bounds_partition_the_live_slots(n):
+    """The kernels' own split rule: contiguous, covering [0, n), at most
+    MAX_SPLITS splits, 160 blocks of (head, split) at the flagship state."""
+    b = decode_step.split_bounds(n)
+    assert len(b) == decode_step.attn_splits(n) <= decode_step.MAX_SPLITS
+    assert b[0][0] == 0 and b[-1][1] == n
+    assert all(b[i][1] == b[i + 1][0] for i in range(len(b) - 1))
+    assert all(j1 >= j0 for j0, j1 in b)
+    if n == 220:
+        assert 16 * len(b) >= 128
+
+
+@pytest.mark.parametrize("t,off", [(21, 4), (4, 4), (47, 0)])
+def test_attn_step_plain_split_path_matches_one_piece(t, off):
+    """The whole half-layer through the kernels' partition: same residual
+    (one bf16 ulp where a rounding flips) and the same cache row."""
+    cfg, _, tp = _tiny_lm(5)
+    tcfg = tiny_config().token_lm
+    mp = tlm.mega_decode_params(tp, tcfg)
+    rng = np.random.default_rng(6)
+    S, N = 48, cfg.dim
+    kc = torch.from_numpy((rng.standard_normal((S, N)) * 0.5).astype(np.float32)).to(torch.bfloat16)
+    vc = torch.from_numpy((rng.standard_normal((S, N)) * 0.5).astype(np.float32)).to(torch.bfloat16)
+    h = torch.from_numpy((rng.standard_normal((1, cfg.dim)) * 0.5).astype(np.float32)).to(torch.bfloat16)
+    args = (mp["attn_norm"][0], mp["wqkv"][0], mp["wqs"][0], mp["wo"][0], mp["wos"][0], mp["invf"])
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=cfg.norm_eps)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    want = decode_step.attn_step_plain(h, *args, k1, v1, t, off, **kw)
+    got = decode_step.attn_step_plain(h, *args, k2, v2, t, off, **kw,
+                                      bounds=decode_step.split_bounds(t - off))
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=1e-2, atol=1e-2)
+
+
+def _tied_logits(seed, V, k, tie):
+    """Logits whose k-th largest distinct value is shared by `tie` entries,
+    with more ties above and below it."""
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal(V).astype(np.float32)
+    order = np.argsort(-y)
+    y[order[1]] = y[order[0]]                       # a tie at the maximum: one level
+    kth = y[order[k]]                               # level k (levels 0..k-1 above it)
+    y[order[k + 1:k + tie]] = kth
+    y[order[k + tie + 3]] = y[order[k + tie + 2]]   # a tie below the threshold
+    return torch.from_numpy(y)
+
+
+@pytest.mark.parametrize("top_k", [1, 2, 5, 24, 25])
+@pytest.mark.parametrize("n_threads", [1024, 256, 7])
+def test_topk_threshold_tiled_matches_reference_with_ties(top_k, n_threads):
+    for seed, tie in ((0, 1), (1, 3), (2, 6)):
+        y = _tied_logits(seed, 515, top_k, tie)
+        want = decode_step.topk_threshold_plain(y, top_k)
+        got = decode_step.topk_threshold_tiled(y, top_k, n_threads)
+        assert float(got) == float(want)
+
+
+@pytest.mark.parametrize("values,top_k", [
+    ([1.0, 1.0, 1.0, 1.0], 3),                      # fewer distinct values than k
+    ([2.0, 1.0, -1e30, -1e30], 3),                  # masked entries at -1e30
+    ([2.0, 1.0, -1.25e30, -1.25e30], 4),            # masked entries scaled below -1e30
+    ([2.0, 1.0, -6.7e29, -6.7e29], 3),              # ... and above it (temperature > 1)
+    ([3.0], 2),
+], ids=["all-tied", "masked", "masked-below", "masked-above", "one-value"])
+def test_topk_threshold_tiled_degenerate_cases(values, top_k):
+    y = torch.tensor(values, dtype=torch.float32)
+    for n_threads in (1, 2, 1024):
+        assert float(decode_step.topk_threshold_tiled(y, top_k, n_threads)) == \
+            float(decode_step.topk_threshold_plain(y, top_k))
+
+
+@pytest.mark.parametrize("tie", [1, 4])
+def test_sample_with_tiled_threshold_matches_sample_plain(tie):
+    """The whole sampler with the kernel's selection: same scores, same
+    token, with ties at the k-th value kept as the reference keeps them."""
+    logits = _tied_logits(3, 67, 5, tie)
+    kw = dict(pad_id=66, bos_id=64, eos_id=65, suppress=True, greedy=False,
+              temperature=0.8, top_k=5, seed=11)
+    want = decode_step.sample_scores_plain(logits, **kw)
+    got = decode_step.sample_scores_plain(logits, **kw, threshold=decode_step.topk_threshold_tiled)
+    assert torch.equal(got, want)
+    assert int((want > -1e29).sum()) == 5 + tie - 1 + 1    # levels 0..4, level 0 and 4 tied
+    assert decode_step.sample_plain(logits, **kw, threshold=decode_step.topk_threshold_tiled) == \
+        decode_step.sample_plain(logits, **kw)
+
+
+def test_decode_scratch_is_for_the_card_only():
+    """The kernels' buffers are sized from the built library, so there are
+    none on the CPU: the plain step takes no scratch and ignores one."""
+    cfg, _, tp = _tiny_lm(7)
+    tcfg = tiny_config().token_lm
+    mp = tlm.mega_decode_params(tp, tcfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, "cpu")
+    sc = decode_step.DecodeScratch({"h": torch.zeros(1)})
+    assert sc.plan is None and list(sc) == ["h"]
+
+
+@pytest.mark.parametrize("n,cap,want", [(220, 16, 10), (220, 8, 8), (220, 0, 1), (0, 8, 1),
+                                        (24, 8, 1), (25, 8, 2), (1000, 99, 16)])
+def test_attn_splits_cap(n, cap, want):
+    """The whole step's kernel caps the splits at its blocks per head."""
+    assert decode_step.attn_splits(n, cap) == want
