@@ -139,16 +139,17 @@ def log_mel_spectrogram(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """[..., T] -> [..., n_frames, n_mels] natural-log mel spectrogram
-    through ``fused_log_mel`` (the kernel on a CUDA tensor)."""
+    through ``fused_log_mel`` (the kernel on a CUDA tensor). The frames are
+    the overlapping view of the padded signal (frame stride ``hop``), never
+    a copy."""
     win_length = win_length or n_fft
     cos_b, sin_b = _dft_basis_on(x.device, n_fft, win_length)
     fb = _mel_filterbank_on(x.device, sr, n_fft, n_mels, fmin, fmax)
+    lead = x.shape[:-1]
+    x = x.float().reshape(-1, x.shape[-1])
     if center:   # librosa/torch convention: reflect-pad n_fft//2 each side
         x = _reflect_pad(x, n_fft // 2)
-    frames = frame_signal(x.float(), win_length, hop)
-    lead = frames.shape[:-2]
-    f3 = frames.reshape((-1,) + frames.shape[-2:]).contiguous()
-    out = fused_log_mel(f3, cos_b, sin_b, fb, eps=eps)
+    out = fused_log_mel(frame_signal(x.contiguous(), win_length, hop), cos_b, sin_b, fb, eps=eps)
     return out.reshape(lead + out.shape[-2:])
 
 

@@ -33,6 +33,10 @@ Phases (any failure exits non-zero):
    C. a second engine with ``quantize_lm_int4`` and two requests;
 5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
+``python3 chip_smoke.py --log-mel-only`` builds ``log_mel.cu`` alone, runs
+the log-mel part of phase 3 and stops without the last two lines: the short
+run for work on that kernel.
+
 Float32 matrix products and convolutions run in full f32 (TF32 off).
 """
 
@@ -48,8 +52,9 @@ import numpy as np
 import torch
 
 from autostyle_tts_tpu_torch.ops import cuda_build, decode_step, flash_attn, log_mel, stft
+from autostyle_tts_tpu_torch.ops.resample import resample
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
-from autostyle_tts_tpu_torch.models import token_lm
+from autostyle_tts_tpu_torch.models import speech_tokenizer, token_lm
 from autostyle_tts_tpu_torch.pipeline import rag
 from autostyle_tts_tpu_torch.pipeline.engine import Engine
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
@@ -63,13 +68,16 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
 F32_FLOP_PER_S = 67e12    # outside the tensor cores
+TF32_FLOP_PER_S = 495e12
+LOGMEL_PASSES = 3         # TF32 products per f32 product in the log-mel kernel (hi/lo split)
 
 # tolerances of the kernel-vs-plain phases (both on the card, same inputs)
 FLASH_ATOL = 2e-2     # bf16 output, |out| < 4: two bf16 ulps
 DECODE_RTOL = 2e-2    # bf16 residual over 14 layers: a few ulps of max|h|
 LOGIT_GAP = 5e-2      # the token must agree where the top-2 gap (and the top-k margin) is wider
 HEAD_ATOL = 1e-4      # the kernel's logits against the plain head on its own residual (f32 sums in another order)
-LOGMEL_ATOL = 1e-3    # log units: f32 sums over the window in another order
+LOGMEL_ATOL = 1e-3    # log units: split-TF32 products (f32-level), sums over the window in another order
+VQ_MARGIN = 1e-3      # a speech token must agree where the plain top-2 codebook scores differ by more
 
 FLASH_SRC = "autostyle_tts_tpu_torch/csrc/flash_attn.cu"
 DECODE_SRC = "autostyle_tts_tpu_torch/csrc/decode_step.cu"
@@ -407,10 +415,55 @@ def half_layer_case(cfg: Config, mp, cache, gen):
 # ----------------------------------------------------------------------------- log-mel
 
 
-def log_mel_case(B, T, win, n_fft, sr, n_mels, fmax, gen):
+def log_mel_leg(audio, leg: str):
+    """(sr, n_fft, hop, win, n_mels, fmax) of a prompt leg: '16k' feeds the
+    tokenizer and the speaker encoder, '24k' the CFM prompt."""
+    a = audio
+    if leg == "16k":
+        return (a.prompt_sample_rate, a.prompt_n_fft, a.prompt_hop_length, a.prompt_win_length,
+                a.prompt_n_mels, a.prompt_fmax)
+    return a.sample_rate, a.n_fft, a.hop_length, a.win_length, a.n_mels, a.fmax
+
+
+def log_mel_bounds(frames, cos_b, fb, out) -> dict:
+    """Least times for one call: every input read once (a strided view
+    counts the signal it covers, not the overlapping frames), the output
+    written once; the operations at the rate of the unit the kernel uses
+    (TF32 tensor cores, LOGMEL_PASSES products each) and, beside it, at the
+    f32 FMA rate."""
+    B, T, win = frames.shape
+    n_bins, n_mels = fb.shape
+    covered = B * ((T - 1) * frames.stride(1) + win) if frames.stride(1) < win else frames.numel()
+    nbytes = 4 * (covered + 2 * cos_b.numel() + fb.numel() + out.numel())
+    ops = 2 * 2 * B * T * win * n_bins + 3 * B * T * n_bins + 2 * B * T * n_bins * n_mels
+    b, by = bound_ms(nbytes, ops, TF32_FLOP_PER_S / LOGMEL_PASSES)
+    return dict(bound_ms=b, bound_by=by, bound_unit=f"tf32 / {LOGMEL_PASSES} passes",
+                bound_ms_f32=bound_ms(nbytes, ops, F32_FLOP_PER_S)[0],
+                blocks=-(-B * T // log_mel.TILE_ROWS) * -(-n_bins // log_mel.TILE_BINS))
+
+
+def kernel_device_ms(fn, name: str, calls: int = 20):
+    """Mean device milliseconds of the kernels whose name holds ``name``
+    over ``calls`` calls of fn(), from torch.profiler: the kernel alone,
+    whatever the host needs to launch it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [u for n, u, _ in device_events(prof) if name in n]
+    return sum(us) / len(us) / 1e3 if us else "not measured"
+
+
+def log_mel_case(audio, leg: str, B: int, seconds: int, gen, iters: int = 200):
     """The fused log-mel kernel against its three-matmul plain version on
-    frames of one of the two prompt legs."""
+    white-noise frames (contiguous) of one prompt leg at one bucket."""
     dev = torch.device("cuda")
+    sr, n_fft, hop, win, n_mels, fmax = log_mel_leg(audio, leg)
+    T = stft.num_frames(seconds * sr, n_fft, hop, win)
     frames = torch.randn((B, T, win), generator=gen, device=dev) * 0.1
     cos_b, sin_b = stft._dft_basis_on(dev, n_fft, win)
     fb = stft._mel_filterbank_on(dev, sr, n_fft, n_mels, 0.0, fmax)
@@ -419,14 +472,103 @@ def log_mel_case(B, T, win, n_fft, sr, n_mels, fmax, gen):
     torch.cuda.synchronize()
     check(got.shape == (B, T, n_mels) and bool(torch.isfinite(got).all()), "log-mel shape / finiteness")
     err = float((got - want).abs().max())
-    ms = time_ms(lambda: log_mel.fused_log_mel(frames, cos_b, sin_b, fb), 200)
-    plain_ms = time_ms(lambda: log_mel.fused_log_mel_plain(frames, cos_b, sin_b, fb), 50)
-    n_bins = fb.shape[0]
-    nbytes = 4 * (frames.numel() + cos_b.numel() + sin_b.numel() + fb.numel() + got.numel())
-    ops = 2 * 2 * B * T * win * n_bins + 3 * B * T * n_bins + 2 * B * T * n_bins * n_mels
-    b, by = bound_ms(nbytes, ops, F32_FLOP_PER_S)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b, bound_by=by,
-                shape=[B, T, win, n_bins, n_mels])
+    call = lambda: log_mel.fused_log_mel(frames, cos_b, sin_b, fb)
+    ms = time_ms(call, iters)
+    plain_ms = time_ms(lambda: log_mel.fused_log_mel_plain(frames, cos_b, sin_b, fb), max(iters // 4, 5))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                device_ms=kernel_device_ms(call, "log_mel"), host_enqueue_ms=time_host_ms(call, 50),
+                **log_mel_bounds(frames, cos_b, fb, got), shape=[B, T, win, fb.shape[0], n_mels],
+                bucket_s=seconds)
+
+
+def log_mel_tonal_case(cfg: Config, leg: str, gen):
+    """The kernel on what ``featurize`` gives it: two synthetic 3 s prompts
+    (tonal, near-empty bins) zero-tailed into the 4 s bucket, reflect-padded,
+    the frames passed as the strided view of the padded signal. Held to the
+    plain version on the same view; rows that see only zeros must be
+    log(eps) exactly; two calls must agree bit for bit. On the 16 kHz leg
+    the speech tokenizer (random weights) must give the same token from
+    either mel wherever the plain codebook scores decide by VQ_MARGIN."""
+    dev = torch.device("cuda")
+    a = cfg.audio
+    sr, n_fft, hop, win, n_mels, fmax = log_mel_leg(a, leg)
+    wavs = np.zeros((2, 4 * a.prompt_sample_rate), np.float32)
+    for i, seed in enumerate((7, 8)):
+        w = synthetic_wav(seed)
+        wavs[i, :len(w)] = w
+    x = torch.from_numpy(wavs).to(dev)
+    if leg == "24k":
+        x = resample(x, a.prompt_sample_rate, sr)
+    frames = stft.frame_signal(stft._reflect_pad(x, n_fft // 2), win, hop)
+    check(frames.stride(1) == hop and not frames.is_contiguous(), f"log_mel {leg}: frames are not the strided view")
+    cos_b, sin_b = stft._dft_basis_on(dev, n_fft, win)
+    fb = stft._mel_filterbank_on(dev, sr, n_fft, n_mels, 0.0, fmax)
+    eps = 1e-5
+    n0 = log_mel.fused_log_mel.launches
+    got = log_mel.fused_log_mel(frames, cos_b, sin_b, fb, eps)
+    again = log_mel.fused_log_mel(frames, cos_b, sin_b, fb, eps)
+    want = log_mel.fused_log_mel_plain(frames, cos_b, sin_b, fb, eps)
+    torch.cuda.synchronize()
+    check(log_mel.fused_log_mel.launches == n0 + 2, f"log_mel {leg}: the strided view did not launch the kernel")
+    check(bool(torch.isfinite(got).all()), f"log_mel {leg} tonal: not finite")
+    err = float((got - want).abs().max())
+    check(err <= LOGMEL_ATOL, f"log_mel {leg} tonal: err {err} > {LOGMEL_ATOL}")
+    check(torch.equal(got, again), f"log_mel {leg}: two calls on the same input differ")
+    zero_rows = frames.abs().amax(-1) == 0
+    floor = torch.log(torch.tensor(eps, dtype=torch.float32, device=dev))
+    check(int(zero_rows.sum()) > 0 and bool((got[zero_rows] == floor).all()),
+          f"log_mel {leg}: all-zero rows ({int(zero_rows.sum())}) are not exactly log(eps)")
+    rec = dict(max_abs_err=err, shape=list(frames.shape), frame_stride=frames.stride(1),
+               zero_rows=int(zero_rows.sum()), bitwise_repeat=True, mel_min=float(want.min()),
+               mel_max=float(want.max()),
+               ms=time_ms(lambda: log_mel.fused_log_mel(frames, cos_b, sin_b, fb, eps), 200),
+               plain_ms=time_ms(lambda: log_mel.fused_log_mel_plain(frames, cos_b, sin_b, fb, eps), 50),
+               plain_on_copy_ms=time_ms(
+                   lambda: log_mel.fused_log_mel_plain(frames.contiguous(), cos_b, sin_b, fb, eps), 50),
+               **log_mel_bounds(frames, cos_b, fb, got))
+    if leg == "16k":
+        tcfg = cfg.speech_tokenizer
+        params = speech_tokenizer.init_params(tcfg, gen)
+        length = torch.tensor([len(synthetic_wav(7))] * 2, device=dev)
+        mask = (torch.arange(got.shape[1], device=dev)[None, :] < (length[:, None] // hop) + 1).float()
+        tok_k = speech_tokenizer.apply(params, tcfg, got, mask)
+        tok_p = speech_tokenizer.apply(params, tcfg, want, mask)
+        top2 = torch.topk(speech_tokenizer.vq_scores(params["codebook"], tok_p.pre_vq), 2, dim=-1).values
+        decisive = ((top2[..., 0] - top2[..., 1]) > VQ_MARGIN) & tok_p.token_mask.bool()
+        n_real, n_dec = int(tok_p.token_mask.sum()), int(decisive.sum())
+        check(n_dec >= 0.9 * n_real, f"speech tokens: only {n_dec} of {n_real} are decisive")
+        check(torch.equal(tok_k.tokens[decisive], tok_p.tokens[decisive]),
+              "speech tokens from the kernel's mel differ from the plain version's on decisive frames")
+        rec.update(tokens_compared=n_dec, tokens_real=n_real,
+                   tokens_equal_all=int((tok_k.tokens == tok_p.tokens)[tok_p.token_mask.bool()].sum()),
+                   pre_vq_err=float((tok_k.pre_vq - tok_p.pre_vq).abs().max()))
+    return rec
+
+
+def log_mel_phase(cfg: Config, gen):
+    """Every log-mel check and time of phase 3; returns the 24 kHz
+    white-noise record (comparable across revisions) with the largest error
+    of all four checked cases."""
+    a = cfg.audio
+    # the two legs of one prompt_features call on 3 s wavs in the 4 s bucket, B = 2
+    noise = {leg: log_mel_case(a, leg, 2, 4, gen) for leg in ("16k", "24k")}
+    for leg, r in noise.items():
+        print(f"log_mel {leg}", json.dumps(r), flush=True)
+        check(r["max_abs_err"] <= LOGMEL_ATOL, f"log_mel {leg}: err {r['max_abs_err']} > {LOGMEL_ATOL}")
+    # the added cases draw from a generator of their own: the phases after this
+    # one keep the weights and inputs they have always had from ``gen``
+    own = torch.Generator(device="cuda").manual_seed(4321)
+    tonal = {leg: log_mel_tonal_case(cfg, leg, own) for leg in ("16k", "24k")}
+    for leg, r in tonal.items():
+        print(f"log_mel {leg} tonal strided", json.dumps(r), flush=True)
+    # recorded only: the latency floor (1 s bucket, B = 1) and the 30 s bucket at B = 2
+    for B, seconds in ((1, 1), (2, 30)):
+        for leg in ("16k", "24k"):
+            r = log_mel_case(a, leg, B, seconds, own, iters=100)
+            print(f"log_mel {leg} {seconds}s B={B}", json.dumps(r), flush=True)
+            check(r["max_abs_err"] <= LOGMEL_ATOL, f"log_mel {leg} {seconds}s: err {r['max_abs_err']}")
+    worst = max(r["max_abs_err"] for r in (*noise.values(), *tonal.values()))
+    return dict(noise["24k"], max_abs_err=worst)
 
 
 # ----------------------------------------------------------------------------- main path
@@ -602,6 +744,41 @@ def path_c(cfg: Config, store: StyleStore):
     return dict(init_s=init_s, engine_gb=engine_gb, requests=requests, launches=launches)
 
 
+def device_events(prof):
+    """(short kernel name, microseconds, start) of every device event of a
+    profile, in start order."""
+    evts = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    evts.sort(key=lambda e: e.time_range.start)
+    return [(e.name.replace("(anonymous namespace)::", "").split("(")[0][:60],
+             e.time_range.elapsed_us(), e.time_range.start) for e in evts]
+
+
+def featurize_warm(eng: Engine):
+    """``prompt_features`` at a bucket it has already seen (two 3 s wavs, the
+    4 s bucket): the span of a second call, and from a third call under the
+    profiler the device time of its log-mel launches and the kernel that
+    ran just before each (a copy of the frames would show there)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wavs = [synthetic_wav(7), synthetic_wav(8)]
+    eng.prompt_features(wavs)
+    n0 = log_mel.fused_log_mel.launches
+    clock = Stopwatch(torch.device("cuda"))
+    eng.prompt_features(wavs, clock)
+    check(log_mel.fused_log_mel.launches == n0 + 2, "a warm prompt_features call must launch fused_log_mel twice")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.prompt_features(wavs)
+        torch.cuda.synchronize()
+    evts = device_events(prof)
+    at = [i for i, (name, _, _) in enumerate(evts) if "log_mel" in name]
+    check(len(at) == 2 or not evts, f"expected two log-mel kernels in the profile, found {len(at)}")
+    return dict(span_ms=clock.ms["featurize"], log_mel_device_ms=[evts[i][1] / 1e3 for i in at],
+                kernel_before_log_mel=[evts[i - 1][0] if i else None for i in at],
+                device_busy_ms=sum(us for _, us, _ in evts) / 1e3 if evts else "not measured",
+                device_kernels=len(evts))
+
+
 def profile_request(eng: Engine, style, timbre):
     """One more request (prompts as given: store features or raw wavs) under
     torch.profiler: device time per kernel name and the device's idle share
@@ -615,12 +792,9 @@ def profile_request(eng: Engine, style, timbre):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = evt.name.replace("(anonymous namespace)::", "").split("(")[0][:60]
-        us, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (us + evt.time_range.elapsed_us(), n + 1)
+    for name, us, _ in device_events(prof):
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, n + 1)
     busy_us = sum(us for us, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     top = ranked[:12] + [kv for kv in ranked[12:] if "log_mel" in kv[0]]
@@ -655,17 +829,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
 
+    only_log_mel = "--log-mel-only" in sys.argv[1:]
+    sources = ("log_mel",) if only_log_mel else cuda_build.KERNEL_SOURCES
     t0 = time.perf_counter()
-    built = cuda_build.build()
+    built = cuda_build.build(sources)
     print(f"build: {time.perf_counter() - t0:.1f} s {json.dumps(built)}", flush=True)
-    for name in cuda_build.KERNEL_SOURCES:
+    for name in sources:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     cfg = serving_config()
-    tl, a = cfg.token_lm, cfg.audio
+    if only_log_mel:
+        print("log_mel 24k, worst error of the four checked cases", json.dumps(log_mel_phase(cfg, gen)))
+        print("chip_smoke: --log-mel-only, the other phases and the main paths were not run")
+        return 0
+    tl = cfg.token_lm
     flash_main = flash_case(1, 256, tl.n_heads, tl.n_kv_heads, tl.head_dim, [62], gen)
     flash_gqa = flash_case(2, 256, tl.n_heads, 4, tl.head_dim, [0, 101], gen)
     emb = cfg.embedder     # the reference's kernel also serves the embedder trunk, at hd = 128
@@ -674,15 +854,7 @@ def main() -> int:
     for name, r in (("prefill", flash_main), ("gqa", flash_gqa), ("embedder hd128", flash_128)):
         print(f"flash {name}", json.dumps(r), flush=True)
         check(r["max_abs_err"] <= FLASH_ATOL, f"flash {name}: err {r['max_abs_err']} > {FLASH_ATOL}")
-    # the two legs of one prompt_features call on 3 s wavs in the 4 s bucket, B = 2
-    n16 = stft.num_frames(4 * a.prompt_sample_rate, a.prompt_n_fft, a.prompt_hop_length, a.prompt_win_length)
-    n24 = stft.num_frames(4 * a.sample_rate, a.n_fft, a.hop_length, a.win_length)
-    mel16 = log_mel_case(2, n16, a.prompt_win_length, a.prompt_n_fft, a.prompt_sample_rate,
-                         a.prompt_n_mels, a.prompt_fmax, gen)
-    mel24 = log_mel_case(2, n24, a.win_length, a.n_fft, a.sample_rate, a.n_mels, a.fmax, gen)
-    for name, r in (("16k", mel16), ("24k", mel24)):
-        print(f"log_mel {name}", json.dumps(r), flush=True)
-        check(r["max_abs_err"] <= LOGMEL_ATOL, f"log_mel {name}: err {r['max_abs_err']} > {LOGMEL_ATOL}")
+    mel24 = log_mel_phase(cfg, gen)
     dec, mp8, cache8, steps8 = decode_case(cfg, 16, gen)
     print("decode int8", json.dumps(dec), flush=True)
     attn_rec, mlp_rec = half_layer_case(cfg, mp8, cache8, gen)
@@ -714,6 +886,7 @@ def main() -> int:
     print("profile db_served", json.dumps(profile_request(
         eng, *eng.prompt_features_from_store(store, [0, 1]))), flush=True)
     print("profile raw_wavs", json.dumps(profile_request(eng, synthetic_wav(7), synthetic_wav(8))), flush=True)
+    print("featurize warm", json.dumps(featurize_warm(eng)), flush=True)
     step8 = [r["decode_ms_per_step"] for r in pa["requests"][1:4]]
     step4 = [r["decode_ms_per_step"] for r in pc["requests"]]
     print("int4 vs int8", json.dumps(dict(

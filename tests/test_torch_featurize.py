@@ -9,6 +9,12 @@ Tolerances (all f32 on both sides, sums taken in another order):
 - log-mel: atol 2e-4 in log units against either JAX branch (the JAX
   package's own bound between its two branches), 2e-3 against the float64
   FFT mirror;
+- the port's kernel computes its products on the tensor cores with both
+  operands split into two TF32 parts; ``fused_log_mel_split_emulation``
+  repeats that arithmetic on the CPU and is held to the JAX kernel (interpret
+  mode) at atol 1e-3, the tolerance of the kernel-vs-plain checks on the
+  card; one TF32 pass alone must miss it on the same tonal input (that is
+  why the kernel pays for three); a split operand is ``hi + lo`` to 2^-21;
 - resampler: atol 1e-5 against JAX, 1e-5 against the float64 numpy mirror;
 - conv / tokenizer ``pre_vq`` / speaker embedding: atol 1e-4 or tighter;
 - speech tokens are an argmax over the codebook: they must be equal on
@@ -32,6 +38,7 @@ import autostyle_tts_tpu_torch.models.token_lm as tlm
 from autostyle_tts_tpu.models import speaker as jspeaker
 from autostyle_tts_tpu.models import speech_tokenizer as jtokenizer
 from autostyle_tts_tpu.ops import conv as jconv
+from autostyle_tts_tpu.ops import pallas_mel as jmel
 from autostyle_tts_tpu.ops import resample as jresample
 from autostyle_tts_tpu.ops import stft as jstft
 from autostyle_tts_tpu.ops.sampling import SamplerConfig as JSampler
@@ -41,6 +48,7 @@ from autostyle_tts_tpu.utils import config as jconfig
 from autostyle_tts_tpu.utils.manifest import StyleSample
 from autostyle_tts_tpu_torch.models import speaker, speech_tokenizer
 from autostyle_tts_tpu_torch.ops import conv, resample, stft
+from autostyle_tts_tpu_torch.ops import log_mel
 from autostyle_tts_tpu_torch.ops.log_mel import fused_log_mel
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
 from autostyle_tts_tpu_torch.pipeline import engine as tengine
@@ -105,6 +113,162 @@ def test_log_mel_non_cpu_tensor_never_falls_back():
     with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
         fused_log_mel(z, torch.zeros((64, 33), device="meta"), torch.zeros((64, 33), device="meta"),
                       torch.zeros((33, 16), device="meta"))
+
+
+def _prompt_geometry(leg):
+    """(sr, n_fft, hop, win, n_mels, fmax) of the engine's two log-mel legs."""
+    a = tconfig.Config().audio
+    if leg == "16k":
+        assert (a.prompt_n_fft, a.prompt_hop_length, a.prompt_win_length, a.prompt_n_mels, a.prompt_fmax) == \
+            (400, 160, 400, 80, 8000)
+        return a.prompt_sample_rate, 400, 160, 400, 80, 8000.0
+    assert (a.n_fft, a.hop_length, a.win_length, a.n_mels) == (1024, 480, 1024, 80)
+    return a.sample_rate, 1024, 480, 1024, 80, a.fmax
+
+
+def _tonal_zero_tailed(leg, seconds=1.0, batch=2):
+    """Seeded tonal prompts (strong sinusoids beside near-empty bins) whose
+    last third is silence, as a prompt padded into its length bucket."""
+    sr = _prompt_geometry(leg)[0]
+    n = int(seconds * sr)
+    x = np.zeros((batch, n), np.float32)
+    for i in range(batch):
+        x[i, : 2 * n // 3] = _wav(50 + i, 2 * n // 3, sr)
+    return x
+
+
+def _frames_and_bases(leg):
+    """The strided frames ``log_mel_spectrogram`` hands to ``fused_log_mel``,
+    with the bases and the filterbank of that leg."""
+    sr, n_fft, hop, win, n_mels, fmax = _prompt_geometry(leg)
+    x = stft._reflect_pad(torch.from_numpy(_tonal_zero_tailed(leg)), n_fft // 2)
+    cos_b, sin_b = stft._dft_basis_on(torch.device("cpu"), n_fft, win)
+    fb = stft._mel_filterbank_on(torch.device("cpu"), sr, n_fft, n_mels, 0.0, fmax)
+    return stft.frame_signal(x, win, hop), cos_b, sin_b, fb
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("leg", ["16k", "24k"])
+def test_log_mel_matches_jax_at_prompt_geometry(leg, impl):
+    sr, n_fft, hop, win, n_mels, fmax = _prompt_geometry(leg)
+    x = _tonal_zero_tailed(leg)
+    want = np.asarray(jstft.log_mel_spectrogram(jnp.asarray(x), sr, n_fft, hop, win, n_mels=n_mels,
+                                                fmax=fmax, impl=impl))
+    got = stft.log_mel_spectrogram(torch.from_numpy(x), sr, n_fft, hop, win, n_mels=n_mels, fmax=fmax).numpy()
+    assert got.shape == want.shape == (2, stft.num_frames(x.shape[1], n_fft, hop, win), n_mels)
+    np.testing.assert_allclose(got, want, atol=2e-4)
+    silent = np.abs(want - np.log(np.float32(1e-5))) < 1e-6      # frames that see only the zero tail
+    assert silent.all(axis=-1).sum() >= 2 * 10
+    np.testing.assert_array_equal(got[silent], np.log(np.float32(1e-5)))
+
+
+@pytest.mark.parametrize("leg", ["16k", "24k"])
+def test_fused_log_mel_strided_view_equals_its_copy(leg):
+    frames, cos_b, sin_b, fb = _frames_and_bases(leg)
+    hop = _prompt_geometry(leg)[2]
+    assert frames.stride() == (frames.stride(0), hop, 1) and not frames.is_contiguous()
+    got = fused_log_mel(frames, cos_b, sin_b, fb)
+    assert torch.equal(got, fused_log_mel(frames.contiguous(), cos_b, sin_b, fb))
+    # log_mel_spectrogram passes that view on, with no copy of the frames
+    seen = []
+    orig = stft.fused_log_mel
+    try:
+        stft.fused_log_mel = lambda f, *a, **k: seen.append(f.stride()) or orig(f, *a, **k)
+        sr, n_fft, _, win, n_mels, fmax = _prompt_geometry(leg)
+        out = stft.log_mel_spectrogram(torch.from_numpy(_tonal_zero_tailed(leg)), sr, n_fft, hop, win,
+                                       n_mels=n_mels, fmax=fmax)
+    finally:
+        stft.fused_log_mel = orig
+    assert seen == [frames.stride()] and torch.equal(out, got)
+
+
+@pytest.mark.parametrize("n_fft,win", [(400, 400), (1024, 1024), (64, 48), (130, 130)])
+def test_packed_basis_reproduces_the_bases_and_is_cached(n_fft, win):
+    cos_b, sin_b = stft._dft_basis_on(torch.device("cpu"), n_fft, win)
+    n_bins = n_fft // 2 + 1
+    packed = log_mel.packed_basis(cos_b, sin_b)
+    chunks, pairs = -(-n_bins // log_mel.TILE_BINS), -(-win // log_mel.TILE_WIN) * log_mel.TILE_WIN // 2
+    assert tuple(packed.shape) == (chunks, pairs, 4 * log_mel.TILE_BINS + log_mel.PAIR_PAD) and packed.is_contiguous()
+    for got, want in zip(log_mel.unpack_basis(packed, win, n_bins), (cos_b, sin_b)):
+        assert torch.equal(got, want)
+    # everything outside the bases is zero: the kernel multiplies it with frames it did not mask
+    assert int(torch.count_nonzero(packed)) == int(torch.count_nonzero(cos_b) + torch.count_nonzero(sin_b))
+    # element (window sample w, bin) of cos: chunk, pair w // 2, column bin % TILE_BINS, parity w % 2
+    w, k = win - 3, n_bins - 1
+    assert packed[k // log_mel.TILE_BINS, w // 2, 2 * (k % log_mel.TILE_BINS) + w % 2] == cos_b[w, k]
+    assert packed[k // log_mel.TILE_BINS, w // 2, 2 * (log_mel.TILE_BINS + k % log_mel.TILE_BINS) + w % 2] == sin_b[w, k]
+    assert log_mel.packed_basis(cos_b, sin_b) is packed                        # same tensors, same packed form
+    assert log_mel.packed_basis(*stft._dft_basis_on(torch.device("cpu"), n_fft, win)) is packed
+    fresh = log_mel.packed_basis(cos_b.clone(), sin_b)                         # another tensor: packed anew
+    assert fresh is not packed and torch.equal(fresh, packed)
+
+
+def test_packed_basis_follows_an_in_place_change():
+    cos_b, sin_b = torch.randn(16, 9), torch.randn(16, 9)
+    before = log_mel.packed_basis(cos_b, sin_b)
+    cos_b.mul_(2.0)
+    after = log_mel.packed_basis(cos_b, sin_b)
+    assert after is not before and torch.equal(log_mel.unpack_basis(after, 16, 9)[0], cos_b)
+
+
+def test_tf32_split_is_exact_to_2_pow_minus_21():
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(50000).astype(np.float32)
+                         * np.float32(10.0) ** np.random.default_rng(8).integers(-6, 6, 50000).astype(np.float32))
+    hi, lo = log_mel.tf32_split(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0      # 10 mantissa bits each
+    rel = ((hi.double() + lo.double()) - x.double()).abs() / x.double().abs()
+    assert float(rel.max()) <= 2.0 ** -21
+    assert float(((hi.double() - x.double()).abs() / x.double().abs()).max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("leg", ["16k", "24k"])
+def test_split_tf32_emulation_matches_jax_kernel_on_tonal_input(leg):
+    """The arithmetic of the CUDA kernel (operands rounded as it rounds
+    them) against the JAX kernel in interpret mode, on the input where TF32
+    hurts most: weak bins beside strong tones, and a silent tail."""
+    frames, cos_b, sin_b, fb = _frames_and_bases(leg)
+    want = np.asarray(jmel.fused_log_mel(jnp.asarray(frames.contiguous().numpy()), jnp.asarray(cos_b.numpy()),
+                                         jnp.asarray(sin_b.numpy()), jnp.asarray(fb.numpy()), interpret=True))
+    got = log_mel.fused_log_mel_split_emulation(frames, cos_b, sin_b, fb).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    assert np.abs(got - want).max() < 2e-4          # in fact as close as the plain f32 version
+    silent = (frames.abs().amax(-1) == 0).numpy()
+    assert silent.sum() >= 2 * 10
+    np.testing.assert_array_equal(got[silent], np.log(np.float32(1e-5)))
+    one_pass = log_mel.fused_log_mel_split_emulation(frames, cos_b, sin_b, fb, passes=1).numpy()
+    assert np.abs(one_pass - want).max() > 1e-3     # plain TF32 does not hold the tolerance here
+
+
+def _meta(*shape):
+    return torch.zeros(shape, device="meta")
+
+
+@pytest.mark.parametrize("case", ["f64_frames", "f16_bases", "sample_stride", "negative_shape", "basis_shape",
+                                  "transposed_fb", "mixed_devices"])
+def test_fused_log_mel_refusals_never_reach_the_plain_version(case, monkeypatch):
+    """What the kernel does not take raises in the wrapper (meta tensors: no
+    CUDA build here); the plain version is for CPU tensors only."""
+    def no_fallback(*a, **k):
+        raise AssertionError("the plain version was called for a tensor that is not on the CPU")
+    monkeypatch.setattr(log_mel, "fused_log_mel_plain", no_fallback)
+    frames, cos_b, sin_b, fb = _meta(1, 4, 64), _meta(64, 33), _meta(64, 33), _meta(33, 16)
+    if case == "f64_frames":
+        frames = frames.double()
+    elif case == "f16_bases":
+        cos_b, sin_b = cos_b.half(), sin_b.half()
+    elif case == "sample_stride":
+        frames = _meta(1, 4, 128)[:, :, ::2]
+    elif case == "negative_shape":
+        frames = _meta(1, 0, 64)
+    elif case == "basis_shape":
+        sin_b = _meta(64, 32)
+    elif case == "transposed_fb":
+        fb = _meta(16, 33).t()
+    else:
+        fb = torch.zeros((33, 16))
+    with pytest.raises(ValueError, match="fused_log_mel"):
+        fused_log_mel(frames, cos_b, sin_b, fb)
 
 
 # ---------------------------------------------------------------------- resampler

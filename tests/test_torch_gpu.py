@@ -11,7 +11,8 @@ Tolerances: bf16 outputs, two bf16 ulps at the values' scale (flash);
 the decode step's residual and cache rows within 2e-2 of max(|h|, 1) after
 two layers, and the same greedy and sampled token (int8 and int4); one
 half-layer's residual within 2e-2 of max(|h|, 1); the fused log-mel within
-1e-3 in log units of the three-matmul version (f32 sums in another order).
+1e-3 in log units of the three-matmul version (split-TF32 products at f32
+level, sums in another order), bit for bit the same from one call to the next.
 """
 
 import pytest
@@ -272,12 +273,81 @@ def test_log_mel_spectrogram_on_card_launches_kernel(cuda):
 
 
 def test_fused_log_mel_raises_beyond_shared_memory(cuda):
-    frames = torch.zeros((1, 4, 4096), device=cuda)
-    basis = torch.zeros((4096, 2049), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_log_mel(frames, basis, basis, torch.zeros((2049, 80), device=cuda))
-    with pytest.raises(ValueError, match="contiguous f32"):
-        fused_log_mel(frames.double(), basis, basis, torch.zeros((2049, 80), device=cuda))
+    """The window is walked in stages, so its length is not bounded by
+    shared memory any more: 4096 samples run. What the kernel refuses is a
+    filterbank too wide for its shared-memory tile, and other types."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    frames = torch.randn((1, 4, 4096), generator=g, device=cuda) * 0.1
+    cos_b, sin_b = stft._dft_basis_on(cuda, 4096, 4096)
+    fb = stft._mel_filterbank_on(cuda, 16000, 4096, 80, 0.0, None)
+    got = fused_log_mel(frames, cos_b, sin_b, fb)
+    torch.cuda.synchronize()
+    assert (got - fused_log_mel_plain(frames, cos_b, sin_b, fb)).abs().max().item() <= 1e-3
+    with pytest.raises(ValueError, match="n_mels"):
+        fused_log_mel(frames, cos_b, sin_b, torch.zeros((2049, 240), device=cuda))
+    wide = stft._mel_filterbank_on(cuda, 16000, 4096, 232, 0.0, None)       # the widest it takes
+    got = fused_log_mel(frames, cos_b, sin_b, wide)
+    torch.cuda.synchronize()
+    assert (got - fused_log_mel_plain(frames, cos_b, sin_b, wide)).abs().max().item() <= 1e-3
+    with pytest.raises(ValueError, match="f32"):
+        fused_log_mel(frames.double(), cos_b, sin_b, fb)
+
+
+def _tonal_frames(cuda, sr, n_fft, hop, win, offset=0):
+    """Two tonal 0.75 s prompts zero-tailed to 1 s, reflect-padded: the
+    strided frames (``offset`` moves the base off a 16-byte address)."""
+    n = sr
+    t = torch.arange(3 * n // 4, device=cuda) / sr
+    x = torch.zeros((2, n), device=cuda)
+    for i, f0 in enumerate((220.0, 1330.0)):
+        x[i, : 3 * n // 4] = 0.3 * torch.sin(2 * torch.pi * f0 * t) + 0.1 * torch.sin(2 * torch.pi * 3.7 * f0 * t)
+    x = stft._reflect_pad(x, n_fft // 2)
+    if offset:
+        x = torch.cat([x.new_zeros((2, offset)), x], dim=1)[:, offset:]
+    return stft.frame_signal(x, win, hop)
+
+
+@pytest.mark.parametrize("sr,n_fft,hop,win,offset", [
+    (16000, 400, 160, 400, 0), (24000, 1024, 480, 1024, 0),
+    (16000, 400, 160, 400, 1),       # base not on a 16-byte address: the 4-byte loads
+    (1600, 64, 37, 50, 0),           # hop and window no multiples of 4
+])
+def test_fused_log_mel_strided_tonal_frames(cuda, sr, n_fft, hop, win, offset):
+    frames = _tonal_frames(cuda, sr, n_fft, hop, win, offset)
+    assert not frames.is_contiguous() and frames.stride(1) == hop
+    assert (frames.data_ptr() % 16 == 0) == (offset == 0)
+    cos_b, sin_b = stft._dft_basis_on(cuda, n_fft, win)
+    fb = stft._mel_filterbank_on(cuda, sr, n_fft, 80, 0.0, None)
+    n0 = fused_log_mel.launches
+    got = fused_log_mel(frames, cos_b, sin_b, fb)
+    again = fused_log_mel(frames, cos_b, sin_b, fb)
+    on_copy = fused_log_mel(frames.contiguous(), cos_b, sin_b, fb)
+    assert fused_log_mel.launches == n0 + 3
+    want = fused_log_mel_plain(frames, cos_b, sin_b, fb)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-3
+    assert torch.equal(got, again) and torch.equal(got, on_copy)     # same bits, whatever the strides
+    silent = frames.abs().amax(-1) == 0
+    assert int(silent.sum()) > 0
+    assert bool((got[silent] == torch.log(torch.tensor(1e-5, device=cuda))).all())
+
+
+def test_fused_log_mel_odd_mel_count_and_many_tiles(cuda):
+    """A filterbank whose rows are not 16-byte multiples (n_mels = 13), more
+    row tiles than the first scratch holds, and a call on another stream."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    frames = torch.randn((3, 700, 80), generator=g, device=cuda) * 0.1
+    cos_b, sin_b = stft._dft_basis_on(cuda, 128, 80)
+    fb = stft._mel_filterbank_on(cuda, 2400, 128, 13, 0.0, None)
+    want = fused_log_mel_plain(frames, cos_b, sin_b, fb)
+    got = fused_log_mel(frames, cos_b, sin_b, fb)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_side = fused_log_mel(frames, cos_b, sin_b, fb)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 700, 13) and (got - want).abs().max().item() <= 1e-3
+    assert torch.equal(got, got_side)
 
 
 def test_decode_step_scratch_reuse_matches_fresh(cuda):
