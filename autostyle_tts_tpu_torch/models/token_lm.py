@@ -2,14 +2,18 @@
 
 Counterpart of the JAX ``models/token_lm.py``: ``core_config``,
 ``init_params``, ``build_prefix``, ``pad_prefix``,
-``generate_speech(_from_ids)`` with both flavours of the decode loop of
-``_generate_fused``, ``mega_decode_params`` (int8, or int4 with
-``bits=4``) in the kernels' output-major layout and
-``unstack_decode_params`` (per-layer views of it). Prefix layout, as there:
+``generate_speech(_from_ids)`` with the reference's scanned decode and
+both flavours of the decode loop of its ``_generate_fused``,
+``mega_decode_params`` (int8, or int4 with ``bits=4``) in the kernels'
+output-major layout and ``unstack_decode_params`` (per-layer views of it).
+Prefix layout, as there:
 
     [SPK] [text: prompt_text ++ tts_text] [BOS_s] [style speech tokens] | gen...
 
-The decode loop runs on the host. With a dict of ``mega_decode_params`` it
+Every decode loop runs on the host. The scanned decode (any B, GQA, dense
+or int8 weights, a bf16 or int8 KV cache, any sampler) runs the transformer
+core one token a step for every row and reads one flag a step to stop once
+every row has emitted EOS. With a dict of ``mega_decode_params`` (B=1) it
 is one decode-step op per token, which samples in its kernel, and one host
 read of the token for the EOS check. With a list of
 ``unstack_decode_params`` it is an ``attn_step`` and an ``mlp_step`` per
@@ -66,9 +70,9 @@ def mega_decode_params(params: Params, cfg: TokenLMConfig, bits: int = 8) -> Dic
     lp = params["layers"]
     for name in ("wqkv", "wo", "w_gate_up", "w_down"):
         if not isinstance(lp[name], QTensor):
-            raise NotImplementedError(
+            raise ValueError(
                 "the decode kernel takes int8 weights only (quantize_lm_int8=True); "
-                "the scanned non-int8 decode is ROADMAP.md queue A"
+                "a dense LM takes the scanned decode (decode_params=None)"
             )
 
     def out_major(t: QTensor):
@@ -129,9 +133,9 @@ def unstack_decode_params(params: Params, cfg: TokenLMConfig) -> List[Dict[str, 
     lp = params["layers"]
     for name in ("wqkv", "wo", "w_gate_up", "w_down"):
         if not isinstance(lp[name], QTensor):
-            raise NotImplementedError(
+            raise ValueError(
                 "the decode kernels take int8 weights only (quantize_lm_int8=True); "
-                "the scanned non-int8 decode is ROADMAP.md queue A"
+                "a dense LM takes the scanned decode (decode_params=None)"
             )
 
     def row_major(t: QTensor, l: int):
@@ -248,50 +252,52 @@ def generate_speech(
     generator: Optional[torch.Generator],
     *,
     max_new_tokens: int,
-    decode_params: DecodeParams,
+    decode_params: Optional[DecodeParams] = None,
     sampler: SamplerConfig = SamplerConfig(temperature=1.0, top_k=25),
     min_tokens: int = 2,
+    kv_int8: bool = False,
     fused: bool = True,
     clock: Optional[Stopwatch] = None,
 ) -> SpeechGen:
-    """B=1 prefill (flash attention) + decode over the decode kernels.
+    """Prefill (flash attention) + decode. EOS and BOS are masked (pad
+    always), EOS while fewer than ``min_tokens`` were drawn; the loop stops
+    after EOS (later slots stay pad) and ``lengths`` counts the tokens
+    before EOS.
 
-    ``decode_params`` picks the flavour, as in the reference: a dict
-    (``mega_decode_params``) runs one decode-step op per token; a list
-    (``unstack_decode_params``) runs the per-layer ``attn_step`` /
-    ``mlp_step`` pair with the plain head and the host sampler. Either way
-    the loop stops after EOS (later slots stay pad), ``lengths`` counts the
-    tokens before EOS, and EOS is masked while fewer than ``min_tokens``
-    were drawn. The cache is bf16 (an int8 KV cache is not used on this
-    path, as in the reference's fused decode)."""
+    ``decode_params`` with ``fused`` picks the decode kernels, as the
+    reference does (B=1, int8 weights, H = K; the cache is bf16 and
+    ``kv_int8`` is ignored): a dict (``mega_decode_params``) runs one
+    decode-step op per token; a list (``unstack_decode_params``) runs the
+    per-layer ``attn_step`` / ``mlp_step`` pair with the plain head and the
+    host sampler. A dict with a top-p sampler, no ``decode_params`` or
+    ``fused=False`` take the scanned decode (``_decode_scan``)."""
     ccfg = core_config(cfg)
     B, P, D = prefix.embeds.shape
-    if not fused:
-        raise NotImplementedError("the scanned decode (fused=False): ROADMAP.md queue A "
-                                  "(scanned non-int8 / B>1 decode)")
-    if B != 1:
-        raise NotImplementedError("B>1 generation: ROADMAP.md queue A (batched staged path)")
-    if ccfg.n_heads != ccfg.n_kv_heads:
-        raise NotImplementedError("GQA token LM (H != K): ROADMAP.md queue A (scanned decode)")
-    mega = isinstance(decode_params, dict)
-    if mega and not sampler.greedy and sampler.top_p < 1.0:
-        raise NotImplementedError("top-p decode: ROADMAP.md queue A (scanned decode)")
+    if isinstance(decode_params, dict) and not sampler.greedy and sampler.top_p < 1.0:
+        fused = False     # the decode-step kernel samples greedy / temperature / top-k only
+    kernels = fused and decode_params is not None
+    if kernels and (B != 1 or ccfg.n_heads != ccfg.n_kv_heads):
+        raise ValueError(f"the decode kernels serve B=1 and H = K (got B={B}, "
+                         f"H={ccfg.n_heads}, K={ccfg.n_kv_heads}); pass decode_params=None")
     dev = prefix.embeds.device
     clock = clock or Stopwatch(dev)
     S_max = -(-(P + max_new_tokens + 1) // 8) * 8
     with clock.span("prefill"):
-        cache = core.make_cache(ccfg, B, S_max, dev)
+        cache = core.make_cache(ccfg, B, S_max, dev, quantized=kv_int8 and not kernels)
         offset = (P - prefix.length).to(torch.int32)
         pos = torch.clamp(torch.arange(P, device=dev)[None, :] - offset[:, None], min=0)
-        hidden = core.forward(
-            params, ccfg, inputs_embeds=prefix.embeds, positions=pos,
-            offset=offset, cache=cache,
-        )
+        hidden = core.forward(params, ccfg, inputs_embeds=prefix.embeds, positions=pos,
+                              offset=offset, cache=cache)
         next_logits = core.matmul_any(hidden[:, -1], params["speech_head"])
-        off0 = int(offset[0])
+    if not kernels:
+        return _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, P=P,
+                            max_new_tokens=max_new_tokens, sampler=sampler,
+                            min_tokens=min_tokens, clock=clock)
+    off0 = int(offset[0])
     L = ccfg.n_layers
     k_all = cache["k"].view(L, S_max, -1)
     v_all = cache["v"].view(L, S_max, -1)
+    mega = isinstance(decode_params, dict)
     loop = _decode_mega if mega else _decode_layers
     toks = loop(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator,
                 P=P, off0=off0, max_new_tokens=max_new_tokens, sampler=sampler,
@@ -302,6 +308,45 @@ def generate_speech(
     out[0, : len(toks)] = torch.tensor(toks, dtype=torch.int32)
     return SpeechGen(tokens=out.to(dev), lengths=torch.tensor([gen_len], dtype=torch.int32, device=dev),
                      decode_steps=len(toks) - 1 if mega else gen_len)
+
+
+def _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, *, P,
+                 max_new_tokens, sampler, min_tokens, clock) -> SpeechGen:
+    """The reference's scanned decode, one host iteration a step: sample
+    token i of every row from the previous logits (rows already done emit
+    pad), then run the core on it at cache slot P + i under the mask of the
+    row's valid slots, and take the head's f32 logits. The loop ends after
+    ``max_new_tokens`` steps or once every row is done (one flag read from
+    the device a step); ``decode_steps`` counts the core's runs."""
+    B = next_logits.shape[0]
+    dev = next_logits.device
+    eos, padt = cfg.speech_eos, cfg.speech_pad
+    S_max = cache["k"].shape[2]
+    slot = torch.arange(S_max, device=dev)
+    valid = slot[None, :] >= offset.long()[:, None]
+    toks = torch.full((B, max_new_tokens), padt, dtype=torch.int32, device=dev)
+    gen_len = torch.zeros((B,), dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    head, emb = params["speech_head"], params["speech_emb"]
+    cur = next_logits
+    steps = 0
+    with clock.span("decode"):
+        for i in range(max_new_tokens):
+            tok = sample(_mask_logits(cur, cfg, i < min_tokens), sampler, generator)
+            tok = torch.where(done, torch.full_like(tok, padt), tok)
+            is_eos = tok == eos
+            gen_len += (~done & ~is_eos).to(torch.int32)
+            done |= is_eos
+            toks[:, i] = tok
+            if bool(done.all()):
+                break
+            mask = (valid & (slot[None, :] <= P + i))[:, None, None, :]
+            hidden = core.forward(params, ccfg, inputs_embeds=emb[tok.long()][:, None, :],
+                                  positions=(P + i - offset.long())[:, None], mask=mask,
+                                  cache=cache, cache_start=P + i)
+            cur = core.matmul_any(hidden[:, 0], head)
+            steps += 1
+    return SpeechGen(tokens=toks, lengths=gen_len, decode_steps=steps)
 
 
 def _decode_mega(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator, *,
@@ -385,9 +430,10 @@ def generate_speech_from_ids(
     generator: Optional[torch.Generator],
     *,
     max_new_tokens: int,
-    decode_params: DecodeParams,
+    decode_params: Optional[DecodeParams] = None,
     sampler: SamplerConfig = SamplerConfig(temperature=1.0, top_k=25),
     min_tokens: int = 2,
+    kv_int8: bool = False,
     fused: bool = True,
     pad_multiple: int = 128,
     clock: Optional[Stopwatch] = None,
@@ -398,5 +444,5 @@ def generate_speech_from_ids(
     return generate_speech(
         params, cfg, pre, generator, max_new_tokens=max_new_tokens,
         decode_params=decode_params, sampler=sampler, min_tokens=min_tokens,
-        fused=fused, clock=clock,
+        kv_int8=kv_int8, fused=fused, clock=clock,
     )

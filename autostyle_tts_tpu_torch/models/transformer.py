@@ -1,24 +1,33 @@
-"""Decoder-only transformer core: the token LM's prefill.
+"""Decoder-only transformer core: the token LM's prefill and decode steps.
 
-Counterpart of the parts of the JAX ``models/transformer.py`` the main path
-runs: ``rmsnorm``, ``matmul_any`` (int8 ``QTensor``), ``_layer`` (no LoRA, no
-attention bias, bf16 cache), ``make_cache``, ``forward`` (prefill with cache
-write). The reference's ``flash_ok`` has no counterpart: the prefill always
-runs ``flash_attention``, whose wrapper takes the plain version for a CPU
-tensor and, on the card, launches the kernel or raises for a shape it was not
-built for. Parameters keep the JAX layer-stacked layout
-(``layers/wqkv`` [L, D, (H+2K)*hd], ...). Rounding follows the reference:
-bf16 activations between ops, f32 norms, projections accumulated in f32 and
-rounded to bf16.
+Counterpart of the JAX ``models/transformer.py``: ``rmsnorm``,
+``matmul_any`` (dense or int8 ``QTensor`` weights), ``_layer``,
+``make_cache`` (bf16, or int8 with per-(position, head) scales) and
+``forward``. ``forward`` runs one of two modes:
+
+- prefill (no ``mask``): the T prefix slots under the causal + left-pad
+  mask through ``flash_attention``, whose wrapper takes the plain version
+  for a CPU tensor and, on the card, launches the kernel or raises for a
+  shape it was not built for (the reference's ``flash_ok`` has no
+  counterpart);
+- decode (an explicit ``mask`` over the cache's S_max slots): the new keys
+  and values are written at ``cache_start`` and attention reads the whole
+  cache through ``sdpa`` or, for an int8 cache, ``sdpa_quant``.
+
+Parameters keep the JAX layer-stacked layout (``layers/wqkv``
+[L, D, (H+2K)*hd], ...). Rounding follows the reference: bf16 activations
+between ops, f32 norms, projections accumulated in f32 and rounded to bf16.
+Per-row write positions (continuous batching), LoRA adapters and the
+attention bias are not ported and raise, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Union
 
 import torch
 
-from ..ops.attention import apply_rope, rope_table
+from ..ops.attention import apply_rope, quantize_kv, rope_table, sdpa, sdpa_quant
 from ..ops.flash_attn import flash_attention
 from ..utils.config import TransformerConfig
 from ..weights import QTensor, truncated_normal
@@ -64,15 +73,15 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ dequant(w) -> f32 for an int8 QTensor: the contraction in f32
-    (exact products of bf16 activations and int8 weights), the per-channel
-    scale after it, as the reference folds it."""
-    if not isinstance(w, QTensor):
-        raise NotImplementedError(
-            "dense (non-int8) LM weights: the port serves the int8 LM only "
-            "(ROADMAP.md, queue A: scanned non-int8 / B>1 decode)"
-        )
-    return torch.matmul(x.float(), w.q.float()) * w.s.float()
+    """x @ w -> f32. An int8 QTensor: the contraction in f32 (exact products
+    of bf16 activations and int8 weights), the per-channel scale after it,
+    as the reference folds it. A dense weight is cast to the activation
+    dtype first, as the reference does, and the product of the two kept in
+    f32 (a bf16 x bf16 product on the card would round its result to bf16).
+    Either way the weight is widened to f32 on every call."""
+    if isinstance(w, QTensor):
+        return torch.matmul(x.float(), w.q.float()) * w.s.float()
+    return torch.matmul(x.float(), w.to(x.dtype).float())
 
 
 def _proj(x: torch.Tensor, w) -> torch.Tensor:
@@ -80,8 +89,15 @@ def _proj(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def make_cache(cfg: TransformerConfig, batch: int, max_len: int, device,
-               dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+               dtype=torch.bfloat16, quantized: bool = False) -> Dict[str, torch.Tensor]:
+    """k/v [L, B, S, K, hd] in ``dtype``; ``quantized``: int8 k/v plus f32
+    ``k_scale`` / ``v_scale`` [L, B, S, K]."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if quantized:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -89,10 +105,14 @@ def make_cache(cfg: TransformerConfig, batch: int, max_len: int, device,
 def _layer(
     h: torch.Tensor, lp: Params, cfg: TransformerConfig,
     cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
-    offset: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One prefill layer; returns (h, k, v) with k/v [B, T, K, hd] for the
-    cache."""
+    cache: Dict[str, torch.Tensor], start: int,
+    offset: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """One layer over T new slots. ``cache`` holds this layer's views
+    ([B, S, K, hd], and [B, S, K] scales when int8); the new keys and values
+    are written at slots [start, start + T) in place. Without ``mask``
+    (prefill) attention is the flash kernel over the T new keys; with it,
+    attention reads the whole cache under ``mask`` [B, 1, T, S]."""
     B, T, D = h.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = rmsnorm(h, lp["attn_norm"], cfg.norm_eps)
@@ -101,12 +121,23 @@ def _layer(
     q = apply_rope(q.reshape(B, T, H, hd), cos, sin, positions)
     k = apply_rope(k.reshape(B, T, K, hd), cos, sin, positions)
     v = v.reshape(B, T, K, hd)
-    attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), offset)
+    quant = "k_scale" in cache
+    if quant:
+        for name, t in (("k", k), ("v", v)):
+            cache[name][:, start : start + T], cache[name + "_scale"][:, start : start + T] = quantize_kv(t)
+    else:
+        cache["k"][:, start : start + T] = k.to(cache["k"].dtype)
+        cache["v"][:, start : start + T] = v.to(cache["v"].dtype)
+    if mask is None:
+        attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), offset)
+    elif quant:
+        attn = sdpa_quant(q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], mask)
+    else:
+        attn = sdpa(q, cache["k"], cache["v"], mask)
     h = h + _proj(attn.reshape(B, T, H * hd), lp["wo"])
     x = rmsnorm(h, lp["mlp_norm"], cfg.norm_eps)
     gate, up = _proj(x, lp["w_gate_up"]).chunk(2, dim=-1)
-    h = h + _proj(torch.nn.functional.silu(gate) * up, lp["w_down"])
-    return h, k, v
+    return h + _proj(torch.nn.functional.silu(gate) * up, lp["w_down"])
 
 
 def _layer_params(stacked: Params, l: int) -> Params:
@@ -120,20 +151,31 @@ def forward(
     params: Params,
     cfg: TransformerConfig,
     *,
-    inputs_embeds: torch.Tensor,           # [B, T, D]
-    positions: torch.Tensor,               # [B, T] RoPE positions
-    offset: torch.Tensor,                  # [B] int32 first valid slot (left pad)
-    cache: Dict[str, torch.Tensor],        # make_cache(...): written at [0, T)
+    inputs_embeds: torch.Tensor,               # [B, T, D]
+    positions: torch.Tensor,                   # [B, T] RoPE positions
+    cache: Dict[str, torch.Tensor],            # make_cache(...), written in place
+    offset: Optional[torch.Tensor] = None,     # [B] int32 first valid slot (prefill)
+    mask: Optional[torch.Tensor] = None,       # [B, 1, T, S_max] True = attend (decode)
+    cache_start: Union[int, torch.Tensor] = 0,
 ) -> torch.Tensor:
-    """Prefill: runs every layer over the T prefix slots under the causal +
-    left-pad mask, writes k/v into ``cache`` slots [0, T) in place, and
-    returns the final-norm hidden states [B, T, D] (compute dtype)."""
+    """Runs every layer over the T new slots, writes their k/v into
+    ``cache`` slots [cache_start, cache_start + T) and returns the
+    final-norm hidden states [B, T, D] (compute dtype). Prefill (no
+    ``mask``) needs ``offset`` and cache_start 0; a decode step passes the
+    ``mask`` over the whole cache."""
+    if isinstance(cache_start, torch.Tensor) and cache_start.ndim == 1:
+        raise NotImplementedError("per-row cache writes (continuous batching) are not ported yet "
+                                  "(ROADMAP.md: queue A item 4, continuous batching)")
+    if "bqkv" in params["layers"] or any(n.endswith("_lora_a") for n in params["layers"]):
+        raise NotImplementedError("attention bias and LoRA adapters are not ported yet "
+                                  "(ROADMAP.md: queue A item 6, RAG embedder)")
+    start = int(cache_start)
+    if mask is None and (offset is None or start != 0):
+        raise ValueError("forward: a prefill (no mask) needs offset and cache_start 0")
     dt = _DTYPES[cfg.dtype]
     h = inputs_embeds.to(dt)
-    B, T = h.shape[:2]
     cos, sin = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, device=h.device)
     for l in range(cfg.n_layers):
-        h, k, v = _layer(h, _layer_params(params["layers"], l), cfg, cos, sin, positions, offset)
-        cache["k"][l, :, :T] = k.to(cache["k"].dtype)
-        cache["v"][l, :, :T] = v.to(cache["v"].dtype)
+        h = _layer(h, _layer_params(params["layers"], l), cfg, cos, sin, positions,
+                   {name: t[l] for name, t in cache.items()}, start, offset, mask)
     return rmsnorm(h, params["final_norm"], cfg.norm_eps)

@@ -1,9 +1,14 @@
-"""iSTFT vocoder (Vocos-class): mel -> ConvNeXt-style frame-rate backbone ->
-(log-magnitude, phase) -> GEMM iSTFT.
+"""Mel -> 24 kHz waveform vocoders, both kinds of the JAX ``models/vocoder.py``.
 
-Counterpart of the ``istft`` kind of the JAX ``models/vocoder.py``
-(``init_params_istft``, ``apply_istft``). The ``hifigan`` kind is not ported
-yet (ROADMAP.md queue A).
+- ``hifigan``: pre-conv, then per upsampling stage a leaky ReLU (0.1), the
+  transposed conv and the multi-receptive-field (MRF) average of the
+  resblocks, then the post-conv and tanh (``init_params``, ``apply``).
+- ``istft`` (Vocos-class): mel -> ConvNeXt-style frame-rate backbone ->
+  (log-magnitude, phase) -> GEMM iSTFT (``init_params_istft``,
+  ``apply_istft``).
+
+Both map one mel frame onto ``total_upsample`` output samples. The
+convolutions are plain PyTorch (cuDNN on the card), f32 throughout.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv import conv1d, conv1d_init, layer_norm, layer_norm_init
+from ..ops.conv import (conv1d, conv1d_init, conv_transpose1d, conv_transpose1d_init,
+                        layer_norm, layer_norm_init)
 from ..ops.stft import istft_overlap_add
 from ..utils.config import VocoderConfig
 from ..weights import uniform
@@ -22,16 +28,63 @@ from ..weights import uniform
 Params = Dict
 
 
-def _require_istft(cfg: VocoderConfig) -> None:
-    if getattr(cfg, "kind", "hifigan") != "istft":
-        raise NotImplementedError(
-            f"vocoder kind {cfg.kind!r}: the port has the istft vocoder only; "
-            "the hifigan kind is ROADMAP.md queue A"
-        )
+def _is_istft(cfg: VocoderConfig) -> bool:
+    return getattr(cfg, "kind", "hifigan") == "istft"
 
 
 def init_params(cfg: VocoderConfig, generator: torch.Generator) -> Params:
-    _require_istft(cfg)
+    if _is_istft(cfg):
+        return init_params_istft(cfg, generator)
+    n_up = len(cfg.upsample_rates)
+    C = cfg.base_channels
+    p: Params = {"pre": conv1d_init(generator, cfg.n_mels, C, 7), "ups": []}
+    ch = C
+    for i in range(n_up):
+        out_ch = ch // 2
+        up = {"t": conv_transpose1d_init(generator, ch, out_ch, cfg.upsample_kernel_sizes[i]),
+              "mrf": []}
+        for kern, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilations):
+            up["mrf"].append({"layers": [
+                {"c1": conv1d_init(generator, out_ch, out_ch, kern),
+                 "c2": conv1d_init(generator, out_ch, out_ch, kern)}
+                for _ in dils]})
+        p["ups"].append(up)
+        ch = out_ch
+    p["post"] = conv1d_init(generator, ch, 1, 7)
+    return p
+
+
+def apply(params: Params, cfg: VocoderConfig, mel: torch.Tensor) -> torch.Tensor:
+    """[B, F, n_mels] -> [B, F * total_upsample(cfg)] waveform in [-1, 1]."""
+    if _is_istft(cfg):
+        return apply_istft(params, cfg, mel)
+    h = conv1d(mel.float(), params["pre"])
+    for i, up in enumerate(params["ups"]):
+        h = F.leaky_relu(h, 0.1)
+        h = conv_transpose1d(h, up["t"], stride=cfg.upsample_rates[i],
+                             kernel=cfg.upsample_kernel_sizes[i])
+        acc = None
+        for mrf, dils in zip(up["mrf"], cfg.resblock_dilations):
+            r = h
+            for layer, d in zip(mrf["layers"], dils):
+                x = conv1d(F.leaky_relu(r, 0.1), layer["c1"], dilation=d)
+                r = r + conv1d(F.leaky_relu(x, 0.1), layer["c2"])
+            acc = r if acc is None else acc + r
+        h = acc / len(up["mrf"])
+    wav = torch.tanh(conv1d(F.leaky_relu(h, 0.1), params["post"]))
+    return wav[..., 0]
+
+
+def total_upsample(cfg: VocoderConfig) -> int:
+    if _is_istft(cfg):
+        return cfg.istft_hop
+    return math.prod(cfg.upsample_rates)
+
+
+# ----------------------------------------------------------------------- istft kind
+
+
+def init_params_istft(cfg: VocoderConfig, generator: torch.Generator) -> Params:
     C = cfg.istft_channels
     n_bins = cfg.istft_n_fft // 2 + 1
     dev = generator.device
@@ -56,11 +109,6 @@ def init_params(cfg: VocoderConfig, generator: torch.Generator) -> Params:
     return p
 
 
-def total_upsample(cfg: VocoderConfig) -> int:
-    _require_istft(cfg)
-    return cfg.istft_hop
-
-
 def apply_istft(params: Params, cfg: VocoderConfig, mel: torch.Tensor) -> torch.Tensor:
     """[B, F, n_mels] -> [B, F * istft_hop] waveform in [-1, 1], f32."""
     n_bins = cfg.istft_n_fft // 2 + 1
@@ -77,8 +125,3 @@ def apply_istft(params: Params, cfg: VocoderConfig, mel: torch.Tensor) -> torch.
     wav = istft_overlap_add(mag * torch.cos(phase), mag * torch.sin(phase),
                             cfg.istft_n_fft, cfg.istft_hop)
     return torch.clamp(wav, -1.0, 1.0)
-
-
-def apply(params: Params, cfg: VocoderConfig, mel: torch.Tensor) -> torch.Tensor:
-    _require_istft(cfg)
-    return apply_istft(params, cfg, mel)

@@ -1,7 +1,8 @@
 """1-D conv and layer norm in the channels-last layout [B, T, C].
 
 Counterpart of the JAX ``ops/conv.py`` (``conv1d``, ``conv1d_init``,
-``layer_norm``, ``layer_norm_init``). Weights keep the JAX layout: conv
+``conv_transpose1d``, ``conv_transpose1d_init``, ``layer_norm``,
+``layer_norm_init``). Weights keep the JAX layout: conv and transposed conv
 ``w`` [kernel, C_in, C_out], ``b`` [C_out].
 """
 
@@ -34,6 +35,24 @@ def conv1d(x: torch.Tensor, p: dict, stride: int = 1, dilation: int = 1) -> torc
     xt = F.pad(x.float().transpose(1, 2), (left, total - left))
     y = F.conv1d(xt, w.float().permute(2, 1, 0), p["b"].float(), stride=stride, dilation=dilation)
     return y.transpose(1, 2).to(x.dtype)
+
+
+def conv_transpose1d_init(generator: torch.Generator, in_ch: int, out_ch: int, kernel: int) -> dict:
+    return conv1d_init(generator, in_ch, out_ch, kernel)
+
+
+def conv_transpose1d(x: torch.Tensor, p: dict, stride: int, kernel: int) -> torch.Tensor:
+    """Fractionally strided conv with T * stride outputs, as the reference
+    defines it: flipped taps over the input dilated by ``stride``, padded
+    (k-1-pad_l, k-1-pad_r) with pad_l = (k-s) - (k-s)//2. That is the full
+    transposed conv cropped to [pad_l, pad_l + T*stride): torch's symmetric
+    ``padding=`` cannot express an odd k - s."""
+    w = p["w"]
+    T = x.shape[1]
+    pad_l = (kernel - stride) - (kernel - stride) // 2
+    y = F.conv_transpose1d(x.float().transpose(1, 2), w.float().permute(1, 2, 0), p["b"].float(),
+                           stride=stride)
+    return y[:, :, pad_l : pad_l + T * stride].transpose(1, 2).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:

@@ -436,20 +436,38 @@ def _check_tensors(what: str, dev, want: Dict[str, Tuple[torch.Tensor, tuple, to
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
 
 
-def _check_widths(what: str, bits: int, hd: Optional[int] = None, **widths: int) -> None:
-    """Every contraction width a warp streams in 16-byte loads, the head
-    width the attention's lanes span (where there is attention), and the
-    shared-memory cap."""
+def _width_fault(bits: int, hd: Optional[int] = None, **widths: int) -> Optional[str]:
+    """Why the kernels cannot run these widths, or None: every contraction
+    width a warp streams in 16-byte loads, the head width the attention's
+    lanes span (where there is attention), and the shared-memory cap."""
     mult = 16 * 8 // bits   # elements per 16-byte load
     bad = {k: v for k, v in widths.items() if v % mult}
     if bad:
-        raise ValueError(f"{what}: {bad} must be multiples of {mult} at {bits} bits")
+        return f"{bad} must be multiples of {mult} at {bits} bits"
     if hd is not None and hd not in HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {hd} not in {HEAD_DIMS}")
+        return f"head_dim {hd} not in {HEAD_DIMS}"
     span = 32 * mult        # the vector is laid out in rows of 32 loads: lengths round up to them
     padded = {k: -(-v // span) * span for k, v in widths.items()}
     if max(padded.values()) > SMEM_FLOATS or padded["D"] + widths["D"] > SMEM_FLOATS:
-        raise ValueError(f"{what}: widths {widths} beyond the kernel's shared-memory cap {SMEM_FLOATS}")
+        return f"widths {widths} beyond the kernel's shared-memory cap {SMEM_FLOATS}"
+    return None
+
+
+def _check_widths(what: str, bits: int, hd: Optional[int] = None, **widths: int) -> None:
+    fault = _width_fault(bits, hd, **widths)
+    if fault:
+        raise ValueError(f"{what}: {fault}")
+
+
+def step_serves(*, dim: int, n_heads: int, n_kv_heads: int, head_dim: int, ffn_dim: int,
+                vocab: int, bits: int = 8) -> bool:
+    """Whether ``mega_decode_step`` runs an LM of these widths at ``bits``:
+    H = K, widths and head width the kernel's loads and lanes take, within
+    its shared memory, and a vocabulary its sampler holds. The one rule the
+    engine picks the decode kernel by (B=1, int8 weights) and the one
+    ``_make_plan`` raises by."""
+    return (n_heads == n_kv_heads and vocab <= MAX_VOCAB
+            and _width_fault(bits, head_dim, D=dim, N=n_heads * head_dim, F=ffn_dim) is None)
 
 
 def _make_plan(mp, k_all, v_all, scratch: DecodeScratch, const: tuple):

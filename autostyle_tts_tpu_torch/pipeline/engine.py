@@ -1,24 +1,29 @@
-"""Synthesis engine: B=1 requests whose prompts are wavs or style-DB rows.
+"""Synthesis engine: requests whose prompts are wavs or style-DB rows.
 
-Counterpart of the JAX ``pipeline/engine.py`` for its non-streaming B=1
-entry points (``inference_tts_with_st``, ``inference_zero_shot``,
+Counterpart of the JAX ``pipeline/engine.py`` for its non-streaming entry
+points (``inference_tts_with_st``, ``inference_zero_shot``,
 ``inference_sft`` with ``register_speaker`` / ``save_speakers`` /
-``load_speakers``, ``synthesize_batch`` at B=1), all through
-``_synthesize_one``:
+``load_speakers``, ``inference_vc``, ``synthesize_batch``,
+``synthesize_from_tokens``), all through the staged ``_synthesize`` (the
+reference's fused B=1 program, ``_synthesize_one``, exists to save
+dispatches; the stages and their results are the same):
 
 0. for a wav prompt, ``prompt_features`` -> ``featurize``: 16 kHz log-mel
    (fused log-mel kernel) -> speech tokenizer + speaker encoder; resample to
    24 kHz -> 24 kHz log-mel (the kernel again);
-1. token-LM prefill (flash-attention kernel) and decode (decode-step kernel,
-   int8 or, with ``cfg.quantize_lm_int4``, int4),
+1. token-LM prefill (flash-attention kernel) and decode: the decode-step
+   kernel (int8 or, with ``cfg.quantize_lm_int4``, int4) for a B=1
+   request on an int8 LM whose widths it takes (H = K among them), else the
+   scanned decode (a batch, a dense or GQA LM; an int8 KV cache with
+   ``cfg.quantize_lm_kv_int8``); voice conversion skips the LM;
 2. flow-conditioning assembly and the CFM Euler solve (``mel_body``),
-3. the iSTFT vocoder and the crop to the generated region.
+3. the vocoder (iSTFT or HiFi-GAN) and the crop to each row's generated
+   region, fetched to the host once.
 
 The engine returns f32 wavs. The STYLE prompt drives the LM prosody prefix;
 the TIMBRE prompt supplies the speaker embedding and the flow prompt
-(tokens + mel). Everything outside these paths raises
-``NotImplementedError`` naming its ROADMAP.md item rather than taking
-another path.
+(tokens + mel). Streaming and speculative decoding raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 
 from ..models import cfm, frontend, speaker, speech_tokenizer, token_lm, vocoder
-from ..ops import stft
+from ..ops import decode_step, stft
 from ..ops.resample import resample
 from ..retrieval.store import StyleStore
 from ..utils.config import Config
@@ -158,6 +163,36 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
 
 
+_DENSE_PROJ = ("wqkv", "wo", "w_gate_up", "w_down")
+
+
+def _prepare_lm(lm: Dict, cfg: Config):
+    """The token LM as served -> (params, decode-kernel params or None).
+
+    int8 (``quantize_lm_int8``): weight-only quantized at init as the
+    reference does. Where the decode kernel takes the LM's widths
+    (``decode_step.step_serves``; the engine's B=1 requests then run it) its
+    output-major copy is built once here and the prefill reads views of it
+    (no second int8 copy); with ``quantize_lm_int4`` only the decode step's
+    weights are re-quantized, the prefill keeps int8, as in the reference.
+    Dense: the projections and the speech head are rounded to bf16 once
+    here (the reference casts them to the bf16 activations in every
+    product)."""
+    if not cfg.quantize_lm_int8:
+        layers = {k: (v.to(torch.bfloat16) if k in _DENSE_PROJ else v) for k, v in lm["layers"].items()}
+        return dict(lm, layers=layers, speech_head=lm["speech_head"].to(torch.bfloat16)), None
+    lm = quantize_tree(lm)
+    tl = cfg.token_lm
+    int4 = getattr(cfg, "quantize_lm_int4", False)
+    if not decode_step.step_serves(dim=tl.dim, n_heads=tl.n_heads, n_kv_heads=tl.n_kv_heads,
+                                   head_dim=tl.head_dim, ffn_dim=tl.ffn_dim,
+                                   vocab=tl.speech_vocab_size, bits=4 if int4 else 8):
+        return lm, None
+    mega8 = token_lm.mega_decode_params(lm, tl)
+    mega = token_lm.requantize_int4(mega8) if int4 else mega8
+    return token_lm.share_decode_weights(lm, mega8), mega
+
+
 class Engine:
     def __init__(
         self,
@@ -173,10 +208,6 @@ class Engine:
         if vocoder.total_upsample(cfg.vocoder) != cfg.audio.hop_length:
             raise ValueError("vocoder upsampling must equal audio.hop_length "
                              "(mel frames map 1:1 onto output samples)")
-        if not cfg.quantize_lm_int8:
-            raise _not_in_slice("a non-int8 token LM", "queue A item 3, scanned non-int8 / B>1 decode")
-        if cfg.token_lm.n_heads != cfg.token_lm.n_kv_heads:
-            raise _not_in_slice("a GQA token LM (H != K)", "queue A item 3, scanned non-int8 / B>1 decode")
         if getattr(cfg, "speculative_gamma", 0) > 0:
             raise _not_in_slice("speculative decoding (speculative_gamma)", "queue A item 5, speculative decode")
         self.cfg = cfg
@@ -184,17 +215,7 @@ class Engine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = EngineParams.init(gen, cfg)
         params = EngineParams.from_tree(to_device(params.tree(), self.device))
-        # int8 weight-only LM, quantized at init as the reference does; the
-        # decode kernel's output-major copy is built once here, and the
-        # prefill reads views of it (no second int8 copy is kept). With
-        # quantize_lm_int4 only the decode step's weights are re-quantized:
-        # the prefill keeps the int8 copy, as in the reference.
-        lm = quantize_tree(params.token_lm)
-        mega8 = token_lm.mega_decode_params(lm, cfg.token_lm)
-        params.token_lm = token_lm.share_decode_weights(lm, mega8)
-        del lm
-        self._mega_params = (token_lm.requantize_int4(mega8)
-                             if getattr(cfg, "quantize_lm_int4", False) else mega8)
+        params.token_lm, self._mega_params = _prepare_lm(params.token_lm, cfg)
         self.params = params
         self.speakers: Dict[str, PromptFeatures] = {}
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 17)
@@ -210,6 +231,7 @@ class Engine:
         self.last_timings: Dict[str, float] = {}
         self.last_decode_steps = 0
         self.last_gen_len = 0
+        self.last_gen_lens: List[int] = []
 
     # ------------------------------------------------------------------ prompts
 
@@ -281,68 +303,107 @@ class Engine:
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
 
-    def _synthesize_one(
+    def _lm_stage(self, texts: Sequence[str], style_texts: Sequence[str],
+                  style_feats: Sequence[PromptFeatures], spk: torch.Tensor,
+                  max_seconds: float, clock: Stopwatch) -> Tuple[token_lm.SpeechGen, int]:
+        """The token LM over the batch: (generated tokens and lengths on the
+        device, the generation bucket). Each row's [style text ++ text] is
+        encoded to one width bucket. A B=1 batch takes the decode kernel
+        where the engine built its weights; anything else the scanned
+        decode, with an int8 KV cache under ``quantize_lm_kv_int8``."""
+        tl = self.cfg.token_lm
+        B = len(texts)
+        tok, tn = self.text_tokenizer, self.normalize_numbers
+        full = [(st + " " + tx).strip() if st else tx for st, tx in zip(style_texts, texts)]
+        width = _bucket(max(len(frontend.encode(t, tokenizer=tok, numbers=tn)) for t in full),
+                        TEXT_BUCKETS)
+        text_ids, text_lens = frontend.encode_batch(full, None, width=width, tokenizer=tok, numbers=tn)
+        sty_w = _bucket(max(len(f.tokens) for f in style_feats), TOKEN_BUCKETS)
+        sty = np.zeros((B, sty_w), np.int32)
+        sty_lens = np.zeros((B,), np.int32)
+        for i, f in enumerate(style_feats):
+            sty_lens[i] = min(len(f.tokens), sty_w)
+            sty[i, : sty_lens[i]] = f.tokens[: sty_lens[i]]
+        max_new = _bucket(int(max_seconds * tl.token_rate), GEN_BUCKETS)
+        i32 = torch.int32
+        gen = token_lm.generate_speech_from_ids(
+            self.params.token_lm, tl, self._tensor(text_ids, i32), self._tensor(text_lens, i32),
+            self._tensor(sty, i32), self._tensor(sty_lens, i32), spk, self.generator,
+            max_new_tokens=max_new, decode_params=self._mega_params if B == 1 else None,
+            kv_int8=bool(getattr(self.cfg, "quantize_lm_kv_int8", False)), clock=clock,
+        )
+        return gen, max_new
+
+    def _synthesize(
         self,
-        text: str,
-        style_text: str,
-        style_feat: PromptFeatures,
-        flow_feat: PromptFeatures,
-        language: Optional[str],
-        max_seconds: float,
+        texts: Sequence[str],
+        style_texts: Sequence[str],
+        style_feats: Sequence[PromptFeatures],
+        flow_feats: Sequence[PromptFeatures],
+        max_seconds: float = 20.0,
+        lm_tokens_override: Optional[Sequence[np.ndarray]] = None,
         cfm_noise: Optional[np.ndarray] = None,
         clock: Optional[Stopwatch] = None,
     ) -> List[np.ndarray]:
-        """One B=1 request: LM generate, flow conditioning + CFM solve,
-        vocoder, crop to the generated region. ``clock`` may already hold
-        the request's ``featurize`` span."""
+        """Every mode, any B: the token LM (or ``lm_tokens_override``, the
+        voice-conversion and pre-made-token modes, which skip it), flow
+        conditioning + CFM solve (``cfm_noise`` [B, F, n_mels] replaces its
+        initial noise), vocoder, each row's generated region cropped on the
+        device, one host fetch. ``style_feats`` drive the LM prosody prompt,
+        ``flow_feats`` the speaker identity. ``clock`` may already hold the
+        request's ``featurize`` span."""
         cfg = self.cfg
         tl = cfg.token_lm
+        B = len(texts)
         up, hop, M = cfg.cfm.upsample, cfg.audio.hop_length, cfg.cfm.n_mels
-        tok, tn = self.text_tokenizer, self.normalize_numbers
-        full = (style_text + " " + text).strip() if style_text else text
-        text_ids, text_lens = frontend.encode_batch(
-            [full], [language] if language else None,
-            width=_bucket(len(frontend.encode(full, tokenizer=tok, numbers=tn)), TEXT_BUCKETS),
-            tokenizer=tok, numbers=tn,
-        )
-        sty_w = _bucket(max(len(style_feat.tokens), 1), TOKEN_BUCKETS)
-        n_s = min(len(style_feat.tokens), sty_w)
-        sty = np.zeros((1, sty_w), np.int32)
-        sty[0, :n_s] = style_feat.tokens[:n_s]
-        fp_w = _bucket(len(flow_feat.tokens), TOKEN_BUCKETS)
-        n_p = min(len(flow_feat.tokens), fp_w)
-        n_mel = min(flow_feat.mel24.shape[0], n_p * up)
-        ptok = np.zeros((1, fp_w), np.int32)
-        ptok[0, :n_p] = flow_feat.tokens[:n_p]
-        pmel = np.zeros((1, fp_w * up, M), np.float32)
-        pmel[0, :n_mel] = flow_feat.mel24[:n_mel]
-        max_new = _bucket(int(max_seconds * tl.token_rate), GEN_BUCKETS)
-
         i32, f32 = torch.int32, torch.float32
-        spk = self._tensor(flow_feat.spk[None], f32)
         clock = clock or Stopwatch(self.device)
-        gen = token_lm.generate_speech_from_ids(
-            self.params.token_lm, tl, self._tensor(text_ids, i32),
-            self._tensor(text_lens, i32), self._tensor(sty, i32),
-            self._tensor([n_s], i32), spk, self.generator,
-            max_new_tokens=max_new, decode_params=self._mega_params, clock=clock,
-        )
+        spk = self._tensor(np.stack([f.spk for f in flow_feats]), f32)
+        steps = 0
+        if lm_tokens_override is None:
+            gen, max_new = self._lm_stage(texts, style_texts, style_feats, spk, max_seconds, clock)
+            gen_tokens, gen_lens, steps = gen.tokens, gen.lengths, gen.decode_steps
+        else:
+            lens = np.asarray([len(t) for t in lm_tokens_override], np.int32)
+            max_new = _bucket(int(lens.max()), GEN_BUCKETS)
+            lens = np.minimum(lens, max_new)
+            toks = np.full((B, max_new), tl.speech_pad, np.int32)
+            for i, t in enumerate(lm_tokens_override):
+                toks[i, : lens[i]] = np.asarray(t)[: lens[i]]
+            gen_tokens, gen_lens = self._tensor(toks, i32), self._tensor(lens, i32)
+        # the flow prompt side (host arrays: prompt features are numpy)
+        fp_w = _bucket(max(len(f.tokens) for f in flow_feats), TOKEN_BUCKETS)
+        ptok = np.zeros((B, fp_w), np.int32)
+        p_lens = np.zeros((B,), np.int32)
+        pmel = np.zeros((B, fp_w * up, M), np.float32)
+        mel_lens = np.zeros((B,), np.int32)
+        for i, f in enumerate(flow_feats):
+            p_lens[i] = min(len(f.tokens), fp_w)
+            ptok[i, : p_lens[i]] = f.tokens[: p_lens[i]]
+            mel_lens[i] = min(f.mel24.shape[0], p_lens[i] * up)
+            pmel[i, : mel_lens[i]] = f.mel24[: mel_lens[i]]
         noise = None if cfm_noise is None else self._tensor(cfm_noise, f32)
         with clock.span("cfm"):
             mel, _ = mel_body(
-                self.params.cfm, cfg, self._tensor(ptok, i32), self._tensor([n_p], i32),
-                gen.tokens, gen.lengths, self._tensor(pmel, f32),
-                self._tensor([n_mel], i32), spk, self.generator, noise=noise,
+                self.params.cfm, cfg, self._tensor(ptok, i32), self._tensor(p_lens, i32),
+                gen_tokens, gen_lens, self._tensor(pmel, f32), self._tensor(mel_lens, i32),
+                spk, self.generator, noise=noise,
             )
         with clock.span("vocoder"):
             wav = vocoder.apply(self.params.vocoder, cfg.vocoder, mel)
-            start = n_p * up * hop
-            n_out = int(gen.lengths[0]) * up * hop
-            out = wav[0, start : start + n_out].float().cpu().numpy()
+            # each row's generated region slid to offset 0, its sample count
+            # in one more column (exact in f32): one fetch for the batch
+            idx = (self._tensor(p_lens, torch.int64)[:, None] * (up * hop)
+                   + torch.arange(max_new * up * hop, device=self.device)[None, :])
+            n_out = gen_lens.to(f32)[:, None] * (up * hop)
+            host = torch.cat([torch.gather(wav.float(), 1, idx), n_out], dim=1).cpu().numpy()
+        n_samples = host[:, -1].astype(np.int64)
+        wavs = [host[i, : n_samples[i]] for i in range(B)]
         self.last_timings = dict(clock.ms)
-        self.last_decode_steps = gen.decode_steps
-        self.last_gen_len = int(gen.lengths[0])
-        return [out]
+        self.last_decode_steps = steps
+        self.last_gen_lens = (n_samples // (up * hop)).tolist()
+        self.last_gen_len = self.last_gen_lens[0]
+        return wavs
 
     def _one(self, text: str, style_text: str, style, timbre, stream: bool,
              max_seconds: float, cfm_noise: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
@@ -350,8 +411,8 @@ class Engine:
             raise _not_in_slice("streaming synthesis", "queue A item 4, streaming")
         clock = Stopwatch(self.device)
         sty, tim = self._resolve_prompts([style, timbre], clock)
-        wav = self._synthesize_one(text, style_text, sty, tim, None, max_seconds,
-                                   cfm_noise=cfm_noise, clock=clock)[0]
+        wav = self._synthesize([text], [style_text], [sty], [tim], max_seconds=max_seconds,
+                               cfm_noise=cfm_noise, clock=clock)[0]
         return {"tts_speech": wav[None, :]}
 
     def inference_zero_shot(
@@ -413,14 +474,45 @@ class Engine:
         f = self.speakers[spk_id]
         yield self._one(tts_text, "", f, f, stream, max_seconds, cfm_noise)
 
+    def inference_vc(
+        self, source_speech_16k, prompt_speech_16k, stream: bool = False,
+        cfm_noise: Optional[np.ndarray] = None,
+    ) -> Iterator[Dict[str, np.ndarray]]:
+        """Voice conversion: the source's speech tokens re-rendered with the
+        prompt's identity, no LM. Either argument may be a 16 kHz wav or
+        its precomputed ``PromptFeatures``."""
+        if stream:
+            raise _not_in_slice("streaming voice conversion", "queue A item 4, streaming")
+        clock = Stopwatch(self.device)
+        src, prm = self._resolve_prompts([source_speech_16k, prompt_speech_16k], clock)
+        wav = self._synthesize([""], [""], [prm], [prm], lm_tokens_override=[src.tokens],
+                               cfm_noise=cfm_noise, clock=clock)[0]
+        yield {"tts_speech": wav[None, :]}
+
+    def synthesize_from_tokens(self, reqs: List[Dict], max_seconds: float = 20.0,
+                               cfm_noise: Optional[np.ndarray] = None) -> List[np.ndarray]:
+        """Render finished requests (dicts with "tokens" [T] int32 and
+        "flow_feat" ``PromptFeatures``) through the batched CFM + vocoder
+        stages. One card: no padding of the batch."""
+        if not reqs:
+            return []
+        feats = [r["flow_feat"] for r in reqs]
+        return self._synthesize(
+            [r.get("text", "") for r in reqs], [""] * len(reqs), feats, feats,
+            max_seconds=max_seconds, cfm_noise=cfm_noise,
+            lm_tokens_override=[np.asarray(r["tokens"], np.int32) for r in reqs])
+
     def synthesize_batch(
         self, tts_texts: List[str], style_texts: List[str], style_wavs: List,
         timbre_wavs: List, max_seconds: float = 20.0,
+        cfm_noise: Optional[np.ndarray] = None,
     ) -> List[np.ndarray]:
-        """Batched tts_with_st; the port serves B=1 only. Items are wavs or
-        ``PromptFeatures``; a wav object passed as both style and timbre is
-        featurized once."""
-        if len(tts_texts) != 1:
-            raise _not_in_slice("B>1 synthesis", "queue A item 3, scanned non-int8 / B>1 decode")
-        return [self._one(tts_texts[0], style_texts[0], style_wavs[0], timbre_wavs[0],
-                          False, max_seconds)["tts_speech"][0]]
+        """Batched tts_with_st: one pass of each stage for the whole batch.
+        Items are wavs or ``PromptFeatures``; the wavs of the batch are
+        featurized together and one wav OBJECT given several times (as style
+        and timbre, or in several rows) once."""
+        B = len(tts_texts)
+        clock = Stopwatch(self.device)
+        feats = self._resolve_prompts(list(style_wavs) + list(timbre_wavs), clock)
+        return self._synthesize(tts_texts, style_texts, feats[:B], feats[B:],
+                                max_seconds=max_seconds, cfm_noise=cfm_noise, clock=clock)

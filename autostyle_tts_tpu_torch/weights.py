@@ -2,7 +2,8 @@
 
 - ``load_npz`` reads the flat-key ``.npz`` format of the JAX package's
   ``utils/checkpoint.py`` (keys such as ``token_lm/layers/wqkv``; numeric
-  path segments are list indices; a ``q``/``s`` pair is an int8 tensor).
+  path segments are list indices; a ``q``/``s`` pair is an int8 tensor;
+  f16 leaves load as f32).
 - ``from_jax_tree`` turns the JAX ``EngineParams.tree()`` (leaves as numpy)
   into the port's parameter tree: nested dicts and lists of tensors.
 - ``init_params`` draws random full-width weights with the same shapes and
@@ -97,8 +98,9 @@ def _check(name: str, t: Any, shape: Tuple[int, ...]) -> None:
 
 def from_jax_tree(tree: Dict, cfg: Config, device=None) -> Dict:
     """JAX ``EngineParams.tree()`` with numpy leaves -> the port's tree of
-    tensors (on ``device``, default CPU). The token-LM, CFM, speech-tokenizer
-    and speaker-encoder shapes are checked against ``cfg``."""
+    tensors (on ``device``, default CPU). Every module's shapes are checked
+    against ``cfg``: the token LM (dense or int8), the CFM, the vocoder of
+    either kind, the speech tokenizer and the speaker encoder."""
     out = tree_from_numpy(tree)
     tl = cfg.token_lm
     L, D, F = tl.n_layers, tl.dim, tl.ffn_dim
@@ -110,6 +112,10 @@ def from_jax_tree(tree: Dict, cfg: Config, device=None) -> Dict:
     _check("token_lm/layers/w_down", lm["layers"]["w_down"], (L, F, D))
     _check("token_lm/speech_emb", lm["speech_emb"], (tl.speech_vocab_size, D))
     _check("token_lm/speech_head", lm["speech_head"], (D, tl.speech_vocab_size))
+    _check("token_lm/tok_emb", lm["tok_emb"], (tl.text_vocab_size, D))
+    if "lm_head" in lm:
+        _check("token_lm/lm_head", lm["lm_head"], (D, tl.text_vocab_size))
+    _check_vocoder(out["vocoder"], cfg.vocoder)
     c = cfg.cfm
     _check("cfm/layers/wq", out["cfm"]["layers"]["wq"], (c.n_layers, c.dim, c.dim))
     _check("cfm/out_proj", out["cfm"]["out_proj"], (c.dim, c.n_mels))
@@ -130,6 +136,36 @@ def from_jax_tree(tree: Dict, cfg: Config, device=None) -> Dict:
     return out if device is None else to_device(out, device)
 
 
+def _check_vocoder(p: Dict, v) -> None:
+    if getattr(v, "kind", "hifigan") == "istft":
+        C = v.istft_channels
+        if len(p["blocks"]) != v.istft_blocks:
+            raise ValueError(f"vocoder: {len(p['blocks'])} blocks != config {v.istft_blocks}")
+        _check("vocoder/pre/w", p["pre"]["w"], (7, v.n_mels, C))
+        _check("vocoder/blocks/0/conv/w", p["blocks"][0]["conv"]["w"], (v.istft_kernel, C, C))
+        _check("vocoder/head/w", p["head"]["w"], (C, v.istft_n_fft + 2))
+        return
+    n_up = len(v.upsample_rates)
+    if len(p["ups"]) != n_up:
+        raise ValueError(f"vocoder: {len(p['ups'])} upsampling stages != config {n_up}")
+    ch = v.base_channels
+    _check("vocoder/pre/w", p["pre"]["w"], (7, v.n_mels, ch))
+    for i, up in enumerate(p["ups"]):
+        _check(f"vocoder/ups/{i}/t/w", up["t"]["w"], (v.upsample_kernel_sizes[i], ch, ch // 2))
+        ch //= 2
+        if len(up["mrf"]) != len(v.resblock_kernel_sizes):
+            raise ValueError(f"vocoder/ups/{i}: {len(up['mrf'])} resblocks != config "
+                             f"{len(v.resblock_kernel_sizes)}")
+        for j, (kern, dils) in enumerate(zip(v.resblock_kernel_sizes, v.resblock_dilations)):
+            layers = up["mrf"][j]["layers"]
+            if len(layers) != len(dils):
+                raise ValueError(f"vocoder/ups/{i}/mrf/{j}: {len(layers)} layers != config {len(dils)}")
+            for n, layer in enumerate(layers):
+                for c in ("c1", "c2"):
+                    _check(f"vocoder/ups/{i}/mrf/{j}/layers/{n}/{c}/w", layer[c]["w"], (kern, ch, ch))
+    _check("vocoder/post/w", p["post"]["w"], (7, ch, 1))
+
+
 def load_npz(path: str) -> Dict:
     """Flat-key ``.npz`` (JAX ``utils/checkpoint.save_pytree`` format) ->
     nested dicts/lists of numpy arrays, ready for ``from_jax_tree``."""
@@ -141,7 +177,8 @@ def load_npz(path: str) -> Dict:
             parts = key.split(_FLAT_SEP)
             for part in parts[:-1]:
                 node = node.setdefault(part, {})
-            node[parts[-1]] = data[key]
+            arr = data[key]
+            node[parts[-1]] = arr.astype(np.float32) if arr.dtype == np.float16 else arr
 
     def fix(node: Any) -> Any:
         if not isinstance(node, dict):

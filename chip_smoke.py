@@ -31,6 +31,21 @@ Phases (any failure exits non-zero):
    B. one ``generate_speech`` in the per-layer flavour (``attn_step`` /
       ``mlp_step`` per layer and token) for 32 tokens;
    C. a second engine with ``quantize_lm_int4`` and two requests;
+   D. a flagship batch: ``synthesize_batch`` over 8 DB-served rows of path
+      A's store through the scanned decode (int8 KV cache, ``sdpa_quant``;
+      then the same batch with a bf16 cache) and one B=1 ``inference_vc``
+      through the staged path; every wav is checked; requests/s;
+   E. the trained demo engine (``tests/fixtures/demo_engine.npz``: a dense
+      LM on the scanned decode, HiFi-GAN, wav prompts through the log-mel
+      kernel) held to the JAX package's quality gates: the golden-wav
+      statistics and the token round trip through ``inference_vc``, a
+      zero-shot line's spectrum, and a B=4 batch;
+   F. the HiFi-GAN vocoder at flagship widths (random weights) on a 5 s mel
+      at B=1 and B=8: milliseconds and real-time factor;
+   the inputs of the first call of each distinct geometry that paths A, D
+   and E give ``flash_attention`` and ``fused_log_mel`` are kept (device
+   copies) and, after the paths, each kernel is held against its plain
+   version on them (path D's B=8 prefill is also timed);
 5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --log-mel-only`` builds ``log_mel.cu`` alone, runs
@@ -44,9 +59,11 @@ from __future__ import annotations
 
 import itertools
 import json
+from contextlib import contextmanager
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -54,13 +71,15 @@ import torch
 from autostyle_tts_tpu_torch.ops import cuda_build, decode_step, flash_attn, log_mel, stft
 from autostyle_tts_tpu_torch.ops.resample import resample
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
-from autostyle_tts_tpu_torch.models import speech_tokenizer, token_lm
+from autostyle_tts_tpu_torch.models import speech_tokenizer, token_lm, transformer, vocoder
 from autostyle_tts_tpu_torch.pipeline import rag
-from autostyle_tts_tpu_torch.pipeline.engine import Engine
+from autostyle_tts_tpu_torch.pipeline.engine import Engine, EngineParams
+from autostyle_tts_tpu_torch.pipeline.simeval import token_round_trip
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
-from autostyle_tts_tpu_torch.utils.config import CFMConfig, Config
+from autostyle_tts_tpu_torch.utils.audio_io import read_wav
+from autostyle_tts_tpu_torch.utils.config import CFMConfig, Config, VocoderConfig, demo_config
 from autostyle_tts_tpu_torch.utils.timing import Stopwatch
-from autostyle_tts_tpu_torch.weights import QTensor, quantize_tree
+from autostyle_tts_tpu_torch.weights import QTensor, from_jax_tree, load_npz, quantize_tree
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time a function can
 # take is max(bytes / HBM rate, operations / peak rate of their type)
@@ -79,6 +98,17 @@ HEAD_ATOL = 1e-4      # the kernel's logits against the plain head on its own re
 LOGMEL_ATOL = 1e-3    # log units: split-TF32 products (f32-level), sums over the window in another order
 VQ_MARGIN = 1e-3      # a speech token must agree where the plain top-2 codebook scores differ by more
 
+# the JAX package's quality gates for the trained demo engine (tests/test_trained_demo.py)
+GOLDEN_RMS_REL, GOLDEN_RMS_ABS = 0.3, 1e-3    # |rms - g| < 0.3 g + 1e-3
+GOLDEN_MEL = 0.3                              # mean |delta mel mean|, mean |delta mel std|
+# like for like: on the JAX engine's own noise the golden statistics (its
+# own, rounded to 1e-5) must hold far tighter (CPU port: rms within 5e-6,
+# mel 2.8e-5; tests/test_torch_trained_demo.py)
+LIKE_RMS, LIKE_MEL = 1e-4, 1e-3
+ROUND_TRIP_MIN_N, ROUND_TRIP_AGREE = 10, 0.85
+ZERO_SHOT_MIN_S, ZERO_SHOT_RMS, ZERO_SHOT_LOW_BAND = 0.3, 0.01, 0.90
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 FLASH_SRC = "autostyle_tts_tpu_torch/csrc/flash_attn.cu"
 DECODE_SRC = "autostyle_tts_tpu_torch/csrc/decode_step.cu"
 LOGMEL_SRC = "autostyle_tts_tpu_torch/csrc/log_mel.cu"
@@ -126,17 +156,23 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 # ----------------------------------------------------------------------------- flash
 
 
-def flash_case(B, T, H, K, hd, offsets, gen):
-    dev = torch.device("cuda")
-    q = torch.randn((B, T, H, hd), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((B, T, K, hd), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((B, T, K, hd), generator=gen, device=dev).to(torch.bfloat16)
-    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+def flash_err(q, k, v, off) -> float:
+    """The kernel against its plain version on these inputs, over the real
+    (not left-padded) query rows."""
     got = flash_attn.flash_attention(q, k, v, off)
     want = flash_attn.flash_attention_plain(q, k, v, off)
     torch.cuda.synchronize()
-    real = (torch.arange(T, device=dev)[None, :] >= off[:, None].long())[:, :, None, None]
-    err = float(((got.float() - want.float()).abs() * real).max())
+    real = (torch.arange(q.shape[1], device=q.device)[None, :] >= off[:, None].long())[:, :, None, None]
+    return float(((got.float() - want.float()).abs() * real).max())
+
+
+def flash_measure(q, k, v, off):
+    """Error, times and bound of the flash kernel on these inputs."""
+    dev = q.device
+    B, T, H, hd = q.shape
+    K = k.shape[2]
+    offsets = off.tolist()
+    err = flash_err(q, k, v, off)
     ms = time_ms(lambda: flash_attn.flash_attention(q, k, v, off), 200)
     plain_ms = time_ms(lambda: flash_attn.flash_attention_plain(q, k, v, off), 20)
     # one PyTorch call of the same function (timed only, never used by the port)
@@ -153,8 +189,16 @@ def flash_case(B, T, H, K, hd, offsets, gen):
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 + off.numel() * 4
     b, by = bound_ms(nbytes, 4.0 * hd * n_pairs, BF16_FLOP_PER_S)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=b, bound_by=by, shape=[B, T, H, K, hd], offsets=list(offsets),
+                bound_ms=b, bound_by=by, shape=[B, T, H, K, hd], offsets=offsets,
                 blocks=flash_attn.launch_blocks(B, T, H))
+
+
+def flash_case(B, T, H, K, hd, offsets, gen):
+    dev = torch.device("cuda")
+    q = torch.randn((B, T, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, T, K, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, T, K, hd), generator=gen, device=dev).to(torch.bfloat16)
+    return flash_measure(q, k, v, torch.tensor(offsets, dtype=torch.int32, device=dev))
 
 
 # ----------------------------------------------------------------------------- decode step
@@ -571,6 +615,76 @@ def log_mel_phase(cfg: Config, gen):
     return dict(noise["24k"], max_abs_err=worst)
 
 
+# ----------------------------------------------------------------------------- the paths' own inputs
+
+
+def strided_copy(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` with its strides and alignment: a view into a
+    contiguous tensor (the frames ``unfold`` cuts from a signal) is copied
+    as the tensor it views."""
+    base = x if x._base is None else x._base
+    check(base.is_contiguous(), "strided_copy: the viewed tensor is not contiguous")
+    return base.clone().as_strided(x.shape, x.stride(), x.storage_offset() - base.storage_offset())
+
+
+class PathInputs:
+    """The inputs of the first call of every distinct geometry (shapes and
+    strides) a main path gives ``flash_attention`` or ``fused_log_mel``,
+    copied on the device (no host sync), so that each kernel is held
+    against its plain version on exactly what the paths gave it. While
+    ``watch(path)`` is open the wrappers are wrapped where the port calls
+    them (``transformer.flash_attention``, ``stft.fused_log_mel``); the
+    launch counts are untouched."""
+
+    def __init__(self):
+        self.flash, self.mel = {}, {}
+
+    @contextmanager
+    def watch(self, path: str):
+        flash0, mel0 = transformer.flash_attention, stft.fused_log_mel
+
+        def flash(q, k, v, offset):
+            key = (path, tuple(q.shape), tuple(k.shape))
+            if key not in self.flash:
+                self.flash[key] = tuple(t.clone() for t in (q, k, v, offset))
+            return flash0(q, k, v, offset)
+
+        def mel(frames, cos_b, sin_b, fb, eps=1e-5):
+            key = (path, tuple(frames.shape), frames.stride(), eps)
+            if key not in self.mel:
+                self.mel[key] = (strided_copy(frames), cos_b, sin_b, fb, eps)
+            return mel0(frames, cos_b, sin_b, fb, eps)
+
+        transformer.flash_attention, stft.fused_log_mel = flash, mel
+        try:
+            yield
+        finally:
+            transformer.flash_attention, stft.fused_log_mel = flash0, mel0
+
+    def replay(self) -> dict:
+        """Each recorded call again through the kernel and its plain
+        version (after the paths' counts were read: these launches are not
+        counted), at the tolerances of phase 3."""
+        flash = []
+        for (path, shape, kshape), (q, k, v, off) in self.flash.items():
+            err = flash_err(q, k, v, off)
+            flash.append(dict(path=path, shape=[*shape, kshape[2]], offsets=off.tolist(), max_abs_err=err))
+            check(err <= FLASH_ATOL, f"flash on path {path}'s inputs {flash[-1]}: err > {FLASH_ATOL}")
+        mel = []
+        for (path, shape, stride, _), (frames, cos_b, sin_b, fb, eps) in self.mel.items():
+            got = log_mel.fused_log_mel(frames, cos_b, sin_b, fb, eps)
+            want = log_mel.fused_log_mel_plain(frames, cos_b, sin_b, fb, eps)
+            err = float((got - want).abs().max())
+            mel.append(dict(path=path, shape=list(shape), frame_stride=stride[1], max_abs_err=err))
+            check(bool(torch.isfinite(got).all()) and err <= LOGMEL_ATOL,
+                  f"log-mel on path {path}'s inputs {mel[-1]}: not finite or err > {LOGMEL_ATOL}")
+        return dict(flash_attention=flash, fused_log_mel=mel)
+
+    def batch_flash(self):
+        """Path D's B = 8 prefill inputs."""
+        return next(t for (path, shape, _), t in self.flash.items() if path == "D" and shape[0] == 8)
+
+
 # ----------------------------------------------------------------------------- main path
 
 
@@ -744,6 +858,229 @@ def path_c(cfg: Config, store: StyleStore):
     return dict(init_s=init_s, engine_gb=engine_gb, requests=requests, launches=launches)
 
 
+BATCH_TEXTS = TEXTS + [
+    "Turn left at the second light and keep going until the river.",
+    "Nobody expected the meeting to run for three whole hours.",
+    "Could you send me the report before lunch tomorrow?",
+    "The children laughed as the kite climbed into the clouds.",
+]
+
+
+def check_wav(cfg: Config, kind: str, wav: np.ndarray, n_tokens: int) -> float:
+    """The checks of ``run_request`` on one row: n tokens' worth of samples,
+    finite, not silent. Returns the rms."""
+    check(wav.shape == (n_tokens * cfg.cfm.upsample * cfg.audio.hop_length,),
+          f"{kind}: wav shape {wav.shape} != gen_len {n_tokens} x {cfg.cfm.upsample * cfg.audio.hop_length}")
+    check(n_tokens > 0 and bool(np.isfinite(wav).all()), f"{kind}: wav empty or not finite")
+    rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
+    check(rms > 1e-4, f"{kind}: wav is silent (rms {rms})")
+    return rms
+
+
+def run_batch(eng: Engine, cfg: Config, kind: str, texts, style_texts, styles, timbres) -> dict:
+    """One ``synthesize_batch`` call: time it, check every wav, and return
+    its record (requests/s = rows / wall seconds)."""
+    t0 = time.perf_counter()
+    wavs = eng.synthesize_batch(texts, style_texts, styles, timbres, max_seconds=5)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    check(len(wavs) == len(texts), f"{kind}: {len(wavs)} wavs for {len(texts)} rows")
+    rms = [check_wav(cfg, f"{kind} row {i}", w, n) for i, (w, n) in enumerate(zip(wavs, eng.last_gen_lens))]
+    tm = eng.last_timings
+    audio_s = sum(len(w) for w in wavs) / cfg.audio.sample_rate
+    rec = dict(kind=kind, B=len(texts), wall_ms=wall_ms, featurize_ms=tm.get("featurize"),
+               prefill_ms=tm["prefill"], decode_ms=tm["decode"], decode_steps=eng.last_decode_steps,
+               decode_ms_per_step=tm["decode"] / max(eng.last_decode_steps, 1), cfm_ms=tm["cfm"],
+               vocoder_ms=tm["vocoder"], gen_lens=eng.last_gen_lens, audio_s=audio_s,
+               requests_per_s=len(texts) / (wall_ms / 1e3), audio_s_per_wall_s=audio_s / (wall_ms / 1e3),
+               rms_min=min(rms))
+    print("batch", json.dumps(rec), flush=True)
+    return rec
+
+
+def dequant_ms(eng: Engine) -> dict:
+    """What the scanned decode's int8 products widen to f32 in one step
+    (``matmul_any``: every layer's four projections and the speech head),
+    timed alone."""
+    lm, L = eng.params.token_lm, eng.cfg.token_lm.n_layers
+    names = ("wqkv", "wo", "w_gate_up", "w_down")
+
+    def widen():
+        for l in range(L):
+            for n in names:
+                lm["layers"][n].q[l].float()
+        lm["speech_head"].q.float()
+
+    n = sum(lm["layers"][k].q.numel() for k in names) + lm["speech_head"].q.numel()
+    return dict(ms=time_ms(widen, 10, warmup=2), weights=n, bytes_written=4 * n)
+
+
+def batch_args(eng: Engine, store: StyleStore):
+    """(texts, style texts, styles, timbres) of 8 DB-served rows: row i
+    takes its style from store row i % 4 and its timbre from row i + 1."""
+    pairs = [(i % 4, (i + 1) % 4) for i in range(len(BATCH_TEXTS))]
+    return (BATCH_TEXTS, [store.meta[a]["text"] for a, _ in pairs],
+            [eng.prompt_features_from_store(store, [a])[0] for a, _ in pairs],
+            [eng.prompt_features_from_store(store, [b])[0] for _, b in pairs])
+
+
+def path_d(eng: Engine, store: StyleStore, cfg: Config) -> dict:
+    """A flagship batch: 8 DB-served rows through the scanned decode with
+    the int8 KV cache (a first call pays the batch shapes' set-up), the
+    same batch with a bf16 cache, and one B=1 voice conversion through the
+    staged path."""
+    args = batch_args(eng, store)
+    reset_counts()
+    first = run_batch(eng, cfg, "int8 kv, first call", *args)
+    int8 = run_batch(eng, cfg, "int8 kv", *args)
+    check(cfg.quantize_lm_kv_int8, "path D's engine serves an int8 KV cache")
+    eng.cfg.quantize_lm_kv_int8 = False
+    try:
+        bf16 = run_batch(eng, cfg, "bf16 kv", *args)
+    finally:
+        eng.cfg.quantize_lm_kv_int8 = True
+    n_mel0 = log_mel.fused_log_mel.launches
+    src, prm = synthetic_wav(9), synthetic_wav(8)
+    t0 = time.perf_counter()
+    wav = next(eng.inference_vc(src, prm))["tts_speech"]
+    vc_ms = (time.perf_counter() - t0) * 1e3
+    n_src = len(src) // (cfg.audio.prompt_hop_length * int(np.prod(cfg.speech_tokenizer.strides)))
+    check(wav.shape[0] == 1 and eng.last_gen_len == n_src,
+          f"inference_vc: {wav.shape}, {eng.last_gen_len} tokens ({n_src} in the source)")
+    vc = dict(wall_ms=vc_ms, rms=check_wav(cfg, "inference_vc", wav[0], eng.last_gen_len),
+              decode_steps=eng.last_decode_steps, timings=eng.last_timings)
+    check(log_mel.fused_log_mel.launches == n_mel0 + 2 and eng.last_decode_steps == 0
+          and "prefill" not in eng.last_timings, "inference_vc: one featurize call (two log-mel launches), no LM")
+    launches = read_counts()
+    check(launches["flash_attention"] > 0 and launches["mega_decode_step"] == 0
+          and launches["mega_decode_step_int4"] == 0, f"path D launches {launches}")
+    return dict(first_call=first, int8_kv=int8, bf16_kv=bf16, vc=vc, dequant_per_step=dequant_ms(eng),
+                launches=launches)
+
+
+def low_band_share(wav: np.ndarray, sr: int, below_hz: float = 4000.0) -> float:
+    spec = np.abs(np.fft.rfft(wav * np.hanning(wav.size))) ** 2
+    freqs = np.fft.rfftfreq(wav.size, 1 / sr)
+    return float(spec[freqs < below_hz].sum() / max(spec.sum(), 1e-9))
+
+
+def golden_stats(eng: Engine, wav: np.ndarray, g: dict) -> dict:
+    """A converted row's statistics beside the golden ones and their limits."""
+    a = eng.cfg.audio
+    mel = stft.log_mel_spectrogram(torch.from_numpy(wav[None]).to(eng.device), a.sample_rate, a.n_fft,
+                                   a.hop_length, a.win_length, n_mels=a.n_mels, fmax=a.fmax)[0].cpu().numpy()
+    rms = float(np.sqrt((wav.astype(np.float64) ** 2).mean()))
+    return dict(n_samples=wav.size, golden_n_samples=g["n_samples"], rms=rms, golden_rms=g["rms"],
+                rms_limit=GOLDEN_RMS_REL * g["rms"] + GOLDEN_RMS_ABS,
+                d_mel_mean=float(np.abs(mel.mean(0) - np.asarray(g["mel_mean"])).mean()),
+                d_mel_std=float(np.abs(mel.std(0) - np.asarray(g["mel_std"])).mean()), d_mel_limit=GOLDEN_MEL,
+                like_for_like_rms_limit=LIKE_RMS, like_for_like_mel_limit=LIKE_MEL)
+
+
+def path_e() -> dict:
+    """The trained demo engine on the card, held to the JAX package's
+    thresholds (each value printed beside its own). Voice conversion of
+    rows[:3] on the CFM noise the golden statistics were made with
+    (``demo_vc_noise.npz``: the JAX engine's draws) gives the golden check,
+    held also to the like-for-like bounds (``LIKE_RMS``, ``LIKE_MEL``), and
+    the token round trip; the same rows on the card's own noise are
+    printed beside them (the golden margins are not made for other draws);
+    the zero-shot line is rows[-1]'s text on rows[0]'s prompt; then a B=4
+    batch of rows 0-3, each row its own style and timbre."""
+    cfg = demo_config()
+    rows = json.loads((FIXTURES / "demo_corpus_sample" / "manifest.json").read_text())
+    golden = json.loads((FIXTURES / "golden_quality.json").read_text())
+    a = cfg.audio
+
+    def load(row):
+        wav, sr = read_wav(FIXTURES / "demo_corpus_sample" / row["wav"])
+        check(sr == a.prompt_sample_rate, f"{row['wav']}: {sr} Hz")
+        return wav
+
+    reset_counts()
+    eng = Engine(cfg, params=EngineParams.from_tree(from_jax_tree(load_npz(FIXTURES / "demo_engine.npz"), cfg)),
+                 seed=0)
+    check(eng._mega_params is None, "the demo LM is dense: no decode-kernel weights")
+    vc, agrees = [], []
+    with np.load(FIXTURES / "demo_vc_noise.npz") as noises:
+        for row in rows[:3]:
+            src = load(row)
+            tokens = eng.prompt_features([src])[0].tokens
+            g = golden[row["wav"]]
+            t0 = time.perf_counter()
+            wav = next(eng.inference_vc(src, src, cfm_noise=noises[Path(row["wav"]).stem]))["tts_speech"].ravel()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            agree, n = token_round_trip(eng, wav, tokens)
+            own = golden_stats(eng, next(eng.inference_vc(src, src))["tts_speech"].ravel(), g)
+            rec = dict(wav=row["wav"], wall_ms=wall_ms, **golden_stats(eng, wav, g), round_trip_agree=agree,
+                       round_trip_n=n, round_trip_min_n=ROUND_TRIP_MIN_N,
+                       own_noise={k: own[k] for k in ("n_samples", "rms", "d_mel_mean", "d_mel_std")})
+            print("demo golden", json.dumps(rec), flush=True)
+            check(rec["n_samples"] == g["n_samples"], f"demo {row['wav']}: {rec['n_samples']} samples != golden")
+            check(abs(rec["rms"] - g["rms"]) < rec["rms_limit"], f"demo {row['wav']}: rms {rec['rms']} vs {g['rms']}")
+            check(rec["d_mel_mean"] < GOLDEN_MEL and rec["d_mel_std"] < GOLDEN_MEL,
+                  f"demo {row['wav']}: mel stats {rec['d_mel_mean']}, {rec['d_mel_std']}")
+            check(abs(rec["rms"] - g["rms"]) < LIKE_RMS and rec["d_mel_mean"] < LIKE_MEL
+                  and rec["d_mel_std"] < LIKE_MEL, f"demo {row['wav']}: not like for like with the JAX engine")
+            check(n > ROUND_TRIP_MIN_N, f"demo {row['wav']}: round trip over {n} tokens")
+            vc.append(rec)
+            agrees.append(agree)
+    round_trip = dict(mean_agree=float(np.mean(agrees)), limit=ROUND_TRIP_AGREE)
+    print("demo round trip", json.dumps(round_trip), flush=True)
+    check(round_trip["mean_agree"] > ROUND_TRIP_AGREE, f"demo token round trip {agrees}")
+
+    t0 = time.perf_counter()
+    wav = next(eng.inference_zero_shot(rows[-1]["text"], rows[0]["text"], load(rows[0])))["tts_speech"].ravel()
+    zs = dict(wall_ms=(time.perf_counter() - t0) * 1e3, seconds=wav.size / a.sample_rate,
+              min_seconds=ZERO_SHOT_MIN_S, finite=bool(np.isfinite(wav).all()),
+              rms=float(np.sqrt((wav.astype(np.float64) ** 2).mean())), min_rms=ZERO_SHOT_RMS,
+              low_band_share=low_band_share(wav, a.sample_rate), min_low_band_share=ZERO_SHOT_LOW_BAND,
+              gen_len=eng.last_gen_len, decode_steps=eng.last_decode_steps, timings=eng.last_timings)
+    print("demo zero-shot", json.dumps(zs), flush=True)
+    check(zs["finite"] and zs["seconds"] > ZERO_SHOT_MIN_S and zs["rms"] > ZERO_SHOT_RMS
+          and zs["low_band_share"] > ZERO_SHOT_LOW_BAND, f"demo zero-shot gates: {zs}")
+    wavs = [load(r) for r in rows[:4]]
+    batch = run_batch(eng, cfg, "demo B=4", [r["text"] for r in rows[:4]], [r["text"] for r in rows[:4]],
+                      wavs, wavs)
+    launches = read_counts()
+    check(launches["fused_log_mel"] > 0 and launches["flash_attention"] > 0
+          and launches["mega_decode_step"] == 0, f"path E launches {launches}")
+    return dict(golden=vc, round_trip=round_trip, zero_shot=zs, batch=batch, launches=launches)
+
+
+def hifigan_macs(vcfg: VocoderConfig, frames: int) -> int:
+    """Multiply-adds of one HiFi-GAN pass over ``frames`` mel frames."""
+    C, T = vcfg.base_channels, frames
+    macs = 7 * vcfg.n_mels * C * T
+    for rate, k in zip(vcfg.upsample_rates, vcfg.upsample_kernel_sizes):
+        macs += k * C * (C // 2) * T          # the transposed conv, per input frame
+        C, T = C // 2, T * rate
+        taps = sum(kern * len(d) for kern, d in zip(vcfg.resblock_kernel_sizes, vcfg.resblock_dilations))
+        macs += 2 * taps * C * C * T
+    return macs + 7 * C * T
+
+
+def path_f(gen) -> dict:
+    """The HiFi-GAN kind at flagship widths (base 512, rates 5-4-4-3-2) on a
+    5 s mel, random weights: device milliseconds (CUDA events) and the
+    real-time factor (time / seconds of audio produced) at B=1 and B=8."""
+    vcfg = VocoderConfig(kind="hifigan")
+    params = vocoder.init_params(vcfg, gen)
+    seconds, sr = 5, 24000
+    frames = seconds * sr // vocoder.total_upsample(vcfg)
+    out = {}
+    for B in (1, 8):
+        mel = torch.randn((B, frames, vcfg.n_mels), generator=gen, device=gen.device)
+        wav = vocoder.apply(params, vcfg, mel)
+        torch.cuda.synchronize()
+        check(wav.shape == (B, frames * vocoder.total_upsample(vcfg)) and bool(torch.isfinite(wav).all())
+              and float(wav.abs().max()) <= 1.0, f"hifigan B={B}: {tuple(wav.shape)}")
+        ms = time_ms(lambda: vocoder.apply(params, vcfg, mel), 3 if B == 8 else 10, warmup=1)
+        flop = 2 * hifigan_macs(vcfg, frames) * B
+        out[f"B={B}"] = dict(ms=ms, audio_s=seconds * B, rtf=ms / 1e3 / (seconds * B), gflop=flop / 1e9,
+                             tflop_per_s=flop / (ms / 1e3) / 1e12, bound_ms=flop / F32_FLOP_PER_S * 1e3)
+    return out
+
+
 def device_events(prof):
     """(short kernel name, microseconds, start) of every device event of a
     profile, in start order."""
@@ -757,7 +1094,12 @@ def featurize_warm(eng: Engine):
     """``prompt_features`` at a bucket it has already seen (two 3 s wavs, the
     4 s bucket): the span of a second call, and from a third call under the
     profiler the device time of its log-mel launches and the kernel that
-    ran just before each (a copy of the frames would show there)."""
+    ran just before each (a copy of the frames would show there). Every
+    call must launch the kernel twice (the wrappers' count). The profiler
+    can lose a kernel's record (one H100 host recorded one of the two
+    log-mel launches in every profile of a run): the profiled call is made
+    up to three times, and a profile that still lacks one is reported as
+    such, with the records it has."""
     from torch.profiler import ProfilerActivity, profile
 
     wavs = [synthetic_wav(7), synthetic_wav(8)]
@@ -766,15 +1108,21 @@ def featurize_warm(eng: Engine):
     clock = Stopwatch(torch.device("cuda"))
     eng.prompt_features(wavs, clock)
     check(log_mel.fused_log_mel.launches == n0 + 2, "a warm prompt_features call must launch fused_log_mel twice")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.prompt_features(wavs)
+    for attempt in range(1, 4):
         torch.cuda.synchronize()
-    evts = device_events(prof)
-    at = [i for i, (name, _, _) in enumerate(evts) if "log_mel" in name]
-    check(len(at) == 2 or not evts, f"expected two log-mel kernels in the profile, found {len(at)}")
+        n0 = log_mel.fused_log_mel.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.prompt_features(wavs)
+            torch.cuda.synchronize()
+        check(log_mel.fused_log_mel.launches == n0 + 2, "a profiled prompt_features call must launch fused_log_mel twice")
+        evts = device_events(prof)
+        at = [i for i, (name, _, _) in enumerate(evts) if "log_mel" in name]
+        check(len(at) <= 2, f"{len(at)} log-mel kernels in the profile of one call")
+        if len(at) == 2 or not evts:
+            break
     return dict(span_ms=clock.ms["featurize"], log_mel_device_ms=[evts[i][1] / 1e3 for i in at],
                 kernel_before_log_mel=[evts[i - 1][0] if i else None for i in at],
+                log_mel_records=f"{len(at)} of 2", profiled_calls=attempt,
                 device_busy_ms=sum(us for _, us, _ in evts) / 1e3 if evts else "not measured",
                 device_kernels=len(evts))
 
@@ -805,10 +1153,42 @@ def profile_request(eng: Engine, style, timbre):
         top_kernels=[dict(name=k, ms=us / 1e3, calls=n) for k, (us, n) in top])
 
 
+def profile_batch(eng: Engine, store: StyleStore) -> dict:
+    """Path D's batch with a 1 s bucket (64 decode steps at most) under
+    torch.profiler: the device's idle share, device time by kernel and the
+    host's own time by operator, and launches per scanned step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = batch_args(eng, store)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.synthesize_batch(*args, max_seconds=1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evts = device_events(prof)
+    by_name = {}
+    for name, us, _ in evts:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, n + 1)
+    busy_us = sum(us for _, us, _ in evts)
+    ops = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                 key=lambda e: -e.self_cpu_time_total)[:15]
+    steps = max(eng.last_decode_steps, 1)
+    return dict(
+        wall_ms=wall_us / 1e3, timings=eng.last_timings, decode_steps=eng.last_decode_steps,
+        device_busy_ms=busy_us / 1e3,
+        device_idle_share=(1.0 - busy_us / wall_us) if busy_us else "not measured",
+        device_kernels=len(evts), kernels_per_decode_step=len(evts) / steps,
+        top_kernels=[dict(name=k, ms=us / 1e3, calls=n)
+                     for k, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]],
+        top_host_ops=[dict(name=e.key, self_cpu_ms=e.self_cpu_time_total / 1e3, calls=e.count) for e in ops])
+
+
 def serving_config() -> Config:
-    """The flagship widths at the serving point: int8 LM (the kv-int8 flag
-    is set, as served, and ignored by the decode kernel's bf16 cache), a
-    2-step guidance-free CFM."""
+    """The flagship widths at the serving point: int8 LM, int8 KV cache (as
+    served: the scanned decode of a batch uses it, the B=1 decode kernel
+    keeps its bf16 cache), a 2-step guidance-free CFM."""
     cfg = Config()
     cfg.quantize_lm_int8 = True
     cfg.quantize_lm_kv_int8 = True
@@ -877,16 +1257,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    eng, store, pa = path_a(cfg, gen)
+    inputs = PathInputs()
+    with inputs.watch("A"):
+        eng, store, pa = path_a(cfg, gen)
     print("path A", json.dumps({k: v for k, v in pa.items() if k != "requests"}), flush=True)
     pb = path_b(eng, store, cfg, gen)
     print("path B", json.dumps(pb), flush=True)
     pc = path_c(cfg, store)
     print("path C", json.dumps({k: v for k, v in pc.items() if k != "requests"}), flush=True)
+    with inputs.watch("D"):
+        pd = path_d(eng, store, cfg)
+    print("path D", json.dumps(pd), flush=True)
+    with inputs.watch("E"):
+        pe = path_e()
+    print("path E", json.dumps({k: pe[k] for k in ("round_trip", "launches")}), flush=True)
+    pf = path_f(torch.Generator(device="cuda").manual_seed(4322))
+    print("path F hifigan", json.dumps(pf), flush=True)
+    on_inputs = inputs.replay()
+    print("kernels on the paths' inputs", json.dumps(on_inputs), flush=True)
+    flash_batch = flash_measure(*inputs.batch_flash())
+    print("flash batch (path D's prefill inputs)", json.dumps(flash_batch), flush=True)
+    del inputs
     print("profile db_served", json.dumps(profile_request(
         eng, *eng.prompt_features_from_store(store, [0, 1]))), flush=True)
     print("profile raw_wavs", json.dumps(profile_request(eng, synthetic_wav(7), synthetic_wav(8))), flush=True)
     print("featurize warm", json.dumps(featurize_warm(eng)), flush=True)
+    print("profile batch", json.dumps(profile_batch(eng, store)), flush=True)
     step8 = [r["decode_ms_per_step"] for r in pa["requests"][1:4]]
     step4 = [r["decode_ms_per_step"] for r in pc["requests"]]
     print("int4 vs int8", json.dumps(dict(
@@ -899,16 +1295,22 @@ def main() -> int:
                     **{k: rec[k] for k in KERNEL_KEYS})
 
     jax_decode = "autostyle_tts_tpu/ops/pallas_decode.py"
+    # launches on every path that runs the kernel: A, D and E (flash), A, D and E (log-mel)
+    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pd, pe))
+    # max_abs_err: the largest of every case checked (phase 3 and the paths' own inputs)
+    worst = lambda name, recs: max(r["max_abs_err"] for r in (*recs, *on_inputs[name]))
+    flash_rec = dict(flash_main, max_abs_err=worst("flash_attention", (flash_main, flash_gqa, flash_128, flash_batch)))
+    mel_rec = dict(mel24, max_abs_err=worst("fused_log_mel", (mel24,)))
     kernels = [
         entry("flash_attention", FLASH_SRC, "autostyle_tts_tpu/ops/pallas_attn.py:76",
-              pa["launches"]["flash_attention"], flash_main),
+              on_paths("flash_attention"), flash_rec),
         entry("attn_step", DECODE_SRC, f"{jax_decode}:190", pb["launches"]["attn_step"], attn_rec),
         entry("mlp_step", DECODE_SRC, f"{jax_decode}:299", pb["launches"]["mlp_step"], mlp_rec),
         entry("mega_decode_step", DECODE_SRC, f"{jax_decode}:701", pa["launches"]["mega_decode_step"], dec),
         entry("mega_decode_step_int4", DECODE_SRC, f"{jax_decode}:701",
               pc["launches"]["mega_decode_step_int4"], dec4),
         entry("fused_log_mel", LOGMEL_SRC, "autostyle_tts_tpu/ops/pallas_mel.py:35",
-              pa["launches"]["fused_log_mel"], mel24),
+              on_paths("fused_log_mel"), mel_rec),
     ]
     check(all(k["launches"] > 0 for k in kernels), f"a kernel never launched on its path: {kernels}")
     print(card)

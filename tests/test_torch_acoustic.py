@@ -112,5 +112,15 @@ def test_apply_istft_matches():
 
 
 def test_vocoder_hifigan_kind_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tvoc.apply({}, jtiny().vocoder, torch.zeros((1, 4, 16)))
+    """The hifigan kind is ported now (``test_torch_batch.py`` holds its
+    parity with the reference): the port's own init gives the reference
+    init's tree, leaf for leaf, and ``apply`` maps F frames onto
+    F * total_upsample samples in [-1, 1]."""
+    vcfg = jtiny().vocoder
+    want = jax.tree_util.tree_map(lambda x: np.asarray(x).shape,
+                                  jvoc.init_params(jax.random.PRNGKey(0), vcfg))
+    got = tvoc.init_params(vcfg, torch.Generator().manual_seed(0))
+    assert jax.tree_util.tree_map(lambda t: tuple(t.shape), got) == want
+    assert tvoc.total_upsample(vcfg) == jvoc.total_upsample(vcfg) == 32
+    wav = tvoc.apply(got, vcfg, torch.randn((2, 5, vcfg.n_mels)))
+    assert wav.shape == (2, 5 * 32) and float(wav.abs().max()) <= 1.0

@@ -38,6 +38,7 @@ from autostyle_tts_tpu.ops.sampling import SamplerConfig as JSampler
 from autostyle_tts_tpu.pipeline import engine as jengine
 from autostyle_tts_tpu.retrieval import StyleStore as JStyleStore
 from autostyle_tts_tpu.utils import config as jconfig
+from autostyle_tts_tpu_torch.ops import decode_step as tdecode
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
 from autostyle_tts_tpu_torch.pipeline import engine as tengine
 from autostyle_tts_tpu_torch.pipeline import rag as trag
@@ -153,28 +154,59 @@ def test_prefill_and_decode_share_one_int8_copy():
     assert eng.params.token_lm["speech_head"].q.data_ptr() == eng._mega_params["head"].data_ptr()
 
 
+@pytest.mark.parametrize("change,int4,kernel", [
+    ({}, False, True),
+    ({"ffn_dim": 144}, False, True),                              # a multiple of 16, not of 512
+    ({"ffn_dim": 144}, True, False),                              # int4 loads take 32 elements
+    ({"n_kv_heads": 2}, False, False),                            # GQA
+    ({"dim": 96, "n_heads": 2, "n_kv_heads": 2}, False, False),   # head width 48
+    ({"speech_vocab_size": 9000}, False, False),                  # beyond the sampler's vocabulary
+])
+def test_engine_takes_the_decode_kernel_where_the_step_serves(change, int4, kernel):
+    """An int8 LM gets the decode kernel's weights (and its B=1 requests
+    the kernel) exactly where ``decode_step.step_serves`` says the kernel
+    runs its widths; elsewhere it takes the scanned decode."""
+    cfg = _cfg(tconfig)
+    cfg.token_lm = dataclasses.replace(cfg.token_lm, **change)
+    cfg.quantize_lm_int4 = int4
+    tl = cfg.token_lm
+    assert tdecode.step_serves(dim=tl.dim, n_heads=tl.n_heads, n_kv_heads=tl.n_kv_heads,
+                               head_dim=tl.head_dim, ffn_dim=tl.ffn_dim, vocab=tl.speech_vocab_size,
+                               bits=4 if int4 else 8) == kernel
+    eng = tengine.Engine(cfg, device="cpu")
+    assert (eng._mega_params is not None) == kernel
+    if kernel:
+        assert tdecode.weight_bits(eng._mega_params) == (4 if int4 else 8)
+
+
 def test_engine_out_of_slice_paths_raise():
+    """Streaming, speculative decoding and the embedding half of
+    ``build_style_db`` still raise, naming their ROADMAP.md item; a batch,
+    voice conversion, a dense LM and prompts from wavs are inside the port."""
     cfg = _cfg(tconfig)
     eng = tengine.Engine(cfg, device="cpu")
     f = tengine.PromptFeatures(tokens=np.arange(5, dtype=np.int32),
                                spk=np.zeros(16, np.float32), mel24=np.zeros((10, 16), np.float32))
     for call in (
         lambda: next(eng.inference_tts_with_st("a", "b", f, f, stream=True)),
-        lambda: eng.synthesize_batch(["a", "b"], ["", ""], [f, f], [f, f]),
         lambda: next(eng.inference_zero_shot("a", "b", f, stream=True)),
+        lambda: next(eng.inference_vc(f, f, stream=True)),
         lambda: trag.build_style_db(None, [], engine=eng, wavs=[]),
+        lambda: tengine.Engine(dataclasses.replace(cfg, speculative_gamma=2), device="cpu"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
-    # prompts from wavs are inside the port now
     feats = eng.prompt_features([np.zeros(1600, np.float32)])
     assert len(feats) == 1 and feats[0].spk.shape == (cfg.speaker.emb_dim,)
-    for field, value in (("quantize_lm_int8", False), ("speculative_gamma", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tengine.Engine(dataclasses.replace(cfg, **{field: value}), device="cpu")
     with pytest.raises(ValueError, match="store has no precomputed"):
         eng.prompt_features_from_store(StyleStore(8, device="cpu"), [0])
     out = eng.synthesize_batch(["hi"], [""], [f], [f], max_seconds=1.0)
+    assert len(out) == 1 and np.isfinite(out[0]).all()
+    out = eng.synthesize_batch(["a", "bc"], ["", "x"], [f, f], [f, f], max_seconds=1.0)
+    assert len(out) == 2 and all(np.isfinite(w).all() for w in out)
+    dense = tengine.Engine(dataclasses.replace(cfg, quantize_lm_int8=False), device="cpu")
+    assert dense._mega_params is None
+    out = dense.synthesize_batch(["hi"], [""], [f], [f], max_seconds=1.0)
     assert len(out) == 1 and np.isfinite(out[0]).all()
 
 

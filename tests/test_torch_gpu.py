@@ -12,19 +12,25 @@ the decode step's residual and cache rows within 2e-2 of max(|h|, 1) after
 two layers, and the same greedy and sampled token (int8 and int4); one
 half-layer's residual within 2e-2 of max(|h|, 1); the fused log-mel within
 1e-3 in log units of the three-matmul version (split-TF32 products at f32
-level, sums in another order), bit for bit the same from one call to the next.
+level, sums in another order), bit for bit the same from one call to the next;
+the scanned decode's greedy tokens equal to the CPU run's; the transposed
+conv within 1e-4 of the CPU's (cuDNN, TF32 off).
 """
+
+import dataclasses
 
 import pytest
 import torch
 
 from autostyle_tts_tpu_torch.models import token_lm
 from autostyle_tts_tpu_torch.ops import decode_step
-from autostyle_tts_tpu_torch.ops import stft
+from autostyle_tts_tpu_torch.ops import conv, stft
 from autostyle_tts_tpu_torch.ops.flash_attn import flash_attention, flash_attention_plain
 from autostyle_tts_tpu_torch.ops.log_mel import fused_log_mel, fused_log_mel_plain
+from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
 from autostyle_tts_tpu_torch.utils.config import tiny_config
 from autostyle_tts_tpu_torch.weights import quantize_tree
+from autostyle_tts_tpu_torch.weights import to_device as weights_to
 
 pytestmark = pytest.mark.gpu
 
@@ -400,3 +406,47 @@ def test_decode_step_stamps_cover_every_barrier(cuda):
     assert bool((arrive > 0).all()) and bool((leave >= arrive).all())
     assert bool((leave.min(dim=1).values >= arrive.max(dim=1).values).all())
     assert bool((arrive[1:] >= leave[:-1]).all()) and bool((st[n_bar, :, 0] >= leave[-1]).all())
+
+
+@pytest.mark.parametrize("quant,kv_int8,kv_heads", [(False, False, 4), (True, True, 2)])
+def test_scanned_decode_on_card_matches_cpu(cuda, quant, kv_int8, kv_heads):
+    """The scanned decode, B=2 rows of different prefix lengths, greedy: the
+    card (the flash kernel in the prefill, cuBLAS products with TF32 off)
+    gives the CPU's plain run's tokens over 16 steps on the same weights."""
+    cfg = dataclasses.replace(tiny_config().token_lm, n_kv_heads=kv_heads)
+    lm = token_lm.init_params(cfg, torch.Generator().manual_seed(2))
+    if quant:
+        lm = quantize_tree(lm)
+    g = torch.Generator().manual_seed(3)
+    inputs = (torch.randint(16, 200, (2, 12), generator=g, dtype=torch.int32), torch.tensor([12, 7]),
+              torch.randint(0, 64, (2, 8), generator=g, dtype=torch.int32), torch.tensor([8, 3]),
+              torch.randn((2, cfg.spk_dim), generator=g))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = []
+        for dev in ("cpu", cuda):
+            params = weights_to(lm, dev)
+            out = token_lm.generate_speech_from_ids(
+                params, cfg, *[t.to(dev) for t in inputs], None, max_new_tokens=16,
+                sampler=SamplerConfig(greedy=True), kv_int8=kv_int8, min_tokens=16)
+            runs.append((out.tokens.cpu(), out.lengths.cpu()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("kernel,stride", [(10, 5), (8, 4), (6, 3), (4, 2)])
+def test_conv_transpose1d_on_card_matches_cpu(cuda, kernel, stride):
+    g = torch.Generator().manual_seed(kernel)
+    p = conv.conv_transpose1d_init(g, 64, 32, kernel)
+    x = torch.randn((2, 250, 64), generator=g)
+    want = conv.conv_transpose1d(x, p, stride=stride, kernel=kernel)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = conv.conv_transpose1d(x.to(cuda), weights_to(p, cuda), stride=stride, kernel=kernel)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got.shape == want.shape == (2, 250 * stride, 32)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
