@@ -5,28 +5,32 @@ Counterpart of the JAX ``models/token_lm.py``: ``core_config``,
 ``generate_speech(_from_ids)`` with the reference's scanned decode and
 both flavours of the decode loop of its ``_generate_fused``,
 ``mega_decode_params`` (int8, or int4 with ``bits=4``) in the kernels'
-output-major layout and ``unstack_decode_params`` (per-layer views of it).
-Prefix layout, as there:
+output-major layout and ``unstack_decode_params`` (per-layer views of it),
+and continuous batching's ``build_prefix_padded``, ``prefill_prefix``,
+``_chunk_tick`` and ``decode_chunk``. Prefix layout, as there:
 
     [SPK] [text: prompt_text ++ tts_text] [BOS_s] [style speech tokens] | gen...
 
-Every decode loop runs on the host. The scanned decode (any B, GQA, dense
-or int8 weights, a bf16 or int8 KV cache, any sampler) runs the transformer
-core one token a step for every row and reads one flag a step to stop once
-every row has emitted EOS. With a dict of ``mega_decode_params`` (B=1) it
-is one decode-step op per token, which samples in its kernel, and one host
-read of the token for the EOS check. With a list of
-``unstack_decode_params`` it is an ``attn_step`` and an ``mlp_step`` per
-layer and token, the speech head in plain PyTorch and the host sampler.
+Every decode loop runs on the host, as a generator (``start_decode``) that
+hands out each step's tokens as it draws them, so a stream can render
+audio while the LM goes on; ``generate_speech`` runs it to its end. The
+scanned decode (any B, GQA, dense or int8 weights, a bf16 or int8 KV
+cache, any sampler) runs the transformer core one token a step for every
+row and reads the step's tokens to the host to stop once every row has
+emitted EOS. With a dict of ``mega_decode_params`` (B=1) it is one
+decode-step op per token, which samples in its kernel, and one host read of
+the token for the EOS check. With a list of ``unstack_decode_params`` it is
+an ``attn_step`` and an ``mlp_step`` per layer and token, the speech head in
+plain PyTorch and the host sampler.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Union
+from typing import Dict, Generator, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ..ops.attention import rope_inv_freq
+from ..ops.attention import apply_rope, quantize_kv, rope_inv_freq, rope_table
 from ..ops.decode_step import (WEIGHT_KEYS, attn_step, decode_scratch, mega_decode_step,
                                mlp_step, pack4, part_shape, weight_bits)
 from ..ops.sampling import SamplerConfig, sample
@@ -243,9 +247,11 @@ def _mask_logits(logits: torch.Tensor, cfg: TokenLMConfig, suppress_eos: bool) -
 
 
 DecodeParams = Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]
+# a decode loop: yields each step's tokens (one host int a row), returns the SpeechGen
+DecodeLoop = Generator[List[int], None, SpeechGen]
 
 
-def generate_speech(
+def start_decode(
     params: Params,
     cfg: TokenLMConfig,
     prefix: Prefix,
@@ -258,11 +264,15 @@ def generate_speech(
     kv_int8: bool = False,
     fused: bool = True,
     clock: Optional[Stopwatch] = None,
-) -> SpeechGen:
-    """Prefill (flash attention) + decode. EOS and BOS are masked (pad
-    always), EOS while fewer than ``min_tokens`` were drawn; the loop stops
-    after EOS (later slots stay pad) and ``lengths`` counts the tokens
-    before EOS.
+) -> DecodeLoop:
+    """Runs the prefill (flash attention) now, under ``clock``'s "prefill"
+    span, and returns the decode loop: a generator that draws one token a
+    row each time it is advanced, yields them as host ints (``[B]``, one
+    device read a step) and, once it has ended, returns the ``SpeechGen``.
+    EOS and BOS are masked (pad always), EOS while fewer than
+    ``min_tokens`` were drawn; a row that drew EOS draws pad after it, and
+    the loop ends once every row has drawn EOS or after
+    ``max_new_tokens`` steps. ``lengths`` counts the tokens before EOS.
 
     ``decode_params`` with ``fused`` picks the decode kernels, as the
     reference does (B=1, int8 weights, H = K; the cache is bf16 and
@@ -270,7 +280,8 @@ def generate_speech(
     decode-step op per token; a list (``unstack_decode_params``) runs the
     per-layer ``attn_step`` / ``mlp_step`` pair with the plain head and the
     host sampler. A dict with a top-p sampler, no ``decode_params`` or
-    ``fused=False`` take the scanned decode (``_decode_scan``)."""
+    ``fused=False`` take the scanned decode (``_decode_scan``). The loop
+    holds no span of ``clock`` across its yields: the caller times it."""
     ccfg = core_config(cfg)
     B, P, D = prefix.embeds.shape
     if isinstance(decode_params, dict) and not sampler.greedy and sampler.top_p < 1.0:
@@ -289,35 +300,70 @@ def generate_speech(
         hidden = core.forward(params, ccfg, inputs_embeds=prefix.embeds, positions=pos,
                               offset=offset, cache=cache)
         next_logits = core.matmul_any(hidden[:, -1], params["speech_head"])
+    kw = dict(P=P, max_new_tokens=max_new_tokens, sampler=sampler, min_tokens=min_tokens)
     if not kernels:
-        return _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, P=P,
-                            max_new_tokens=max_new_tokens, sampler=sampler,
-                            min_tokens=min_tokens, clock=clock)
-    off0 = int(offset[0])
+        return _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, **kw)
     L = ccfg.n_layers
     k_all = cache["k"].view(L, S_max, -1)
     v_all = cache["v"].view(L, S_max, -1)
-    mega = isinstance(decode_params, dict)
-    loop = _decode_mega if mega else _decode_layers
-    toks = loop(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator,
-                P=P, off0=off0, max_new_tokens=max_new_tokens, sampler=sampler,
-                min_tokens=min_tokens, clock=clock)
-    eos, padt = cfg.speech_eos, cfg.speech_pad
-    gen_len = sum(1 for t in toks if t != eos)
-    out = torch.full((1, max_new_tokens), padt, dtype=torch.int32)
-    out[0, : len(toks)] = torch.tensor(toks, dtype=torch.int32)
-    return SpeechGen(tokens=out.to(dev), lengths=torch.tensor([gen_len], dtype=torch.int32, device=dev),
-                     decode_steps=len(toks) - 1 if mega else gen_len)
+    loop = _decode_mega if isinstance(decode_params, dict) else _decode_layers
+    return loop(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator,
+                off0=int(offset[0]), **kw)
+
+
+def take(loop: DecodeLoop, n: int) -> Tuple[List[List[int]], Optional["SpeechGen"]]:
+    """Advance a decode loop by up to ``n`` steps: (the steps' tokens, the
+    loop's ``SpeechGen`` if it has ended, else None)."""
+    out: List[List[int]] = []
+    try:
+        while len(out) < n:
+            out.append(next(loop))
+    except StopIteration as stop:
+        return out, stop.value
+    return out, None
+
+
+def finish(loop: DecodeLoop) -> "SpeechGen":
+    """Run a decode loop to its end and return its ``SpeechGen``."""
+    while True:
+        _, gen = take(loop, 1 << 30)
+        if gen is not None:
+            return gen
+
+
+def generate_speech(
+    params: Params,
+    cfg: TokenLMConfig,
+    prefix: Prefix,
+    generator: Optional[torch.Generator],
+    *,
+    max_new_tokens: int,
+    decode_params: Optional[DecodeParams] = None,
+    sampler: SamplerConfig = SamplerConfig(temperature=1.0, top_k=25),
+    min_tokens: int = 2,
+    kv_int8: bool = False,
+    fused: bool = True,
+    clock: Optional[Stopwatch] = None,
+) -> SpeechGen:
+    """Prefill + decode to the end (``start_decode``, then its loop under
+    the "decode" span)."""
+    clock = clock or Stopwatch(prefix.embeds.device)
+    loop = start_decode(params, cfg, prefix, generator, max_new_tokens=max_new_tokens,
+                        decode_params=decode_params, sampler=sampler, min_tokens=min_tokens,
+                        kv_int8=kv_int8, fused=fused, clock=clock)
+    with clock.span("decode"):
+        return finish(loop)
 
 
 def _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, *, P,
-                 max_new_tokens, sampler, min_tokens, clock) -> SpeechGen:
+                 max_new_tokens, sampler, min_tokens) -> DecodeLoop:
     """The reference's scanned decode, one host iteration a step: sample
     token i of every row from the previous logits (rows already done emit
-    pad), then run the core on it at cache slot P + i under the mask of the
-    row's valid slots, and take the head's f32 logits. The loop ends after
-    ``max_new_tokens`` steps or once every row is done (one flag read from
-    the device a step); ``decode_steps`` counts the core's runs."""
+    pad), yield the row's tokens (the one device read of the step), then
+    run the core on them at cache slot P + i under the mask of the row's
+    valid slots, and take the head's f32 logits. The loop ends after
+    ``max_new_tokens`` steps or once every row is done; ``decode_steps``
+    counts the core's runs."""
     B = next_logits.shape[0]
     dev = next_logits.device
     eos, padt = cfg.speech_eos, cfg.speech_pad
@@ -330,58 +376,70 @@ def _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, *, P,
     head, emb = params["speech_head"], params["speech_emb"]
     cur = next_logits
     steps = 0
-    with clock.span("decode"):
-        for i in range(max_new_tokens):
-            tok = sample(_mask_logits(cur, cfg, i < min_tokens), sampler, generator)
-            tok = torch.where(done, torch.full_like(tok, padt), tok)
-            is_eos = tok == eos
-            gen_len += (~done & ~is_eos).to(torch.int32)
-            done |= is_eos
-            toks[:, i] = tok
-            if bool(done.all()):
-                break
-            mask = (valid & (slot[None, :] <= P + i))[:, None, None, :]
-            hidden = core.forward(params, ccfg, inputs_embeds=emb[tok.long()][:, None, :],
-                                  positions=(P + i - offset.long())[:, None], mask=mask,
-                                  cache=cache, cache_start=P + i)
-            cur = core.matmul_any(hidden[:, 0], head)
-            steps += 1
+    for i in range(max_new_tokens):
+        tok = sample(_mask_logits(cur, cfg, i < min_tokens), sampler, generator)
+        tok = torch.where(done, torch.full_like(tok, padt), tok)
+        is_eos = tok == eos
+        gen_len += (~done & ~is_eos).to(torch.int32)
+        done |= is_eos
+        toks[:, i] = tok
+        drawn = tok.tolist()
+        yield drawn
+        # a row that is not done draws neither pad nor, unless it ends, EOS
+        if all(t in (eos, padt) for t in drawn):
+            break
+        mask = (valid & (slot[None, :] <= P + i))[:, None, None, :]
+        hidden = core.forward(params, ccfg, inputs_embeds=emb[tok.long()][:, None, :],
+                              positions=(P + i - offset.long())[:, None], mask=mask,
+                              cache=cache, cache_start=P + i)
+        cur = core.matmul_any(hidden[:, 0], head)
+        steps += 1
     return SpeechGen(tokens=toks, lengths=gen_len, decode_steps=steps)
 
 
+def _from_list(toks: List[int], cfg: TokenLMConfig, max_new_tokens: int, dev, steps: int) -> SpeechGen:
+    """One row's drawn tokens (EOS last when drawn) as a ``SpeechGen``."""
+    gen_len = sum(1 for t in toks if t != cfg.speech_eos)
+    out = torch.full((1, max_new_tokens), cfg.speech_pad, dtype=torch.int32)
+    out[0, : len(toks)] = torch.tensor(toks, dtype=torch.int32)
+    return SpeechGen(tokens=out.to(dev), lengths=torch.tensor([gen_len], dtype=torch.int32, device=dev),
+                     decode_steps=steps)
+
+
 def _decode_mega(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator, *,
-                 P, off0, max_new_tokens, sampler, min_tokens, clock) -> List[int]:
+                 P, off0, max_new_tokens, sampler, min_tokens) -> DecodeLoop:
     """Token 0 from the prefill logits through ``sample``; tokens 1.. from
     the decode step, which samples in its kernel: the step for token i feeds
-    token i-1 at cache slot P + i - 1."""
+    token i-1 at cache slot P + i - 1. The steps' seeds are drawn from
+    ``generator`` at once, before token 1, as ``max_new_tokens`` values."""
     dev = k_all.device
     eos = cfg.speech_eos
-    with clock.span("prefill"):
-        tok = sample(_mask_logits(next_logits, cfg, 0 < min_tokens), sampler, generator)
-        seeds = torch.randint(0, 2 ** 31 - 1, (max_new_tokens,), generator=generator,
-                              device=dev).tolist()
+    tok = sample(_mask_logits(next_logits, cfg, 0 < min_tokens), sampler, generator)
+    seeds = torch.randint(0, 2 ** 31 - 1, (max_new_tokens,), generator=generator,
+                          device=dev).tolist()
     toks = [int(tok[0])]
-    with clock.span("decode"):
-        tok_prev = tok.to(torch.int32).reshape(1)
-        # the kernel's buffers and plan; the plain step (a CPU cache) takes none
-        scratch = decode_scratch(decode_params, ccfg.n_heads, ccfg.head_dim, dev) if dev.type == "cuda" else None
-        i = 1
-        while i < max_new_tokens and toks[-1] != eos:
-            _, tok_prev = mega_decode_step(
-                tok_prev, decode_params, k_all, v_all, P + i - 1, off0,
-                i < min_tokens, seeds[i],
-                n_heads=ccfg.n_heads, head_dim=ccfg.head_dim, eps=ccfg.norm_eps,
-                pad_id=cfg.speech_pad, bos_id=cfg.speech_bos, eos_id=eos,
-                greedy=sampler.greedy, temperature=sampler.temperature,
-                top_k=sampler.top_k, scratch=scratch,
-            )
-            toks.append(int(tok_prev[0]))
-            i += 1
-    return toks
+    yield toks[-1:]
+    tok_prev = tok.to(torch.int32).reshape(1)
+    # the kernel's buffers and plan; the plain step (a CPU cache) takes none
+    scratch = decode_scratch(decode_params, ccfg.n_heads, ccfg.head_dim, dev) if dev.type == "cuda" else None
+    i = 1
+    while i < max_new_tokens and toks[-1] != eos:
+        _, tok_prev = mega_decode_step(
+            tok_prev, decode_params, k_all, v_all, P + i - 1, off0,
+            i < min_tokens, seeds[i],
+            n_heads=ccfg.n_heads, head_dim=ccfg.head_dim, eps=ccfg.norm_eps,
+            pad_id=cfg.speech_pad, bos_id=cfg.speech_bos, eos_id=eos,
+            greedy=sampler.greedy, temperature=sampler.temperature,
+            top_k=sampler.top_k, scratch=scratch,
+        )
+        toks.append(int(tok_prev[0]))
+        yield toks[-1:]
+        i += 1
+    return _from_list(toks, cfg, max_new_tokens, dev, steps=len(toks) - 1)
 
 
 def _decode_layers(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator, *,
-                   P, off0, max_new_tokens, sampler, min_tokens, clock) -> List[int]:
+                   P, off0, max_new_tokens, sampler, min_tokens) -> DecodeLoop:
     """The per-layer flavour: token i is sampled on the host from the
     previous logits (the caller's generator is the random stream), then the
     layers run it at cache slot P + i and the head gives the next logits.
@@ -395,28 +453,28 @@ def _decode_layers(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, 
     kw = dict(n_heads=ccfg.n_heads, head_dim=ccfg.head_dim, eps=ccfg.norm_eps)
     toks: List[int] = []
     cur_logits = next_logits
-    with clock.span("decode"):
-        lw0 = decode_params[0]
-        scratch = None     # the kernels' buffers; the plain half-layers (a CPU cache) take none
-        if dev.type == "cuda":
-            scratch = {"qkv": torch.empty((lw0["wqkv"].shape[0],), dtype=torch.float32, device=dev),
-                       "part": torch.empty(part_shape(ccfg.n_heads, ccfg.head_dim), dtype=torch.float32,
-                                           device=dev),
-                       "act": torch.empty((lw0["wd"].shape[1],), dtype=torch.bfloat16, device=dev)}
-        for i in range(max_new_tokens):
-            tok = sample(_mask_logits(cur_logits, cfg, i < min_tokens), sampler, generator)
-            toks.append(int(tok[0]))
-            if toks[-1] == eos:
-                break
-            h = emb[toks[-1]].to(torch.bfloat16)[None].contiguous()
-            for l, lw in enumerate(decode_params):
-                attn_step(h, lw["attn_norm"], lw["wqkv"], lw["wqs"], lw["wo"], lw["wos"], invf,
-                          k_all[l], v_all[l], P + i, off0, scratch=scratch, **kw)
-                mlp_step(h, lw["mlp_norm"], lw["wgu"], lw["wgus"], lw["wd"], lw["wds"],
-                         eps=ccfg.norm_eps, scratch=scratch)
-            hf = core.rmsnorm(h, params["final_norm"], ccfg.norm_eps)
-            cur_logits = core.matmul_any(hf, params["speech_head"])
-    return toks
+    lw0 = decode_params[0]
+    scratch = None     # the kernels' buffers; the plain half-layers (a CPU cache) take none
+    if dev.type == "cuda":
+        scratch = {"qkv": torch.empty((lw0["wqkv"].shape[0],), dtype=torch.float32, device=dev),
+                   "part": torch.empty(part_shape(ccfg.n_heads, ccfg.head_dim), dtype=torch.float32,
+                                       device=dev),
+                   "act": torch.empty((lw0["wd"].shape[1],), dtype=torch.bfloat16, device=dev)}
+    for i in range(max_new_tokens):
+        tok = sample(_mask_logits(cur_logits, cfg, i < min_tokens), sampler, generator)
+        toks.append(int(tok[0]))
+        yield toks[-1:]
+        if toks[-1] == eos:
+            break
+        h = emb[toks[-1]].to(torch.bfloat16)[None].contiguous()
+        for l, lw in enumerate(decode_params):
+            attn_step(h, lw["attn_norm"], lw["wqkv"], lw["wqs"], lw["wo"], lw["wos"], invf,
+                      k_all[l], v_all[l], P + i, off0, scratch=scratch, **kw)
+            mlp_step(h, lw["mlp_norm"], lw["wgu"], lw["wgus"], lw["wd"], lw["wds"],
+                     eps=ccfg.norm_eps, scratch=scratch)
+        hf = core.rmsnorm(h, params["final_norm"], ccfg.norm_eps)
+        cur_logits = core.matmul_any(hf, params["speech_head"])
+    return _from_list(toks, cfg, max_new_tokens, dev, steps=sum(1 for t in toks if t != eos))
 
 
 def generate_speech_from_ids(
@@ -446,3 +504,162 @@ def generate_speech_from_ids(
         decode_params=decode_params, sampler=sampler, min_tokens=min_tokens,
         kv_int8=kv_int8, fused=fused, clock=clock,
     )
+
+
+# ----------------------------------------------------------------------- continuous batching
+
+
+def build_prefix_padded(
+    params: Params, cfg: TokenLMConfig, text: torch.Tensor, text_len: torch.Tensor,
+    style_tokens: torch.Tensor, style_len: torch.Tensor, spk: torch.Tensor, *,
+    pad_multiple: int = 128,
+) -> Prefix:
+    """build_prefix + pad_prefix (the reference jits the two as one
+    program; here they are the same eager ops)."""
+    pre = build_prefix(params, cfg, text, text_len, style_tokens, style_len, spk)
+    return pad_prefix(pre, multiple=pad_multiple)
+
+
+def prefill_prefix(params: Params, cfg: TokenLMConfig, prefix: Prefix, *, s_max: int,
+                   kv_int8: bool = False) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Prefill a batch of prefixes into a fresh ``[L, B, s_max, K, hd]``
+    cache (int8 values with f32 scales under ``kv_int8``): -> (cache, next
+    logits [B, V] f32, offset [B] int32). Attention is the prefill's
+    ``flash_attention`` over the P new keys; slots past P stay zero. The
+    admission half of continuous batching (``pipeline/continuous.py``)."""
+    ccfg = core_config(cfg)
+    B, P, _ = prefix.embeds.shape
+    dev = prefix.embeds.device
+    cache = core.make_cache(ccfg, B, s_max, dev, quantized=kv_int8)
+    offset = (P - prefix.length).to(torch.int32)
+    pos = torch.clamp(torch.arange(P, device=dev)[None, :] - offset[:, None], min=0)
+    hidden = core.forward(params, ccfg, inputs_embeds=prefix.embeds, positions=pos,
+                          offset=offset, cache=cache)
+    return cache, core.matmul_any(hidden[:, -1], params["speech_head"]), offset
+
+
+def _chunk_tick(cfg: TokenLMConfig, sampler: SamplerConfig, min_tokens: int, S_eff: int,
+                logits: torch.Tensor, t: torch.Tensor, done: torch.Tensor, steps: torch.Tensor,
+                generator: Optional[torch.Generator]):
+    """One step's sampling and bookkeeping in ``decode_chunk``: pad and BOS
+    masked, EOS masked for rows that drew fewer than ``min_tokens``; done
+    rows draw pad; a row retires at EOS or when its next slot would pass
+    ``S_eff - 2``. -> (tokens, done, steps)."""
+    eos, padt = cfg.speech_eos, cfg.speech_pad
+    lg = logits.clone()
+    lg[:, padt] = NEG_INF
+    lg[:, cfg.speech_bos] = NEG_INF
+    lg[:, eos] = torch.where(steps < min_tokens, torch.full_like(lg[:, eos], NEG_INF), lg[:, eos])
+    tok = sample(lg, sampler, generator)
+    tok = torch.where(done, torch.full_like(tok, padt), tok)
+    done = done | (tok == eos) | (t >= S_eff - 2)
+    return tok, done, steps + (tok != padt).to(steps.dtype)
+
+
+def _attn_2seg(q, main, app, main_valid, a_valid, rep):
+    """One query a row over [main cache | this chunk's append rows] with one
+    softmax across both. q [B, 1, H, hd]; ``main`` / ``app`` are (k, v) or,
+    for an int8 cache, (k, k_scale, v, v_scale), in the caches' own
+    [B, S, K, hd] layout; k's scale multiplies the finished dot and v's the
+    probabilities. -> [B, H * hd] f32."""
+    B, _, H, hd = q.shape
+    K = H // rep
+    qf = q.float().reshape(B, K, rep, hd) * hd ** -0.5
+
+    def segment(kv, valid):
+        k, v = kv[0], kv[len(kv) // 2]
+        logits = torch.einsum("bkrd,bskd->bskr", qf, k.float())
+        if len(kv) == 4:
+            logits = logits * kv[1][..., None]
+        return torch.where(valid, logits, torch.full_like(logits, NEG_INF)), v
+
+    lm, vm = segment(main, main_valid[:, :, None, None])
+    la, va = segment(app, a_valid[None, :, None, None])
+    mx = torch.maximum(lm.amax(1), la.amax(1))[:, None]
+    pm, pa = torch.exp(lm - mx), torch.exp(la - mx)
+    den = torch.clamp(pm.sum(1) + pa.sum(1), min=1e-30)
+    if len(main) == 4:
+        pm, pa = pm * main[3][..., None], pa * app[3][..., None]
+    num = torch.einsum("bskr,bskd->bkrd", pm, vm.float()) + torch.einsum("bskr,bskd->bkrd", pa, va.float())
+    return (num / den[..., None]).reshape(B, H * hd)
+
+
+def decode_chunk(
+    params: Params, cfg: TokenLMConfig, cache: Dict[str, torch.Tensor],
+    cur_logits: torch.Tensor,    # [B, V] logits for each slot's next token
+    t: torch.Tensor,             # [B] cache slot each slot's next token writes
+    offset: torch.Tensor,        # [B] left pad per slot
+    done: torch.Tensor,          # [B] bool (idle and finished slots draw pad)
+    steps: torch.Tensor,         # [B] tokens each slot has drawn
+    generator: Optional[torch.Generator], *,
+    n_steps: int,
+    sampler: SamplerConfig = SamplerConfig(temperature=1.0, top_k=25),
+    min_tokens: int = 2,
+):
+    """Advance every slot of a continuous batch by ``n_steps`` tokens, each
+    slot at its own position, as the reference's ``decode_chunk`` does: the
+    main cache is only read during the chunk; the chunk's new keys and
+    values go to append buffers ``[L, B, n_steps, K, hd]`` (int8 with scales
+    for an int8 cache, quantized as they are appended); attention takes one
+    softmax over both segments; at the end the append rows are written into
+    each slot's home slots ``[t0, t0 + n_steps)`` at once. The cache's last
+    ``n_steps`` slots are the spare room that keeps this in bounds
+    (``S_eff = S_tot - n_steps``). The cache is updated in place. ->
+    (cache, cur_logits, t, done, steps, tokens [B, n_steps])."""
+    ccfg = core_config(cfg)
+    B = cur_logits.shape[0]
+    L, H, K, hd = ccfg.n_layers, ccfg.n_heads, ccfg.n_kv_heads, ccfg.head_dim
+    dev = cur_logits.device
+    S_tot = cache["k"].shape[2]
+    S_eff = S_tot - n_steps
+    lp, head, emb = params["layers"], params["speech_head"], params["speech_emb"]
+    dt, eps = torch.bfloat16, ccfg.norm_eps
+    cos, sin = rope_table(ccfg.max_seq_len, hd, ccfg.rope_theta, device=dev)
+    quant = "k_scale" in cache
+    t0 = t
+    slot = torch.arange(S_tot, device=dev)
+    main_valid = (slot[None, :] >= offset.long()[:, None]) & (slot[None, :] < t0.long()[:, None])
+    app_idx = torch.arange(n_steps, device=dev)
+    app = {name: torch.zeros((L, B, n_steps) + buf.shape[3:], dtype=buf.dtype, device=dev)
+           for name, buf in cache.items()}
+
+    def lw(w, l):
+        return QTensor(q=w.q[l], s=w.s[l]) if isinstance(w, QTensor) else w[l]
+
+    segs = ("k", "k_scale", "v", "v_scale") if quant else ("k", "v")
+    toks = []
+    for i in range(n_steps):
+        tok, done, steps = _chunk_tick(cfg, sampler, min_tokens, S_eff, cur_logits, t, done, steps, generator)
+        toks.append(tok)
+        h = emb[tok.long()].to(dt)
+        pos = torch.clamp(t.long() - offset.long(), min=0)[:, None]
+        a_valid = app_idx <= i
+        for l in range(L):
+            x = core.rmsnorm(h, lp["attn_norm"][l], eps)
+            qkv = core.matmul_any(x, lw(lp["wqkv"], l)).to(dt)
+            q, k_new, v_new = torch.split(qkv, [H * hd, K * hd, K * hd], dim=-1)
+            q = apply_rope(q.reshape(B, 1, H, hd), cos, sin, pos)
+            k_new = apply_rope(k_new.reshape(B, 1, K, hd), cos, sin, pos)
+            v_new = v_new.reshape(B, 1, K, hd)
+            for name, new in (("k", k_new), ("v", v_new)):
+                if quant:
+                    # quantized as the one-shot int8 cache writes them, so reads
+                    # within the chunk see what the next chunk reads from the cache
+                    q8, s8 = quantize_kv(new)
+                    app[name][l, :, i], app[name + "_scale"][l, :, i] = q8[:, 0], s8[:, 0]
+                else:
+                    app[name][l, :, i] = new[:, 0].to(dt)
+            attn = _attn_2seg(q, tuple(cache[n][l] for n in segs), tuple(app[n][l] for n in segs),
+                              main_valid, a_valid, H // K).to(dt)
+            h = h + core.matmul_any(attn, lw(lp["wo"], l)).to(dt)
+            x = core.rmsnorm(h, lp["mlp_norm"][l], eps)
+            g, u = core.matmul_any(x, lw(lp["w_gate_up"], l)).chunk(2, dim=-1)
+            h = h + core.matmul_any((torch.nn.functional.silu(g) * u).to(dt), lw(lp["w_down"], l)).to(dt)
+        cur_logits = core.matmul_any(core.rmsnorm(h, params["final_norm"], eps), head)
+        t = torch.clamp(t + 1, max=S_eff - 1)
+    # each slot's append rows into its home slots, one indexed write a buffer
+    home = torch.clamp(t0.long(), max=S_tot - n_steps)[:, None] + app_idx[None, :]
+    rows = torch.arange(B, device=dev)[:, None]
+    for name, buf in cache.items():
+        buf[:, rows, home] = app[name]
+    return cache, cur_logits, t, done, steps, torch.stack(toks, dim=1)

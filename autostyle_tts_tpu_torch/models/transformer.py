@@ -11,14 +11,15 @@ Counterpart of the JAX ``models/transformer.py``: ``rmsnorm``,
   shape it was not built for (the reference's ``flash_ok`` has no
   counterpart);
 - decode (an explicit ``mask`` over the cache's S_max slots): the new keys
-  and values are written at ``cache_start`` and attention reads the whole
-  cache through ``sdpa`` or, for an int8 cache, ``sdpa_quant``.
+  and values are written at ``cache_start`` (one slot, or one slot a row)
+  and attention reads the whole cache through ``sdpa`` or, for an int8
+  cache, ``sdpa_quant``.
 
 Parameters keep the JAX layer-stacked layout (``layers/wqkv``
 [L, D, (H+2K)*hd], ...). Rounding follows the reference: bf16 activations
 between ops, f32 norms, projections accumulated in f32 and rounded to bf16.
-Per-row write positions (continuous batching), LoRA adapters and the
-attention bias are not ported and raise, naming their ROADMAP.md item.
+LoRA adapters and the attention bias are not ported and raise, naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -105,12 +106,13 @@ def make_cache(cfg: TransformerConfig, batch: int, max_len: int, device,
 def _layer(
     h: torch.Tensor, lp: Params, cfg: TransformerConfig,
     cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
-    cache: Dict[str, torch.Tensor], start: int,
+    cache: Dict[str, torch.Tensor], start: Union[int, torch.Tensor],
     offset: Optional[torch.Tensor], mask: Optional[torch.Tensor],
 ) -> torch.Tensor:
     """One layer over T new slots. ``cache`` holds this layer's views
     ([B, S, K, hd], and [B, S, K] scales when int8); the new keys and values
-    are written at slots [start, start + T) in place. Without ``mask``
+    are written at slots [start, start + T) in place, or, for a ``start``
+    of [B] slots (T = 1), row b's at slot start[b]. Without ``mask``
     (prefill) attention is the flash kernel over the T new keys; with it,
     attention reads the whole cache under ``mask`` [B, 1, T, S]."""
     B, T, D = h.shape
@@ -122,12 +124,16 @@ def _layer(
     k = apply_rope(k.reshape(B, T, K, hd), cos, sin, positions)
     v = v.reshape(B, T, K, hd)
     quant = "k_scale" in cache
-    if quant:
-        for name, t in (("k", k), ("v", v)):
-            cache[name][:, start : start + T], cache[name + "_scale"][:, start : start + T] = quantize_kv(t)
+    if isinstance(start, torch.Tensor):     # one slot a row: index, not a slice
+        at, new = (torch.arange(B, device=h.device), start.long()), (lambda x: x[:, 0])
     else:
-        cache["k"][:, start : start + T] = k.to(cache["k"].dtype)
-        cache["v"][:, start : start + T] = v.to(cache["v"].dtype)
+        at, new = (slice(None), slice(start, start + T)), (lambda x: x)
+    for name, t in (("k", k), ("v", v)):
+        if quant:
+            qt, scale = quantize_kv(t)
+            cache[name][at], cache[name + "_scale"][at] = new(qt), new(scale)
+        else:
+            cache[name][at] = new(t).to(cache[name].dtype)
     if mask is None:
         attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), offset)
     elif quant:
@@ -162,14 +168,18 @@ def forward(
     ``cache`` slots [cache_start, cache_start + T) and returns the
     final-norm hidden states [B, T, D] (compute dtype). Prefill (no
     ``mask``) needs ``offset`` and cache_start 0; a decode step passes the
-    ``mask`` over the whole cache."""
-    if isinstance(cache_start, torch.Tensor) and cache_start.ndim == 1:
-        raise NotImplementedError("per-row cache writes (continuous batching) are not ported yet "
-                                  "(ROADMAP.md: queue A item 4, continuous batching)")
+    ``mask`` over the whole cache, and ``cache_start`` may then be [B]
+    slots, one a row (T = 1: each row at its own position). The reference
+    writes that case as a select over the whole cache, because a scatter
+    serializes on its accelerator; here it is one indexed write."""
     if "bqkv" in params["layers"] or any(n.endswith("_lora_a") for n in params["layers"]):
         raise NotImplementedError("attention bias and LoRA adapters are not ported yet "
                                   "(ROADMAP.md: queue A item 6, RAG embedder)")
-    start = int(cache_start)
+    per_row = isinstance(cache_start, torch.Tensor) and cache_start.ndim == 1
+    start = cache_start if per_row else int(cache_start)
+    if per_row and (mask is None or inputs_embeds.shape[1] != 1
+                    or cache_start.shape[0] != inputs_embeds.shape[0]):
+        raise ValueError("forward: per-row cache writes are one decode slot a row ([B] starts, T = 1)")
     if mask is None and (offset is None or start != 0):
         raise ValueError("forward: a prefill (no mask) needs offset and cache_start 0")
     dt = _DTYPES[cfg.dtype]

@@ -1,12 +1,12 @@
 """Synthesis engine: requests whose prompts are wavs or style-DB rows.
 
-Counterpart of the JAX ``pipeline/engine.py`` for its non-streaming entry
-points (``inference_tts_with_st``, ``inference_zero_shot``,
-``inference_sft`` with ``register_speaker`` / ``save_speakers`` /
-``load_speakers``, ``inference_vc``, ``synthesize_batch``,
-``synthesize_from_tokens``), all through the staged ``_synthesize`` (the
-reference's fused B=1 program, ``_synthesize_one``, exists to save
-dispatches; the stages and their results are the same):
+Counterpart of the JAX ``pipeline/engine.py``: its entry points
+(``inference_tts_with_st``, ``inference_zero_shot``, ``inference_sft`` with
+``register_speaker`` / ``save_speakers`` / ``load_speakers``,
+``inference_vc``, ``synthesize_batch``, ``synthesize_from_tokens``), all
+through the staged ``_synthesize`` (the reference's fused B=1 program,
+``_synthesize_one``, exists to save dispatches; the stages and their
+results are the same):
 
 0. for a wav prompt, ``prompt_features`` -> ``featurize``: 16 kHz log-mel
    (fused log-mel kernel) -> speech tokenizer + speaker encoder; resample to
@@ -20,19 +20,26 @@ dispatches; the stages and their results are the same):
 3. the vocoder (iSTFT or HiFi-GAN) and the crop to each row's generated
    region, fetched to the host once.
 
+With ``stream=True`` each ``inference_*`` entry point yields the audio a
+chunk at a time (``_synthesize_stream``): the LM's decode loop hands out
+its tokens as it draws them and ``stream_window`` renders one CFM +
+vocoder window per chunk; ``render_windows`` renders the windows of many
+streams in one call (``pipeline/stream_serve.py``).
+
 The engine returns f32 wavs. The STYLE prompt drives the LM prosody prefix;
 the TIMBRE prompt supplies the speaker embedding and the flow prompt
-(tokens + mel). Streaming and speculative decoding raise
-``NotImplementedError`` naming their ROADMAP.md item.
+(tokens + mel). Speculative decoding raises ``NotImplementedError`` naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import bisect
 import json
+import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -133,6 +140,84 @@ def mel_body(
     return mel, tok_lens
 
 
+class StreamPrompt(NamedTuple):
+    """The flow prompt of a stream on the device (``Engine._flow_stream_dev``):
+    the last ``STREAM_PROMPT_TOKENS`` tokens of a prompt and their mel,
+    bucketed to ``fp_w`` tokens."""
+
+    key: Tuple                  # (fp_w, upsample, n_mels, device)
+    tokens: torch.Tensor        # [1, fp_w] int32
+    mel: torch.Tensor           # [1, fp_w * up, M] f32, zero past n_mel
+    n_p: int
+    n_mel: int
+    spk: torch.Tensor           # [1, spk_dim] f32
+
+
+STREAM_PROMPT_TOKENS = 64    # a stream's windows in-paint against the prompt's last 64 tokens
+
+
+def stream_window(
+    params: "EngineParams", cfg: Config,
+    gen_tokens: torch.Tensor,      # [B, W_g] each row's generated tokens so far
+    gen_len: torch.Tensor,         # [B] tokens the row has (emitted ones included)
+    emitted: torch.Tensor,         # [B] tokens already rendered
+    prompt_tokens: torch.Tensor,   # [B, fp_w]
+    n_p: torch.Tensor,             # [B] real prompt tokens
+    prompt_mel: torch.Tensor,      # [B, fp_w * up, M]
+    n_mel: torch.Tensor,           # [B] real prompt mel frames
+    spk: torch.Tensor,             # [B, spk_dim]
+    mel_ctx: torch.Tensor,         # [B, chunk * up, M] the row's previous chunk mel (zeros at first)
+    generator: Optional[torch.Generator],
+    *, chunk: int, noise: Optional[torch.Tensor] = None, clock: Optional[Stopwatch] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Render the next chunk of each row of a stream: the CFM solves one
+    ``[prompt | ctx | chunk]`` window of ``W = fp_w + 2 * chunk`` tokens,
+    the vocoder renders it, and the chunk is cut out. The context holds
+    the row's ``min(chunk, emitted)`` previous tokens right-aligned against
+    the chunk, with the previous chunk's mel in-painted under them; frame
+    positions are absolute (the chunk starts at frame (n_p + emitted) *
+    up, where the whole-utterance solve puts it), so seams line up. The
+    chunk holds ``min(chunk, gen_len - emitted)`` tokens. ``noise``
+    [B, W * up, M] replaces the draw from ``generator``. -> (samples
+    [B, chunk * up * hop] f32, of which each row's first
+    n_chunk * up * hop are its audio; the mel chunk [B, chunk * up, M],
+    the row's next ``mel_ctx``)."""
+    up, hop, M = cfg.cfm.upsample, cfg.audio.hop_length, cfg.cfm.n_mels
+    B, fp_w = prompt_tokens.shape
+    W = fp_w + 2 * chunk
+    dev = prompt_tokens.device
+    clock = clock or Stopwatch(dev)
+    gl, em, npp, nm = (x.long().reshape(-1, 1) for x in (gen_len, emitted, n_p, n_mel))
+    with clock.span("cfm"):
+        n_chunk = torch.clamp(gl - em, max=chunk)
+        slot = torch.arange(W, device=dev)[None, :]
+        ctx_lo = fp_w + chunk - torch.clamp(em, max=chunk)
+        # slot fp_w + chunk + (i - emitted) holds generated token i
+        gidx = slot - (fp_w + chunk) + em
+        from_gen = torch.gather(gen_tokens.long(), 1, torch.clamp(gidx, 0, gen_tokens.shape[1] - 1))
+        from_prompt = torch.gather(prompt_tokens.long(), 1, torch.clamp(slot, 0, fp_w - 1).expand(B, W))
+        in_tail = (slot >= ctx_lo) & (gidx < em + n_chunk) & (slot >= fp_w)
+        zero = torch.zeros_like(from_gen)
+        tokens = torch.where(slot < npp, from_prompt, torch.where(in_tail, from_gen, zero))
+        fr = torch.arange(W * up, device=dev)[None, :]
+        sl = fr // up
+        in_ctx = (sl >= ctx_lo) & (sl < fp_w + chunk)
+        pmask = ((fr < nm) | in_ctx).float()
+        fmask = ((fr < npp * up) | in_ctx | ((sl >= fp_w + chunk) & (sl < fp_w + chunk + n_chunk))).float()
+        pm = torch.zeros((B, W * up, M), dtype=torch.float32, device=dev)
+        pm[:, : fp_w * up] = prompt_mel * (torch.arange(fp_w * up, device=dev)[None, :, None] < nm[:, :, None])
+        pm[:, fp_w * up : (fp_w + chunk) * up] = mel_ctx
+        pm = pm * pmask[..., None]
+        pos = torch.where(fr < fp_w * up, fr, torch.clamp((npp + em - chunk) * up + fr - fp_w * up, min=0))
+        cond = cfm.upsample_tokens(params.cfm, tokens, up)
+        mel = cfm.sample_mel(params.cfm, cfg.cfm, generator, cond, spk, pm, pmask, fmask,
+                             use_cfg=cfg.cfm.use_cfg, positions=pos, noise=noise)
+    lo = (fp_w + chunk) * up
+    with clock.span("vocoder"):
+        wav = vocoder.apply(params.vocoder, cfg.vocoder, mel)[:, lo * hop : (lo + chunk * up) * hop]
+    return wav.float(), mel[:, lo : lo + chunk * up]
+
+
 def featurize(
     params: "EngineParams", cfg: Config,
     wav16: torch.Tensor,    # [B, T16] zero-padded 16 kHz prompt wavs
@@ -174,7 +259,9 @@ def _prepare_lm(lm: Dict, cfg: Config):
     (``decode_step.step_serves``; the engine's B=1 requests then run it) its
     output-major copy is built once here and the prefill reads views of it
     (no second int8 copy); with ``quantize_lm_int4`` only the decode step's
-    weights are re-quantized, the prefill keeps int8, as in the reference.
+    weights are re-quantized, the prefill keeps int8, as in the reference,
+    and where the int4 step does not take the widths but the int8 one does
+    the decode weights stay int8 (the reference's fallback).
     Dense: the projections and the speech head are rounded to bf16 once
     here (the reference casts them to the bf16 activations in every
     product)."""
@@ -183,12 +270,16 @@ def _prepare_lm(lm: Dict, cfg: Config):
         return dict(lm, layers=layers, speech_head=lm["speech_head"].to(torch.bfloat16)), None
     lm = quantize_tree(lm)
     tl = cfg.token_lm
-    int4 = getattr(cfg, "quantize_lm_int4", False)
-    if not decode_step.step_serves(dim=tl.dim, n_heads=tl.n_heads, n_kv_heads=tl.n_kv_heads,
-                                   head_dim=tl.head_dim, ffn_dim=tl.ffn_dim,
-                                   vocab=tl.speech_vocab_size, bits=4 if int4 else 8):
+
+    def serves(bits):
+        return decode_step.step_serves(dim=tl.dim, n_heads=tl.n_heads, n_kv_heads=tl.n_kv_heads,
+                                       head_dim=tl.head_dim, ffn_dim=tl.ffn_dim,
+                                       vocab=tl.speech_vocab_size, bits=bits)
+
+    if not serves(8):
         return lm, None
     mega8 = token_lm.mega_decode_params(lm, tl)
+    int4 = getattr(cfg, "quantize_lm_int4", False) and serves(4)
     mega = token_lm.requantize_int4(mega8) if int4 else mega8
     return token_lm.share_decode_weights(lm, mega8), mega
 
@@ -232,6 +323,7 @@ class Engine:
         self.last_decode_steps = 0
         self.last_gen_len = 0
         self.last_gen_lens: List[int] = []
+        self.last_chunk_ms: List[float] = []      # a stream's render time of each chunk
 
     # ------------------------------------------------------------------ prompts
 
@@ -303,14 +395,21 @@ class Engine:
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
 
-    def _lm_stage(self, texts: Sequence[str], style_texts: Sequence[str],
-                  style_feats: Sequence[PromptFeatures], spk: torch.Tensor,
-                  max_seconds: float, clock: Stopwatch) -> Tuple[token_lm.SpeechGen, int]:
-        """The token LM over the batch: (generated tokens and lengths on the
-        device, the generation bucket). Each row's [style text ++ text] is
-        encoded to one width bucket. A B=1 batch takes the decode kernel
-        where the engine built its weights; anything else the scanned
-        decode, with an int8 KV cache under ``quantize_lm_kv_int8``."""
+    def _lm_generator(self) -> torch.Generator:
+        """The random stream of one request's LM: a generator seeded by one
+        draw of the engine's. A stream draws its windows' CFM noise from
+        the engine's generator while the LM is still drawing tokens, and
+        its tokens are still those the same request draws unstreamed from
+        the same engine state (the reference gives its LM a key of its own
+        for the same reason)."""
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.generator, device=self.device))
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _lm_inputs(self, texts: Sequence[str], style_texts: Sequence[str],
+                   style_feats: Sequence[PromptFeatures], max_seconds: float):
+        """The LM's inputs on the device: (text ids, text lengths, style
+        tokens, style lengths) and the generation bucket. Each row's
+        [style text ++ text] is encoded to one width bucket."""
         tl = self.cfg.token_lm
         B = len(texts)
         tok, tn = self.text_tokenizer, self.normalize_numbers
@@ -324,12 +423,21 @@ class Engine:
         for i, f in enumerate(style_feats):
             sty_lens[i] = min(len(f.tokens), sty_w)
             sty[i, : sty_lens[i]] = f.tokens[: sty_lens[i]]
-        max_new = _bucket(int(max_seconds * tl.token_rate), GEN_BUCKETS)
         i32 = torch.int32
+        ids = tuple(self._tensor(a, i32) for a in (text_ids, text_lens, sty, sty_lens))
+        return ids, _bucket(int(max_seconds * tl.token_rate), GEN_BUCKETS)
+
+    def _lm_stage(self, texts: Sequence[str], style_texts: Sequence[str],
+                  style_feats: Sequence[PromptFeatures], spk: torch.Tensor,
+                  max_seconds: float, clock: Stopwatch) -> Tuple[token_lm.SpeechGen, int]:
+        """The token LM over the batch: (generated tokens and lengths on the
+        device, the generation bucket). A B=1 batch takes the decode kernel
+        where the engine built its weights; anything else the scanned
+        decode, with an int8 KV cache under ``quantize_lm_kv_int8``."""
+        ids, max_new = self._lm_inputs(texts, style_texts, style_feats, max_seconds)
         gen = token_lm.generate_speech_from_ids(
-            self.params.token_lm, tl, self._tensor(text_ids, i32), self._tensor(text_lens, i32),
-            self._tensor(sty, i32), self._tensor(sty_lens, i32), spk, self.generator,
-            max_new_tokens=max_new, decode_params=self._mega_params if B == 1 else None,
+            self.params.token_lm, self.cfg.token_lm, *ids, spk, self._lm_generator(),
+            max_new_tokens=max_new, decode_params=self._mega_params if len(texts) == 1 else None,
             kv_int8=bool(getattr(self.cfg, "quantize_lm_kv_int8", False)), clock=clock,
         )
         return gen, max_new
@@ -405,38 +513,168 @@ class Engine:
         self.last_gen_len = self.last_gen_lens[0]
         return wavs
 
+    # ------------------------------------------------------------------ streaming
+
+    def _flow_stream_dev(self, flow_feat: PromptFeatures) -> StreamPrompt:
+        """The flow prompt of a stream on the device, clipped to its last
+        ``STREAM_PROMPT_TOKENS`` tokens (the window's CFM cost grows with
+        its width) and cached on the ``PromptFeatures`` (DB-served prompts
+        come back request after request)."""
+        up, M = self.cfg.cfm.upsample, self.cfg.cfm.n_mels
+        k0 = max(0, len(flow_feat.tokens) - STREAM_PROMPT_TOKENS)
+        tok, mel = flow_feat.tokens[k0:], flow_feat.mel24[k0 * up :]
+        fp_w = _bucket(len(tok), TOKEN_BUCKETS)
+        key = (fp_w, up, M, self.device)
+        cached = getattr(flow_feat, "_stream_dev", None)
+        if cached is not None and cached.key == key:
+            return cached
+        n_p = min(len(tok), fp_w)
+        n_mel = min(mel.shape[0], n_p * up)
+        ptok = np.zeros((1, fp_w), np.int32)
+        ptok[0, :n_p] = tok[:n_p]
+        pmel = np.zeros((1, fp_w * up, M), np.float32)
+        pmel[0, :n_mel] = mel[:n_mel]
+        flow_feat._stream_dev = StreamPrompt(
+            key=key, tokens=self._tensor(ptok, torch.int32), mel=self._tensor(pmel, torch.float32),
+            n_p=n_p, n_mel=n_mel, spk=self._tensor(flow_feat.spk[None], torch.float32))
+        return flow_feat._stream_dev
+
+    def render_windows(self, tokens: Sequence[Sequence[int]], emitted: Sequence[int],
+                       prompts: Sequence[StreamPrompt], mel_ctx: torch.Tensor, chunk: int,
+                       noise=None, clock: Optional[Stopwatch] = None):
+        """The next chunk of each of B streams in one ``stream_window`` call
+        (the prompts share one bucket): row b has generated ``tokens[b]``
+        and rendered ``emitted[b]`` of them. The noise is one draw of the
+        engine's generator for the call, or ``noise`` [B, W * up, M].
+        One host fetch. -> (each row's new samples, f32 numpy; the rows'
+        mel chunks, the next ``mel_ctx``)."""
+        up, hop = self.cfg.cfm.upsample, self.cfg.audio.hop_length
+        B = len(tokens)
+        buf = np.zeros((B, max(max(len(t) for t in tokens), 1)), np.int32)
+        for b, t in enumerate(tokens):
+            buf[b, : len(t)] = t
+        i32 = torch.int32
+        wav, mel_chunk = stream_window(
+            self.params, self.cfg, self._tensor(buf, i32), self._tensor([len(t) for t in tokens], i32),
+            self._tensor(emitted, i32), torch.cat([p.tokens for p in prompts]),
+            self._tensor([p.n_p for p in prompts], i32), torch.cat([p.mel for p in prompts]),
+            self._tensor([p.n_mel for p in prompts], i32), torch.cat([p.spk for p in prompts]),
+            mel_ctx, self.generator, chunk=chunk,
+            noise=None if noise is None else self._tensor(noise, torch.float32), clock=clock)
+        host = wav.cpu().numpy()
+        n = [min(chunk, len(t) - e) * up * hop for t, e in zip(tokens, emitted)]
+        return [host[b, : n[b]] for b in range(B)], mel_chunk
+
+    def _synthesize_stream(
+        self, text: str, style_text: str, style_feat: Optional[PromptFeatures],
+        flow_feat: PromptFeatures, chunk_tokens: Optional[int] = None, max_seconds: float = 20.0,
+        lm_tokens_override: Optional[np.ndarray] = None, cfm_noise=None,
+        clock: Optional[Stopwatch] = None, t0: Optional[float] = None,
+    ) -> Iterator[np.ndarray]:
+        """One request's audio a chunk at a time (f32 samples), chunks of
+        ``chunk_tokens`` tokens (by default ``max(8, 2 * token_rate // 3)``,
+        0.64 s at 25 Hz). The LM (or ``lm_tokens_override``, voice
+        conversion) runs once, as a decode loop that hands out its tokens
+        as it draws them; a window is rendered each time ``chunk`` new
+        tokens have arrived, and a last, shorter one at EOS. The LM draws
+        from its own generator (``_lm_generator``), the windows' CFM noise
+        from the engine's, one draw a window, so the tokens are those the
+        same request draws unstreamed from the same engine state. The
+        joined chunks are as long as that request's wav. ``cfm_noise``
+        replaces the windows' draws (one [1, W * up, M] array a window).
+        ``last_timings`` gains ``ttfa`` (ms from the call, ``t0``, to the
+        first chunk's samples on the host) and ``last_chunk_ms`` holds each
+        chunk's render time (window CFM, vocoder, fetch)."""
+        cfg = self.cfg
+        tl = cfg.token_lm
+        up, M = cfg.cfm.upsample, cfg.cfm.n_mels
+        t0 = time.perf_counter() if t0 is None else t0
+        clock = clock or Stopwatch(self.device)
+        chunk = chunk_tokens or max(8, (2 * tl.token_rate) // 3)
+        prompt = self._flow_stream_dev(flow_feat)
+        noises = None if cfm_noise is None else iter(cfm_noise)
+        decode_steps = 0
+
+        def arrivals():
+            """(new tokens, whether the request has all its tokens)."""
+            nonlocal decode_steps
+            if lm_tokens_override is not None:
+                yield [int(t) for t in np.asarray(lm_tokens_override).reshape(-1)], True
+                return
+            ids, max_new = self._lm_inputs([text], [style_text], [style_feat], max_seconds)
+            prefix = token_lm.build_prefix_padded(self.params.token_lm, tl, *ids, prompt.spk)
+            loop = token_lm.start_decode(self.params.token_lm, tl, prefix, self._lm_generator(),
+                                         max_new_tokens=max_new, decode_params=self._mega_params,
+                                         kv_int8=bool(getattr(cfg, "quantize_lm_kv_int8", False)),
+                                         clock=clock)
+            gen = None
+            while gen is None:
+                with clock.span("decode"):
+                    steps, gen = token_lm.take(loop, chunk)
+                    new = [s[0] for s in steps]
+                    if tl.speech_eos in new:     # the loop ends at EOS: collect its result
+                        new, gen = new[: new.index(tl.speech_eos)], gen or token_lm.finish(loop)
+                yield new, gen is not None
+            decode_steps = gen.decode_steps
+
+        tokens: List[int] = []
+        emitted, ttfa, chunk_ms = 0, None, []
+        mel_ctx = torch.zeros((1, chunk * up, M), dtype=torch.float32, device=self.device)
+        for new, ended in arrivals():
+            tokens += new
+            while len(tokens) - emitted >= chunk or (ended and emitted < len(tokens)):
+                t_render = time.perf_counter()
+                (wav,), mel_ctx = self.render_windows(
+                    [tokens], [emitted], [prompt], mel_ctx, chunk,
+                    noise=None if noises is None else next(noises), clock=clock)
+                now = time.perf_counter()
+                chunk_ms.append((now - t_render) * 1e3)
+                ttfa = (now - t0) * 1e3 if ttfa is None else ttfa
+                emitted += min(chunk, len(tokens) - emitted)
+                yield wav
+        self.last_timings = dict(clock.ms, ttfa=ttfa)
+        self.last_chunk_ms = chunk_ms
+        self.last_decode_steps = decode_steps
+        self.last_gen_lens = [len(tokens)]
+        self.last_gen_len = len(tokens)
+
     def _one(self, text: str, style_text: str, style, timbre, stream: bool,
-             max_seconds: float, cfm_noise: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
-        if stream:
-            raise _not_in_slice("streaming synthesis", "queue A item 4, streaming")
+             max_seconds: float, cfm_noise=None) -> Iterator[Dict[str, np.ndarray]]:
+        t0 = time.perf_counter()
         clock = Stopwatch(self.device)
         sty, tim = self._resolve_prompts([style, timbre], clock)
+        if stream:
+            for wav in self._synthesize_stream(text, style_text, sty, tim, max_seconds=max_seconds,
+                                               cfm_noise=cfm_noise, clock=clock, t0=t0):
+                yield {"tts_speech": wav[None, :]}
+            return
         wav = self._synthesize([text], [style_text], [sty], [tim], max_seconds=max_seconds,
                                cfm_noise=cfm_noise, clock=clock)[0]
-        return {"tts_speech": wav[None, :]}
+        yield {"tts_speech": wav[None, :]}
 
     def inference_zero_shot(
         self, tts_text: str, prompt_text: str, prompt_speech_16k,
-        stream: bool = False, max_seconds: float = 20.0,
-        cfm_noise: Optional[np.ndarray] = None,
+        stream: bool = False, max_seconds: float = 20.0, cfm_noise=None,
     ) -> Iterator[Dict[str, np.ndarray]]:
         """Zero-shot TTS: one 16 kHz wav (or its precomputed
         ``PromptFeatures``) supplies both prosody and identity."""
-        yield self._one(tts_text, prompt_text, prompt_speech_16k, prompt_speech_16k,
-                        stream, max_seconds, cfm_noise)
+        yield from self._one(tts_text, prompt_text, prompt_speech_16k, prompt_speech_16k,
+                             stream, max_seconds, cfm_noise)
 
     def inference_tts_with_st(
         self, tts_text: str, style_wav_text: str, style_wav, timbre_wav,
-        stream: bool = False, max_seconds: float = 20.0,
-        cfm_noise: Optional[np.ndarray] = None,
+        stream: bool = False, max_seconds: float = 20.0, cfm_noise=None,
     ) -> Iterator[Dict[str, np.ndarray]]:
         """Style/timbre-split synthesis. ``style_wav``/``timbre_wav`` are
         16 kHz wavs or precomputed ``PromptFeatures`` (the style-DB serving
         path, which skips featurization). ``cfm_noise`` [1, F, n_mels]
         replaces the CFM's initial noise (to reproduce a reference run); by
-        default it is drawn from the engine's generator."""
-        yield self._one(tts_text, style_wav_text, style_wav, timbre_wav, stream,
-                        max_seconds, cfm_noise)
+        default it is drawn from the engine's generator. Every entry point
+        takes ``stream=True``: it then yields the audio a chunk at a time
+        (``_synthesize_stream``; ``cfm_noise`` is then one array a
+        window)."""
+        yield from self._one(tts_text, style_wav_text, style_wav, timbre_wav, stream,
+                             max_seconds, cfm_noise)
 
     def register_speaker(self, spk_id: str, prompt_speech_16k: np.ndarray) -> None:
         self.speakers[spk_id] = self.prompt_features([prompt_speech_16k])[0]
@@ -468,23 +706,26 @@ class Engine:
 
     def inference_sft(
         self, tts_text: str, spk_id: str, stream: bool = False, max_seconds: float = 20.0,
-        cfm_noise: Optional[np.ndarray] = None,
+        cfm_noise=None,
     ) -> Iterator[Dict[str, np.ndarray]]:
         """Registered-speaker TTS."""
         f = self.speakers[spk_id]
-        yield self._one(tts_text, "", f, f, stream, max_seconds, cfm_noise)
+        yield from self._one(tts_text, "", f, f, stream, max_seconds, cfm_noise)
 
     def inference_vc(
-        self, source_speech_16k, prompt_speech_16k, stream: bool = False,
-        cfm_noise: Optional[np.ndarray] = None,
+        self, source_speech_16k, prompt_speech_16k, stream: bool = False, cfm_noise=None,
     ) -> Iterator[Dict[str, np.ndarray]]:
         """Voice conversion: the source's speech tokens re-rendered with the
         prompt's identity, no LM. Either argument may be a 16 kHz wav or
         its precomputed ``PromptFeatures``."""
-        if stream:
-            raise _not_in_slice("streaming voice conversion", "queue A item 4, streaming")
+        t0 = time.perf_counter()
         clock = Stopwatch(self.device)
         src, prm = self._resolve_prompts([source_speech_16k, prompt_speech_16k], clock)
+        if stream:
+            for wav in self._synthesize_stream("", "", None, prm, lm_tokens_override=src.tokens,
+                                               cfm_noise=cfm_noise, clock=clock, t0=t0):
+                yield {"tts_speech": wav[None, :]}
+            return
         wav = self._synthesize([""], [""], [prm], [prm], lm_tokens_override=[src.tokens],
                                cfm_noise=cfm_noise, clock=clock)[0]
         yield {"tts_speech": wav[None, :]}

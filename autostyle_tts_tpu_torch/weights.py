@@ -6,6 +6,8 @@
   f16 leaves load as f32).
 - ``from_jax_tree`` turns the JAX ``EngineParams.tree()`` (leaves as numpy)
   into the port's parameter tree: nested dicts and lists of tensors.
+- ``load_tree`` loads a part of the engine (one module's ``.npz``) into the
+  structure of a tree of tensors, every key and shape checked.
 - ``init_params`` draws random full-width weights with the same shapes and
   scales as the JAX ``init_params`` functions, from an explicit generator.
 - ``QTensor`` / ``quantize`` / ``quantize_tree``: int8 weight-only
@@ -191,6 +193,58 @@ def load_npz(path: str) -> Dict:
         return node
 
     return fix(root)
+
+
+def _flat_keys(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """A tree's leaves by flat key, as the JAX checkpoints name them
+    (``layers/wqkv``, list indices as segments, an int8 tensor's ``q`` /
+    ``s``)."""
+    if isinstance(tree, QTensor):
+        tree = {"q": tree.q, "s": tree.s}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(_flat_keys(v, f"{prefix}{_FLAT_SEP}{k}" if prefix else str(k)))
+    return out
+
+
+def load_tree(path: str, like: Any) -> Any:
+    """A flat-key ``.npz`` loaded into the structure of ``like`` (a tree of
+    tensors), the counterpart of the JAX ``utils/checkpoint.load_pytree``
+    for a part of the engine (one module's weights). The file must hold
+    exactly ``like``'s keys, each with its shape: a missing or extra key,
+    or another shape, raises and names it. Leaves take ``like``'s dtype
+    and device (f16 leaves load as f32 first)."""
+    want = _flat_keys(like)
+    p = str(path) if str(path).endswith(".npz") else str(path) + ".npz"
+    with np.load(p) as data:
+        missing, extra = sorted(set(want) - set(data.files)), sorted(set(data.files) - set(want))
+        if missing or extra:
+            raise ValueError(f"{p}: missing keys {missing}, extra keys {extra}")
+        got = {}
+        for key, leaf in want.items():
+            arr = data[key]
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"{p}: {key} has shape {tuple(arr.shape)}, expected {tuple(leaf.shape)}")
+            arr = arr.astype(np.float32) if arr.dtype == np.float16 else arr
+            got[key] = torch.from_numpy(np.array(arr, copy=True)).to(dtype=leaf.dtype, device=leaf.device)
+
+    def build(node: Any, prefix: str) -> Any:
+        join = (lambda k: f"{prefix}{_FLAT_SEP}{k}") if prefix else str
+        if isinstance(node, QTensor):
+            return QTensor(q=got[join("q")], s=got[join("s")])
+        if isinstance(node, dict):
+            return {k: build(v, join(k)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [build(v, join(i)) for i, v in enumerate(node)]
+        return got[prefix]
+
+    return build(like, "")
 
 
 # ----------------------------------------------------------------------------- init

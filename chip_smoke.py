@@ -39,13 +39,30 @@ Phases (any failure exits non-zero):
       LM on the scanned decode, HiFi-GAN, wav prompts through the log-mel
       kernel) held to the JAX package's quality gates: the golden-wav
       statistics and the token round trip through ``inference_vc``, a
-      zero-shot line's spectrum, and a B=4 batch;
+      zero-shot line's spectrum, a B=4 batch, then the phoneme purity of
+      the speech tokens, speaker similarity, the trained iSTFT vocoder's
+      resynthesis and the distilled 2-step CFM (``demo gates`` line);
    F. the HiFi-GAN vocoder at flagship widths (random weights) on a 5 s mel
       at B=1 and B=8: milliseconds and real-time factor;
-   the inputs of the first call of each distinct geometry that paths A, D
-   and E give ``flash_attention`` and ``fused_log_mel`` are kept (device
-   copies) and, after the paths, each kernel is held against its plain
-   version on them (path D's B=8 prefill is also timed);
+   G. streaming, B=1 (``stream=True``): two DB-served
+      ``inference_tts_with_st`` streams at ``max_seconds=5``, a raw-wav
+      zero-shot stream, a voice-conversion stream and a stream on an int4
+      engine, each beside the same request unstreamed from the same
+      generator state (``stream`` lines: time to first audio, chunks and
+      their render times, walls); the chunks must join to the unstreamed
+      wav's length and the LM's tokens must be the same;
+   H. continuous batching: ``ContinuousBatcher(slots=4, chunk=16,
+      p_max=384)`` with the int8 KV cache serves 8 DB-served requests of
+      24-125 tokens, rendered through the staged batch path as they finish
+      (``continuous`` line: latency p50 / p95, requests/s, ms a decode
+      step, admission prefills); then ``StreamingScheduler(slots=4)``
+      serves 4 concurrent sessions (``scheduler`` line: each session's
+      first chunk, all before the first session ends);
+   the inputs of the first call of each distinct geometry that paths A, D,
+   E, G and H give ``flash_attention`` and ``fused_log_mel`` are kept
+   (device copies) and, after the paths, each kernel is held against its
+   plain version on them (path D's B=8 prefill and path H's admissions,
+   T=384 at B=1, 2 and 4, are also timed);
 5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --log-mel-only`` builds ``log_mel.cu`` alone, runs
@@ -57,6 +74,7 @@ Float32 matrix products and convolutions run in full f32 (TF32 off).
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 from contextlib import contextmanager
@@ -69,17 +87,19 @@ import numpy as np
 import torch
 
 from autostyle_tts_tpu_torch.ops import cuda_build, decode_step, flash_attn, log_mel, stft
-from autostyle_tts_tpu_torch.ops.resample import resample
+from autostyle_tts_tpu_torch.ops.resample import resample, resample_poly_np
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
-from autostyle_tts_tpu_torch.models import speech_tokenizer, token_lm, transformer, vocoder
+from autostyle_tts_tpu_torch.models import cfm, speech_tokenizer, token_lm, transformer, vocoder
 from autostyle_tts_tpu_torch.pipeline import rag
+from autostyle_tts_tpu_torch.pipeline.continuous import ContinuousBatcher
 from autostyle_tts_tpu_torch.pipeline.engine import Engine, EngineParams
-from autostyle_tts_tpu_torch.pipeline.simeval import token_round_trip
+from autostyle_tts_tpu_torch.pipeline.simeval import SpeakerScorer, token_round_trip
+from autostyle_tts_tpu_torch.pipeline.stream_serve import StreamingScheduler
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
 from autostyle_tts_tpu_torch.utils.audio_io import read_wav
 from autostyle_tts_tpu_torch.utils.config import CFMConfig, Config, VocoderConfig, demo_config
 from autostyle_tts_tpu_torch.utils.timing import Stopwatch
-from autostyle_tts_tpu_torch.weights import QTensor, from_jax_tree, load_npz, quantize_tree
+from autostyle_tts_tpu_torch.weights import QTensor, from_jax_tree, load_npz, load_tree, quantize_tree
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time a function can
 # take is max(bytes / HBM rate, operations / peak rate of their type)
@@ -107,6 +127,8 @@ GOLDEN_MEL = 0.3                              # mean |delta mel mean|, mean |del
 LIKE_RMS, LIKE_MEL = 1e-4, 1e-3
 ROUND_TRIP_MIN_N, ROUND_TRIP_AGREE = 10, 0.85
 ZERO_SHOT_MIN_S, ZERO_SHOT_RMS, ZERO_SHOT_LOW_BAND = 0.3, 0.01, 0.90
+PURITY, ISTFT_L1 = 0.90, 0.40                 # phoneme purity of the speech tokens; the iSTFT vocoder's mel-L1
+DISTILL_RATIO, DISTILL_SLACK = 0.6, 0.10      # student-teacher L1 < 0.6 of the undistilled 2-step run's; gt L1 slack
 
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 FLASH_SRC = "autostyle_tts_tpu_torch/csrc/flash_attn.cu"
@@ -1041,10 +1063,90 @@ def path_e() -> dict:
     wavs = [load(r) for r in rows[:4]]
     batch = run_batch(eng, cfg, "demo B=4", [r["text"] for r in rows[:4]], [r["text"] for r in rows[:4]],
                       wavs, wavs)
+    gates = demo_gates(eng, rows, load)
     launches = read_counts()
     check(launches["fused_log_mel"] > 0 and launches["flash_attention"] > 0
           and launches["mega_decode_step"] == 0, f"path E launches {launches}")
-    return dict(golden=vc, round_trip=round_trip, zero_shot=zs, batch=batch, launches=launches)
+    return dict(golden=vc, round_trip=round_trip, zero_shot=zs, batch=batch, gates=gates, launches=launches)
+
+
+def demo_gates(eng: Engine, rows, load) -> dict:
+    """The other gates of the JAX package's ``tests/test_trained_demo.py``
+    on the card, at its thresholds (``tests/test_torch_trained_demo.py``
+    holds them on the CPU): phoneme purity of the speech tokens; speaker
+    similarity on ``SpeakerScorer``; the trained iSTFT vocoder's mel-L1
+    (``demo_vocoder_istft.npz``); the distilled 2-step CFM against its
+    10-step teacher (``demo_cfm_distilled.npz``) from one noise draw of a
+    seeded generator (the gate compares the three solves on the same draw)."""
+    cfg, a = eng.cfg, eng.cfg.audio
+    votes, total = {}, 0
+    for row in rows:
+        tokens = eng.prompt_features([load(row)])[0].tokens
+        phn = np.load(FIXTURES / "demo_corpus_sample" / row["phn"])
+        for t, p in zip(tokens[: len(phn)], phn[: len(tokens)]):
+            votes.setdefault(int(p), {}).setdefault(int(t), 0)
+            votes[int(p)][int(t)] += 1
+            total += 1
+    purity = sum(max(c.values()) for c in votes.values()) / max(total, 1)
+    rec = dict(purity=purity, purity_limit=max(PURITY, 3.0 / max(len(votes), 1)), phonemes=len(votes),
+               codes=len({t for c in votes.values() for t in c}))
+    check(purity > rec["purity_limit"], f"demo tokenizer purity {rec}")
+
+    by_spk = {}
+    for r in rows:
+        by_spk.setdefault(r["speaker"], r)
+    spk_a, spk_b = list(by_spk.values())[:2]
+    wav_a, wav_b = load(spk_a), load(spk_b)
+    out = next(eng.inference_tts_with_st(rows[-1]["text"], spk_a["text"], wav_a, wav_a))["tts_speech"].ravel()
+    wav16 = resample_poly_np(out, a.sample_rate, a.prompt_sample_rate)
+    scorer = SpeakerScorer(eng)
+    rec.update(sim_same_speaker=float(scorer.similarity([wav16], [wav_a])[0]),
+               sim_other_speaker=float(scorer.similarity([wav16], [wav_b])[0]))
+    check(rec["sim_same_speaker"] > rec["sim_other_speaker"], f"demo speaker similarity {rec}")
+
+    vcfg = dataclasses.replace(cfg.vocoder, kind="istft", istft_channels=256, istft_blocks=6)
+    voc = load_tree(FIXTURES / "demo_vocoder_istft.npz", vocoder.init_params(vcfg, torch.Generator(eng.device)))
+    FB = 256
+    wavs = np.zeros((len(rows), FB * a.hop_length), np.float32)
+    masks = np.zeros((len(rows), FB), np.float32)
+    for i, r in enumerate(rows):
+        w = resample_poly_np(load(r), a.prompt_sample_rate, a.sample_rate)
+        F = min(len(w) // a.hop_length, FB)
+        wavs[i, : F * a.hop_length] = w[: F * a.hop_length]
+        masks[i, :F] = 1
+    mel_of = lambda x: stft.log_mel_spectrogram(x, a.sample_rate, a.n_fft, a.hop_length, a.win_length,
+                                                n_mels=a.n_mels, fmax=a.fmax)
+    mels = mel_of(torch.from_numpy(wavs).to(eng.device))[:, :FB]
+    pred = mel_of(vocoder.apply(voc, vcfg, mels)[:, : FB * a.hop_length])[:, :FB]
+    m = torch.from_numpy(masks).to(eng.device)[..., None]
+    rec.update(istft_mel_l1=float(((pred - mels).abs() * m).sum() / (m.sum() * a.n_mels)), istft_limit=ISTFT_L1)
+    check(rec["istft_mel_l1"] < ISTFT_L1, f"demo iSTFT vocoder {rec}")
+
+    feats = eng.prompt_features([load(rows[-1])])[0]
+    c, dev = cfg.cfm, eng.device
+    F = len(feats.tokens) * c.upsample
+    gt = torch.zeros((1, F, c.n_mels), device=dev)
+    nm = min(feats.mel24.shape[0], F)
+    gt[0, :nm] = torch.from_numpy(feats.mel24[:nm]).to(dev)
+    pmask = (torch.arange(F, device=dev)[None, :] < F // 4).float()
+    fmask = torch.ones((1, F), device=dev)
+    noise = torch.randn((1, F, c.n_mels), generator=torch.Generator(dev).manual_seed(4), device=dev)
+    tokens = torch.from_numpy(feats.tokens.astype(np.int64))[None].to(dev)
+    spk = torch.from_numpy(feats.spk)[None].to(dev)
+    student = load_tree(FIXTURES / "demo_cfm_distilled.npz", eng.params.cfm)
+    fast = dataclasses.replace(c, n_steps=2, use_cfg=False)
+    solve = lambda p, cc, guided: cfm.sample_mel(p, cc, None, cfm.upsample_tokens(p, tokens, c.upsample), spk,
+                                                 gt * pmask[..., None], pmask, fmask, use_cfg=guided, noise=noise)
+    w = (fmask * (1 - pmask))[..., None]
+    l1 = lambda x, y: float((w * (x - y).abs()).sum() / (w.sum() * c.n_mels))
+    teacher = solve(eng.params.cfm, c, True)
+    m_student, m_fast = solve(student, fast, False), solve(eng.params.cfm, fast, False)
+    rec.update(d_student=l1(m_student, teacher), d_fast=l1(m_fast, teacher), g_teacher=l1(teacher, gt),
+               g_student=l1(m_student, gt))
+    check(rec["d_student"] < DISTILL_RATIO * rec["d_fast"] and rec["g_student"] < rec["g_teacher"] + DISTILL_SLACK,
+          f"demo distilled CFM {rec}")
+    print("demo gates", json.dumps(rec), flush=True)
+    return rec
 
 
 def hifigan_macs(vcfg: VocoderConfig, frames: int) -> int:
@@ -1079,6 +1181,205 @@ def path_f(gen) -> dict:
         out[f"B={B}"] = dict(ms=ms, audio_s=seconds * B, rtf=ms / 1e3 / (seconds * B), gflop=flop / 1e9,
                              tflop_per_s=flop / (ms / 1e3) / 1e12, bound_ms=flop / F32_FLOP_PER_S * 1e3)
     return out
+
+
+# ----------------------------------------------------------------------------- paths G and H
+
+
+@contextmanager
+def decode_runs():
+    """The ``SpeechGen`` of every decode loop the engine runs while open
+    (``token_lm.start_decode`` wrapped where the engine calls it; the
+    loop's yields and launches are untouched)."""
+    seen, start = [], token_lm.start_decode
+
+    def recording(*a, **k):
+        loop = start(*a, **k)
+
+        def run():
+            gen = yield from loop
+            seen.append(gen)
+            return gen
+
+        return run()
+
+    token_lm.start_decode = recording
+    try:
+        yield seen
+    finally:
+        token_lm.start_decode = start
+
+
+def run_stream(eng: Engine, cfg: Config, kind: str, call) -> dict:
+    """One request unstreamed (``call(False)``), then streamed
+    (``call(True)``) from the same generator state: the chunks must join to
+    the unstreamed wav's length, from the same tokens."""
+    state = eng.generator.get_state()
+    with decode_runs() as runs:
+        t0 = time.perf_counter()
+        wav = next(call(False))["tts_speech"]
+        unstreamed_ms = (time.perf_counter() - t0) * 1e3
+        n_unstreamed, unstreamed_timings = eng.last_gen_len, eng.last_timings
+        eng.generator.set_state(state)
+        t0 = time.perf_counter()
+        chunks = [c["tts_speech"] for c in call(True)]
+        stream_ms = (time.perf_counter() - t0) * 1e3
+    joined = np.concatenate(chunks, axis=1)
+    check(joined.shape == wav.shape and eng.last_gen_len == n_unstreamed,
+          f"{kind}: streamed {joined.shape} ({eng.last_gen_len} tokens), unstreamed {wav.shape} ({n_unstreamed})")
+    if runs:
+        check(len(runs) == 2 and torch.equal(runs[0].tokens, runs[1].tokens),
+              f"{kind}: the streamed tokens differ from the unstreamed ones")
+    per_token = cfg.cfm.upsample * cfg.audio.hop_length
+    chunk = max(8, (2 * cfg.token_lm.token_rate) // 3)
+    check(len(chunks) == -(-n_unstreamed // chunk) and all(c.shape[1] == chunk * per_token for c in chunks[:-1]),
+          f"{kind}: {len(chunks)} chunks of {[c.shape[1] for c in chunks]} samples for {n_unstreamed} tokens")
+    tm = eng.last_timings
+    rec = dict(kind=kind, ttfa_ms=tm["ttfa"], chunks=len(chunks), chunk_render_ms=eng.last_chunk_ms,
+               stream_wall_ms=stream_ms, tokens=n_unstreamed, audio_s=joined.shape[1] / cfg.audio.sample_rate,
+               unstreamed_wall_ms=unstreamed_ms, tokens_equal_unstreamed=bool(runs) or None,
+               decode_steps=eng.last_decode_steps, featurize_ms=tm.get("featurize"), prefill_ms=tm.get("prefill"),
+               decode_ms=tm.get("decode"), cfm_ms=tm["cfm"], vocoder_ms=tm["vocoder"],
+               unstreamed_timings=unstreamed_timings,
+               rms=check_wav(cfg, kind, joined[0], n_unstreamed))
+    print("stream", json.dumps(rec), flush=True)
+    return rec
+
+
+def path_g(eng: Engine, store: StyleStore, cfg: Config) -> dict:
+    """Streaming, B=1: two DB-served ``inference_tts_with_st`` streams, a
+    raw-wav zero-shot stream, a voice-conversion stream and a stream on an
+    int4 engine, each beside the same request unstreamed from the same
+    generator state."""
+    reset_counts()
+    streams = []
+    for text, (a, b) in zip(TEXTS[:2], ((0, 1), (2, 3))):
+        sty, tim = eng.prompt_features_from_store(store, [a, b])
+        streams.append(run_stream(eng, cfg, "db_served", lambda stream: eng.inference_tts_with_st(
+            text, store.meta[a]["text"], sty, tim, stream=stream, max_seconds=5)))
+    prompt = synthetic_wav(7)
+    streams.append(run_stream(eng, cfg, "zero_shot_raw_wav", lambda stream: eng.inference_zero_shot(
+        TEXTS[2], "A calm reading voice.", prompt, stream=stream, max_seconds=5)))
+    src, prm = synthetic_wav(9), synthetic_wav(8)
+    streams.append(run_stream(eng, cfg, "vc", lambda stream: eng.inference_vc(src, prm, stream=stream)))
+    cfg4 = serving_config()
+    cfg4.quantize_lm_int4 = True
+    eng4 = Engine(cfg4, seed=0)
+    check(decode_step.weight_bits(eng4._mega_params) == 4, "the int4 engine holds no int4 decode weights")
+    sty, tim = eng4.prompt_features_from_store(store, [1, 2])
+    streams.append(run_stream(eng4, cfg4, "int4_db_served", lambda stream: eng4.inference_tts_with_st(
+        TEXTS[3], store.meta[1]["text"], sty, tim, stream=stream, max_seconds=5)))
+    launches = read_counts()
+    for name in ("flash_attention", "mega_decode_step", "mega_decode_step_int4", "fused_log_mel"):
+        check(launches[name] > 0, f"path G never launched {name}: {launches}")
+    return dict(streams=streams, launches=launches)
+
+
+@contextmanager
+def timed(module, name: str, out: list):
+    """Each call of ``module.name`` while open, synchronized and timed:
+    (batch rows, milliseconds) appended to ``out``."""
+    fn = getattr(module, name)
+
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a, **k)
+        torch.cuda.synchronize()
+        rows = a[2].embeds.shape[0] if name == "prefill_prefix" else a[3].shape[0]
+        out.append((rows, (time.perf_counter() - t0) * 1e3))
+        return r
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+# per-request token caps of path H's batch: with EOS masked up to the largest,
+# every request runs to its cap, so the admissions are B = 4 (the first
+# four), 2 (the two shortest finish in the same chunk), then 1s
+H_CAPS = (24, 30, 60, 125, 40, 72, 96, 110)
+H_CHUNK = 16
+
+
+def path_h(eng: Engine, store: StyleStore, cfg: Config) -> dict:
+    """Continuous batching: ``ContinuousBatcher(slots=4, chunk=16,
+    p_max=384)`` with the int8 KV cache serves 8 DB-served requests of
+    ``H_CAPS`` tokens (all submitted at once), each tick's finished requests
+    rendered through the staged batch path (``synthesize_from_tokens``) as
+    they finish; per-request latency is submit to audio on the host. Then
+    ``StreamingScheduler(slots=4)`` serves 4 concurrent sessions: each
+    session's time to its first chunk, and every first chunk before the
+    first session ends."""
+    up_hop = cfg.cfm.upsample * cfg.audio.hop_length
+    reset_counts()
+    prefills, decodes = [], []
+    with timed(token_lm, "prefill_prefix", prefills), timed(token_lm, "decode_chunk", decodes):
+        bat = ContinuousBatcher(eng, slots=4, chunk=H_CHUNK, p_max=384, min_tokens=max(H_CAPS))
+        check("k_scale" in bat.cache, "path H's batcher serves the int8 KV cache")
+        reqs = []
+        for i, cap in enumerate(H_CAPS):
+            a, b = i % 4, (i + 1) % 4
+            reqs.append(dict(id=f"h{i}", text=BATCH_TEXTS[i], style_text=store.meta[a]["text"],
+                             style_feat=eng.prompt_features_from_store(store, [a])[0],
+                             flow_feat=eng.prompt_features_from_store(store, [b])[0], max_tokens=cap))
+        t0 = time.perf_counter()
+        for r in reqs:
+            bat.submit(r)
+        latency, ticks = {}, 0
+        while not bat.idle:
+            finished = bat.step()
+            ticks += 1
+            if finished:
+                wavs = eng.synthesize_from_tokens(finished, max_seconds=5)
+                for r, w in zip(finished, wavs):
+                    latency[r["id"]] = (time.perf_counter() - t0) * 1e3
+                    check(len(r["tokens"]) == r["max_tokens"], f"{r['id']}: {len(r['tokens'])} tokens, cap {r['max_tokens']}")
+                    check_wav(cfg, f"continuous {r['id']}", w, len(r["tokens"]))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(sorted(latency) == sorted(r["id"] for r in reqs) and not bat.take_rejected(), f"served {sorted(latency)}")
+    lat = np.asarray(sorted(latency.values()))
+    cont = dict(requests=len(reqs), caps=list(H_CAPS), ticks=ticks, wall_ms=wall_ms,
+                latency_ms=dict(sorted(latency.items())), latency_p50_ms=float(np.percentile(lat, 50)),
+                latency_p95_ms=float(np.percentile(lat, 95)), requests_per_s=len(reqs) / (wall_ms / 1e3),
+                audio_s=sum(H_CAPS) * up_hop / cfg.audio.sample_rate,
+                decode_ms_per_step=sum(ms for _, ms in decodes) / (len(decodes) * H_CHUNK),
+                decode_chunk_ms=[ms for _, ms in decodes],
+                admission_prefill_ms=[dict(B=b, ms=ms) for b, ms in prefills])
+    print("continuous", json.dumps(cont), flush=True)
+
+    caps = (48, 64, 80, 96)     # 3-6 chunks a session, EOS masked up to them as above
+    sch = StreamingScheduler(eng, slots=4, min_tokens=max(caps))
+    t0 = time.perf_counter()
+    sids = [sch.submit(dict(text=TEXTS[i], style_text=store.meta[i]["text"],
+                            style_feat=eng.prompt_features_from_store(store, [i])[0],
+                            flow_feat=eng.prompt_features_from_store(store, [(i + 1) % 4])[0], max_tokens=cap))
+            for i, cap in enumerate(caps)]
+    order, samples = [], {s: 0 for s in sids}
+    while not sch.idle:
+        for ev in sch.step():
+            order.append((ev.session, ev.kind, (time.perf_counter() - t0) * 1e3))
+            samples[ev.session] += len(ev.wav)
+            check(ev.kind != "error", f"session {ev.session}: {ev.error}")
+    sessions = sch.take_finished()
+    first_chunk = {s: next(t for sid, k, t in order if sid == s and k == "chunk") for s in sids}
+    first_done = min(t for _, k, t in order if k == "done")
+    at = {s: next(i for i, (sid, k, _) in enumerate(order) if sid == s and k == "chunk") for s in sids}
+    check(max(at.values()) < min(i for i, (_, k, _) in enumerate(order) if k == "done"),
+          f"a session's first chunk came after another session ended: {order}")
+    for s in sids:
+        check(samples[s] == len(sessions[s].tokens) * up_hop > 0, f"session {s}: {samples[s]} samples "
+              f"for {len(sessions[s].tokens)} tokens")
+    sched = dict(sessions=len(sids), caps=list(caps), first_chunk_ms=first_chunk, first_done_ms=first_done,
+                 wall_ms=(time.perf_counter() - t0) * 1e3, tokens={s: len(sessions[s].tokens) for s in sids},
+                 chunk_events=sum(1 for _, k, _ in order if k == "chunk"))
+    print("scheduler", json.dumps(sched), flush=True)
+    launches = read_counts()
+    check(launches["flash_attention"] > 0 and launches["mega_decode_step"] == 0
+          and launches["mega_decode_step_int4"] == 0, f"path H launches {launches}")
+    return dict(continuous=cont, scheduler=sched, launches=launches)
 
 
 def device_events(prof):
@@ -1273,10 +1574,21 @@ def main() -> int:
     print("path E", json.dumps({k: pe[k] for k in ("round_trip", "launches")}), flush=True)
     pf = path_f(torch.Generator(device="cuda").manual_seed(4322))
     print("path F hifigan", json.dumps(pf), flush=True)
+    with inputs.watch("G"):
+        pg = path_g(eng, store, cfg)
+    print("path G", json.dumps({"launches": pg["launches"]}), flush=True)
+    with inputs.watch("H"):
+        ph = path_h(eng, store, cfg)
+    print("path H", json.dumps({"launches": ph["launches"]}), flush=True)
+    admitted = sorted({shape[0] for (path, shape, _) in inputs.flash if path == "H" and shape[1] == 384})
+    check(admitted == [1, 2, 4], f"path H's admissions prefilled B = {admitted} at T = 384, expected 1, 2 and 4")
     on_inputs = inputs.replay()
     print("kernels on the paths' inputs", json.dumps(on_inputs), flush=True)
     flash_batch = flash_measure(*inputs.batch_flash())
     print("flash batch (path D's prefill inputs)", json.dumps(flash_batch), flush=True)
+    flash_admit = {shape[0]: flash_measure(*t) for (path, shape, _), t in inputs.flash.items() if path == "H"}
+    for b, r in sorted(flash_admit.items()):
+        print(f"flash admission B={b} (path H's prefill inputs)", json.dumps(r), flush=True)
     del inputs
     print("profile db_served", json.dumps(profile_request(
         eng, *eng.prompt_features_from_store(store, [0, 1]))), flush=True)
@@ -1295,20 +1607,21 @@ def main() -> int:
                     **{k: rec[k] for k in KERNEL_KEYS})
 
     jax_decode = "autostyle_tts_tpu/ops/pallas_decode.py"
-    # launches on every path that runs the kernel: A, D and E (flash), A, D and E (log-mel)
-    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pd, pe))
+    # launches on every path that runs the kernel: flash on A, C, D, E, G, H; log-mel on A, D, E, G;
+    # the decode step on A, G; its int4 build on C, G (the other paths add 0)
+    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph))
     # max_abs_err: the largest of every case checked (phase 3 and the paths' own inputs)
     worst = lambda name, recs: max(r["max_abs_err"] for r in (*recs, *on_inputs[name]))
-    flash_rec = dict(flash_main, max_abs_err=worst("flash_attention", (flash_main, flash_gqa, flash_128, flash_batch)))
+    flash_rec = dict(flash_main, max_abs_err=worst("flash_attention", (flash_main, flash_gqa, flash_128, flash_batch,
+                                                                       *flash_admit.values())))
     mel_rec = dict(mel24, max_abs_err=worst("fused_log_mel", (mel24,)))
     kernels = [
         entry("flash_attention", FLASH_SRC, "autostyle_tts_tpu/ops/pallas_attn.py:76",
               on_paths("flash_attention"), flash_rec),
         entry("attn_step", DECODE_SRC, f"{jax_decode}:190", pb["launches"]["attn_step"], attn_rec),
         entry("mlp_step", DECODE_SRC, f"{jax_decode}:299", pb["launches"]["mlp_step"], mlp_rec),
-        entry("mega_decode_step", DECODE_SRC, f"{jax_decode}:701", pa["launches"]["mega_decode_step"], dec),
-        entry("mega_decode_step_int4", DECODE_SRC, f"{jax_decode}:701",
-              pc["launches"]["mega_decode_step_int4"], dec4),
+        entry("mega_decode_step", DECODE_SRC, f"{jax_decode}:701", on_paths("mega_decode_step"), dec),
+        entry("mega_decode_step_int4", DECODE_SRC, f"{jax_decode}:701", on_paths("mega_decode_step_int4"), dec4),
         entry("fused_log_mel", LOGMEL_SRC, "autostyle_tts_tpu/ops/pallas_mel.py:35",
               on_paths("fused_log_mel"), mel_rec),
     ]

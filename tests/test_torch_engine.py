@@ -165,32 +165,79 @@ def test_prefill_and_decode_share_one_int8_copy():
 def test_engine_takes_the_decode_kernel_where_the_step_serves(change, int4, kernel):
     """An int8 LM gets the decode kernel's weights (and its B=1 requests
     the kernel) exactly where ``decode_step.step_serves`` says the kernel
-    runs its widths; elsewhere it takes the scanned decode."""
+    runs its widths at 8 bits; elsewhere it takes the scanned decode. Under
+    ``quantize_lm_int4`` the weights are int4 where the step serves 4 bits
+    (``kernel``) and stay int8 where it serves only 8, as in the
+    reference."""
     cfg = _cfg(tconfig)
     cfg.token_lm = dataclasses.replace(cfg.token_lm, **change)
     cfg.quantize_lm_int4 = int4
     tl = cfg.token_lm
-    assert tdecode.step_serves(dim=tl.dim, n_heads=tl.n_heads, n_kv_heads=tl.n_kv_heads,
-                               head_dim=tl.head_dim, ffn_dim=tl.ffn_dim, vocab=tl.speech_vocab_size,
-                               bits=4 if int4 else 8) == kernel
+
+    def serves(bits):
+        return tdecode.step_serves(dim=tl.dim, n_heads=tl.n_heads, n_kv_heads=tl.n_kv_heads,
+                                   head_dim=tl.head_dim, ffn_dim=tl.ffn_dim, vocab=tl.speech_vocab_size,
+                                   bits=bits)
+
+    assert serves(4 if int4 else 8) == kernel
     eng = tengine.Engine(cfg, device="cpu")
-    assert (eng._mega_params is not None) == kernel
-    if kernel:
-        assert tdecode.weight_bits(eng._mega_params) == (4 if int4 else 8)
+    assert (eng._mega_params is not None) == serves(8)
+    if serves(8):
+        assert tdecode.weight_bits(eng._mega_params) == (4 if int4 and kernel else 8)
+
+
+def test_int4_engine_falls_back_to_the_int8_decode_step(monkeypatch):
+    """At widths the int4 step cannot take and the int8 one can (dim 80,
+    H = K = 5, hd 16, F 160: int4 loads take multiples of 32), an engine
+    with ``quantize_lm_int4`` builds int8 decode weights, and a B=1 greedy
+    request runs the decode step (its plain version here), not the scanned
+    decode."""
+    cfg = _cfg(tconfig)
+    cfg.quantize_lm_int4 = True
+    cfg.token_lm = dataclasses.replace(cfg.token_lm, dim=80, n_heads=5, n_kv_heads=5, ffn_dim=160)
+    tl = cfg.token_lm
+    assert tl.head_dim == 16
+    kw = dict(dim=80, n_heads=5, n_kv_heads=5, head_dim=16, ffn_dim=160, vocab=tl.speech_vocab_size)
+    assert tdecode.step_serves(**kw, bits=8) and not tdecode.step_serves(**kw, bits=4)
+    lm = tlm.init_params(tl, torch.Generator().manual_seed(0))
+    params, mega = tengine._prepare_lm(lm, cfg)
+    assert mega is not None and tdecode.weight_bits(mega) == 8
+    assert params["layers"]["wqkv"].q.data_ptr() == mega["wqkv"].data_ptr()
+
+    calls = []
+    step = tlm.mega_decode_step
+    monkeypatch.setattr(tlm, "mega_decode_step", lambda *a, **k: calls.append(1) or step(*a, **k))
+
+    def no_scan(*a, **k):
+        raise AssertionError("the int4 engine took the scanned decode")
+
+    monkeypatch.setattr(tlm, "_decode_scan", no_scan)
+    monkeypatch.setattr(tlm, "generate_speech_from_ids", functools.partial(
+        tlm.generate_speech_from_ids, sampler=SamplerConfig(greedy=True)))
+    monkeypatch.setattr(tengine, "GEN_BUCKETS", (32,))
+    eng = tengine.Engine(cfg, device="cpu")
+    assert tdecode.weight_bits(eng._mega_params) == 8
+    f = tengine.PromptFeatures(tokens=np.arange(5, dtype=np.int32), spk=np.zeros(cfg.token_lm.spk_dim, np.float32),
+                               mel24=np.zeros((10, cfg.cfm.n_mels), np.float32))
+    wav = next(eng.inference_tts_with_st("hello", "style", f, f))["tts_speech"]
+    assert wav.shape[1] > 0 and np.isfinite(wav).all()
+    assert len(calls) == eng.last_decode_steps > 0
 
 
 def test_engine_out_of_slice_paths_raise():
-    """Streaming, speculative decoding and the embedding half of
-    ``build_style_db`` still raise, naming their ROADMAP.md item; a batch,
-    voice conversion, a dense LM and prompts from wavs are inside the port."""
+    """Speculative decoding and the embedding half of ``build_style_db``
+    still raise, naming their ROADMAP.md item; streaming, a batch, voice
+    conversion, a dense LM and prompts from wavs are inside the port."""
     cfg = _cfg(tconfig)
     eng = tengine.Engine(cfg, device="cpu")
     f = tengine.PromptFeatures(tokens=np.arange(5, dtype=np.int32),
                                spk=np.zeros(16, np.float32), mel24=np.zeros((10, 16), np.float32))
+    for stream in (lambda: eng.inference_tts_with_st("a", "b", f, f, stream=True, max_seconds=1.0),
+                   lambda: eng.inference_zero_shot("a", "b", f, stream=True, max_seconds=1.0),
+                   lambda: eng.inference_vc(f, f, stream=True)):
+        chunks = [c["tts_speech"] for c in stream()]
+        assert chunks and all(c.shape[0] == 1 and np.isfinite(c).all() for c in chunks)
     for call in (
-        lambda: next(eng.inference_tts_with_st("a", "b", f, f, stream=True)),
-        lambda: next(eng.inference_zero_shot("a", "b", f, stream=True)),
-        lambda: next(eng.inference_vc(f, f, stream=True)),
         lambda: trag.build_style_db(None, [], engine=eng, wavs=[]),
         lambda: tengine.Engine(dataclasses.replace(cfg, speculative_gamma=2), device="cpu"),
     ):

@@ -14,7 +14,10 @@ half-layer's residual within 2e-2 of max(|h|, 1); the fused log-mel within
 1e-3 in log units of the three-matmul version (split-TF32 products at f32
 level, sums in another order), bit for bit the same from one call to the next;
 the scanned decode's greedy tokens equal to the CPU run's; the transposed
-conv within 1e-4 of the CPU's (cuDNN, TF32 off).
+conv within 1e-4 of the CPU's (cuDNN, TF32 off); a streamed request's
+tokens equal to the same request's unstreamed, through the decode kernel;
+a continuous batch's admission prefill (B=4 at T=384, per-row offsets)
+within two bf16 ulps of the plain attention on every layer's inputs.
 """
 
 import dataclasses
@@ -23,11 +26,13 @@ import pytest
 import torch
 
 from autostyle_tts_tpu_torch.models import token_lm
+from autostyle_tts_tpu_torch.models import transformer
 from autostyle_tts_tpu_torch.ops import decode_step
 from autostyle_tts_tpu_torch.ops import conv, stft
 from autostyle_tts_tpu_torch.ops.flash_attn import flash_attention, flash_attention_plain
 from autostyle_tts_tpu_torch.ops.log_mel import fused_log_mel, fused_log_mel_plain
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
+from autostyle_tts_tpu_torch.pipeline.engine import Engine, PromptFeatures
 from autostyle_tts_tpu_torch.utils.config import tiny_config
 from autostyle_tts_tpu_torch.weights import quantize_tree
 from autostyle_tts_tpu_torch.weights import to_device as weights_to
@@ -450,3 +455,76 @@ def test_conv_transpose1d_on_card_matches_cpu(cuda, kernel, stride):
         torch.backends.cudnn.allow_tf32 = tf32
     assert got.shape == want.shape == (2, 250 * stride, 32)
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def test_streamed_tokens_equal_unstreamed_through_the_decode_kernel(cuda):
+    """An int8 H = K engine on the card: one request unstreamed, then
+    streamed from the same generator state, both on the decode kernel; the
+    same tokens and a joined stream as long as the wav."""
+    cfg = tiny_config()
+    cfg.quantize_lm_int8 = True
+    eng = Engine(cfg, seed=4, device=cuda)
+    assert eng._mega_params is not None
+    seen, start = [], token_lm.start_decode
+
+    def recording(*a, **k):
+        loop = start(*a, **k)
+
+        def run():
+            gen = yield from loop
+            seen.append(gen)
+            return gen
+
+        return run()
+
+    g = torch.Generator().manual_seed(5)
+    feat = PromptFeatures(tokens=torch.randint(0, 64, (40,), generator=g).numpy().astype("int32"),
+                          spk=torch.randn((cfg.speaker.emb_dim,), generator=g).numpy(),
+                          mel24=torch.randn((80, cfg.cfm.n_mels), generator=g).numpy())
+    token_lm.start_decode = recording
+    try:
+        state = eng.generator.get_state()
+        n0 = decode_step.mega_decode_step.launches
+        wav = next(eng.inference_tts_with_st("one request, two ways", "style", feat, feat, max_seconds=2.0))
+        n1 = decode_step.mega_decode_step.launches
+        eng.generator.set_state(state)
+        chunks = [c["tts_speech"] for c in eng.inference_tts_with_st(
+            "one request, two ways", "style", feat, feat, stream=True, max_seconds=2.0)]
+    finally:
+        token_lm.start_decode = start
+    assert n1 > n0 and decode_step.mega_decode_step.launches - n1 == n1 - n0
+    assert len(seen) == 2 and torch.equal(seen[0].tokens, seen[1].tokens)
+    assert sum(c.shape[1] for c in chunks) == wav["tts_speech"].shape[1] and len(chunks) > 1
+
+
+def test_admission_prefill_flash_matches_plain(cuda):
+    """``prefill_prefix`` of four prefixes padded to T = 384 (a continuous
+    batch's admission), each row its own offset: the flash kernel on every
+    layer's inputs against the plain attention, over the real rows."""
+    cfg = tiny_config().token_lm
+    lm = weights_to(quantize_tree(token_lm.init_params(cfg, torch.Generator().manual_seed(2))), cuda)
+    g = torch.Generator().manual_seed(3)
+    t_len, s_len = torch.tensor([40, 7, 120, 1]), torch.tensor([64, 30, 0, 128])
+    pre = token_lm.build_prefix_padded(
+        lm, cfg, torch.randint(16, 200, (4, 120), generator=g, dtype=torch.int32).to(cuda), t_len.to(cuda),
+        torch.randint(0, 64, (4, 128), generator=g, dtype=torch.int32).to(cuda), s_len.to(cuda),
+        torch.randn((4, cfg.spk_dim), generator=g).to(cuda), pad_multiple=384)
+    assert pre.embeds.shape[:2] == (4, 384)
+    calls, flash = [], transformer.flash_attention
+
+    def record(q, k, v, offset):
+        calls.append(tuple(t.clone() for t in (q, k, v, offset)))
+        return flash(q, k, v, offset)
+
+    n0 = flash_attention.launches
+    transformer.flash_attention = record
+    try:
+        token_lm.prefill_prefix(lm, cfg, pre, s_max=384 + 64, kv_int8=True)
+    finally:
+        transformer.flash_attention = flash
+    assert flash_attention.launches - n0 == len(calls) == cfg.n_layers
+    for q, k, v, off in calls:
+        assert sorted(off.tolist()) == sorted((384 - (2 + t_len + s_len)).tolist())
+        got, want = flash_attention(q, k, v, off), flash_attention_plain(q, k, v, off)
+        real = (torch.arange(384, device=cuda)[None, :] >= off[:, None].long())[:, :, None, None]
+        assert ((got.float() - want.float()).abs() * real).max().item() <= 2e-2
