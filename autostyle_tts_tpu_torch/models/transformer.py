@@ -1,43 +1,63 @@
-"""Decoder-only transformer core: the token LM's prefill and decode steps.
+"""Decoder-only transformer core: the token LM's and the RAG embedder's trunk.
 
-Counterpart of the JAX ``models/transformer.py``: ``rmsnorm``,
-``matmul_any`` (dense or int8 ``QTensor`` weights), ``_layer``,
-``make_cache`` (bf16, or int8 with per-(position, head) scales) and
-``forward``. ``forward`` runs one of two modes:
+Counterpart of the JAX ``models/transformer.py``: ``init_params``,
+``init_params_quantized``, ``init_lora``, ``rmsnorm``, ``matmul_any``
+(dense or int8 ``QTensor`` weights), ``_proj`` (with a LoRA pair),
+``_layer``, ``make_cache`` (bf16, or int8 with per-(position, head)
+scales), ``forward``, ``mean_pool_hidden``, ``embed_text``, ``left_pad``
+and ``generate``. ``forward`` runs one of three modes:
 
-- prefill (no ``mask``): the T prefix slots under the causal + left-pad
-  mask through ``flash_attention``, whose wrapper takes the plain version
-  for a CPU tensor and, on the card, launches the kernel or raises for a
-  shape it was not built for (the reference's ``flash_ok`` has no
-  counterpart);
-- decode (an explicit ``mask`` over the cache's S_max slots): the new keys
-  and values are written at ``cache_start`` (one slot, or one slot a row)
-  and attention reads the whole cache through ``sdpa`` or, for an int8
-  cache, ``sdpa_quant``.
+- prefill into a cache (``cache`` and ``offset``, no ``mask``): the T
+  prefix slots under the causal + left-pad mask through
+  ``flash_attention``, whose wrapper takes the plain version for a CPU
+  tensor and, on the card, launches the kernel or raises for a shape it
+  was not built for (the reference's ``flash_ok`` has no counterpart);
+- prefill without a cache (``offset`` or ``mask``, no ``cache``): the
+  embedder's trunk, attention over the T new keys by ``flash_attention``
+  or, under an explicit ``mask``, by ``sdpa``;
+- decode (``cache`` and an explicit ``mask`` over its S_max slots): the
+  new keys and values are written at ``cache_start`` (one slot, or one
+  slot a row) and attention reads the whole cache through ``sdpa`` or,
+  for an int8 cache, ``sdpa_quant``.
 
 Parameters keep the JAX layer-stacked layout (``layers/wqkv``
-[L, D, (H+2K)*hd], ...). Rounding follows the reference: bf16 activations
-between ops, f32 norms, projections accumulated in f32 and rounded to bf16.
-LoRA adapters and the attention bias are not ported and raise, naming
-their ROADMAP.md item.
+[L, D, (H+2K)*hd], ...; a Qwen2-family ``layers/bqkv`` [L, (H+2K)*hd]);
+a LoRA tree holds ``layers/<name>_lora_a`` [L, fan_in, r] and
+``_lora_b`` [L, r, fan_out]. Rounding follows the reference: activations
+in the compute dtype between ops, f32 norms, projections accumulated in
+f32 and rounded to the compute dtype.
+
+Where the reference gathers out of range it clamps (a JAX gather does):
+token ids past the vocabulary read its last row and RoPE positions past
+``max_seq_len`` its last angle. The port computes the same (a torch index
+would raise); at the configurations' own widths neither happens.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-from ..ops.attention import apply_rope, quantize_kv, rope_table, sdpa, sdpa_quant
+from ..ops.attention import apply_rope, causal_mask, quantize_kv, rope_table, sdpa, sdpa_quant
 from ..ops.flash_attn import flash_attention
+from ..ops.sampling import SamplerConfig, sample
 from ..utils.config import TransformerConfig
-from ..weights import QTensor, truncated_normal
+from ..weights import QTensor, quantize, truncated_normal
 
 Params = Dict
 
-__all__ = ["rmsnorm", "matmul_any", "make_cache", "forward", "init_params"]
+__all__ = ["rmsnorm", "matmul_any", "make_cache", "forward", "init_params", "init_params_quantized",
+           "init_lora", "proj_shapes", "mean_pool_hidden", "embed_text", "left_pad", "generate"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def proj_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, int]]:
+    """(fan_in, fan_out) of each layer projection."""
+    D, F, H, K, hd = cfg.dim, cfg.ffn_dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wqkv": (D, (H + 2 * K) * hd), "wo": (H * hd, D), "w_gate_up": (D, 2 * F), "w_down": (F, D)}
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator) -> Params:
@@ -67,6 +87,59 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator) -> Params:
     return p
 
 
+def init_params_quantized(cfg: TransformerConfig, generator: torch.Generator, bits: int = 8) -> Params:
+    """Init and weight-only int8 quantization without ever holding the f32
+    tree: each projection stack is drawn and quantized a layer at a time on
+    ``generator.device`` (the live f32 temporary is one layer's matrix), the
+    embedding stays f32 and ``lm_head`` becomes a ``QTensor``, as the
+    reference's name rules have it. Same structure, shapes and dtypes as
+    ``quantize_tree(init_params(...))``; the values differ in how the draws
+    are split. int4 projections are not ported (ROADMAP.md: queue A item 11)."""
+    if bits == 4:
+        raise NotImplementedError("int4 (Q4Tensor) projections are not ported yet "
+                                  "(ROADMAP.md: queue A item 11)")
+    if bits != 8:
+        raise ValueError(f"bits must be 8, got {bits}")
+    L, D = cfg.n_layers, cfg.dim
+    dev = generator.device
+
+    def stack(fan_in: int, out_dim: int) -> QTensor:
+        q = torch.empty((L, fan_in, out_dim), dtype=torch.int8, device=dev)
+        s = torch.empty((L, 1, out_dim), dtype=torch.float32, device=dev)
+        for l in range(L):
+            q[l], s[l] = quantize(truncated_normal((fan_in, out_dim), generator, fan_in ** -0.5))
+        return QTensor(q=q, s=s)
+
+    shapes = proj_shapes(cfg)
+    p: Params = {
+        "tok_emb": truncated_normal((cfg.vocab_size, D), generator, D ** -0.5),
+        "layers": {
+            "attn_norm": torch.ones((L, D), device=dev),
+            "wqkv": stack(*shapes["wqkv"]),
+            "wo": stack(*shapes["wo"]),
+            "mlp_norm": torch.ones((L, D), device=dev),
+            "w_gate_up": stack(*shapes["w_gate_up"]),
+            "w_down": stack(*shapes["w_down"]),
+        },
+        "final_norm": torch.ones((D,), device=dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = quantize(truncated_normal((D, cfg.vocab_size), generator, D ** -0.5))
+    return p
+
+
+def init_lora(cfg: TransformerConfig, r: int, generator: torch.Generator) -> Params:
+    """Stacked LoRA pairs for every projection ('all-linear'): ``a`` drawn
+    as the reference draws it, ``b`` zero, so the adapted model starts equal
+    to the base."""
+    L = cfg.n_layers
+    out: Params = {"layers": {}}
+    for name, (fi, fo) in proj_shapes(cfg).items():
+        out["layers"][name + "_lora_a"] = truncated_normal((L, fi, r), generator, fi ** -0.5)
+        out["layers"][name + "_lora_b"] = torch.zeros((L, r, fo), device=generator.device)
+    return out
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     nrm = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
@@ -85,8 +158,17 @@ def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x.float(), w.to(x.dtype).float())
 
 
-def _proj(x: torch.Tensor, w) -> torch.Tensor:
-    return matmul_any(x, w).to(x.dtype)
+def _proj(x: torch.Tensor, w, lora: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+          scale: float = 0.0) -> torch.Tensor:
+    """x @ w, plus ``scale * (x @ a) @ b`` for a LoRA pair (a, b), in the
+    reference's rounding order: x @ a in f32, rounded to x's dtype, @ b in
+    f32, scaled and added in f32, the sum rounded to x's dtype."""
+    y = matmul_any(x, w)
+    if lora is not None:
+        a, b = lora
+        ax = torch.matmul(x.float(), a.to(x.dtype).float()).to(x.dtype)
+        y = y + scale * torch.matmul(ax.float(), b.to(x.dtype).float())
+    return y.to(x.dtype)
 
 
 def make_cache(cfg: TransformerConfig, batch: int, max_len: int, device,
@@ -104,46 +186,60 @@ def make_cache(cfg: TransformerConfig, batch: int, max_len: int, device,
 
 
 def _layer(
-    h: torch.Tensor, lp: Params, cfg: TransformerConfig,
+    h: torch.Tensor, lp: Params, lo: Optional[Params], lora_scale: float, cfg: TransformerConfig,
     cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor,
-    cache: Dict[str, torch.Tensor], start: Union[int, torch.Tensor],
+    cache: Optional[Dict[str, torch.Tensor]], start: Union[int, torch.Tensor],
     offset: Optional[torch.Tensor], mask: Optional[torch.Tensor],
 ) -> torch.Tensor:
     """One layer over T new slots. ``cache`` holds this layer's views
     ([B, S, K, hd], and [B, S, K] scales when int8); the new keys and values
     are written at slots [start, start + T) in place, or, for a ``start``
     of [B] slots (T = 1), row b's at slot start[b]. Without ``mask``
-    (prefill) attention is the flash kernel over the T new keys; with it,
-    attention reads the whole cache under ``mask`` [B, 1, T, S]."""
+    attention is the flash kernel over the T new keys, as the cache stores
+    them when there is one (the reference's masked prefill reads them back
+    from its cache; for a model in the cache's dtype they are the same
+    values); with a ``mask`` it reads the whole cache, or the T new keys
+    when there is no cache. ``lo``: this layer's LoRA pairs."""
     B, T, D = h.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def pair(name):
+        return None if lo is None else (lo[name + "_lora_a"], lo[name + "_lora_b"])
+
     x = rmsnorm(h, lp["attn_norm"], cfg.norm_eps)
-    qkv = _proj(x, lp["wqkv"])
+    qkv = _proj(x, lp["wqkv"], pair("wqkv"), lora_scale)
+    if "bqkv" in lp:      # Qwen2-family attention bias, added in the activation dtype
+        qkv = qkv + lp["bqkv"].to(qkv.dtype)
     q, k, v = torch.split(qkv, [H * hd, K * hd, K * hd], dim=-1)
     q = apply_rope(q.reshape(B, T, H, hd), cos, sin, positions)
     k = apply_rope(k.reshape(B, T, K, hd), cos, sin, positions)
     v = v.reshape(B, T, K, hd)
-    quant = "k_scale" in cache
-    if isinstance(start, torch.Tensor):     # one slot a row: index, not a slice
-        at, new = (torch.arange(B, device=h.device), start.long()), (lambda x: x[:, 0])
-    else:
-        at, new = (slice(None), slice(start, start + T)), (lambda x: x)
-    for name, t in (("k", k), ("v", v)):
-        if quant:
-            qt, scale = quantize_kv(t)
-            cache[name][at], cache[name + "_scale"][at] = new(qt), new(scale)
+    quant = cache is not None and "k_scale" in cache
+    if cache is not None:
+        if isinstance(start, torch.Tensor):     # one slot a row: index, not a slice
+            at, new = (torch.arange(B, device=h.device), start.long()), (lambda x: x[:, 0])
         else:
-            cache[name][at] = new(t).to(cache[name].dtype)
+            at, new = (slice(None), slice(start, start + T)), (lambda x: x)
+        for name, t in (("k", k), ("v", v)):
+            if quant:
+                qt, scale = quantize_kv(t)
+                cache[name][at], cache[name + "_scale"][at] = new(qt), new(scale)
+            else:
+                cache[name][at] = new(t).to(cache[name].dtype)
     if mask is None:
+        if cache is not None and not quant:
+            k, v = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
         attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), offset)
+    elif cache is None:
+        attn = sdpa(q, k, v, mask)
     elif quant:
         attn = sdpa_quant(q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], mask)
     else:
         attn = sdpa(q, cache["k"], cache["v"], mask)
-    h = h + _proj(attn.reshape(B, T, H * hd), lp["wo"])
+    h = h + _proj(attn.reshape(B, T, H * hd), lp["wo"], pair("wo"), lora_scale)
     x = rmsnorm(h, lp["mlp_norm"], cfg.norm_eps)
-    gate, up = _proj(x, lp["w_gate_up"]).chunk(2, dim=-1)
-    return h + _proj(torch.nn.functional.silu(gate) * up, lp["w_down"])
+    gate, up = _proj(x, lp["w_gate_up"], pair("w_gate_up"), lora_scale).chunk(2, dim=-1)
+    return h + _proj(torch.nn.functional.silu(gate) * up, lp["w_down"], pair("w_down"), lora_scale)
 
 
 def _layer_params(stacked: Params, l: int) -> Params:
@@ -156,36 +252,156 @@ def _layer_params(stacked: Params, l: int) -> Params:
 def forward(
     params: Params,
     cfg: TransformerConfig,
+    tokens: Optional[torch.Tensor] = None,     # [B, T] int ids (instead of inputs_embeds)
     *,
-    inputs_embeds: torch.Tensor,               # [B, T, D]
-    positions: torch.Tensor,                   # [B, T] RoPE positions
-    cache: Dict[str, torch.Tensor],            # make_cache(...), written in place
+    inputs_embeds: Optional[torch.Tensor] = None,   # [B, T, D]
+    positions: Optional[torch.Tensor] = None,  # [B, T] RoPE positions (default 0..T-1)
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # make_cache(...), written in place
     offset: Optional[torch.Tensor] = None,     # [B] int32 first valid slot (prefill)
-    mask: Optional[torch.Tensor] = None,       # [B, 1, T, S_max] True = attend (decode)
+    mask: Optional[torch.Tensor] = None,       # [B, 1, T, S] True = attend
     cache_start: Union[int, torch.Tensor] = 0,
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
 ) -> torch.Tensor:
-    """Runs every layer over the T new slots, writes their k/v into
-    ``cache`` slots [cache_start, cache_start + T) and returns the
-    final-norm hidden states [B, T, D] (compute dtype). Prefill (no
+    """Runs every layer over the T new slots and returns the final-norm
+    hidden states [B, T, D] (compute dtype). With a ``cache`` their k/v are
+    written into slots [cache_start, cache_start + T): a prefill (no
     ``mask``) needs ``offset`` and cache_start 0; a decode step passes the
     ``mask`` over the whole cache, and ``cache_start`` may then be [B]
     slots, one a row (T = 1: each row at its own position). The reference
     writes that case as a select over the whole cache, because a scatter
-    serializes on its accelerator; here it is one indexed write."""
-    if "bqkv" in params["layers"] or any(n.endswith("_lora_a") for n in params["layers"]):
-        raise NotImplementedError("attention bias and LoRA adapters are not ported yet "
-                                  "(ROADMAP.md: queue A item 6, RAG embedder)")
+    serializes on its accelerator; here it is one indexed write. Without a
+    cache, attention covers the T new keys under ``offset`` (flash) or
+    ``mask`` (plain)."""
+    if (tokens is None) == (inputs_embeds is None):
+        raise ValueError("forward: pass tokens or inputs_embeds")
+    dt = _DTYPES[cfg.dtype]
+    if tokens is not None:
+        h = params["tok_emb"][tokens.long().clamp(max=cfg.vocab_size - 1)].to(dt)
+    else:
+        h = inputs_embeds.to(dt)
+    B, T = h.shape[:2]
     per_row = isinstance(cache_start, torch.Tensor) and cache_start.ndim == 1
     start = cache_start if per_row else int(cache_start)
-    if per_row and (mask is None or inputs_embeds.shape[1] != 1
-                    or cache_start.shape[0] != inputs_embeds.shape[0]):
+    if per_row and (cache is None or mask is None or T != 1 or cache_start.shape[0] != B):
         raise ValueError("forward: per-row cache writes are one decode slot a row ([B] starts, T = 1)")
     if mask is None and (offset is None or start != 0):
         raise ValueError("forward: a prefill (no mask) needs offset and cache_start 0")
-    dt = _DTYPES[cfg.dtype]
-    h = inputs_embeds.to(dt)
+    if positions is None:
+        positions = torch.arange(T, device=h.device)[None, :].expand(B, T)
+    positions = positions.clamp(max=cfg.max_seq_len - 1)
     cos, sin = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, device=h.device)
+    lora_layers = None if lora is None else lora["layers"]
     for l in range(cfg.n_layers):
-        h = _layer(h, _layer_params(params["layers"], l), cfg, cos, sin, positions,
-                   {name: t[l] for name, t in cache.items()}, start, offset, mask)
+        h = _layer(h, _layer_params(params["layers"], l),
+                   None if lora_layers is None else _layer_params(lora_layers, l), lora_scale,
+                   cfg, cos, sin, positions,
+                   None if cache is None else {name: t[l] for name, t in cache.items()}, start, offset, mask)
     return rmsnorm(h, params["final_norm"], cfg.norm_eps)
+
+
+def _head(params: Params) -> Union[torch.Tensor, QTensor]:
+    return params["lm_head"] if "lm_head" in params else params["tok_emb"].T
+
+
+# ----------------------------------------------------------------------------- embeddings
+
+
+def mean_pool_hidden(hidden: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
+    """Mean of the final hidden states over the real tokens -> [B, D] f32."""
+    m = attn_mask[..., None].float()
+    return (hidden.float() * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+
+
+def embed_text(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, attn_mask: torch.Tensor,
+               lora: Optional[Params] = None, lora_scale: float = 0.0, prefix_mask: bool = True) -> torch.Tensor:
+    """[B, T] padded tokens -> [B, D] mean-pooled embedding (no logits).
+
+    With ``prefix_mask`` (right-padded rows: the real tokens of a row are a
+    causal prefix) plain causal attention is exact on the real rows, so the
+    prefill runs ``flash_attention`` with zero offsets; the pad rows'
+    outputs are finite values the mean-pool multiplies by 0.
+    ``prefix_mask=False`` takes an arbitrary mask through the plain
+    attention."""
+    B, T = tokens.shape
+    if prefix_mask:
+        hidden = forward(params, cfg, tokens, offset=torch.zeros((B,), dtype=torch.int32, device=tokens.device),
+                         lora=lora, lora_scale=lora_scale)
+    else:
+        mask = causal_mask(T, T, device=tokens.device) & attn_mask.bool()[:, None, None, :]
+        hidden = forward(params, cfg, tokens, mask=mask, lora=lora, lora_scale=lora_scale)
+    return mean_pool_hidden(hidden, attn_mask)
+
+
+# ----------------------------------------------------------------------------- generate
+
+
+class GenerateResult(NamedTuple):
+    tokens: torch.Tensor      # [B, max_new] int32 (pad_id after EOS)
+    lengths: torch.Tensor     # [B] real tokens generated (EOS excluded)
+    cache: Dict[str, torch.Tensor]
+
+
+def left_pad(seqs: Sequence[Sequence[int]], pad_id: int, width: Optional[int] = None):
+    """Host helper: 1-D id sequences -> ([B, P] left-padded int32, [B]
+    lengths). Left padding keeps every row flush against the decode slots,
+    so prefill and decode share one cache layout."""
+    lens = [len(s) for s in seqs]
+    P = width or max(lens)
+    out = np.full((len(seqs), P), pad_id, np.int32)
+    for i, s in enumerate(seqs):
+        out[i, P - len(s):] = np.asarray(s, np.int32)
+    return out, np.asarray(lens, np.int32)
+
+
+def generate(
+    params: Params,
+    cfg: TransformerConfig,
+    prompt: torch.Tensor,         # [B, P] LEFT-padded (see left_pad)
+    prompt_len: torch.Tensor,     # [B] real lengths
+    cache: Dict[str, torch.Tensor],
+    generator: Optional[torch.Generator],
+    *,
+    max_new_tokens: int,
+    sampler: SamplerConfig,
+    eos_id: int,
+    pad_id: int = 0,
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
+) -> GenerateResult:
+    """Prefill, then a decode loop of up to ``max_new_tokens`` steps.
+
+    Row b's prompt occupies slots [P - len_b, P); decode step i writes slot
+    P + i of every row; the RoPE position of slot s is s - (P - len_b). The
+    prefill runs ``flash_attention`` with the left-pad offsets; a step
+    attends the row's valid slots up to P + i. After its EOS a row draws
+    ``pad_id``; ``lengths`` count the tokens before EOS. The loop stops when
+    every row is done (the reference scans all steps; the rows it would
+    add are pad)."""
+    B, P = prompt.shape
+    dev = prompt.device
+    S_max = cache["k"].shape[2]
+    slot = torch.arange(S_max, device=dev)
+    offset = (P - prompt_len.to(dev)).to(torch.int32)
+    valid = slot[None, :] >= offset[:, None].long()
+    pos = torch.clamp(torch.arange(P, device=dev)[None, :] - offset[:, None].long(), min=0)
+    hidden = forward(params, cfg, prompt, positions=pos, cache=cache, offset=offset,
+                     lora=lora, lora_scale=lora_scale)
+    head = _head(params)
+    cur = matmul_any(hidden[:, -1], head)
+    toks = torch.full((B, max_new_tokens), pad_id, dtype=torch.int32, device=dev)
+    gen_len = torch.zeros((B,), dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    for i in range(max_new_tokens):
+        tok = torch.where(done, torch.full_like(gen_len, pad_id), sample(cur, sampler, generator))
+        is_eos = tok == eos_id
+        gen_len += (~done & ~is_eos).to(torch.int32)
+        done = done | is_eos
+        toks[:, i] = tok
+        if i + 1 == max_new_tokens or bool(done.all()):
+            break
+        mask = (valid & (slot[None, :] <= P + i))[:, None, None, :]
+        hidden = forward(params, cfg, tok[:, None], positions=(P + i - offset.long())[:, None], mask=mask,
+                         cache=cache, cache_start=P + i, lora=lora, lora_scale=lora_scale)
+        cur = matmul_any(hidden[:, 0], head)
+    return GenerateResult(tokens=toks, lengths=gen_len, cache=cache)

@@ -65,6 +65,13 @@ class StyleStore:
         self.meta.extend(dict(m) for m in metadata)
         return list(range(start, start + n))
 
+    def drop(self) -> None:
+        """Empty the store, its prompt artifacts with it."""
+        self.db.zero_()
+        self.valid.zero_()
+        self.meta = []
+        self.artifacts = {}
+
     def _grow(self, new_capacity: int) -> None:
         db = torch.zeros((new_capacity, self.dim), dtype=torch.float32, device=self.device)
         valid = torch.zeros((new_capacity,), dtype=torch.bool, device=self.device)
@@ -131,3 +138,18 @@ class StyleStore:
         with open(base + ".meta.json", encoding="utf-8") as f:
             store.meta = json.load(f)
         return store
+
+    def self_verify(self, sample: Optional[int] = None, tol: float = 1e-4, chunk: int = 1024) -> bool:
+        """Searching each stored row must return it as the top hit (cosine
+        1). ``sample=None`` checks every row, ``chunk`` at a time; an int
+        checks the last ``sample`` rows (the batch just inserted). Ties are
+        allowed: two rows may hold the same vector (the same speaker and
+        emotion label give the same combined embedding)."""
+        n = len(self.meta)
+        lo = 0 if sample is None else max(0, n - min(sample, n))
+        for s0 in range(lo, n, chunk):
+            s1 = min(s0 + chunk, n)
+            scores, idx = self.search_arrays(self.db[s0:s1].cpu().numpy(), k=1)
+            if not ((idx[:, 0] == np.arange(s0, s1)) | (scores[:, 0] >= 1.0 - tol)).all():
+                return False
+        return True

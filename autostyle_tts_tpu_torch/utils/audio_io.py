@@ -1,7 +1,9 @@
 """WAV I/O in pure numpy: PCM8/16/24/32 read, PCM16 write.
 
-Counterpart of ``read_wav`` / ``write_wav`` of the JAX package's
-``utils/audio_io.py``.
+Counterpart of ``read_wav`` / ``write_wav`` / ``load_wav`` of the JAX
+package's ``utils/audio_io.py``; ``load_wav`` is also the counterpart of
+its native loader ``utils/native_audio.load_wav_fast`` (decode and resample
+in numpy, not through the C++ library).
 """
 
 from __future__ import annotations
@@ -52,3 +54,13 @@ def write_wav(path: PathLike, x: np.ndarray, sample_rate: int) -> None:
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(pcm.tobytes())
+
+
+def load_wav(path: PathLike, target_sr: int) -> np.ndarray:
+    """Read a WAV file and resample it to ``target_sr`` -> float32 [T]."""
+    x, sr = read_wav(path)
+    if sr != target_sr:
+        from ..ops.resample import resample_poly_np
+
+        x = resample_poly_np(x, sr, target_sr)
+    return x.astype(np.float32)

@@ -7,7 +7,12 @@
 - ``from_jax_tree`` turns the JAX ``EngineParams.tree()`` (leaves as numpy)
   into the port's parameter tree: nested dicts and lists of tensors.
 - ``load_tree`` loads a part of the engine (one module's ``.npz``) into the
-  structure of a tree of tensors, every key and shape checked.
+  structure of a tree of tensors, every key and shape checked;
+  ``load_lora`` loads a LoRA adapter (such as
+  ``artifacts/ft3b/adapter_f16.npz``) that way, in f32.
+- ``embedder_from_jax`` / ``lora_from_jax``: the RAG embedder's weights
+  (dense or int8, with or without the attention bias) and a LoRA tree,
+  from the JAX package's numpy leaves, every shape checked.
 - ``init_params`` draws random full-width weights with the same shapes and
   scales as the JAX ``init_params`` functions, from an explicit generator.
 - ``QTensor`` / ``quantize`` / ``quantize_tree``: int8 weight-only
@@ -22,7 +27,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .utils.config import Config
+from .utils.config import Config, TransformerConfig
 
 _FLAT_SEP = "/"
 
@@ -136,6 +141,57 @@ def from_jax_tree(tree: Dict, cfg: Config, device=None) -> Dict:
     _check("speaker/stem/w", spk["stem"]["w"], (5, sp.n_mels, sp.channels))
     _check("speaker/head/w", spk["head"]["w"], (2 * sp.channels, sp.emb_dim))
     return out if device is None else to_device(out, device)
+
+
+def embedder_from_jax(tree: Dict, cfg: TransformerConfig, device=None) -> Dict:
+    """The JAX embedder tree (``transformer.init_params`` or
+    ``init_params_quantized`` with numpy leaves; int8 projections as
+    ``q`` / ``s`` pairs) -> tensors, each shape checked against ``cfg``."""
+    from .models.transformer import proj_shapes
+
+    out = tree_from_numpy(tree)
+    L, D = cfg.n_layers, cfg.dim
+    lay = out["layers"]
+    _check("tok_emb", out["tok_emb"], (cfg.vocab_size, D))
+    shapes = proj_shapes(cfg)
+    for name, (fi, fo) in shapes.items():
+        _check(f"layers/{name}", lay[name], (L, fi, fo))
+    for name in ("attn_norm", "mlp_norm"):
+        _check(f"layers/{name}", lay[name], (L, D))
+    if "bqkv" in lay:
+        _check("layers/bqkv", lay["bqkv"], (L, shapes["wqkv"][1]))
+    if "lm_head" in out:
+        _check("lm_head", out["lm_head"], (D, cfg.vocab_size))
+    return out if device is None else to_device(out, device)
+
+
+def _lora_shapes(cfg: TransformerConfig, r: int) -> Dict[str, Tuple[int, ...]]:
+    from .models.transformer import proj_shapes
+
+    out = {}
+    for name, (fi, fo) in proj_shapes(cfg).items():
+        out[name + "_lora_a"], out[name + "_lora_b"] = (cfg.n_layers, fi, r), (cfg.n_layers, r, fo)
+    return out
+
+
+def lora_from_jax(tree: Dict, cfg: TransformerConfig, r: int, device=None) -> Dict:
+    """A JAX ``transformer.init_lora`` tree with numpy leaves -> f32
+    tensors, each shape checked."""
+    out = tree_from_numpy(tree)
+    want = _lora_shapes(cfg, r)
+    if set(out["layers"]) != set(want):
+        raise ValueError(f"lora: keys {sorted(out['layers'])} != {sorted(want)}")
+    for name, shape in want.items():
+        _check(f"layers/{name}", out["layers"][name], shape)
+    out = tree_map(lambda t: t.float(), out)
+    return out if device is None else to_device(out, device)
+
+
+def load_lora(path: str, cfg: TransformerConfig, r: int, device="cpu") -> Dict:
+    """A LoRA adapter's ``.npz`` (f16 or f32 leaves) loaded in f32 into
+    the structure of ``transformer.init_lora(cfg, r)`` on ``device``."""
+    like = {"layers": {k: torch.empty(s, device=device) for k, s in _lora_shapes(cfg, r).items()}}
+    return load_tree(path, like)
 
 
 def _check_vocoder(p: Dict, v) -> None:

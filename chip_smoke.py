@@ -58,11 +58,27 @@ Phases (any failure exits non-zero):
       step, admission prefills); then ``StreamingScheduler(slots=4)``
       serves 4 concurrent sessions (``scheduler`` line: each session's
       first chunk, all before the first session ends);
+   I. the retrieval workflow at full width: ``Config().embedder``
+      (Llama-3.2-3B geometry: 28 layers, 3072 wide, GQA 24:8, hd 128,
+      128,256-token vocabulary) as an int8 base drawn on the card from a
+      seed, with the ft3b LoRA adapter (``artifacts/ft3b/adapter_f16.npz``,
+      chat-format labels): ``build_style_db`` over 8 style samples of 2
+      speakers (one biography batch of B=2 at P=1024 and 250 new tokens,
+      one label batch of B=8 at P=512, one embed batch of 16 rows at
+      T=512; the style wavs featurized by path A's engine), ``self_verify``
+      over every row, ``search_dialog`` over 4 turns with a +-5-turn
+      labelling context (labels at P=768), each retrieved row served
+      through ``prompt_features_from_store`` and one ``synthesize_batch``;
+      then ``insert_embeddings`` -> ``search_json`` -> ``tts_with_rag
+      --style_db`` through their ``main`` at ``--tiny`` geometry on the
+      card (``rag`` line: stage times, the flash kernel at the embedder's
+      four shapes, peak memory);
    the inputs of the first call of each distinct geometry that paths A, D,
-   E, G and H give ``flash_attention`` and ``fused_log_mel`` are kept
+   E, G, H and I give ``flash_attention`` and ``fused_log_mel`` are kept
    (device copies) and, after the paths, each kernel is held against its
-   plain version on them (path D's B=8 prefill and path H's admissions,
-   T=384 at B=1, 2 and 4, are also timed);
+   plain version on them (path D's B=8 prefill, path H's admissions,
+   T=384 at B=1, 2 and 4, and path I's four embedder shapes are also
+   timed);
 5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --log-mel-only`` builds ``log_mel.cu`` alone, runs
@@ -80,6 +96,7 @@ import json
 from contextlib import contextmanager
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -96,7 +113,7 @@ from autostyle_tts_tpu_torch.pipeline.engine import Engine, EngineParams
 from autostyle_tts_tpu_torch.pipeline.simeval import SpeakerScorer, token_round_trip
 from autostyle_tts_tpu_torch.pipeline.stream_serve import StreamingScheduler
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
-from autostyle_tts_tpu_torch.utils.audio_io import read_wav
+from autostyle_tts_tpu_torch.utils.audio_io import read_wav, write_wav
 from autostyle_tts_tpu_torch.utils.config import CFMConfig, Config, VocoderConfig, demo_config
 from autostyle_tts_tpu_torch.utils.timing import Stopwatch
 from autostyle_tts_tpu_torch.weights import QTensor, from_jax_tree, load_npz, load_tree, quantize_tree
@@ -1382,6 +1399,243 @@ def path_h(eng: Engine, store: StyleStore, cfg: Config) -> dict:
     return dict(continuous=cont, scheduler=sched, launches=launches)
 
 
+# ----------------------------------------------------------------------------- path I
+
+ADAPTER = Path(__file__).resolve().parent / "artifacts" / "ft3b" / "adapter_f16.npz"
+RAG_SAMPLES = [   # (speaker, line): the style DB's 8 utterances of 2 speakers
+    ("w1", "I can't believe you remembered my birthday, this is wonderful!"),
+    ("m1", "We have to leave now or we will miss the last train home."),
+    ("w1", "Honestly, I am tired of explaining the same thing every single day."),
+    ("m1", "That's fine, take your time, there is no rush at all."),
+    ("w1", "Oh no, I think I left the keys inside the car again."),
+    ("m1", "Stop shouting at me, I did exactly what you asked for!"),
+    ("w1", "Let me read you the letter she sent last week."),
+    ("m1", "The results came back and everything looks perfectly normal."),
+]
+RAG_DIALOG = [    # (speaker, line): the dialog whose turns are served from the DB
+    ("w1", "Did you hear the news about the concert tonight?"),
+    ("m1", "Yes, and I still can't find my ticket anywhere."),
+    ("w1", "You lost it again? That is the third time this month."),
+    ("m1", "Please, just help me look under the sofa."),
+]
+
+
+@contextmanager
+def rag_timings():
+    """Each ``transformer.generate`` and ``transformer.embed_text`` call the
+    embedder service makes while open, synchronized and timed (a generate's
+    prefill apart: its ``forward`` over the prompt's tokens into the
+    cache): dicts appended to the yielded lists."""
+    gens, embeds = [], []
+    gen0, emb0, fwd0 = transformer.generate, transformer.embed_text, transformer.forward
+    prefill = []
+
+    def forward(*a, **k):
+        tokens = a[2] if len(a) > 2 else k.get("tokens")
+        if tokens is None or tokens.shape[1] == 1 or k.get("cache") is None:
+            return fwd0(*a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fwd0(*a, **k)
+        torch.cuda.synchronize()
+        prefill.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def generate(params, cfg, prompt, prompt_len, cache, generator, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = gen0(params, cfg, prompt, prompt_len, cache, generator, **k)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n, eos = k["max_new_tokens"], k["eos_id"]
+        toks, lens = res.tokens.cpu(), res.lengths.cpu()
+        # steps the loop ran: it stops after the step where every row is done
+        ends = [int(l) + 1 if int(l) < n and int(toks[b, int(l)]) == eos else n for b, l in enumerate(lens)]
+        steps = min(n, max(ends))
+        pre = prefill.pop()
+        gens.append(dict(B=prompt.shape[0], P=prompt.shape[1], max_new=n, steps=steps, ms=ms, prefill_ms=pre,
+                         decode_ms_per_step=(ms - pre) / max(steps - 1, 1), lengths=lens.tolist()))
+        return res
+
+    def embed_text(params, cfg, tokens, attn_mask, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = emb0(params, cfg, tokens, attn_mask, **k)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(out).all()), f"embed_text at {tuple(tokens.shape)}: not finite")
+        embeds.append(dict(rows=tokens.shape[0], T=tokens.shape[1], ms=ms, ms_per_row=ms / tokens.shape[0]))
+        return out
+
+    transformer.generate, transformer.embed_text, transformer.forward = generate, embed_text, forward
+    try:
+        yield gens, embeds
+    finally:
+        transformer.generate, transformer.embed_text, transformer.forward = gen0, emb0, fwd0
+
+
+def rag_clis(d: Path) -> dict:
+    """The three retrieval CLIs through their ``main`` at ``--tiny``
+    geometry with their default device (the card): insert (with the style
+    wavs' artifacts) -> search_json -> tts_with_rag --style_db."""
+    from autostyle_tts_tpu_torch.cli import insert_embeddings, search_json, tts_with_rag
+    from autostyle_tts_tpu_torch.utils.config import tiny_config
+
+    sr = tiny_config().audio.prompt_sample_rate
+    (d / "styles").mkdir()
+    manifest = []
+    for i, (spk, text) in enumerate(RAG_SAMPLES[:4]):
+        write_wav(d / "styles" / f"style_{i}.wav", synthetic_wav(300 + i, 1.0, sr), sr)
+        manifest.append({"speaker": spk, "zh_text": text, "file_id": f"style_{i}.wav"})
+    (d / "styles.json").write_text(json.dumps(manifest))
+    (d / "turns.jsonl").write_text("".join(json.dumps({"zh_text": t, "speaker": s}) + "\n" for s, t in RAG_DIALOG))
+    for spk, seed in (("w1", 310), ("m1", 311)):
+        write_wav(d / f"timbre_{spk}.wav", synthetic_wav(seed, 1.0, sr), sr)
+    t0 = time.perf_counter()
+    insert_embeddings.main(["--tiny", "--input_json", str(d / "styles.json"), "--db_path", str(d / "store"),
+                            "--capacity", "16", "--style_wav_dir", str(d / "styles")])
+    search_json.main(["--tiny", "--input_json", str(d / "turns.jsonl"), "--db_path", str(d / "store"),
+                      "--output_file", str(d / "rows.jsonl"), "--file_prefix_path", str(d / "styles")])
+    tts_with_rag.main(["--tiny", "--corresponding_json", str(d / "rows.jsonl"), "--result_dir", str(d / "out"),
+                       "--timbre_map", f"w1={d / 'timbre_w1.wav'},m1={d / 'timbre_m1.wav'}",
+                       "--style_db", str(d / "store")])
+    rows = [json.loads(l) for l in (d / "rows.jsonl").read_text().splitlines()]
+    wavs = sorted((d / "out").glob("*/*.wav"))
+    check(len(rows) == len(RAG_DIALOG) and all(0 <= r["retrieved_index"] < 4 for r in rows),
+          f"tiny search_json rows {rows}")
+    check(len(wavs) == len(RAG_DIALOG), f"tiny tts_with_rag wrote {len(wavs)} wavs for {len(RAG_DIALOG)} rows")
+    for w in wavs:
+        x, _ = read_wav(w)
+        check(x.size > 0 and bool(np.isfinite(x).all()), f"tiny tts_with_rag wav {w.name} empty or not finite")
+    return dict(rows=len(rows), wavs=len(wavs), wall_s=time.perf_counter() - t0)
+
+
+def path_i(eng: Engine, cfg: Config) -> dict:
+    """The retrieval workflow at full width: ``Config().embedder``
+    (Llama-3.2-3B geometry) as an int8 base drawn on the card from a seed
+    with the ft3b LoRA adapter (alpha / r = 4, chat-format labels);
+    ``build_style_db`` over 8 style samples of 2 speakers whose synthetic
+    wavs path A's engine featurizes, ``self_verify`` over every row,
+    ``search_dialog`` over 4 turns with a +-5-turn labelling context, each
+    retrieved row served as ``tts_with_rag --style_db`` serves it
+    (``prompt_features_from_store`` then one ``synthesize_batch``); then the
+    three CLIs once more through their ``main`` at ``--tiny`` geometry on
+    the card."""
+    from autostyle_tts_tpu_torch.utils.manifest import StyleSample
+    from autostyle_tts_tpu_torch.weights import load_lora
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ecfg, lcfg = cfg.embedder, cfg.train.lora
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = transformer.init_params_quantized(ecfg, torch.Generator(device="cuda").manual_seed(4323))
+    lora = load_lora(str(ADAPTER), ecfg, lcfg.r, device="cuda")
+    emb = rag.EmbedderService(ecfg, params, lora=lora, lora_scale=lcfg.alpha / lcfg.r)
+    torch.cuda.synchronize()
+    init_s, embedder_gb = time.perf_counter() - t0, (torch.cuda.memory_allocated() - mem0) / 1e9
+    check(emb.erc_chat and emb.device.type == "cuda", "path I's embedder: chat-format labels on the card")
+    samples = [StyleSample(speaker=spk, zh_text=text, file_id=f"style_{i}") for i, (spk, text) in enumerate(RAG_SAMPLES)]
+    turns = [rag.DialogTurn(zh_text=t, speaker=s) for s, t in RAG_DIALOG]
+    with tempfile.TemporaryDirectory() as tmp, rag_timings() as (gens, embeds):
+        d = Path(tmp)
+        for i in range(len(samples)):     # at 22.05 kHz: the loader resamples to the prompt rate
+            write_wav(d / f"style_{i}.wav", synthetic_wav(400 + i, 3.0, 22050), 22050)
+        t0 = time.perf_counter()
+        store = rag.build_style_db(emb, samples, capacity=64, batch=16, engine=eng, wav_dir=str(d))
+        build_s = time.perf_counter() - t0
+        check(len(store) == len(samples) and store.self_verify(), "path I: self_verify over every row")
+        n_build = len(gens), len(embeds)
+        searches = []
+        search0 = store.search
+
+        def search(q, k=1, speaker=None):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = search0(q, k, speaker)
+            searches.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        store.search = search
+        t0 = time.perf_counter()
+        rows = rag.search_dialog(emb, store, turns, context_window=5)
+        search_s = time.perf_counter() - t0
+        del store.search
+    check(len(rows) == len(turns) and all(0 <= r.retrieved_index < len(store) for r in rows),
+          f"path I rows {[r.to_dict() for r in rows]}")
+    a = store.artifacts
+    check(a["speech_tokens"].shape[0] == len(samples) and bool((a["prompt_mel_lens"] > 0).all()),
+          "path I's DB artifacts")
+    # tts_with_rag --style_db: each speaker's timbre featurized once, the rows' styles from the DB
+    timbre = dict(zip(("w1", "m1"), eng.prompt_features([synthetic_wav(410), synthetic_wav(411)])))
+    t0 = time.perf_counter()
+    wavs = eng.synthesize_batch([r.zh_text for r in rows], [r.retrieved_text for r in rows],
+                                [eng.prompt_features_from_store(store, [r.retrieved_index])[0] for r in rows],
+                                [timbre[r.speaker] for r in rows], max_seconds=5)
+    synth_ms = (time.perf_counter() - t0) * 1e3
+    rms = []
+    for r, w in zip(rows, wavs):
+        check(w.size > 0 and bool(np.isfinite(w).all()), f"path I turn {r.zh_text!r}: wav empty or not finite")
+        rms.append(float(np.sqrt(np.mean(w.astype(np.float64) ** 2))))
+        check(rms[-1] > 1e-4, f"path I turn {r.zh_text!r}: wav is silent (rms {rms[-1]})")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches_full = read_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = rag_clis(Path(tmp))
+    launches = read_counts()
+    for name in ("flash_attention", "fused_log_mel"):
+        check(launches_full[name] > 0, f"path I never launched {name}: {launches_full}")
+    bio = [g for g in gens if g["max_new"] == rag.BIO_MAX_NEW]
+    lab = [g for g in gens if g["max_new"] == rag.EMOTION_MAX_NEW]
+    rec = dict(
+        embedder=dict(dim=ecfg.dim, layers=ecfg.n_layers, heads=ecfg.n_heads, kv_heads=ecfg.n_kv_heads,
+                      vocab=ecfg.vocab_size, lora_r=lcfg.r, lora_scale=lcfg.alpha / lcfg.r, gb=embedder_gb,
+                      init_s=init_s),
+        build_s=build_s, search_s=search_s, synth_ms=synth_ms, wav_rms=rms,
+        biography=bio, biography_ms_per_token=[g["decode_ms_per_step"] for g in bio],
+        labels=lab, embeds=embeds, search_ms=searches,
+        build_calls=dict(generate=n_build[0], embed=n_build[1]),
+        rows=[dict(speaker=r.speaker, retrieved_index=r.retrieved_index, distance=r.distance) for r in rows],
+        emotions=[m["emotion"] for m in store.meta], peak_mem_gb=peak_gb, tiny_clis=cli,
+        launches_full_width=launches_full)
+    return dict(rag=rec, launches=launches, embedder=emb)
+
+
+def profile_embedder(emb, steps: int = 16) -> dict:
+    """The embedder's decode loop under torch.profiler: a sampled
+    generation (the biography sampler) of ``steps`` tokens at B=2 from a
+    16-token prompt, whose prefill costs about one step: the device's idle
+    share, device time by kernel, the host's own time by operator, and
+    kernels a step (over the prefill and the steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seq = emb._encode("A: hello there, how are you today?", 16)
+    emb._generate_ids([seq, seq], steps, SamplerConfig.biography(), 16)      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        emb._generate_ids([seq, seq], steps, SamplerConfig.biography(), 16)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evts = device_events(prof)
+    by_name = {}
+    for name, us, _ in evts:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, n + 1)
+    busy_us = sum(us for _, us, _ in evts)
+    ops = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                 key=lambda e: -e.self_cpu_time_total)[:12]
+    return dict(B=2, P=16, steps=steps, wall_ms=wall_us / 1e3, wall_ms_per_step=wall_us / 1e3 / (steps + 1),
+                device_busy_ms=busy_us / 1e3,
+                device_idle_share=(1.0 - busy_us / wall_us) if busy_us else "not measured",
+                device_kernels=len(evts), kernels_per_step=len(evts) / (steps + 1),
+                top_kernels=[dict(name=k, ms=us / 1e3, calls=n)
+                             for k, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]],
+                top_host_ops=[dict(name=e.key, self_cpu_ms=e.self_cpu_time_total / 1e3, calls=e.count)
+                              for e in ops])
+
+
 def device_events(prof):
     """(short kernel name, microseconds, start) of every device event of a
     profile, in start order."""
@@ -1580,6 +1834,11 @@ def main() -> int:
     with inputs.watch("H"):
         ph = path_h(eng, store, cfg)
     print("path H", json.dumps({"launches": ph["launches"]}), flush=True)
+    with inputs.watch("I"):
+        pi = path_i(eng, cfg)
+    print("path I", json.dumps({"launches": pi["launches"]}), flush=True)
+    # outside the path's counts and recorded inputs
+    print("profile embedder", json.dumps(profile_embedder(pi.pop("embedder"))), flush=True)
     admitted = sorted({shape[0] for (path, shape, _) in inputs.flash if path == "H" and shape[1] == 384})
     check(admitted == [1, 2, 4], f"path H's admissions prefilled B = {admitted} at T = 384, expected 1, 2 and 4")
     on_inputs = inputs.replay()
@@ -1589,6 +1848,14 @@ def main() -> int:
     flash_admit = {shape[0]: flash_measure(*t) for (path, shape, _), t in inputs.flash.items() if path == "H"}
     for b, r in sorted(flash_admit.items()):
         print(f"flash admission B={b} (path H's prefill inputs)", json.dumps(r), flush=True)
+    # the embedder's shapes on path I (hd = 128): embeds, biography and label prefills
+    flash_rag = [flash_measure(*t) for (path, shape, _), t in inputs.flash.items() if path == "I" and shape[3] == 128]
+    check(len(flash_rag) == 4, f"path I gave flash {len(flash_rag)} geometries at hd = 128, expected 4")
+    for r in flash_rag:
+        print("flash embedder B={} T={} (path I's inputs)".format(*r["shape"][:2]), json.dumps(r), flush=True)
+    pi["rag"]["flash"] = [{k: r[k] for k in ("shape", "ms", "bound_ms", "bound_by", "library_ms", "plain_ms",
+                                             "max_abs_err")} for r in flash_rag]
+    print("rag", json.dumps(pi["rag"]), flush=True)
     del inputs
     print("profile db_served", json.dumps(profile_request(
         eng, *eng.prompt_features_from_store(store, [0, 1]))), flush=True)
@@ -1607,13 +1874,13 @@ def main() -> int:
                     **{k: rec[k] for k in KERNEL_KEYS})
 
     jax_decode = "autostyle_tts_tpu/ops/pallas_decode.py"
-    # launches on every path that runs the kernel: flash on A, C, D, E, G, H; log-mel on A, D, E, G;
+    # launches on every path that runs the kernel: flash on A, C, D, E, G, H, I; log-mel on A, D, E, G, I;
     # the decode step on A, G; its int4 build on C, G (the other paths add 0)
-    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph))
+    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph, pi))
     # max_abs_err: the largest of every case checked (phase 3 and the paths' own inputs)
     worst = lambda name, recs: max(r["max_abs_err"] for r in (*recs, *on_inputs[name]))
     flash_rec = dict(flash_main, max_abs_err=worst("flash_attention", (flash_main, flash_gqa, flash_128, flash_batch,
-                                                                       *flash_admit.values())))
+                                                                       *flash_admit.values(), *flash_rag)))
     mel_rec = dict(mel24, max_abs_err=worst("fused_log_mel", (mel24,)))
     kernels = [
         entry("flash_attention", FLASH_SRC, "autostyle_tts_tpu/ops/pallas_attn.py:76",

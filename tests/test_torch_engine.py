@@ -41,7 +41,6 @@ from autostyle_tts_tpu.utils import config as jconfig
 from autostyle_tts_tpu_torch.ops import decode_step as tdecode
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
 from autostyle_tts_tpu_torch.pipeline import engine as tengine
-from autostyle_tts_tpu_torch.pipeline import rag as trag
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
 from autostyle_tts_tpu_torch.utils import config as tconfig
 from autostyle_tts_tpu_torch.weights import from_jax_tree, quantize_tree
@@ -225,9 +224,9 @@ def test_int4_engine_falls_back_to_the_int8_decode_step(monkeypatch):
 
 
 def test_engine_out_of_slice_paths_raise():
-    """Speculative decoding and the embedding half of ``build_style_db``
-    still raise, naming their ROADMAP.md item; streaming, a batch, voice
-    conversion, a dense LM and prompts from wavs are inside the port."""
+    """Speculative decoding still raises, naming its ROADMAP.md item;
+    streaming, a batch, voice conversion, a dense LM, prompts from wavs and
+    ``build_style_db`` (``tests/test_torch_rag.py``) are inside the port."""
     cfg = _cfg(tconfig)
     eng = tengine.Engine(cfg, device="cpu")
     f = tengine.PromptFeatures(tokens=np.arange(5, dtype=np.int32),
@@ -237,12 +236,8 @@ def test_engine_out_of_slice_paths_raise():
                    lambda: eng.inference_vc(f, f, stream=True)):
         chunks = [c["tts_speech"] for c in stream()]
         assert chunks and all(c.shape[0] == 1 and np.isfinite(c).all() for c in chunks)
-    for call in (
-        lambda: trag.build_style_db(None, [], engine=eng, wavs=[]),
-        lambda: tengine.Engine(dataclasses.replace(cfg, speculative_gamma=2), device="cpu"),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tengine.Engine(dataclasses.replace(cfg, speculative_gamma=2), device="cpu")
     feats = eng.prompt_features([np.zeros(1600, np.float32)])
     assert len(feats) == 1 and feats[0].spk.shape == (cfg.speaker.emb_dim,)
     with pytest.raises(ValueError, match="store has no precomputed"):

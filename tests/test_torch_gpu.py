@@ -17,11 +17,18 @@ the scanned decode's greedy tokens equal to the CPU run's; the transposed
 conv within 1e-4 of the CPU's (cuDNN, TF32 off); a streamed request's
 tokens equal to the same request's unstreamed, through the decode kernel;
 a continuous batch's admission prefill (B=4 at T=384, per-row offsets)
-within two bf16 ulps of the plain attention on every layer's inputs.
+within two bf16 ulps of the plain attention on every layer's inputs; the
+flash kernel at the RAG embedder's shapes (H=24, K=8, hd=128: right-padded
+embed rows at offset 0, left-padded generation prompts) within two bf16
+ulps and finite on every row; one ``EmbedderService.embed`` on the card
+within 2e-2 of the largest |component| of the CPU port's (bf16
+activations, the kernel against the plain attention, sums in another
+order).
 """
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -528,3 +535,50 @@ def test_admission_prefill_flash_matches_plain(cuda):
         got, want = flash_attention(q, k, v, off), flash_attention_plain(q, k, v, off)
         real = (torch.arange(384, device=cuda)[None, :] >= off[:, None].long())[:, :, None, None]
         assert ((got.float() - want.float()).abs() * real).max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("B,T,offsets", [
+    (16, 512, [0] * 16),                         # an embed batch: right-padded rows, offset 0
+    (2, 1024, [700, 905]),                       # a biography prefill, left-padded
+    (8, 512, [300, 310, 290, 305, 280, 315, 299, 301]),   # label prefills
+    (4, 768, [400, 512, 380, 450]),
+])
+def test_flash_kernel_matches_plain_at_embedder_shapes(cuda, B, T, offsets):
+    """The embedder's GQA 24:8 at head width 128: against the plain version
+    on the real rows, and finite on every row (the embed batch's pad rows
+    are multiplied by 0 in the mean-pool)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((B, T, 24, 128), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((B, T, 8, 128), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((B, T, 8, 128), generator=g, device=cuda).to(torch.bfloat16)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, off)
+    assert flash_attention.launches == n0 + 1
+    want = flash_attention_plain(q, k, v, off)
+    real = (torch.arange(T, device=cuda)[None, :] >= off[:, None].long())[:, :, None, None]
+    assert ((got.float() - want.float()).abs() * real).max().item() <= 2e-2
+    assert bool(torch.isfinite(got).all())
+
+
+def test_embed_on_card_matches_cpu(cuda):
+    """One ``EmbedderService.embed`` on the card (flash at hd = 128, int8
+    base, a LoRA adapter with a non-zero b) against the CPU port on the
+    same weights."""
+    from autostyle_tts_tpu_torch.pipeline.rag import EmbedderService
+    from autostyle_tts_tpu_torch.utils.config import TransformerConfig
+
+    cfg = TransformerConfig(vocab_size=300, dim=256, n_layers=2, n_heads=2, n_kv_heads=1, ffn_dim=512,
+                            max_seq_len=1024)
+    gen = torch.Generator().manual_seed(6)
+    params = transformer.init_params_quantized(cfg, gen)
+    lora = transformer.init_lora(cfg, 8, gen)
+    lora["layers"] = {k: (v + 0.02 * torch.randn(v.shape, generator=gen)) if k.endswith("_b") else v
+                      for k, v in lora["layers"].items()}
+    texts = ["hello world", "a longer line of text to embed on the card", "你好"]
+    n0 = flash_attention.launches
+    got = EmbedderService(cfg, params, lora=lora, lora_scale=4.0).embed(texts)
+    assert flash_attention.launches - n0 == cfg.n_layers
+    want = EmbedderService(cfg, params, lora=lora, lora_scale=4.0, device="cpu").embed(texts)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
