@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: config and override flags, the engine builder,
-result-dir conventions.
+"""Shared CLI plumbing: config and override flags, the engine builder and
+its weight snapshots, result-dir conventions.
 
 Counterpart of the JAX ``cli/common.py``. Every CLI takes:
   --config cfg.json          load a Config tree
@@ -76,6 +76,17 @@ def build_engine(args):
         atexit.register(lambda: print("\n-- last request's stage timing (ms) --\n"
                                       + json.dumps(engine.last_timings)))
     return engine
+
+
+def save_engine_checkpoint(engine, path: str) -> None:
+    """The engine's weights as served, in the JAX package's flat-key
+    ``.npz`` (``utils/checkpoint.py``), so a snapshot exported by either
+    package loads into the other through ``--checkpoint``. A dense token
+    LM's projections and speech head are written at the bf16 values the
+    port serves them with (as f32); an int8 LM as ``q`` / ``s`` pairs."""
+    from ..weights import save_tree
+
+    save_tree(path, engine.params.tree())
 
 
 def timestamped_dir(base: str) -> Path:

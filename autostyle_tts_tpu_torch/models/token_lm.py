@@ -33,7 +33,7 @@ import torch
 from ..ops.attention import apply_rope, quantize_kv, rope_inv_freq, rope_table
 from ..ops.decode_step import (WEIGHT_KEYS, attn_step, decode_scratch, mega_decode_step,
                                mlp_step, pack4, part_shape, weight_bits)
-from ..ops.sampling import SamplerConfig, sample
+from ..ops.sampling import SamplerConfig, sample, transform_logits
 from ..utils.config import TokenLMConfig, TransformerConfig
 from ..utils.timing import Stopwatch
 from ..weights import QTensor, normal
@@ -503,6 +503,190 @@ def generate_speech_from_ids(
         params, cfg, pre, generator, max_new_tokens=max_new_tokens,
         decode_params=decode_params, sampler=sampler, min_tokens=min_tokens,
         kv_int8=kv_int8, fused=fused, clock=clock,
+    )
+
+
+# ----------------------------------------------------------------------- speculative decode
+
+
+class SpecGen(NamedTuple):
+    tokens: torch.Tensor    # [1, max_new] int32 (pad after EOS)
+    lengths: torch.Tensor   # [1] tokens before EOS
+    n_verify: int           # verify forwards run
+    n_commit: int           # tokens committed (= lengths unless EOS)
+
+
+def _lookup_draft(ctx: torch.Tensor, w: int, gamma: int) -> torch.Tensor:
+    """Prompt-lookup drafting (no draft model): the ``gamma`` tokens that
+    followed the most recent earlier occurrence of the last bigram of
+    ``ctx[:w]``, else the last token repeated. A match near the tail would
+    read past the known region, so the indices clamp to the last known
+    token (a constant run drafts the constant). Drafts are verified by the
+    target model: a bad draft costs acceptance, never correctness."""
+    W = ctx.shape[0]
+    j = torch.arange(W, device=ctx.device)
+    last = max(w - 1, 0)
+    a2, b2 = ctx[max(w - 2, 0)], ctx[last]
+    prev = torch.cat([ctx[:1], ctx[:-1]])             # prev[j] = ctx[j-1]
+    match = (prev == a2) & (ctx == b2) & (j >= 1) & (j < w - 1) & (w >= 2)
+    jm = torch.where(match, j, torch.full_like(j, -1)).max()
+    idx = torch.clamp(jm + 1 + torch.arange(gamma, device=ctx.device), 0, last)
+    return torch.where(match.any(), ctx[idx], ctx[last])
+
+
+def generate_speech_spec(
+    params: Params,
+    cfg: TokenLMConfig,
+    prefix: Prefix,
+    style_tokens: torch.Tensor,     # [1, T_sty] the lookup corpus seed
+    style_len: torch.Tensor,        # [1]
+    generator: Optional[torch.Generator] = None,   # required unless sampler.greedy
+    *,
+    max_new_tokens: int,
+    gamma: int = 4,
+    min_tokens: int = 2,
+    kv_int8: bool = False,
+    sampler: SamplerConfig = SamplerConfig(greedy=True),
+    clock: Optional[Stopwatch] = None,
+) -> SpecGen:
+    """Decode by prompt-lookup speculative verification, B=1, as the
+    reference's ``generate_speech_spec`` does. The prefill (flash attention)
+    runs under ``clock``'s "prefill" span, the loop under "decode". Each
+    iteration drafts ``gamma`` tokens from the speech context (style prompt
+    + tokens so far), runs one ``gamma + 1``-position verify forward of the
+    core at ``cache_start = t_cache`` (plain PyTorch, the reference's XLA
+    code) under the standard masking (pad and BOS always, EOS before
+    ``min_tokens``) and commits the verified prefix plus one model-chosen
+    token, up to the ``max_new_tokens`` budget; EOS stays in the token
+    buffer at index ``length``, as in the standard loop.
+
+    Greedy: a draft is accepted while it equals the model's argmax, so the
+    tokens are those of greedy ``generate_speech`` but where the verify
+    forward and the one-token step round a top-2 near-tie differently.
+    Sampled: exact rejection sampling against the sampler's distribution p
+    (a draft is a point mass: accepted with probability p(d); on the first
+    rejection the token is drawn from p with the draft removed, or is the
+    draft itself when that residual's mass is <= 1e-9; full acceptance
+    earns the bonus token), so each token's law is the standard sampled
+    path's; ``generator`` is the random stream. The loop runs on the host:
+    each iteration reads the accepted count, the tokens kept and the EOS
+    flag in one ``tolist``, and nothing else."""
+    ccfg = core_config(cfg)
+    B, P, _ = prefix.embeds.shape
+    if B != 1:
+        raise ValueError(f"speculative decode is the B=1 latency path (got B={B})")
+    if generator is None and not sampler.greedy:
+        raise ValueError("generate_speech_spec: a torch.Generator is required with a non-greedy "
+                         "sampler (a fixed seed would make every 'sampled' run deterministic)")
+    dev = prefix.embeds.device
+    clock = clock or Stopwatch(dev)
+    eos, padt = cfg.speech_eos, cfg.speech_pad
+    head, emb = params["speech_head"], params["speech_emb"]
+    S_max = -(-(P + max_new_tokens + gamma + 2) // 8) * 8
+    Q = gamma + 1
+    qj = torch.arange(Q, device=dev)
+
+    def masked(logits: torch.Tensor, n_before: int) -> torch.Tensor:
+        """[Q, V] logits under the standard rules; ``n_before`` tokens were
+        committed before the window's first position."""
+        late = (n_before + torch.arange(logits.shape[0], device=dev)) < min_tokens
+        out = _mask_logits(logits, cfg, False)
+        out[:, eos] = torch.where(late, torch.full_like(out[:, eos], NEG_INF), out[:, eos])
+        return out
+
+    def draw(ml: torch.Tensor) -> torch.Tensor:
+        if sampler.greedy:
+            return torch.argmax(ml, dim=-1).to(torch.int32)
+        return sample(ml, sampler, generator)
+
+    with clock.span("prefill"):
+        cache = core.make_cache(ccfg, 1, S_max, dev, quantized=kv_int8)
+        offset = (P - prefix.length).to(torch.int32)
+        pos = torch.clamp(torch.arange(P, device=dev)[None, :] - offset[:, None], min=0)
+        hidden = core.forward(params, ccfg, inputs_embeds=prefix.embeds, positions=pos,
+                              offset=offset, cache=cache)
+        g0 = draw(masked(core.matmul_any(hidden[:, -1], head), 0))[0]
+        g0_h, w = torch.stack([g0, style_len[0].to(torch.int32)]).tolist()
+    slot = torch.arange(S_max, device=dev)
+    valid = slot >= offset.long()[0]
+    vj = torch.arange(cfg.speech_vocab_size, device=dev)
+    T_sty = style_tokens.shape[1]
+    ctx = torch.zeros((T_sty + max_new_tokens + Q,), dtype=torch.int32, device=dev)
+    ctx[:T_sty] = style_tokens[0]
+    ctx[w] = g0
+    toks = torch.full((max_new_tokens + Q,), padt, dtype=torch.int32, device=dev)
+    toks[0] = g0       # EOS kept, as in the standard loop
+    done = g0_h == eos
+    n_gen = 0 if done else 1
+    w += n_gen
+    pending, t_cache, n_verify = g0.reshape(1), P, 0
+    with clock.span("decode"):
+        while not done and n_gen < max_new_tokens:
+            d = _lookup_draft(ctx, w, gamma)
+            ids = torch.cat([pending, d]).long()
+            mask = (valid[None, :] & (slot[None, :] <= (t_cache + qj)[:, None]))[None, None]
+            o = core.forward(params, ccfg, inputs_embeds=emb[ids][None],
+                             positions=(t_cache + qj - offset[0].long())[None], mask=mask,
+                             cache=cache, cache_start=t_cache)
+            ml = masked(core.matmul_any(o[0], head), n_gen)
+            if sampler.greedy:
+                gvec = draw(ml)
+                a = torch.cumprod((d == gvec[:gamma]).to(torch.int32), 0).sum()
+            else:
+                p = torch.softmax(transform_logits(ml, sampler), dim=-1)
+                u = torch.rand((gamma,), generator=generator, device=dev)
+                p_d = p[:gamma].gather(1, d.long()[:, None])[:, 0]
+                a = torch.cumprod((u < p_d).to(torch.int32), 0).sum()
+                d_a = d[torch.clamp(a, max=gamma - 1)]
+                # p with the rejected draft removed (a == gamma keeps p: the bonus draw)
+                res = torch.where((a < gamma) & (vj == d_a), torch.zeros_like(p[0]), p[a])
+                safe = res.sum() > 1e-9
+                pick = torch.multinomial(torch.where(safe, res, torch.ones_like(res)), 1,
+                                         generator=generator)[0].to(torch.int32)
+                boundary = torch.where(safe, pick, d_a)
+                gvec = torch.where(qj < a, torch.cat([d, d[-1:]]), boundary)
+            n_commit = torch.clamp(a + 1, max=max_new_tokens - n_gen)
+            is_eos = (gvec == eos) & (qj < n_commit)
+            any_eos = is_eos.any()
+            n_keep = torch.where(any_eos, torch.argmax(is_eos.to(torch.int32)), n_commit)
+            toks[n_gen : n_gen + Q] = torch.where(qj < n_keep + any_eos.long(), gvec,
+                                                  torch.full_like(gvec, padt))
+            ctx[w : w + Q] = torch.where(qj < n_keep, gvec, torch.zeros_like(gvec))
+            pending = gvec[a].reshape(1)
+            a_h, keep_h, eos_h = torch.stack([a, n_keep, any_eos.long()]).tolist()
+            n_gen += keep_h
+            w += keep_h
+            done = bool(eos_h)
+            t_cache += a_h + 1
+            n_verify += 1
+    lengths = torch.tensor([n_gen], dtype=torch.int32, device=dev)
+    return SpecGen(tokens=toks[None, :max_new_tokens], lengths=lengths, n_verify=n_verify, n_commit=n_gen)
+
+
+def generate_speech_spec_from_ids(
+    params: Params,
+    cfg: TokenLMConfig,
+    text: torch.Tensor,
+    text_len: torch.Tensor,
+    style_tokens: torch.Tensor,
+    style_len: torch.Tensor,
+    spk: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    max_new_tokens: int,
+    gamma: int = 4,
+    min_tokens: int = 2,
+    kv_int8: bool = False,
+    pad_multiple: int = 128,
+    sampler: SamplerConfig = SamplerConfig(greedy=True),
+    clock: Optional[Stopwatch] = None,
+) -> SpecGen:
+    """build_prefix + pad_prefix + generate_speech_spec."""
+    pre = build_prefix_padded(params, cfg, text, text_len, style_tokens, style_len, spk,
+                              pad_multiple=pad_multiple)
+    return generate_speech_spec(
+        params, cfg, pre, style_tokens, style_len, generator, max_new_tokens=max_new_tokens,
+        gamma=gamma, min_tokens=min_tokens, kv_int8=kv_int8, sampler=sampler, clock=clock,
     )
 
 

@@ -15,7 +15,12 @@ results are the same):
    kernel (int8 or, with ``cfg.quantize_lm_int4``, int4) for a B=1
    request on an int8 LM whose widths it takes (H = K among them), else the
    scanned decode (a batch, a dense or GQA LM; an int8 KV cache with
-   ``cfg.quantize_lm_kv_int8``); voice conversion skips the LM;
+   ``cfg.quantize_lm_kv_int8``); with ``cfg.speculative_gamma > 0`` a B=1
+   request that the decode kernel does not serve takes the speculative
+   decode instead (``token_lm.generate_speech_spec``, the standard sampler
+   by rejection sampling); where the kernel serves, gamma is ignored (its
+   0.36-ms step beats a plain-PyTorch verify of 20-28 ms on the H100);
+   voice conversion skips the LM;
 2. flow-conditioning assembly and the CFM Euler solve (``mel_body``),
 3. the vocoder (iSTFT or HiFi-GAN) and the crop to each row's generated
    region, fetched to the host once.
@@ -28,8 +33,7 @@ streams in one call (``pipeline/stream_serve.py``).
 
 The engine returns f32 wavs. The STYLE prompt drives the LM prosody prefix;
 the TIMBRE prompt supplies the speaker embedding and the flow prompt
-(tokens + mel). Speculative decoding raises ``NotImplementedError`` naming
-its ROADMAP.md item.
+(tokens + mel).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch
 from ..models import cfm, frontend, speaker, speech_tokenizer, token_lm, vocoder
 from ..ops import decode_step, stft
 from ..ops.resample import resample
+from ..ops.sampling import SamplerConfig
 from ..retrieval.store import StyleStore
 from ..utils.config import Config
 from ..utils.device import DeviceLike, resolve_device
@@ -244,10 +249,6 @@ def featurize(
     return tok.tokens, tok.token_mask, spk, mel24
 
 
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
-
-
 _DENSE_PROJ = ("wqkv", "wo", "w_gate_up", "w_down")
 
 
@@ -299,8 +300,6 @@ class Engine:
         if vocoder.total_upsample(cfg.vocoder) != cfg.audio.hop_length:
             raise ValueError("vocoder upsampling must equal audio.hop_length "
                              "(mel frames map 1:1 onto output samples)")
-        if getattr(cfg, "speculative_gamma", 0) > 0:
-            raise _not_in_slice("speculative decoding (speculative_gamma)", "queue A item 5, speculative decode")
         self.cfg = cfg
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -320,7 +319,8 @@ class Engine:
         # per-stage milliseconds of the last request (featurize when a
         # prompt came as a wav, prefill, decode, cfm, vocoder)
         self.last_timings: Dict[str, float] = {}
-        self.last_decode_steps = 0
+        self.last_decode_steps = 0      # decode steps, or verify forwards of a speculative request
+        self.last_spec: Optional[Dict[str, int]] = None   # {"n_verify", "n_commit"} of a speculative request
         self.last_gen_len = 0
         self.last_gen_lens: List[int] = []
         self.last_chunk_ms: List[float] = []      # a stream's render time of each chunk
@@ -432,13 +432,29 @@ class Engine:
                   max_seconds: float, clock: Stopwatch) -> Tuple[token_lm.SpeechGen, int]:
         """The token LM over the batch: (generated tokens and lengths on the
         device, the generation bucket). A B=1 batch takes the decode kernel
-        where the engine built its weights; anything else the scanned
-        decode, with an int8 KV cache under ``quantize_lm_kv_int8``."""
+        where the engine built its weights, whatever ``speculative_gamma``
+        says; else, with ``speculative_gamma > 0``, the speculative decode
+        with the standard sampler (its verify forwards count as the decode
+        steps; ``last_spec`` holds them and the committed tokens); anything
+        else the scanned decode. The speculative and the scanned decode
+        keep an int8 KV cache under ``quantize_lm_kv_int8``."""
         ids, max_new = self._lm_inputs(texts, style_texts, style_feats, max_seconds)
+        kv_int8 = bool(getattr(self.cfg, "quantize_lm_kv_int8", False))
+        gamma = getattr(self.cfg, "speculative_gamma", 0)
+        self.last_spec = None
+        if gamma > 0 and len(texts) == 1 and self._mega_params is None:
+            spec = token_lm.generate_speech_spec_from_ids(
+                self.params.token_lm, self.cfg.token_lm, *ids, spk, self._lm_generator(),
+                max_new_tokens=max_new, gamma=gamma, kv_int8=kv_int8,
+                sampler=SamplerConfig(temperature=1.0, top_k=25), clock=clock,
+            )
+            self.last_spec = {"n_verify": spec.n_verify, "n_commit": spec.n_commit}
+            return token_lm.SpeechGen(tokens=spec.tokens, lengths=spec.lengths,
+                                      decode_steps=spec.n_verify), max_new
         gen = token_lm.generate_speech_from_ids(
             self.params.token_lm, self.cfg.token_lm, *ids, spk, self._lm_generator(),
             max_new_tokens=max_new, decode_params=self._mega_params if len(texts) == 1 else None,
-            kv_int8=bool(getattr(self.cfg, "quantize_lm_kv_int8", False)), clock=clock,
+            kv_int8=kv_int8, clock=clock,
         )
         return gen, max_new
 

@@ -1,13 +1,17 @@
 """Quality proxies that need no listener.
 
-Counterpart of ``SpeakerScorer`` and ``token_round_trip`` of the JAX
-``pipeline/simeval.py`` (its manifest scoring, retrieval report and phoneme
-recognizer are not ported yet: ROADMAP.md queue A item 11).
+Counterpart of ``SpeakerScorer``, ``token_round_trip`` and the manifest
+scoring (``read_meta_lst``, ``score_meta_lst``, ``write_report``) of the JAX
+``pipeline/simeval.py`` (its retrieval report and phoneme recognizer are not
+ported yet: ROADMAP.md queue A item 11).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import json
+from dataclasses import asdict, dataclass
+from pathlib import Path
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -15,6 +19,7 @@ import torch
 from ..models import speaker
 from ..ops import stft
 from ..ops.resample import resample_poly_np
+from ..utils.native_audio import load_wav_fast
 
 
 class SpeakerScorer:
@@ -69,3 +74,57 @@ def token_round_trip(engine, wav_out: np.ndarray, expected_tokens: np.ndarray) -
     if n == 0:
         return 0.0, 0
     return float((feats.tokens[:n] == exp[:n]).mean()), n
+
+
+@dataclass
+class SimRow:
+    name: str
+    wav_path: str
+    timbre_path: str
+    similarity: float
+
+
+def read_meta_lst(path) -> List[Dict[str, str]]:
+    """Parse ``name|style_text|timbre_path|text`` rows (``vc_from_dir``'s)."""
+    rows = []
+    for line in Path(path).read_text(encoding="utf-8").splitlines():
+        if not line.strip():
+            continue
+        parts = line.split("|")
+        if len(parts) != 4:
+            raise ValueError(f"malformed meta.lst row: {line!r}")
+        rows.append({"name": parts[0], "style_text": parts[1], "timbre_path": parts[2], "text": parts[3]})
+    return rows
+
+
+def score_meta_lst(engine, meta_lst_path, wav_dir, batch: int = 64) -> Dict:
+    """Score every meta.lst row: cosine(spk(synthesized wav), spk(timbre
+    wav)), ``batch`` rows a ``SpeakerScorer`` call. The synthesized wavs are
+    ``wav_dir/{name}.wav``, the timbre wavs at the rows' paths (each loaded
+    once). -> {"rows": [...], "summary": {n, mean, p50, min, max}}."""
+    rows = read_meta_lst(meta_lst_path)
+    scorer = SpeakerScorer(engine)
+    sr = engine.cfg.audio.prompt_sample_rate
+    out_rows: List[SimRow] = []
+    timbre_cache: Dict[str, np.ndarray] = {}
+    for s0 in range(0, len(rows), batch):
+        chunk = rows[s0 : s0 + batch]
+        paths = [Path(wav_dir) / (r["name"] if r["name"].endswith(".wav") else r["name"] + ".wav") for r in chunk]
+        synth = [load_wav_fast(str(p), sr) for p in paths]
+        for r in chunk:
+            if r["timbre_path"] not in timbre_cache:
+                timbre_cache[r["timbre_path"]] = load_wav_fast(r["timbre_path"], sr)
+        sims = scorer.similarity(synth, [timbre_cache[r["timbre_path"]] for r in chunk])
+        for r, s, p in zip(chunk, sims, paths):
+            out_rows.append(SimRow(name=r["name"], wav_path=str(p), timbre_path=r["timbre_path"],
+                                   similarity=float(s)))
+    sims = np.array([r.similarity for r in out_rows], np.float64)
+    stat = (lambda f: float(f(sims))) if sims.size else (lambda f: 0.0)
+    summary = {"n": int(sims.size), "mean": stat(np.mean), "p50": stat(np.median), "min": stat(np.min),
+               "max": stat(np.max)}
+    return {"rows": [asdict(r) for r in out_rows], "summary": summary}
+
+
+def write_report(path, report: Dict) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(report, indent=2, ensure_ascii=False))

@@ -308,8 +308,9 @@ class Config:
     # variant (exact rejection sampling against the same top-k sampler the
     # standard path uses); only the step count changes. Worth it only with
     # trained weights whose streams accept drafts: enable when measured
-    # acceptance > verify_cost/step_cost (bench.py lm_spec reports both).
-    # Default off — the megakernel serves B=1.
+    # acceptance > verify_cost/step_cost (chip_smoke.py's speculative lines
+    # report both). The engine ignores it where the decode kernel serves
+    # the LM (int8, H = K): that kernel's step is faster than a verify.
     speculative_gamma: int = 0
     # dtype for the device->host wav fetch on the staged (B>1 / mesh /
     # profile) synthesis path. Audio lives in [-1, 1] where the f16

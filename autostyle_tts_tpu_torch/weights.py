@@ -7,7 +7,8 @@
 - ``from_jax_tree`` turns the JAX ``EngineParams.tree()`` (leaves as numpy)
   into the port's parameter tree: nested dicts and lists of tensors.
 - ``load_tree`` loads a part of the engine (one module's ``.npz``) into the
-  structure of a tree of tensors, every key and shape checked;
+  structure of a tree of tensors, every key and shape checked; ``save_tree``
+  writes a tree in the same format (the JAX ``save_pytree``'s);
   ``load_lora`` loads a LoRA adapter (such as
   ``artifacts/ft3b/adapter_f16.npz``) that way, in f32.
 - ``embedder_from_jax`` / ``lora_from_jax``: the RAG embedder's weights
@@ -267,6 +268,23 @@ def _flat_keys(tree: Any, prefix: str = "") -> Dict[str, Any]:
     for k, v in items:
         out.update(_flat_keys(v, f"{prefix}{_FLAT_SEP}{k}" if prefix else str(k)))
     return out
+
+
+def save_tree(path: str, tree: Any) -> None:
+    """A tree of tensors as the JAX package's ``utils/checkpoint.save_pytree``
+    writes a pytree: one flat-key ``.npz`` (numpy adds the suffix where it
+    is missing) and a ``<path>.meta.json`` sidecar listing the keys. bf16
+    leaves are written as f32 (exact: numpy has no bf16), every other leaf
+    in its own dtype."""
+    import json
+    from pathlib import Path
+
+    flat = {k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
+            for k, v in _flat_keys(tree).items()}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **flat)
+    with open(str(path) + ".meta.json", "w") as f:
+        json.dump({"keys": sorted(flat)}, f, indent=2)
 
 
 def load_tree(path: str, like: Any) -> Any:

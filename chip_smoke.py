@@ -73,8 +73,27 @@ Phases (any failure exits non-zero):
       --style_db`` through their ``main`` at ``--tiny`` geometry on the
       card (``rag`` line: stage times, the flash kernel at the embedder's
       four shapes, peak memory);
+   J. the serving surface: ``cli/serve.py``'s ``main`` at the flagship
+      serving point (int8 LM and KV cache, 2-step CFM) over a JSONL of 8
+      requests (4 rows of A's style DB, wav pairs, a registered timbre, a
+      bad path answered by an error line), batched at ``--batch 8``, then
+      ``--continuous`` (slots 4, chunk 16, p_max 384) and ``--continuous
+      --stream`` (``serve`` lines: requests/s, latency p50 / p95, which wav
+      loader is live, the native one must be, and the batched run's
+      loader ms; the ``wav loader`` line times the native loader against
+      the numpy one at 16 to 48 kHz); every engine CLI once at ``--tiny``
+      (``engine clis`` line; ``export_engine`` out and back in through
+      ``--checkpoint``); speculative decoding at the flagship (an engine
+      with ``speculative_gamma=4`` serves 2 DB-served requests on the
+      decode kernel, which serves its LM; the speculative decode driven on
+      the same requests' LM inputs, where the decode kernel must not
+      launch: ``speculative flagship`` line, and a profile of its verify
+      loop, ``profile speculative``) and on the trained demo LM
+      (greedy, 128 tokens: the tokens of the standard decode but at
+      near-ties of 1e-3, commits per verify above 1.5; ``speculative demo``
+      line);
    the inputs of the first call of each distinct geometry that paths A, D,
-   E, G, H and I give ``flash_attention`` and ``fused_log_mel`` are kept
+   E, G, H, I and J give ``flash_attention`` and ``fused_log_mel`` are kept
    (device copies) and, after the paths, each kernel is held against its
    plain version on them (path D's B=8 prefill, path H's admissions,
    T=384 at B=1, 2 and 4, and path I's four embedder shapes are also
@@ -90,10 +109,12 @@ Float32 matrix products and convolutions run in full f32 (TF32 off).
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import io
 import itertools
 import json
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 import subprocess
 import sys
 import tempfile
@@ -106,7 +127,7 @@ import torch
 from autostyle_tts_tpu_torch.ops import cuda_build, decode_step, flash_attn, log_mel, stft
 from autostyle_tts_tpu_torch.ops.resample import resample, resample_poly_np
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
-from autostyle_tts_tpu_torch.models import cfm, speech_tokenizer, token_lm, transformer, vocoder
+from autostyle_tts_tpu_torch.models import cfm, frontend, speech_tokenizer, token_lm, transformer, vocoder
 from autostyle_tts_tpu_torch.pipeline import rag
 from autostyle_tts_tpu_torch.pipeline.continuous import ContinuousBatcher
 from autostyle_tts_tpu_torch.pipeline.engine import Engine, EngineParams
@@ -116,7 +137,7 @@ from autostyle_tts_tpu_torch.retrieval.store import StyleStore
 from autostyle_tts_tpu_torch.utils.audio_io import read_wav, write_wav
 from autostyle_tts_tpu_torch.utils.config import CFMConfig, Config, VocoderConfig, demo_config
 from autostyle_tts_tpu_torch.utils.timing import Stopwatch
-from autostyle_tts_tpu_torch.weights import QTensor, from_jax_tree, load_npz, load_tree, quantize_tree
+from autostyle_tts_tpu_torch.weights import QTensor, _flat_keys, from_jax_tree, load_npz, load_tree, quantize_tree
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time a function can
 # take is max(bytes / HBM rate, operations / peak rate of their type)
@@ -1602,6 +1623,424 @@ def path_i(eng: Engine, cfg: Config) -> dict:
     return dict(rag=rec, launches=launches, embedder=emb)
 
 
+# ----------------------------------------------------------------------------- path J
+
+# serving_config() as the CLIs' flags (Config() with these overrides)
+SERVE_FLAGS = ["--set", "quantize_lm_int8=true", "--set", "quantize_lm_kv_int8=true", "--set", "cfm.n_steps=2",
+               "--set", "cfm.use_cfg=false", "--seed", "0"]
+NEAR_TIE = 1e-3       # greedy tokens may part only where the standard path's top-2 masked logits lie this close
+
+
+def serve_lines(argv) -> list:
+    """``cli/serve.py``'s ``main`` in-process: its JSON response lines."""
+    from autostyle_tts_tpu_torch.cli import serve
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        serve.main(argv)
+    return [json.loads(l) for l in buf.getvalue().splitlines() if l.startswith("{")]
+
+
+def serve_record(kind: str, lines: list, wall_s: float, served: int, errors: list, rate: int) -> dict:
+    """Check a serve run's response lines (ids, every wav on disk finite,
+    not silent, at the engine's ``rate``, as many samples as the line says)
+    and return its record: latency p50 / p95, requests/s over the run's
+    wall."""
+    from autostyle_tts_tpu_torch.utils import native_audio
+
+    done = [l for l in lines if "wav" in l and "chunk" not in l]
+    check(len(done) == served and [l.get("id") for l in lines if "error" in l] == errors
+          and lines[-1] == {"served": served, "done": True}, f"serve {kind}: response lines {lines}")
+    rms = []
+    for l in done:
+        x, sr = read_wav(l["wav"])
+        check(sr == rate and x.size == l["samples"] > 0 and bool(np.isfinite(x).all()),
+              f"serve {kind} {l['id']}: {x.size} samples at {sr} Hz, line {l}")
+        rms.append(float(np.sqrt(np.mean(x.astype(np.float64) ** 2))))
+        check(rms[-1] > 1e-4, f"serve {kind} {l['id']}: silent (rms {rms[-1]})")
+    lat = [l["latency_ms"] for l in done]
+    return dict(kind=kind, served=len(done), errors=errors, wall_s=wall_s, requests_per_s=len(done) / wall_s,
+                latency_ms_p50=float(np.percentile(lat, 50)), latency_ms_p95=float(np.percentile(lat, 95)),
+                audio_s=sum(l["audio_s"] for l in done), rms_min=min(rms),
+                loader="native" if native_audio.available() else "numpy")
+
+
+def serve_paths(d: Path, store: StyleStore) -> dict:
+    """J1-J3: ``serve`` at the flagship serving point (``SERVE_FLAGS``) on
+    a JSONL of 8 requests (4 DB rows of path A's store, 2 wav pairs, one
+    registered timbre, one bad path): batched (``--batch 8``), then the 7
+    good ones through ``--continuous`` (slots 4, chunk 16, p_max 384) and 4
+    of them through ``--continuous --stream``. The engine ``serve`` builds
+    in J1 (timed apart) serves J2 and J3 as well."""
+    from autostyle_tts_tpu_torch.cli import serve
+    from autostyle_tts_tpu_torch.utils import native_audio
+
+    store.save(d / "db")
+    for name, seed in (("style", 500), ("timbre", 501), ("style2", 502)):
+        write_wav(d / f"{name}.wav", synthetic_wav(seed), 16000)
+    wav = lambda name: str(d / f"{name}.wav")
+    reqs = [{"id": f"db{i}", "text": TEXTS[i], "style_text": store.meta[i]["text"], "style_index": i,
+             "timbre_wav": wav("timbre")} for i in range(4)]
+    reqs += [{"id": "wav0", "text": BATCH_TEXTS[4], "style_text": "A calm reading voice.", "style_wav": wav("style"),
+              "timbre_wav": wav("timbre")},
+             {"id": "wav1", "text": BATCH_TEXTS[5], "style_wav": wav("style2"), "timbre_wav": wav("style")},
+             {"id": "reg0", "text": BATCH_TEXTS[6], "style_text": "A calm reading voice.", "style_wav": wav("style"),
+              "timbre_id": "w1"},
+             {"id": "bad", "text": BATCH_TEXTS[7], "style_wav": str(d / "missing.wav"), "timbre_wav": wav("timbre")}]
+    (d / "all.jsonl").write_text("".join(json.dumps(r) + "\n" for r in reqs))
+    (d / "good.jsonl").write_text("".join(json.dumps(r) + "\n" for r in reqs[:7]))
+    (d / "four.jsonl").write_text("".join(json.dumps(r) + "\n" for r in reqs[2:6]))
+    common = ["--style_db", str(d / "db"), "--timbre_map", f"w1={wav('timbre')}", "--max_seconds", "5"] + SERVE_FLAGS
+    built, build0 = {}, serve.build_engine
+
+    def build(args):
+        t0 = time.perf_counter()
+        built["engine"] = build0(args)
+        torch.cuda.synchronize()
+        built["s"] = time.perf_counter() - t0
+        return built["engine"]
+
+    out, loads, load0 = {}, [], serve.load_wav_fast
+
+    def timed_load(path, sr):
+        t0 = time.perf_counter()
+        try:
+            return load0(path, sr)
+        finally:
+            loads.append((time.perf_counter() - t0) * 1e3)
+
+    n_mel0, n_flash0 = log_mel.fused_log_mel.launches, flash_attn.flash_attention.launches
+    serve.build_engine, serve.load_wav_fast = build, timed_load
+    try:
+        t0 = time.perf_counter()
+        lines = serve_lines(["--requests", str(d / "all.jsonl"), "--result_dir", str(d / "batched"),
+                             "--batch", "8"] + common)
+        rate = built["engine"].cfg.audio.sample_rate
+        out["batched"] = serve_record("batched", lines, time.perf_counter() - t0 - built["s"], 7, ["bad"], rate)
+        out["batched"].update(loader_calls=len(loads), loader_ms=sum(loads))
+        serve.load_wav_fast = load0
+        check(built["engine"]._mega_params is not None and built["engine"].device.type == "cuda",
+              "serve's engine: the flagship int8 LM on the card")
+        check(native_audio.available(), "the native audio loader is not live on the card's machine")
+        check(log_mel.fused_log_mel.launches > n_mel0 and flash_attn.flash_attention.launches > n_flash0,
+              "serve --batch 8 launched no log-mel or no flash kernel")
+        serve.build_engine = lambda args: built["engine"]
+        for kind, extra, src, n in (("continuous", ["--continuous", "--slots", "4", "--chunk", "16"], "good", 7),
+                                    ("stream", ["--continuous", "--stream", "--slots", "4"], "four", 4)):
+            t0 = time.perf_counter()
+            lines = serve_lines(["--requests", str(d / f"{src}.jsonl"), "--result_dir", str(d / kind),
+                                 "--p_max", "384"] + extra + common)
+            out[kind] = serve_record(kind, lines, time.perf_counter() - t0, n, [], rate)
+            if kind == "stream":
+                finals = {l["id"]: l for l in lines if "chunks" in l}
+                firsts = {l["id"]: l["ttfb_ms"] for l in lines if l.get("chunk") == 0}
+                for rid, f in finals.items():
+                    n_chunks = [l for l in lines if l.get("id") == rid and "chunk" in l]
+                    check(len(n_chunks) == f["chunks"] and sum(c["samples"] for c in n_chunks) == f["samples"],
+                          f"serve stream {rid}: chunks {n_chunks} against {f}")
+                out[kind]["ttfb_ms"] = firsts
+                out[kind]["chunks"] = {rid: f["chunks"] for rid, f in finals.items()}
+    finally:
+        serve.build_engine, serve.load_wav_fast = build0, load0
+    out["engine_build_s"] = built["s"]
+    out["loaders"] = wav_loaders(d, built["engine"])
+    return out
+
+
+def wav_loaders(d: Path, eng: Engine) -> dict:
+    """The native wav loader (``utils/native_audio.load_wav_fast``) against
+    the numpy one (``utils/audio_io.load_wav``) on the card's host, each
+    output equal to the other's within 1e-6
+    (``tests/test_torch_native_audio.py``'s bound):
+
+    - per wav, loaded at the engine's prompt rate: a 3-s prompt
+      (``synthetic_wav``) written at 16 kHz (J1's prompts: decode only) and
+      at 22.05, 24, 44.1 and 48 kHz (decode and resample), and 30 s at 48
+      kHz; the median ms of 7 calls after a warm one; also the two
+      decodes alone (``read_wav_native`` against ``audio_io.read_wav``:
+      ``load_wav_fast`` takes numpy's);
+    - end to end, the entry point that loads the most audio per unit of
+      device work: ``simeval.score_meta_lst`` (``score_similarity``) on 64
+      rows of 5-s wavs at the engine's output rate and 2 timbre wavs, run
+      native, numpy, numpy, native after a warm run (the similarities
+      equal within 1e-5)."""
+    from autostyle_tts_tpu_torch.pipeline import simeval
+    from autostyle_tts_tpu_torch.utils import audio_io, native_audio
+
+    check(native_audio.available(), "the native audio loader is not live on the card's machine")
+    target_sr, out_sr = eng.cfg.audio.prompt_sample_rate, eng.cfg.audio.sample_rate
+    rows = []
+    for sr, seconds in ((16000, 3.0), (22050, 3.0), (24000, 3.0), (44100, 3.0), (48000, 3.0), (48000, 30.0)):
+        path = str(d / f"loader_{sr}_{int(seconds)}s.wav")
+        write_wav(path, synthetic_wav(560, seconds, sr), sr)
+        a, b = native_audio.load_wav_fast(path, target_sr), audio_io.load_wav(path, target_sr)
+        err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+        check(err <= 1e-6, f"wav loaders at {sr} Hz: shapes {a.shape} / {b.shape}, max |native - numpy| {err}")
+        ms = {}
+        for name, load in (("native", lambda: native_audio.load_wav_fast(path, target_sr)),
+                           ("numpy", lambda: audio_io.load_wav(path, target_sr)),
+                           ("decode_native", lambda: native_audio.read_wav_native(path)),
+                           ("decode_numpy", lambda: audio_io.read_wav(path))):
+            times = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                load()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = float(np.median(times))
+        rows.append(dict(sr=sr, seconds=seconds, native_ms=ms["native"], numpy_ms=ms["numpy"],
+                         numpy_over_native=ms["numpy"] / ms["native"], decode_native_ms=ms["decode_native"],
+                         decode_numpy_ms=ms["decode_numpy"], max_abs_err=err))
+    sim = d / "similarity"
+    sim.mkdir()
+    for k in range(2):
+        write_wav(sim / f"timbre{k}.wav", synthetic_wav(570 + k), 16000)
+    lines = []
+    for i in range(64):
+        write_wav(sim / f"row{i}.wav", synthetic_wav(600 + i, 5.0, out_sr), out_sr)
+        lines.append(f"row{i}|style|{sim / f'timbre{i % 2}.wav'}|text\n")
+    (sim / "meta.lst").write_text("".join(lines))
+    fast = simeval.load_wav_fast
+    walls, sims = {"native": [], "numpy": []}, {}
+    try:
+        for name in ("native", "native", "numpy", "numpy", "native"):
+            simeval.load_wav_fast = fast if name == "native" else audio_io.load_wav
+            t0 = time.perf_counter()
+            report = simeval.score_meta_lst(eng, sim / "meta.lst", sim)
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            sims.setdefault(name, np.array([r["similarity"] for r in report["rows"]]))
+    finally:
+        simeval.load_wav_fast = fast
+    gap = float(np.abs(sims["native"] - sims["numpy"]).max())
+    check(report["summary"]["n"] == 64 and gap <= 1e-5, f"score_meta_lst: native against numpy loader {gap}")
+    native_ms, numpy_ms = walls["native"][1:], walls["numpy"]
+    return dict(target_sr=target_sr, rows=rows, score_meta_lst=dict(
+        rows=64, seconds_each=5.0, sr=out_sr, native_ms=native_ms, numpy_ms=numpy_ms,
+        numpy_over_native=float(np.mean(numpy_ms) / np.mean(native_ms)), max_similarity_gap=gap))
+
+
+def engine_clis(d: Path) -> dict:
+    """J3b: every engine CLI once through its ``main`` at ``--tiny`` on the
+    card (the flagship's work is paths A-I's): each output's file count and
+    rate checked; ``vc_from_dir --cal_sim`` and ``score_similarity`` on its
+    ``meta.lst``; ``export_engine`` out, then back in through ``basic
+    --checkpoint`` with every weight equal to the file's."""
+    from autostyle_tts_tpu_torch.cli import (basic, export_engine, score_similarity, tts_for_dialog,
+                                             tts_from_lines, tts_with_style_and_timbre, vc_from_dir,
+                                             vc_from_dir_seed)
+    from autostyle_tts_tpu_torch.cli.common import add_common_args, build_engine
+    from autostyle_tts_tpu_torch.utils.config import tiny_config
+
+    sr = tiny_config().audio.prompt_sample_rate
+    for sub in ("styles", "timbres", "swav"):
+        (d / sub).mkdir()
+    for i in range(2):
+        write_wav(d / "styles" / f"sty{i}.wav", synthetic_wav(510 + i, 1.0, sr), sr)
+        write_wav(d / "timbres" / f"tim{i}.wav", synthetic_wav(520 + i, 1.0, sr), sr)
+    write_wav(d / "swav" / "s1.wav", synthetic_wav(530, 1.0, sr), sr)
+    style, timbre = str(d / "styles" / "sty0.wav"), str(d / "timbres" / "tim0.wav")
+    (d / "lines.txt").write_text(f"{TEXTS[0]}\n{TEXTS[1]}\n")
+    (d / "style.json").write_text(json.dumps([{"file_id": f"denoise_sty{i}", "zh_text": f"style {i}"} for i in (0, 1)]))
+    seed_wav = d / "timbres-wavs-x.wav"
+    write_wav(d / "timbres_temp-x_16k.wav", synthetic_wav(540, 1.0, sr), sr)   # what the rewrite rules point at
+    (d / "seed_meta.lst").write_text(f"x|seed text|{seed_wav}|target text\n")
+    (d / "dialog.jsonl").write_text("".join(json.dumps({"zh_text": t}) + "\n" for t in TEXTS[:2]))
+    (d / "styledb.jsonl").write_text(json.dumps({"file_id": "s1", "zh_text": "style one"}) + "\n")
+    (d / "correspond.json").write_text(json.dumps({"1": {"value": 1, "speaker": "w1", "emotion": "happy"},
+                                                   "2": "null"}))
+    runs = [
+        ("basic", basic, ["--prompt_wav", style, "--result_dir", str(d / "basic")], "basic/*.wav", 1),
+        ("tts_from_lines", tts_from_lines, ["--txt_path", str(d / "lines.txt"), "--prompt_wav", style,
+                                           "--prompt_text", "p", "--result_dir", str(d / "lines")], "lines/*.wav", 2),
+        ("style_timbre_infer", tts_with_style_and_timbre,
+         ["--style_wav_path", style, "--timbre_wav_path", timbre, "--style_wav_text", "style 0", "--txt_path",
+          str(d / "lines.txt"), "--result_dir", str(d / "st")], "st/*_st_0.wav", 2),
+        ("style_timbre_exp", tts_with_style_and_timbre,
+         ["--style_wav_path", style, "--timbre_wav_path", timbre, "--style_wav_text", "style 0", "--txt_path",
+          str(d / "lines.txt"), "--result_dir", str(d / "exp"), "--is_exp", "true"], "exp/*_exp_0_0.wav", 2),
+        ("tts_for_dialog", tts_for_dialog,
+         ["--corresponding_json", str(d / "correspond.json"), "--dialogue_json", str(d / "dialog.jsonl"),
+          "--style_wav_json", str(d / "styledb.jsonl"), "--style_wav_dir", str(d / "swav"), "--result_dir",
+          str(d / "dialog"), "--timbre_map", f"w1={timbre}"], "dialog/*/1_s1_to_w1_0.wav", 1),
+        ("vc_from_dir", vc_from_dir,
+         ["--txt_path", str(d / "lines.txt"), "--style_dir", str(d / "styles"), "--timbre_dir", str(d / "timbres"),
+          "--result_dir", str(d / "vc"), "--style_num", "2", "--timbre_num", "1", "--style_json",
+          str(d / "style.json"), "--cal_sim"], "vc/*_new.wav", 4),
+        ("score_similarity", score_similarity,
+         ["--meta_lst", str(d / "vc" / "meta.lst"), "--wav_dir", str(d / "vc"), "--output_json",
+          str(d / "similarity.json")], None, 0),
+        ("vc_from_dir_seed", vc_from_dir_seed,
+         ["--txt_path", str(d / "lines.txt"), "--style_dir", str(d / "styles"), "--result_dir", str(d / "seed"),
+          "--style_num", "1", "--timbre_num", "1", "--style_json", str(d / "style.json"), "--seed_meta_lst",
+          str(d / "seed_meta.lst")], "seed/*_new.wav", 2),
+        ("export_engine", export_engine, ["--output", str(d / "engine.npz"), "--seed", "7"], None, 0),
+        ("basic_from_export", basic, ["--prompt_wav", style, "--result_dir", str(d / "basic_ckpt"),
+                                      "--checkpoint", str(d / "engine.npz")], "basic_ckpt/*.wav", 1),
+    ]
+    rec = {}
+    for name, mod, argv, pattern, n in runs:
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()):
+            mod.main(["--tiny"] + argv)
+        rec[name] = dict(s=time.perf_counter() - t0)
+        if pattern:
+            wavs = sorted(d.glob(pattern))
+            check(len(wavs) == n, f"{name} wrote {[w.name for w in wavs]}, expected {n} wavs")
+            for w in wavs:
+                x, rate = read_wav(w)
+                check(rate == 2400 and x.size > 0 and bool(np.isfinite(x).all()),
+                      f"{name} {w.name}: {x.size} samples at {rate} Hz")
+            rec[name]["wavs"] = len(wavs)
+    rows = (d / "vc" / "meta.lst").read_text().splitlines()
+    for report in (d / "vc" / "similarity.json", d / "similarity.json"):
+        r = json.loads(report.read_text())
+        check(r["summary"]["n"] == len(rows) == 4 and all(np.isfinite(x["similarity"]) for x in r["rows"]),
+              f"{report.name}: {r['summary']} over {len(rows)} meta.lst rows")
+    rec["score_similarity"]["summary"] = r["summary"]
+    p = argparse.ArgumentParser()
+    add_common_args(p)
+    eng = build_engine(p.parse_args(["--tiny", "--checkpoint", str(d / "engine.npz")]))
+    like = EngineParams.init(torch.Generator(device=eng.device).manual_seed(0), eng.cfg).tree()
+    saved = load_tree(str(d / "engine.npz"), like)
+    want, got = _flat_keys(saved), _flat_keys(eng.params.tree())
+    check(got.keys() == want.keys() and all(torch.equal(v.float(), want[k].to(v.dtype).float()) for k, v in got.items()),
+          "export_engine -> --checkpoint: the weights differ from the file's")
+    rec["export_round_trip_leaves"] = len(got)
+    return rec
+
+
+def spec_decode(eng: Engine, text: str, style_text: str, sty, tim, clock: Stopwatch, max_seconds: float = 5):
+    """The engine's speculative decode of one B=1 request, called directly
+    (the engine itself serves such a request on the decode kernel where
+    that kernel serves its LM): ``generate_speech_spec_from_ids`` on the
+    engine's LM inputs, sampler, gamma and KV cache, the prefill under
+    ``clock``'s "prefill" span and the verify loop under "decode"."""
+    ids, max_new = eng._lm_inputs([text], [style_text], [sty], max_seconds)
+    spk = eng._tensor(tim.spk[None], torch.float32)
+    spec = token_lm.generate_speech_spec_from_ids(
+        eng.params.token_lm, eng.cfg.token_lm, *ids, spk, eng._lm_generator(), max_new_tokens=max_new,
+        gamma=eng.cfg.speculative_gamma, kv_int8=eng.cfg.quantize_lm_kv_int8,
+        sampler=SamplerConfig(temperature=1.0, top_k=25), clock=clock)
+    n = int(spec.lengths[0])
+    check(spec.n_commit == n > 0 and spec.n_verify > 0 and spec.tokens.shape == (1, max_new),
+          f"speculative decode: {spec.n_verify} verifies, {spec.n_commit} commits, length {n}")
+    return spec
+
+
+def speculative_flagship(store: StyleStore, cfg: Config) -> dict:
+    """J4: A's engine config with ``speculative_gamma=4`` (same seed, same
+    weights). The decode kernel serves the flagship LM, so the engine
+    ignores gamma: its 2 DB-served B=1 requests must launch the decode-step
+    kernel and leave ``last_spec`` empty. The speculative decode is then
+    driven on each request's LM inputs (``spec_decode``; flash prefill, the
+    verify loop, no decode-step launch) beside the kernel path's prefill
+    and decode of the same request. The speculative engine is returned for
+    a profile outside the path's counts."""
+    spec_eng, init_s, _ = engine_on_card(dataclasses.replace(cfg, speculative_gamma=4))
+    reqs = []
+    for i, (a, b) in enumerate(((0, 1), (2, 3))):
+        sty, tim = spec_eng.prompt_features_from_store(store, [a, b])
+        n_mega = decode_step.mega_decode_step.launches
+        kernel = run_request(spec_eng, cfg, "gamma 4, kernel path", lambda: spec_eng.inference_tts_with_st(
+            TEXTS[i], store.meta[a]["text"], sty, tim, max_seconds=5))
+        check(decode_step.mega_decode_step.launches > n_mega and spec_eng.last_spec is None,
+              "speculative_gamma=4 on the flagship int8 LM: the request did not take the decode kernel")
+        n_mega, n_flash = decode_step.mega_decode_step.launches, flash_attn.flash_attention.launches
+        clock = Stopwatch(spec_eng.device)
+        spec = spec_decode(spec_eng, TEXTS[i], store.meta[a]["text"], sty, tim, clock)
+        check(decode_step.mega_decode_step.launches == n_mega and flash_attn.flash_attention.launches > n_flash,
+              "the speculative decode launched the decode-step kernel, or its prefill no flash kernel")
+        reqs.append(dict(n_verify=spec.n_verify, n_commit=spec.n_commit,
+                         verify_ms=clock.ms["decode"] / spec.n_verify,
+                         commits_per_verify=spec.n_commit / spec.n_verify,
+                         spec_ms_per_token=clock.ms["decode"] / spec.n_commit,
+                         spec_lm_ms=clock.ms["prefill"] + clock.ms["decode"], spec_prefill_ms=clock.ms["prefill"],
+                         kernel_lm_ms=kernel["prefill_ms"] + kernel["decode_ms"], kernel_wall_ms=kernel["wall_ms"],
+                         kernel_ms_per_token=kernel["decode_ms"] / max(kernel["gen_len"], 1),
+                         kernel_gen_len=kernel["gen_len"]))
+    return dict(init_s=init_s, requests=reqs), spec_eng
+
+
+def speculative_demo() -> dict:
+    """J5: the trained demo engine's LM (``demo_engine.npz``) on its 3
+    held-out rows, greedy, ``min_tokens=128`` (EOS masked throughout),
+    gamma 4, beside the standard greedy decode (the scanned decode: the
+    demo LM is dense): the tokens equal but where the standard path's top-2
+    masked logits lie within ``NEAR_TIE``, commits per verify above 1.5
+    (the reference's threshold), ms a token of each."""
+    dcfg = demo_config()
+    eng = Engine(dcfg, params=EngineParams.from_tree(from_jax_tree(load_npz(FIXTURES / "demo_engine.npz"), dcfg)),
+                 seed=0)
+    tl, tp = dcfg.token_lm, eng.params.token_lm
+    rows = json.loads((FIXTURES / "demo_corpus_sample" / "manifest.json").read_text())
+    out = []
+    for row in rows[:3]:
+        wav, _ = read_wav(FIXTURES / "demo_corpus_sample" / row["wav"])
+        feat = eng.prompt_features([wav])[0]
+        ids = frontend.encode(row["text"], tokenizer=eng.text_tokenizer)
+        n_s = min(len(feat.tokens), 64)
+        sty = np.zeros((1, 64), np.int32)
+        sty[0, :n_s] = feat.tokens[:n_s]
+        inputs = [eng._tensor(x, torch.int32) for x in (np.asarray(ids)[None], [len(ids)], sty, [n_s])]
+        spk = eng._tensor(feat.spk[None], torch.float32)
+        spec_clock, std_clock = Stopwatch(eng.device), Stopwatch(eng.device)
+        spec = token_lm.generate_speech_spec_from_ids(tp, tl, *inputs, spk, max_new_tokens=128, gamma=4,
+                                                      min_tokens=128, clock=spec_clock)
+        tops, sample0 = [], token_lm.sample
+
+        def record(logits, sampler, generator=None):
+            tops.append(torch.topk(logits[0].float(), 2).values)
+            return sample0(logits, sampler, generator)
+
+        token_lm.sample = record
+        try:
+            std = token_lm.generate_speech_from_ids(tp, tl, *inputs, spk, None, max_new_tokens=128,
+                                                    sampler=SamplerConfig(greedy=True), min_tokens=128,
+                                                    clock=std_clock)
+        finally:
+            token_lm.sample = sample0
+        got, want = spec.tokens[0].tolist(), std.tokens[0].tolist()
+        diff = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y), None)
+        gap = None if diff is None else float(tops[diff][0] - tops[diff][1])
+        check(diff is None or gap < NEAR_TIE,
+              f"J5 {row['wav']}: speculative tokens part from the greedy decode at {diff} (top-2 gap {gap})")
+        out.append(dict(wav=row["wav"], n_verify=spec.n_verify, n_commit=spec.n_commit,
+                        commits_per_verify=spec.n_commit / spec.n_verify, first_difference=diff, near_tie_gap=gap,
+                        spec_ms_per_token=spec_clock.ms["decode"] / spec.n_commit,
+                        verify_ms=spec_clock.ms["decode"] / spec.n_verify,
+                        standard_ms_per_token=std_clock.ms["decode"] / max(std.decode_steps, 1),
+                        standard_steps=std.decode_steps))
+    mean = float(np.mean([r["commits_per_verify"] for r in out]))
+    check(mean > 1.5, f"J5: commits per verify {mean} <= 1.5")
+    return dict(rows=out, mean_commits_per_verify=mean, limit=1.5)
+
+
+def path_j(eng: Engine, store: StyleStore, cfg: Config) -> dict:
+    """The serving surface: ``serve`` batched, continuous and streamed
+    (J1-J3), every engine CLI at ``--tiny`` (J3b), speculative decoding at
+    the flagship (J4) and on the trained demo engine (J5)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "serve").mkdir()
+        (d / "clis").mkdir()
+        srv = serve_paths(d / "serve", store)
+        for kind in ("batched", "continuous", "stream"):
+            print(f"serve {kind}", json.dumps(srv[kind]), flush=True)
+        print("wav loader", json.dumps(srv["loaders"]), flush=True)
+        clis = engine_clis(d / "clis")
+    print("engine clis", json.dumps(clis), flush=True)
+    spec, spec_eng = speculative_flagship(store, cfg)
+    print("speculative flagship", json.dumps(spec), flush=True)
+    demo = speculative_demo()
+    print("speculative demo", json.dumps(demo), flush=True)
+    launches = read_counts()
+    for name in ("flash_attention", "fused_log_mel"):
+        check(launches[name] > 0, f"path J never launched {name}: {launches}")
+    return dict(serve=srv, clis=clis, speculative=spec, demo=demo, launches=launches, wall_s=time.perf_counter() - t0,
+                spec_engine=spec_eng)
+
+
 def profile_embedder(emb, steps: int = 16) -> dict:
     """The embedder's decode loop under torch.profiler: a sampled
     generation (the biography sampler) of ``steps`` tokens at B=2 from a
@@ -1704,8 +2143,61 @@ def profile_request(eng: Engine, style, timbre):
     return dict(
         wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
         device_idle_share=(1.0 - busy_us / wall_us) if busy_us else "not measured",
-        decode_steps=eng.last_decode_steps,
+        decode_steps=eng.last_decode_steps, device_kernels=sum(n for _, n in by_name.values()),
         top_kernels=[dict(name=k, ms=us / 1e3, calls=n) for k, (us, n) in top])
+
+
+class MarkedStopwatch(Stopwatch):
+    """A ``Stopwatch`` that launches a spin kernel at both edges of each
+    span, inside the span's synchronization: on a profile's device timeline
+    (one stream) each span's device work lies between two marks."""
+
+    @contextmanager
+    def span(self, name: str):
+        with super().span(name):
+            torch.cuda._sleep(1)
+            try:
+                yield
+            finally:
+                torch.cuda._sleep(1)
+
+
+def profile_speculative(eng: Engine, store: StyleStore) -> dict:
+    """J4's speculative decode of one DB-served request (``spec_decode``)
+    under torch.profiler, its prefill and verify-loop spans marked on the
+    device timeline (``MarkedStopwatch``): the loop's device kernels and
+    copies alone, per verify, and the device's idle share of the loop's
+    span. Made up to three times where the profile lost a mark (the
+    profiler can lose a kernel's record, see ``featurize_warm``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sty, tim = eng.prompt_features_from_store(store, [0, 1])
+    for attempt in range(1, 4):
+        torch.cuda.synchronize()
+        clock = MarkedStopwatch(eng.device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            spec = spec_decode(eng, TEXTS[0], store.meta[0]["text"], sty, tim, clock)
+            torch.cuda.synchronize()
+        evts = device_events(prof)
+        marks = [i for i, (name, _, _) in enumerate(evts) if "spin_kernel" in name]
+        if len(marks) == 4:
+            break
+    check(len(marks) == 4, f"profile speculative: {len(marks)} span marks of 4 after {attempt} profiles")
+    prefill, loop = evts[marks[0] + 1: marks[1]], evts[marks[2] + 1: marks[3]]
+    is_copy = lambda e: e[0].startswith(("Memcpy", "Memset"))
+    copies = [e for e in loop if is_copy(e)]
+    busy_ms = sum(us for _, us, _ in loop) / 1e3
+    by_name = {}
+    for name, us, _ in loop:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(n_verify=spec.n_verify, n_commit=spec.n_commit, loop_span_ms=clock.ms["decode"],
+                prefill_span_ms=clock.ms["prefill"], prefill_kernels=sum(not is_copy(e) for e in prefill),
+                kernels_per_verify=(len(loop) - len(copies)) / spec.n_verify,
+                copies_per_verify=len(copies) / spec.n_verify, device_ms_per_verify=busy_ms / spec.n_verify,
+                loop_device_idle_share=1.0 - busy_ms / clock.ms["decode"], profiled_calls=attempt,
+                top_kernels=[dict(name=k, ms=us / 1e3, calls=n) for k, (us, n) in top])
 
 
 def profile_batch(eng: Engine, store: StyleStore) -> dict:
@@ -1837,6 +2329,9 @@ def main() -> int:
     with inputs.watch("I"):
         pi = path_i(eng, cfg)
     print("path I", json.dumps({"launches": pi["launches"]}), flush=True)
+    with inputs.watch("J"):
+        pj = path_j(eng, store, cfg)
+    print("path J", json.dumps({k: pj[k] for k in ("launches", "wall_s")}), flush=True)
     # outside the path's counts and recorded inputs
     print("profile embedder", json.dumps(profile_embedder(pi.pop("embedder"))), flush=True)
     admitted = sorted({shape[0] for (path, shape, _) in inputs.flash if path == "H" and shape[1] == 384})
@@ -1860,6 +2355,9 @@ def main() -> int:
     print("profile db_served", json.dumps(profile_request(
         eng, *eng.prompt_features_from_store(store, [0, 1]))), flush=True)
     print("profile raw_wavs", json.dumps(profile_request(eng, synthetic_wav(7), synthetic_wav(8))), flush=True)
+    spec_eng = pj.pop("spec_engine")
+    print("profile speculative (J4's engine)", json.dumps(profile_speculative(spec_eng, store)), flush=True)
+    del spec_eng
     print("featurize warm", json.dumps(featurize_warm(eng)), flush=True)
     print("profile batch", json.dumps(profile_batch(eng, store)), flush=True)
     step8 = [r["decode_ms_per_step"] for r in pa["requests"][1:4]]
@@ -1874,9 +2372,9 @@ def main() -> int:
                     **{k: rec[k] for k in KERNEL_KEYS})
 
     jax_decode = "autostyle_tts_tpu/ops/pallas_decode.py"
-    # launches on every path that runs the kernel: flash on A, C, D, E, G, H, I; log-mel on A, D, E, G, I;
-    # the decode step on A, G; its int4 build on C, G (the other paths add 0)
-    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph, pi))
+    # launches on every path that runs the kernel: flash on A, C, D, E, G, H, I, J; log-mel on A, D, E, G, I, J;
+    # the decode step on A, G, J; its int4 build on C, G (the other paths add 0)
+    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph, pi, pj))
     # max_abs_err: the largest of every case checked (phase 3 and the paths' own inputs)
     worst = lambda name, recs: max(r["max_abs_err"] for r in (*recs, *on_inputs[name]))
     flash_rec = dict(flash_main, max_abs_err=worst("flash_attention", (flash_main, flash_gqa, flash_128, flash_batch,

@@ -1,9 +1,23 @@
-"""The port's retrieval CLIs against the JAX package's: insert_embeddings
--> search_json -> tts_with_rag --style_db on both packages from one saved
-``--embedder_checkpoint`` (the JAX package's flat-key ``.npz``), with the
-biography sampler set to greedy on both sides (the random streams differ).
-Mirrors ``tests/test_cli.py::test_cli_insert_then_search_json_then_rag_tts``
-and ``::test_cli_search_embeddings_and_search``.
+"""The port's CLIs against the JAX package's.
+
+The retrieval CLIs: insert_embeddings -> search_json -> tts_with_rag
+--style_db on both packages from one saved ``--embedder_checkpoint`` (the
+JAX package's flat-key ``.npz``), with the biography sampler set to greedy
+on both sides (the random streams differ). Mirrors
+``tests/test_cli.py::test_cli_insert_then_search_json_then_rag_tts`` and
+``::test_cli_search_embeddings_and_search``.
+
+The engine CLIs (``tests/test_cli.py``'s basic, both modes of
+tts_with_style_and_timbre, tts_from_lines, vc_from_dir, vc_from_dir_seed,
+tts_for_dialog) run on both packages on the same fixtures and must write
+the same files (names, counts, ``meta.lst`` rows) at the same rate.
+``export_engine`` is held to a round trip: a JAX-exported snapshot loads
+through the port's ``--checkpoint`` to the same weights (the dense token
+LM's projections and speech head as the bf16 values the port serves them
+with), the port's export loads back equal through either package.
+``score_similarity`` on one ``meta.lst`` with one JAX-exported snapshot on
+both sides gives the same rows and scores within 1e-4 (f32 log-mel and
+speaker encoder on both; summation order differs).
 
 The embedder runs at the tiny geometry in f32 (``--set
 embedder.dtype=float32``: XLA and torch round bf16 activations after sums
@@ -24,18 +38,31 @@ import numpy as np
 import pytest
 import torch
 
+from autostyle_tts_tpu.cli import basic as jbasic
+from autostyle_tts_tpu.cli import export_engine as jexport_engine
 from autostyle_tts_tpu.cli import insert_embeddings as jinsert
+from autostyle_tts_tpu.cli import score_similarity as jscore_similarity
 from autostyle_tts_tpu.cli import search_json as jsearch_json
+from autostyle_tts_tpu.cli import tts_for_dialog as jtts_for_dialog
+from autostyle_tts_tpu.cli import tts_from_lines as jtts_from_lines
 from autostyle_tts_tpu.cli import tts_with_rag as jtts
+from autostyle_tts_tpu.cli import tts_with_style_and_timbre as jstyle_timbre
+from autostyle_tts_tpu.cli import vc_from_dir as jvc_from_dir
+from autostyle_tts_tpu.cli import vc_from_dir_seed as jvc_from_dir_seed
 from autostyle_tts_tpu.models import transformer as jcore
 from autostyle_tts_tpu.ops import sampling as jsampling
-from autostyle_tts_tpu.utils.checkpoint import save_pytree
+from autostyle_tts_tpu.utils.checkpoint import load_pytree, save_pytree
 from autostyle_tts_tpu.utils.config import tiny_config
-from autostyle_tts_tpu_torch.cli import insert_embeddings, search, search_embeddings, search_json, tts_with_rag
+from autostyle_tts_tpu_torch.cli import (basic, export_engine, insert_embeddings, score_similarity, search,
+                                         search_embeddings, search_json, serve, tts_for_dialog, tts_from_lines,
+                                         tts_with_rag, tts_with_style_and_timbre, vc_from_dir, vc_from_dir_seed)
 from autostyle_tts_tpu_torch.cli.common import add_common_args, build_engine
 from autostyle_tts_tpu_torch.ops import sampling as tsampling
+from autostyle_tts_tpu_torch.pipeline.engine import EngineParams
 from autostyle_tts_tpu_torch.utils.audio_io import write_wav
 from autostyle_tts_tpu_torch.utils.config import tiny_config as ttiny_config
+from autostyle_tts_tpu_torch.weights import _flat_keys, load_npz, load_tree
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 SR = 1600  # the tiny config's prompt rate
 CPU = ["--device", "cpu"]
@@ -71,7 +98,8 @@ def fixtures(tmp_path_factory):
     ckpt = str(d / "embedder.npz")
     save_pytree(ckpt, jax.tree_util.tree_map(
         np.asarray, jcore.init_params(jax.random.PRNGKey(7), tiny_config().embedder)))
-    return {"dir": d, "styles": styles, "ckpt": ckpt,
+    (d / "lines.txt").write_text("hello world\nsecond line\n")
+    return {"dir": d, "styles": styles, "ckpt": ckpt, "txt": str(d / "lines.txt"),
             "timbre": _make_wav(d / "timbre.wav", f=300, seed=2), "style": _make_wav(d / "style.wav", f=200, seed=1)}
 
 
@@ -145,15 +173,206 @@ def test_cli_entry_points_ask_for_the_card(fixtures, tmp_path):
     insert_embeddings.add_embedder_args(p)
     args = p.parse_args(["--tiny"])
     cfg = ttiny_config()
+    x = str(tmp_path / "unused")
+    engine_clis = (
+        (serve, ["--requests", x, "--result_dir", x]),
+        (basic, ["--prompt_wav", x]),
+        (tts_from_lines, ["--txt_path", x, "--prompt_wav", x, "--prompt_text", "p", "--result_dir", x]),
+        (tts_with_style_and_timbre, ["--style_wav_path", x, "--timbre_wav_path", x, "--style_wav_text", "s",
+                                     "--txt_path", x, "--result_dir", x]),
+        (tts_for_dialog, ["--corresponding_json", x, "--dialogue_json", x, "--style_wav_json", x,
+                          "--style_wav_dir", x, "--result_dir", x, "--timbre_map", "a=b"]),
+        (vc_from_dir, ["--txt_path", x, "--style_dir", x, "--result_dir", x, "--style_json", x, "--timbre_dir", x]),
+        (vc_from_dir_seed, ["--txt_path", x, "--style_dir", x, "--result_dir", x, "--style_json", x,
+                            "--seed_meta_lst", x]),
+        (export_engine, ["--output", x]),
+        (score_similarity, ["--meta_lst", x, "--wav_dir", x, "--output_json", x]),
+    )
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             insert_embeddings.build_embedder(args, cfg)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_engine(args)
+        for mod, argv in engine_clis:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                mod.main(["--tiny"] + argv)
     for argv, item in ((["--tiny", "--dp", "2"], "item 11"), (["--tiny", "--tp", "2"], "item 11"),
                        (["--tiny", "--embedder_hf_dir", str(tmp_path)], "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             insert_embeddings.build_embedder(p.parse_args(argv + CPU), cfg)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        export_engine.main(["--tiny", "--output", x, "--stage_ckpt", f"cfm={x}"] + CPU)
+
+
+# ----------------------------------------------------------------------- engine CLIs
+
+
+def _names(d: Path, pattern: str = "*.wav"):
+    return sorted(p.name for p in d.glob(pattern))
+
+
+def _rates(d: Path, pattern: str = "*.wav"):
+    return {_wav_rate(p) for p in d.glob(pattern)}
+
+
+def _pair(tmp_path, jmain, tmain, argv_of):
+    """Run the JAX CLI and the port's, each into its own result dir
+    (``argv_of(result_dir)``): -> (the port's dir, the JAX one's)."""
+    jd, td = tmp_path / "jax", tmp_path / "torch"
+    jmain(["--tiny"] + argv_of(jd))
+    tmain(["--tiny"] + argv_of(td) + CPU)
+    return td, jd
+
+
+def test_cli_basic_matches_jax(fixtures, tmp_path):
+    td, jd = _pair(tmp_path, jbasic.main, basic.main, lambda d: [
+        "--prompt_wav", fixtures["style"], "--tts_text", "hi", "--prompt_text", "p", "--result_dir", str(d)])
+    assert _names(td) == _names(jd) == ["zero_shot_0.wav"]
+    assert _rates(td) == _rates(jd) == {2400}
+
+
+@pytest.mark.parametrize("mode,pattern", [("false", "*_st_0.wav"), ("true", "*_exp_0_0.wav")])
+def test_cli_tts_with_style_and_timbre_matches_jax(fixtures, tmp_path, mode, pattern):
+    td, jd = _pair(tmp_path, jstyle_timbre.main, tts_with_style_and_timbre.main, lambda d: [
+        "--style_wav_path", fixtures["style"], "--timbre_wav_path", fixtures["timbre"],
+        "--style_wav_text", "style text", "--txt_path", fixtures["txt"], "--result_dir", str(d), "--is_exp", mode])
+    assert _names(td) == _names(jd) == _names(jd, pattern) and len(_names(td)) == 2
+    assert _rates(td) == _rates(jd) == {2400}
+
+
+def test_cli_tts_from_lines_matches_jax(fixtures, tmp_path):
+    td, jd = _pair(tmp_path, jtts_from_lines.main, tts_from_lines.main, lambda d: [
+        "--txt_path", fixtures["txt"], "--prompt_wav", fixtures["style"], "--prompt_text", "p",
+        "--result_dir", str(d)])
+    assert _names(td) == _names(jd) == ["line_1.wav", "line_2.wav"]
+    assert _rates(td) == _rates(jd) == {2400}
+
+
+def _matrix_fixtures(d: Path):
+    style_dir, timbre_dir = d / "styles", d / "timbres"
+    style_dir.mkdir()
+    timbre_dir.mkdir()
+    manifest = []
+    for i in range(3):
+        _make_wav(style_dir / f"sty{i}.wav", f=200 + i * 20, seed=20 + i)
+        manifest.append({"file_id": f"denoise_sty{i}", "zh_text": f"style text {i}"})
+        _make_wav(timbre_dir / f"tim{i}.wav", f=260 + i * 20, seed=30 + i)
+    (d / "style.json").write_text(json.dumps(manifest))
+    return style_dir, timbre_dir, str(d / "style.json")
+
+
+def test_cli_vc_from_dir_matches_jax(fixtures, tmp_path):
+    """The same sampled styles and timbres (``random.Random(seed)`` on both
+    sides), the same wav names and ``meta.lst`` rows; the port's
+    ``--cal_sim`` report scores every row."""
+    style_dir, timbre_dir, sj = _matrix_fixtures(tmp_path)
+    td, jd = _pair(tmp_path, jvc_from_dir.main, vc_from_dir.main, lambda d: [
+        "--txt_path", fixtures["txt"], "--style_dir", str(style_dir), "--timbre_dir", str(timbre_dir),
+        "--result_dir", str(d), "--style_num", "2", "--timbre_num", "1", "--style_json", sj, "--seed", "0"]
+        + (["--cal_sim"] if d.name == "torch" else []))
+    rows = (td / "meta.lst").read_text().splitlines()
+    assert rows == (jd / "meta.lst").read_text().splitlines() and len(rows) == 2 * 1 * 2
+    assert all(len(r.split("|")) == 4 and r.split("|")[0].endswith("_new") for r in rows)
+    assert _names(td) == _names(jd) == sorted(r.split("|")[0] + ".wav" for r in rows)
+    assert _rates(td) == _rates(jd) == {2400}
+    report = json.loads((td / "similarity.json").read_text())
+    assert [r["name"] for r in report["rows"]] == [r.split("|")[0] for r in rows]
+    assert report["summary"]["n"] == 4 and all(-1.0 <= r["similarity"] <= 1.0 for r in report["rows"])
+
+
+def test_cli_vc_from_dir_seed_matches_jax(fixtures, tmp_path):
+    style_dir = tmp_path / "styles"
+    style_dir.mkdir()
+    _make_wav(style_dir / "sty0.wav", f=210, seed=40)
+    sj = tmp_path / "style.json"
+    sj.write_text(json.dumps([{"file_id": "denoise_sty0", "zh_text": "st"}]))
+    tw = _make_wav(tmp_path / "seed-wavs-a.wav", f=240, seed=41)
+    # the rewrite rules map '-wavs' -> '_temp' and '.wav' -> '_16k.wav': the rewritten file is the timbre
+    _make_wav(Path(tw.replace("-wavs", "_temp").replace(".wav", "_16k.wav")), f=240, seed=41)
+    lst = tmp_path / "seed_meta.lst"
+    lst.write_text(f"name0|seed text|{tw}|target text\n")
+    td, jd = _pair(tmp_path, jvc_from_dir_seed.main, vc_from_dir_seed.main, lambda d: [
+        "--txt_path", fixtures["txt"], "--style_dir", str(style_dir), "--result_dir", str(d),
+        "--style_num", "1", "--timbre_num", "1", "--style_json", str(sj), "--seed_meta_lst", str(lst), "--seed", "0"])
+    assert (td / "meta.lst").read_text() == (jd / "meta.lst").read_text()
+    assert _names(td) == _names(jd) and len(_names(td)) == 2
+    assert _rates(td) == _rates(jd) == {2400}
+
+
+def test_cli_tts_for_dialog_matches_jax(fixtures, tmp_path):
+    (tmp_path / "dialog.jsonl").write_text('{"zh_text": "turn one"}\n{"zh_text": "turn two"}\n'
+                                           '{"zh_text": "turn three"}\n')
+    styles_dir = tmp_path / "swav"
+    styles_dir.mkdir()
+    _make_wav(styles_dir / "s1.wav", f=200, seed=50)
+    _make_wav(styles_dir / "s2.wav", f=230, seed=51)
+    (tmp_path / "styledb.jsonl").write_text('{"file_id": "s1", "zh_text": "style one"}\n'
+                                            '{"file_id": "s2", "zh_text": "style two"}\n')
+    (tmp_path / "correspond.json").write_text(json.dumps({
+        "1": {"value": 1, "speaker": "jinjing", "emotion": "happy"}, "2": "null",
+        "3": {"value": 2, "speaker": "lijiaqi", "emotion": "sad"},
+        "4": {"value": 1, "speaker": "nobody", "emotion": "sad"}}))
+    td, jd = _pair(tmp_path, jtts_for_dialog.main, tts_for_dialog.main, lambda d: [
+        "--corresponding_json", str(tmp_path / "correspond.json"), "--dialogue_json", str(tmp_path / "dialog.jsonl"),
+        "--style_wav_json", str(tmp_path / "styledb.jsonl"), "--style_wav_dir", str(styles_dir),
+        "--result_dir", str(d), "--timbre_map", f"jinjing={fixtures['timbre']},lijiaqi={fixtures['style']}"])
+    # the null turn and the unknown speaker are skipped; names in a timestamped dir
+    assert _names(td, "*/*.wav") == _names(jd, "*/*.wav") == ["1_s1_to_jinjing_0.wav", "2_s2_to_lijiaqi_0.wav"]
+    assert _rates(td, "*/*.wav") == _rates(jd, "*/*.wav") == {2400}
+
+
+def _like_tree(cfg):
+    return EngineParams.init(torch.Generator().manual_seed(0), cfg).tree()
+
+
+def test_cli_export_engine_round_trip(tmp_path):
+    """JAX export -> the port's ``--checkpoint``: the same weights (the
+    dense token LM's projections and speech head as their bf16 values);
+    the port's export -> its ``--checkpoint`` and the JAX ``load_pytree``:
+    equal."""
+    jax_npz, port_npz = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jexport_engine.main(["--tiny", "--output", jax_npz, "--seed", "3"])
+    export_engine.main(["--tiny", "--checkpoint", jax_npz, "--output", port_npz] + CPU)
+    p = argparse.ArgumentParser()
+    add_common_args(p)
+    served = build_engine(p.parse_args(["--tiny", "--checkpoint", port_npz] + CPU))
+    cfg = ttiny_config()
+    src, out = load_tree(jax_npz, _like_tree(cfg)), load_tree(port_npz, _like_tree(cfg))
+    flat_src, flat_out = _flat_keys(src), _flat_keys(out)
+    assert set(flat_src) == set(flat_out) and len(flat_src) > 50
+    bf16 = {f"token_lm/layers/{n}" for n in ("wqkv", "wo", "w_gate_up", "w_down")} | {"token_lm/speech_head"}
+    for key, v in flat_src.items():
+        want = v.to(torch.bfloat16).float() if key in bf16 else v
+        assert torch.equal(flat_out[key], want), key
+    for key, v in _flat_keys(served.params.tree()).items():
+        assert torch.equal(v.float(), flat_out[key].to(v.device).float()), key
+    jtree = load_pytree(port_npz, jax.tree_util.tree_map(np.asarray, load_npz(jax_npz)))
+    for key, v in _flat_keys(jtree).items():
+        np.testing.assert_array_equal(np.asarray(v), flat_out[key].numpy(), err_msg=key)
+    assert json.loads(Path(port_npz + ".meta.json").read_text())["keys"] == sorted(flat_out)
+
+
+def test_cli_score_similarity_matches_jax(fixtures, tmp_path):
+    """One ``meta.lst`` over wavs on disk, one JAX-exported snapshot on both
+    sides: the same rows, scores within 1e-4."""
+    ckpt = str(tmp_path / "engine.npz")
+    jexport_engine.main(["--tiny", "--output", ckpt, "--seed", "5"])
+    wav_dir = tmp_path / "wavs"
+    rows = []
+    for i in range(3):
+        _make_wav(wav_dir / f"row{i}_new.wav", f=180 + 40 * i, seed=60 + i, seconds=1.5)
+        rows.append(f"row{i}_new|style {i}|{fixtures['timbre'] if i % 2 else fixtures['style']}|text {i}")
+    (tmp_path / "meta.lst").write_text("\n".join(rows) + "\n")
+    argv = ["--tiny", "--checkpoint", ckpt, "--meta_lst", str(tmp_path / "meta.lst"), "--wav_dir", str(wav_dir),
+            "--batch", "2"]
+    jscore_similarity.main(argv + ["--output_json", str(tmp_path / "jax.json")])
+    score_similarity.main(argv + ["--output_json", str(tmp_path / "torch.json")] + CPU)
+    got, want = (json.loads((tmp_path / f"{s}.json").read_text()) for s in ("torch", "jax"))
+    assert [{k: v for k, v in r.items() if k != "similarity"} for r in got["rows"]] == \
+           [{k: v for k, v in r.items() if k != "similarity"} for r in want["rows"]]
+    np.testing.assert_allclose([r["similarity"] for r in got["rows"]], [r["similarity"] for r in want["rows"]],
+                               atol=1e-4)
+    assert got["summary"]["n"] == want["summary"]["n"] == 3
 
 
 def test_parse_timbre_map(tmp_path):

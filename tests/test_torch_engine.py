@@ -224,9 +224,10 @@ def test_int4_engine_falls_back_to_the_int8_decode_step(monkeypatch):
 
 
 def test_engine_out_of_slice_paths_raise():
-    """Speculative decoding still raises, naming its ROADMAP.md item;
-    streaming, a batch, voice conversion, a dense LM, prompts from wavs and
-    ``build_style_db`` (``tests/test_torch_rag.py``) are inside the port."""
+    """Nothing of the engine raises for being out of the port any more:
+    speculative decoding (``tests/test_torch_spec_decode.py``), streaming, a
+    batch, voice conversion, a dense LM, prompts from wavs and
+    ``build_style_db`` (``tests/test_torch_rag.py``) are inside it."""
     cfg = _cfg(tconfig)
     eng = tengine.Engine(cfg, device="cpu")
     f = tengine.PromptFeatures(tokens=np.arange(5, dtype=np.int32),
@@ -236,8 +237,10 @@ def test_engine_out_of_slice_paths_raise():
                    lambda: eng.inference_vc(f, f, stream=True)):
         chunks = [c["tts_speech"] for c in stream()]
         assert chunks and all(c.shape[0] == 1 and np.isfinite(c).all() for c in chunks)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tengine.Engine(dataclasses.replace(cfg, speculative_gamma=2), device="cpu")
+    # the dense LM (the decode kernel serves int8 only) takes the speculative decode
+    spec = tengine.Engine(dataclasses.replace(cfg, speculative_gamma=2, quantize_lm_int8=False), device="cpu")
+    wav = next(spec.inference_tts_with_st("a", "b", f, f, max_seconds=1.0))["tts_speech"]
+    assert wav.shape[1] > 0 and np.isfinite(wav).all() and spec.last_spec["n_verify"] > 0
     feats = eng.prompt_features([np.zeros(1600, np.float32)])
     assert len(feats) == 1 and feats[0].spk.shape == (cfg.speaker.emb_dim,)
     with pytest.raises(ValueError, match="store has no precomputed"):
