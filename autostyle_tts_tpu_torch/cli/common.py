@@ -39,6 +39,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="print the last request's per-stage milliseconds at exit")
     p.add_argument("--dp", type=int, default=0, help="data-parallel devices (one card: 0 or 1)")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (one card: 1)")
+    add_device_arg(p)
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default the CUDA card (cpu: the plain PyTorch path)")
 

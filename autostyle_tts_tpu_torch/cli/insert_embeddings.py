@@ -21,31 +21,43 @@ from .common import add_common_args, build_config, build_engine, check_single_de
 
 
 def build_embedder(args, cfg) -> EmbedderService:
-    """The embedder of ``cfg.embedder`` on ``--device``: seeded random
-    weights (int8 with ``--quantize_base``) or ``--embedder_checkpoint``,
-    an optional ``--lora_checkpoint`` at scale alpha / r, an optional
-    ``--bpe_path`` tokenizer."""
+    """The embedder on ``--device``: a local Hugging Face checkpoint
+    (``--embedder_hf_dir``: its config, weights and tokenizer), or
+    ``cfg.embedder`` with seeded random weights (int8 with
+    ``--quantize_base``) or ``--embedder_checkpoint``; an optional
+    ``--lora_checkpoint`` at scale alpha / r, an optional ``--bpe_path``
+    tokenizer where no Hugging Face tokenizer is loaded."""
     from ..models import transformer as core
     from ..weights import load_lora, load_tree
 
     check_single_device(args)
-    if getattr(args, "embedder_hf_dir", None):
-        raise NotImplementedError("--embedder_hf_dir needs the Hugging Face checkpoint converter, "
-                                  "which is not ported yet (ROADMAP.md: queue A item 9)")
-    ecfg = cfg.embedder
     dev = resolve_device(args.device)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    # int8 frozen base: a 3B base and its adapter fit beside the engine
-    params = (core.init_params_quantized(ecfg, gen, bits=8) if getattr(args, "quantize_base", False)
-              else core.init_params(ecfg, gen))
-    if getattr(args, "embedder_checkpoint", None):
-        params = load_tree(args.embedder_checkpoint, params)
+    tokenizer = None
+    if getattr(args, "embedder_hf_dir", None):
+        # the reference's Llama-3.2-3B / Qwen2.5-7B path; the tokenizer is
+        # the checkpoint's own, read by transformers (never substituted)
+        try:
+            import transformers
+        except ImportError as e:
+            raise RuntimeError("--embedder_hf_dir loads the checkpoint's tokenizer with the "
+                               "'transformers' package, which is not installed") from e
+        from ..utils.hf_convert import load_hf_checkpoint
+
+        ecfg, params = load_hf_checkpoint(args.embedder_hf_dir, device=dev)
+        tokenizer = transformers.AutoTokenizer.from_pretrained(args.embedder_hf_dir)
+    else:
+        ecfg = cfg.embedder
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        # int8 frozen base: a 3B base and its adapter fit beside the engine
+        params = (core.init_params_quantized(ecfg, gen, bits=8) if getattr(args, "quantize_base", False)
+                  else core.init_params(ecfg, gen))
+        if getattr(args, "embedder_checkpoint", None):
+            params = load_tree(args.embedder_checkpoint, params)
     lora, lora_scale = None, 0.0
     if getattr(args, "lora_checkpoint", None):
         lora = load_lora(args.lora_checkpoint, ecfg, cfg.train.lora.r, device=dev)
         lora_scale = cfg.train.lora.alpha / cfg.train.lora.r
-    tokenizer = None
-    if getattr(args, "bpe_path", None):
+    if tokenizer is None and getattr(args, "bpe_path", None):
         from ..models.bpe import BPETokenizer
 
         tokenizer = BPETokenizer.load(args.bpe_path)
@@ -58,7 +70,8 @@ def add_embedder_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--embedder_checkpoint", type=str, default=None,
                    help="embedder weights (flat-key .npz)")
     p.add_argument("--embedder_hf_dir", type=str, default=None,
-                   help="local Hugging Face checkpoint (not ported yet)")
+                   help="local Hugging Face checkpoint dir (Llama/Qwen2): converted on load, "
+                        "its tokenizer read with transformers")
     p.add_argument("--lora_checkpoint", type=str, default=None,
                    help="LoRA adapter .npz (e.g. artifacts/ft3b/adapter_f16.npz)")
     p.add_argument("--quantize_base", action="store_true",

@@ -9,6 +9,7 @@ Counterpart of the JAX ``ops/conv.py`` (``conv1d``, ``conv1d_init``,
 from __future__ import annotations
 
 import math
+from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -22,17 +23,24 @@ def conv1d_init(generator: torch.Generator, in_ch: int, out_ch: int, kernel: int
             "b": uniform((out_ch,), generator, -std, std)}
 
 
-def conv1d(x: torch.Tensor, p: dict, stride: int = 1, dilation: int = 1) -> torch.Tensor:
-    """Conv with XLA's SAME padding: ceil(T / stride) outputs, the total pad
-    max((out - 1) * stride + (k - 1) * dilation + 1 - T, 0) split with the
-    extra sample on the right. Channels-last in and out, f32 accumulation,
-    x.dtype out."""
+def conv1d(x: torch.Tensor, p: dict, stride: int = 1, dilation: int = 1,
+           padding: Union[str, Tuple[int, int]] = "SAME") -> torch.Tensor:
+    """Conv with XLA's SAME padding (the default): ceil(T / stride)
+    outputs, the total pad max((out - 1) * stride + (k - 1) * dilation + 1
+    - T, 0) split with the extra sample on the right; or with an explicit
+    ``(left, right)`` zero padding, as torch's ``Conv1d(padding=p)`` is
+    ``(p, p)``. Channels-last in and out, f32 accumulation, x.dtype out."""
     w = p["w"]
-    k, T = w.shape[0], x.shape[1]
-    n_out = -(-T // stride)
-    total = max((n_out - 1) * stride + (k - 1) * dilation + 1 - T, 0)
-    left = total // 2
-    xt = F.pad(x.float().transpose(1, 2), (left, total - left))
+    if isinstance(padding, str):
+        if padding != "SAME":
+            raise ValueError(f"conv1d: padding must be 'SAME' or (left, right), got {padding!r}")
+        k, T = w.shape[0], x.shape[1]
+        n_out = -(-T // stride)
+        total = max((n_out - 1) * stride + (k - 1) * dilation + 1 - T, 0)
+        left, right = total // 2, total - total // 2
+    else:
+        left, right = padding
+    xt = F.pad(x.float().transpose(1, 2), (left, right))
     y = F.conv1d(xt, w.float().permute(2, 1, 0), p["b"].float(), stride=stride, dilation=dilation)
     return y.transpose(1, 2).to(x.dtype)
 

@@ -11,6 +11,8 @@
   writes a tree in the same format (the JAX ``save_pytree``'s);
   ``load_lora`` loads a LoRA adapter (such as
   ``artifacts/ft3b/adapter_f16.npz``) that way, in f32.
+- ``compat_trees_to_torch``: the CosyVoice compat trees (numpy, from a
+  conversion or a snapshot) as f32 tensors on a device.
 - ``embedder_from_jax`` / ``lora_from_jax``: the RAG embedder's weights
   (dense or int8, with or without the attention bias) and a LoRA tree,
   from the JAX package's numpy leaves, every shape checked.
@@ -193,6 +195,16 @@ def load_lora(path: str, cfg: TransformerConfig, r: int, device="cpu") -> Dict:
     the structure of ``transformer.init_lora(cfg, r)`` on ``device``."""
     like = {"layers": {k: torch.empty(s, device=device) for k, s in _lora_shapes(cfg, r).items()}}
     return load_tree(path, like)
+
+
+def compat_trees_to_torch(trees: Dict[str, Dict], device) -> Dict[str, Dict]:
+    """The numpy trees of a CosyVoice conversion or snapshot
+    ({artifact: tree}, ``utils/cosyvoice_convert`` / ``models/compat``)
+    -> the same trees of f32 tensors on ``device``. A graph carried as
+    wire bytes (``campplus.onnx``'s ``__onnx__``) is not a weight tree and
+    is left out."""
+    return {artifact: tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)).to(device), tree)
+            for artifact, tree in trees.items() if "__onnx__" not in tree}
 
 
 def _check_vocoder(p: Dict, v) -> None:

@@ -92,12 +92,27 @@ Phases (any failure exits non-zero):
       (greedy, 128 tokens: the tokens of the standard decode but at
       near-ties of 1e-3, commits per verify above 1.5; ``speculative demo``
       line);
+   K. the compat stack: a synthetic CosyVoice-300M release at its published
+      widths (``COSYVOICE_300M``) in the upstream key names, converted by
+      ``convert_cosyvoice --strict --output`` (every source tensor mapped,
+      campplus carried by graph), served by ``CosyEngine`` on the card at
+      B=1 through ``inference_zero_shot`` and ``inference_tts_with_st``
+      from pre-tokenized 150-token prompts and from 3 s 16 kHz wavs
+      (``tokenize_wav16``: the log-mel kernel at 128 mels;
+      ``embed_speaker_wav16``: the campplus graph), 128 new tokens each;
+      the greedy decode against one causal pass, the speech tokens from the
+      kernel's mel against the plain mel's (``compat`` line); then a
+      Llama-3.2-3B state dict in Hugging Face key names (bf16, drawn on the
+      card) converted on the card and served as a dense embedder (an embed
+      at B=16, T=512 and a left-padded prefill at B=2, P=512), and a tiny
+      Hugging Face directory through ``load_hf_checkpoint`` (``hf
+      embedder`` line);
    the inputs of the first call of each distinct geometry that paths A, D,
-   E, G, H, I and J give ``flash_attention`` and ``fused_log_mel`` are kept
-   (device copies) and, after the paths, each kernel is held against its
-   plain version on them (path D's B=8 prefill, path H's admissions,
-   T=384 at B=1, 2 and 4, and path I's four embedder shapes are also
-   timed);
+   E, G, H, I, J and K give ``flash_attention`` and ``fused_log_mel`` are
+   kept (device copies) and, after the paths, each kernel is held against
+   its plain version on them (path D's B=8 prefill, path H's admissions,
+   T=384 at B=1, 2 and 4, path I's four embedder shapes and path K's two
+   dense-embedder shapes and its 128-mel log-mel are also timed);
 5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --log-mel-only`` builds ``log_mel.cu`` alone, runs
@@ -134,8 +149,10 @@ from autostyle_tts_tpu_torch.pipeline.engine import Engine, EngineParams
 from autostyle_tts_tpu_torch.pipeline.simeval import SpeakerScorer, token_round_trip
 from autostyle_tts_tpu_torch.pipeline.stream_serve import StreamingScheduler
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
+from autostyle_tts_tpu_torch.utils import hf_convert
 from autostyle_tts_tpu_torch.utils.audio_io import read_wav, write_wav
 from autostyle_tts_tpu_torch.utils.config import CFMConfig, Config, VocoderConfig, demo_config
+from autostyle_tts_tpu_torch.utils.synth_release import SynthGeometry, build_release_dir
 from autostyle_tts_tpu_torch.utils.timing import Stopwatch
 from autostyle_tts_tpu_torch.weights import QTensor, _flat_keys, from_jax_tree, load_npz, load_tree, quantize_tree
 
@@ -583,6 +600,19 @@ def log_mel_case(audio, leg: str, B: int, seconds: int, gen, iters: int = 200):
                 device_ms=kernel_device_ms(call, "log_mel"), host_enqueue_ms=time_host_ms(call, 50),
                 **log_mel_bounds(frames, cos_b, fb, got), shape=[B, T, win, fb.shape[0], n_mels],
                 bucket_s=seconds)
+
+
+def log_mel_measure(frames, cos_b, sin_b, fb, eps) -> dict:
+    """Error, times and bound of the log-mel kernel on inputs a path gave
+    it (the strided frames as they were)."""
+    call = lambda: log_mel.fused_log_mel(frames, cos_b, sin_b, fb, eps)
+    got = call()
+    err = float((got - log_mel.fused_log_mel_plain(frames, cos_b, sin_b, fb, eps)).abs().max())
+    return dict(max_abs_err=err, ms=time_ms(call, 200),
+                plain_ms=time_ms(lambda: log_mel.fused_log_mel_plain(frames, cos_b, sin_b, fb, eps), 50),
+                library_ms=None, device_ms=kernel_device_ms(call, "log_mel"),
+                **log_mel_bounds(frames, cos_b, fb, got), shape=[*frames.shape, *fb.shape],
+                frame_stride=frames.stride(1))
 
 
 def log_mel_tonal_case(cfg: Config, leg: str, gen):
@@ -2041,6 +2071,313 @@ def path_j(eng: Engine, store: StyleStore, cfg: Config) -> dict:
                 spec_engine=spec_eng)
 
 
+# ----------------------------------------------------------------------------- path K
+
+# CosyVoice-300M's published widths (FunAudioLLM/CosyVoice,
+# pretrained_models/CosyVoice-300M/cosyvoice.yaml) in SynthGeometry's terms.
+# Not expressible there (PERF.md §4): one n_heads (16) and one FFN width
+# (4096) for every wenet stack (the flow encoder's are 8 and 2048); the text
+# encoder built macaron + conv; the source resblocks' kernels (7, 7) for
+# (7, 11); the tokenizer at the flow's width (512) with 2 blocks.
+COSYVOICE_300M = SynthGeometry(
+    text_vocab=51866, text_in=512, text_dim=1024, n_text_layers=6, llm_dim=1024, n_llm_layers=14, n_heads=16,
+    ffn=4096, speech_vocab=4096, spk_dim=192, flow_emb=512, flow_dim=512, n_flow_layers=6, n_mels=80,
+    est_channels=(256, 256), n_tf=4, n_mid=12, hift_channels=512, up_rates=(8, 8), resblock_kernels=(3, 7, 11),
+    n_res_convs=3, istft_n_fft=16, nb_harmonics=8, n_positions=1500, s3_mels=128)
+COSY_HEADS_EST, COSY_STEPS = 8, 10            # the estimator's heads and Euler steps (n_timesteps)
+COSY_PROMPT_TOKENS, COSY_MAX_NEW = 150, 128   # a 3 s prompt at 50 Hz; new tokens a request
+COSY_RULE_ARTIFACTS = ("llm.pt", "flow.pt", "hift.pt", "speech_tokenizer_v1.onnx")
+COSY_NEAR_TIE = 1e-3    # f32 logits of the cached decode and of one causal pass: a top-2 gap below it may part them
+
+
+def compat_convert(d: Path, geo: SynthGeometry) -> dict:
+    """K1: a synthetic release at ``geo`` in the upstream key names (drawn
+    at fan-in scale: at 0.3, the tiny geometry's scale, the 1024-wide
+    trunk's attention saturates and its greedy decode parts from one
+    causal pass at large logit gaps; PERF.md) ->
+    ``convert_cosyvoice --strict --output`` through its ``main`` (the
+    snapshot load-checked on the card) -> coverage and times."""
+    from autostyle_tts_tpu_torch.cli import convert_cosyvoice
+
+    t0 = time.perf_counter()
+    torch.manual_seed(0)     # the weight-norm gains draw from the global stream
+    release = build_release_dir(d / "release", geo, seed=0, scale="fan_in")
+    write_s = time.perf_counter() - t0
+    snap, report = d / "snapshot.npz", d / "report.json"
+    t0 = time.perf_counter()
+    convert_cosyvoice.main(["--model_dir", str(release), "--strict", "--report_json", str(report),
+                            "--output", str(snap)])
+    convert_s = time.perf_counter() - t0
+    rep = json.loads(report.read_text())
+    coverage = {a: dict(mapped=len(rep[a]["mapped"]), unmapped=len(rep[a]["unmapped_src"]),
+                        unfilled=len(rep[a]["unfilled_dst"])) for a in COSY_RULE_ARTIFACTS}
+    check(all(c["mapped"] > 0 and c["unmapped"] == 0 and c["unfilled"] == 0 for c in coverage.values()),
+          f"path K conversion coverage {coverage}")
+    camp = rep["campplus.onnx"]
+    check(camp["mode"] == "graph-executed" and camp["unsupported_ops"] == [], f"path K campplus {camp}")
+    coverage["campplus.onnx"] = dict(mode=camp["mode"], nodes=sum(camp["ops"].values()),
+                                     unsupported=len(camp["unsupported_ops"]))
+    return dict(snapshot=snap, coverage=coverage, write_s=write_s, convert_s=convert_s,
+                release_mb=sum(p.stat().st_size for p in release.iterdir()) / 1e6,
+                snapshot_mb=snap.stat().st_size / 1e6)
+
+
+def greedy_vs_full_pass(eng, text, prompt, spk, n_new: int = 32) -> dict:
+    """The greedy KV-cache decode against one causal pass of the trunk
+    over [prefix | its tokens] (``prefill`` over the whole sequence, which,
+    like the decode, leaves out the trunk's after_norm): each token is the
+    pass's argmax at its position but at a top-2 near-tie (COSY_NEAR_TIE),
+    where the comparison ends."""
+    from autostyle_tts_tpu_torch.models.compat import cosy_llm, wenet_conformer
+
+    dev = eng.device
+    args = (torch.tensor([text], dtype=torch.int32, device=dev), torch.tensor([len(text)], device=dev),
+            torch.tensor([prompt], dtype=torch.int32, device=dev), torch.tensor([len(prompt)], device=dev),
+            torch.as_tensor(np.asarray(spk, np.float32)[None]).to(dev))
+    gen = cosy_llm.generate(eng.llm, eng.llm_cfg, *args, max_new_tokens=n_new, sampler=SamplerConfig(greedy=True))
+    n = int(gen.lengths[0])
+    toks = gen.tokens[0, :n].long()
+    with torch.no_grad():
+        emb, _, lens = cosy_llm.build_prefix(eng.llm, eng.llm_cfg, *args)
+        full = torch.cat([emb[:, : int(lens[0])], eng.llm["speech_embedding"][toks][None]], 1)
+        h, _ = wenet_conformer.prefill(eng.llm["llm"], eng.llm_cfg.llm, full,
+                                       torch.ones(full.shape[:2], device=dev), full.shape[1])
+        logits = h[0] @ eng.llm["llm_decoder"]["w"] + eng.llm["llm_decoder"]["b"]
+    start = int(lens[0]) - 1
+    equal, tie_at, min_gap = 0, None, float("inf")
+    for i in range(n):
+        row = logits[start + i]
+        top2 = torch.topk(row, 2).values
+        gap = float(top2[0] - top2[1])
+        min_gap = min(min_gap, gap)
+        if int(torch.argmax(row)) != int(toks[i]):
+            check(gap < COSY_NEAR_TIE, f"path K greedy token {i} ({int(toks[i])}) is not the causal pass's "
+                  f"argmax ({int(torch.argmax(row))}) at top-2 gap {gap}")
+            tie_at = i
+            break
+        equal += 1
+    check(n > 0 and equal >= min(n, 8), f"path K greedy decode: {equal} of {n} tokens compared")
+    return dict(n_tokens=n, equal=equal, near_tie_at=tie_at, min_top2_gap=min_gap)
+
+
+def s3_tokens_kernel_vs_plain(eng, wav16: np.ndarray) -> dict:
+    """The speech tokens of one 16 kHz wav from the kernel's log-mel (128
+    mels) and from the plain version's, on the same strided frames: equal
+    wherever the plain mel's two nearest codebook rows differ by more than
+    VQ_MARGIN in squared distance."""
+    from autostyle_tts_tpu_torch.models.compat import s3_tokenizer
+
+    dev = eng.device
+    x = stft._reflect_pad(torch.from_numpy(wav16).to(dev)[None], 200)
+    frames = stft.frame_signal(x.contiguous(), 400, 160)
+    cos_b, sin_b = stft._dft_basis_on(dev, 400, 400)
+    fb = stft._mel_filterbank_on(dev, 16000, 400, eng.s3_cfg.n_mels, 0.0, 8000.0)
+    mask = torch.ones((1, frames.shape[1]), device=dev)
+    mels = {"kernel": log_mel.fused_log_mel(frames, cos_b, sin_b, fb),
+            "plain": log_mel.fused_log_mel_plain(frames, cos_b, sin_b, fb)}
+    d2 = {k: s3_tokenizer.vq_distances(eng.s3["codebook"], s3_tokenizer.encode_hidden(eng.s3, eng.s3_cfg, m, mask)[0])
+          for k, m in mels.items()}
+    tok = {k: torch.argmin(d, dim=-1) for k, d in d2.items()}
+    near2 = torch.topk(d2["plain"], 2, dim=-1, largest=False).values
+    decisive = (near2[..., 1] - near2[..., 0]) > VQ_MARGIN
+    n_dec, n_all = int(decisive.sum()), decisive.numel()
+    check(n_dec >= 0.9 * n_all, f"path K speech tokens: only {n_dec} of {n_all} are decisive")
+    check(torch.equal(tok["kernel"][decisive], tok["plain"][decisive]),
+          "path K: speech tokens from the kernel's 128-mel log-mel differ from the plain version's")
+    return dict(tokens=n_all, compared=n_dec, equal_all=int((tok["kernel"] == tok["plain"]).sum()),
+                mel_err=float((mels["kernel"] - mels["plain"]).abs().max()))
+
+
+def compat_request(eng, kind: str, call, n_prompt: int) -> dict:
+    """One B=1 request: finite 22,050 Hz audio of gen_len x 512 samples."""
+    t0 = time.perf_counter()
+    wav = next(call())["tts_speech"]
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    n = eng.last_gen_len
+    spf = eng.hift_cfg.samples_per_frame * eng.flow_cfg.token_mel_ratio
+    check(eng.hift_cfg.sampling_rate == 22050, f"path K: HiFT at {eng.hift_cfg.sampling_rate} Hz")
+    check(wav.shape == (1, n * spf) and n > 0 and bool(np.isfinite(wav).all()),
+          f"path K {kind}: wav {wav.shape} for {n} tokens x {spf}, or not finite")
+    tm = eng.last_timings
+    rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
+    check(rms > 1e-4, f"path K {kind}: wav is silent (rms {rms})")
+    return dict(kind=kind, prompt_tokens=n_prompt, gen_len=n, audio_s=wav.shape[1] / 22050, rms=rms, wall_ms=wall_ms,
+                llm_ms=tm["llm"], llm_ms_per_token=tm["llm"] / n, flow_ms=tm["flow"], hift_ms=tm["hift"])
+
+
+def compat_serve(snapshot: Path, geo: SynthGeometry) -> dict:
+    """K2: the converted release on the card (``CosyEngine``, the
+    published estimator heads and steps), B=1 requests through both entry
+    points from pre-tokenized prompts and from 3 s 16 kHz wavs (the
+    tokenizer's log-mel through the kernel, the x-vector through the
+    campplus graph)."""
+    from autostyle_tts_tpu_torch.models.compat import CosyEngine
+
+    t0 = time.perf_counter()
+    eng = CosyEngine.load(snapshot, n_heads_est=COSY_HEADS_EST, n_steps=COSY_STEPS, seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(eng.device.type == "cuda" and eng.s3 is not None and eng.campplus is not None, "path K engine")
+    check(eng.llm_cfg.speech_vocab == geo.speech_vocab and eng.llm_cfg.llm.n_layers == geo.n_llm_layers
+          and eng.s3_cfg.n_mels == geo.s3_mels, f"path K geometry {eng.llm_cfg} {eng.s3_cfg}")
+    rng = np.random.default_rng(9)
+    texts = [rng.integers(0, geo.text_vocab, 40).astype(np.int32) for _ in range(2)]
+    prompt = rng.integers(0, geo.speech_vocab, COSY_PROMPT_TOKENS).astype(np.int32)
+    style = rng.integers(0, geo.speech_vocab, COSY_PROMPT_TOKENS).astype(np.int32)
+    mel = (rng.standard_normal((2 * COSY_PROMPT_TOKENS, geo.n_mels)) * 0.5 - 5.0).astype(np.float32)
+    spk = rng.standard_normal(geo.spk_dim).astype(np.float32)
+    reqs = [compat_request(eng, "zero_shot", lambda: eng.inference_zero_shot(
+                texts[0], prompt, mel, spk, max_new=COSY_MAX_NEW), len(prompt)),
+            compat_request(eng, "tts_with_st", lambda: eng.inference_tts_with_st(
+                texts[1], style, prompt, mel, spk, max_new=COSY_MAX_NEW), len(prompt))]
+    wav_reqs, featurize = [], []
+    for i, seed in enumerate((510, 511)):
+        w16 = synthetic_wav(seed)
+        toks = eng.tokenize_wav16(w16)
+        xvec = eng.embed_speaker_wav16(w16)
+        check(len(toks) == 1 + len(w16) // 320 and int(toks.max()) < geo.speech_vocab,
+              f"path K wav prompt tokens {len(toks)}")
+        check(xvec.shape == (geo.spk_dim,) and bool(np.isfinite(xvec).all()), "path K x-vector")
+        featurize.append(dict(tokenize_ms=eng.last_timings["tokenize"], xvector_ms=eng.last_timings["xvector"],
+                              tokens=len(toks)))
+        # the flow's prompt mel comes with a prompt (CosyEngine takes it precomputed): zeros here
+        zeros = np.zeros((2 * len(toks), geo.n_mels), np.float32)
+        call = ((lambda: eng.inference_zero_shot(texts[0], toks, zeros, xvec, max_new=COSY_MAX_NEW)) if i == 0 else
+                (lambda: eng.inference_tts_with_st(texts[1], toks, toks, zeros, xvec, max_new=COSY_MAX_NEW)))
+        wav_reqs.append(compat_request(eng, "wav_" + ("zero_shot" if i == 0 else "tts_with_st"), call, len(toks)))
+    greedy = greedy_vs_full_pass(eng, texts[0].tolist(), prompt.tolist(), spk)
+    n0 = log_mel.fused_log_mel.launches
+    tokens_kp = s3_tokens_kernel_vs_plain(eng, synthetic_wav(510))
+    log_mel.fused_log_mel.launches = n0      # a comparison with the plain version is not the path's launch
+    return dict(load_s=load_s, requests=reqs + wav_reqs, featurize=featurize, greedy=greedy,
+                s3_kernel_vs_plain=tokens_kp,
+                gpu_gb=torch.cuda.memory_allocated() / 1e9)
+
+
+def hf_state_dict(ecfg, gen, dtype=torch.bfloat16) -> dict:
+    """A Llama-architecture state dict in Hugging Face key names at
+    ``ecfg``'s widths, drawn on ``gen``'s device (std 0.02, norms at one,
+    embeddings tied as Llama-3.2-3B's)."""
+    D, F, hd = ecfg.dim, ecfg.ffn_dim, ecfg.head_dim
+    dev = gen.device
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+
+    sd = {"model.embed_tokens.weight": w(ecfg.vocab_size, D),
+          "model.norm.weight": torch.ones(D, device=dev, dtype=dtype)}
+    for i in range(ecfg.n_layers):
+        p = f"model.layers.{i}."
+        sd.update({p + "self_attn.q_proj.weight": w(ecfg.n_heads * hd, D),
+                   p + "self_attn.k_proj.weight": w(ecfg.n_kv_heads * hd, D),
+                   p + "self_attn.v_proj.weight": w(ecfg.n_kv_heads * hd, D),
+                   p + "self_attn.o_proj.weight": w(D, ecfg.n_heads * hd),
+                   p + "mlp.gate_proj.weight": w(F, D), p + "mlp.up_proj.weight": w(F, D),
+                   p + "mlp.down_proj.weight": w(D, F),
+                   p + "input_layernorm.weight": torch.ones(D, device=dev, dtype=dtype),
+                   p + "post_attention_layernorm.weight": torch.ones(D, device=dev, dtype=dtype)})
+    return sd
+
+
+def hf_config_json(ecfg, tie: bool = True) -> dict:
+    """A Hugging Face ``config.json`` of Llama architecture at ``ecfg``'s widths."""
+    return dict(architectures=["LlamaForCausalLM"], model_type="llama", vocab_size=ecfg.vocab_size,
+                hidden_size=ecfg.dim, intermediate_size=ecfg.ffn_dim, num_hidden_layers=ecfg.n_layers,
+                num_attention_heads=ecfg.n_heads, num_key_value_heads=ecfg.n_kv_heads,
+                max_position_embeddings=131072, rope_theta=ecfg.rope_theta, rms_norm_eps=ecfg.norm_eps,
+                tie_word_embeddings=tie, torch_dtype="bfloat16")
+
+
+def hf_tiny_round_trip(d: Path) -> dict:
+    """A ``--tiny`` Hugging Face directory (config.json + model.safetensors
+    in bf16, drawn from a seed, written by ``hf_convert.write_safetensors``)
+    through ``load_hf_checkpoint`` on the card: params equal to the
+    conversion of the same state dict, an embed finite."""
+    from autostyle_tts_tpu_torch.utils.config import tiny_config
+
+    tcfg = tiny_config().embedder
+    sd = hf_state_dict(tcfg, torch.Generator(device="cpu").manual_seed(4324))
+    (d / "config.json").write_text(json.dumps(hf_config_json(tcfg, tie=False)))
+    sd["lm_head.weight"] = sd["model.embed_tokens.weight"].clone() * 0.5
+    hf_convert.write_safetensors(d / "model.safetensors", sd)
+    cfg, params = hf_convert.load_hf_checkpoint(d)
+    want = hf_convert.convert_state_dict(sd, cfg)
+    got, want = _flat_keys(params), _flat_keys(want)
+    check(sorted(got) == sorted(want) and all(torch.equal(got[k].cpu(), v) for k, v in want.items()),
+          "path K tiny HF round trip: params differ from the conversion of the written state dict")
+    e = rag.EmbedderService(cfg, params).embed(["a tiny checkpoint", "read back"], width=32)
+    check(e.shape == (2, cfg.dim) and bool(np.isfinite(e).all()), "path K tiny HF embed")
+    return dict(dim=cfg.dim, layers=cfg.n_layers, tensors=len(sd),
+                bytes=(d / "model.safetensors").stat().st_size, equal=True)
+
+
+def hf_embedder(d: Path) -> dict:
+    """K3: a state dict in Hugging Face key names at ``Config().embedder``'s
+    published Llama-3.2-3B geometry, bf16, drawn on the card; converted by
+    ``config_from_hf`` + ``convert_state_dict`` on the card; served as a
+    dense ``EmbedderService``: an embed at B=16, T=512 and one left-padded
+    prefill (B=2, P=512; flash in each layer); then the tiny directory."""
+    ecfg = Config().embedder
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sd = hf_state_dict(ecfg, torch.Generator(device="cuda").manual_seed(4325))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = hf_convert.config_from_hf(hf_config_json(ecfg))
+    params = hf_convert.convert_state_dict(sd, cfg)
+    del sd
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    check((cfg.dim, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_dim, cfg.vocab_size) == (
+        ecfg.dim, ecfg.n_layers, ecfg.n_heads, ecfg.n_kv_heads, ecfg.ffn_dim, ecfg.vocab_size)
+        and cfg.tie_embeddings and "lm_head" not in params, f"path K HF config {cfg}")
+    torch.cuda.empty_cache()
+    gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+    emb = rag.EmbedderService(cfg, params)
+    texts = [f"{s}: {t}" for s, t in RAG_SAMPLES] * 2
+    emb.embed(texts[:2])       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e = emb.embed(texts)
+    embed_ms = (time.perf_counter() - t0) * 1e3
+    check(e.shape == (16, cfg.dim) and bool(np.isfinite(e).all()), "path K HF embed")
+    seqs = [emb._encode(t, 512) for t in (RAG_DIALOG[0][1], RAG_SAMPLES[2][1] * 3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = emb._generate_ids(seqs, 1, SamplerConfig.label(), 512)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    check(len(out) == 2, "path K HF prefill")
+    del emb, params
+    torch.cuda.empty_cache()
+    tiny = hf_tiny_round_trip(d)
+    return dict(geometry=dict(dim=cfg.dim, layers=cfg.n_layers, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                              ffn=cfg.ffn_dim, vocab=cfg.vocab_size, tied=cfg.tie_embeddings),
+                masters_gb=gb, draw_s=draw_s, convert_s=convert_s, embed_B=16, embed_T=512, embed_ms=embed_ms,
+                embed_ms_per_row=embed_ms / 16, prefill_B=2, prefill_P=512, prefill_ms=prefill_ms, tiny_dir=tiny)
+
+
+def path_k() -> dict:
+    """The compat stack (K1-K3)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        conv = compat_convert(d, COSYVOICE_300M)
+        print("compat convert", json.dumps({k: v for k, v in conv.items() if k != "snapshot"}), flush=True)
+        serve = compat_serve(conv.pop("snapshot"), COSYVOICE_300M)
+        torch.cuda.empty_cache()
+        compat_s = time.perf_counter() - t0
+        (d / "hf").mkdir()
+        hf = hf_embedder(d / "hf")
+    launches = read_counts()
+    for name in ("flash_attention", "fused_log_mel"):
+        check(launches[name] > 0, f"path K never launched {name}: {launches}")
+    return dict(convert=conv, serve=serve, hf=hf, launches=launches, compat_s=compat_s,
+                wall_s=time.perf_counter() - t0)
+
+
 def profile_embedder(emb, steps: int = 16) -> dict:
     """The embedder's decode loop under torch.profiler: a sampled
     generation (the biography sampler) of ``steps`` tokens at B=2 from a
@@ -2332,8 +2669,14 @@ def main() -> int:
     with inputs.watch("J"):
         pj = path_j(eng, store, cfg)
     print("path J", json.dumps({k: pj[k] for k in ("launches", "wall_s")}), flush=True)
-    # outside the path's counts and recorded inputs
+    # outside the path's counts and recorded inputs; frees path I's embedder
     print("profile embedder", json.dumps(profile_embedder(pi.pop("embedder"))), flush=True)
+    torch.cuda.empty_cache()
+    with inputs.watch("K"):
+        pk = path_k()
+    print("compat", json.dumps(dict(convert=pk["convert"], **pk["serve"])), flush=True)
+    print("hf embedder", json.dumps(pk["hf"]), flush=True)
+    print("path K", json.dumps({k: pk[k] for k in ("launches", "compat_s", "wall_s")}), flush=True)
     admitted = sorted({shape[0] for (path, shape, _) in inputs.flash if path == "H" and shape[1] == 384})
     check(admitted == [1, 2, 4], f"path H's admissions prefilled B = {admitted} at T = 384, expected 1, 2 and 4")
     on_inputs = inputs.replay()
@@ -2351,6 +2694,16 @@ def main() -> int:
     pi["rag"]["flash"] = [{k: r[k] for k in ("shape", "ms", "bound_ms", "bound_by", "library_ms", "plain_ms",
                                              "max_abs_err")} for r in flash_rag]
     print("rag", json.dumps(pi["rag"]), flush=True)
+    # path K's new geometries: flash on the dense 3B embedder loaded from Hugging Face key names
+    # (the embed and the left-padded prefill), the log-mel at the S3 tokenizer's 128 mels
+    flash_k = [flash_measure(*t) for (path, shape, _), t in inputs.flash.items() if path == "K" and shape[3] == 128]
+    check(len(flash_k) == 2, f"path K gave flash {len(flash_k)} geometries at hd = 128, expected 2")
+    for r in flash_k:
+        print("flash hf embedder B={} T={} (path K's inputs)".format(*r["shape"][:2]), json.dumps(r), flush=True)
+    mel_k = [log_mel_measure(*t) for (path, shape, _, _), t in inputs.mel.items() if path == "K"]
+    check(len(mel_k) == 1 and mel_k[0]["shape"][-1] == COSYVOICE_300M.s3_mels,
+          f"path K gave the log-mel {[r['shape'] for r in mel_k]}, expected one geometry at 128 mels")
+    print("log_mel 16k 128 mels (path K's inputs)", json.dumps(mel_k[0]), flush=True)
     del inputs
     print("profile db_served", json.dumps(profile_request(
         eng, *eng.prompt_features_from_store(store, [0, 1]))), flush=True)
@@ -2372,14 +2725,14 @@ def main() -> int:
                     **{k: rec[k] for k in KERNEL_KEYS})
 
     jax_decode = "autostyle_tts_tpu/ops/pallas_decode.py"
-    # launches on every path that runs the kernel: flash on A, C, D, E, G, H, I, J; log-mel on A, D, E, G, I, J;
-    # the decode step on A, G, J; its int4 build on C, G (the other paths add 0)
-    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph, pi, pj))
+    # launches on every path that runs the kernel: flash on A, C, D, E, G, H, I, J, K; log-mel on A, D, E, G, I,
+    # J, K; the decode step on A, G, J; its int4 build on C, G (the other paths add 0)
+    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph, pi, pj, pk))
     # max_abs_err: the largest of every case checked (phase 3 and the paths' own inputs)
     worst = lambda name, recs: max(r["max_abs_err"] for r in (*recs, *on_inputs[name]))
     flash_rec = dict(flash_main, max_abs_err=worst("flash_attention", (flash_main, flash_gqa, flash_128, flash_batch,
-                                                                       *flash_admit.values(), *flash_rag)))
-    mel_rec = dict(mel24, max_abs_err=worst("fused_log_mel", (mel24,)))
+                                                                       *flash_admit.values(), *flash_rag, *flash_k)))
+    mel_rec = dict(mel24, max_abs_err=worst("fused_log_mel", (mel24, *mel_k)))
     kernels = [
         entry("flash_attention", FLASH_SRC, "autostyle_tts_tpu/ops/pallas_attn.py:76",
               on_paths("flash_attention"), flash_rec),

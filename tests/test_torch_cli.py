@@ -166,8 +166,8 @@ def test_cli_search_embeddings_and_search(fixtures, tmp_path, capsys):
 
 def test_cli_entry_points_ask_for_the_card(fixtures, tmp_path):
     """Without ``--device`` the CLIs run on the card and, where there is
-    none, raise; a mesh and the Hugging Face loader raise naming their
-    ROADMAP.md item."""
+    none, raise; a mesh raises naming its ROADMAP.md item, the Hugging
+    Face loader an empty checkpoint directory."""
     p = argparse.ArgumentParser()
     add_common_args(p)
     insert_embeddings.add_embedder_args(p)
@@ -196,10 +196,12 @@ def test_cli_entry_points_ask_for_the_card(fixtures, tmp_path):
         for mod, argv in engine_clis:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 mod.main(["--tiny"] + argv)
-    for argv, item in ((["--tiny", "--dp", "2"], "item 11"), (["--tiny", "--tp", "2"], "item 11"),
-                       (["--tiny", "--embedder_hf_dir", str(tmp_path)], "item 9")):
+    for argv, item in ((["--tiny", "--dp", "2"], "item 11"), (["--tiny", "--tp", "2"], "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             insert_embeddings.build_embedder(p.parse_args(argv + CPU), cfg)
+    # the Hugging Face loader is ported: a directory without a checkpoint is an error of its own
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        insert_embeddings.build_embedder(p.parse_args(["--tiny", "--embedder_hf_dir", str(tmp_path)] + CPU), cfg)
     with pytest.raises(NotImplementedError, match="item 10"):
         export_engine.main(["--tiny", "--output", x, "--stage_ckpt", f"cfm={x}"] + CPU)
 

@@ -266,15 +266,16 @@ def test_engine_without_cuda_requires_explicit_cpu():
 
 def test_port_imports_no_jax():
     """The whole port, and chip_smoke.py, import neither jax nor anything
-    of the JAX package."""
+    of the JAX package; nor, at import time, ``transformers`` or
+    ``safetensors``, which the machine with the card does not have."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import autostyle_tts_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'autostyle_tts_tpu' or m.startswith('autostyle_tts_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'autostyle_tts_tpu', 'transformers', 'safetensors')]\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith('autostyle_tts_tpu_torch')]))\n"
     )
