@@ -63,23 +63,43 @@ def check_single_device(args) -> None:
                                   "(ROADMAP.md: queue A item 11)")
 
 
+def engine_params(args, cfg, dev):
+    """The f32 weights an engine is built from: drawn from ``--seed`` (the
+    draw ``Engine`` makes itself) or ``--checkpoint`` loaded into that
+    structure."""
+    from ..pipeline.engine import EngineParams
+    from ..weights import load_tree
+
+    init = EngineParams.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    return EngineParams.from_tree(load_tree(args.checkpoint, init.tree())) if args.checkpoint else init
+
+
 def build_engine(args):
     """The port's Engine on ``--device``, with ``--checkpoint`` weights."""
-    from ..pipeline.engine import Engine, EngineParams
-    from ..weights import load_tree
+    from ..pipeline.engine import Engine
 
     check_single_device(args)
     cfg = build_config(args)
     dev = resolve_device(args.device)
-    params = None
-    if args.checkpoint:
-        init = EngineParams.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
-        params = EngineParams.from_tree(load_tree(args.checkpoint, init.tree()))
+    params = engine_params(args, cfg, dev) if args.checkpoint else None
     engine = Engine(cfg, params=params, seed=args.seed, device=dev)
     if getattr(args, "profile", False):
         atexit.register(lambda: print("\n-- last request's stage timing (ms) --\n"
                                       + json.dumps(engine.last_timings)))
     return engine
+
+
+def build_training_engine(args):
+    """(Engine, its f32 ``EngineParams``) for the training CLIs: the engine
+    featurizes the data; the trainers update the f32 weights (the token LM's
+    masters, never the copy the engine serves, which is bf16 or int8)."""
+    from ..pipeline.engine import Engine
+
+    check_single_device(args)
+    cfg = build_config(args)
+    dev = resolve_device(args.device)
+    params = engine_params(args, cfg, dev)
+    return Engine(cfg, params=params, seed=args.seed, device=dev), params
 
 
 def save_engine_checkpoint(engine, path: str) -> None:

@@ -2,14 +2,15 @@
 
 Counterpart of the JAX ``models/cfm.py`` (``init_params``, ``_t_embed``,
 ``_ln``, ``_frame_pos_embed``, ``vector_field``, ``upsample_tokens``,
-``sample_mel``). Trunk matmuls run in ``cfg.dtype``; layer-norm statistics,
-softmax, the adaLN modulation and the ODE state stay f32, as there.
+``sample_mel``, the training objective ``cfm_loss``). Trunk matmuls run in
+``cfg.dtype``; layer-norm statistics, softmax, the adaLN modulation and the
+ODE state stay f32, as there.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +117,50 @@ def upsample_tokens(params: Params, tokens: torch.Tensor, upsample: int) -> torc
     """[B, T_tok] -> [B, T_tok * upsample, D] token conditioning."""
     emb = params["tok_emb"][tokens.long()]
     return torch.repeat_interleave(emb, upsample, dim=1)
+
+
+class CFMLoss(NamedTuple):
+    loss: torch.Tensor
+    pred: torch.Tensor
+
+
+def cfm_draws(generator: torch.Generator, mel: torch.Tensor, cond_drop_prob: float) -> Dict[str, torch.Tensor]:
+    """The random draws of one ``cfm_loss``: noise ``x0`` [B, F, M], flow
+    times ``t`` [B] in [0, 1) and the conditioning-drop flags ``drop`` [B]."""
+    B = mel.shape[0]
+    dev = mel.device
+    return {"x0": torch.randn(mel.shape, generator=generator, device=dev, dtype=mel.dtype),
+            "t": torch.rand((B,), generator=generator, device=dev, dtype=mel.dtype),
+            "drop": torch.rand((B,), generator=generator, device=dev) < cond_drop_prob}
+
+
+def cfm_loss(
+    params: Params, cfg: CFMConfig,
+    generator: Optional[torch.Generator],
+    mel: torch.Tensor,            # [B, F, M] target mel
+    token_cond: torch.Tensor,     # [B, F, D]
+    spk: torch.Tensor,
+    prompt_mask: torch.Tensor,    # [B, F] frames given as prompt
+    frame_mask: torch.Tensor,     # [B, F] real frames
+    cond_drop_prob: float = 0.2,
+    draws: Optional[Dict[str, torch.Tensor]] = None,
+) -> CFMLoss:
+    """OT-CFM objective: x_t = (1 - (1 - s) t) x0 + t x1, target
+    u = x1 - (1 - s) x0 (sigma_min = s); conditioning dropout trains the
+    unconditional branch for guidance. ``draws`` (``cfm_draws``' keys)
+    replaces the draws from ``generator``. Prompt frames are not scored."""
+    M = mel.shape[-1]
+    d = draws if draws is not None else cfm_draws(generator, mel, cond_drop_prob)
+    x0, t, drop = d["x0"].to(mel.dtype), d["t"].to(mel.dtype), d["drop"].bool()
+    s = cfg.sigma_min
+    x_t = (1 - (1 - s) * t)[:, None, None] * x0 + t[:, None, None] * mel
+    target = mel - (1 - s) * x0
+    tc = torch.where(drop[:, None, None], torch.zeros_like(token_cond), token_cond)
+    prompt_mel = mel * prompt_mask[..., None]
+    pred = vector_field(params, cfg, x_t, t, tc, spk, prompt_mel, prompt_mask, frame_mask)
+    w = (frame_mask * (1 - prompt_mask))[..., None]
+    loss = (w * (pred - target) ** 2).sum() / torch.clamp(w.sum() * M, min=1.0)
+    return CFMLoss(loss=loss, pred=pred)
 
 
 def sample_mel(

@@ -21,7 +21,7 @@ emitted EOS. With a dict of ``mega_decode_params`` (B=1) it is one
 decode-step op per token, which samples in its kernel, and one host read of
 the token for the EOS check. With a list of ``unstack_decode_params`` it is
 an ``attn_step`` and an ``mlp_step`` per layer and token, the speech head in
-plain PyTorch and the host sampler.
+plain PyTorch and the host sampler. ``lm_loss`` is the training objective.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from typing import Dict, Generator, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ..ops.attention import apply_rope, quantize_kv, rope_inv_freq, rope_table
+from ..ops.attention import apply_rope, causal_mask, quantize_kv, rope_inv_freq, rope_table
 from ..ops.decode_step import (WEIGHT_KEYS, attn_step, decode_scratch, mega_decode_step,
                                mlp_step, pack4, part_shape, weight_bits)
 from ..ops.sampling import SamplerConfig, sample, transform_logits
@@ -847,3 +847,39 @@ def decode_chunk(
     for name, buf in cache.items():
         buf[:, rows, home] = app[name]
     return cache, cur_logits, t, done, steps, torch.stack(toks, dim=1)
+
+
+# ----------------------------------------------------------------------- training
+
+
+def lm_loss(
+    params: Params, cfg: TokenLMConfig, prefix: Prefix,
+    speech_targets: torch.Tensor,   # [B, T_s] right-padded target speech tokens
+    target_len: torch.Tensor,       # [B]
+    remat: bool = False,
+) -> torch.Tensor:
+    """Teacher-forced next-token cross-entropy on the speech continuation:
+    one forward over [prefix ++ targets ++ EOS] (the prefix LEFT-padded,
+    attention under the causal and left-pad mask, plain ``sdpa``), scored
+    from the last prefix slot on, EOS step included."""
+    ccfg = core_config(cfg)
+    B, P, _ = prefix.embeds.shape
+    T_s = speech_targets.shape[1]
+    dev = prefix.embeds.device
+    target_len = target_len.long().to(dev)
+    tgt = torch.cat([speech_targets.long(),
+                     torch.full((B, 1), cfg.speech_eos, dtype=torch.long, device=dev)], dim=1)
+    idx = torch.arange(T_s + 1, device=dev)[None, :]
+    tgt = torch.where(idx == target_len[:, None], torch.full_like(tgt, cfg.speech_eos), tgt)
+    tgt = torch.where(idx > target_len[:, None], torch.full_like(tgt, cfg.speech_pad), tgt)
+    emb = torch.cat([prefix.embeds, params["speech_emb"][tgt].to(prefix.embeds.dtype)], dim=1)
+    T = emb.shape[1]
+    offset = P - prefix.length.long().to(dev)
+    pos = torch.clamp(torch.arange(T, device=dev)[None, :] - offset[:, None], min=0)
+    valid = torch.arange(T, device=dev)[None, :] >= offset[:, None]
+    mask = causal_mask(T, T, device=dev) & valid[:, None, None, :]
+    hidden = core.forward(params, ccfg, inputs_embeds=emb, positions=pos, mask=mask, remat=remat)
+    logits = core.matmul_any(hidden[:, P - 1 : P + T_s], params["speech_head"]).float()
+    nll = -torch.gather(torch.log_softmax(logits, dim=-1), -1, tgt[..., None])[..., 0]
+    w = (idx <= target_len[:, None]).float()
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)

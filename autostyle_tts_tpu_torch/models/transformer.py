@@ -39,6 +39,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..ops.attention import apply_rope, causal_mask, quantize_kv, rope_table, sdpa, sdpa_quant
 from ..ops.flash_attn import flash_attention
@@ -262,6 +263,7 @@ def forward(
     cache_start: Union[int, torch.Tensor] = 0,
     lora: Optional[Params] = None,
     lora_scale: float = 0.0,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Runs every layer over the T new slots and returns the final-norm
     hidden states [B, T, D] (compute dtype). With a ``cache`` their k/v are
@@ -272,7 +274,11 @@ def forward(
     writes that case as a select over the whole cache, because a scatter
     serializes on its accelerator; here it is one indexed write. Without a
     cache, attention covers the T new keys under ``offset`` (flash) or
-    ``mask`` (plain)."""
+    ``mask`` (plain). ``remat`` (under grad mode): each layer through
+    ``torch.utils.checkpoint`` (``use_reentrant=False``), so the backward
+    recomputes a layer's activations, its weights widened to f32 among them,
+    instead of holding them all from the forward; the gradients are the
+    same."""
     if (tokens is None) == (inputs_embeds is None):
         raise ValueError("forward: pass tokens or inputs_embeds")
     dt = _DTYPES[cfg.dtype]
@@ -292,11 +298,14 @@ def forward(
     positions = positions.clamp(max=cfg.max_seq_len - 1)
     cos, sin = rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta, device=h.device)
     lora_layers = None if lora is None else lora["layers"]
+    layer = _layer
+    if remat and torch.is_grad_enabled():
+        layer = lambda *a: torch.utils.checkpoint.checkpoint(_layer, *a, use_reentrant=False)
     for l in range(cfg.n_layers):
-        h = _layer(h, _layer_params(params["layers"], l),
-                   None if lora_layers is None else _layer_params(lora_layers, l), lora_scale,
-                   cfg, cos, sin, positions,
-                   None if cache is None else {name: t[l] for name, t in cache.items()}, start, offset, mask)
+        h = layer(h, _layer_params(params["layers"], l),
+                  None if lora_layers is None else _layer_params(lora_layers, l), lora_scale,
+                  cfg, cos, sin, positions,
+                  None if cache is None else {name: t[l] for name, t in cache.items()}, start, offset, mask)
     return rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 

@@ -8,20 +8,21 @@
   ``apply_istft``).
 
 Both map one mel frame onto ``total_upsample`` output samples. The
-convolutions are plain PyTorch (cuDNN on the card), f32 throughout.
+convolutions are plain PyTorch (cuDNN on the card), f32 throughout. The
+training losses: ``multi_res_stft_loss`` and ``mel_l1_loss``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.conv import (conv1d, conv1d_init, conv_transpose1d, conv_transpose1d_init,
                         layer_norm, layer_norm_init)
-from ..ops.stft import istft_overlap_add
+from ..ops.stft import istft_overlap_add, log_mel_spectrogram_plain, power_spectrogram
 from ..utils.config import VocoderConfig
 from ..weights import uniform
 
@@ -125,3 +126,31 @@ def apply_istft(params: Params, cfg: VocoderConfig, mel: torch.Tensor) -> torch.
     wav = istft_overlap_add(mag * torch.cos(phase), mag * torch.sin(phase),
                             cfg.istft_n_fft, cfg.istft_hop)
     return torch.clamp(wav, -1.0, 1.0)
+
+
+# ----------------------------------------------------------------------- losses
+
+
+def multi_res_stft_loss(
+    wav_pred: torch.Tensor, wav_true: torch.Tensor,
+    resolutions: Tuple[Tuple[int, int, int], ...] = ((512, 128, 512), (1024, 256, 1024), (256, 64, 256)),
+) -> torch.Tensor:
+    """Spectral convergence + log-magnitude L1, averaged over the STFT
+    resolutions (n_fft, hop, win)."""
+    loss = 0.0
+    for n_fft, hop, win in resolutions:
+        sp = torch.sqrt(power_spectrogram(wav_pred, n_fft, hop, win) + 1e-9)
+        st = torch.sqrt(power_spectrogram(wav_true, n_fft, hop, win) + 1e-9)
+        sc = torch.linalg.norm(st - sp) / torch.clamp(torch.linalg.norm(st), min=1e-9)
+        loss = loss + sc + (torch.log(st) - torch.log(sp)).abs().mean()
+    return loss / len(resolutions)
+
+
+def mel_l1_loss(wav_pred: torch.Tensor, wav_true: torch.Tensor, sr: int, n_fft: int, hop: int,
+                n_mels: int) -> torch.Tensor:
+    """Mean |log-mel(pred) - log-mel(true)| on the plain, differentiable
+    spectrogram (``log_mel_spectrogram_plain``): the log-mel kernel has no
+    backward."""
+    mp = log_mel_spectrogram_plain(wav_pred, sr, n_fft, hop, n_mels=n_mels)
+    mt = log_mel_spectrogram_plain(wav_true, sr, n_fft, hop, n_mels=n_mels)
+    return (mp - mt).abs().mean()

@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, Sequence, Tuple
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -109,3 +111,15 @@ def check(rc: int, what: str) -> None:
     """Raise when a launcher returned a non-zero cudaError_t."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def forward_only(what: str, *tensors) -> None:
+    """The kernels have no backward: their wrappers hand raw pointers to
+    CUDA and return tensors autograd cannot follow, so a gradient through
+    them would be cut without a word. A wrapper calls this first, before it
+    picks the kernel or the plain version, and raises where grad mode is on
+    and an input requires grad (run it under ``torch.no_grad()``, or take the
+    plain differentiable function: ``ops/stft.log_mel_spectrogram_plain``,
+    ``transformer.forward`` with a ``mask``)."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward: an input requires grad under grad mode")

@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .cuda_build import check, function
+from .cuda_build import check, forward_only, function
 
 NEG_INF = -1e30
 # A GEMV block keeps its input vector (and, where it normalises the
@@ -585,6 +585,7 @@ def mega_decode_step(
     kw = dict(n_heads=n_heads, head_dim=head_dim, eps=eps, pad_id=pad_id,
               bos_id=bos_id, eos_id=eos_id, greedy=greedy,
               temperature=temperature, top_k=top_k)
+    forward_only("mega_decode_step", tok_in, k_all, v_all, *mp.values())
     if k_all.device.type == "cpu":
         return mega_decode_step_plain(tok_in, mp, k_all, v_all, t, off, suppress, seed, **kw)
     return _launch(tok_in, mp, k_all, v_all, t, off, suppress, seed, scratch=scratch, **kw)
@@ -617,6 +618,7 @@ def attn_step(
     (as ``decode_scratch`` makes them); they are allocated per call
     otherwise."""
     kw = dict(n_heads=n_heads, head_dim=head_dim, eps=eps)
+    forward_only("attn_step", h, attn_norm, wqkv, wqs, wo, wos, invf, k_cache, v_cache)
     if h.device.type == "cpu":
         h.copy_(attn_step_plain(h, attn_norm, wqkv, wqs, wo, wos, invf, k_cache, v_cache, t, off, **kw))
         return h
@@ -667,6 +669,7 @@ def mlp_step(
 ) -> torch.Tensor:
     """One decode MLP half-layer (int8 weights); updates ``h`` in place and
     returns it. ``scratch`` may hold the kernel's ``act`` bf16 [F] buffer."""
+    forward_only("mlp_step", h, mlp_norm, wgu, wgus, wd, wds)
     if h.device.type == "cpu":
         h.copy_(mlp_step_plain(h, mlp_norm, wgu, wgus, wd, wds, eps=eps))
         return h

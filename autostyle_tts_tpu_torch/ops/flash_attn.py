@@ -3,7 +3,9 @@
 Counterpart of the JAX ``ops/pallas_attn.py::flash_attention``. The kernel
 lives in ``csrc/flash_attn.cu``. A CPU tensor takes ``flash_attention_plain``
 (the f32 ``sdpa`` under the causal + offset mask); a CUDA tensor launches the
-kernel or raises. ``flash_attention.launches`` counts kernel launches.
+kernel or raises. ``flash_attention.launches`` counts kernel launches. The
+kernel has no backward: under grad mode an input that requires grad raises
+(``cuda_build.forward_only``), on either device.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import ctypes
 import torch
 
 from .attention import causal_mask, sdpa
-from .cuda_build import check, function
+from .cuda_build import check, forward_only, function
 
 HEAD_DIMS = (16, 32, 64, 128)   # head widths the kernel is instantiated for
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
@@ -66,6 +68,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Returns [B, T, H, hd] in q.dtype. Rows t < offset[b] are pad rows
     whose values nobody reads."""
+    forward_only("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, offset)
     return _launch(q, k, v, offset)

@@ -24,7 +24,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from .cuda_build import check, function
+from .cuda_build import check, forward_only, function
 
 # the kernel's tile: rows per block, bins per block, window samples per stage
 TILE_ROWS, TILE_BINS, TILE_WIN = 32, 64, 128
@@ -229,6 +229,7 @@ def fused_log_mel(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """-> [B, T, n_mels] natural-log mel, f32."""
+    forward_only("fused_log_mel", frames, cos_b, sin_b, fb)
     if frames.device.type == "cpu":
         return fused_log_mel_plain(frames, cos_b, sin_b, fb, eps)
     return _launch(frames, cos_b, sin_b, fb, eps)

@@ -8,7 +8,8 @@ moved to a device once per (device, size).
 ``log_mel_spectrogram`` has no ``impl=`` switch: it always goes through
 ``ops/log_mel.fused_log_mel``, which launches the fused kernel for a CUDA
 tensor and takes its plain version for a CPU tensor. Both JAX branches
-compute this same function.
+compute this same function. The kernel has no backward: a loss that needs
+the mel's gradient takes ``log_mel_spectrogram_plain``.
 """
 
 from __future__ import annotations
@@ -105,9 +106,14 @@ def num_frames(
 
 
 def _reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """Reflect-pad the last axis by ``pad`` on both sides (any rank)."""
-    lead = x.shape[:-1]
-    y = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")
+    """Reflect-pad the last axis by ``pad`` on both sides (any rank). A pad
+    as long as the signal or longer reflects again at each end, as numpy's
+    (and so the reference's) ``pad(mode="reflect")`` does."""
+    lead, T = x.shape[:-1], x.shape[-1]
+    if pad >= T:
+        idx = np.pad(np.arange(T), (pad, pad), mode="reflect")
+        return x[..., torch.from_numpy(idx).to(x.device)]
+    y = F.pad(x.reshape(-1, 1, T), (pad, pad), mode="reflect")
     return y.reshape(lead + (y.shape[-1],))
 
 
@@ -151,6 +157,26 @@ def log_mel_spectrogram(
         x = _reflect_pad(x, n_fft // 2)
     out = fused_log_mel(frame_signal(x.contiguous(), win_length, hop), cos_b, sin_b, fb, eps=eps)
     return out.reshape(lead + out.shape[-2:])
+
+
+def log_mel_spectrogram_plain(
+    x: torch.Tensor,
+    sr: int,
+    n_fft: int,
+    hop: int,
+    win_length: Optional[int] = None,
+    n_mels: int = 80,
+    fmin: float = 0.0,
+    fmax: Optional[float] = None,
+    center: bool = True,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """``log_mel_spectrogram`` in plain PyTorch ops that autograd follows,
+    never through the kernel: the training losses' mel (the reference's
+    ``impl="xla"`` path). Same function, same arguments."""
+    spec = power_spectrogram(x, n_fft, hop, win_length, center)
+    fb = _mel_filterbank_on(x.device, sr, n_fft, n_mels, fmin, fmax)
+    return torch.log(torch.clamp_min(torch.matmul(spec, fb), eps))
 
 
 @functools.lru_cache(maxsize=None)

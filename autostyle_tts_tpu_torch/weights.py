@@ -25,7 +25,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,15 +74,16 @@ def quantize_tree(params: Dict, names: Tuple[str, ...] = _QUANT_NAMES) -> Dict:
 # ----------------------------------------------------------------------------- trees
 
 
-def tree_map(fn, tree: Any) -> Any:
-    """Apply ``fn`` to every tensor leaf (QTensor fields included)."""
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every tensor leaf (QTensor fields included), or to
+    the leaves of several trees of the same structure together."""
     if isinstance(tree, QTensor):
-        return QTensor(q=fn(tree.q), s=fn(tree.s))
+        return QTensor(q=fn(tree.q, *(r.q for r in rest)), s=fn(tree.s, *(r.s for r in rest)))
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def to_device(tree: Any, device) -> Any:
@@ -282,12 +283,12 @@ def _flat_keys(tree: Any, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def save_tree(path: str, tree: Any) -> None:
+def save_tree(path: str, tree: Any, metadata: Optional[Dict] = None) -> None:
     """A tree of tensors as the JAX package's ``utils/checkpoint.save_pytree``
     writes a pytree: one flat-key ``.npz`` (numpy adds the suffix where it
-    is missing) and a ``<path>.meta.json`` sidecar listing the keys. bf16
-    leaves are written as f32 (exact: numpy has no bf16), every other leaf
-    in its own dtype."""
+    is missing) and a ``<path>.meta.json`` sidecar holding ``metadata`` and
+    the sorted keys. bf16 leaves are written as f32 (exact: numpy has no
+    bf16), every other leaf in its own dtype."""
     import json
     from pathlib import Path
 
@@ -296,20 +297,22 @@ def save_tree(path: str, tree: Any) -> None:
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **flat)
     with open(str(path) + ".meta.json", "w") as f:
-        json.dump({"keys": sorted(flat)}, f, indent=2)
+        json.dump({**(metadata or {}), "keys": sorted(flat)}, f, indent=2)
 
 
-def load_tree(path: str, like: Any) -> Any:
+def load_tree(path: str, like: Any, extra_ok: bool = False) -> Any:
     """A flat-key ``.npz`` loaded into the structure of ``like`` (a tree of
     tensors), the counterpart of the JAX ``utils/checkpoint.load_pytree``
     for a part of the engine (one module's weights). The file must hold
-    exactly ``like``'s keys, each with its shape: a missing or extra key,
-    or another shape, raises and names it. Leaves take ``like``'s dtype
-    and device (f16 leaves load as f32 first)."""
+    ``like``'s keys, each with its shape, and (unless ``extra_ok``, as a
+    training checkpoint restored in part) no others: a missing or extra
+    key, or another shape, raises and names it. Leaves take ``like``'s
+    dtype and device (f16 leaves load as f32 first)."""
     want = _flat_keys(like)
     p = str(path) if str(path).endswith(".npz") else str(path) + ".npz"
     with np.load(p) as data:
-        missing, extra = sorted(set(want) - set(data.files)), sorted(set(data.files) - set(want))
+        missing = sorted(set(want) - set(data.files))
+        extra = [] if extra_ok else sorted(set(data.files) - set(want))
         if missing or extra:
             raise ValueError(f"{p}: missing keys {missing}, extra keys {extra}")
         got = {}

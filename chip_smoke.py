@@ -107,12 +107,34 @@ Phases (any failure exits non-zero):
       at B=16, T=512 and a left-padded prefill at B=2, P=512), and a tiny
       Hugging Face directory through ``load_hf_checkpoint`` (``hf
       embedder`` line);
+   L. training: L1 every acoustic stage at ``Config()``'s widths (the
+      tokenizer, the token LM on its f32 masters, the CFM, the iSTFT
+      vocoder, the vocoder against its discriminators, a phoneme head, one
+      distillation step), 3 steps each on batches of 4 that
+      ``make_acoustic_batches`` featurizes on the card from a 32-utterance
+      synthcorpus (``train stage`` lines: ms a step, peak GB, losses, the
+      pre-clip gradient norms; every trained tensor but those the loss
+      never reads moved, the engine's own did not; the vocoder's mel term
+      has a gradient and the log-mel wrapper refuses a waveform that needs
+      one); L2 the LoRA SFT at Llama-3.2-3B width on an int8 base from a
+      seed (r 32, alpha 128: 40,370,176 adapter parameters, as
+      ``artifacts/ft3b/meta.json`` records): ``lora_sft.train`` with
+      ``TrainConfig``'s defaults on 40 synthetic chat samples of ~0.9 of
+      seq 1024 (packing turns itself off), 2 applied steps and an eval at
+      B=8, P=768 through the flash kernel, a second call that resumes and
+      stops, one micro-step at B=2 with remat on and off, 4 updates on one
+      repeated batch whose loss must fall (``train sft`` line); L3 the
+      training CLIs at ``--tiny`` on the card, ``make_corpus`` ->
+      ``train_acoustic`` for every stage -> ``export_engine --stage_ckpt``
+      -> ``basic`` from the snapshot, ``distill_cfm``, ``ft_llm``,
+      ``evaluate_base_model``, ``train_bpe`` (``train clis`` line);
    the inputs of the first call of each distinct geometry that paths A, D,
-   E, G, H, I, J and K give ``flash_attention`` and ``fused_log_mel`` are
+   E, G, H, I, J, K and L give ``flash_attention`` and ``fused_log_mel`` are
    kept (device copies) and, after the paths, each kernel is held against
    its plain version on them (path D's B=8 prefill, path H's admissions,
    T=384 at B=1, 2 and 4, path I's four embedder shapes and path K's two
-   dense-embedder shapes and its 128-mel log-mel are also timed);
+   dense-embedder shapes and its 128-mel log-mel, path L's SFT eval prefill
+   and its two flagship log-mel legs are also timed);
 5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --log-mel-only`` builds ``log_mel.cu`` alone, runs
@@ -733,17 +755,20 @@ class PathInputs:
     def watch(self, path: str):
         flash0, mel0 = transformer.flash_attention, stft.fused_log_mel
 
+        # a call is recorded once the wrapper took it (path L also gives one the wrapper must refuse)
         def flash(q, k, v, offset):
+            out = flash0(q, k, v, offset)
             key = (path, tuple(q.shape), tuple(k.shape))
             if key not in self.flash:
                 self.flash[key] = tuple(t.clone() for t in (q, k, v, offset))
-            return flash0(q, k, v, offset)
+            return out
 
         def mel(frames, cos_b, sin_b, fb, eps=1e-5):
+            out = mel0(frames, cos_b, sin_b, fb, eps)
             key = (path, tuple(frames.shape), frames.stride(), eps)
             if key not in self.mel:
                 self.mel[key] = (strided_copy(frames), cos_b, sin_b, fb, eps)
-            return mel0(frames, cos_b, sin_b, fb, eps)
+            return out
 
         transformer.flash_attention, stft.fused_log_mel = flash, mel
         try:
@@ -2569,6 +2594,402 @@ def profile_batch(eng: Engine, store: StyleStore) -> dict:
         top_host_ops=[dict(name=e.key, self_cpu_ms=e.self_cpu_time_total / 1e3, calls=e.count) for e in ops])
 
 
+# ----------------------------------------------------------------------------- path L
+
+L_STEPS = 3                # steps a stage on path L1 (ms a step: steps 2..L_STEPS)
+SFT_SAMPLES = 40           # L2's synthetic chat samples, about 0.9 of seq 1024 each
+SFT_EVAL = 8
+FT3B_ADAPTER_PARAMS = 40370176    # artifacts/ft3b/meta.json "adapter_params"
+UNREAD = {"token_lm": {"lm_head"}}    # trained trees' leaves the stage's loss never reads
+
+
+def snapshot(tree) -> dict:
+    """Copies of a tree's tensors by flat key."""
+    return {k: v.detach().clone() for k, v in _flat_keys(tree).items()}
+
+
+def changed(before: dict, tree) -> set:
+    now = _flat_keys(tree)
+    return {k for k, v in before.items() if not torch.equal(v, now[k])}
+
+
+def run_stage(name: str, steps, trained_before: dict, trained_after, extra=None) -> dict:
+    """Drive ``steps`` (a list of callables, one a step, each returning its
+    loss and the pre-clip grad norm), time them, and check the losses and
+    which tensors moved. -> the stage's ``train stage`` record."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    losses, norms, ms = [], [], []
+    for step in steps:
+        t0 = time.perf_counter()
+        loss, norm = step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        norms.append(float(norm))
+    tree = trained_after()
+    moved = changed(trained_before, tree)
+    still = set(trained_before) - moved
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)), f"train {name}: loss or grad norm not finite")
+    check(still == UNREAD.get(name, set()), f"train {name}: tensors that did not move {sorted(still)}")
+    rec = dict(stage=name, ms_per_step=ms[1:], first_step_ms=ms[0], peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               held_at_start_gb=held_gb,
+               losses=losses, grad_norms=norms, tensors=len(trained_before), unchanged=sorted(still), **(extra or {}))
+    print("train stage", json.dumps(rec), flush=True)
+    return rec
+
+
+def mel_term_check(cfg: Config, params, batch) -> dict:
+    """Trap 1 on the card: the vocoder loss's weight-45 mel term has a
+    nonzero gradient (the plain spectrogram; the log-mel kernel does not
+    launch for it), and the kernel's wrapper refuses a waveform that
+    requires grad rather than cut its gradient."""
+    from autostyle_tts_tpu_torch.train import optim
+
+    a = cfg.audio
+    n0 = log_mel.fused_log_mel.launches
+    _, _, g = optim.value_and_grad(lambda q: vocoder.mel_l1_loss(
+        vocoder.apply(q, cfg.vocoder, batch["mel"]), batch["wav"], a.sample_rate, a.n_fft, a.hop_length,
+        cfg.vocoder.n_mels), params)
+    norm = float(optim.global_norm(g))
+    check(norm > 0 and np.isfinite(norm), f"path L1: the mel loss's gradient norm is {norm}")
+    check(log_mel.fused_log_mel.launches == n0, "path L1: the mel loss launched the log-mel kernel")
+    w = batch["wav"].clone().requires_grad_(True)
+    try:
+        stft.log_mel_spectrogram(w, a.sample_rate, a.n_fft, a.hop_length, n_mels=cfg.vocoder.n_mels)
+    except RuntimeError as e:
+        check("no backward" in str(e), f"path L1: the log-mel wrapper raised {e}")
+    else:
+        check(False, "path L1: the log-mel kernel's wrapper took a waveform that requires grad")
+    return dict(mel_loss_grad_norm=norm)
+
+
+def path_l1(d: Path) -> dict:
+    """L1: every acoustic stage at ``Config()``'s flagship widths (token LM
+    1024 x 14, CFM 512 x 8, the iSTFT vocoder), 3 steps each, on batches of
+    4 that ``make_acoustic_batches`` featurizes on the card (the log-mel
+    kernel) from a 32-utterance synthcorpus; one distillation step. The
+    engine's own weights must not move."""
+    from autostyle_tts_tpu_torch.models import discriminator
+    from autostyle_tts_tpu_torch.train import acoustic, cfm_distill
+    from autostyle_tts_tpu_torch.train.data import load_acoustic_manifest, make_acoustic_batches
+    from autostyle_tts_tpu_torch.train.synthcorpus import N_PHONEME_CLASSES, generate_corpus
+
+    cfg = Config()
+    a = cfg.audio
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4400)
+    t0 = time.perf_counter()
+    manifest = generate_corpus(d / "corpus", n_utts=32, n_speakers=4, seed=0)
+    corpus_s = time.perf_counter() - t0
+    masters = EngineParams.init(gen, cfg)
+    eng = Engine(cfg, params=masters, seed=0)
+    engine_before = snapshot(masters.tree())
+    items = load_acoustic_manifest(manifest, str(d / "corpus"))
+    t0 = time.perf_counter()
+    batches = list(itertools.islice(make_acoustic_batches(eng, items, 4, 3.0, seed=0), L_STEPS))
+    torch.cuda.synchronize()
+    featurize_s = time.perf_counter() - t0
+    check(len(batches) == L_STEPS, f"path L1: {len(batches)} batches of 4 from 32 items")
+    opt = lambda: acoustic.default_optimizer(1e-4, 100)
+    stages = []
+
+    def factory_steps(step_fn, state: dict, call):
+        """L_STEPS steps of ``call(state, batch)``, which updates ``state``."""
+        def one(b):
+            def run():
+                loss = call(state, b)
+                return loss, step_fn.grad_norm
+            return run
+        return [one(b) for b in batches]
+
+    # tokenizer: VQ + phoneme head, usage EMA and restarts
+    o = opt()
+    st = {"p": {"tok": masters.speech_tokenizer,
+                "head": acoustic.init_tokenizer_head(gen, cfg.speech_tokenizer, N_PHONEME_CLASSES)},
+          "usage": acoustic.init_usage(cfg.speech_tokenizer, dev)}
+    st["o"] = o.init(st["p"])
+    tok_step = acoustic.make_tokenizer_step(cfg.speech_tokenizer, a, o, N_PHONEME_CLASSES)
+
+    def tok_call(s, b):
+        s["p"], s["o"], s["usage"], loss, ce, acc, n_used = tok_step(s["p"], s["o"], s["usage"], b["tokenizer"], gen)
+        s["n_used"] = int(n_used)
+        return loss
+    before = snapshot(st["p"])
+    stages.append(run_stage("tokenizer", factory_steps(tok_step, st, tok_call), before, lambda: st["p"]))
+    stages[-1]["codes_used"] = st["n_used"]
+
+    # token LM, CFM, vocoder: the engine's f32 weights (the LM's masters, not its served copy)
+    for name in ("token_lm", "cfm", "vocoder"):
+        o = opt()
+        if name == "token_lm":
+            step_fn = acoustic.make_token_lm_step(cfg.token_lm, o)
+        elif name == "cfm":
+            step_fn = acoustic.make_cfm_step(cfg.cfm, o)
+        else:
+            step_fn = acoustic.make_vocoder_step(cfg.vocoder, o, sr=a.sample_rate, n_fft=a.n_fft, hop=a.hop_length)
+        params = getattr(masters, name)
+        s = {"p": params, "o": o.init(params)}
+
+        def call(s, b, step_fn=step_fn, key=name):
+            s["p"], s["o"], loss = step_fn(s["p"], s["o"], b[key], gen)
+            return loss
+        extra = mel_term_check(cfg, params, batches[0]["vocoder"]) if name == "vocoder" else None
+        stages.append(run_stage(name, factory_steps(step_fn, s, call), snapshot(params), lambda s=s: s["p"], extra))
+        if name == "cfm":
+            cfm_trained = s["p"]
+
+    # the vocoder against the discriminators: D then G on each batch
+    go, do = opt(), opt()
+    gen_step, disc_step = acoustic.make_vocoder_gan_steps(cfg.vocoder, go, do, sr=a.sample_rate, n_fft=a.n_fft,
+                                                          hop=a.hop_length)
+    s = {"g": masters.vocoder, "d": discriminator.init_params(gen)}
+    s["go"], s["do"] = go.init(s["g"]), do.init(s["d"])
+
+    def gan_call(s, b):
+        s["d"], s["do"], d_loss = disc_step(s["d"], s["do"], s["g"], b["vocoder"], gen)
+        s["g"], s["go"], g_loss = gen_step(s["g"], s["go"], s["d"], b["vocoder"], gen)
+        s["d_loss"] = float(d_loss)
+        return g_loss
+    before = {**snapshot({"g": s["g"]}), **snapshot({"d": s["d"]})}
+    gan = run_stage("vocoder_gan", [(lambda b=b: (gan_call(s, b), gen_step.grad_norm)) for b in batches], before,
+                    lambda: {"g": s["g"], "d": s["d"]})
+    gan["disc_grad_norm"] = float(disc_step.grad_norm)
+    gan["disc_params"] = sum(v.numel() for v in _flat_keys(s["d"]).values())
+    stages.append(gan)
+    del s
+
+    # the phoneme head alone on the frozen tokenizer
+    o = opt()
+    head = acoustic.init_tokenizer_head(gen, cfg.speech_tokenizer, N_PHONEME_CLASSES)
+    ph_step = acoustic.make_phn_head_step(cfg.speech_tokenizer, a, o, N_PHONEME_CLASSES)
+    s = {"p": head, "o": o.init(head)}
+
+    def ph_call(s, b):
+        s["p"], s["o"], ce, acc = ph_step(masters.speech_tokenizer, s["p"], s["o"], b["tokenizer"])
+        return ce
+    stages.append(run_stage("phn_head", factory_steps(ph_step, s, ph_call), {"": head.clone()}, lambda: s["p"]))
+
+    # one distillation step: the trained CFM as the guided teacher, a 2-step student
+    o = opt()
+    dist_step = cfm_distill.make_distill_step(cfg.cfm, o, 2, cfg.cfm.cfg_scale)
+    s = {"p": cfm_trained, "o": o.init(cfm_trained)}
+    teacher_before = snapshot(cfm_trained)
+
+    def dist_call(s, b):
+        s["p"], s["o"], loss = dist_step(s["p"], cfm_trained, s["o"], b["cfm"], gen)
+        return loss
+    stages.append(run_stage("distill", factory_steps(dist_step, s, dist_call)[:1], teacher_before, lambda: s["p"]))
+    check(not changed(teacher_before, cfm_trained), "path L1: the distillation teacher moved")
+    check(not changed(engine_before, masters.tree()), "path L1: a step wrote the engine's own weights")
+    del eng, masters, batches
+    torch.cuda.empty_cache()
+    return dict(stages=stages, corpus_s=corpus_s, featurize_s=featurize_s)
+
+
+def sft_samples(n: int, seed: int, target_tokens: int = 920) -> list:
+    """Synthetic ERC chat samples of about ``target_tokens`` byte tokens
+    (0.9 of seq 1024, as the reference's +-5-turn prompts are)."""
+    from autostyle_tts_tpu_torch.train.reformat import label_set
+
+    rng = np.random.default_rng(seed)
+    labels = label_set("en")
+    words = ["okay", "really", "never", "again", "please", "listen", "what", "about", "that", "sorry", "fine",
+             "we", "could", "go", "home", "now", "you", "said", "it", "was"]
+    out = []
+    for i in range(n):
+        ctx = []
+        while sum(len(c) + 8 for c in ctx) < target_tokens - 200:
+            ctx.append(" MARY: " + " ".join(rng.choice(words, int(rng.integers(4, 14)))) + ".")
+        out.append({"messages": [
+            {"role": "system", "content": "### You are an expert at analyzing the emotion of utterances among "
+                                          "speakers in a conversation.\n### Given the following conversation as a "
+                                          "context \n" + "\n".join(ctx)},
+            {"role": "user", "content": f'Based on above conversation, which emotional label of MARY in the '
+                                        f'utterance "{ctx[-1][7:]}".'},
+            {"role": "assistant", "content": labels[int(rng.integers(len(labels)))]}]})
+    return out
+
+
+def path_l2(d: Path) -> dict:
+    """L2: the LoRA SFT at Llama-3.2-3B width (28 x 3072, GQA 24:8,
+    128,256-token vocabulary) on an int8 base drawn on the card from a
+    seed: ``lora_sft.train`` with ``TrainConfig``'s defaults (bs 4 x accum
+    4, seq 1024, NEFTune 5, remat on, lr 3e-4 linear) for 2 applied steps
+    with an eval at step 2, then a second call that resumes and stops; one
+    micro-step at B=2 with remat on and off; 4 updates on one repeated
+    batch."""
+    from autostyle_tts_tpu_torch.train import lora_sft, optim
+    from autostyle_tts_tpu_torch.train.reformat import label_set
+    from autostyle_tts_tpu_torch.utils.config import TrainConfig
+
+    ecfg = Config().embedder
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4500)
+    t0 = time.perf_counter()
+    base = transformer.init_params_quantized(ecfg, gen, bits=8)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    base_before = {k: float(v.sum(dtype=torch.float64)) for k, v in _flat_keys(base).items()}
+    tcfg = dataclasses.replace(TrainConfig(), eval_every=2, save_every=2, epochs=1)
+    n_adapter = sum(v.numel() for v in _flat_keys(transformer.init_lora(ecfg, tcfg.lora.r, gen)).values())
+    check(n_adapter == FT3B_ADAPTER_PARAMS, f"path L2: the adapter has {n_adapter} parameters")
+    train, evals = sft_samples(SFT_SAMPLES, 0), sft_samples(SFT_EVAL, 1)
+    rendered = lora_sft.render_samples(train, tcfg.max_seq_len)
+    lens = [len(ids) for ids, _ in rendered]
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    flash0 = flash_attn.flash_attention.launches
+    t0 = time.perf_counter()
+    res = lora_sft.train(base, ecfg, tcfg, train, eval_samples=evals, labels=label_set("en"), out_dir=str(d / "ft"),
+                         log_every=1, log=logs.append)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    flash_in_eval = flash_attn.flash_attention.launches - flash0
+    check(flash_in_eval > 0, "path L2: the eval's prefill never launched flash_attention")
+    check(not res["packing"] and any("packing auto-disabled" in m for m in logs),
+          f"path L2: packing stayed on over samples of {min(lens)}-{max(lens)} tokens")
+    check(res["steps"] == 2, f"path L2: {res['steps']} applied steps, expected 2")
+    hist = json.loads((d / "ft" / "history.json").read_text())
+    f1 = [h["eval_weighted_f1"] for h in hist if "eval_weighted_f1" in h]
+    check(len(f1) == 1 and (d / "ft" / "best.npz").exists(), f"path L2: eval / best.npz missing: {hist}")
+    t0 = time.perf_counter()
+    res2 = lora_sft.train(base, ecfg, tcfg, train, out_dir=str(d / "ft"), log=logs.append)
+    resume_s = time.perf_counter() - t0
+    check(res2["steps"] == 2 and all(torch.equal(a, b) for a, b in zip(optim.tree_leaves(res2["lora"]),
+                                                                          optim.tree_leaves(res["lora"]))),
+          "path L2: the resumed call did not stop at the restored step 2 with the saved adapter")
+
+    # one micro-step at B=2 with remat on and off (peak memory beside each other)
+    batch = next(lora_sft.make_batches(train, tcfg.max_seq_len, 4, shuffle=False, rendered=rendered))
+    args = [torch.as_tensor(x, device=dev) for x in (batch.tokens, batch.loss_mask, batch.length)]
+    remat = {}
+    for on in (True, False):
+        c = dataclasses.replace(tcfg, remat=on)
+        o = lora_sft.make_optimizer(c, 4)
+        lora = transformer.init_lora(ecfg, c.lora.r, gen)
+        step = lora_sft.make_train_step(ecfg, c, o, packed=False)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
+        t1 = time.perf_counter()
+        step(lora, o.init(lora), base, *(x[:2] for x in args), gen)
+        torch.cuda.synchronize()
+        remat["on" if on else "off"] = dict(ms=(time.perf_counter() - t1) * 1e3,
+                                            peak_gb=torch.cuda.max_memory_allocated() / 1e9, held_at_start_gb=held)
+        del lora, step, o
+
+    # 4 updates on one repeated batch (B=4): the loss must fall; ms a micro-step from updates 2-4
+    o = lora_sft.make_optimizer(tcfg, 4)
+    lora = transformer.init_lora(ecfg, tcfg.lora.r, gen)
+    state = o.init(lora)
+    step = lora_sft.make_train_step(ecfg, tcfg, o, packed=False)
+    losses, ms = [], []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lora, state, loss = step(lora, state, base, *args, gen)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t1) * 1e3)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"path L2: repeated-batch losses {losses}")
+    check(all(float(v.sum(dtype=torch.float64)) == base_before[k] for k, v in _flat_keys(base).items()),
+          "path L2: the frozen base moved")
+    check(all(t.grad is None and not t.requires_grad for t in _flat_keys(base).values()),
+          "path L2: the frozen base holds a gradient")
+    ms_step = float(np.mean(ms[1:]))
+    rec = dict(adapter_params=n_adapter, base_s=base_s, sample_tokens=[min(lens), max(lens)],
+               train_s=train_s, resume_s=resume_s, train_peak_gb=train_peak, held_at_start_gb=held_gb,
+               applied_steps=res["steps"],
+               micro_steps=res["steps"] * tcfg.grad_accum, packing=res["packing"],
+               train_losses=[h["loss"] for h in hist if "loss" in h], eval_f1=f1,
+               flash_launches_in_train=flash_in_eval, repeated_batch_losses=losses, ms_per_micro_step=ms_step,
+               tokens_per_s=batch.tokens.size / ms_step * 1e3,
+               real_tokens_per_s=int(batch.length.sum()) / ms_step * 1e3, first_micro_step_ms=ms[0],
+               micro_step_b2=remat)
+    print("train sft", json.dumps(rec), flush=True)
+    del base, lora, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def path_l3(d: Path) -> dict:
+    """L3: the training CLIs through their ``main`` at ``--tiny`` on the
+    card: make_corpus -> train_acoustic for every stage (2 steps) ->
+    export_engine --stage_ckpt for the four mergeable stages -> basic from
+    the snapshot; distill_cfm, ft_llm --re_gen_data --do_train
+    --do_eval_dev on a tiny ERC JSON, train_bpe, evaluate_base_model."""
+    from autostyle_tts_tpu_torch.cli import (basic, distill_cfm, evaluate_base_model, export_engine, ft_llm,
+                                             make_corpus, train_acoustic, train_bpe)
+    from autostyle_tts_tpu_torch.utils.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    times = {}
+    make_corpus.main(["--out_dir", str(d / "corpus"), "--n_utts", "8", "--n_speakers", "2"])
+    corpus = ["--manifest", str(d / "corpus" / "manifest.json"), "--wav_dir", str(d / "corpus")]
+    for stage in ("tokenizer", "token_lm", "cfm", "vocoder", "vocoder_gan", "phn_head"):
+        t1 = time.perf_counter()
+        train_acoustic.main(["--tiny", *corpus, "--stage", stage, "--out_dir", str(d / stage), "--batch_size", "4",
+                             "--prompt_seconds", "0.4", "--log_every", "1"])
+        times[stage] = time.perf_counter() - t1
+        check(CheckpointManager(d / stage).latest_step() == 2, f"path L3: train_acoustic --stage {stage}")
+    merged = ("tokenizer", "token_lm", "cfm", "vocoder")
+    export_engine.main(["--tiny", "--output", str(d / "engine.npz")]
+                       + [a for s in merged for a in ("--stage_ckpt", f"{s}={d / s}")])
+    basic.main(["--tiny", "--checkpoint", str(d / "engine.npz"), "--prompt_wav",
+                str(d / "corpus" / "wavs" / "utt00000.wav"), "--result_dir", str(d / "out")])
+    wav, sr = read_wav(d / "out" / "zero_shot_0.wav")
+    check(wav.size > 0 and bool(np.isfinite(wav).all()), "path L3: the snapshot's synthesis is empty or not finite")
+    distill_cfm.main(["--tiny", *corpus, "--checkpoint", str(d / "engine.npz"), "--output", str(d / "dist.npz"),
+                      "--schedule", "2", "--steps_per_phase", "2", "--batch_size", "2", "--prompt_seconds", "0.4",
+                      "--eval_batches", "1"])
+    erc = d / "erc"
+    erc.mkdir()
+    conv = {"labels": [0, 2, 5, 1], "sentences": ["I love this!", "Okay.", "This is hopeless.", "Oh no."],
+            "genders": ["F", "M", "F", "M"]}
+    for split, conv_ids in (("train", ("Ses01_a", "Ses02_b")), ("valid", ("Ses03_c",))):
+        (erc / f"iemocap.{split}.json").write_text(json.dumps({c: conv for c in conv_ids}))
+    flags = ["--tiny", "--set", "embedder.vocab_size=272", "--set", "train.max_seq_len=256", "--set",
+             "train.epochs=1", "--set", "train.eval_every=1", "--set", "train.lora.r=4", "--set",
+             "train.batch_size=2", "--set", "train.grad_accum=2"]
+    ft_llm.main(flags + ["--data_folder", str(erc), "--re_gen_data", "--do_train", "--do_eval_dev", "--window", "1",
+                         "--quantize_base", "--out_dir", str(d / "ft")])
+    summary = json.loads((d / "ft" / "summary.json").read_text())
+    check(summary["42"]["steps"] == 2 and "valid_f1" in summary["42"], f"path L3: ft_llm summary {summary}")
+    evaluate_base_model.main(flags + ["--test_jsonl", str(erc / "iemocap.valid.0shot_w1_default.jsonl"),
+                                      "--output_file", str(d / "base_eval.json")])
+    (d / "text.txt").write_text("\n".join(["the cat sat on the mat", "the dog sat", "cats and dogs"] * 4))
+    train_bpe.main(["--input", str(d / "text.txt"), "--output", str(d / "bpe.json"), "--merges", "8"])
+    check(len(json.loads((d / "bpe.json").read_text())["merges"]) == 8, "path L3: train_bpe merges")
+    return dict(stage_s=times, wall_s=time.perf_counter() - t0, wav_samples=int(wav.size), wav_rate=sr,
+                ft_llm=summary["42"])
+
+
+def path_l() -> dict:
+    """Training (L1-L3)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "l1").mkdir()
+        l1 = path_l1(d / "l1")
+        l1_s = time.perf_counter() - t0
+        (d / "l2").mkdir()
+        l2 = path_l2(d / "l2")
+        l2_s = time.perf_counter() - t0 - l1_s
+        (d / "l3").mkdir()
+        with redirect_stdout(io.StringIO()):
+            l3 = path_l3(d / "l3")
+        print("train clis", json.dumps(l3), flush=True)
+    launches = read_counts()
+    for name in ("flash_attention", "fused_log_mel"):
+        check(launches[name] > 0, f"path L never launched {name}: {launches}")
+    return dict(l1=l1, l2=l2, l3=l3, launches=launches, l1_s=l1_s, l2_s=l2_s, wall_s=time.perf_counter() - t0)
+
+
 def serving_config() -> Config:
     """The flagship widths at the serving point: int8 LM, int8 KV cache (as
     served: the scanned decode of a batch uses it, the B=1 decode kernel
@@ -2677,6 +3098,10 @@ def main() -> int:
     print("compat", json.dumps(dict(convert=pk["convert"], **pk["serve"])), flush=True)
     print("hf embedder", json.dumps(pk["hf"]), flush=True)
     print("path K", json.dumps({k: pk[k] for k in ("launches", "compat_s", "wall_s")}), flush=True)
+    with inputs.watch("L"):
+        pl = path_l()
+    print("path L", json.dumps(dict({k: pl[k] for k in ("launches", "l1_s", "l2_s", "wall_s")},
+                                    **{k: pl["l1"][k] for k in ("corpus_s", "featurize_s")})), flush=True)
     admitted = sorted({shape[0] for (path, shape, _) in inputs.flash if path == "H" and shape[1] == 384})
     check(admitted == [1, 2, 4], f"path H's admissions prefilled B = {admitted} at T = 384, expected 1, 2 and 4")
     on_inputs = inputs.replay()
@@ -2704,6 +3129,21 @@ def main() -> int:
     check(len(mel_k) == 1 and mel_k[0]["shape"][-1] == COSYVOICE_300M.s3_mels,
           f"path K gave the log-mel {[r['shape'] for r in mel_k]}, expected one geometry at 128 mels")
     print("log_mel 16k 128 mels (path K's inputs)", json.dumps(mel_k[0]), flush=True)
+    # path L's new geometries: flash in the SFT eval's prefill (B = 8, P = 768, hd = 128), the log-mel on the
+    # flagship featurization of the training batches and the tokenizer stage's input mel
+    flash_l = [flash_measure(*t) for (path, shape, _), t in inputs.flash.items() if path == "L" and shape[3] == 128]
+    check([r["shape"][:2] for r in flash_l] == [[8, 768]], f"path L gave flash {[r['shape'] for r in flash_l]} "
+                                                           "at hd = 128, expected B = 8, P = 768")
+    print("flash sft eval B=8 P=768 (path L's inputs)", json.dumps(flash_l[0]), flush=True)
+    # of each flagship leg (win 400 at 16 kHz, 1024 at 24 kHz) the geometry with the most frames
+    legs = {}
+    for (path, shape, _, _), t in inputs.mel.items():
+        if path == "L" and shape[2] >= 400 and shape[0] * shape[1] > legs.get(shape[2], (0,))[0]:
+            legs[shape[2]] = (shape[0] * shape[1], t)
+    check(sorted(legs) == [400, 1024], f"path L gave the log-mel at windows {sorted(legs)}, expected 400 and 1024")
+    mel_l = [log_mel_measure(*t) for _, t in legs.values()]
+    for r in mel_l:
+        print("log_mel train B={} T={} win={} (path L's inputs)".format(*r["shape"][:3]), json.dumps(r), flush=True)
     del inputs
     print("profile db_served", json.dumps(profile_request(
         eng, *eng.prompt_features_from_store(store, [0, 1]))), flush=True)
@@ -2725,14 +3165,15 @@ def main() -> int:
                     **{k: rec[k] for k in KERNEL_KEYS})
 
     jax_decode = "autostyle_tts_tpu/ops/pallas_decode.py"
-    # launches on every path that runs the kernel: flash on A, C, D, E, G, H, I, J, K; log-mel on A, D, E, G, I,
-    # J, K; the decode step on A, G, J; its int4 build on C, G (the other paths add 0)
-    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph, pi, pj, pk))
+    # launches on every path that runs the kernel: flash on A, C, D, E, G, H, I, J, K, L; log-mel on A, D, E, G,
+    # I, J, K, L; the decode step on A, G, J; its int4 build on C, G (the other paths add 0)
+    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph, pi, pj, pk, pl))
     # max_abs_err: the largest of every case checked (phase 3 and the paths' own inputs)
     worst = lambda name, recs: max(r["max_abs_err"] for r in (*recs, *on_inputs[name]))
     flash_rec = dict(flash_main, max_abs_err=worst("flash_attention", (flash_main, flash_gqa, flash_128, flash_batch,
-                                                                       *flash_admit.values(), *flash_rag, *flash_k)))
-    mel_rec = dict(mel24, max_abs_err=worst("fused_log_mel", (mel24, *mel_k)))
+                                                                       *flash_admit.values(), *flash_rag, *flash_k,
+                                                                       *flash_l)))
+    mel_rec = dict(mel24, max_abs_err=worst("fused_log_mel", (mel24, *mel_k, *mel_l)))
     kernels = [
         entry("flash_attention", FLASH_SRC, "autostyle_tts_tpu/ops/pallas_attn.py:76",
               on_paths("flash_attention"), flash_rec),

@@ -167,7 +167,8 @@ def test_cli_search_embeddings_and_search(fixtures, tmp_path, capsys):
 def test_cli_entry_points_ask_for_the_card(fixtures, tmp_path):
     """Without ``--device`` the CLIs run on the card and, where there is
     none, raise; a mesh raises naming its ROADMAP.md item, the Hugging
-    Face loader an empty checkpoint directory."""
+    Face loader an empty checkpoint directory, ``export_engine
+    --stage_ckpt`` a directory without checkpoints."""
     p = argparse.ArgumentParser()
     add_common_args(p)
     insert_embeddings.add_embedder_args(p)
@@ -202,7 +203,8 @@ def test_cli_entry_points_ask_for_the_card(fixtures, tmp_path):
     # the Hugging Face loader is ported: a directory without a checkpoint is an error of its own
     with pytest.raises(FileNotFoundError, match="config.json"):
         insert_embeddings.build_embedder(p.parse_args(["--tiny", "--embedder_hf_dir", str(tmp_path)] + CPU), cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # --stage_ckpt is ported (the training slice): a directory without checkpoints is an error of its own
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         export_engine.main(["--tiny", "--output", x, "--stage_ckpt", f"cfm={x}"] + CPU)
 
 

@@ -23,7 +23,10 @@ embed rows at offset 0, left-padded generation prompts) within two bf16
 ulps and finite on every row; one ``EmbedderService.embed`` on the card
 within 2e-2 of the largest |component| of the CPU port's (bf16
 activations, the kernel against the plain attention, sums in another
-order).
+order); every kernel wrapper refuses an input that requires grad under
+grad mode (before any launch), and the vocoder's mel loss differentiates
+on the card without the log-mel kernel, its gradient within 1e-3 of the
+CPU's largest component.
 """
 
 import dataclasses
@@ -582,3 +585,59 @@ def test_embed_on_card_matches_cpu(cuda):
     want = EmbedderService(cfg, params, lora=lora, lora_scale=4.0, device="cpu").embed(texts)
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+def _grad_guard_calls(dev):
+    """Each kernel wrapper on card tensors, one input requiring grad; the
+    guard raises before any shape or layout check."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, 64, 4, 64), generator=g, device=dev).to(torch.bfloat16).requires_grad_(True)
+    off = torch.zeros(1, dtype=torch.int32, device=dev)
+    yield "flash_attention", lambda: flash_attention(x, x.detach(), x.detach(), off)
+    frames = torch.randn((1, 8, 64), generator=g, device=dev).requires_grad_(True)
+    basis = torch.randn((64, 33), device=dev)
+    yield "fused_log_mel", lambda: fused_log_mel(frames, basis, basis, torch.rand((33, 8), device=dev))
+    h = torch.randn((1, 64), device=dev).to(torch.bfloat16).requires_grad_(True)
+    yield "attn_step", lambda: decode_step.attn_step(h, *([h.detach()] * 8), 1, 0, n_heads=1, head_dim=64, eps=1e-5)
+    yield "mlp_step", lambda: decode_step.mlp_step(h, *([h.detach()] * 5), eps=1e-5)
+    yield "mega_decode_step", lambda: decode_step.mega_decode_step(
+        off, {"emb": h}, h.detach(), h.detach(), 0, 0, False, 0, n_heads=1, head_dim=64, eps=1e-5, pad_id=0,
+        bos_id=1, eos_id=2)
+
+
+def test_kernel_wrappers_refuse_grad_on_card(cuda):
+    counts = (flash_attention.launches, fused_log_mel.launches, decode_step.mega_decode_step.launches)
+    for name, call in _grad_guard_calls(cuda):
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            call()
+    assert (flash_attention.launches, fused_log_mel.launches, decode_step.mega_decode_step.launches) == counts
+    # under no_grad the attention and the log-mel launch as always
+    calls = dict(_grad_guard_calls(cuda))
+    with torch.no_grad():
+        calls["flash_attention"]()
+        calls["fused_log_mel"]()
+    assert flash_attention.launches == counts[0] + 1 and fused_log_mel.launches == counts[1] + 1
+
+
+def test_vocoder_mel_loss_gradient_on_card_matches_cpu(cuda):
+    """The mel term of the vocoder loss differentiates on the card (the plain
+    spectrogram, not the kernel, whose wrapper would refuse it): its gradient
+    is nonzero and within 1e-3 of the CPU's largest component."""
+    from autostyle_tts_tpu_torch.models import vocoder
+
+    cfg = tiny_config()
+    a = cfg.audio
+    t = torch.arange(1600) / a.sample_rate
+    wav = (0.4 * torch.sin(2 * np.pi * 220 * t))[None].repeat(2, 1)
+    pred = wav.flip(-1) * 0.7
+    grads = {}
+    for dev in ("cpu", cuda):
+        p = pred.to(dev).clone().requires_grad_(True)
+        n0 = fused_log_mel.launches
+        loss = vocoder.mel_l1_loss(p, wav.to(dev), a.sample_rate, a.n_fft, a.hop_length, cfg.vocoder.n_mels)
+        loss.backward()
+        assert fused_log_mel.launches == n0
+        grads[str(dev)] = p.grad.cpu()
+    g_cpu = grads["cpu"]
+    assert float(g_cpu.abs().max()) > 0
+    assert float((grads[str(cuda)] - g_cpu).abs().max()) <= 1e-3 * float(g_cpu.abs().max())
