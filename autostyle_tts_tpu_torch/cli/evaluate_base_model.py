@@ -10,10 +10,9 @@ import argparse
 import json
 from pathlib import Path
 
-import torch
-
 from ..models import transformer as core
 from ..train import lora_sft, reformat
+from ..utils import rng
 from ..utils.checkpoint import load_pytree
 from ..utils.device import resolve_device
 from ..utils.manifest import read_jsonl
@@ -33,7 +32,7 @@ def main(argv=None) -> None:
     check_single_device(args)
     ecfg = build_config(args).embedder
     dev = resolve_device(args.device)
-    params = core.init_params(ecfg, torch.Generator(device=dev).manual_seed(args.seed))
+    params = core.init_params(ecfg, rng.PRNGKey(args.seed, dev))
     if args.embedder_checkpoint:
         params = load_pytree(args.embedder_checkpoint, params)
     samples = read_jsonl(args.test_jsonl)

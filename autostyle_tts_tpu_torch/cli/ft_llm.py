@@ -17,10 +17,9 @@ import dataclasses
 import json
 from pathlib import Path
 
-import torch
-
 from ..models import transformer as core
 from ..train import lora_sft, reformat
+from ..utils import rng
 from ..utils.checkpoint import load_pytree
 from ..utils.device import resolve_device
 from ..utils.manifest import read_jsonl
@@ -70,9 +69,9 @@ def main(argv=None) -> None:
             print(f"reformatted {split}: {n} samples -> {jsonl_path(split)}")
 
     ecfg = cfg.embedder
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = (core.init_params_quantized(ecfg, gen, bits=8) if args.quantize_base
-              else core.init_params(ecfg, gen))
+    key = rng.PRNGKey(args.seed, dev)
+    params = (core.init_params_quantized(ecfg, key, bits=8) if args.quantize_base
+              else core.init_params(ecfg, key))
     if args.embedder_checkpoint:
         params = load_pytree(args.embedder_checkpoint, params)
     labels = reformat.label_set(args.language)
@@ -94,7 +93,7 @@ def main(argv=None) -> None:
             lora, lscale = None, 0.0
             best = Path(run_dir) / "best.npz"
             if best.exists():    # the best adapter by F1
-                like = core.init_lora(ecfg, tcfg.lora.r, torch.Generator(device=dev).manual_seed(0))
+                like = core.init_lora(ecfg, tcfg.lora.r, rng.PRNGKey(0, dev))
                 lora, lscale = load_pytree(best, like), tcfg.lora.alpha / tcfg.lora.r
             f1, _ = lora_sft.evaluate_generation(params, ecfg, read_jsonl(jsonl_path(split)), labels, lora=lora,
                                                  lora_scale=lscale)

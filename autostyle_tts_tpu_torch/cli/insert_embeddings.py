@@ -12,9 +12,8 @@ import argparse
 import json
 from pathlib import Path
 
-import torch
-
 from ..pipeline.rag import EmbedderService, build_style_db, labels_for_language
+from ..utils import rng
 from ..utils.device import resolve_device
 from ..utils.manifest import load_style_manifests
 from .common import add_common_args, build_config, build_engine, check_single_device
@@ -47,10 +46,12 @@ def build_embedder(args, cfg) -> EmbedderService:
         tokenizer = transformers.AutoTokenizer.from_pretrained(args.embedder_hf_dir)
     else:
         ecfg = cfg.embedder
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        # int8 frozen base: a 3B base and its adapter fit beside the engine
-        params = (core.init_params_quantized(ecfg, gen, bits=8) if getattr(args, "quantize_base", False)
-                  else core.init_params(ecfg, gen))
+        # drawn as the JAX package draws it from --seed, so an adapter trained
+        # there (artifacts/ft3b: seed 42, int8) runs over its own base; int8
+        # frozen base: a 3B base and its adapter fit beside the engine
+        key = rng.PRNGKey(args.seed, dev)
+        params = (core.init_params_quantized(ecfg, key, bits=8) if getattr(args, "quantize_base", False)
+                  else core.init_params(ecfg, key))
         if getattr(args, "embedder_checkpoint", None):
             params = load_tree(args.embedder_checkpoint, params)
     lora, lora_scale = None, 0.0

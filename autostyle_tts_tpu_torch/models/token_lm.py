@@ -36,7 +36,7 @@ from ..ops.decode_step import (WEIGHT_KEYS, attn_step, decode_scratch, mega_deco
 from ..ops.sampling import SamplerConfig, sample, transform_logits
 from ..utils.config import TokenLMConfig, TransformerConfig
 from ..utils.timing import Stopwatch
-from ..weights import QTensor, normal
+from ..weights import QTensor, normal, truncated_normal
 from . import transformer as core
 
 Params = Dict
@@ -54,9 +54,31 @@ def core_config(cfg: TokenLMConfig) -> TransformerConfig:
     )
 
 
+def _trunk_init(ccfg: TransformerConfig, generator: torch.Generator) -> Params:
+    """The trunk with the core's shapes and scales (truncated normal at +-3
+    sigma, std 1/sqrt(fan_in); norms at one), drawn from the engine's
+    generator: the engine's weights come from a ``torch.Generator``, not
+    from a JAX key (no tracked artifact was trained over a drawn engine)."""
+    L, D, dev = ccfg.n_layers, ccfg.dim, generator.device
+
+    def dense(fan_in, shape):
+        return truncated_normal(shape, generator, fan_in ** -0.5)
+
+    tok_emb = dense(D, (ccfg.vocab_size, D))
+    proj = {name: dense(fi, (L, fi, fo)) for name, (fi, fo) in core.proj_shapes(ccfg).items()}
+    return {
+        "tok_emb": tok_emb,
+        "layers": {"attn_norm": torch.ones((L, D), device=dev), "wqkv": proj["wqkv"], "wo": proj["wo"],
+                   "mlp_norm": torch.ones((L, D), device=dev), "w_gate_up": proj["w_gate_up"],
+                   "w_down": proj["w_down"]},
+        "final_norm": torch.ones((D,), device=dev),
+        "lm_head": dense(D, (D, ccfg.vocab_size)),
+    }
+
+
 def init_params(cfg: TokenLMConfig, generator: torch.Generator) -> Params:
     D = cfg.dim
-    p = core.init_params(core_config(cfg), generator)
+    p = _trunk_init(core_config(cfg), generator)
     p["speech_emb"] = normal((cfg.speech_vocab_size, D), generator, D ** -0.5)
     p["speech_head"] = normal((D, cfg.speech_vocab_size), generator, D ** -0.5)
     p["spk_proj"] = normal((cfg.spk_dim, D), generator, cfg.spk_dim ** -0.5)

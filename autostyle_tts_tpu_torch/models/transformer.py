@@ -1,8 +1,9 @@
 """Decoder-only transformer core: the token LM's and the RAG embedder's trunk.
 
 Counterpart of the JAX ``models/transformer.py``: ``init_params``,
-``init_params_quantized``, ``init_lora``, ``rmsnorm``, ``matmul_any``
-(dense or int8 ``QTensor`` weights), ``_proj`` (with a LoRA pair),
+``init_params_quantized``, ``init_lora`` (drawn from a JAX-compatible key,
+``utils/rng``), ``rmsnorm``, ``matmul_any`` (dense, int8 ``QTensor`` or
+packed int4 ``Q4Tensor`` weights), ``_proj`` (with a LoRA pair),
 ``_layer``, ``make_cache`` (bf16, or int8 with per-(position, head)
 scales), ``forward``, ``mean_pool_hidden``, ``embed_text``, ``left_pad``
 and ``generate``. ``forward`` runs one of three modes:
@@ -35,6 +36,7 @@ would raise); at the configurations' own widths neither happens.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -44,8 +46,9 @@ import torch.utils.checkpoint
 from ..ops.attention import apply_rope, causal_mask, quantize_kv, rope_table, sdpa, sdpa_quant
 from ..ops.flash_attn import flash_attention
 from ..ops.sampling import SamplerConfig, sample
+from ..utils import rng
 from ..utils.config import TransformerConfig
-from ..weights import QTensor, quantize, truncated_normal
+from ..weights import Q4Tensor, QTensor, is_quantized, q4matmul, quantize, quantize4
 
 Params = Dict
 
@@ -61,83 +64,99 @@ def proj_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, int]]:
     return {"wqkv": (D, (H + 2 * K) * hd), "wo": (H * hd, D), "w_gate_up": (D, 2 * F), "w_down": (F, D)}
 
 
-def init_params(cfg: TransformerConfig, generator: torch.Generator) -> Params:
-    """Layer-stacked weights with the JAX init's shapes and scales
-    (truncated normal at +-3 sigma, std 1/sqrt(fan_in); norms at one)."""
-    L, D, F = cfg.n_layers, cfg.dim, cfg.ffn_dim
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    dev = generator.device
-
-    def dense(fan_in, shape):
-        return truncated_normal(shape, generator, fan_in ** -0.5)
-
-    p: Params = {
-        "tok_emb": dense(D, (cfg.vocab_size, D)),
-        "layers": {
-            "attn_norm": torch.ones((L, D), device=dev),
-            "wqkv": dense(D, (L, D, (H + 2 * K) * hd)),
-            "wo": dense(H * hd, (L, H * hd, D)),
-            "mlp_norm": torch.ones((L, D), device=dev),
-            "w_gate_up": dense(D, (L, D, 2 * F)),
-            "w_down": dense(F, (L, F, D)),
-        },
-        "final_norm": torch.ones((D,), device=dev),
-    }
-    if not cfg.tie_embeddings:
-        p["lm_head"] = dense(D, (D, cfg.vocab_size))
-    return p
+def _dense_init(key: torch.Tensor, fan_in: int, shape) -> torch.Tensor:
+    """Truncated normal on [-3, 3] times 1/sqrt(fan_in), on the key's device."""
+    return rng.truncated_normal(key, -3, 3, shape) * float(np.float32(1.0 / math.sqrt(fan_in)))
 
 
-def init_params_quantized(cfg: TransformerConfig, generator: torch.Generator, bits: int = 8) -> Params:
-    """Init and weight-only int8 quantization without ever holding the f32
-    tree: each projection stack is drawn and quantized a layer at a time on
-    ``generator.device`` (the live f32 temporary is one layer's matrix), the
-    embedding stays f32 and ``lm_head`` becomes a ``QTensor``, as the
-    reference's name rules have it. Same structure, shapes and dtypes as
-    ``quantize_tree(init_params(...))``; the values differ in how the draws
-    are split. int4 projections are not ported (ROADMAP.md: queue A item 11)."""
-    if bits == 4:
-        raise NotImplementedError("int4 (Q4Tensor) projections are not ported yet "
-                                  "(ROADMAP.md: queue A item 11)")
-    if bits != 8:
-        raise ValueError(f"bits must be 8, got {bits}")
-    L, D = cfg.n_layers, cfg.dim
-    dev = generator.device
-
-    def stack(fan_in: int, out_dim: int) -> QTensor:
-        q = torch.empty((L, fan_in, out_dim), dtype=torch.int8, device=dev)
-        s = torch.empty((L, 1, out_dim), dtype=torch.float32, device=dev)
-        for l in range(L):
-            q[l], s[l] = quantize(truncated_normal((fan_in, out_dim), generator, fan_in ** -0.5))
-        return QTensor(q=q, s=s)
-
+def init_params(cfg: TransformerConfig, key: torch.Tensor) -> Params:
+    """Layer-stacked weights drawn as the JAX ``init_params(key, cfg)``
+    draws them (``utils/rng``: the same key gives the same values): norms
+    at one, every projection stack from its own key of ``split(key, 12)``."""
+    keys = rng.split(key, 12)
+    L, D, dev = cfg.n_layers, cfg.dim, key.device
     shapes = proj_shapes(cfg)
+
+    def stack(k, name):
+        fan_in, fan_out = shapes[name]
+        return _dense_init(k, fan_in, (L, fan_in, fan_out))
+
     p: Params = {
-        "tok_emb": truncated_normal((cfg.vocab_size, D), generator, D ** -0.5),
+        "tok_emb": _dense_init(keys[0], D, (cfg.vocab_size, D)),
         "layers": {
             "attn_norm": torch.ones((L, D), device=dev),
-            "wqkv": stack(*shapes["wqkv"]),
-            "wo": stack(*shapes["wo"]),
+            "wqkv": stack(keys[1], "wqkv"),
+            "wo": stack(keys[4], "wo"),
             "mlp_norm": torch.ones((L, D), device=dev),
-            "w_gate_up": stack(*shapes["w_gate_up"]),
-            "w_down": stack(*shapes["w_down"]),
+            "w_gate_up": stack(keys[5], "w_gate_up"),
+            "w_down": stack(keys[7], "w_down"),
         },
         "final_norm": torch.ones((D,), device=dev),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = quantize(truncated_normal((D, cfg.vocab_size), generator, D ** -0.5))
+        p["lm_head"] = _dense_init(keys[8], D, (D, cfg.vocab_size))
     return p
 
 
-def init_lora(cfg: TransformerConfig, r: int, generator: torch.Generator) -> Params:
-    """Stacked LoRA pairs for every projection ('all-linear'): ``a`` drawn
-    as the reference draws it, ``b`` zero, so the adapted model starts equal
-    to the base."""
+def init_params_quantized(cfg: TransformerConfig, key: torch.Tensor, bits: int = 8) -> Params:
+    """Init and weight-only quantization without ever holding the f32 tree,
+    as the JAX ``init_params_quantized(key, cfg, bits)`` draws it: each
+    projection stack's key is split into one key a layer, and each layer is
+    drawn and quantized on the key's device in turn (the live f32
+    temporary is one layer's matrix). The embedding stays f32 and
+    ``lm_head`` is quantized, as the reference's name rules have it.
+    ``bits=8`` gives ``QTensor`` projections, ``bits=4`` packed
+    ``Q4Tensor`` ones, their scales as the reference's jitted draw rounds
+    them (``fold_reciprocal``)."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+
+    def qfn(w):
+        return (quantize if bits == 8 else quantize4)(w, fold_reciprocal=True)
+
+    keys = rng.split(key, 12)
+    L, D, dev = cfg.n_layers, cfg.dim, key.device
+    shapes = proj_shapes(cfg)
+
+    def stack(k, name):
+        fan_in, fan_out = shapes[name]
+        out = None
+        for l, lk in enumerate(rng.split(k, L)):
+            t = qfn(_dense_init(lk, fan_in, (fan_in, fan_out)))
+            if out is None:
+                out = type(t)(*(torch.empty((L, *f.shape), dtype=f.dtype, device=dev) for f in t))
+            for dst, f in zip(out, t):
+                dst[l] = f
+        return out
+
+    p: Params = {
+        "tok_emb": _dense_init(keys[0], D, (cfg.vocab_size, D)),
+        "layers": {
+            "attn_norm": torch.ones((L, D), device=dev),
+            "wqkv": stack(keys[1], "wqkv"),
+            "wo": stack(keys[4], "wo"),
+            "mlp_norm": torch.ones((L, D), device=dev),
+            "w_gate_up": stack(keys[5], "w_gate_up"),
+            "w_down": stack(keys[7], "w_down"),
+        },
+        "final_norm": torch.ones((D,), device=dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = qfn(_dense_init(keys[8], D, (D, cfg.vocab_size)))
+    return p
+
+
+def init_lora(cfg: TransformerConfig, r: int, key: torch.Tensor) -> Params:
+    """Stacked LoRA pairs for every projection ('all-linear'), as the JAX
+    ``init_lora(key, cfg, r)`` draws them: ``a`` from the projection's key
+    of ``split(key, 7)``, ``b`` zero, so the adapted model starts equal to
+    the base."""
+    keys = rng.split(key, 7)
     L = cfg.n_layers
     out: Params = {"layers": {}}
-    for name, (fi, fo) in proj_shapes(cfg).items():
-        out["layers"][name + "_lora_a"] = truncated_normal((L, fi, r), generator, fi ** -0.5)
-        out["layers"][name + "_lora_b"] = torch.zeros((L, r, fo), device=generator.device)
+    for k, (name, (fi, fo)) in zip(keys, proj_shapes(cfg).items()):
+        out["layers"][name + "_lora_a"] = _dense_init(k, fi, (L, fi, r))
+        out["layers"][name + "_lora_b"] = torch.zeros((L, r, fo), device=key.device)
     return out
 
 
@@ -153,9 +172,13 @@ def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
     as the reference folds it. A dense weight is cast to the activation
     dtype first, as the reference does, and the product of the two kept in
     f32 (a bf16 x bf16 product on the card would round its result to bf16).
-    Either way the weight is widened to f32 on every call."""
+    Either way the weight is widened to f32 on every call. A packed int4
+    Q4Tensor: ``q4matmul`` (two half-contraction products), rounded to the
+    activation dtype and returned as f32, as the reference's branch does."""
     if isinstance(w, QTensor):
         return torch.matmul(x.float(), w.q.float()) * w.s.float()
+    if isinstance(w, Q4Tensor):
+        return q4matmul(x, w).float()
     return torch.matmul(x.float(), w.to(x.dtype).float())
 
 
@@ -246,7 +269,7 @@ def _layer(
 def _layer_params(stacked: Params, l: int) -> Params:
     out = {}
     for name, w in stacked.items():
-        out[name] = QTensor(q=w.q[l], s=w.s[l]) if isinstance(w, QTensor) else w[l]
+        out[name] = type(w)(*(f[l] for f in w)) if is_quantized(w) else w[l]
     return out
 
 
@@ -309,7 +332,7 @@ def forward(
     return rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 
-def _head(params: Params) -> Union[torch.Tensor, QTensor]:
+def _head(params: Params) -> Union[torch.Tensor, QTensor, Q4Tensor]:
     return params["lm_head"] if "lm_head" in params else params["tok_emb"].T
 
 

@@ -1,9 +1,13 @@
 """Quality proxies that need no listener.
 
-Counterpart of ``SpeakerScorer``, ``token_round_trip`` and the manifest
-scoring (``read_meta_lst``, ``score_meta_lst``, ``write_report``) of the JAX
-``pipeline/simeval.py`` (its retrieval report and phoneme recognizer are not
-ported yet: ROADMAP.md queue A item 11).
+Counterpart of the JAX ``pipeline/simeval.py``: ``SpeakerScorer``,
+``token_round_trip``, the manifest scoring (``read_meta_lst``,
+``score_meta_lst``, ``write_report``), the style DB's ``retrieval_report``
+and the phoneme evaluation (``levenshtein``, ``collapse_phoneme_frames``,
+``text_to_phoneme_ids``, ``PhonemeRecognizer``, ``fit_code_map``,
+``phoneme_error_rate``). Wavs are featurized through
+``stft.log_mel_spectrogram``, which on the card launches the fused log-mel
+kernel.
 """
 
 from __future__ import annotations
@@ -11,15 +15,20 @@ from __future__ import annotations
 import json
 from dataclasses import asdict, dataclass
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models import speaker
+from ..models import speech_tokenizer as st_lib
 from ..ops import stft
 from ..ops.resample import resample_poly_np
 from ..utils.native_audio import load_wav_fast
+
+
+def _bucket(n: int, buckets: Sequence[int]) -> int:
+    return next((b for b in buckets if n <= b), buckets[-1])
 
 
 class SpeakerScorer:
@@ -40,7 +49,7 @@ class SpeakerScorer:
         if not wavs_16k:
             return np.zeros((0, scfg.emb_dim), np.float32)
         lens = [max(1, len(w)) for w in wavs_16k]
-        T = next((b for b in self._buckets if max(lens) <= b), self._buckets[-1])
+        T = _bucket(max(lens), self._buckets)
         batch = np.zeros((len(wavs_16k), T), np.float32)
         for i, w in enumerate(wavs_16k):
             batch[i, : min(len(w), T)] = np.asarray(w, np.float32)[:T]
@@ -128,3 +137,175 @@ def score_meta_lst(engine, meta_lst_path, wav_dir, batch: int = 64) -> Dict:
 def write_report(path, report: Dict) -> None:
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text(json.dumps(report, indent=2, ensure_ascii=False))
+
+
+# --------------------------------------------------------------- retrieval QA
+
+
+def retrieval_report(store, k: int = 5, reference_band=(0.83, 0.88)) -> Dict:
+    """Retrieval-quality report over a StyleStore.
+
+    - self-recall@k: the share of rows whose self-query ranks themselves (or
+      a perfect-score tie) in the top k -- 1.0 on a healthy store;
+    - the top-1 cross cosine: for each row, the best OTHER row's cosine, the
+      analogue of the reference's production query distances (~0.83-0.88),
+      reported against that band.
+    """
+    n = len(store.meta)
+    if n == 0:
+        return {"n": 0, "recall_at_k": 1.0, "cross_top1": {}, "k": k}
+    hit = 0
+    cross: List[float] = []
+    chunk = 1024
+    for s0 in range(0, n, chunk):
+        s1 = min(s0 + chunk, n)
+        rows = store.db[s0:s1].cpu().numpy()
+        kk = min(k + 1, n)
+        scores, idx = store.search_arrays(rows, k=kk)
+        for qi in range(s1 - s0):
+            row = s0 + qi
+            in_topk = (idx[qi, :k] == row).any() or (scores[qi, :k] >= 1.0 - 1e-4).any()
+            hit += bool(in_topk)
+            others = [float(scores[qi, j]) for j in range(kk) if idx[qi, j] != row]
+            if others:
+                cross.append(max(others))
+    cross_arr = np.array(cross, np.float64)
+    lo, hi = reference_band
+    stat = (lambda f: float(f(cross_arr))) if cross_arr.size else (lambda f: 0.0)
+    return {
+        "n": n,
+        "k": k,
+        "recall_at_k": hit / n,
+        "cross_top1": {
+            "mean": stat(np.mean), "p50": stat(np.median), "min": stat(np.min), "max": stat(np.max),
+            "frac_in_reference_band": stat(lambda c: ((c >= lo) & (c <= hi)).mean()),
+        },
+        "reference_band": [lo, hi],
+    }
+
+
+# ---------------------------------------------------------- phoneme evaluation
+
+
+def levenshtein(a: Sequence, b: Sequence) -> int:
+    """Edit distance between two sequences (insert/delete/substitute = 1)."""
+    if len(a) < len(b):
+        a, b = b, a
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        cur = [i]
+        for j, y in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[-1] + 1, prev[j - 1] + (x != y)))
+        prev = cur
+    return prev[-1]
+
+
+def collapse_phoneme_frames(frame_ids: Sequence[int]) -> List[int]:
+    """Frame-level phoneme ids -> the phoneme sequence: consecutive repeats
+    merged, silence (id 0) dropped (the corpus labels are exact alignments,
+    so the framewise recognizer needs no CTC blank)."""
+    out: List[int] = []
+    prev = None
+    for f in frame_ids:
+        f = int(f)
+        if f != prev and f != 0:
+            out.append(f)
+        prev = f
+    return out
+
+
+def text_to_phoneme_ids(text: str) -> List[int]:
+    """Corpus orthography (phoneme letters, space-separated pseudo-words,
+    ``train/synthcorpus.py``) -> the expected phoneme-id sequence."""
+    from ..train.synthcorpus import PHONE_ID
+
+    return [PHONE_ID[c] for c in text if c in PHONE_ID]
+
+
+class PhonemeRecognizer:
+    """Framewise phoneme transcriber on the engine's frozen speech
+    tokenizer, in one of two kinds, both fitted without touching the
+    engine's weights:
+
+    - ``code_map`` [codebook_size] int: VQ code -> phoneme id by majority
+      vote over an aligned corpus (``fit_code_map``);
+    - ``head`` [D, n_classes] float: a linear phoneme head on the pre-VQ
+      features (``train_acoustic --stage phn_head``).
+
+    A wav is padded to a length bucket (1, 2, 4, 8, 16 or ``max_seconds``
+    seconds at the prompt rate), featurized (the log-mel kernel on the
+    card), tokenized, mapped to phoneme ids frame by frame (masked frames to
+    silence) and collapsed."""
+
+    def __init__(self, engine, head: Optional[np.ndarray] = None, code_map: Optional[np.ndarray] = None,
+                 max_seconds: float = 30.0):
+        if head is None and code_map is None:
+            raise ValueError("need head and/or code_map")
+        self.engine = engine
+        a = engine.cfg.audio
+        self._buckets = tuple(a.prompt_sample_rate * s for s in (1, 2, 4, 8, 16, int(max_seconds)))
+        self._code_map = None if code_map is None else engine._tensor(code_map, torch.int64)
+        self._head = None if head is None else engine._tensor(head, torch.float32)
+
+    @torch.no_grad()
+    def frame_ids(self, wav16: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+        """[B, T] prompt-rate wavs with their [B] lengths -> [B, T_tok]
+        phoneme ids, 0 on masked frames."""
+        eng = self.engine
+        a = eng.cfg.audio
+        mel16 = stft.log_mel_spectrogram(
+            wav16, a.prompt_sample_rate, a.prompt_n_fft, a.prompt_hop_length, a.prompt_win_length,
+            n_mels=a.prompt_n_mels, fmax=a.prompt_fmax)
+        frames = torch.arange(mel16.shape[1], device=mel16.device)[None, :]
+        fmask = (frames < length.long()[:, None] // a.prompt_hop_length + 1).float()
+        res = st_lib.apply(eng.params.speech_tokenizer, eng.cfg.speech_tokenizer, mel16, fmask)
+        if self._code_map is not None:
+            ids = self._code_map[res.tokens.long()]
+        else:
+            ids = torch.argmax(res.pre_vq.float() @ self._head, dim=-1)
+        return torch.where(res.token_mask, ids, torch.zeros_like(ids))
+
+    def transcribe(self, wav: np.ndarray, rate: Optional[int] = None) -> List[int]:
+        """wav (at ``rate``, default ``audio.sample_rate``) -> phoneme-id sequence."""
+        eng = self.engine
+        a = eng.cfg.audio
+        w = np.asarray(wav, np.float32).ravel()
+        rate = rate or a.sample_rate
+        if rate != a.prompt_sample_rate:
+            w = resample_poly_np(w, rate, a.prompt_sample_rate)
+        T = _bucket(len(w), self._buckets)
+        buf = np.zeros((1, T), np.float32)
+        buf[0, : min(len(w), T)] = w[:T]
+        ids = self.frame_ids(eng._tensor(buf, torch.float32), eng._tensor([len(w)], torch.int64))
+        return collapse_phoneme_frames(ids[0].cpu().numpy())
+
+
+def fit_code_map(engine, wavs_16k: Sequence[np.ndarray], phn_labels: Sequence[np.ndarray],
+                 codebook_size: Optional[int] = None, batch: int = 64) -> np.ndarray:
+    """VQ code -> phoneme id by majority vote over aligned (wav, labels)
+    pairs (labels at the 25 Hz token rate, ``train/synthcorpus.py``), for
+    ``PhonemeRecognizer(code_map=...)``. No gradients, no change to the
+    engine; codes never seen map to silence (0). ``batch`` wavs a
+    ``prompt_features`` call."""
+    V = codebook_size or engine.cfg.speech_tokenizer.codebook_size
+    votes = np.zeros((V, 64), np.int64)   # 64 >> any phoneme inventory
+    wavs = [np.asarray(w, np.float32) for w in wavs_16k]
+    for s in range(0, len(wavs), batch):
+        feats = engine.prompt_features(wavs[s : s + batch])
+        for f, phn in zip(feats, phn_labels[s : s + batch]):
+            phn = np.asarray(phn, np.int64).ravel()
+            n = min(len(f.tokens), len(phn))
+            np.add.at(votes, (f.tokens[:n], np.clip(phn[:n], 0, 63)), 1)
+    code_map = votes.argmax(-1).astype(np.int32)
+    code_map[votes.sum(-1) == 0] = 0
+    return code_map
+
+
+def phoneme_error_rate(recognizer: PhonemeRecognizer, wav_out: np.ndarray, text: str) -> float:
+    """PER of synthesized audio against its input text (corpus orthography):
+    levenshtein(transcribed, expected) / len(expected)."""
+    expected = text_to_phoneme_ids(text)
+    if not expected:
+        raise ValueError(f"text encodes no corpus phonemes: {text!r}")
+    pred = recognizer.transcribe(wav_out)
+    return levenshtein(pred, expected) / len(expected)

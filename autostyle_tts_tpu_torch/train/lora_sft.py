@@ -43,6 +43,7 @@ from ..models import transformer as core
 from ..ops.attention import causal_mask
 from ..ops.sampling import SamplerConfig
 from ..pipeline.erc_chat import ASSIST, END, SYS, USER, decode_assistant, render_chat  # noqa: F401
+from ..utils import rng
 from ..utils.checkpoint import CheckpointManager, save_pytree
 from ..utils.config import TrainConfig, TransformerConfig
 from .optim import (GradientTransformation, MultiSteps, adamw, apply_optimizer, chain, clip_by_global_norm,
@@ -312,11 +313,12 @@ def train(params: Dict, cfg: TransformerConfig, tcfg: TrainConfig, train_samples
     """The SFT loop: packing where it pays, gradient accumulation, the
     linear schedule over applied steps, eval and save every N steps, the
     best adapter by F1 in ``best.npz``, resume (adapter and optimizer state)
-    from the latest checkpoint. The LoRA and every draw (its init, NEFTune)
-    come from a generator seeded with ``tcfg.seed`` on the base's device."""
+    from the latest checkpoint. The LoRA is drawn from ``PRNGKey(tcfg.seed)``
+    as the JAX ``train`` draws it; NEFTune's noise from a generator seeded
+    with ``tcfg.seed``, both on the base's device."""
     dev = params["tok_emb"].device
     generator = torch.Generator(device=dev).manual_seed(tcfg.seed)
-    lora = core.init_lora(cfg, tcfg.lora.r, generator)
+    lora = core.init_lora(cfg, tcfg.lora.r, rng.PRNGKey(tcfg.seed, dev))
     rendered = render_samples(train_samples, tcfg.max_seq_len)
 
     packing = tcfg.packing

@@ -20,7 +20,10 @@
   scales as the JAX ``init_params`` functions, from an explicit generator.
 - ``QTensor`` / ``quantize`` / ``quantize_tree``: int8 weight-only
   quantization with per-output-channel scales, bit-identical to the JAX
-  ``ops/quant.py`` (``torch.round`` rounds half to even like ``jnp.round``).
+  ``ops/quant.py`` (``torch.round`` rounds half to even like ``jnp.round``);
+  ``Q4Tensor`` / ``quantize4`` / ``unpack4`` / ``dequantize4`` /
+  ``q4matmul`` and ``quantize_tree(bits=4)``: its int4 half, in the same
+  packed layout.
 """
 
 from __future__ import annotations
@@ -40,28 +43,94 @@ class QTensor(NamedTuple):
     s: torch.Tensor       # f32 scale, shape = weight.shape[:-2] + (1, out)
 
 
-def quantize(w: torch.Tensor) -> QTensor:
-    """Symmetric int8 with one scale per output channel (absmax over the
-    contraction dim, axis -2; leading stack dims keep their own scales)."""
+def _scale(w: torch.Tensor, qmax: float, fold_reciprocal: bool) -> torch.Tensor:
+    absmax = torch.clamp(w.abs().amax(dim=-2, keepdim=True), min=1e-8)
+    # under jit XLA rewrites the division by the constant as a product with
+    # its f32 reciprocal, which rounds differently
+    return absmax * float(np.float32(1.0 / qmax)) if fold_reciprocal else absmax / qmax
+
+
+def quantize(w: torch.Tensor, fold_reciprocal: bool = False) -> QTensor:
+    """Symmetric int8 with one scale per output channel (absmax / 127 over
+    the contraction dim, axis -2; leading stack dims keep their own
+    scales). ``fold_reciprocal``: the scale as absmax * f32(1/127), as the
+    JAX package's jitted ``init_params_quantized`` computes it (eagerly,
+    as its ``quantize_tree`` runs, JAX divides)."""
     w = w.float()
-    absmax = w.abs().amax(dim=-2, keepdim=True)
-    scale = torch.clamp(absmax, min=1e-8) / 127.0
+    scale = _scale(w, 127.0, fold_reciprocal)
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return QTensor(q=q, s=scale)
+
+
+class Q4Tensor(NamedTuple):
+    """Int4 weight-only: two nibbles a byte along the contraction dim,
+    values in [-7, 7] stored with a +8 offset, one f32 scale per output
+    channel."""
+
+    packed: torch.Tensor  # uint8 [..., D // 2, out]: row r low nibble, row r + D/2 high
+    s: torch.Tensor       # f32 [..., 1, out]
+
+
+def quantize4(w: torch.Tensor, fold_reciprocal: bool = False) -> Q4Tensor:
+    """Symmetric int4 with one scale per output channel (absmax / 7 over the
+    contraction dim, axis -2; ``fold_reciprocal`` as in ``quantize``). Rows
+    (r, r + D/2) share a byte: contiguous half blocks, as the JAX
+    ``quantize4`` packs them."""
+    D = w.shape[-2]
+    if D % 2:
+        raise ValueError(f"int4 packing needs an even contraction dim, got {D}")
+    w = w.float()
+    scale = _scale(w, 7.0, fold_reciprocal)
+    q = torch.clamp(torch.round(w / scale), -7, 7).to(torch.int16)
+    packed = (q[..., : D // 2, :] + 8) | ((q[..., D // 2 :, :] + 8) << 4)
+    return Q4Tensor(packed=packed.to(torch.uint8), s=scale)
+
+
+def _nibbles(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (packed & 0xF).to(torch.int8) - 8, (packed >> 4).to(torch.int8) - 8
+
+
+def unpack4(t: Q4Tensor) -> torch.Tensor:
+    """-> int8 [..., D, out] (the two half blocks, low then high)."""
+    return torch.cat(_nibbles(t.packed), dim=-2)
+
+
+def dequantize4(t: Q4Tensor, dtype=torch.float32) -> torch.Tensor:
+    return (unpack4(t).float() * t.s).to(dtype)
+
+
+def q4matmul(x: torch.Tensor, t: Q4Tensor) -> torch.Tensor:
+    """x @ dequantize4(t) as two half-contraction products over the widened
+    nibbles, accumulated in f32, the scale after the sum, the result in
+    x's dtype (the JAX ``q4matmul``)."""
+    D2 = t.packed.shape[-2]
+    lo, hi = _nibbles(t.packed)
+    xf = x.float()
+    y = torch.matmul(xf[..., :D2], lo.float()) + torch.matmul(xf[..., D2:], hi.float())
+    return (y * t.s.float()).to(x.dtype)
+
+
+def is_quantized(w: Any) -> bool:
+    return isinstance(w, (QTensor, Q4Tensor))
 
 
 _QUANT_NAMES = ("wqkv", "wq", "wk", "wv", "wo", "w_gate_up", "w_gate", "w_up",
                 "w_down", "lm_head", "speech_head")
 
 
-def quantize_tree(params: Dict, names: Tuple[str, ...] = _QUANT_NAMES) -> Dict:
-    """Quantize the projection weights of a transformer param tree; embeddings
-    and norms stay f32. Walks dicts only, as the JAX ``quantize_tree`` does."""
+def quantize_tree(params: Dict, names: Tuple[str, ...] = _QUANT_NAMES, bits: int = 8) -> Dict:
+    """Quantize the projection weights of a transformer param tree (int8
+    ``QTensor`` for ``bits=8``, packed ``Q4Tensor`` for ``bits=4``);
+    embeddings and norms stay f32. Walks dicts only, as the JAX
+    ``quantize_tree`` does."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    quantizer = quantize if bits == 8 else quantize4
 
     def walk(d: Any) -> Any:
         if isinstance(d, dict):
             return {
-                k: quantize(v)
+                k: quantizer(v)
                 if k in names and isinstance(v, torch.Tensor) and v.ndim >= 2
                 else walk(v)
                 for k, v in d.items()
@@ -75,10 +144,11 @@ def quantize_tree(params: Dict, names: Tuple[str, ...] = _QUANT_NAMES) -> Dict:
 
 
 def tree_map(fn, tree: Any, *rest: Any) -> Any:
-    """Apply ``fn`` to every tensor leaf (QTensor fields included), or to
-    the leaves of several trees of the same structure together."""
-    if isinstance(tree, QTensor):
-        return QTensor(q=fn(tree.q, *(r.q for r in rest)), s=fn(tree.s, *(r.s for r in rest)))
+    """Apply ``fn`` to every tensor leaf (QTensor / Q4Tensor fields
+    included), or to the leaves of several trees of the same structure
+    together."""
+    if is_quantized(tree):
+        return type(tree)(*(fn(f, *(r[i] for r in rest)) for i, f in enumerate(tree)))
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -91,9 +161,11 @@ def to_device(tree: Any, device) -> Any:
 
 
 def tree_from_numpy(x: Any) -> Any:
-    # JAX QTensor leaves arrive as a NamedTuple with fields (q, s)
-    if getattr(x, "_fields", None) == ("q", "s"):
-        return QTensor(q=tree_from_numpy(x.q), s=tree_from_numpy(x.s))
+    # JAX QTensor / Q4Tensor leaves arrive as NamedTuples with these fields
+    fields = getattr(x, "_fields", None)
+    if fields in (QTensor._fields, Q4Tensor._fields):
+        cls = QTensor if fields == QTensor._fields else Q4Tensor
+        return cls(*(tree_from_numpy(f) for f in x))
     if isinstance(x, dict):
         return {k: tree_from_numpy(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
@@ -101,8 +173,16 @@ def tree_from_numpy(x: Any) -> Any:
     return torch.from_numpy(np.array(x, copy=True))
 
 
+def _logical_shape(t: Any) -> Tuple[int, ...]:
+    """A weight's unquantized shape (a Q4Tensor packs two rows a byte)."""
+    if isinstance(t, Q4Tensor):
+        *lead, half, out = t.packed.shape
+        return (*lead, 2 * half, out)
+    return tuple((t.q if isinstance(t, QTensor) else t).shape)
+
+
 def _check(name: str, t: Any, shape: Tuple[int, ...]) -> None:
-    got = tuple((t.q if isinstance(t, QTensor) else t).shape)
+    got = _logical_shape(t)
     if got != shape:
         raise ValueError(f"{name}: shape {got} != config shape {shape}")
 
@@ -150,7 +230,8 @@ def from_jax_tree(tree: Dict, cfg: Config, device=None) -> Dict:
 def embedder_from_jax(tree: Dict, cfg: TransformerConfig, device=None) -> Dict:
     """The JAX embedder tree (``transformer.init_params`` or
     ``init_params_quantized`` with numpy leaves; int8 projections as
-    ``q`` / ``s`` pairs) -> tensors, each shape checked against ``cfg``."""
+    ``q`` / ``s`` pairs, int4 as ``packed`` / ``s``) -> tensors, each shape
+    checked against ``cfg``."""
     from .models.transformer import proj_shapes
 
     out = tree_from_numpy(tree)
@@ -260,6 +341,8 @@ def load_npz(path: str) -> Dict:
             return [node[str(i)] for i in range(len(node))]
         if set(node) == {"q", "s"}:
             return QTensor(q=node["q"], s=node["s"])
+        if set(node) == {"packed", "s"}:
+            return Q4Tensor(packed=node["packed"], s=node["s"])
         return node
 
     return fix(root)
@@ -268,9 +351,9 @@ def load_npz(path: str) -> Dict:
 def _flat_keys(tree: Any, prefix: str = "") -> Dict[str, Any]:
     """A tree's leaves by flat key, as the JAX checkpoints name them
     (``layers/wqkv``, list indices as segments, an int8 tensor's ``q`` /
-    ``s``)."""
-    if isinstance(tree, QTensor):
-        tree = {"q": tree.q, "s": tree.s}
+    ``s``, an int4 tensor's ``packed`` / ``s``)."""
+    if is_quantized(tree):
+        tree = tree._asdict()
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -325,8 +408,8 @@ def load_tree(path: str, like: Any, extra_ok: bool = False) -> Any:
 
     def build(node: Any, prefix: str) -> Any:
         join = (lambda k: f"{prefix}{_FLAT_SEP}{k}") if prefix else str
-        if isinstance(node, QTensor):
-            return QTensor(q=got[join("q")], s=got[join("s")])
+        if is_quantized(node):
+            return type(node)(*(got[join(f)] for f in node._fields))
         if isinstance(node, dict):
             return {k: build(v, join(k)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):

@@ -60,9 +60,11 @@ Phases (any failure exits non-zero):
       first chunk, all before the first session ends);
    I. the retrieval workflow at full width: ``Config().embedder``
       (Llama-3.2-3B geometry: 28 layers, 3072 wide, GQA 24:8, hd 128,
-      128,256-token vocabulary) as an int8 base drawn on the card from a
-      seed, with the ft3b LoRA adapter (``artifacts/ft3b/adapter_f16.npz``,
-      chat-format labels): ``build_style_db`` over 8 style samples of 2
+      128,256-token vocabulary) as the int8 base drawn on the card from
+      ``PRNGKey(42)`` (``utils/rng``: the JAX package's draw, the base the
+      adapter was trained over), with the ft3b LoRA adapter
+      (``artifacts/ft3b/adapter_f16.npz``, chat-format labels):
+      ``build_style_db`` over 8 style samples of 2
       speakers (one biography batch of B=2 at P=1024 and 250 new tokens,
       one label batch of B=8 at P=512, one embed batch of 16 rows at
       T=512; the style wavs featurized by path A's engine), ``self_verify``
@@ -116,8 +118,8 @@ Phases (any failure exits non-zero):
       pre-clip gradient norms; every trained tensor but those the loss
       never reads moved, the engine's own did not; the vocoder's mel term
       has a gradient and the log-mel wrapper refuses a waveform that needs
-      one); L2 the LoRA SFT at Llama-3.2-3B width on an int8 base from a
-      seed (r 32, alpha 128: 40,370,176 adapter parameters, as
+      one); L2 the LoRA SFT at Llama-3.2-3B width on the int8 base from
+      ``PRNGKey(42)`` (r 32, alpha 128: 40,370,176 adapter parameters, as
       ``artifacts/ft3b/meta.json`` records): ``lora_sft.train`` with
       ``TrainConfig``'s defaults on 40 synthetic chat samples of ~0.9 of
       seq 1024 (packing turns itself off), 2 applied steps and an eval at
@@ -128,13 +130,32 @@ Phases (any failure exits non-zero):
       ``train_acoustic`` for every stage -> ``export_engine --stage_ckpt``
       -> ``basic`` from the snapshot, ``distill_cfm``, ``ft_llm``,
       ``evaluate_base_model``, ``train_bpe`` (``train clis`` line);
+   M. M1 the same int8 base drawn again from ``PRNGKey(42)`` (draw time,
+      weight GB), held to the JAX package's slices of it
+      (``tests/fixtures/jax_base_probe.npz``: ``tok_emb`` rows, layer 0 and
+      27 ``wqkv`` / ``w_down`` int8 values and scales), beside path I's
+      labels; M2 the int4 base (``bits=4`` from ``PRNGKey(0)``): an embed
+      batch at B=16, T=512 and a biography batch at B=2, P=1024 with 32 new
+      tokens; M3 ``retrieval_report`` over path I's store and its CLI over
+      the snapshot (``--fail_below_recall 1.0``), ``llm_bio_extract`` on the
+      3B int8 base with the ft3b adapter over one 4-utterance conversation
+      (one B=4 batch), run twice (the second resumes); M4 a synthetic
+      Milvus Lite file of 130 x 6144 rows plus skipped rows through
+      ``import_milvus --list`` and an import to the card, ``self_verify``
+      and ``retrieval_report``; M5 the phoneme evaluation on the trained
+      demo engine (``fit_code_map`` over the corpus sample,
+      ``PhonemeRecognizer`` with the map and with a drawn head over path
+      E's wavs and the corpus wavs, each transcript also through the plain
+      log-mel); M6 the training gates of ``tests/test_torch_train_gates.py``
+      on the card (``M1`` ... ``M6`` lines);
    the inputs of the first call of each distinct geometry that paths A, D,
-   E, G, H, I, J, K and L give ``flash_attention`` and ``fused_log_mel`` are
+   E, G, H, I, J, K, L and M give ``flash_attention`` and ``fused_log_mel`` are
    kept (device copies) and, after the paths, each kernel is held against
    its plain version on them (path D's B=8 prefill, path H's admissions,
    T=384 at B=1, 2 and 4, path I's four embedder shapes and path K's two
    dense-embedder shapes and its 128-mel log-mel, path L's SFT eval prefill
-   and its two flagship log-mel legs are also timed);
+   and its two flagship log-mel legs, path M's three embedder shapes and
+   the recognizer's log-mel buckets are also timed);
 5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --log-mel-only`` builds ``log_mel.cu`` alone, runs
@@ -168,15 +189,17 @@ from autostyle_tts_tpu_torch.models import cfm, frontend, speech_tokenizer, toke
 from autostyle_tts_tpu_torch.pipeline import rag
 from autostyle_tts_tpu_torch.pipeline.continuous import ContinuousBatcher
 from autostyle_tts_tpu_torch.pipeline.engine import Engine, EngineParams
+from autostyle_tts_tpu_torch.pipeline import simeval
 from autostyle_tts_tpu_torch.pipeline.simeval import SpeakerScorer, token_round_trip
 from autostyle_tts_tpu_torch.pipeline.stream_serve import StreamingScheduler
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
-from autostyle_tts_tpu_torch.utils import hf_convert
+from autostyle_tts_tpu_torch.utils import hf_convert, rng
 from autostyle_tts_tpu_torch.utils.audio_io import read_wav, write_wav
 from autostyle_tts_tpu_torch.utils.config import CFMConfig, Config, VocoderConfig, demo_config
 from autostyle_tts_tpu_torch.utils.synth_release import SynthGeometry, build_release_dir
 from autostyle_tts_tpu_torch.utils.timing import Stopwatch
-from autostyle_tts_tpu_torch.weights import QTensor, _flat_keys, from_jax_tree, load_npz, load_tree, quantize_tree
+from autostyle_tts_tpu_torch.weights import (Q4Tensor, QTensor, _flat_keys, from_jax_tree, load_npz, load_tree,
+                                             quantize_tree)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time a function can
 # take is max(bytes / HBM rate, operations / peak rate of their type)
@@ -1115,7 +1138,7 @@ def path_e() -> dict:
     eng = Engine(cfg, params=EngineParams.from_tree(from_jax_tree(load_npz(FIXTURES / "demo_engine.npz"), cfg)),
                  seed=0)
     check(eng._mega_params is None, "the demo LM is dense: no decode-kernel weights")
-    vc, agrees = [], []
+    vc, agrees, out_wavs = [], [], []
     with np.load(FIXTURES / "demo_vc_noise.npz") as noises:
         for row in rows[:3]:
             src = load(row)
@@ -1124,6 +1147,7 @@ def path_e() -> dict:
             t0 = time.perf_counter()
             wav = next(eng.inference_vc(src, src, cfm_noise=noises[Path(row["wav"]).stem]))["tts_speech"].ravel()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            out_wavs.append((f"vc {row['wav']}", row["text"], wav))
             agree, n = token_round_trip(eng, wav, tokens)
             own = golden_stats(eng, next(eng.inference_vc(src, src))["tts_speech"].ravel(), g)
             rec = dict(wav=row["wav"], wall_ms=wall_ms, **golden_stats(eng, wav, g), round_trip_agree=agree,
@@ -1151,6 +1175,7 @@ def path_e() -> dict:
               low_band_share=low_band_share(wav, a.sample_rate), min_low_band_share=ZERO_SHOT_LOW_BAND,
               gen_len=eng.last_gen_len, decode_steps=eng.last_decode_steps, timings=eng.last_timings)
     print("demo zero-shot", json.dumps(zs), flush=True)
+    out_wavs.append(("zero-shot", rows[-1]["text"], wav))
     check(zs["finite"] and zs["seconds"] > ZERO_SHOT_MIN_S and zs["rms"] > ZERO_SHOT_RMS
           and zs["low_band_share"] > ZERO_SHOT_LOW_BAND, f"demo zero-shot gates: {zs}")
     wavs = [load(r) for r in rows[:4]]
@@ -1160,7 +1185,8 @@ def path_e() -> dict:
     launches = read_counts()
     check(launches["fused_log_mel"] > 0 and launches["flash_attention"] > 0
           and launches["mega_decode_step"] == 0, f"path E launches {launches}")
-    return dict(golden=vc, round_trip=round_trip, zero_shot=zs, batch=batch, gates=gates, launches=launches)
+    return dict(golden=vc, round_trip=round_trip, zero_shot=zs, batch=batch, gates=gates, launches=launches,
+                wavs=out_wavs)
 
 
 def demo_gates(eng: Engine, rows, load) -> dict:
@@ -1588,8 +1614,8 @@ def rag_clis(d: Path) -> dict:
 
 def path_i(eng: Engine, cfg: Config) -> dict:
     """The retrieval workflow at full width: ``Config().embedder``
-    (Llama-3.2-3B geometry) as an int8 base drawn on the card from a seed
-    with the ft3b LoRA adapter (alpha / r = 4, chat-format labels);
+    (Llama-3.2-3B geometry) as the int8 base drawn on the card from
+    ``PRNGKey(42)``, the adapter's own, with the ft3b LoRA adapter (alpha / r = 4, chat-format labels);
     ``build_style_db`` over 8 style samples of 2 speakers whose synthetic
     wavs path A's engine featurizes, ``self_verify`` over every row,
     ``search_dialog`` over 4 turns with a +-5-turn labelling context, each
@@ -1606,7 +1632,8 @@ def path_i(eng: Engine, cfg: Config) -> dict:
     ecfg, lcfg = cfg.embedder, cfg.train.lora
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    params = transformer.init_params_quantized(ecfg, torch.Generator(device="cuda").manual_seed(4323))
+    # the base the adapter was trained over: init_params_quantized(PRNGKey(42), bits=8) (artifacts/ft3b/meta.json)
+    params = transformer.init_params_quantized(ecfg, rng.PRNGKey(42, "cuda"), bits=8)
     lora = load_lora(str(ADAPTER), ecfg, lcfg.r, device="cuda")
     emb = rag.EmbedderService(ecfg, params, lora=lora, lora_scale=lcfg.alpha / lcfg.r)
     torch.cuda.synchronize()
@@ -1634,10 +1661,19 @@ def path_i(eng: Engine, cfg: Config) -> dict:
             return out
 
         store.search = search
+        turn_labels = []
+        labels0 = emb.emotion_labels
+
+        def emotion_labels(texts, contexts=None, names=None):
+            out = labels0(texts, contexts, names)
+            turn_labels.extend(out)
+            return out
+
+        emb.emotion_labels = emotion_labels
         t0 = time.perf_counter()
         rows = rag.search_dialog(emb, store, turns, context_window=5)
         search_s = time.perf_counter() - t0
-        del store.search
+        del store.search, emb.emotion_labels
     check(len(rows) == len(turns) and all(0 <= r.retrieved_index < len(store) for r in rows),
           f"path I rows {[r.to_dict() for r in rows]}")
     a = store.artifacts
@@ -1673,9 +1709,9 @@ def path_i(eng: Engine, cfg: Config) -> dict:
         labels=lab, embeds=embeds, search_ms=searches,
         build_calls=dict(generate=n_build[0], embed=n_build[1]),
         rows=[dict(speaker=r.speaker, retrieved_index=r.retrieved_index, distance=r.distance) for r in rows],
-        emotions=[m["emotion"] for m in store.meta], peak_mem_gb=peak_gb, tiny_clis=cli,
+        emotions=[m["emotion"] for m in store.meta], turn_labels=turn_labels, peak_mem_gb=peak_gb, tiny_clis=cli,
         launches_full_width=launches_full)
-    return dict(rag=rec, launches=launches, embedder=emb)
+    return dict(rag=rec, launches=launches, embedder=emb, store=store)
 
 
 # ----------------------------------------------------------------------------- path J
@@ -2828,12 +2864,13 @@ def path_l2(d: Path) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4500)
     t0 = time.perf_counter()
-    base = transformer.init_params_quantized(ecfg, gen, bits=8)
+    base = transformer.init_params_quantized(ecfg, rng.PRNGKey(42, "cuda"), bits=8)
     torch.cuda.synchronize()
     base_s = time.perf_counter() - t0
     base_before = {k: float(v.sum(dtype=torch.float64)) for k, v in _flat_keys(base).items()}
     tcfg = dataclasses.replace(TrainConfig(), eval_every=2, save_every=2, epochs=1)
-    n_adapter = sum(v.numel() for v in _flat_keys(transformer.init_lora(ecfg, tcfg.lora.r, gen)).values())
+    n_adapter = sum(v.numel() for v in _flat_keys(transformer.init_lora(ecfg, tcfg.lora.r, rng.PRNGKey(1, "cuda")))
+                    .values())
     check(n_adapter == FT3B_ADAPTER_PARAMS, f"path L2: the adapter has {n_adapter} parameters")
     train, evals = sft_samples(SFT_SAMPLES, 0), sft_samples(SFT_EVAL, 1)
     rendered = lora_sft.render_samples(train, tcfg.max_seq_len)
@@ -2870,7 +2907,7 @@ def path_l2(d: Path) -> dict:
     for on in (True, False):
         c = dataclasses.replace(tcfg, remat=on)
         o = lora_sft.make_optimizer(c, 4)
-        lora = transformer.init_lora(ecfg, c.lora.r, gen)
+        lora = transformer.init_lora(ecfg, c.lora.r, rng.PRNGKey(1, "cuda"))
         step = lora_sft.make_train_step(ecfg, c, o, packed=False)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2885,7 +2922,7 @@ def path_l2(d: Path) -> dict:
 
     # 4 updates on one repeated batch (B=4): the loss must fall; ms a micro-step from updates 2-4
     o = lora_sft.make_optimizer(tcfg, 4)
-    lora = transformer.init_lora(ecfg, tcfg.lora.r, gen)
+    lora = transformer.init_lora(ecfg, tcfg.lora.r, rng.PRNGKey(1, "cuda"))
     state = o.init(lora)
     step = lora_sft.make_train_step(ecfg, tcfg, o, packed=False)
     losses, ms = [], []
@@ -2988,6 +3025,309 @@ def path_l() -> dict:
     for name in ("flash_attention", "fused_log_mel"):
         check(launches[name] > 0, f"path L never launched {name}: {launches}")
     return dict(l1=l1, l2=l2, l3=l3, launches=launches, l1_s=l1_s, l2_s=l2_s, wall_s=time.perf_counter() - t0)
+
+
+# ----------------------------------------------------------------------------- path M
+
+PROBE = FIXTURES / "jax_base_probe.npz"
+MILVUS_ROWS, MILVUS_DIM = 130, 6144     # the reference corpus's shape (milvus/milvus_demo.db)
+BIO_CONVERSATION = {"Ses01_m3": {       # one 4-utterance conversation of 2 speakers: one B=4 biography batch
+    "sentences": ["Did you see the letter from the landlord?", "I did, and I am not paying that much.",
+                  "We could at least call him tomorrow.", "Fine, but you are doing the talking."],
+    "genders": ["F", "M", "F", "M"], "labels": [2, 3, 2, 5]}}
+
+
+def tree_gb(tree) -> float:
+    return sum(t.numel() * t.element_size() for t in _flat_keys(tree).values()) / 1e9
+
+
+def path_m1(ecfg, pi_rag: dict) -> dict:
+    """The embedder base the ft3b adapter was trained over, drawn on the
+    card from ``PRNGKey(42)`` (int8), held to the JAX package's slices of
+    it (``tests/fixtures/jax_base_probe.npz``); path I's labels on it."""
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = transformer.init_params_quantized(ecfg, rng.PRNGKey(42, "cuda"), bits=8)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    drawn_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+    probe = np.load(PROBE)
+    check(int(probe["seed"]) == 42, "the probe is of PRNGKey(42)")
+    cols = [int(c) for c in probe["cols"]]
+    n = probe["tok_emb"].shape[0]
+    ulps = np.abs(params["tok_emb"][:n].cpu().numpy().view(np.int32).astype(np.int64)
+                  - probe["tok_emb"].view(np.int32).astype(np.int64))
+    slices = {}
+    for name in ("wqkv", "w_down"):
+        for l in (0, ecfg.n_layers - 1):
+            t = params["layers"][name]
+            q = t.q[l][:, cols].cpu().numpy().astype(np.int64)
+            dq = np.abs(q - probe[f"{name}/{l}/q"].astype(np.int64))
+            s, ps = t.s[l].cpu().numpy(), probe[f"{name}/{l}/s"]
+            slices[f"{name}/{l}"] = dict(q_equal=float((dq == 0).mean()), q_max_diff=int(dq.max()),
+                                         s_max_rel=float(np.abs(s - ps).max() / np.abs(ps).max()))
+            check(slices[f"{name}/{l}"]["q_max_diff"] <= 1 and slices[f"{name}/{l}"]["q_equal"] >= 0.9999
+                  and slices[f"{name}/{l}"]["s_max_rel"] <= 1e-6, f"M1: {name} layer {l} against the probe: {slices}")
+    check(int(ulps.max()) <= 4, f"M1: tok_emb rows {int(ulps.max())} ulp from the probe")
+    lay = params["layers"]
+    rec = dict(draw_s=draw_s, drawn_gb=drawn_gb,
+               layers_gb=tree_gb({k: lay[k] for k in ("wqkv", "wo", "w_gate_up", "w_down")}),
+               lm_head_gb=tree_gb(params["lm_head"]), tok_emb_gb=tree_gb(params["tok_emb"]),
+               tok_emb_max_ulp=int(ulps.max()), tok_emb_equal=float((ulps == 0).mean()), slices=slices,
+               path_i_turn_labels=pi_rag["turn_labels"], path_i_db_labels=pi_rag["emotions"])
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def path_m2(ecfg) -> dict:
+    """The int4 embedder at full width (``bits=4`` from ``PRNGKey(0)``, as
+    the JAX package's embedder benchmark draws it): one embed batch at
+    B=16, T=512 and one biography batch at B=2 (P=1024) with 32 new tokens."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = transformer.init_params_quantized(ecfg, rng.PRNGKey(0, "cuda"), bits=4)
+    torch.cuda.synchronize()
+    draw_s, drawn_gb = time.perf_counter() - t0, (torch.cuda.memory_allocated() - mem0) / 1e9
+    check(isinstance(params["layers"]["wqkv"], Q4Tensor), "M2: int4 projections")
+    lay = params["layers"]
+    sizes = dict(layers_gb=tree_gb({k: lay[k] for k in ("wqkv", "wo", "w_gate_up", "w_down")}),
+                 lm_head_gb=tree_gb(params["lm_head"]), tok_emb_gb=tree_gb(params["tok_emb"]))
+    emb = rag.EmbedderService(ecfg, params)
+    texts = [" ".join([RAG_SAMPLES[(i + j) % len(RAG_SAMPLES)][1] for j in range(12)]) for i in range(16)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vecs = emb.embed(texts, width=512)
+    embed_ms = (time.perf_counter() - t0) * 1e3
+    check(vecs.shape == (16, ecfg.dim) and bool(np.isfinite(vecs).all()), f"M2: embed {vecs.shape}")
+    items = [(" ".join(t for _, t in RAG_DIALOG), s) for s in ("w1", "m1")]
+    prompts = [rag.BIOGRAPHY_PROMPT.format(conversation=c, speaker=s) for c, s in items]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bios = emb._generate(prompts, 32, SamplerConfig.biography())
+    bio_ms = (time.perf_counter() - t0) * 1e3
+    check(len(bios) == 2 and all(isinstance(b, str) for b in bios), "M2: biographies")
+    rec = dict(draw_s=draw_s, **sizes, drawn_gb=drawn_gb, embed_b16_t512_ms=embed_ms,
+               embed_ms_per_row=embed_ms / 16, bio_b2_p1024_32tok_ms=bio_ms, bio_chars=[len(b) for b in bios],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del emb, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def path_m3(d: Path, store: StyleStore) -> dict:
+    """The retrieval CLIs at full width: ``retrieval_report`` over path I's
+    store and the CLI over its snapshot (``--fail_below_recall 1.0``);
+    ``llm_bio_extract`` on the 3B int8 base (``--seed 42``) with the ft3b
+    adapter over one 4-utterance conversation, then again: it resumes."""
+    from autostyle_tts_tpu_torch.cli import llm_bio_extract, retrieval_report as report_cli
+
+    report = simeval.retrieval_report(store, k=5)
+    check(report["recall_at_k"] == 1.0 and report["n"] == len(store), f"M3: path I's store report {report}")
+    store.save(d / "store")
+    out = io.StringIO()
+    with redirect_stdout(out):
+        report_cli.main(["--db_path", str(d / "store"), "--k", "5", "--fail_below_recall", "1.0"])
+    cli_report = json.loads(out.getvalue())
+    check(cli_report["recall_at_k"] == 1.0, f"M3: retrieval_report CLI {cli_report}")
+    (d / "conv.json").write_text(json.dumps(BIO_CONVERSATION))
+    argv = ["--quantize_base", "--seed", "42", "--lora_checkpoint", str(ADAPTER), "--data_json", str(d / "conv.json"),
+            "--output_json", str(d / "bios.json"), "--batch_ladder", "4", "2", "1"]
+    calls = []
+    bios0 = rag.EmbedderService.biographies
+
+    def biographies(self, items):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bios0(self, items)
+        calls.append(dict(B=len(items), ms=(time.perf_counter() - t0) * 1e3))
+        return res
+
+    rag.EmbedderService.biographies = biographies
+    try:
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with redirect_stdout(io.StringIO()) as log:
+                llm_bio_extract.main(argv)
+            walls.append(time.perf_counter() - t0)
+    finally:
+        rag.EmbedderService.biographies = bios0
+    res = json.loads((d / "bios.json").read_text())
+    check(list(res) == list(BIO_CONVERSATION) and len(res["Ses01_m3"]) == 4, f"M3: bios file {list(res)}")
+    check(len(calls) == 1 and calls[0]["B"] == 4, f"M3: biography batches {calls}")
+    check("resuming: 1 conversations already processed" in log.getvalue()
+          and json.loads((d / "bios.json_backup.json").read_text()) == res, "M3: the second run did not resume")
+    return dict(report=report, cli_recall=cli_report["recall_at_k"], bio_batches=calls, bio_walls_s=walls,
+                bio_chars=[len(b) for b in res["Ses01_m3"]])
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | 0x80 if n else b)
+        if not n:
+            return bytes(out)
+
+
+def milvus_record(vec, meta, nbytes=None) -> bytes:
+    """One Milvus Lite insert record in the layout ``milvus_import`` parses:
+    the ``vector`` FieldData, then the dynamic-field JSON."""
+    out = b"\x0a\x05hdr\x12\x01\x00"
+    if vec is not None:
+        fv = vec.astype("<f4").tobytes()
+        floats = b"\x0a" + _varint(len(fv) if nbytes is None else nbytes) + fv
+        msg = b"\x08" + _varint(vec.size) + b"\x12" + _varint(len(floats)) + floats
+        out += b"vector\x22" + _varint(len(msg)) + msg
+    return out + b"\x1a" + json.dumps(meta, ensure_ascii=False).encode()
+
+
+def path_m4(d: Path) -> dict:
+    """A synthetic Milvus Lite file of the reference corpus's shape (130 x
+    6144, plus rows the parser skips and a small second collection)
+    through ``import_milvus --list``, an import to the card, ``self_verify``
+    and ``retrieval_report``."""
+    import sqlite3
+
+    from autostyle_tts_tpu_torch.cli import import_milvus
+
+    r = np.random.default_rng(5)
+    vecs = r.standard_normal((MILVUS_ROWS, MILVUS_DIM)).astype(np.float32)
+    rows = [milvus_record(v, {"file_id": f"denoise_{i}.wav", "text": f"style line {i} {{braced}} }}"})
+            for i, v in enumerate(vecs)]
+    rows += [None, milvus_record(None, {"file_id": "no_vector", "text": ""}),
+             milvus_record(vecs[0], {"file_id": "short", "text": ""}, nbytes=MILVUS_DIM * 4 - 4)]
+    path = d / "milvus_demo.db"
+    con = sqlite3.connect(path)
+    con.execute("CREATE TABLE collection_meta (name TEXT, schema BLOB)")
+    for name, blobs in (("style_db", rows), ("small", rows[:3])):
+        con.execute("INSERT INTO collection_meta VALUES (?, ?)", (name, b""))
+        con.execute(f'CREATE TABLE "{name}" (id INTEGER PRIMARY KEY, milvus_id INTEGER, data BLOB)')
+        con.executemany(f'INSERT INTO "{name}" (milvus_id, data) VALUES (?, ?)', list(enumerate(blobs)))
+    con.commit()
+    con.close()
+    t0 = time.perf_counter()
+    with redirect_stdout(io.StringIO()) as listed:
+        import_milvus.main(["--milvus_db", str(path), "--out", str(d / "imported"), "--list"])
+    with redirect_stdout(io.StringIO()) as imported:
+        import_milvus.main(["--milvus_db", str(path), "--out", str(d / "imported")])
+    cli_s = time.perf_counter() - t0
+    check(listed.getvalue().split() == ["style_db", "small"], f"M4: --list printed {listed.getvalue()!r}")
+    check(f"imported {MILVUS_ROWS} vectors (dim {MILVUS_DIM})" in imported.getvalue()
+          and "self-verify ok" in imported.getvalue(), f"M4: import printed {imported.getvalue()!r}")
+    store = StyleStore.load(d / "imported")
+    check(store.device.type == "cuda" and len(store) == MILVUS_ROWS and store.self_verify(), "M4: the imported store")
+    want = vecs / np.linalg.norm(vecs, axis=1, keepdims=True)
+    err = float(np.abs(store.db[:MILVUS_ROWS].cpu().numpy() - want).max())
+    check(err <= 1e-6 and store.meta[7]["text"] == "style line 7 {braced} }", f"M4: vectors {err} / meta")
+    t0 = time.perf_counter()
+    report = simeval.retrieval_report(store, k=5)
+    report_ms = (time.perf_counter() - t0) * 1e3
+    check(report["recall_at_k"] == 1.0, f"M4: recall {report}")
+    return dict(rows=len(store), dim=store.dim, skipped=3, max_abs_err=err, cli_s=cli_s, report_ms=report_ms,
+                recall_at_5=report["recall_at_k"], cross_top1=report["cross_top1"])
+
+
+def path_m5(e_wavs) -> dict:
+    """The phoneme evaluation on the trained demo engine: ``fit_code_map``
+    over the corpus sample's 6 utterances, ``PhonemeRecognizer`` with that
+    map and with a drawn head over path E's wavs and the corpus wavs (PER
+    against each text), each transcript also through the plain log-mel."""
+    from autostyle_tts_tpu_torch.train.synthcorpus import N_PHONEME_CLASSES
+
+    cfg = demo_config()
+    a = cfg.audio
+    eng = Engine(cfg, params=EngineParams.from_tree(from_jax_tree(load_npz(FIXTURES / "demo_engine.npz"), cfg)),
+                 seed=0)
+    rows = json.loads((FIXTURES / "demo_corpus_sample" / "manifest.json").read_text())
+    wavs = [read_wav(FIXTURES / "demo_corpus_sample" / r["wav"])[0] for r in rows]
+    phns = [np.load(FIXTURES / "demo_corpus_sample" / r["phn"]) for r in rows]
+    t0 = time.perf_counter()
+    code_map = simeval.fit_code_map(eng, wavs, phns)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    used = sorted({int(t) for f in eng.prompt_features(wavs) for t in f.tokens})
+    st = cfg.speech_tokenizer
+    head = (np.random.default_rng(0).standard_normal((st.dim, N_PHONEME_CLASSES)) * st.dim ** -0.5).astype(np.float32)
+    recognizers = {"code_map": simeval.PhonemeRecognizer(eng, code_map=code_map),
+                   "head": simeval.PhonemeRecognizer(eng, head=head)}
+    cases = [(f"corpus {r['wav']}", r["text"], w, a.prompt_sample_rate) for r, w in zip(rows, wavs)]
+    cases += [(f"path E {name}", text, w, a.sample_rate) for name, text, w in e_wavs]
+    per, same = {k: [] for k in recognizers}, True
+    t0 = time.perf_counter()
+    for _, text, w, rate in cases:
+        expected = simeval.text_to_phoneme_ids(text)
+        for kind, rec in recognizers.items():
+            got = rec.transcribe(w, rate)
+            per[kind].append(simeval.levenshtein(got, expected) / len(expected))
+            mel0 = stft.fused_log_mel
+            stft.fused_log_mel = log_mel.fused_log_mel_plain
+            try:
+                same &= rec.transcribe(w, rate) == got
+            finally:
+                stft.fused_log_mel = mel0
+    check(same, "M5: a transcript through the log-mel kernel differs from the plain log-mel's")
+    check(all(np.isfinite(p) for v in per.values() for p in v), f"M5: PER {per}")
+    return dict(codes_used=used, mapped_codes={str(c): int(code_map[c]) for c in used},
+                map_nonzero=int((code_map != 0).sum()), fit_ms=fit_ms, cases=[c[0] for c in cases],
+                per=per, mean_per={k: float(np.mean(v)) for k, v in per.items()},
+                transcribe_ms=(time.perf_counter() - t0) * 1e3 / (2 * 2 * len(cases)), kernel_equals_plain=same)
+
+
+def path_m6(device: str = "cuda") -> dict:
+    """The training gates (``tests/test_torch_train_gates.py``) on the card,
+    at the slow tests' sizes and thresholds."""
+    import importlib.util
+
+    src = Path(__file__).resolve().parent / "tests" / "test_torch_train_gates.py"
+    spec = importlib.util.spec_from_file_location("train_gates", src)
+    gates = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gates)
+    out = {}
+    for name in gates.CARD_GATES:     # the SFT gate in bf16: the flash kernel takes bf16 activations only
+        t0 = time.perf_counter()
+        try:
+            res = gates.GATES[name](device)
+        except AssertionError as e:
+            raise SystemExit(f"chip_smoke: FAILED: M6 training gate {name}: {e}")
+        losses = isinstance(res, list) and isinstance(res[0], float)
+        out[name] = dict(s=time.perf_counter() - t0,
+                         result=dict(first=res[0], last=res[-1], steps=len(res)) if losses else res)
+    return out
+
+
+def path_m(inputs: PathInputs, pi_rag: dict, store: StyleStore, e_wavs, ecfg) -> dict:
+    """The key draw at full width (M1), the int4 embedder (M2), the
+    retrieval CLIs at full width (M3), the Milvus import (M4), the phoneme
+    evaluation (M5), the training gates (M6); the kernels' inputs recorded
+    as path "M", M5's as "M5" and M6's as "M6"."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = {}
+    with inputs.watch("M"):
+        out["m1"] = path_m1(ecfg, pi_rag)
+        print("M1 key draw", json.dumps(out["m1"]), flush=True)
+        out["m2"] = path_m2(ecfg)
+        print("M2 int4 embedder", json.dumps(out["m2"]), flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            out["m3"] = path_m3(Path(tmp), store)
+        print("M3 retrieval clis", json.dumps(out["m3"]), flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            out["m4"] = path_m4(Path(tmp))
+        print("M4 milvus import", json.dumps(out["m4"]), flush=True)
+    with inputs.watch("M5"):
+        out["m5"] = path_m5(e_wavs)
+    print("M5 phoneme eval", json.dumps(out["m5"]), flush=True)
+    with inputs.watch("M6"):
+        out["m6"] = path_m6()
+    print("M6 training gates", json.dumps(out["m6"]), flush=True)
+    launches = read_counts()
+    for name in ("flash_attention", "fused_log_mel"):
+        check(launches[name] > 0, f"path M never launched {name}: {launches}")
+    return dict(out, launches=launches, wall_s=time.perf_counter() - t0)
 
 
 def serving_config() -> Config:
@@ -3102,6 +3442,8 @@ def main() -> int:
         pl = path_l()
     print("path L", json.dumps(dict({k: pl[k] for k in ("launches", "l1_s", "l2_s", "wall_s")},
                                     **{k: pl["l1"][k] for k in ("corpus_s", "featurize_s")})), flush=True)
+    pm = path_m(inputs, pi["rag"], pi.pop("store"), pe.pop("wavs"), cfg.embedder)
+    print("path M", json.dumps({k: pm[k] for k in ("launches", "wall_s")}), flush=True)
     admitted = sorted({shape[0] for (path, shape, _) in inputs.flash if path == "H" and shape[1] == 384})
     check(admitted == [1, 2, 4], f"path H's admissions prefilled B = {admitted} at T = 384, expected 1, 2 and 4")
     on_inputs = inputs.replay()
@@ -3144,6 +3486,17 @@ def main() -> int:
     mel_l = [log_mel_measure(*t) for _, t in legs.values()]
     for r in mel_l:
         print("log_mel train B={} T={} win={} (path L's inputs)".format(*r["shape"][:3]), json.dumps(r), flush=True)
+    # path M's new geometries: flash in the int4 embedder's embed and biography prefill and in the
+    # llm_bio_extract batch (hd = 128), the log-mel on the phoneme recognizer's buckets (M5)
+    flash_m = [flash_measure(*t) for (path, shape, _), t in inputs.flash.items() if path == "M" and shape[3] == 128]
+    check(sorted(r["shape"][:2] for r in flash_m) == [[2, 1024], [4, 1024], [16, 512]],
+          f"path M gave flash {[r['shape'] for r in flash_m]} at hd = 128, expected B=16 T=512, B=2 and B=4 at 1024")
+    for r in flash_m:
+        print("flash path M B={} T={} (M2/M3's inputs)".format(*r["shape"][:2]), json.dumps(r), flush=True)
+    mel_m = [log_mel_measure(*t) for (path, shape, _, _), t in inputs.mel.items() if path == "M5"]
+    check(len(mel_m) > 0, "M5 gave the log-mel no input")
+    for r in mel_m:
+        print("log_mel recognizer B={} T={} win={} (M5's inputs)".format(*r["shape"][:3]), json.dumps(r), flush=True)
     del inputs
     print("profile db_served", json.dumps(profile_request(
         eng, *eng.prompt_features_from_store(store, [0, 1]))), flush=True)
@@ -3165,15 +3518,15 @@ def main() -> int:
                     **{k: rec[k] for k in KERNEL_KEYS})
 
     jax_decode = "autostyle_tts_tpu/ops/pallas_decode.py"
-    # launches on every path that runs the kernel: flash on A, C, D, E, G, H, I, J, K, L; log-mel on A, D, E, G,
-    # I, J, K, L; the decode step on A, G, J; its int4 build on C, G (the other paths add 0)
-    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph, pi, pj, pk, pl))
+    # launches on every path that runs the kernel: flash on A, C, D, E, G, H, I, J, K, L, M; log-mel on A, D, E,
+    # G, I, J, K, L, M; the decode step on A, G, J; its int4 build on C, G (the other paths add 0)
+    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph, pi, pj, pk, pl, pm))
     # max_abs_err: the largest of every case checked (phase 3 and the paths' own inputs)
     worst = lambda name, recs: max(r["max_abs_err"] for r in (*recs, *on_inputs[name]))
     flash_rec = dict(flash_main, max_abs_err=worst("flash_attention", (flash_main, flash_gqa, flash_128, flash_batch,
                                                                        *flash_admit.values(), *flash_rag, *flash_k,
-                                                                       *flash_l)))
-    mel_rec = dict(mel24, max_abs_err=worst("fused_log_mel", (mel24, *mel_k, *mel_l)))
+                                                                       *flash_l, *flash_m)))
+    mel_rec = dict(mel24, max_abs_err=worst("fused_log_mel", (mel24, *mel_k, *mel_l, *mel_m)))
     kernels = [
         entry("flash_attention", FLASH_SRC, "autostyle_tts_tpu/ops/pallas_attn.py:76",
               on_paths("flash_attention"), flash_rec),

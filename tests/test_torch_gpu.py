@@ -43,6 +43,7 @@ from autostyle_tts_tpu_torch.ops.flash_attn import flash_attention, flash_attent
 from autostyle_tts_tpu_torch.ops.log_mel import fused_log_mel, fused_log_mel_plain
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
 from autostyle_tts_tpu_torch.pipeline.engine import Engine, PromptFeatures
+from autostyle_tts_tpu_torch.utils import rng
 from autostyle_tts_tpu_torch.utils.config import tiny_config
 from autostyle_tts_tpu_torch.weights import quantize_tree
 from autostyle_tts_tpu_torch.weights import to_device as weights_to
@@ -574,8 +575,8 @@ def test_embed_on_card_matches_cpu(cuda):
     cfg = TransformerConfig(vocab_size=300, dim=256, n_layers=2, n_heads=2, n_kv_heads=1, ffn_dim=512,
                             max_seq_len=1024)
     gen = torch.Generator().manual_seed(6)
-    params = transformer.init_params_quantized(cfg, gen)
-    lora = transformer.init_lora(cfg, 8, gen)
+    params = transformer.init_params_quantized(cfg, rng.PRNGKey(6))
+    lora = transformer.init_lora(cfg, 8, rng.PRNGKey(7))
     lora["layers"] = {k: (v + 0.02 * torch.randn(v.shape, generator=gen)) if k.endswith("_b") else v
                       for k, v in lora["layers"].items()}
     texts = ["hello world", "a longer line of text to embed on the card", "你好"]

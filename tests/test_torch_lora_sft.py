@@ -35,6 +35,7 @@ from autostyle_tts_tpu_torch.train import lora_sft as tsft
 from autostyle_tts_tpu_torch.train import optim
 from autostyle_tts_tpu_torch.train import reformat as tref
 from autostyle_tts_tpu_torch.utils import checkpoint as tckpt
+from autostyle_tts_tpu_torch.utils import rng
 from autostyle_tts_tpu_torch.utils import tb_events as ttb
 from autostyle_tts_tpu_torch.weights import _flat_keys, tree_from_numpy
 
@@ -279,7 +280,7 @@ def test_train_contract_resume_and_files(tmp_path):
     assert [s for s, tag, _ in jtb.read_scalars(ev) if tag == "train/loss"] == list(range(1, res["steps"] + 1))
     # best.npz loads as a LoRA tree in the JAX package, and back in the port
     jlora = jckpt.load_pytree(out / "best.npz", jcore.init_lora(jax.random.PRNGKey(0), cfg, tcfg.lora.r))
-    like = tcore.init_lora(cfg, tcfg.lora.r, torch.Generator().manual_seed(0))
+    like = tcore.init_lora(cfg, tcfg.lora.r, rng.PRNGKey(0))
     tlora = tckpt.load_pytree(out / "best.npz", like)
     for k, v in _flat(tlora).items():
         np.testing.assert_array_equal(v, _flat(_np(jlora))[k])

@@ -40,8 +40,10 @@ from autostyle_tts_tpu_torch.ops import sampling as tsampling
 from autostyle_tts_tpu_torch.pipeline import rag as trag
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
 from autostyle_tts_tpu_torch.utils import config as tconfig
+from autostyle_tts_tpu_torch.utils import rng
 from autostyle_tts_tpu_torch.utils.manifest import JsonDataReader, StyleSample, write_jsonl
-from autostyle_tts_tpu_torch.weights import QTensor, _flat_keys, embedder_from_jax, load_lora, lora_from_jax
+from autostyle_tts_tpu_torch.weights import (Q4Tensor, QTensor, _flat_keys, embedder_from_jax, load_lora,
+                                             lora_from_jax, unpack4)
 
 ATOL = 1e-5
 CFG_KW = dict(vocab_size=frontend.VOCAB_SIZE, dim=32, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -179,7 +181,7 @@ def test_erc_chat_serving_mode(services):
     assert chat._erc_chat_labels_raw(texts, ctx, names) == jchat._erc_chat_labels_raw(texts, ctx, names)
 
     assert not tsvc.erc_chat  # no adapter: the plain prompt
-    lora = tcore.init_lora(tsvc.cfg, 4, torch.Generator().manual_seed(1))
+    lora = tcore.init_lora(tsvc.cfg, 4, rng.PRNGKey(1))
     tuned = trag.EmbedderService(tsvc.cfg, tsvc.params, lora=lora, lora_scale=1.0, device="cpu")
     assert tuned.erc_chat
 
@@ -291,8 +293,7 @@ def test_embedder_truncation_counts_tokens():
 
     tok = bpe.BPETokenizer.load("vocab/bpe_en_2k.json")
     ecfg = dataclasses.replace(tconfig.tiny_config().embedder, vocab_size=bpe.VOCAB_SIZE)
-    params = tcore.init_params(dataclasses.replace(ecfg, vocab_size=bpe.VOCAB_SIZE),
-                               torch.Generator().manual_seed(0))
+    params = tcore.init_params(dataclasses.replace(ecfg, vocab_size=bpe.VOCAB_SIZE), rng.PRNGKey(0))
     svc = trag.EmbedderService(ecfg, params, tokenizer=tok, device="cpu")
     long_text = "the quick brown fox jumps over the lazy dog " * 40
     ids = svc._encode(long_text, 64)
@@ -415,16 +416,32 @@ def test_ft3b_adapter_loads():
 
 
 def test_init_params_quantized_matches_jax_structure():
-    """The same flat keys, shapes and dtypes as the JAX builder at tiny
-    geometry (int8 projections and lm_head with f32 scales, f32 embedding)."""
+    """The same flat keys, shapes, dtypes and values as the JAX package's
+    init at tiny geometry from the same key, int8 and int4 (projections and lm_head
+    with f32 scales, f32 embedding): the quantized values agree on >= 99.99%
+    of elements and differ by at most one step elsewhere, the scales within
+    1e-6 relative, the embedding within 4 ulp (``utils/rng``: the draws'
+    ``log1p`` is not XLA's to the last bit)."""
     ecfg_j, ecfg_t = jconfig.tiny_config().embedder, tconfig.tiny_config().embedder
-    want = _flat_keys(embedder_from_jax(_np(jcore.init_params_quantized(jax.random.PRNGKey(0), ecfg_j)), ecfg_t))
-    got = _flat_keys(tcore.init_params_quantized(ecfg_t, torch.Generator().manual_seed(0)))
-    assert {k: (tuple(v.shape), v.dtype) for k, v in got.items()} == \
-           {k: (tuple(v.shape), v.dtype) for k, v in want.items()}
-    assert got["layers/wqkv/q"].dtype == torch.int8 and got["tok_emb"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcore.init_params_quantized(ecfg_t, torch.Generator().manual_seed(0), bits=4)
+    for bits, qname in ((8, "q"), (4, "packed")):
+        want = _flat_keys(embedder_from_jax(
+            _np(jcore.init_params_quantized(jax.random.PRNGKey(0), ecfg_j, bits=bits)), ecfg_t))
+        got = _flat_keys(tcore.init_params_quantized(ecfg_t, rng.PRNGKey(0), bits=bits))
+        assert {k: (tuple(v.shape), v.dtype) for k, v in got.items()} == \
+               {k: (tuple(v.shape), v.dtype) for k, v in want.items()}
+        assert got[f"layers/wqkv/{qname}"].dtype == (torch.int8 if bits == 8 else torch.uint8)
+        assert got["tok_emb"].dtype == torch.float32
+        for k, w in want.items():
+            g = got[k]
+            if k.endswith(f"/{qname}"):
+                gq, wq = (g, w) if bits == 8 else (unpack4(Q4Tensor(g, None)), unpack4(Q4Tensor(w, None)))
+                diff = (gq.int() - wq.int()).abs()
+                assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.9999, k
+            elif k.endswith("/s"):
+                torch.testing.assert_close(g, w, rtol=1e-6, atol=0, msg=k)
+            else:
+                ulps = (g.view(torch.int32).long() - w.view(torch.int32).long()).abs()
+                assert int(ulps.max()) <= 4, k
 
 
 def test_store_drop_and_self_verify():
