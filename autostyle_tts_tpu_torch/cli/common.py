@@ -7,6 +7,12 @@ Counterpart of the JAX ``cli/common.py``. Every CLI takes:
   --checkpoint FILE          engine weights (flat-key .npz, ``weights.load_tree``)
   --tiny / --demo            small geometries
   --device DEV               ``cuda`` by default; ``cpu`` runs the plain versions
+  --dp N / --tp M            an engine on a device mesh of N x M ranks, one
+                             process each: ``torchrun --nproc_per_node N*M -m
+                             autostyle_tts_tpu_torch.cli.<name> ... --dp N --tp M``
+                             (rank r on card r, NCCL; on the CPU, or with more
+                             ranks than cards, gloo); rank 0 alone writes the
+                             result files and prints the result lines
 """
 
 from __future__ import annotations
@@ -37,8 +43,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--profile", action="store_true",
                    help="print the last request's per-stage milliseconds at exit")
-    p.add_argument("--dp", type=int, default=0, help="data-parallel devices (one card: 0 or 1)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel degree (one card: 1)")
+    p.add_argument("--dp", type=int, default=0,
+                   help="shard request batches over N ranks (data axis); 0 = one process")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree (model axis); ranks used = max(dp, 1) * tp")
     add_device_arg(p)
 
 
@@ -57,10 +65,52 @@ def build_config(args) -> config_lib.Config:
     return cfg
 
 
-def check_single_device(args) -> None:
-    if int(getattr(args, "dp", 0) or 0) > 1 or int(getattr(args, "tp", 1) or 1) > 1:
-        raise NotImplementedError("--dp / --tp above 1 need a device mesh, which the port does not have "
-                                  "(ROADMAP.md: queue A item 11)")
+def mesh_shape(args):
+    return max(int(getattr(args, "dp", 0) or 0), 1), int(getattr(args, "tp", 1) or 1)
+
+
+def refuse_mesh(args) -> None:
+    """The CLIs that run on one device (the embedder's: their JAX
+    counterparts take no mesh for it) refuse ``--dp`` / ``--tp``."""
+    dp, tp = mesh_shape(args)
+    if dp * tp > 1:
+        raise ValueError("--dp / --tp: this CLI runs on one device (the embedder takes no mesh)")
+
+
+def build_mesh(args, dev: torch.device):
+    """The (dp, tp) mesh over ``torchrun``'s ranks, or None for one process.
+    ``WORLD_SIZE`` must be ``max(dp, 1) * tp``; rank r takes card
+    ``LOCAL_RANK`` modulo the cards (NCCL), or the CPU, or with more ranks
+    than cards shares them (gloo). Every rank but 0 prints nothing."""
+    from ..parallel.mesh import make_mesh
+
+    dp, tp = mesh_shape(args)
+    n = dp * tp
+    if n == 1:
+        return None
+    world = os.environ.get("WORLD_SIZE")
+    if world is None:
+        raise ValueError(f"--dp {dp} --tp {tp} runs one process a rank: torchrun --nproc_per_node {n} "
+                         f"-m autostyle_tts_tpu_torch.cli.<name> ... --dp {dp} --tp {tp}")
+    if int(world) != n:
+        raise ValueError(f"WORLD_SIZE={world}, but --dp {dp} --tp {tp} needs {n} ranks")
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % cards)
+        backend = "nccl" if n <= cards else "gloo"
+    else:
+        backend = "gloo"
+    mesh = make_mesh(dp, tp, device=dev, backend=backend)
+    if mesh.rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    return mesh
+
+
+def is_main() -> bool:
+    """Rank 0 of a mesh, or the one process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def engine_params(args, cfg, dev):
@@ -78,11 +128,11 @@ def build_engine(args):
     """The port's Engine on ``--device``, with ``--checkpoint`` weights."""
     from ..pipeline.engine import Engine
 
-    check_single_device(args)
     cfg = build_config(args)
     dev = resolve_device(args.device)
+    mesh = build_mesh(args, dev)
     params = engine_params(args, cfg, dev) if args.checkpoint else None
-    engine = Engine(cfg, params=params, seed=args.seed, device=dev)
+    engine = Engine(cfg, params=params, seed=args.seed, device=None if mesh else dev, mesh=mesh)
     if getattr(args, "profile", False):
         atexit.register(lambda: print("\n-- last request's stage timing (ms) --\n"
                                       + json.dumps(engine.last_timings)))
@@ -95,11 +145,11 @@ def build_training_engine(args):
     masters, never the copy the engine serves, which is bf16 or int8)."""
     from ..pipeline.engine import Engine
 
-    check_single_device(args)
     cfg = build_config(args)
     dev = resolve_device(args.device)
-    params = engine_params(args, cfg, dev)
-    return Engine(cfg, params=params, seed=args.seed, device=dev), params
+    mesh = build_mesh(args, dev)
+    params = engine_params(args, cfg, dev if mesh is None else mesh.device)
+    return Engine(cfg, params=params, seed=args.seed, device=None if mesh else dev, mesh=mesh), params
 
 
 def save_engine_checkpoint(engine, path: str) -> None:
@@ -107,10 +157,13 @@ def save_engine_checkpoint(engine, path: str) -> None:
     ``.npz`` (``utils/checkpoint.py``), so a snapshot exported by either
     package loads into the other through ``--checkpoint``. A dense token
     LM's projections and speech head are written at the bf16 values the
-    port serves them with (as f32); an int8 LM as ``q`` / ``s`` pairs."""
+    port serves them with (as f32); an int8 LM as ``q`` / ``s`` pairs.
+    Under a mesh the cut weights are gathered and rank 0 writes."""
     from ..weights import save_tree
 
-    save_tree(path, engine.params.tree())
+    tree = engine.full_tree()
+    if is_main():
+        save_tree(path, tree)
 
 
 def timestamped_dir(base: str) -> Path:
@@ -126,10 +179,11 @@ def read_lines(path: str) -> List[str]:
 
 
 def save_wav(path, wav: np.ndarray, engine) -> None:
-    """Save at the engine's output rate."""
+    """Save at the engine's output rate (rank 0 alone under a mesh)."""
     from ..utils.audio_io import write_wav
 
-    write_wav(path, wav, engine.cfg.audio.sample_rate)
+    if is_main():
+        write_wav(path, wav, engine.cfg.audio.sample_rate)
 
 
 def run_cli(main_fn) -> None:

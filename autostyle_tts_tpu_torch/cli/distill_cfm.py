@@ -23,7 +23,7 @@ import torch
 from ..train.cfm_distill import distill, eval_mel_l1
 from ..train.data import load_acoustic_manifest, make_acoustic_batches
 from ..utils.checkpoint import save_pytree
-from .common import add_common_args, build_training_engine, save_engine_checkpoint
+from .common import add_common_args, build_training_engine, is_main, save_engine_checkpoint
 
 
 def main(argv=None) -> None:
@@ -75,11 +75,11 @@ def main(argv=None) -> None:
               f"student@{schedule[-1]} {m_s['mel_l1']:.4f} (vs teacher output {m_s['mel_l1_vs_ref']:.4f}) | "
               f"undistilled-teacher@{schedule[-1]} {m_fast['mel_l1']:.4f}")
 
-    engine.params.cfm = student
+    engine.set_module("cfm", student)
     save_engine_checkpoint(engine, args.output)
     print(f"distilled engine -> {args.output} (serve with --set cfm.n_steps={schedule[-1]} "
           f"--set cfm.use_cfg=false)")
-    if args.output_cfm:
+    if args.output_cfm and is_main():
         save_pytree(args.output_cfm, student, metadata={"n_steps": schedule[-1], "use_cfg": False})
         print(f"distilled CFM tree -> {args.output_cfm}")
 

@@ -16,7 +16,7 @@ from ..utils import rng
 from ..utils.checkpoint import load_pytree
 from ..utils.device import resolve_device
 from ..utils.manifest import read_jsonl
-from .common import add_common_args, build_config, check_single_device
+from .common import add_common_args, build_config, refuse_mesh
 
 
 def main(argv=None) -> None:
@@ -29,7 +29,7 @@ def main(argv=None) -> None:
     p.add_argument("--batch_size", type=int, default=8)
     args = p.parse_args(argv)
 
-    check_single_device(args)
+    refuse_mesh(args)
     ecfg = build_config(args).embedder
     dev = resolve_device(args.device)
     params = core.init_params(ecfg, rng.PRNGKey(args.seed, dev))

@@ -10,7 +10,7 @@ from __future__ import annotations
 import argparse
 
 from ..utils.device import resolve_device
-from .common import add_common_args, build_config, check_single_device, engine_params, save_engine_checkpoint
+from .common import add_common_args, build_config, build_mesh, engine_params, save_engine_checkpoint
 
 MERGED_STAGES = ("tokenizer", "token_lm", "cfm", "vocoder")
 
@@ -26,9 +26,10 @@ def main(argv=None) -> None:
     from ..pipeline.engine import Engine
     from ..utils.checkpoint import CheckpointManager
 
-    check_single_device(args)
     cfg = build_config(args)
     dev = resolve_device(args.device)
+    mesh = build_mesh(args, dev)
+    dev = dev if mesh is None else mesh.device
     params = engine_params(args, cfg, dev)
     for spec in args.stage_ckpt:
         stage, _, ckpt_dir = spec.partition("=")
@@ -41,7 +42,7 @@ def main(argv=None) -> None:
             setattr(params, stage, mgr.restore(getattr(params, stage)))
         print(f"merged {stage} <- {ckpt_dir} (step {mgr.latest_step()})")
     # the snapshot holds the merged weights as the engine built from them serves them
-    save_engine_checkpoint(Engine(cfg, params=params, seed=args.seed, device=dev), args.output)
+    save_engine_checkpoint(Engine(cfg, params=params, seed=args.seed, device=dev, mesh=mesh), args.output)
     print(f"engine params -> {args.output}")
 
 

@@ -8,7 +8,9 @@ Counterpart of the JAX ``cli/ft_llm.py``; runs on the card unless
 --re_gen_data reformats the raw conversation JSONs first
 (``train/reformat.py``). --quantize_base draws the frozen base as int8
 (layer at a time, ``transformer.init_params_quantized``) with f32 LoRA
-pairs; the int4 base is not ported (ROADMAP.md: queue A item 11)."""
+pairs, as the JAX CLI draws it (at 8 bits only: neither package's CLI
+draws an int4 base). Like the JAX ``lora_sft.train``, the loop takes no
+mesh: --dp / --tp above 1 raise."""
 
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from ..utils import rng
 from ..utils.checkpoint import load_pytree
 from ..utils.device import resolve_device
 from ..utils.manifest import read_jsonl
-from .common import add_common_args, build_config, check_single_device
+from .common import add_common_args, build_config, refuse_mesh
 
 
 def main(argv=None) -> None:
@@ -45,7 +47,7 @@ def main(argv=None) -> None:
                    help="int8 frozen base + f32 LoRA (the reference's QLoRA stance)")
     args = p.parse_args(argv)
 
-    check_single_device(args)
+    refuse_mesh(args)
     cfg = build_config(args)
     dev = resolve_device(args.device)
     folder = Path(args.data_folder)

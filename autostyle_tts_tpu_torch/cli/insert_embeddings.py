@@ -16,7 +16,7 @@ from ..pipeline.rag import EmbedderService, build_style_db, labels_for_language
 from ..utils import rng
 from ..utils.device import resolve_device
 from ..utils.manifest import load_style_manifests
-from .common import add_common_args, build_config, build_engine, check_single_device
+from .common import add_common_args, build_config, build_engine, refuse_mesh
 
 
 def build_embedder(args, cfg) -> EmbedderService:
@@ -29,7 +29,7 @@ def build_embedder(args, cfg) -> EmbedderService:
     from ..models import transformer as core
     from ..weights import load_lora, load_tree
 
-    check_single_device(args)
+    refuse_mesh(args)
     dev = resolve_device(args.device)
     tokenizer = None
     if getattr(args, "embedder_hf_dir", None):

@@ -5,6 +5,13 @@ Counterpart of the JAX ``models/cfm.py`` (``init_params``, ``_t_embed``,
 ``sample_mel``, the training objective ``cfm_loss``). Trunk matmuls run in
 ``cfg.dtype``; layer-norm statistics, softmax, the adaLN modulation and the
 ODE state stay f32, as there.
+
+Under an active mesh (``parallel/``) the estimator runs on this rank's
+slices, as the JAX rules shard it: ``wq`` / ``wk`` / ``wv`` and ``w_up``
+column-parallel (the local heads and F / tp), ``wo`` / ``w_down``
+row-parallel (their partial products summed over the model group in f32,
+then rounded to the trunk dtype), ``tok_emb`` vocab-sharded
+(``upsample_tokens`` with ``vocab``); every other leaf whole.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import sdpa
+from ..parallel import comm
 from ..utils.config import CFMConfig
 from ..weights import normal
 
@@ -93,29 +101,43 @@ def vector_field(
     h = h + token_cond + (spk @ params["spk_proj"])[:, None, :]
     h = (h + _frame_pos_embed(positions, D).to(h.dtype)).to(dt)
     temb = F.silu(_t_embed(t) @ params["t_proj1"]) @ params["t_proj2"]
-    n_heads = cfg.n_heads
-    hd = D // n_heads
+    hd = D // cfg.n_heads
     attn_mask = (frame_mask[:, None, None, :] > 0) & (frame_mask[:, None, :, None] > 0)
     lp = params["layers"]
+    n_heads = lp["wq"].shape[-1] // hd            # this rank's heads under a mesh
+    attn_cut, mlp_cut = n_heads < cfg.n_heads, lp["w_up"].shape[-1] < cfg.ffn_dim
     for l in range(cfg.n_layers):
         mod = F.silu(temb) @ lp["mod"][l]
         sh1, sc1, g1, sh2, sc2, g2 = (m.to(dt) for m in mod.chunk(6, dim=-1))
         x = _ln(h) * (1 + sc1[:, None]) + sh1[:, None]
-        q = (x @ lp["wq"][l].to(dt)).reshape(B, Fr, n_heads, hd)
-        k = (x @ lp["wk"][l].to(dt)).reshape(B, Fr, n_heads, hd)
-        v = (x @ lp["wv"][l].to(dt)).reshape(B, Fr, n_heads, hd)
-        att = sdpa(q, k, v, attn_mask).reshape(B, Fr, D)
-        h = h + g1[:, None] * (att @ lp["wo"][l].to(dt))
+        xa = comm.copy_to_model(x) if attn_cut else x
+        q = (xa @ lp["wq"][l].to(dt)).reshape(B, Fr, n_heads, hd)
+        k = (xa @ lp["wk"][l].to(dt)).reshape(B, Fr, n_heads, hd)
+        v = (xa @ lp["wv"][l].to(dt)).reshape(B, Fr, n_heads, hd)
+        att = sdpa(q, k, v, attn_mask).reshape(B, Fr, n_heads * hd)
+        h = h + g1[:, None] * comm.row_product(att, lp["wo"][l], dt, attn_cut)
         x = _ln(h) * (1 + sc2[:, None]) + sh2[:, None]
-        up = F.gelu(x @ lp["w_up"][l].to(dt), approximate="tanh")
-        h = h + g2[:, None] * (up @ lp["w_down"][l].to(dt))
+        xm = comm.copy_to_model(x) if mlp_cut else x
+        up = F.gelu(xm @ lp["w_up"][l].to(dt), approximate="tanh")
+        h = h + g2[:, None] * comm.row_product(up, lp["w_down"][l], dt, mlp_cut)
     h = _ln(h).float() * params["out_norm_scale"]
     return h @ params["out_proj"]
 
 
-def upsample_tokens(params: Params, tokens: torch.Tensor, upsample: int) -> torch.Tensor:
-    """[B, T_tok] -> [B, T_tok * upsample, D] token conditioning."""
-    emb = params["tok_emb"][tokens.long()]
+def upsample_tokens(params: Params, tokens: torch.Tensor, upsample: int,
+                    vocab: Optional[int] = None) -> torch.Tensor:
+    """[B, T_tok] -> [B, T_tok * upsample, D] token conditioning. ``vocab``
+    (the config's ``token_vocab_size``) is needed under a mesh, where
+    ``tok_emb`` may hold a slice of the vocabulary."""
+    table = params["tok_emb"]
+    if vocab is None:
+        if comm.model_size() > 1:
+            raise ValueError("upsample_tokens under a mesh needs the vocabulary size")
+        emb = table[tokens.long()]
+    else:
+        from .transformer import embed
+
+        emb = embed(table, tokens, vocab)
     return torch.repeat_interleave(emb, upsample, dim=1)
 
 

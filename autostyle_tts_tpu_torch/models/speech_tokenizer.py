@@ -5,6 +5,11 @@ subsampling (100 Hz mel -> 25 Hz) into a bidirectional transformer encoder
 and a VQ layer (nearest codebook entry, argmax on the device). Padded frames
 are masked before and after every conv, so tokens do not depend on the
 padding bucket.
+
+Under an active mesh (``parallel/``) each block runs on this rank's
+slices: ``wq`` / ``wk`` / ``wv`` / ``w_up`` column-parallel, ``wo`` /
+``w_down`` row-parallel with their partial products summed over the model
+group in f32; the convolutions, norms and codebook stay whole.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import sdpa
 from ..ops.conv import conv1d, conv1d_init, layer_norm, layer_norm_init
+from ..parallel import comm
 from ..utils.config import SpeechTokenizerConfig
 from ..weights import normal
 
@@ -69,18 +75,21 @@ def apply(
         m = m[:, ::stride][:, : h.shape[1]]
         h = _gelu(layer_norm(h, sub["ln"])) * m[..., None].to(h.dtype)
     B, T, D = h.shape
-    n_heads = cfg.n_heads
-    hd = D // n_heads
+    hd = D // cfg.n_heads
     attn_mask = (m[:, None, None, :] > 0) & (m[:, None, :, None] > 0)
     for blk in params["enc"]:
+        n_heads = blk["wq"].shape[-1] // hd         # this rank's heads under a mesh
+        attn_cut, mlp_cut = n_heads < cfg.n_heads, blk["w_up"].shape[-1] < cfg.ffn_dim
         x = layer_norm(h, blk["ln1"])
-        q = (x @ blk["wq"].to(x.dtype)).reshape(B, T, n_heads, hd)
-        k = (x @ blk["wk"].to(x.dtype)).reshape(B, T, n_heads, hd)
-        v = (x @ blk["wv"].to(x.dtype)).reshape(B, T, n_heads, hd)
-        att = sdpa(q, k, v, attn_mask).reshape(B, T, D)
-        h = h + att @ blk["wo"].to(h.dtype)
+        xa = comm.copy_to_model(x) if attn_cut else x
+        q = (xa @ blk["wq"].to(x.dtype)).reshape(B, T, n_heads, hd)
+        k = (xa @ blk["wk"].to(x.dtype)).reshape(B, T, n_heads, hd)
+        v = (xa @ blk["wv"].to(x.dtype)).reshape(B, T, n_heads, hd)
+        att = sdpa(q, k, v, attn_mask).reshape(B, T, n_heads * hd)
+        h = h + comm.row_product(att, blk["wo"], h.dtype, attn_cut)
         x = layer_norm(h, blk["ln2"])
-        h = h + _gelu(x @ blk["w_up"].to(x.dtype)) @ blk["w_down"].to(x.dtype)
+        xm = comm.copy_to_model(x) if mlp_cut else x
+        h = h + comm.row_product(_gelu(xm @ blk["w_up"].to(x.dtype)), blk["w_down"], x.dtype, mlp_cut)
     tokens = quantize(params["codebook"], h)
     return TokenizeResult(tokens=tokens, token_mask=m > 0, pre_vq=h)
 

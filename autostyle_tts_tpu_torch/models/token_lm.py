@@ -22,6 +22,15 @@ decode-step op per token, which samples in its kernel, and one host read of
 the token for the EOS check. With a list of ``unstack_decode_params`` it is
 an ``attn_step`` and an ``mlp_step`` per layer and token, the speech head in
 plain PyTorch and the host sampler. ``lm_loss`` is the training objective.
+
+Under an active mesh (``parallel/``) ``build_prefix``, the prefill and the
+scanned decode run on this rank's slices: ``tok_emb`` / ``speech_emb``
+looked up on their vocabulary slice (``transformer.embed``), the speech
+head's logits gathered (``transformer.head_logits``), so the sampler
+always sees the whole vocabulary, and the KV cache holding the local heads.
+A data rank that decodes rows ``rows`` of a batch draws the whole batch's
+sampling noise and keeps its rows' (``ops/sampling.sample``), so a row's
+tokens are those the whole batch draws on one device.
 """
 
 from __future__ import annotations
@@ -228,10 +237,11 @@ def build_prefix(
     in_style = (r >= (text_len + 2)[:, None]) & (r < total[:, None])
     text_idx = torch.clamp(r - 1, 0, T_txt - 1)
     style_idx = torch.clamp(r - (text_len + 2)[:, None], 0, T_sty - 1)
-    text_e = params["tok_emb"][torch.gather(text.long(), 1, text_idx)]
-    style_e = params["speech_emb"][torch.gather(style_tokens.long(), 1, style_idx)]
+    V_s = cfg.speech_vocab_size
+    text_e = core.embed(params["tok_emb"], torch.gather(text.long(), 1, text_idx), cfg.text_vocab_size)
+    style_e = core.embed(params["speech_emb"], torch.gather(style_tokens.long(), 1, style_idx), V_s)
     spk_e = (spk.float() @ params["spk_proj"])[:, None, :]
-    bos_e = params["speech_emb"][cfg.speech_bos][None, None, :]
+    bos_e = core.embed(params["speech_emb"], torch.full((1, 1), cfg.speech_bos, device=dev), V_s)
     emb = torch.zeros_like(text_e)
     emb = torch.where(is_spk[..., None], spk_e, emb)
     emb = torch.where(in_text[..., None], text_e, emb)
@@ -286,6 +296,7 @@ def start_decode(
     kv_int8: bool = False,
     fused: bool = True,
     clock: Optional[Stopwatch] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> DecodeLoop:
     """Runs the prefill (flash attention) now, under ``clock``'s "prefill"
     span, and returns the decode loop: a generator that draws one token a
@@ -303,7 +314,9 @@ def start_decode(
     per-layer ``attn_step`` / ``mlp_step`` pair with the plain head and the
     host sampler. A dict with a top-p sampler, no ``decode_params`` or
     ``fused=False`` take the scanned decode (``_decode_scan``). The loop
-    holds no span of ``clock`` across its yields: the caller times it."""
+    holds no span of ``clock`` across its yields: the caller times it.
+    ``rows`` (start, total): the prefix holds rows start.. of a batch of
+    ``total``, whose sampling noise the scanned decode draws whole."""
     ccfg = core_config(cfg)
     B, P, D = prefix.embeds.shape
     if isinstance(decode_params, dict) and not sampler.greedy and sampler.top_p < 1.0:
@@ -316,15 +329,18 @@ def start_decode(
     clock = clock or Stopwatch(dev)
     S_max = -(-(P + max_new_tokens + 1) // 8) * 8
     with clock.span("prefill"):
-        cache = core.make_cache(ccfg, B, S_max, dev, quantized=kv_int8 and not kernels)
+        cache = core.make_cache(ccfg, B, S_max, dev, quantized=kv_int8 and not kernels,
+                                n_kv_heads=core.local_heads(params, ccfg)[1])
         offset = (P - prefix.length).to(torch.int32)
         pos = torch.clamp(torch.arange(P, device=dev)[None, :] - offset[:, None], min=0)
         hidden = core.forward(params, ccfg, inputs_embeds=prefix.embeds, positions=pos,
                               offset=offset, cache=cache)
-        next_logits = core.matmul_any(hidden[:, -1], params["speech_head"])
+        next_logits = core.head_logits(hidden[:, -1], params["speech_head"], cfg.speech_vocab_size)
     kw = dict(P=P, max_new_tokens=max_new_tokens, sampler=sampler, min_tokens=min_tokens)
     if not kernels:
-        return _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, **kw)
+        return _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, rows=rows, **kw)
+    if rows is not None:
+        raise ValueError("the decode kernels serve a whole batch of one; rows are the scanned decode's")
     L = ccfg.n_layers
     k_all = cache["k"].view(L, S_max, -1)
     v_all = cache["v"].view(L, S_max, -1)
@@ -366,27 +382,29 @@ def generate_speech(
     kv_int8: bool = False,
     fused: bool = True,
     clock: Optional[Stopwatch] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> SpeechGen:
     """Prefill + decode to the end (``start_decode``, then its loop under
     the "decode" span)."""
     clock = clock or Stopwatch(prefix.embeds.device)
     loop = start_decode(params, cfg, prefix, generator, max_new_tokens=max_new_tokens,
                         decode_params=decode_params, sampler=sampler, min_tokens=min_tokens,
-                        kv_int8=kv_int8, fused=fused, clock=clock)
+                        kv_int8=kv_int8, fused=fused, clock=clock, rows=rows)
     with clock.span("decode"):
         return finish(loop)
 
 
 def _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, *, P,
-                 max_new_tokens, sampler, min_tokens) -> DecodeLoop:
+                 max_new_tokens, sampler, min_tokens, rows=None) -> DecodeLoop:
     """The reference's scanned decode, one host iteration a step: sample
     token i of every row from the previous logits (rows already done emit
     pad), yield the row's tokens (the one device read of the step), then
     run the core on them at cache slot P + i under the mask of the row's
     valid slots, and take the head's f32 logits. The loop ends after
     ``max_new_tokens`` steps or once every row is done; ``decode_steps``
-    counts the core's runs."""
+    counts the core's runs. ``rows``: see ``start_decode``."""
     B = next_logits.shape[0]
+    draw_rows = None if rows is None else (rows[0], rows[0] + B, rows[1])
     dev = next_logits.device
     eos, padt = cfg.speech_eos, cfg.speech_pad
     S_max = cache["k"].shape[2]
@@ -399,7 +417,9 @@ def _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, *, P,
     cur = next_logits
     steps = 0
     for i in range(max_new_tokens):
-        tok = sample(_mask_logits(cur, cfg, i < min_tokens), sampler, generator)
+        masked = _mask_logits(cur, cfg, i < min_tokens)
+        tok = sample(masked, sampler, generator) if draw_rows is None else sample(masked, sampler, generator,
+                                                                                 rows=draw_rows)
         tok = torch.where(done, torch.full_like(tok, padt), tok)
         is_eos = tok == eos
         gen_len += (~done & ~is_eos).to(torch.int32)
@@ -411,10 +431,10 @@ def _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, *, P,
         if all(t in (eos, padt) for t in drawn):
             break
         mask = (valid & (slot[None, :] <= P + i))[:, None, None, :]
-        hidden = core.forward(params, ccfg, inputs_embeds=emb[tok.long()][:, None, :],
+        hidden = core.forward(params, ccfg, inputs_embeds=core.embed(emb, tok, cfg.speech_vocab_size)[:, None, :],
                               positions=(P + i - offset.long())[:, None], mask=mask,
                               cache=cache, cache_start=P + i)
-        cur = core.matmul_any(hidden[:, 0], head)
+        cur = core.head_logits(hidden[:, 0], head, cfg.speech_vocab_size)
         steps += 1
     return SpeechGen(tokens=toks, lengths=gen_len, decode_steps=steps)
 
@@ -517,6 +537,7 @@ def generate_speech_from_ids(
     fused: bool = True,
     pad_multiple: int = 128,
     clock: Optional[Stopwatch] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> SpeechGen:
     """build_prefix + pad_prefix + generate_speech."""
     pre = build_prefix(params, cfg, text, text_len, style_tokens, style_len, spk)
@@ -524,7 +545,7 @@ def generate_speech_from_ids(
     return generate_speech(
         params, cfg, pre, generator, max_new_tokens=max_new_tokens,
         decode_params=decode_params, sampler=sampler, min_tokens=min_tokens,
-        kv_int8=kv_int8, fused=fused, clock=clock,
+        kv_int8=kv_int8, fused=fused, clock=clock, rows=rows,
     )
 
 

@@ -32,6 +32,18 @@ Where the reference gathers out of range it clamps (a JAX gather does):
 token ids past the vocabulary read its last row and RoPE positions past
 ``max_seq_len`` its last angle. The port computes the same (a torch index
 would raise); at the configurations' own widths neither happens.
+
+Under an active mesh (``with mesh:``, ``parallel/``) the same functions run
+on this rank's slices (``parallel.shard_params``): a layer on its local
+heads (H / tp, K / tp) and its local F / tp, the flash kernel and the
+KV cache on the local heads, ``reduce_from_model`` after ``wo`` and
+``w_down`` (in f32, before the rounding to the activation dtype) and
+``copy_to_model`` at the input of the column-parallel projections; LoRA
+pairs follow their base; ``tok_emb`` is looked up on its vocabulary slice
+and summed (``embed``), the head's logits gathered (``head_logits``). Each
+projection reads from its own shapes whether it was cut, so a leaf the
+rules left whole (a block whose heads do not divide the model axis, a
+packed int4 row-parallel weight) runs whole.
 """
 
 from __future__ import annotations
@@ -46,6 +58,8 @@ import torch.utils.checkpoint
 from ..ops.attention import apply_rope, causal_mask, quantize_kv, rope_table, sdpa, sdpa_quant
 from ..ops.flash_attn import flash_attention
 from ..ops.sampling import SamplerConfig, sample
+from ..parallel import comm
+from ..parallel.sharding import cut as cut_leaf
 from ..utils import rng
 from ..utils.config import TransformerConfig
 from ..weights import Q4Tensor, QTensor, is_quantized, q4matmul, quantize, quantize4
@@ -53,7 +67,8 @@ from ..weights import Q4Tensor, QTensor, is_quantized, q4matmul, quantize, quant
 Params = Dict
 
 __all__ = ["rmsnorm", "matmul_any", "make_cache", "forward", "init_params", "init_params_quantized",
-           "init_lora", "proj_shapes", "mean_pool_hidden", "embed_text", "left_pad", "generate"]
+           "init_lora", "proj_shapes", "mean_pool_hidden", "embed_text", "left_pad", "generate",
+           "embed", "head_logits", "local_heads"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -182,24 +197,103 @@ def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x.float(), w.to(x.dtype).float())
 
 
+def _out_dim(w) -> int:
+    return (w.packed if isinstance(w, Q4Tensor) else w.q if isinstance(w, QTensor) else w).shape[-1]
+
+
+def _in_dim(w) -> int:
+    if isinstance(w, Q4Tensor):
+        return 2 * w.packed.shape[-2]
+    return (w.q if isinstance(w, QTensor) else w).shape[-2]
+
+
 def _proj(x: torch.Tensor, w, lora: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-          scale: float = 0.0) -> torch.Tensor:
+          scale: float = 0.0, cut: bool = False) -> torch.Tensor:
     """x @ w, plus ``scale * (x @ a) @ b`` for a LoRA pair (a, b), in the
     reference's rounding order: x @ a in f32, rounded to x's dtype, @ b in
-    f32, scaled and added in f32, the sum rounded to x's dtype."""
+    f32, scaled and added in f32, the sum rounded to x's dtype. ``cut``:
+    ``w`` (and ``b``) are this rank's column slice; x and the replicated
+    ``a`` pass ``copy_to_model``, so their gradients sum over the model
+    group."""
+    if cut:
+        x = comm.copy_to_model(x)
     y = matmul_any(x, w)
     if lora is not None:
         a, b = lora
+        if cut:
+            a = comm.copy_to_model(a)
         ax = torch.matmul(x.float(), a.to(x.dtype).float()).to(x.dtype)
         y = y + scale * torch.matmul(ax.float(), b.to(x.dtype).float())
     return y.to(x.dtype)
 
 
+def _row_proj(x: torch.Tensor, w, full_in: int, lora: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              scale: float = 0.0) -> torch.Tensor:
+    """``_proj`` for a row-parallel weight (``wo``, ``w_down``) whose input
+    ``x`` may be this rank's slice of ``full_in`` features: a weight cut
+    the same way gives partial sums, reduced over the model group in f32;
+    a whole weight under a cut input (a packed int4 leaf) takes the
+    gathered input. A LoRA ``a`` follows the same rule, ``b`` is whole."""
+    n = x.shape[-1]
+
+    def product(x, w, f):
+        if _in_dim(w) == n:
+            y = f(x, w)
+            return comm.reduce_from_model(y) if n < full_in else y
+        return f(comm.gather_from_model(x, -1), w)
+
+    y = product(x, w, matmul_any)
+    if lora is not None:
+        a, b = lora
+        ax = product(x, a, lambda x, a: torch.matmul(x.float(), a.to(x.dtype).float())).to(x.dtype)
+        y = y + scale * torch.matmul(ax.float(), b.to(x.dtype).float())
+    return y.to(x.dtype)
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Rows ``ids`` of an embedding table, ids past the vocabulary reading
+    its last row. A vocab-sharded table (this rank's ``vocab / tp`` rows
+    under the active mesh) looks up the ids in its range, zeros elsewhere,
+    and sums over the model group (one nonzero a row: exact)."""
+    ids = ids.long().clamp(max=vocab - 1)
+    n = table.shape[0]
+    if n == vocab:
+        return table[ids]
+    if n * comm.model_size() != vocab:
+        raise ValueError(f"embedding table of {n} rows for a vocabulary of {vocab} "
+                         f"under a model axis of {comm.model_size()}")
+    local = ids - comm.model_rank() * n
+    hit = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)] * hit[..., None].to(table.dtype)
+    return comm.reduce_from_model(rows)
+
+
+def head_logits(x: torch.Tensor, head, vocab: int) -> torch.Tensor:
+    """f32 logits of a head over the whole vocabulary: a column-sharded
+    head's are gathered over the model group (its input passes
+    ``copy_to_model``, so the input's gradient sums over the group)."""
+    n = _out_dim(head)
+    if n == vocab:
+        return matmul_any(x, head)
+    if n * comm.model_size() != vocab:
+        raise ValueError(f"head of {n} columns for a vocabulary of {vocab} "
+                         f"under a model axis of {comm.model_size()}")
+    return comm.gather_from_model(matmul_any(comm.copy_to_model(x), head), -1)
+
+
+def local_heads(params: Params, cfg: TransformerConfig) -> Tuple[int, int]:
+    """(query heads, key/value heads) this rank's ``wqkv`` holds."""
+    cut = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim // _out_dim(params["layers"]["wqkv"])
+    return cfg.n_heads // cut, cfg.n_kv_heads // cut
+
+
 def make_cache(cfg: TransformerConfig, batch: int, max_len: int, device,
-               dtype=torch.bfloat16, quantized: bool = False) -> Dict[str, torch.Tensor]:
+               dtype=torch.bfloat16, quantized: bool = False,
+               n_kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """k/v [L, B, S, K, hd] in ``dtype``; ``quantized``: int8 k/v plus f32
-    ``k_scale`` / ``v_scale`` [L, B, S, K]."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    ``k_scale`` / ``v_scale`` [L, B, S, K]. ``n_kv_heads``: the heads this
+    rank holds under a mesh (``local_heads``), by default all of them."""
+    shape = (cfg.n_layers, batch, max_len, n_kv_heads or cfg.n_kv_heads, cfg.head_dim)
     if quantized:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -226,14 +320,21 @@ def _layer(
     when there is no cache. ``lo``: this layer's LoRA pairs."""
     B, T, D = h.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn_cut = (H + 2 * K) * hd // _out_dim(lp["wqkv"])      # 1, or the model axis
+    H, K = H // attn_cut, K // attn_cut
+    F = _out_dim(lp["w_gate_up"]) // 2
 
     def pair(name):
         return None if lo is None else (lo[name + "_lora_a"], lo[name + "_lora_b"])
 
     x = rmsnorm(h, lp["attn_norm"], cfg.norm_eps)
-    qkv = _proj(x, lp["wqkv"], pair("wqkv"), lora_scale)
+    qkv = _proj(x, lp["wqkv"], pair("wqkv"), lora_scale, cut=attn_cut > 1)
     if "bqkv" in lp:      # Qwen2-family attention bias, added in the activation dtype
-        qkv = qkv + lp["bqkv"].to(qkv.dtype)
+        b = lp["bqkv"]
+        if b.shape[-1] != qkv.shape[-1]:     # a whole bias beside a cut wqkv: this rank's blocks
+            blocks = (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)
+            b = cut_leaf(b, (b.ndim - 1, blocks), attn_cut, comm.model_rank())
+        qkv = qkv + b.to(qkv.dtype)
     q, k, v = torch.split(qkv, [H * hd, K * hd, K * hd], dim=-1)
     q = apply_rope(q.reshape(B, T, H, hd), cos, sin, positions)
     k = apply_rope(k.reshape(B, T, K, hd), cos, sin, positions)
@@ -260,10 +361,11 @@ def _layer(
         attn = sdpa_quant(q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], mask)
     else:
         attn = sdpa(q, cache["k"], cache["v"], mask)
-    h = h + _proj(attn.reshape(B, T, H * hd), lp["wo"], pair("wo"), lora_scale)
+    h = h + _row_proj(attn.reshape(B, T, H * hd), lp["wo"], cfg.n_heads * hd, pair("wo"), lora_scale)
     x = rmsnorm(h, lp["mlp_norm"], cfg.norm_eps)
-    gate, up = _proj(x, lp["w_gate_up"], pair("w_gate_up"), lora_scale).chunk(2, dim=-1)
-    return h + _proj(torch.nn.functional.silu(gate) * up, lp["w_down"], pair("w_down"), lora_scale)
+    gate, up = _proj(x, lp["w_gate_up"], pair("w_gate_up"), lora_scale, cut=F < cfg.ffn_dim).chunk(2, dim=-1)
+    return h + _row_proj(torch.nn.functional.silu(gate) * up, lp["w_down"], cfg.ffn_dim, pair("w_down"),
+                         lora_scale)
 
 
 def _layer_params(stacked: Params, l: int) -> Params:
@@ -306,7 +408,7 @@ def forward(
         raise ValueError("forward: pass tokens or inputs_embeds")
     dt = _DTYPES[cfg.dtype]
     if tokens is not None:
-        h = params["tok_emb"][tokens.long().clamp(max=cfg.vocab_size - 1)].to(dt)
+        h = embed(params["tok_emb"], tokens, cfg.vocab_size).to(dt)
     else:
         h = inputs_embeds.to(dt)
     B, T = h.shape[:2]
@@ -420,7 +522,7 @@ def generate(
     hidden = forward(params, cfg, prompt, positions=pos, cache=cache, offset=offset,
                      lora=lora, lora_scale=lora_scale)
     head = _head(params)
-    cur = matmul_any(hidden[:, -1], head)
+    cur = head_logits(hidden[:, -1], head, cfg.vocab_size)
     toks = torch.full((B, max_new_tokens), pad_id, dtype=torch.int32, device=dev)
     gen_len = torch.zeros((B,), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -435,5 +537,5 @@ def generate(
         mask = (valid & (slot[None, :] <= P + i))[:, None, None, :]
         hidden = forward(params, cfg, tok[:, None], positions=(P + i - offset.long())[:, None], mask=mask,
                          cache=cache, cache_start=P + i, lora=lora, lora_scale=lora_scale)
-        cur = matmul_any(hidden[:, 0], head)
+        cur = head_logits(hidden[:, 0], head, cfg.vocab_size)
     return GenerateResult(tokens=toks, lengths=gen_len, cache=cache)

@@ -10,7 +10,7 @@ drawn from an explicit generator. The RAG embedder's two samplers are
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -85,11 +85,22 @@ def transform_logits(logits: torch.Tensor, cfg: SamplerConfig) -> torch.Tensor:
 def sample(
     logits: torch.Tensor, cfg: SamplerConfig,
     generator: Optional[torch.Generator] = None,
+    rows: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
-    """logits [..., V] -> token ids [...] int32."""
+    """logits [..., V] -> token ids [...] int32. ``rows`` (start, stop,
+    total): ``logits`` [stop - start, V] are rows start..stop of a batch of
+    ``total`` (a data rank's share): the draw is the whole batch's noise,
+    its rows kept, so each row gets the token the whole batch would.
+    ``torch.multinomial`` of one sample a row is the argmax of probs /
+    Exp(1) noise of the probabilities' shape; that is drawn here."""
     if cfg.greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(transform_logits(logits.float(), cfg), dim=-1)
     flat = probs.reshape(-1, probs.shape[-1])
-    picks = torch.multinomial(flat, 1, generator=generator)
+    if rows is None:
+        picks = torch.multinomial(flat, 1, generator=generator)[:, 0]
+    else:
+        start, stop, total = rows
+        noise = torch.empty((total, flat.shape[-1]), dtype=flat.dtype, device=flat.device)
+        picks = torch.argmax(flat / noise.exponential_(1, generator=generator)[start:stop], dim=-1)
     return picks.reshape(probs.shape[:-1]).to(torch.int32)

@@ -54,6 +54,8 @@ class ContinuousBatcher:
         max_new: int = 512,
         kv_int8: Optional[bool] = None,
     ):
+        if getattr(engine, "mesh", None) is not None:
+            raise ValueError("continuous batching runs on an engine without a mesh")
         self.engine = engine
         cfg: Config = engine.cfg
         self.cfg = cfg

@@ -34,6 +34,20 @@ streams in one call (``pipeline/stream_serve.py``).
 The engine returns f32 wavs. The STYLE prompt drives the LM prosody prefix;
 the TIMBRE prompt supplies the speaker embedding and the flow prompt
 (tokens + mel).
+
+``Engine(cfg, mesh=...)`` (``parallel.make_mesh``; every rank of the mesh
+builds its engine alike and makes the same calls) holds this rank's slices
+of the token LM, the CFM and the speech tokenizer under the tensor-parallel
+rules, the vocoder and the speaker encoder whole. A batch whose size is a
+multiple of the data axis (``synthesize_batch`` and
+``synthesize_from_tokens`` pad theirs by repeating the first item, as the
+JAX engine does) is split into data ranks' row ranges, each computed by
+its model group and gathered, so every rank returns the whole batch; a
+smaller batch runs whole on every data rank. A mesh changes placement, not
+results: every rank draws the whole batch's LM noise and CFM noise from
+the engine's generators, in the shapes one device draws, and keeps its
+rows. The decode kernel, the speculative decode and continuous batching
+are the single-device paths: under a mesh the LM takes the scanned decode.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ import json
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from contextlib import nullcontext
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +67,8 @@ from ..models import cfm, frontend, speaker, speech_tokenizer, token_lm, vocoder
 from ..ops import decode_step, stft
 from ..ops.resample import resample
 from ..ops.sampling import SamplerConfig
+from ..parallel import comm
+from ..parallel.sharding import abstract, batch_sharding, gather_params, shard_params
 from ..retrieval.store import StyleStore
 from ..utils.config import Config
 from ..utils.device import DeviceLike, resolve_device
@@ -129,7 +146,7 @@ def mel_body(
     zero = torch.zeros_like(from_gen)
     tokens = torch.where(in_prompt, from_prompt,
                          torch.where(j < tok_lens[:, None], from_gen, zero))
-    cond = cfm.upsample_tokens(cfm_p, tokens, up)
+    cond = cfm.upsample_tokens(cfm_p, tokens, up, cfg.cfm.token_vocab_size)
     fr = torch.arange(n_frames, device=dev)[None, :]
     frame_mask = (fr < tok_lens[:, None] * up).float()
     pmask = (fr < torch.minimum(p_lens[:, None] * up, mel_lens.long()[:, None])).float()
@@ -214,7 +231,7 @@ def stream_window(
         pm[:, fp_w * up : (fp_w + chunk) * up] = mel_ctx
         pm = pm * pmask[..., None]
         pos = torch.where(fr < fp_w * up, fr, torch.clamp((npp + em - chunk) * up + fr - fp_w * up, min=0))
-        cond = cfm.upsample_tokens(params.cfm, tokens, up)
+        cond = cfm.upsample_tokens(params.cfm, tokens, up, cfg.cfm.token_vocab_size)
         mel = cfm.sample_mel(params.cfm, cfg.cfm, generator, cond, spk, pm, pmask, fmask,
                              use_cfg=cfg.cfm.use_cfg, positions=pos, noise=noise)
     lo = (fp_w + chunk) * up
@@ -252,7 +269,7 @@ def featurize(
 _DENSE_PROJ = ("wqkv", "wo", "w_gate_up", "w_down")
 
 
-def _prepare_lm(lm: Dict, cfg: Config):
+def _prepare_lm(lm: Dict, cfg: Config, decode_kernel: bool = True):
     """The token LM as served -> (params, decode-kernel params or None).
 
     int8 (``quantize_lm_int8``): weight-only quantized at init as the
@@ -265,11 +282,14 @@ def _prepare_lm(lm: Dict, cfg: Config):
     the decode weights stay int8 (the reference's fallback).
     Dense: the projections and the speech head are rounded to bf16 once
     here (the reference casts them to the bf16 activations in every
-    product)."""
+    product). ``decode_kernel=False`` (an engine on a mesh): no kernel
+    copy."""
     if not cfg.quantize_lm_int8:
         layers = {k: (v.to(torch.bfloat16) if k in _DENSE_PROJ else v) for k, v in lm["layers"].items()}
         return dict(lm, layers=layers, speech_head=lm["speech_head"].to(torch.bfloat16)), None
     lm = quantize_tree(lm)
+    if not decode_kernel:
+        return lm, None
     tl = cfg.token_lm
 
     def serves(bits):
@@ -292,10 +312,18 @@ class Engine:
         params: Optional[EngineParams] = None,
         seed: int = 0,
         device: DeviceLike = None,
+        mesh=None,
     ):
         """Runs on ``cuda`` unless ``device="cpu"`` (where every kernel
         wrapper takes its plain PyTorch twin). ``params`` default to random
-        weights drawn from ``torch.Generator(device).manual_seed(seed)``."""
+        weights drawn from ``torch.Generator(device).manual_seed(seed)``.
+        ``mesh`` (a ``parallel.Mesh``): the engine runs on its device, holds
+        this rank's slices and splits batches over its data axis (module
+        docstring)."""
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         if vocoder.total_upsample(cfg.vocoder) != cfg.audio.hop_length:
             raise ValueError("vocoder upsampling must equal audio.hop_length "
@@ -305,7 +333,16 @@ class Engine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = EngineParams.init(gen, cfg)
         params = EngineParams.from_tree(to_device(params.tree(), self.device))
-        params.token_lm, self._mega_params = _prepare_lm(params.token_lm, cfg)
+        params.token_lm, self._mega_params = _prepare_lm(params.token_lm, cfg, decode_kernel=mesh is None)
+        self.mesh = mesh
+        self.dp = 1 if mesh is None else mesh.data
+        if mesh is not None:
+            tl, c, st = cfg.token_lm, cfg.cfm, cfg.speech_tokenizer
+            self._heads = {"token_lm": (tl.n_heads, tl.n_kv_heads), "cfm": (c.n_heads, c.n_heads),
+                           "speech_tokenizer": (st.n_heads, st.n_heads)}
+            self._full = {name: abstract(getattr(params, name)) for name in self._heads}
+            for name, heads in self._heads.items():
+                setattr(params, name, shard_params(mesh, getattr(params, name), heads))
         self.params = params
         self.speakers: Dict[str, PromptFeatures] = {}
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 17)
@@ -333,24 +370,29 @@ class Engine:
         bucket, one device batch, one host fetch. ``clock`` (a request's
         stopwatch) gets the time under its ``featurize`` span."""
         a = self.cfg.audio
+        (wavs_16k,), n_real = self._pad_batch(list(wavs_16k))
         wavs = [np.asarray(w, np.float32).reshape(-1) for w in wavs_16k]
         lens = [len(w) for w in wavs]
         T = _bucket(max(lens), tuple(a.prompt_sample_rate * s for s in PROMPT_SECONDS))
         batch = np.zeros((len(wavs), T), np.float32)
         for i, w in enumerate(wavs):
             batch[i, : min(len(w), T)] = w[:T]
+        rows = self._rows(len(wavs))
         clock = clock or Stopwatch(self.device)
-        with clock.span("featurize"):
+        with clock.span("featurize"), self._on_mesh():
             tokens, _, spk, mel24 = featurize(
-                self.params, self.cfg, self._tensor(batch, torch.float32),
-                self._tensor(lens, torch.int32))
+                self.params, self.cfg, self._tensor(batch[rows], torch.float32),
+                self._tensor(lens[rows], torch.int32))
             # one host fetch for all outputs (token ids are exact in f32)
-            flat = torch.cat([tokens.float().reshape(-1), spk.float().reshape(-1),
-                              mel24.float().reshape(-1)]).cpu().numpy()
-        n_t, n_s = tokens.numel(), spk.numel()
-        tokens_h = flat[:n_t].astype(np.int32).reshape(tuple(tokens.shape))
-        spk_h = flat[n_t : n_t + n_s].reshape(tuple(spk.shape))
-        mel_h = flat[n_t + n_s :].reshape(tuple(mel24.shape))
+            B = tokens.shape[0]
+            flat = torch.cat([tokens.float().reshape(B, -1), spk.float().reshape(B, -1),
+                              mel24.float().reshape(B, -1)], dim=1)
+            flat = self._gather(flat, rows, len(wavs)).cpu().numpy()
+        n_t, n_s = tokens[0].numel(), spk[0].numel()
+        tokens_h = flat[:, :n_t].astype(np.int32).reshape(-1, *tokens.shape[1:])
+        spk_h = flat[:, n_t : n_t + n_s].reshape(-1, *spk.shape[1:])
+        mel_h = flat[:, n_t + n_s :].reshape(-1, *mel24.shape[1:])
+        lens = lens[:n_real]
         hop_tokens = a.prompt_hop_length * int(np.prod(self.cfg.speech_tokenizer.strides))
         mel24_per_sec = a.sample_rate // a.hop_length
         out = []
@@ -395,6 +437,46 @@ class Engine:
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    def set_module(self, name: str, tree: Dict) -> None:
+        """Serve ``tree`` (one module's full weights) as ``name``: cut for
+        the mesh where the engine has one."""
+        if self.mesh is not None and name in self._heads:
+            self._full[name] = abstract(tree)
+            tree = shard_params(self.mesh, tree, self._heads[name])
+        setattr(self.params, name, tree)
+
+    def full_tree(self) -> Dict:
+        """The served weights as one tree (``EngineParams.tree()``); under a
+        mesh the cut ones gathered over the model group (every rank of the
+        group calls it)."""
+        tree = self.params.tree()
+        if self.mesh is not None and self.mesh.model > 1:
+            for name, heads in self._heads.items():
+                tree[name] = gather_params(self.mesh, tree[name], self._full[name], heads)
+        return tree
+
+    def _on_mesh(self):
+        """The engine's mesh as the active one (``with``), or nothing."""
+        return nullcontext() if self.mesh is None else self.mesh
+
+    def _rows(self, n: int) -> slice:
+        """The rows of an n-row batch this rank computes (all of them
+        without a mesh, or when n does not split over the data axis)."""
+        return batch_sharding(self.mesh, n)
+
+    def _gather(self, x: torch.Tensor, rows: slice, n: int) -> torch.Tensor:
+        """Every data rank's rows of a batch, where it was split."""
+        return x if rows.stop - rows.start == n else comm.gather_rows(x, self.mesh)
+
+    def _pad_batch(self, *lists):
+        """Pad parallel per-item lists to a multiple of the data axis by
+        repeating the first item -> (padded lists, the original count)."""
+        n = len(lists[0])
+        if self.dp <= 1 or n % self.dp == 0:
+            return lists, n
+        pad = self.dp - n % self.dp
+        return tuple(list(l) + [l[0]] * pad for l in lists), n
+
     def _lm_generator(self) -> torch.Generator:
         """The random stream of one request's LM: a generator seeded by one
         draw of the engine's. A stream draws its windows' CFM noise from
@@ -406,10 +488,11 @@ class Engine:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _lm_inputs(self, texts: Sequence[str], style_texts: Sequence[str],
-                   style_feats: Sequence[PromptFeatures], max_seconds: float):
+                   style_feats: Sequence[PromptFeatures], max_seconds: float, rows: slice = slice(None)):
         """The LM's inputs on the device: (text ids, text lengths, style
-        tokens, style lengths) and the generation bucket. Each row's
-        [style text ++ text] is encoded to one width bucket."""
+        tokens, style lengths) of the batch's ``rows`` and the generation
+        bucket. Each row's [style text ++ text] is encoded to one width
+        bucket, chosen over the whole batch."""
         tl = self.cfg.token_lm
         B = len(texts)
         tok, tn = self.text_tokenizer, self.normalize_numbers
@@ -424,12 +507,13 @@ class Engine:
             sty_lens[i] = min(len(f.tokens), sty_w)
             sty[i, : sty_lens[i]] = f.tokens[: sty_lens[i]]
         i32 = torch.int32
-        ids = tuple(self._tensor(a, i32) for a in (text_ids, text_lens, sty, sty_lens))
+        ids = tuple(self._tensor(a[rows], i32) for a in (text_ids, text_lens, sty, sty_lens))
         return ids, _bucket(int(max_seconds * tl.token_rate), GEN_BUCKETS)
 
     def _lm_stage(self, texts: Sequence[str], style_texts: Sequence[str],
                   style_feats: Sequence[PromptFeatures], spk: torch.Tensor,
-                  max_seconds: float, clock: Stopwatch) -> Tuple[token_lm.SpeechGen, int]:
+                  max_seconds: float, clock: Stopwatch,
+                  rows: slice = slice(None)) -> Tuple[token_lm.SpeechGen, int]:
         """The token LM over the batch: (generated tokens and lengths on the
         device, the generation bucket). A B=1 batch takes the decode kernel
         where the engine built its weights, whatever ``speculative_gamma``
@@ -437,12 +521,16 @@ class Engine:
         with the standard sampler (its verify forwards count as the decode
         steps; ``last_spec`` holds them and the committed tokens); anything
         else the scanned decode. The speculative and the scanned decode
-        keep an int8 KV cache under ``quantize_lm_kv_int8``."""
-        ids, max_new = self._lm_inputs(texts, style_texts, style_feats, max_seconds)
+        keep an int8 KV cache under ``quantize_lm_kv_int8``. ``rows``: this
+        data rank's rows (``spk`` holds theirs); the sampling noise is drawn
+        for the whole batch."""
+        B = len(texts)
+        ids, max_new = self._lm_inputs(texts, style_texts, style_feats, max_seconds, rows)
         kv_int8 = bool(getattr(self.cfg, "quantize_lm_kv_int8", False))
         gamma = getattr(self.cfg, "speculative_gamma", 0)
         self.last_spec = None
-        if gamma > 0 and len(texts) == 1 and self._mega_params is None:
+        split = rows.stop - rows.start < B
+        if gamma > 0 and B == 1 and self._mega_params is None and self.mesh is None:
             spec = token_lm.generate_speech_spec_from_ids(
                 self.params.token_lm, self.cfg.token_lm, *ids, spk, self._lm_generator(),
                 max_new_tokens=max_new, gamma=gamma, kv_int8=kv_int8,
@@ -453,8 +541,8 @@ class Engine:
                                       decode_steps=spec.n_verify), max_new
         gen = token_lm.generate_speech_from_ids(
             self.params.token_lm, self.cfg.token_lm, *ids, spk, self._lm_generator(),
-            max_new_tokens=max_new, decode_params=self._mega_params if len(texts) == 1 else None,
-            kv_int8=kv_int8, clock=clock,
+            max_new_tokens=max_new, decode_params=self._mega_params if B == 1 else None,
+            kv_int8=kv_int8, clock=clock, rows=(rows.start, B) if split else None,
         )
         return gen, max_new
 
@@ -475,17 +563,25 @@ class Engine:
         initial noise), vocoder, each row's generated region cropped on the
         device, one host fetch. ``style_feats`` drive the LM prosody prompt,
         ``flow_feats`` the speaker identity. ``clock`` may already hold the
-        request's ``featurize`` span."""
+        request's ``featurize`` span. Under a mesh a data rank computes its
+        rows (``_rows``) and the wavs of every row are gathered."""
+        with self._on_mesh():
+            return self._synthesize_rows(texts, style_texts, style_feats, flow_feats, max_seconds,
+                                         lm_tokens_override, cfm_noise, clock)
+
+    def _synthesize_rows(self, texts, style_texts, style_feats, flow_feats, max_seconds,
+                         lm_tokens_override, cfm_noise, clock) -> List[np.ndarray]:
         cfg = self.cfg
         tl = cfg.token_lm
         B = len(texts)
+        rows = self._rows(B)
         up, hop, M = cfg.cfm.upsample, cfg.audio.hop_length, cfg.cfm.n_mels
         i32, f32 = torch.int32, torch.float32
         clock = clock or Stopwatch(self.device)
-        spk = self._tensor(np.stack([f.spk for f in flow_feats]), f32)
+        spk = self._tensor(np.stack([f.spk for f in flow_feats])[rows], f32)
         steps = 0
         if lm_tokens_override is None:
-            gen, max_new = self._lm_stage(texts, style_texts, style_feats, spk, max_seconds, clock)
+            gen, max_new = self._lm_stage(texts, style_texts, style_feats, spk, max_seconds, clock, rows)
             gen_tokens, gen_lens, steps = gen.tokens, gen.lengths, gen.decode_steps
         else:
             lens = np.asarray([len(t) for t in lm_tokens_override], np.int32)
@@ -494,7 +590,7 @@ class Engine:
             toks = np.full((B, max_new), tl.speech_pad, np.int32)
             for i, t in enumerate(lm_tokens_override):
                 toks[i, : lens[i]] = np.asarray(t)[: lens[i]]
-            gen_tokens, gen_lens = self._tensor(toks, i32), self._tensor(lens, i32)
+            gen_tokens, gen_lens = self._tensor(toks[rows], i32), self._tensor(lens[rows], i32)
         # the flow prompt side (host arrays: prompt features are numpy)
         fp_w = _bucket(max(len(f.tokens) for f in flow_feats), TOKEN_BUCKETS)
         ptok = np.zeros((B, fp_w), np.int32)
@@ -506,21 +602,28 @@ class Engine:
             ptok[i, : p_lens[i]] = f.tokens[: p_lens[i]]
             mel_lens[i] = min(f.mel24.shape[0], p_lens[i] * up)
             pmel[i, : mel_lens[i]] = f.mel24[: mel_lens[i]]
-        noise = None if cfm_noise is None else self._tensor(cfm_noise, f32)
+        if cfm_noise is not None:
+            noise = self._tensor(np.asarray(cfm_noise)[rows], f32)
+        elif rows.stop - rows.start < B:     # the whole batch's draw, this rank's rows
+            shape = (B, (fp_w + max_new) * up, M)
+            noise = torch.randn(shape, generator=self.generator, device=self.device, dtype=f32)[rows]
+        else:
+            noise = None
         with clock.span("cfm"):
             mel, _ = mel_body(
-                self.params.cfm, cfg, self._tensor(ptok, i32), self._tensor(p_lens, i32),
-                gen_tokens, gen_lens, self._tensor(pmel, f32), self._tensor(mel_lens, i32),
+                self.params.cfm, cfg, self._tensor(ptok[rows], i32), self._tensor(p_lens[rows], i32),
+                gen_tokens, gen_lens, self._tensor(pmel[rows], f32), self._tensor(mel_lens[rows], i32),
                 spk, self.generator, noise=noise,
             )
         with clock.span("vocoder"):
             wav = vocoder.apply(self.params.vocoder, cfg.vocoder, mel)
             # each row's generated region slid to offset 0, its sample count
             # in one more column (exact in f32): one fetch for the batch
-            idx = (self._tensor(p_lens, torch.int64)[:, None] * (up * hop)
+            idx = (self._tensor(p_lens[rows], torch.int64)[:, None] * (up * hop)
                    + torch.arange(max_new * up * hop, device=self.device)[None, :])
             n_out = gen_lens.to(f32)[:, None] * (up * hop)
-            host = torch.cat([torch.gather(wav.float(), 1, idx), n_out], dim=1).cpu().numpy()
+            host = torch.cat([torch.gather(wav.float(), 1, idx), n_out], dim=1)
+            host = self._gather(host, rows, B).cpu().numpy()
         n_samples = host[:, -1].astype(np.int64)
         wavs = [host[i, : n_samples[i]] for i in range(B)]
         self.last_timings = dict(clock.ms)
@@ -570,13 +673,14 @@ class Engine:
         for b, t in enumerate(tokens):
             buf[b, : len(t)] = t
         i32 = torch.int32
-        wav, mel_chunk = stream_window(
-            self.params, self.cfg, self._tensor(buf, i32), self._tensor([len(t) for t in tokens], i32),
-            self._tensor(emitted, i32), torch.cat([p.tokens for p in prompts]),
-            self._tensor([p.n_p for p in prompts], i32), torch.cat([p.mel for p in prompts]),
-            self._tensor([p.n_mel for p in prompts], i32), torch.cat([p.spk for p in prompts]),
-            mel_ctx, self.generator, chunk=chunk,
-            noise=None if noise is None else self._tensor(noise, torch.float32), clock=clock)
+        with self._on_mesh():
+            wav, mel_chunk = stream_window(
+                self.params, self.cfg, self._tensor(buf, i32), self._tensor([len(t) for t in tokens], i32),
+                self._tensor(emitted, i32), torch.cat([p.tokens for p in prompts]),
+                self._tensor([p.n_p for p in prompts], i32), torch.cat([p.mel for p in prompts]),
+                self._tensor([p.n_mel for p in prompts], i32), torch.cat([p.spk for p in prompts]),
+                mel_ctx, self.generator, chunk=chunk,
+                noise=None if noise is None else self._tensor(noise, torch.float32), clock=clock)
         host = wav.cpu().numpy()
         n = [min(chunk, len(t) - e) * up * hop for t, e in zip(tokens, emitted)]
         return [host[b, : n[b]] for b in range(B)], mel_chunk
@@ -618,14 +722,15 @@ class Engine:
                 yield [int(t) for t in np.asarray(lm_tokens_override).reshape(-1)], True
                 return
             ids, max_new = self._lm_inputs([text], [style_text], [style_feat], max_seconds)
-            prefix = token_lm.build_prefix_padded(self.params.token_lm, tl, *ids, prompt.spk)
-            loop = token_lm.start_decode(self.params.token_lm, tl, prefix, self._lm_generator(),
-                                         max_new_tokens=max_new, decode_params=self._mega_params,
-                                         kv_int8=bool(getattr(cfg, "quantize_lm_kv_int8", False)),
-                                         clock=clock)
+            with self._on_mesh():
+                prefix = token_lm.build_prefix_padded(self.params.token_lm, tl, *ids, prompt.spk)
+                loop = token_lm.start_decode(self.params.token_lm, tl, prefix, self._lm_generator(),
+                                             max_new_tokens=max_new, decode_params=self._mega_params,
+                                             kv_int8=bool(getattr(cfg, "quantize_lm_kv_int8", False)),
+                                             clock=clock)
             gen = None
             while gen is None:
-                with clock.span("decode"):
+                with clock.span("decode"), self._on_mesh():
                     steps, gen = token_lm.take(loop, chunk)
                     new = [s[0] for s in steps]
                     if tl.speech_eos in new:     # the loop ends at EOS: collect its result
@@ -750,14 +855,16 @@ class Engine:
                                cfm_noise: Optional[np.ndarray] = None) -> List[np.ndarray]:
         """Render finished requests (dicts with "tokens" [T] int32 and
         "flow_feat" ``PromptFeatures``) through the batched CFM + vocoder
-        stages. One card: no padding of the batch."""
+        stages. Under a mesh the batch is padded to a multiple of the data
+        axis (``cfm_noise`` then has the padded batch's rows)."""
         if not reqs:
             return []
+        (reqs,), n = self._pad_batch(list(reqs))
         feats = [r["flow_feat"] for r in reqs]
         return self._synthesize(
             [r.get("text", "") for r in reqs], [""] * len(reqs), feats, feats,
             max_seconds=max_seconds, cfm_noise=cfm_noise,
-            lm_tokens_override=[np.asarray(r["tokens"], np.int32) for r in reqs])
+            lm_tokens_override=[np.asarray(r["tokens"], np.int32) for r in reqs])[:n]
 
     def synthesize_batch(
         self, tts_texts: List[str], style_texts: List[str], style_wavs: List,
@@ -767,9 +874,72 @@ class Engine:
         """Batched tts_with_st: one pass of each stage for the whole batch.
         Items are wavs or ``PromptFeatures``; the wavs of the batch are
         featurized together and one wav OBJECT given several times (as style
-        and timbre, or in several rows) once."""
+        and timbre, or in several rows) once. Under a mesh the batch is
+        padded to a multiple of the data axis (``cfm_noise`` then has the
+        padded batch's rows) and the padding dropped from the result."""
+        (tts_texts, style_texts, style_wavs, timbre_wavs), n = self._pad_batch(
+            list(tts_texts), list(style_texts), list(style_wavs), list(timbre_wavs))
         B = len(tts_texts)
         clock = Stopwatch(self.device)
         feats = self._resolve_prompts(list(style_wavs) + list(timbre_wavs), clock)
         return self._synthesize(tts_texts, style_texts, feats[:B], feats[B:],
-                                max_seconds=max_seconds, cfm_noise=cfm_noise, clock=clock)
+                                max_seconds=max_seconds, cfm_noise=cfm_noise, clock=clock)[:n]
+
+
+# ----------------------------------------------------------------------------- multi-device dry run
+
+
+def _dryrun_inputs(B: int, cfg: Config):
+    sr = cfg.audio.prompt_sample_rate
+    t = np.arange(sr) / sr
+    r = np.random.default_rng(7)
+    texts = [f"hello world {i}" for i in range(B)]
+    styles = [f"style {i}" for i in range(B)]
+    sty = [(0.3 * np.sin(2 * np.pi * (200 + 30 * i) * t) + 0.02 * r.standard_normal(t.size)).astype(np.float32)
+           for i in range(B)]
+    tim = [(0.3 * np.sin(2 * np.pi * (180 + 40 * i) * t) + 0.02 * r.standard_normal(t.size)).astype(np.float32)
+           for i in range(B)]
+    return texts, styles, sty, tim
+
+
+def dryrun_engine_rank(data: int, model: int, B: int, device: str, backend: Optional[str]):
+    """One rank of ``dryrun_engine``: the mesh engine's batch -> (mesh
+    shape, the wavs)."""
+    from ..parallel.mesh import make_mesh
+    from ..utils.config import tiny_config
+
+    mesh = make_mesh(data, model, device=device, backend=backend)
+    cfg = tiny_config()
+    eng = Engine(cfg, seed=3, mesh=mesh)
+    return mesh.shape, eng.synthesize_batch(*_dryrun_inputs(B, cfg))
+
+
+def dryrun_engine(n_devices: int, *, device=None, backend: Optional[str] = None, atol: float = 2e-4) -> dict:
+    """The JAX package's serving dry run: the full synthesis program
+    (featurize -> token LM -> CFM -> vocoder -> crop) at ``tiny_config()``
+    over an ``n_devices`` mesh (model 2 where n is even, data the rest, as
+    JAX picks it) on ``n_devices`` spawned ranks (``parallel.launch``; one
+    device shared, ``gloo`` unless ``backend`` names one), every rank's
+    wavs checked against the unsharded engine's in this process within
+    ``atol``. Prints the ``dryrun_engine ok`` line and returns the numbers."""
+    from ..parallel.launch import launch
+    from ..utils.config import tiny_config
+
+    dev = resolve_device(device)
+    backend = backend or "gloo"
+    model = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    data = n_devices // model
+    B = max(data, 2)
+    out = launch(dryrun_engine_rank, n_devices, data, model, B, str(dev), backend,
+                 backend=backend, device=str(dev))
+    cfg = tiny_config()
+    ref = Engine(cfg, seed=3, device=dev).synthesize_batch(*_dryrun_inputs(B, cfg))
+    err = 0.0
+    for _, got in out:
+        if [g.shape for g in got] != [r.shape for r in ref]:
+            raise AssertionError(f"dry run wav shapes {[g.shape for g in got]} != {[r.shape for r in ref]}")
+        err = max([err] + [float(np.abs(g - r).max()) for g, r in zip(got, ref)])
+    if err > atol:
+        raise AssertionError(f"dry run wavs differ from the unsharded engine's by {err} > {atol}")
+    print(f"dryrun_engine ok: mesh=({out[0][0]}), B={B}, wav_len={out[0][1][0].shape[0]}, max_abs_err={err:.2e}")
+    return {"mesh": out[0][0], "B": B, "wav_len": int(out[0][1][0].shape[0]), "max_abs_err": err}

@@ -24,13 +24,26 @@ steps; the best adapter by generation-based weighted F1):
   ``best.npz``, resume from the latest checkpoint, ``history.json`` and
   TensorBoard events.
 
-The JAX package's multi-device dry run (``dryrun_train_step``) belongs to
-its mesh code, which the port does not have (ROADMAP.md: queue A item 11).
+Under a mesh (``make_train_step(..., mesh=)``, ``parallel/``) the step
+takes the global batch and computes its data rank's rows on its model
+group's slices: the base, the LoRA tree and the optimizer state sharded
+alike (``parallel.shard_params``). The loss is the global batch's: each data
+rank divides its rows' summed loss by the weight of the whole batch, so
+the data group's gradients sum (one all-reduce a leaf) to the unsharded
+step's. A LoRA ``A`` of a column-parallel base is replicated inside the
+tensor-parallel region and passes ``copy_to_model``, which sums its partial
+gradients over the model group; a ``B`` of a row-parallel base reads the
+reduced ``x @ A`` and gets its whole gradient on every rank. The clip's
+global norm counts the cut leaves' squares summed over the model group and
+the whole leaves' once (``mesh_norm``). NEFTune draws the whole batch's
+noise and keeps its rows. ``dryrun_train_step`` runs one such step over
+spawned ranks against the unsharded step.
 """
 
 from __future__ import annotations
 
 import json
+from contextlib import nullcontext
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -42,12 +55,15 @@ from ..models import frontend
 from ..models import transformer as core
 from ..ops.attention import causal_mask
 from ..ops.sampling import SamplerConfig
+from ..parallel import comm
+from ..parallel.sharding import batch_sharding
 from ..pipeline.erc_chat import ASSIST, END, SYS, USER, decode_assistant, render_chat  # noqa: F401
 from ..utils import rng
 from ..utils.checkpoint import CheckpointManager, save_pytree
 from ..utils.config import TrainConfig, TransformerConfig
+from ..weights import tree_map
 from .optim import (GradientTransformation, MultiSteps, adamw, apply_optimizer, chain, clip_by_global_norm,
-                    linear_schedule, value_and_grad)
+                    global_norm, linear_schedule, tree_leaves, value_and_grad)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -166,7 +182,7 @@ def _embed(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor, generator
            noise: Optional[torch.Tensor]) -> torch.Tensor:
     if int(tokens.max()) >= cfg.vocab_size:    # the reference's gather clamps, its loss reads NaN there
         raise ValueError(f"token id {int(tokens.max())} >= vocab_size {cfg.vocab_size}")
-    embeds = params["tok_emb"][tokens.long()].to(_DTYPES[cfg.dtype])
+    embeds = core.embed(params["tok_emb"], tokens, cfg.vocab_size).to(_DTYPES[cfg.dtype])
     if neftune_alpha > 0:
         T = tokens.shape[1]
         scale = neftune_alpha / float(np.sqrt(np.float32(T * cfg.dim)))
@@ -175,16 +191,31 @@ def _embed(params: Dict, cfg: TransformerConfig, tokens: torch.Tensor, generator
     return embeds
 
 
-def _next_token_nll(hidden: torch.Tensor, params: Dict, tokens: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    logits = core.matmul_any(hidden[:, :-1], core._head(params)).float()
+def loss_weights(loss_mask: torch.Tensor, segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, T-1] weight of each next-token target: on the assistant spans,
+    and in a packed row only where the target continues its segment."""
+    w = loss_mask[:, 1:] > 0
+    if segment_ids is not None:
+        seg = segment_ids.long()
+        w = w & (seg[:, 1:] == seg[:, :-1])
+    return w.float()
+
+
+def _next_token_nll(hidden: torch.Tensor, params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
+                    w: torch.Tensor, weight_total: Optional[torch.Tensor]) -> torch.Tensor:
+    logits = core.head_logits(hidden[:, :-1], core._head(params), cfg.vocab_size).float()
     nll = -torch.gather(torch.log_softmax(logits, dim=-1), -1, tokens[:, 1:].long()[..., None])[..., 0]
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    total = torch.clamp(w.sum(), min=1.0) if weight_total is None else weight_total
+    return (nll * w).sum() / total
 
 
 def sft_loss(lora: Dict, params: Dict, cfg: TransformerConfig, tokens: torch.Tensor, loss_mask: torch.Tensor,
              length: torch.Tensor, generator: Optional[torch.Generator], *, lora_scale: float,
-             neftune_alpha: float = 0.0, remat: bool = True, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Masked next-token cross-entropy of right-padded rows."""
+             neftune_alpha: float = 0.0, remat: bool = True, noise: Optional[torch.Tensor] = None,
+             weight_total: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked next-token cross-entropy of right-padded rows, divided by the
+    rows' target weight or by ``weight_total`` (a data rank's share of a
+    global batch's loss)."""
     B, T = tokens.shape
     dev = tokens.device
     attn = causal_mask(T, T, device=dev) & (torch.arange(T, device=dev)[None, None, None, :]
@@ -192,13 +223,13 @@ def sft_loss(lora: Dict, params: Dict, cfg: TransformerConfig, tokens: torch.Ten
     embeds = _embed(params, cfg, tokens, generator, neftune_alpha, noise)
     hidden = core.forward(params, cfg, inputs_embeds=embeds, mask=attn, lora=lora, lora_scale=lora_scale,
                           remat=remat)
-    return _next_token_nll(hidden, params, tokens, (loss_mask[:, 1:] > 0).float())
+    return _next_token_nll(hidden, params, cfg, tokens, loss_weights(loss_mask), weight_total)
 
 
 def packed_sft_loss(lora: Dict, params: Dict, cfg: TransformerConfig, tokens: torch.Tensor,
                     loss_mask: torch.Tensor, segment_ids: torch.Tensor, generator: Optional[torch.Generator], *,
                     lora_scale: float, neftune_alpha: float = 0.0, remat: bool = True,
-                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    noise: Optional[torch.Tensor] = None, weight_total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``sft_loss`` over packed rows: attention causal and within a segment,
     positions restarting at each segment, a target scored only where it
     continues its segment."""
@@ -213,31 +244,70 @@ def packed_sft_loss(lora: Dict, params: Dict, cfg: TransformerConfig, tokens: to
     embeds = _embed(params, cfg, tokens, generator, neftune_alpha, noise)
     hidden = core.forward(params, cfg, inputs_embeds=embeds, positions=idx - seg_start, mask=attn, lora=lora,
                           lora_scale=lora_scale, remat=remat)
-    w = ((loss_mask[:, 1:] > 0) & (seg[:, 1:] == seg[:, :-1])).float()
-    return _next_token_nll(hidden, params, tokens, w)
+    return _next_token_nll(hidden, params, cfg, tokens, loss_weights(loss_mask, seg), weight_total)
 
 
-def make_optimizer(tcfg: TrainConfig, total_steps: int) -> GradientTransformation:
+def mesh_norm(cfg: TransformerConfig, mesh):
+    """The global norm of a LoRA-shaped tree (gradients, their running
+    mean) sharded under ``mesh``: a leaf narrower than its full shape
+    (``transformer.proj_shapes``) adds its squares summed over the model
+    group, a whole one its own squares once."""
+    full = core.proj_shapes(cfg)
+
+    def norm(tree):
+        cut, whole = [], []
+        for name, g in tree["layers"].items():
+            fi, fo = full[name[:-7]]
+            want = (fi, g.shape[-1]) if name.endswith("_lora_a") else (g.shape[-2], fo)
+            (whole if tuple(g.shape[-2:]) == want else cut).append(torch.sum(g.float() * g.float()))
+        zero = torch.zeros((), device=next(iter(tree["layers"].values())).device)
+        return torch.sqrt(comm.reduce_model(sum(cut, zero), mesh) + sum(whole, zero))
+
+    return norm
+
+
+def make_optimizer(tcfg: TrainConfig, total_steps: int, norm=None) -> GradientTransformation:
     """Clip to global norm 1, AdamW without weight decay, the learning rate
-    linear to 0 over ``total_steps`` (or constant)."""
+    linear to 0 over ``total_steps`` (or constant). ``norm``: the clip's
+    global norm (``mesh_norm`` under a mesh)."""
     sched = (linear_schedule(tcfg.learning_rate, 0.0, max(total_steps, 1)) if tcfg.lr_schedule == "linear"
              else tcfg.learning_rate)
-    return chain(clip_by_global_norm(1.0), adamw(sched, b1=0.9, b2=0.999, weight_decay=0.0))
+    return chain(clip_by_global_norm(1.0, norm), adamw(sched, b1=0.9, b2=0.999, weight_decay=0.0))
 
 
-def make_train_step(cfg: TransformerConfig, tcfg: TrainConfig, optimizer, packed: Optional[bool] = None):
+def make_train_step(cfg: TransformerConfig, tcfg: TrainConfig, optimizer, packed: Optional[bool] = None,
+                    mesh=None):
     """One SFT step: ``train_step(lora, opt_state, params, tokens,
     loss_mask, aux, generator, noise=None) -> (lora, opt_state, loss)``;
     ``aux`` is ``length`` [B] unpacked or ``segment_ids`` [B, T] packed
-    (``packed=None`` follows ``tcfg.packing``)."""
+    (``packed=None`` follows ``tcfg.packing``). Under ``mesh`` the batch is
+    the global one and ``lora`` / ``opt_state`` / ``params`` this rank's
+    slices (module docstring); the loss returned is the global batch's."""
     lora_scale = tcfg.lora.alpha / tcfg.lora.r
-    loss_fn = packed_sft_loss if (tcfg.packing if packed is None else packed) else sft_loss
+    is_packed = tcfg.packing if packed is None else packed
+    loss_fn = packed_sft_loss if is_packed else sft_loss
+    norm = global_norm if mesh is None else mesh_norm(cfg, mesh)
 
     def train_step(lora, opt_state, params, tokens, loss_mask, aux, generator, noise=None):
-        loss, _, grads = value_and_grad(
-            lambda lo: loss_fn(lo, params, cfg, tokens, loss_mask, aux, generator, lora_scale=lora_scale,
-                               neftune_alpha=tcfg.neftune_alpha, remat=tcfg.remat, noise=noise), lora)
-        lora, opt_state = apply_optimizer(train_step, optimizer, lora, grads, opt_state)
+        total = None
+        if mesh is not None:
+            B, T = tokens.shape
+            rows = batch_sharding(mesh, B)
+            if tcfg.neftune_alpha > 0 and noise is None:   # the whole batch's draw
+                noise = neftune_noise(generator, (B, T, cfg.dim), tokens.device)
+            tokens, loss_mask, aux = tokens[rows], loss_mask[rows], aux[rows]
+            noise = None if noise is None else noise[rows]
+            w = loss_weights(loss_mask, aux if is_packed else None).sum()
+            total = torch.clamp(comm.reduce_data(w, mesh), min=1.0)
+        with nullcontext() if mesh is None else mesh:
+            loss, _, grads = value_and_grad(
+                lambda lo: loss_fn(lo, params, cfg, tokens, loss_mask, aux, generator, lora_scale=lora_scale,
+                                   neftune_alpha=tcfg.neftune_alpha, remat=tcfg.remat, noise=noise,
+                                   weight_total=total), lora)
+        if mesh is not None:
+            grads = tree_map(lambda g: comm.reduce_data(g, mesh), grads)
+            loss = comm.reduce_data(loss, mesh)
+        lora, opt_state = apply_optimizer(train_step, optimizer, lora, grads, opt_state, norm=norm)
         return lora, opt_state, loss
 
     return train_step
@@ -294,7 +364,8 @@ def evaluate_generation(params: Dict, cfg: TransformerConfig, samples: List[dict
         prompts = [render_chat(s["messages"][:-1], add_generation_prompt=True)[0][-max_prompt:] for s in chunk]
         toks, lens = core.left_pad(prompts, pad_id=frontend.PAD_ID, width=max_prompt)
         if cache is None:
-            cache = core.make_cache(cfg, batch_size, max_prompt + max_new + 1, dev)
+            cache = core.make_cache(cfg, batch_size, max_prompt + max_new + 1, dev,
+                                    n_kv_heads=core.local_heads(params, cfg)[1])
         res = core.generate(params, cfg, torch.as_tensor(toks, device=dev), torch.as_tensor(lens, device=dev),
                             cache, None, max_new_tokens=max_new, sampler=SamplerConfig.label(), eos_id=END,
                             pad_id=frontend.PAD_ID, lora=lora, lora_scale=lora_scale)
@@ -395,3 +466,88 @@ def train(params: Dict, cfg: TransformerConfig, tcfg: TrainConfig, train_samples
     Path(out_dir, "history.json").write_text(json.dumps(history, indent=2))
     return {"lora": lora, "best_f1": best_f1, "best_step": best_step, "steps": step, "history": history,
             "best_checkpoint": str(best_path), "packing": packing}
+
+
+# ----------------------------------------------------------------------- multi-device dry run
+
+
+def _dryrun_setup(n_devices: int, device):
+    """The JAX dry run's geometry and batch: a 64-wide, 2-layer GQA (4:2)
+    f32 embedder, the base from ``PRNGKey(0)``, the LoRA from
+    ``PRNGKey(1)``, ``n_devices`` packed rows of 32 tokens, two segments a
+    row and a pad tail."""
+    cfg = TransformerConfig(vocab_size=frontend.VOCAB_SIZE, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                            ffn_dim=128, max_seq_len=64, dtype="float32")
+    tcfg = TrainConfig(batch_size=n_devices, grad_accum=1, max_seq_len=32)
+    params = core.init_params(cfg, rng.PRNGKey(0, device))
+    lora = core.init_lora(cfg, tcfg.lora.r, rng.PRNGKey(1, device))
+    r = np.random.default_rng(0)
+    B, T = tcfg.batch_size, tcfg.max_seq_len
+    tokens = r.integers(16, 272, (B, T)).astype(np.int32)
+    loss_mask = (r.random((B, T)) > 0.5).astype(np.int32)
+    seg = np.zeros((B, T), np.int32)
+    seg[:, : T // 2] = 1
+    seg[:, T // 2 : T - 4] = 2
+    loss_mask[:, T - 4 :] = 0
+    batch = [torch.as_tensor(a, device=device) for a in (tokens, loss_mask, seg)]
+    return cfg, tcfg, params, lora, batch
+
+
+def _dryrun_step(cfg, tcfg, params, lora, batch, device, mesh=None):
+    """One packed step (NEFTune noise from a generator seeded 2) ->
+    (loss, the updated LoRA: this rank's slices under ``mesh``)."""
+    from ..parallel.sharding import shard_params
+
+    heads = (cfg.n_heads, cfg.n_kv_heads)
+    if mesh is not None:
+        params, lora = shard_params(mesh, params, heads), shard_params(mesh, lora, heads)
+    opt = make_optimizer(tcfg, 10, norm=None if mesh is None else mesh_norm(cfg, mesh))
+    step = make_train_step(cfg, tcfg, opt, packed=True, mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(2)
+    lora2, _, loss = step(lora, opt.init(lora), params, *batch, gen)
+    return float(loss), lora2
+
+
+def dryrun_train_step_rank(n_devices: int, model: int, device: str, backend: Optional[str]):
+    """One rank of ``dryrun_train_step``: its mesh, the sharded step, the
+    updated LoRA gathered; rank 0 returns (mesh shape, loss, LoRA as
+    numpy), the others (mesh shape, loss, None)."""
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharding import gather_params
+
+    mesh = make_mesh(n_devices // model, model, device=device, backend=backend)
+    cfg, tcfg, params, lora, batch = _dryrun_setup(n_devices, mesh.device)
+    loss, lora2 = _dryrun_step(cfg, tcfg, params, lora, batch, mesh.device, mesh)
+    full = gather_params(mesh, lora2, like=lora, heads=(cfg.n_heads, cfg.n_kv_heads))
+    host = tree_map(lambda t: t.detach().cpu().numpy(), full) if mesh.rank == 0 else None
+    return mesh.shape, loss, host
+
+
+def dryrun_train_step(n_devices: int, *, device=None, backend: Optional[str] = None, atol: float = 1e-5) -> dict:
+    """The JAX package's multi-device dry run: ONE packed SFT step at tiny
+    geometry over an ``n_devices`` mesh (model 2 where n is even, as JAX
+    picks it), on ``n_devices`` spawned ranks (``parallel.launch``; one
+    device shared, ``gloo`` unless ``backend`` names one), checked against
+    the unsharded step in this process: the loss and the updated LoRA
+    within ``atol``. Prints the ``dryrun_multichip ok`` line and returns
+    the numbers."""
+    from ..parallel.launch import launch
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    backend = backend or "gloo"
+    model = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    out = launch(dryrun_train_step_rank, n_devices, n_devices, model, str(dev), backend,
+                 backend=backend, device=str(dev))
+    shape, loss, got = out[0]
+    cfg, tcfg, params, lora, batch = _dryrun_setup(n_devices, dev)
+    ref_loss, ref = _dryrun_step(cfg, tcfg, params, lora, batch, dev)
+    if not all(abs(o[1] - ref_loss) <= atol for o in out):
+        raise AssertionError(f"dry run losses {[o[1] for o in out]} != unsharded {ref_loss}")
+    err = max(float(np.abs(g - r.detach().cpu().numpy()).max())
+              for g, r in zip(tree_leaves(got), tree_leaves(ref)))
+    if not np.isfinite(loss) or err > atol:
+        raise AssertionError(f"dry run LoRA differs from the unsharded step by {err}")
+    print(f"dryrun_multichip ok: mesh=({shape}), loss={loss:.4f}, unsharded={ref_loss:.4f}, lora_err={err:.2e}")
+    return {"mesh": shape, "loss": loss, "unsharded_loss": ref_loss, "lora_max_abs_err": err}
+

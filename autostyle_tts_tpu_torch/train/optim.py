@@ -91,9 +91,13 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float, norm: Callable[[Any], torch.Tensor] = None) -> GradientTransformation:
+    """``norm``: the tree's global norm (default ``global_norm``; under a
+    mesh one that counts every leaf's elements once across the ranks)."""
+    norm = norm or global_norm
+
     def update(grads, state, params=None):
-        g_norm = global_norm(grads)
+        g_norm = norm(grads)
         if bool(g_norm < max_norm):
             return grads, state
         return tree_map(lambda g: (g / g_norm.to(g.dtype)) * max_norm, grads), state
@@ -187,10 +191,10 @@ def value_and_grad(loss_fn: Callable, params, has_aux: bool = False):
     return loss.detach(), aux, tree_unflatten(params, grads)
 
 
-def apply_optimizer(step, optimizer: GradientTransformation, params, grads, opt_state):
+def apply_optimizer(step, optimizer: GradientTransformation, params, grads, opt_state, norm=global_norm):
     """One optimizer update; records the pre-clip gradient norm on ``step``."""
     with torch.no_grad():
-        step.grad_norm = global_norm(grads)
+        step.grad_norm = norm(grads)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         return apply_updates(params, updates), opt_state
 

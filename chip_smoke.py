@@ -148,6 +148,22 @@ Phases (any failure exits non-zero):
       E's wavs and the corpus wavs, each transcript also through the plain
       log-mel); M6 the training gates of ``tests/test_torch_train_gates.py``
       on the card (``M1`` ... ``M6`` lines);
+   N. the device mesh (``parallel/``), its ranks spawned by
+      ``parallel.launch`` and sharing the card: N0 gloo ``all_reduce`` /
+      ``all_gather`` / ``broadcast`` of CUDA tensors among 4 ranks, NCCL at
+      world size 1 (``N0 mesh backends`` line); N1 the flagship engine at
+      dp 2 x tp 2 (4 ranks, gloo) serving the B=4 batch DB-served and from
+      wavs (wall, requests/s, the collectives' calls and ms), its greedy
+      tokens held to one device's at the same seed (parting only at a
+      near-tie of MESH_NEAR_TIE) and its wavs from those tokens on one noise
+      within MESH_WAV_ATOL; N2 the same on a 1 x 1 NCCL mesh; N3 the 3B int8
+      embedder from ``PRNGKey(42)`` at tp 2 (each rank's GB, an embed at
+      B=4, T=512 in bf16 against the unsharded one on rank 0); N4
+      ``dryrun_engine(4)``, ``dryrun_train_step(4)`` and a ``dcp``
+      checkpoint saved at tp 2, restored at tp 1 and tp 4. Every rank
+      counts its own flash and log-mel launches over its main-path run and
+      holds both kernels against their plain versions on its own inputs
+      (``kernels path N`` line); a rank that fails fails the run;
    the inputs of the first call of each distinct geometry that paths A, D,
    E, G, H, I, J, K, L and M give ``flash_attention`` and ``fused_log_mel`` are
    kept (device copies) and, after the paths, each kernel is held against
@@ -160,7 +176,9 @@ Phases (any failure exits non-zero):
 
 ``python3 chip_smoke.py --log-mel-only`` builds ``log_mel.cu`` alone, runs
 the log-mel part of phase 3 and stops without the last two lines: the short
-run for work on that kernel.
+run for work on that kernel. ``--mesh-only`` builds every kernel and runs
+path N alone (its DB-served prompts featurized from synthetic wavs), also
+without the last two lines.
 
 Float32 matrix products and convolutions run in full f32 (TF32 off).
 """
@@ -187,19 +205,23 @@ from autostyle_tts_tpu_torch.ops.resample import resample, resample_poly_np
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
 from autostyle_tts_tpu_torch.models import cfm, frontend, speech_tokenizer, token_lm, transformer, vocoder
 from autostyle_tts_tpu_torch.pipeline import rag
+from autostyle_tts_tpu_torch.parallel.launch import launch
+from autostyle_tts_tpu_torch.parallel.mesh import make_mesh
+from autostyle_tts_tpu_torch.parallel.sharding import abstract, gather_params, shard_params
 from autostyle_tts_tpu_torch.pipeline.continuous import ContinuousBatcher
-from autostyle_tts_tpu_torch.pipeline.engine import Engine, EngineParams
+from autostyle_tts_tpu_torch.pipeline.engine import Engine, EngineParams, dryrun_engine
 from autostyle_tts_tpu_torch.pipeline import simeval
 from autostyle_tts_tpu_torch.pipeline.simeval import SpeakerScorer, token_round_trip
 from autostyle_tts_tpu_torch.pipeline.stream_serve import StreamingScheduler
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
+from autostyle_tts_tpu_torch.train import lora_sft
 from autostyle_tts_tpu_torch.utils import hf_convert, rng
 from autostyle_tts_tpu_torch.utils.audio_io import read_wav, write_wav
 from autostyle_tts_tpu_torch.utils.config import CFMConfig, Config, VocoderConfig, demo_config
 from autostyle_tts_tpu_torch.utils.synth_release import SynthGeometry, build_release_dir
 from autostyle_tts_tpu_torch.utils.timing import Stopwatch
 from autostyle_tts_tpu_torch.weights import (Q4Tensor, QTensor, _flat_keys, from_jax_tree, load_npz, load_tree,
-                                             quantize_tree)
+                                             quantize_tree, tree_map)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time a function can
 # take is max(bytes / HBM rate, operations / peak rate of their type)
@@ -3330,6 +3352,292 @@ def path_m(inputs: PathInputs, pi_rag: dict, store: StyleStore, e_wavs, ecfg) ->
     return dict(out, launches=launches, wall_s=time.perf_counter() - t0)
 
 
+# ----------------------------------------------------------------------------- path N: the device mesh
+
+MESH_NEAR_TIE = 2.0 ** -7   # of the step's largest |logit|: a bf16 ulp there; greedy tokens may part inside it
+MESH_WAV_ATOL = 2e-2   # wavs from the same tokens: the bf16 CFM trunk's partial products summed in another order
+N_MAX_SECONDS = 2.5    # path N's requests: a 64-token generation bucket (ranks sharing the card go slowly)
+
+
+def rank_counts(fn, mesh):
+    """Run ``fn`` with the kernels' counts set to 0 and the mesh's
+    collective stats cleared -> (its result, the counts, the collectives'
+    calls and host ms)."""
+    reset_counts()
+    mesh.stats.update(calls=0, ms=0.0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(), dict(mesh.stats)
+
+
+def greedy_mesh_tokens(eng: Engine, feats, max_new: int = 64):
+    """Greedy tokens of the TEXTS batch on ``feats`` (the scanned decode,
+    int8 KV cache), through the engine's own row split and gather; the
+    masked logits of each step are what ``token_lm.sample`` sees."""
+    B = len(TEXTS)
+    rows = eng._rows(B)
+    with eng._on_mesh():
+        ids, _ = eng._lm_inputs(TEXTS, [""] * B, feats, N_MAX_SECONDS, rows)
+        spk = eng._tensor(np.stack([f.spk for f in feats])[rows], torch.float32)
+        gen = token_lm.generate_speech_from_ids(eng.params.token_lm, eng.cfg.token_lm, *ids, spk, None,
+                                                max_new_tokens=max_new, sampler=SamplerConfig.label(),
+                                                kv_int8=True)
+        return eng._gather(gen.tokens, rows, B).cpu().numpy()
+
+
+def tokens_reqs(tokens: np.ndarray, feats, eos: int):
+    reqs = []
+    for row, f in zip(tokens, feats):
+        n = int(np.argmax(row == eos)) if (row == eos).any() else len(row)
+        reqs.append({"tokens": row[: max(n, 1)], "flow_feat": f})
+    return reqs
+
+
+def from_tokens_noise(cfg: Config, reqs, seed: int = 7) -> np.ndarray:
+    """The CFM's initial noise for ``synthesize_from_tokens(reqs)``, drawn
+    once so that every engine renders from the same draw."""
+    from autostyle_tts_tpu_torch.pipeline.engine import GEN_BUCKETS, TOKEN_BUCKETS, _bucket
+
+    fp_w = _bucket(max(len(r["flow_feat"].tokens) for r in reqs), TOKEN_BUCKETS)
+    max_new = _bucket(max(len(r["tokens"]) for r in reqs), GEN_BUCKETS)
+    shape = (len(reqs), (fp_w + max_new) * cfg.cfm.upsample, cfg.cfm.n_mels)
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def check_mesh_tokens(got: np.ndarray, ref: dict, what: str) -> dict:
+    """Each row equal to one device's greedy tokens, or parting first where
+    that run's two candidates lie within MESH_NEAR_TIE of its largest
+    |logit| (the bf16 trunk's last rounding decides there)."""
+    parted = []
+    for b in range(got.shape[0]):
+        diff = np.flatnonzero(got[b] != ref["tokens"][b])
+        if diff.size:
+            i = int(diff[0])
+            lg = ref["logits"][b, i]
+            gap = float(abs(lg[int(got[b, i])] - lg[int(ref["tokens"][b, i])]))
+            tie = MESH_NEAR_TIE * max(float(np.abs(lg[lg > -1e29]).max()), 1.0)
+            parted.append(dict(row=b, step=i, gap=gap, near_tie=tie))
+            check(gap <= tie, f"{what}: row {b} parts from one device's greedy tokens at step {i}, "
+                              f"logit gap {gap} > {tie}")
+    return dict(rows_equal=got.shape[0] - len(parted), parted=parted)
+
+
+def mesh_reference(cfg: Config, feats_db) -> dict:
+    """One device's engine at the same seed (scanned decode): the greedy
+    tokens with each step's masked logits, and the wavs it renders from
+    them on a fixed noise."""
+    eng = Engine(cfg, seed=0)
+    logits = []
+    sample0 = token_lm.sample
+    token_lm.sample = lambda lg, sc, g, **kw: logits.append(lg.float().cpu()) or sample0(lg, sc, g, **kw)
+    try:
+        tokens = greedy_mesh_tokens(eng, feats_db)
+    finally:
+        token_lm.sample = sample0
+    reqs = tokens_reqs(tokens, feats_db, cfg.token_lm.speech_eos)
+    noise = from_tokens_noise(cfg, reqs)
+    wavs = eng.synthesize_from_tokens(reqs, cfm_noise=noise)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(tokens=tokens, logits=torch.stack(logits, 1).numpy(), reqs=reqs, noise=noise, wavs=wavs)
+
+
+def check_mesh_wavs(got, want, what: str) -> float:
+    err = 0.0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape, f"{what}: wav shape {g.shape} != one device's {w.shape}")
+        err = max(err, float(np.abs(g - w).max()))
+    check(err <= MESH_WAV_ATOL, f"{what}: wavs {err} from one device's > {MESH_WAV_ATOL}")
+    return err
+
+
+def path_n_engine_rank(data: int, model: int, backend: str, feats_db, wav_pairs, ref: dict,
+                       dcp_dir=None) -> dict:
+    """One rank of N1 (dp 2 x tp 2, gloo, ranks sharing the card) or N2
+    (1 x 1, NCCL): the flagship engine on the mesh serves the TEXTS batch
+    DB-served and from wavs (timed: wall, requests/s, collectives' ms),
+    its greedy tokens and its wavs from given tokens are held to one
+    device's (``ref``), and the flash / log-mel kernels against their plain
+    versions on the rank's own inputs; with ``dcp_dir`` also N0's
+    collectives and N4's dcp round trip."""
+    mesh = make_mesh(data, model, device="cuda", backend=backend)
+    cfg = serving_config()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    inputs = PathInputs()
+    out = dict(mesh=mesh.shape, rank=mesh.rank, backend=backend, init_s=init_s,
+               engine_gb=torch.cuda.memory_allocated() / 1e9)
+
+    def serve():
+        rec = {}
+        for kind, sty, tim in (("db_served", feats_db, feats_db), ("wav_prompts", *wav_pairs)):
+            t = time.perf_counter()
+            wavs = eng.synthesize_batch(TEXTS, [""] * len(TEXTS), sty, tim, max_seconds=N_MAX_SECONDS)
+            wall = time.perf_counter() - t
+            for w in wavs:
+                check(w.size > 0 and bool(np.isfinite(w).all()), f"N {kind}: a wav is empty or not finite")
+            rec[kind] = dict(wall_ms=wall * 1e3, requests_per_s=len(wavs) / wall, gen_lens=eng.last_gen_lens,
+                             audio_s=[w.size / cfg.audio.sample_rate for w in wavs])
+        return rec
+
+    with inputs.watch("N"):
+        (out["serve"], out["launches"], out["collectives"]) = rank_counts(serve, mesh)
+        out["greedy"] = check_mesh_tokens(greedy_mesh_tokens(eng, feats_db), ref, "N greedy")
+        wavs = eng.synthesize_from_tokens(ref["reqs"], cfm_noise=ref["noise"])
+        out["from_tokens_max_abs_err"] = check_mesh_wavs(wavs, ref["wavs"], "N from tokens")
+    for name in ("flash_attention", "fused_log_mel"):
+        check(out["launches"][name] > 0, f"N rank {mesh.rank}: {name} never launched: {out['launches']}")
+    out["kernels"] = inputs.replay()
+    if dcp_dir is not None:
+        out["collective_checks"] = collective_checks(mesh)
+        out["dcp"] = dcp_round_trip(mesh, dcp_dir)
+    if backend == "nccl":
+        x = torch.full((4,), 3.0, device=mesh.device)
+        torch.distributed.all_reduce(x)
+        check(bool((x == 3.0).all()), "N2: NCCL all_reduce at world size 1")
+        out["nccl_world"] = torch.distributed.get_world_size()
+    return out
+
+
+def collective_checks(mesh) -> dict:
+    """N0: all_reduce, all_gather and broadcast of CUDA tensors over the
+    world's gloo group, the ranks sharing the card."""
+    dist = torch.distributed
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.full((1024,), float(r + 1), device=mesh.device)
+    dist.all_reduce(x)
+    check(bool((x == n * (n + 1) / 2).all()), "N0: gloo all_reduce of a CUDA tensor")
+    parts = [torch.empty(3, device=mesh.device) for _ in range(n)]
+    dist.all_gather(parts, torch.arange(3, device=mesh.device, dtype=torch.float32) + 10 * r)
+    check(all(bool((p == torch.arange(3, device=mesh.device) + 10 * i).all()) for i, p in enumerate(parts)),
+          "N0: gloo all_gather of CUDA tensors")
+    y = torch.full((5,), float(r), device=mesh.device)
+    dist.broadcast(y, src=n - 1)
+    check(bool((y == n - 1).all()), "N0: gloo broadcast of a CUDA tensor")
+    return dict(world=n, backend=dist.get_backend(), all_reduce=True, all_gather=True, broadcast=True)
+
+
+def path_n3_rank(tokens: np.ndarray) -> dict:
+    """N3: the 3B int8 embedder drawn from ``PRNGKey(42)`` on each rank,
+    cut for tp 2 (heads 24:8 -> 12:4 a rank); rank 0 embeds the batch
+    unsharded first; the embed on the mesh against it."""
+    mesh = make_mesh(1, 2, device="cuda", backend="gloo")
+    ecfg = Config().embedder
+    t0 = time.perf_counter()
+    base = transformer.init_params_quantized(ecfg, rng.PRNGKey(42, mesh.device), bits=8)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    toks = torch.as_tensor(tokens, device=mesh.device)
+    mask = torch.ones_like(toks)
+    ref = None
+    if mesh.rank == 0:
+        with torch.no_grad():
+            ref = transformer.embed_text(base, ecfg, toks, mask)
+    local = shard_params(mesh, base, (ecfg.n_heads, ecfg.n_kv_heads))
+    del base
+    torch.cuda.empty_cache()
+    inputs = PathInputs()
+
+    def embed():
+        with torch.no_grad(), mesh:
+            t = time.perf_counter()
+            e = transformer.embed_text(local, ecfg, toks, mask)
+            torch.cuda.synchronize()
+            return e, (time.perf_counter() - t) * 1e3
+
+    with inputs.watch("N3"):
+        embed()     # the first call pays cuBLAS set-up
+        (got, ms), launches, coll = rank_counts(embed, mesh)
+    check(launches["flash_attention"] == ecfg.n_layers, f"N3: flash launched {launches['flash_attention']} times")
+    out = dict(rank=mesh.rank, draw_s=draw_s, local_gb=tree_gb(local), embed_ms=ms, launches=launches,
+               collectives=coll, kernels=inputs.replay(),
+               local_heads=list(transformer.local_heads(local, ecfg)))
+    if ref is not None:
+        err = float((got - ref).abs().max())
+        out.update(max_abs_err=err, ref_max=float(ref.abs().max()))
+        check(err <= DECODE_RTOL * out["ref_max"], f"N3: tp 2 embed {err} from the unsharded > "
+                                                    f"{DECODE_RTOL} x max |embed| {out['ref_max']}")
+    return out
+
+
+def dcp_round_trip(mesh, tmp: str) -> dict:
+    """N4: an SFT LoRA at the 3B width (2 layers) and its optimizer state
+    saved through ``dcp`` at ``mesh``'s tp 2, restored at tp 1 and tp 4,
+    on the card."""
+    from autostyle_tts_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg = dataclasses.replace(Config().embedder, n_layers=2)
+    heads = (cfg.n_heads, cfg.n_kv_heads)
+    lora = transformer.init_lora(cfg, 8, rng.PRNGKey(1, mesh.device))
+    opt = lora_sft.make_optimizer(lora_sft.TrainConfig(), 10)
+    state = {"lora": shard_params(mesh, lora, heads)}
+    state["opt_state"] = opt.init(state["lora"])
+    like = {"lora": abstract(lora), "opt_state": abstract(opt.init(abstract(lora)))}
+    mgr = CheckpointManager(tmp, backend="dcp")
+    t0 = time.perf_counter()
+    with mesh:
+        mgr.save(1, state, like=like, heads=heads)
+    save_s = time.perf_counter() - t0
+    full = gather_params(mesh, state, like, heads)
+    out = dict(save_s=save_s)
+    for name, (d, m) in (("tp1", (4, 1)), ("tp4", (1, 4))):
+        target = make_mesh(d, m, device="cuda", backend="gloo")
+        want = shard_params(target, full, heads)
+        with target:
+            got = mgr.restore(tree_map(torch.zeros_like, want), heads=heads)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(_flat_keys(got).values(), _flat_keys(want).values()))
+        check(same, f"N4: the dcp checkpoint saved at tp 2 restored at {name} differs")
+        out[f"restore_{name}"] = same
+    return out
+
+
+def path_n(store_feats, wavs) -> dict:
+    """The device mesh on the card: N0 gloo collectives of CUDA tensors
+    among 4 ranks sharing it and NCCL at world size 1; N1 the flagship
+    engine at dp 2 x tp 2 (4 ranks, gloo); N2 a 1 x 1 NCCL mesh engine;
+    N3 the 3B int8 embedder at tp 2; N4 both dry runs and the dcp round
+    trip. Each rank counts its own launches (one kernel launch a call, the
+    main path's runs only) and holds the kernels against their plain
+    versions on its inputs; a rank that fails fails the run."""
+    t0 = time.perf_counter()
+    cfg = serving_config()
+    ref = mesh_reference(cfg, store_feats)
+    pairs = (wavs[:4], wavs[4:8])
+    engine_keys = ("rank", "mesh", "backend", "init_s", "engine_gb", "serve", "collectives", "greedy",
+                   "from_tokens_max_abs_err", "launches")
+    with tempfile.TemporaryDirectory() as tmp:
+        n1 = launch(path_n_engine_rank, 4, 2, 2, "gloo", store_feats, pairs, ref, tmp, backend="gloo",
+                    device="cuda", threads=2, join_s=400)
+    print("N1 mesh engine dp2 tp2", json.dumps([{k: r[k] for k in engine_keys} for r in n1]), flush=True)
+    n2 = launch(path_n_engine_rank, 1, 1, 1, "nccl", store_feats, pairs, ref, backend="nccl", device="cuda",
+                threads=4, join_s=300)
+    print("N2 mesh engine 1x1 nccl", json.dumps([{k: r[k] for k in engine_keys} for r in n2]), flush=True)
+    print("N0 mesh backends", json.dumps(dict(gloo_cuda=n1[0]["collective_checks"], nccl_world=n2[0]["nccl_world"])),
+          flush=True)
+    toks = np.random.default_rng(11).integers(0, Config().embedder.vocab_size, (4, 512)).astype(np.int64)
+    n3 = launch(path_n3_rank, 2, toks, backend="gloo", device="cuda", threads=4, join_s=300)
+    print("N3 mesh embedder tp2", json.dumps([{k: v for k, v in r.items() if k != "kernels"} for r in n3]),
+          flush=True)
+    t4 = time.perf_counter()
+    dry_engine = dryrun_engine(4, device="cuda")
+    dry_train = lora_sft.dryrun_train_step(4, device="cuda")
+    n4 = dict(dryrun_engine=dry_engine, dryrun_train_step=dry_train, dcp=n1[0]["dcp"], s=time.perf_counter() - t4)
+    print("N4 dry runs and dcp", json.dumps(n4), flush=True)
+    launches = {name: sum(r["launches"][name] for r in (*n1, *n2, *n3)) for name in ("flash_attention",
+                                                                                     "fused_log_mel")}
+    per_rank = [dict(path=p, rank=r["rank"], **{k: [dict(shape=x["shape"], max_abs_err=x["max_abs_err"])
+                                                       for x in v] for k, v in r["kernels"].items()})
+                for p, runs in (("N1", n1), ("N2", n2), ("N3", n3)) for r in runs]
+    print("kernels path N", json.dumps(dict(launches=launches, per_rank=per_rank)), flush=True)
+    return dict(n1=n1, n2=n2, n3=n3, n4=n4, launches=launches, wall_s=time.perf_counter() - t0)
+
+
+def path_n_worst(pn: dict, name: str) -> list:
+    return [x for runs in (pn["n1"], pn["n2"], pn["n3"]) for r in runs for x in r["kernels"][name]]
+
+
 def serving_config() -> Config:
     """The flagship widths at the serving point: int8 LM, int8 KV cache (as
     served: the scanned decode of a batch uses it, the B=1 decode kernel
@@ -3355,6 +3663,7 @@ def main() -> int:
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
 
     only_log_mel = "--log-mel-only" in sys.argv[1:]
+    only_mesh = "--mesh-only" in sys.argv[1:]
     sources = ("log_mel",) if only_log_mel else cuda_build.KERNEL_SOURCES
     t0 = time.perf_counter()
     built = cuda_build.build(sources)
@@ -3366,6 +3675,12 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     cfg = serving_config()
+    n_wavs = [synthetic_wav(20 + i) for i in range(8)]
+    if only_mesh:
+        feats = Engine(cfg, seed=0).prompt_features([synthetic_wav(i) for i in range(4)])
+        path_n(feats, n_wavs)
+        print("chip_smoke: --mesh-only, the other phases and the main paths were not run")
+        return 0
     if only_log_mel:
         print("log_mel 24k, worst error of the four checked cases", json.dumps(log_mel_phase(cfg, gen)))
         print("chip_smoke: --log-mel-only, the other phases and the main paths were not run")
@@ -3444,6 +3759,9 @@ def main() -> int:
                                     **{k: pl["l1"][k] for k in ("corpus_s", "featurize_s")})), flush=True)
     pm = path_m(inputs, pi["rag"], pi.pop("store"), pe.pop("wavs"), cfg.embedder)
     print("path M", json.dumps({k: pm[k] for k in ("launches", "wall_s")}), flush=True)
+    torch.cuda.empty_cache()
+    pn = path_n(eng.prompt_features_from_store(store, [0, 1, 2, 3]), n_wavs)
+    print("path N", json.dumps({k: pn[k] for k in ("launches", "wall_s")}), flush=True)
     admitted = sorted({shape[0] for (path, shape, _) in inputs.flash if path == "H" and shape[1] == 384})
     check(admitted == [1, 2, 4], f"path H's admissions prefilled B = {admitted} at T = 384, expected 1, 2 and 4")
     on_inputs = inputs.replay()
@@ -3518,15 +3836,18 @@ def main() -> int:
                     **{k: rec[k] for k in KERNEL_KEYS})
 
     jax_decode = "autostyle_tts_tpu/ops/pallas_decode.py"
-    # launches on every path that runs the kernel: flash on A, C, D, E, G, H, I, J, K, L, M; log-mel on A, D, E,
-    # G, I, J, K, L, M; the decode step on A, G, J; its int4 build on C, G (the other paths add 0)
-    on_paths = lambda name: sum(p["launches"][name] for p in (pa, pc, pd, pe, pg, ph, pi, pj, pk, pl, pm))
+    # launches on every path that runs the kernel: flash on A, C, D, E, G, H, I, J, K, L, M, N; log-mel on A, D,
+    # E, G, I, J, K, L, M, N (N: summed over its ranks); the decode step on A, G, J; its int4 build on C, G (the
+    # other paths add 0)
+    on_paths = lambda name: sum(p["launches"].get(name, 0) for p in (pa, pc, pd, pe, pg, ph, pi, pj, pk, pl, pm, pn))
     # max_abs_err: the largest of every case checked (phase 3 and the paths' own inputs)
     worst = lambda name, recs: max(r["max_abs_err"] for r in (*recs, *on_inputs[name]))
     flash_rec = dict(flash_main, max_abs_err=worst("flash_attention", (flash_main, flash_gqa, flash_128, flash_batch,
                                                                        *flash_admit.values(), *flash_rag, *flash_k,
-                                                                       *flash_l, *flash_m)))
-    mel_rec = dict(mel24, max_abs_err=worst("fused_log_mel", (mel24, *mel_k, *mel_l, *mel_m)))
+                                                                       *flash_l, *flash_m,
+                                                                       *path_n_worst(pn, "flash_attention"))))
+    mel_rec = dict(mel24, max_abs_err=worst("fused_log_mel", (mel24, *mel_k, *mel_l, *mel_m,
+                                                              *path_n_worst(pn, "fused_log_mel"))))
     kernels = [
         entry("flash_attention", FLASH_SRC, "autostyle_tts_tpu/ops/pallas_attn.py:76",
               on_paths("flash_attention"), flash_rec),

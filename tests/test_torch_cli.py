@@ -197,8 +197,8 @@ def test_cli_entry_points_ask_for_the_card(fixtures, tmp_path):
         for mod, argv in engine_clis:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 mod.main(["--tiny"] + argv)
-    for argv, item in ((["--tiny", "--dp", "2"], "item 11"), (["--tiny", "--tp", "2"], "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
+    for argv, item in ((["--tiny", "--dp", "2"], "one device"), (["--tiny", "--tp", "2"], "one device")):
+        with pytest.raises(ValueError, match=item):
             insert_embeddings.build_embedder(p.parse_args(argv + CPU), cfg)
     # the Hugging Face loader is ported: a directory without a checkpoint is an error of its own
     with pytest.raises(FileNotFoundError, match="config.json"):

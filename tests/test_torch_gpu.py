@@ -642,3 +642,48 @@ def test_vocoder_mel_loss_gradient_on_card_matches_cpu(cuda):
     g_cpu = grads["cpu"]
     assert float(g_cpu.abs().max()) > 0
     assert float((grads[str(cuda)] - g_cpu).abs().max()) <= 1e-3 * float(g_cpu.abs().max())
+
+
+# ----------------------------------------------------------------------------- the device mesh on the card
+
+
+def test_tp_embed_ranks_sharing_the_card_match_unsharded(cuda):
+    """Two ranks on the card (gloo on CUDA tensors) at tp 2: the flash
+    kernel on each rank's local heads (2:1 of 4:2), the embed within 2e-2
+    of the largest |component| of the unsharded embed on the card."""
+    from autostyle_tts_tpu_torch.parallel.launch import launch
+    from autostyle_tts_tpu_torch.utils.config import TransformerConfig
+
+    import torch_parallel_workers as workers
+
+    kw = dict(vocab_size=272, dim=128, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=256, max_seq_len=128)
+    toks = np.random.default_rng(0).integers(16, 272, (4, 64)).astype(np.int64)
+    cfg = TransformerConfig(**kw)
+    with torch.no_grad():
+        t = torch.as_tensor(toks, device=cuda)
+        want = transformer.embed_text(transformer.init_params(cfg, rng.PRNGKey(0, cuda)), cfg, t,
+                                      torch.ones_like(t)).cpu().numpy()
+    for got, launches in launch(workers.embed_on_card, 2, kw, toks, backend="gloo", device="cuda", join_s=300):
+        assert launches == cfg.n_layers
+        np.testing.assert_allclose(got, want, atol=2e-2 * np.abs(want).max())
+
+
+def test_engine_dp2_ranks_sharing_the_card_matches_unsharded(cuda):
+    """The tiny engine at dp 2 (two ranks on the card, gloo): every rank's
+    wavs those of the unsharded engine on the card, within 1e-4 (the JAX
+    test's)."""
+    from autostyle_tts_tpu_torch.parallel.launch import launch
+
+    import torch_parallel_workers as workers
+
+    sr = tiny_config().audio.prompt_sample_rate
+    t = np.arange(sr) / sr
+    r = np.random.default_rng(7)
+    wav = lambda f: (0.3 * np.sin(2 * np.pi * f * t) + 0.02 * r.standard_normal(t.size)).astype(np.float32)  # noqa: E731
+    case = {"seed": 3, "texts": ["hello world", "ok then"], "styles": ["style one", "style two"],
+            "sty": [wav(200), wav(300)], "tim": [wav(180), wav(260)]}
+    want = Engine(tiny_config(), seed=3).synthesize_batch(case["texts"], case["styles"], case["sty"], case["tim"])
+    for got in launch(workers.engine_on_card, 2, case, backend="gloo", device="cuda", join_s=300):
+        assert [g.shape for g in got] == [w.shape for w in want]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=1e-4)

@@ -11,7 +11,8 @@ and the same sample rates, and serve as many requests. The engines' weights
 and random streams differ (each package draws its own), so the samples
 are compared by rate, count (> 0, the chunks summing to the whole) and
 finiteness only, as ``tests/test_torch_cli.py`` does. The port runs with
-``--device cpu``; ``--dp`` above 1 raises naming its ROADMAP.md item.
+``--device cpu``; ``--dp`` above 1 outside ``torchrun`` raises and names the
+``torchrun`` line.
 """
 
 import json
@@ -165,5 +166,5 @@ def test_serve_continuous_stream_matches_jax(fx, tmp_path, capsys):
 def test_serve_dp_raises(fx, tmp_path):
     rq = _requests(tmp_path / "r.jsonl", [{"id": "a", "text": "x", "style_wav": fx["style"],
                                            "timbre_wav": fx["timbre"]}])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         serve.main(["--tiny", "--requests", rq, "--result_dir", str(tmp_path / "o"), "--dp", "2"] + CPU)
