@@ -9,9 +9,9 @@ ODE state stay f32, as there.
 Under an active mesh (``parallel/``) the estimator runs on this rank's
 slices, as the JAX rules shard it: ``wq`` / ``wk`` / ``wv`` and ``w_up``
 column-parallel (the local heads and F / tp), ``wo`` / ``w_down``
-row-parallel (their partial products summed over the model group in f32,
-then rounded to the trunk dtype), ``tok_emb`` vocab-sharded
-(``upsample_tokens`` with ``vocab``); every other leaf whole.
+row-parallel (``transformer.row_proj``: their partial products, in the
+trunk dtype, summed over the model group in f32), ``tok_emb``
+vocab-sharded (``transformer.embed``); every other leaf whole.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..ops.attention import sdpa
 from ..parallel import comm
 from ..utils.config import CFMConfig
+from .transformer import dense_product, embed, row_proj
 from ..weights import normal
 
 Params = Dict
@@ -115,30 +116,20 @@ def vector_field(
         k = (xa @ lp["wk"][l].to(dt)).reshape(B, Fr, n_heads, hd)
         v = (xa @ lp["wv"][l].to(dt)).reshape(B, Fr, n_heads, hd)
         att = sdpa(q, k, v, attn_mask).reshape(B, Fr, n_heads * hd)
-        h = h + g1[:, None] * comm.row_product(att, lp["wo"][l], dt, attn_cut)
+        h = h + g1[:, None] * row_proj(att, lp["wo"][l], D, product=dense_product)
         x = _ln(h) * (1 + sc2[:, None]) + sh2[:, None]
         xm = comm.copy_to_model(x) if mlp_cut else x
         up = F.gelu(xm @ lp["w_up"][l].to(dt), approximate="tanh")
-        h = h + g2[:, None] * comm.row_product(up, lp["w_down"][l], dt, mlp_cut)
+        h = h + g2[:, None] * row_proj(up, lp["w_down"][l], cfg.ffn_dim, product=dense_product)
     h = _ln(h).float() * params["out_norm_scale"]
     return h @ params["out_proj"]
 
 
-def upsample_tokens(params: Params, tokens: torch.Tensor, upsample: int,
-                    vocab: Optional[int] = None) -> torch.Tensor:
+def upsample_tokens(params: Params, tokens: torch.Tensor, upsample: int, vocab: int) -> torch.Tensor:
     """[B, T_tok] -> [B, T_tok * upsample, D] token conditioning. ``vocab``
-    (the config's ``token_vocab_size``) is needed under a mesh, where
-    ``tok_emb`` may hold a slice of the vocabulary."""
-    table = params["tok_emb"]
-    if vocab is None:
-        if comm.model_size() > 1:
-            raise ValueError("upsample_tokens under a mesh needs the vocabulary size")
-        emb = table[tokens.long()]
-    else:
-        from .transformer import embed
-
-        emb = embed(table, tokens, vocab)
-    return torch.repeat_interleave(emb, upsample, dim=1)
+    is the config's ``token_vocab_size``: under a mesh ``tok_emb`` may hold
+    a slice of it (``transformer.embed``)."""
+    return torch.repeat_interleave(embed(params["tok_emb"], tokens, vocab), upsample, dim=1)
 
 
 class CFMLoss(NamedTuple):

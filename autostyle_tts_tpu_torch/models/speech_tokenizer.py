@@ -23,6 +23,7 @@ from ..ops.attention import sdpa
 from ..ops.conv import conv1d, conv1d_init, layer_norm, layer_norm_init
 from ..parallel import comm
 from ..utils.config import SpeechTokenizerConfig
+from .transformer import dense_product, row_proj
 from ..weights import normal
 
 Params = Dict
@@ -86,10 +87,10 @@ def apply(
         k = (xa @ blk["wk"].to(x.dtype)).reshape(B, T, n_heads, hd)
         v = (xa @ blk["wv"].to(x.dtype)).reshape(B, T, n_heads, hd)
         att = sdpa(q, k, v, attn_mask).reshape(B, T, n_heads * hd)
-        h = h + comm.row_product(att, blk["wo"], h.dtype, attn_cut)
+        h = h + row_proj(att, blk["wo"], D, product=dense_product)
         x = layer_norm(h, blk["ln2"])
         xm = comm.copy_to_model(x) if mlp_cut else x
-        h = h + comm.row_product(_gelu(xm @ blk["w_up"].to(x.dtype)), blk["w_down"], x.dtype, mlp_cut)
+        h = h + row_proj(_gelu(xm @ blk["w_up"].to(x.dtype)), blk["w_down"], cfg.ffn_dim, product=dense_product)
     tokens = quantize(params["codebook"], h)
     return TokenizeResult(tokens=tokens, token_mask=m > 0, pre_vq=h)
 

@@ -227,25 +227,31 @@ def _proj(x: torch.Tensor, w, lora: Optional[Tuple[torch.Tensor, torch.Tensor]] 
     return y.to(x.dtype)
 
 
-def _row_proj(x: torch.Tensor, w, full_in: int, lora: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              scale: float = 0.0) -> torch.Tensor:
+def dense_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in x's dtype (the CFM's and the speech tokenizer's trunks)."""
+    return x @ w.to(x.dtype)
+
+
+def row_proj(x: torch.Tensor, w, full_in: int, lora: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             scale: float = 0.0, product=matmul_any) -> torch.Tensor:
     """``_proj`` for a row-parallel weight (``wo``, ``w_down``) whose input
     ``x`` may be this rank's slice of ``full_in`` features: a weight cut
-    the same way gives partial sums, reduced over the model group in f32;
-    a whole weight under a cut input (a packed int4 leaf) takes the
-    gathered input. A LoRA ``a`` follows the same rule, ``b`` is whole."""
+    the same way gives partial products (``product(x, w)``), summed over
+    the model group in f32; a whole weight under a cut input (a packed
+    int4 leaf) takes the gathered input. A LoRA ``a`` follows the same
+    rule, ``b`` is whole. The result is in x's dtype."""
     n = x.shape[-1]
 
-    def product(x, w, f):
+    def rowwise(x, w, f):
         if _in_dim(w) == n:
             y = f(x, w)
             return comm.reduce_from_model(y) if n < full_in else y
         return f(comm.gather_from_model(x, -1), w)
 
-    y = product(x, w, matmul_any)
+    y = rowwise(x, w, product)
     if lora is not None:
         a, b = lora
-        ax = product(x, a, lambda x, a: torch.matmul(x.float(), a.to(x.dtype).float())).to(x.dtype)
+        ax = rowwise(x, a, lambda x, a: torch.matmul(x.float(), a.to(x.dtype).float())).to(x.dtype)
         y = y + scale * torch.matmul(ax.float(), b.to(x.dtype).float())
     return y.to(x.dtype)
 
@@ -361,11 +367,11 @@ def _layer(
         attn = sdpa_quant(q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], mask)
     else:
         attn = sdpa(q, cache["k"], cache["v"], mask)
-    h = h + _row_proj(attn.reshape(B, T, H * hd), lp["wo"], cfg.n_heads * hd, pair("wo"), lora_scale)
+    h = h + row_proj(attn.reshape(B, T, H * hd), lp["wo"], cfg.n_heads * hd, pair("wo"), lora_scale)
     x = rmsnorm(h, lp["mlp_norm"], cfg.norm_eps)
     gate, up = _proj(x, lp["w_gate_up"], pair("w_gate_up"), lora_scale, cut=F < cfg.ffn_dim).chunk(2, dim=-1)
-    return h + _row_proj(torch.nn.functional.silu(gate) * up, lp["w_down"], cfg.ffn_dim, pair("w_down"),
-                         lora_scale)
+    return h + row_proj(torch.nn.functional.silu(gate) * up, lp["w_down"], cfg.ffn_dim, pair("w_down"),
+                        lora_scale)
 
 
 def _layer_params(stacked: Params, l: int) -> Params:

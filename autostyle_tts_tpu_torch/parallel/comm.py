@@ -14,9 +14,7 @@ conjugate pair and two gathers, as ``torch.autograd.Function``\\ s:
 - ``gather_from_model(dim)``: all-gather forward, this rank's slice
   backward (a column-sharded head's logits);
 - ``gather_rows``: all-gather of rows over the data group, their widths
-  first, so ranks may hold rows of different widths;
-- ``row_product``: a row-parallel product (the CFM's and the tokenizer's
-  ``wo`` / ``w_down``), partial sums reduced in f32.
+  first, so ranks may hold rows of different widths.
 
 Only ``all_reduce`` and ``all_gather`` are called; gloo takes CUDA
 tensors for both. bf16 / f16 tensors are reduced in f32. At a
@@ -136,14 +134,6 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
 def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     mesh = _tp_mesh()
     return x if mesh is None else _GatherFromModel.apply(x, dim % x.ndim, mesh)
-
-
-def row_product(x: torch.Tensor, w: torch.Tensor, dt, cut: bool) -> torch.Tensor:
-    """x @ w in ``dt``; for a row-parallel slice (``cut``) the partial
-    product in f32, summed over the model group, then rounded to ``dt``."""
-    if not cut:
-        return x @ w.to(dt)
-    return reduce_from_model(torch.matmul(x.float(), w.to(dt).float())).to(dt)
 
 
 def reduce_data(x: torch.Tensor, mesh=None) -> torch.Tensor:

@@ -7,8 +7,10 @@ process group of ``n`` ranks through a rendezvous file
 (``init_method="file://..."``, so concurrent launches never race on a TCP
 port), runs ``fn(*args)`` and hands its return value back through a file.
 Ranks may share one device: ``backend="gloo"`` takes CUDA tensors, so
-``device="cuda"`` runs every rank on the current card. ``fn`` builds its
-mesh with ``parallel.make_mesh`` on the running process group.
+every rank may build its mesh on the current card. ``fn`` builds its mesh
+with ``parallel.make_mesh`` on the running process group, on the device
+it names. A collective waits at most ``COLLECTIVE_TIMEOUT_S`` (the
+process group's timeout).
 
 Any rank that raises, exits or outlives ``join_s`` fails the launch: the
 others are terminated and ``RuntimeError`` carries the first traceback.
@@ -31,20 +33,18 @@ import torch
 import torch.multiprocessing as mp
 
 DEFAULT_JOIN_S = 600.0
+COLLECTIVE_TIMEOUT_S = 120.0
 
 
-def _worker(rank: int, n: int, rendezvous: str, out_dir: str, backend: str, device: str, threads: int,
-            timeout_s: float, fn: Callable, args: tuple) -> None:
+def _worker(rank: int, n: int, rendezvous: str, out_dir: str, backend: str, threads: int, fn: Callable,
+            args: tuple) -> None:
     import torch.distributed as dist
 
     torch.set_num_threads(threads)
     out = Path(out_dir) / f"rank{rank}.pkl"
     try:
-        dev = torch.device(device)
-        if dev.type == "cuda" and dev.index is not None:
-            torch.cuda.set_device(dev)
         dist.init_process_group(backend, init_method=f"file://{rendezvous}", rank=rank, world_size=n,
-                                timeout=datetime.timedelta(seconds=timeout_s))
+                                timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
         try:
             result = ("ok", fn(*args))
         finally:
@@ -58,16 +58,15 @@ def _worker(rank: int, n: int, rendezvous: str, out_dir: str, backend: str, devi
         raise SystemExit(1)
 
 
-def launch(fn: Callable, n: int, *args, backend: str = "gloo", device: str = "cpu", threads: int = 1,
-           timeout_s: float = 120.0, join_s: float = DEFAULT_JOIN_S) -> List[Any]:
-    """``fn(*args)`` on ranks 0..n-1 -> their return values, in rank order.
-    ``timeout_s`` bounds each collective (the process group's timeout),
-    ``join_s`` the whole launch."""
+def launch(fn: Callable, n: int, *args, backend: str = "gloo", threads: int = 1,
+           join_s: float = DEFAULT_JOIN_S) -> List[Any]:
+    """``fn(*args)`` on ranks 0..n-1 -> their return values, in rank order;
+    ``join_s`` bounds the whole launch."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="asttts_launch_") as tmp:
         rendezvous = os.path.join(tmp, "rendezvous")
-        procs = [ctx.Process(target=_worker, args=(r, n, rendezvous, tmp, backend, device, threads, timeout_s,
-                                                   fn, args), daemon=False)
+        procs = [ctx.Process(target=_worker, args=(r, n, rendezvous, tmp, backend, threads, fn, args),
+                             daemon=False)
                  for r in range(n)]
         for p in procs:
             p.start()

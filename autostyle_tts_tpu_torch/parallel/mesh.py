@@ -92,8 +92,8 @@ def _default_device() -> torch.device:
     return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
 
 
-def _init_world(backend: str, timeout_s: float) -> None:
-    timeout = datetime.timedelta(seconds=timeout_s)
+def _init_world(backend: str) -> None:
+    timeout = datetime.timedelta(seconds=INIT_TIMEOUT_S)
     if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
         dist.init_process_group(backend, init_method="env://", timeout=timeout)
     else:
@@ -106,7 +106,6 @@ def make_mesh(
     *,
     device=None,
     backend: Optional[str] = None,
-    timeout_s: float = INIT_TIMEOUT_S,
 ) -> Optional[Mesh]:
     """The (data, model) mesh over the first ``data * model`` ranks of the
     world (``data`` defaults to world // model). More ranks than the world
@@ -119,7 +118,7 @@ def make_mesh(
         dev = torch.device("cuda", torch.cuda.current_device())
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if not dist.is_initialized():
-        _init_world(backend, timeout_s)
+        _init_world(backend)
     world, rank = dist.get_world_size(), dist.get_rank()
     if data is None:
         data = world // model

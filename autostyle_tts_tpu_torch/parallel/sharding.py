@@ -183,6 +183,29 @@ def join(pieces: Sequence[torch.Tensor], layout: Optional[Layout]) -> torch.Tens
     return torch.cat(blocks, dim=axis)
 
 
+def sources(n_from: int, n_to: int, rank: int) -> range:
+    """The pieces of an ``n_from``-way cut that hold piece ``rank`` of an
+    ``n_to``-way cut of the same layout."""
+    return range(rank * n_from // n_to, -(-(rank + 1) * n_from // n_to))
+
+
+def recut(pieces: Dict[int, torch.Tensor], layout: Layout, n_from: int, n_to: int, rank: int) -> torch.Tensor:
+    """Piece ``rank`` of an ``n_to``-way cut from the pieces ``sources(n_from,
+    n_to, rank)`` of an ``n_from``-way cut (``pieces`` by their rank): each
+    block's part joined from them, then narrowed to this rank's share."""
+    axis, props = layout
+    have = sources(n_from, n_to, rank)
+    first = pieces[have[0]]
+    unit = first.shape[axis] * n_from // sum(props)      # the full leaf's size of one proportion
+    parts, off = [], 0
+    for p in props:
+        full, step = unit * p, unit * p // n_from
+        span = torch.cat([pieces[s].narrow(axis, off, step) for s in have], dim=axis)
+        parts.append(span.narrow(axis, rank * full // n_to - have[0] * step, full // n_to))
+        off += step
+    return torch.cat(parts, dim=axis).contiguous()
+
+
 def _map_keys(fn, tree: Any, prefix: str = "") -> Any:
     """``fn(flat key, leaf)`` over every leaf, the structure kept."""
     if is_quantized(tree):

@@ -914,14 +914,17 @@ def dryrun_engine_rank(data: int, model: int, B: int, device: str, backend: Opti
     return mesh.shape, eng.synthesize_batch(*_dryrun_inputs(B, cfg))
 
 
-def dryrun_engine(n_devices: int, *, device=None, backend: Optional[str] = None, atol: float = 2e-4) -> dict:
+DRYRUN_ATOL = 2e-4     # the mesh engine's wavs against the unsharded engine's (JAX's dp x tp bound)
+
+
+def dryrun_engine(n_devices: int, *, device=None, backend: Optional[str] = None) -> dict:
     """The JAX package's serving dry run: the full synthesis program
     (featurize -> token LM -> CFM -> vocoder -> crop) at ``tiny_config()``
     over an ``n_devices`` mesh (model 2 where n is even, data the rest, as
     JAX picks it) on ``n_devices`` spawned ranks (``parallel.launch``; one
     device shared, ``gloo`` unless ``backend`` names one), every rank's
     wavs checked against the unsharded engine's in this process within
-    ``atol``. Prints the ``dryrun_engine ok`` line and returns the numbers."""
+    ``DRYRUN_ATOL``. Prints the ``dryrun_engine ok`` line and returns the numbers."""
     from ..parallel.launch import launch
     from ..utils.config import tiny_config
 
@@ -930,8 +933,7 @@ def dryrun_engine(n_devices: int, *, device=None, backend: Optional[str] = None,
     model = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
     data = n_devices // model
     B = max(data, 2)
-    out = launch(dryrun_engine_rank, n_devices, data, model, B, str(dev), backend,
-                 backend=backend, device=str(dev))
+    out = launch(dryrun_engine_rank, n_devices, data, model, B, str(dev), backend, backend=backend)
     cfg = tiny_config()
     ref = Engine(cfg, seed=3, device=dev).synthesize_batch(*_dryrun_inputs(B, cfg))
     err = 0.0
@@ -939,7 +941,7 @@ def dryrun_engine(n_devices: int, *, device=None, backend: Optional[str] = None,
         if [g.shape for g in got] != [r.shape for r in ref]:
             raise AssertionError(f"dry run wav shapes {[g.shape for g in got]} != {[r.shape for r in ref]}")
         err = max([err] + [float(np.abs(g - r).max()) for g, r in zip(got, ref)])
-    if err > atol:
-        raise AssertionError(f"dry run wavs differ from the unsharded engine's by {err} > {atol}")
+    if err > DRYRUN_ATOL:
+        raise AssertionError(f"dry run wavs differ from the unsharded engine's by {err} > {DRYRUN_ATOL}")
     print(f"dryrun_engine ok: mesh=({out[0][0]}), B={B}, wav_len={out[0][1][0].shape[0]}, max_abs_err={err:.2e}")
     return {"mesh": out[0][0], "B": B, "wav_len": int(out[0][1][0].shape[0]), "max_abs_err": err}

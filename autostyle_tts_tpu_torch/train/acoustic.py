@@ -72,7 +72,7 @@ def make_cfm_step(cfg: CFMConfig, optimizer: GradientTransformation, cond_drop_p
             draws = cfm_lib.cfm_draws(generator, batch["mel"], cond_drop_prob)
 
         def loss_fn(p):
-            cond = cfm_lib.upsample_tokens(p, batch["tokens"], cfg.upsample)
+            cond = cfm_lib.upsample_tokens(p, batch["tokens"], cfg.upsample, cfg.token_vocab_size)
             return cfm_lib.cfm_loss(p, cfg, None, batch["mel"], cond, batch["spk"], batch["prompt_mask"],
                                     batch["frame_mask"], cond_drop_prob=cond_drop_prob, draws=draws).loss
 

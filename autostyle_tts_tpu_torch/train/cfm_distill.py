@@ -72,7 +72,7 @@ def make_distill_step(cfg: CFMConfig, optimizer: GradientTransformation, n_stude
         x_t = (1 - (1 - s) * t)[:, None, None] * d["x0"] + t[:, None, None] * mel
         prompt_mel = mel * pmask[..., None]
         with torch.no_grad():   # two teacher half-steps -> the student's one-step target
-            cond_t = cfm_lib.upsample_tokens(teacher, batch["tokens"], cfg.upsample)
+            cond_t = cfm_lib.upsample_tokens(teacher, batch["tokens"], cfg.upsample, cfg.token_vocab_size)
             v1 = guided_field(teacher, cfg, teacher_cfg_scale, x_t, t, cond_t, spk, prompt_mel, pmask, fmask)
             x_half = x_t + (dt / 2) * v1
             v2 = guided_field(teacher, cfg, teacher_cfg_scale, x_half, t + dt / 2, cond_t, spk, prompt_mel,
@@ -80,7 +80,7 @@ def make_distill_step(cfg: CFMConfig, optimizer: GradientTransformation, n_stude
             target = (v1 + v2) / 2.0
 
         def loss_fn(p):
-            cond_s = cfm_lib.upsample_tokens(p, batch["tokens"], cfg.upsample)
+            cond_s = cfm_lib.upsample_tokens(p, batch["tokens"], cfg.upsample, cfg.token_vocab_size)
             pred = cfm_lib.vector_field(p, cfg, x_t, t, cond_s, spk, prompt_mel, pmask, fmask)
             w = (fmask * (1 - pmask))[..., None]
             return (w * (pred - target) ** 2).sum() / torch.clamp(w.sum() * M, min=1.0)
@@ -136,7 +136,7 @@ def eval_mel_l1(params: Params, cfg: CFMConfig, batches: Iterator[Dict], generat
     tot = n = tot_ref = 0.0
     for b in batches:
         b = b["cfm"]
-        cond = cfm_lib.upsample_tokens(params, b["tokens"], cfg.upsample)
+        cond = cfm_lib.upsample_tokens(params, b["tokens"], cfg.upsample, cfg.token_vocab_size)
         pmel = b["mel"] * b["prompt_mask"][..., None]
         noise = torch.randn(b["mel"].shape, generator=generator, device=b["mel"].device)
         mel = cfm_lib.sample_mel(params, cfg, None, cond, b["spk"], pmel, b["prompt_mask"], b["frame_mask"],
@@ -145,7 +145,8 @@ def eval_mel_l1(params: Params, cfg: CFMConfig, batches: Iterator[Dict], generat
         tot += float((w * (mel - b["mel"]).abs()).sum())
         n += float(w.sum() * cfg.n_mels)
         if ref_params is not None:
-            cond_r = cfm_lib.upsample_tokens(ref_params, b["tokens"], ref_cfg.upsample)
+            cond_r = cfm_lib.upsample_tokens(ref_params, b["tokens"], ref_cfg.upsample,
+                                               ref_cfg.token_vocab_size)
             ref = cfm_lib.sample_mel(ref_params, ref_cfg, None, cond_r, b["spk"], pmel, b["prompt_mask"],
                                      b["frame_mask"], use_cfg=ref_use_cfg, noise=noise)
             tot_ref += float((w * (mel - ref).abs()).sum())

@@ -35,7 +35,9 @@ tensor-parallel region and passes ``copy_to_model``, which sums its partial
 gradients over the model group; a ``B`` of a row-parallel base reads the
 reduced ``x @ A`` and gets its whole gradient on every rank. The clip's
 global norm counts the cut leaves' squares summed over the model group and
-the whole leaves' once (``mesh_norm``). NEFTune draws the whole batch's
+the whole leaves' once (``mesh_norm``): the step applies its optimizer
+inside ``optim.sharded_norm``, so the clip of any optimizer it is given
+reads that norm. NEFTune draws the whole batch's
 noise and keeps its rows. ``dryrun_train_step`` runs one such step over
 spawned ranks against the unsharded step.
 """
@@ -63,7 +65,7 @@ from ..utils.checkpoint import CheckpointManager, save_pytree
 from ..utils.config import TrainConfig, TransformerConfig
 from ..weights import tree_map
 from .optim import (GradientTransformation, MultiSteps, adamw, apply_optimizer, chain, clip_by_global_norm,
-                    global_norm, linear_schedule, tree_leaves, value_and_grad)
+                    linear_schedule, sharded_norm, tree_leaves, value_and_grad)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -266,13 +268,12 @@ def mesh_norm(cfg: TransformerConfig, mesh):
     return norm
 
 
-def make_optimizer(tcfg: TrainConfig, total_steps: int, norm=None) -> GradientTransformation:
+def make_optimizer(tcfg: TrainConfig, total_steps: int) -> GradientTransformation:
     """Clip to global norm 1, AdamW without weight decay, the learning rate
-    linear to 0 over ``total_steps`` (or constant). ``norm``: the clip's
-    global norm (``mesh_norm`` under a mesh)."""
+    linear to 0 over ``total_steps`` (or constant)."""
     sched = (linear_schedule(tcfg.learning_rate, 0.0, max(total_steps, 1)) if tcfg.lr_schedule == "linear"
              else tcfg.learning_rate)
-    return chain(clip_by_global_norm(1.0, norm), adamw(sched, b1=0.9, b2=0.999, weight_decay=0.0))
+    return chain(clip_by_global_norm(1.0), adamw(sched, b1=0.9, b2=0.999, weight_decay=0.0))
 
 
 def make_train_step(cfg: TransformerConfig, tcfg: TrainConfig, optimizer, packed: Optional[bool] = None,
@@ -286,7 +287,7 @@ def make_train_step(cfg: TransformerConfig, tcfg: TrainConfig, optimizer, packed
     lora_scale = tcfg.lora.alpha / tcfg.lora.r
     is_packed = tcfg.packing if packed is None else packed
     loss_fn = packed_sft_loss if is_packed else sft_loss
-    norm = global_norm if mesh is None else mesh_norm(cfg, mesh)
+    norm = None if mesh is None else mesh_norm(cfg, mesh)
 
     def train_step(lora, opt_state, params, tokens, loss_mask, aux, generator, noise=None):
         total = None
@@ -307,7 +308,8 @@ def make_train_step(cfg: TransformerConfig, tcfg: TrainConfig, optimizer, packed
         if mesh is not None:
             grads = tree_map(lambda g: comm.reduce_data(g, mesh), grads)
             loss = comm.reduce_data(loss, mesh)
-        lora, opt_state = apply_optimizer(train_step, optimizer, lora, grads, opt_state, norm=norm)
+        with nullcontext() if norm is None else sharded_norm(norm):
+            lora, opt_state = apply_optimizer(train_step, optimizer, lora, grads, opt_state)
         return lora, opt_state, loss
 
     return train_step
@@ -501,7 +503,7 @@ def _dryrun_step(cfg, tcfg, params, lora, batch, device, mesh=None):
     heads = (cfg.n_heads, cfg.n_kv_heads)
     if mesh is not None:
         params, lora = shard_params(mesh, params, heads), shard_params(mesh, lora, heads)
-    opt = make_optimizer(tcfg, 10, norm=None if mesh is None else mesh_norm(cfg, mesh))
+    opt = make_optimizer(tcfg, 10)
     step = make_train_step(cfg, tcfg, opt, packed=True, mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(2)
     lora2, _, loss = step(lora, opt.init(lora), params, *batch, gen)
@@ -523,13 +525,16 @@ def dryrun_train_step_rank(n_devices: int, model: int, device: str, backend: Opt
     return mesh.shape, loss, host
 
 
-def dryrun_train_step(n_devices: int, *, device=None, backend: Optional[str] = None, atol: float = 1e-5) -> dict:
+DRYRUN_ATOL = 1e-5     # the sharded step's loss and updated LoRA against the unsharded step's
+
+
+def dryrun_train_step(n_devices: int, *, device=None, backend: Optional[str] = None) -> dict:
     """The JAX package's multi-device dry run: ONE packed SFT step at tiny
     geometry over an ``n_devices`` mesh (model 2 where n is even, as JAX
     picks it), on ``n_devices`` spawned ranks (``parallel.launch``; one
     device shared, ``gloo`` unless ``backend`` names one), checked against
     the unsharded step in this process: the loss and the updated LoRA
-    within ``atol``. Prints the ``dryrun_multichip ok`` line and returns
+    within ``DRYRUN_ATOL``. Prints the ``dryrun_multichip ok`` line and returns
     the numbers."""
     from ..parallel.launch import launch
     from ..utils.device import resolve_device
@@ -537,16 +542,15 @@ def dryrun_train_step(n_devices: int, *, device=None, backend: Optional[str] = N
     dev = resolve_device(device)
     backend = backend or "gloo"
     model = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
-    out = launch(dryrun_train_step_rank, n_devices, n_devices, model, str(dev), backend,
-                 backend=backend, device=str(dev))
+    out = launch(dryrun_train_step_rank, n_devices, n_devices, model, str(dev), backend, backend=backend)
     shape, loss, got = out[0]
     cfg, tcfg, params, lora, batch = _dryrun_setup(n_devices, dev)
     ref_loss, ref = _dryrun_step(cfg, tcfg, params, lora, batch, dev)
-    if not all(abs(o[1] - ref_loss) <= atol for o in out):
+    if not all(abs(o[1] - ref_loss) <= DRYRUN_ATOL for o in out):
         raise AssertionError(f"dry run losses {[o[1] for o in out]} != unsharded {ref_loss}")
     err = max(float(np.abs(g - r.detach().cpu().numpy()).max())
               for g, r in zip(tree_leaves(got), tree_leaves(ref)))
-    if not np.isfinite(loss) or err > atol:
+    if not np.isfinite(loss) or err > DRYRUN_ATOL:
         raise AssertionError(f"dry run LoRA differs from the unsharded step by {err}")
     print(f"dryrun_multichip ok: mesh=({shape}), loss={loss:.4f}, unsharded={ref_loss:.4f}, lora_err={err:.2e}")
     return {"mesh": shape, "loss": loss, "unsharded_loss": ref_loss, "lora_max_abs_err": err}

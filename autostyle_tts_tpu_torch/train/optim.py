@@ -7,7 +7,8 @@ points). This module computes what optax computes, in the same order of
 f32 operations:
 
 - ``clip_by_global_norm(max_norm)``: g unchanged when ‖g‖ < max_norm, else
-  ``g / ‖g‖ * max_norm`` (‖g‖ over every leaf, no epsilon);
+  ``g / ‖g‖ * max_norm`` (‖g‖ over every leaf, no epsilon; inside
+  ``sharded_norm`` the norm that context names);
 - ``adamw(lr, b1, b2, eps, weight_decay)``: ``mu = (1-b1) g + b1 mu``,
   ``nu = (1-b2) g² + b2 nu``, bias-corrected by ``1 - b**count`` after the
   count's increment, ``u = mu_hat / (sqrt(nu_hat) + eps)``, then
@@ -32,7 +33,8 @@ the params); ``MultiSteps`` holds ``{"mini_step", "gradient_step", "acc",
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, NamedTuple, Tuple, Union
+from contextlib import contextmanager
+from typing import Any, Callable, Iterator, List, NamedTuple, Tuple, Union
 
 import torch
 
@@ -55,8 +57,26 @@ def tree_unflatten(like: Any, leaves: List[torch.Tensor]) -> Any:
     return tree_map(lambda _: next(it), like)
 
 
+_NORMS: List[Callable[[Any], torch.Tensor]] = []
+
+
 def global_norm(tree: Any) -> torch.Tensor:
+    """‖tree‖ over every leaf; inside ``sharded_norm(norm)``, ``norm(tree)``."""
+    if _NORMS:
+        return _NORMS[-1](tree)
     return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in tree_leaves(tree)))
+
+
+@contextmanager
+def sharded_norm(norm: Callable[[Any], torch.Tensor]) -> Iterator[None]:
+    """Make ``norm`` the global norm of every tree (the clip's and the
+    recorded ``grad_norm``) inside the block: a step whose trees are one
+    rank's slices passes the norm of the whole trees across the ranks."""
+    _NORMS.append(norm)
+    try:
+        yield
+    finally:
+        _NORMS.pop()
 
 
 def apply_updates(params: Any, updates: Any) -> Any:
@@ -91,13 +111,9 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def clip_by_global_norm(max_norm: float, norm: Callable[[Any], torch.Tensor] = None) -> GradientTransformation:
-    """``norm``: the tree's global norm (default ``global_norm``; under a
-    mesh one that counts every leaf's elements once across the ranks)."""
-    norm = norm or global_norm
-
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     def update(grads, state, params=None):
-        g_norm = norm(grads)
+        g_norm = global_norm(grads)
         if bool(g_norm < max_norm):
             return grads, state
         return tree_map(lambda g: (g / g_norm.to(g.dtype)) * max_norm, grads), state
@@ -191,10 +207,10 @@ def value_and_grad(loss_fn: Callable, params, has_aux: bool = False):
     return loss.detach(), aux, tree_unflatten(params, grads)
 
 
-def apply_optimizer(step, optimizer: GradientTransformation, params, grads, opt_state, norm=global_norm):
+def apply_optimizer(step, optimizer: GradientTransformation, params, grads, opt_state):
     """One optimizer update; records the pre-clip gradient norm on ``step``."""
     with torch.no_grad():
-        step.grad_norm = norm(grads)
+        step.grad_norm = global_norm(grads)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         return apply_updates(params, updates), opt_state
 

@@ -15,8 +15,9 @@ Counterpart of the JAX ``utils/checkpoint.py``, in its file format:
   ``state.dcp/`` through ``torch.distributed.checkpoint`` from every rank
   (each model rank's slices once, whole leaves once) and a
   ``metadata.json`` as the JAX manager writes one, plus how each leaf was
-  cut; ``restore`` joins the slices and cuts them again for the mesh of the
-  tree it restores into, so a tp = 2 save restores at tp = 1 or 4. The
+  cut; ``restore`` reads on each rank only the pieces that hold its slice
+  for the mesh of the tree it restores into (its own piece where the model
+  axis is unchanged), so a tp = 2 save restores at tp = 1 or 4. The
   orbax format needs a JAX library: ``backend="orbax"`` and a directory
   holding ``state.orbax`` raise.
 
@@ -154,34 +155,47 @@ def _save_dcp(d: Path, tree: Any, meta: dict, mesh, like, heads) -> None:
 
 
 def _restore_dcp(d: Path, like: Any, mesh, heads) -> Any:
+    """Each leaf of this rank's slice, read from the pieces that hold it:
+    a whole saved leaf whole; a cut one, for a target cut the same way,
+    from ``sharding.sources`` (this rank's own piece at an unchanged model
+    axis), for a whole target from every piece."""
     import torch.distributed.checkpoint as dcp
 
     from ..parallel import sharding
     from ..weights import _flat_keys
 
     meta = json.loads((d / "metadata.json").read_text())
-    reader = dcp.FileSystemReader(str(d / "state.dcp"))
-    saved = reader.read_metadata().state_dict_metadata
-    state = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype) for k, m in saved.items()}
-    dcp.load(state, storage_reader=reader)
-    full = {}
-    for key, cut in meta["cuts"].items():
-        if cut is None:
-            full[key] = state[key]
-        else:
-            full[key] = sharding.join([state[f"{key}#{m}"] for m in range(meta["model"])], (cut[0], tuple(cut[1])))
     want = _flat_keys(like)
-    missing = sorted(set(want) - set(full))
+    missing = sorted(set(want) - set(meta["cuts"]))
     if missing:
         raise ValueError(f"{d}: missing keys {missing}")
     mesh = _mesh_or_active(mesh)
-    full_tree = sharding._map_keys(lambda k, t: full[k], like)
-    lay = ({k: None for k in want} if mesh is None or mesh.model == 1
-           else sharding.layouts(mesh, full_tree, heads))
+    model, rank = (1, 0) if mesh is None else (mesh.model, mesh.model_rank)
+    full_like = sharding._map_keys(lambda k, t: torch.empty(meta["shapes"][k], dtype=t.dtype, device="meta"), like)
+    lay = {k: None for k in want} if model == 1 else sharding.layouts(mesh, full_like, heads)
+    reader = dcp.FileSystemReader(str(d / "state.dcp"))
+    saved = reader.read_metadata().state_dict_metadata
+    plan = {}
+    for key in want:
+        cut = meta["cuts"][key]
+        if cut is None:
+            plan[key] = (None, 1, 0, [key])
+            continue
+        cut = (cut[0], tuple(cut[1]))
+        if lay[key] not in (None, cut):
+            raise ValueError(f"{d}: {key} was cut as {cut}, this mesh cuts it as {lay[key]}")
+        n_to, r = (model, rank) if lay[key] else (1, 0)
+        plan[key] = (cut, n_to, r, [f"{key}#{s}" for s in sharding.sources(meta["model"], n_to, r)])
+    state = {n: torch.empty(tuple(saved[n].size), dtype=saved[n].properties.dtype)
+             for _, _, _, names in plan.values() for n in names}
+    dcp.load(state, storage_reader=reader)
 
     def one(key, leaf):
-        t = sharding.cut(full[key], lay[key], 1 if mesh is None else mesh.model,
-                         0 if mesh is None else mesh.model_rank)
+        cut, n_to, r, names = plan[key]
+        if cut is None:
+            t = sharding.cut(state[names[0]], lay[key], model, rank)
+        else:
+            t = sharding.recut({int(n.rsplit("#", 1)[1]): state[n] for n in names}, cut, meta["model"], n_to, r)
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"{d}: {key} restores as {tuple(t.shape)} here, expected {tuple(leaf.shape)}")
         return t.to(dtype=leaf.dtype, device=leaf.device)

@@ -79,7 +79,7 @@ def test_upsample_tokens_matches():
     jp, tp = _cfm_params(cfg)
     tok = np.random.default_rng(0).integers(0, cfg.token_vocab_size, (2, 7)).astype(np.int32)
     want = np.asarray(jcfm.upsample_tokens(jp, jnp.asarray(tok), 2))
-    np.testing.assert_array_equal(tcfm.upsample_tokens(tp, _t(tok), 2).numpy(), want)
+    np.testing.assert_array_equal(tcfm.upsample_tokens(tp, _t(tok), 2, cfg.token_vocab_size).numpy(), want)
 
 
 @pytest.mark.parametrize("n_fft,hop", [(128, 32), (1920, 480)])

@@ -663,7 +663,7 @@ def test_tp_embed_ranks_sharing_the_card_match_unsharded(cuda):
         t = torch.as_tensor(toks, device=cuda)
         want = transformer.embed_text(transformer.init_params(cfg, rng.PRNGKey(0, cuda)), cfg, t,
                                       torch.ones_like(t)).cpu().numpy()
-    for got, launches in launch(workers.embed_on_card, 2, kw, toks, backend="gloo", device="cuda", join_s=300):
+    for got, launches in launch(workers.embed_on_card, 2, kw, toks, backend="gloo", join_s=300):
         assert launches == cfg.n_layers
         np.testing.assert_allclose(got, want, atol=2e-2 * np.abs(want).max())
 
@@ -683,7 +683,7 @@ def test_engine_dp2_ranks_sharing_the_card_matches_unsharded(cuda):
     case = {"seed": 3, "texts": ["hello world", "ok then"], "styles": ["style one", "style two"],
             "sty": [wav(200), wav(300)], "tim": [wav(180), wav(260)]}
     want = Engine(tiny_config(), seed=3).synthesize_batch(case["texts"], case["styles"], case["sty"], case["tim"])
-    for got in launch(workers.engine_on_card, 2, case, backend="gloo", device="cuda", join_s=300):
+    for got in launch(workers.engine_on_card, 2, case, backend="gloo", join_s=300):
         assert [g.shape for g in got] == [w.shape for w in want]
         for g, w in zip(got, want):
             np.testing.assert_allclose(g, w, atol=1e-4)

@@ -108,7 +108,7 @@ def _cfm_case():
                                       jnp.zeros((B, F)), jnp.ones((B, F)), use_cfg=True))
     noise = np.asarray(jax.random.normal(key, (B, F, c.n_mels), jnp.float32))
     tp = tree_from_numpy(params)
-    unsharded = tcfm.sample_mel(tp, c, None, tcfm.upsample_tokens(tp, torch.as_tensor(tokens), c.upsample),
+    unsharded = tcfm.sample_mel(tp, c, None, tcfm.upsample_tokens(tp, torch.as_tensor(tokens), c.upsample, c.token_vocab_size),
                                 torch.ones((B, c.spk_dim)), torch.zeros((B, F, c.n_mels)), torch.zeros((B, F)),
                                 torch.ones((B, F)), use_cfg=True, noise=torch.as_tensor(noise)).numpy()
     return {"params": params, "tokens": tokens, "noise": noise}, want, unsharded
@@ -155,7 +155,7 @@ def _sft_case():
                        *map(torch.as_tensor, (tokens, loss_mask, seg)), None, noise=torch.as_tensor(noise))
     case = {"cfg": dataclasses.asdict(cfg), "tcfg": tkw, "params": params, "lora": lora,
             "batch": (tokens, loss_mask, seg), "noise": noise, "packed": True}
-    return case, float(jloss), float(loss), l2
+    return case, float(jloss), float(loss), l2, float(step.grad_norm)
 
 
 @pytest.fixture(scope="module")
@@ -177,9 +177,9 @@ def four(tmp_path_factory):
                                 (200, 250, 300, 350), (180, 220, 260, 320))
     sty, _ = _wavs(1, (200, 260, 330), (200, 260, 330), 3)
     ragged = {"seed": 1, "texts": ["a b c", "d e", "f"], "styles": ["s1", "s2", "s3"], "sty": sty, "tim": sty}
-    sft, jloss, tloss, tlora = _sft_case()
+    sft, jloss, tloss, tlora, tnorm = _sft_case()
     got = launch(workers.four_ranks, 4, eng, ragged, sft, str(tmp_path_factory.mktemp("dcp")), join_s=300)
-    return dict(got=got, engine=eng_ref, sft_jax_loss=jloss, sft_loss=tloss, sft_lora=tlora)
+    return dict(got=got, engine=eng_ref, sft_jax_loss=jloss, sft_loss=tloss, sft_lora=tlora, sft_grad_norm=tnorm)
 
 
 @pytest.fixture(scope="module")
@@ -238,8 +238,11 @@ def test_engine_pads_ragged_batch(four):
 
 
 def test_sft_step_dp2_tp2_matches_unsharded_and_jax(four):
+    """Loss, recorded gradient norm (the clip's, across the ranks) and
+    updated LoRA equal the unsharded step's; the loss equals JAX's."""
     for r in four["got"]:
         assert abs(r["sft_loss"] - four["sft_loss"]) <= 1e-5
+        assert abs(r["sft_grad_norm"] - four["sft_grad_norm"]) <= 1e-5 * four["sft_grad_norm"]
         assert abs(r["sft_loss"] - four["sft_jax_loss"]) <= 1e-5
         for name, want in four["sft_lora"]["layers"].items():
             np.testing.assert_allclose(r["sft_lora"]["layers"][name], want.numpy(), atol=1e-5, err_msg=name)
@@ -249,7 +252,7 @@ def test_shard_then_gather_is_bitwise(four):
     assert all(r["round_trip"] for r in four["got"])
 
 
-@pytest.mark.parametrize("target", ["tp1", "tp4"])
+@pytest.mark.parametrize("target", ["tp1", "tp2", "tp4"])
 def test_dcp_checkpoint_saved_at_tp2_restores(four, target):
     assert all(r[f"restore_{target}"] for r in four["got"])
 

@@ -7,7 +7,8 @@ one-process world of the mesh-error test).
   LoRA tree and of the SFT optimizer state, the port's spec equals the
   ``PartitionSpec`` of JAX ``param_shardings(make_mesh(2, 4), tree)``.
 - Slicing: every model rank's ``shard_params`` slices join back to the
-  tree bitwise; a fused ``wqkv`` is cut per head block.
+  tree bitwise; a fused ``wqkv`` is cut per head block; a piece of one
+  cut is rebuilt from the pieces of another that hold it (``recut``).
 - Mesh errors: ``best_mesh_shape`` and ``make_mesh`` raise as JAX's do."""
 
 import jax
@@ -125,6 +126,22 @@ def test_fused_wqkv_is_cut_per_head_block():
         want = torch.cat([q[:, m * 2 * hd : (m + 1) * 2 * hd], k[:, m * hd : (m + 1) * hd],
                           v[:, m * hd : (m + 1) * hd]], dim=-1)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", [(1, (4, 2, 2)), (0, (1,)), (1, (1, 1))])
+@pytest.mark.parametrize("n_from,n_to", [(2, 1), (2, 2), (2, 4), (4, 2), (1, 4)])
+def test_recut_reads_only_the_pieces_it_needs(layout, n_from, n_to):
+    """A piece of an n_to-way cut built from the n_from-way pieces that
+    ``sources`` names equals the piece cut from the whole leaf; at an
+    unchanged count each rank reads its own piece alone."""
+    w = torch.arange(8 * 32, dtype=torch.float32).reshape(8, 32)
+    pieces = {s: tsh.cut(w, layout, n_from, s) for s in range(n_from)}
+    for r in range(n_to):
+        have = tsh.sources(n_from, n_to, r)
+        if n_from == n_to:
+            assert list(have) == [r]
+        got = tsh.recut({s: pieces[s] for s in have}, layout, n_from, n_to, r)
+        assert torch.equal(got, tsh.cut(w, layout, n_to, r))
 
 
 def test_batch_rows_per_data_rank():

@@ -334,7 +334,7 @@ def test_distilled_cfm_few_step_tracks_teacher(engine, jax_params):
     spk = torch.from_numpy(feats.spk)[None]
 
     def mel(params, cc, use_cfg):
-        cond = cfm.upsample_tokens(params, tokens, up)
+        cond = cfm.upsample_tokens(params, tokens, up, c.token_vocab_size)
         return cfm.sample_mel(params, cc, None, cond, spk, torch.from_numpy(gt * pmask[..., None]),
                               torch.from_numpy(pmask), torch.from_numpy(fmask), use_cfg=use_cfg,
                               noise=torch.from_numpy(noise)).numpy()

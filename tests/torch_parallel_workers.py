@@ -83,8 +83,8 @@ def eight_ranks(emb, gen, flow, eng):
 def four_ranks(eng, ragged, sft, tmp):
     """The 4-rank contracts: the engine at dp 4, a ragged batch of 3 at dp
     4, the SFT step at dp 2 x tp 2 (loss, updated LoRA), shard_params ->
-    gather_params, the dcp checkpoint saved at tp 2 and restored at tp 1
-    and tp 4."""
+    gather_params, the dcp checkpoint saved at tp 2 and restored at tp 1,
+    tp 2 and tp 4."""
     out = {}
     out["engine"], out["engine_dp"] = _engine_batch(eng, make_mesh(4, 1, device="cpu"))
     out["ragged"], _ = _engine_batch(ragged, make_mesh(4, 1, device="cpu"))
@@ -96,7 +96,7 @@ def four_ranks(eng, ragged, sft, tmp):
     p_sh, l_sh = shard_params(mesh, params, heads), shard_params(mesh, lora, heads)
     out["round_trip"] = all(bool(torch.equal(a, b)) for a, b in zip(
         tree_leaves(gather_params(mesh, l_sh, like=lora, heads=heads)), tree_leaves(lora)))
-    opt = lora_sft.make_optimizer(tcfg, 10, norm=lora_sft.mesh_norm(cfg, mesh))
+    opt = lora_sft.make_optimizer(tcfg, 10)
     step = lora_sft.make_train_step(cfg, tcfg, opt, packed=sft["packed"], mesh=mesh)
     batch = _tensors(*sft["batch"])
     opt_state = opt.init(l_sh)
@@ -111,7 +111,7 @@ def four_ranks(eng, ragged, sft, tmp):
     with mesh:
         mgr.save(1, state, metadata={"best_f1": 0.5}, like=full_like, heads=heads)
     full_state = gather_params(mesh, state, like=full_like, heads=heads)
-    for name, (d, m) in (("tp1", (4, 1)), ("tp4", (1, 4))):
+    for name, (d, m) in (("tp1", (4, 1)), ("tp2", (2, 2)), ("tp4", (1, 4))):
         target = make_mesh(d, m, device="cpu")
         want = shard_params(target, full_state, heads)
         with target:
