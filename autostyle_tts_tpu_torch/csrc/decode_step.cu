@@ -2,87 +2,93 @@
 // two half-layers as entry points of their own.
 //
 // Replaces, of autostyle_tts_tpu/ops/pallas_decode.py:
-//   attn_step (_attn_kernel): rmsnorm, int8 QKV GEMV, RoPE, cache row write
-//     at slot t, attention over [off, t) plus the current token, int8 wo +
-//     residual  ->  gemv_kernel<QKV>, attn_kernel, gemv_kernel<WO>;
-//   mlp_step (_mlp_kernel): rmsnorm, int8 gate|up, silu(g)*u, int8 down +
-//     residual  ->  gemv_kernel<GATE_UP>, gemv_kernel<DOWN>;
+//   attn_step (_attn_kernel): rmsnorm, QKV GEMV, RoPE, cache row write at
+//     slot t, attention over [off, t) plus the current token, wo + residual
+//     ->  gemv_kernel<QKV>, attn_kernel, gemv_kernel<WO>;
+//   mlp_step (_mlp_kernel): rmsnorm, gate|up, silu(g)*u, down + residual
+//     ->  gemv_kernel<GATE_UP>, gemv_kernel<DOWN>;
 //   mega_decode_step (_mega_kernel), int8 and int4: embedding row of the
 //     previous token, the L layers above, final rmsnorm, speech-head GEMV,
 //     pad/BOS (and EOS while `suppress`) masking, temperature, top-k with the
 //     reference's tie rule and a Gumbel-max sample.
 //
-// What bounds it on the H100: bytes, in principle. One step streams ~235 MB
-// of int8 layer weights, ~4.2 MB of speech head and up to ~22 MB of bf16
-// cache (at the flagship width: L=14, D=1024, F=4096, V=4099, S=392), about
-// 78 us at 3.35 TB/s; the arithmetic is ~0.5 GFLOP. In practice the step is
-// a chain of 72 dependent phases of 1-8 MB each, and what it takes beyond
-// its bytes is that chain's latency: per phase a grid-wide barrier (~1 us,
-// more where the leaving poll queues behind 8 MB of weight loads), a
-// prologue of one or two trips to L2, dot products that are bound by
-// the rate of arithmetic (~3.3 operations per weight on 8 warps an SM), and an
-// epilogue. PERF.md holds the measured split.
+// What bounds it on the H100. Bytes, in principle: one step streams ~235 M
+// layer weights and ~4.2 M of speech head (252.6 MB at int8, 133.1 MB at
+// int4) and up to ~22 MB of bf16 cache (at the flagship width: L=14,
+// D=1024, F=4096, V=4099, S=392), 75 / 40 us at 3.35 TB/s. In practice the
+// step is a chain of 5 dependent phases a layer of 0.5-8 MB each, and what
+// it takes beyond its bytes is that chain's latency: per phase a wait for
+// what other blocks wrote (a grid-wide barrier cost ~1 us, 1.7-3.1 us where
+// the leaving poll queued behind the phase's weight loads), then a prologue
+// of one or two trips to L2 and the dot products. The parent of this design
+// measured (NVIDIA H100 80GB HBM3, 700 W): int4 302.8 us a step, 82.1 of it
+// in 72 barriers, 222.4 in phase bodies, 21.0 of those in a sampler that
+// ran on one SM; int8 313.7 = 107.0 + 198.3. PERF.md holds the split of
+// this design.
 //
 // Design. The TPU kernel runs its grid in order on one core and carries the
 // residual in VMEM between grid steps; blocks on the GPU run in parallel and
-// share nothing, so the step is split where a dependence crosses the whole
-// hidden vector. Every phase is a __device__ function over (block id,
-// block count) and a `Sync` that separates it from the phase before:
-//   - GEMV phases (gemv_phase): weights are output-major ([rows, in]); a
-//     warp owns ROWS rows and a lane starts its 16-byte loads of them (8 to
-//     16 in flight per lane, the whole matrix in flight across the grid),
-//     the rows' scales and (cp.async) the norm weights BEFORE it waits for
-//     the previous phase, because none of them depends on it. Only then
-//     comes the prologue (rmsnorm of the residual, or the merge of the
-//     attention partials, into shared memory, laid out so that the lanes'
-//     float4 reads hit 32 different banks), the dot products in f32 with
-//     int-to-float done by one PRMT and one FADD per weight, and the
-//     per-row scale. Grids are sized from the SM count.
-//   - attention (attn_phase): a grid of (head, split): the live slots
-//     [off, t) are cut into ceil(n / 24) splits (at most 16, or the blocks
-//     there are per head), so the flagship state gives 160 blocks in the
-//     half-layer chain and 128 in the step's kernel. Eight lanes span one hd=64
-//     key row with 16-byte loads, a warp covers 4 keys a load and keeps two
-//     loads of K and two of V in flight; every lane group carries a running
-//     (max, sum, acc), merged over the warp by shuffles and over the block in
-//     shared memory into one partial (acc[hd], m, l) per (head, split).
-//     Split 0 also ropes k, writes cache row t and folds in the current
-//     token's f32 k/v. The partials are merged in the prologue of the wo
-//     GEMV (all loads started before the first use), where the attention
-//     output is rounded to bf16 as before. No per-slot array remains, so the
-//     cache length has no cap.
-//   - the sampler (sample_phase): logits live in registers; each round of
-//     the top-k search takes the two largest distinct values off the block
-//     with one barrier (12 rounds for k = 25), and only entries that survive
-//     the threshold draw their Gumbel noise.
-// Two ways to run the phases:
-//   - the whole step is one persistent cooperative kernel, one block an SM,
-//     with a grid-wide barrier between phases: a block arrives, starts the
-//     next phase's weight loads, and only then waits. One launch a step.
-//   - a half-layer entry point is a chain of two or three kernels launched
-//     with programmatic dependent launch: a kernel signals its dependents at
-//     once, the next kernel starts, requests its weight loads and waits
-//     (griddepcontrol.wait) for the previous one to finish. A whole step run
-//     as such a chain (72 launches) was bound on the H100 by the host's ~5 us
-//     per launch, which is why the step is the persistent kernel.
-// Buffers another phase has written (residual, qkv, partials, act, logits,
-// token) are read with ld.global.cg, never through L1.
+// share nothing, so the step is split where a dependence crosses blocks.
+// Every phase is a __device__ function over (block id, block count) and a
+// `Sync` that separates it from the phase before:
+//   - GEMV phases: weights are output-major; the block starts its 16-byte
+//     loads of every weight row it owns (the whole matrix is in flight
+//     across the grid), the rows' scales and (cp.async) the norm weights
+//     BEFORE it waits for the previous phase, because none of them depends
+//     on it. Then the prologue puts the input vector into shared memory
+//     (the rmsnorm of the residual, the merge of the attention partials, or
+//     the activation), rounded to bf16 as the reference rounds it.
+//     int8 (gemv_phase): a warp owns ROWS rows; int-to-float by one PRMT and
+//     one FADD a weight, f32 FMAs, four partial sums per 16-byte chunk.
+//     int4 (gemv4_phase): the dots run on the tensor cores. The weights are
+//     stored in mma fragment order (ops/decode_step.py pack4): a row-group
+//     of 16 rows is cut into tiles of 64 contraction elements, and one
+//     lane's 16 bytes of a tile are its A fragments of mma.sync.m16n8k16 for
+//     the tile's four k-steps, so a warp's 512-byte load is one tile, read
+//     once. A nibble becomes a bf16 by one LOP3 under the exponent of 128 and
+//     one packed bf16 FMA that takes the 128 + 8 offset off (two weights an
+//     instruction pair); int4 values and the bf16 input are exact, so every
+//     product equals the int8 path's and only the order of the f32 sums
+//     differs: two accumulators a warp (even and odd k-steps), then the warps
+//     that split a row-group's tiles in warp order, then the row's scale.
+//     B is the input vector in every column (the other seven columns repeat
+//     the first; the tensor cores are idle either way).
+//   - attention (attn_phase): a grid of (head, split), hd/8 lanes a key row,
+//     running (max, sum, acc) merged over lanes, warps, and in the wo
+//     phase's prologue over splits; split 0 ropes k, writes cache row t and
+//     folds in the current token's f32 k/v. No per-slot array: the cache
+//     length has no cap.
+//   - the sampler (sample_local, sample_merge): fused into the head. Each
+//     block keeps its (at most 32) logits in shared memory; one warp sorts
+//     them (bitonic, by value then id), and writes the block's distinct
+//     levels (at most k) with, per level, the best Gumbel score and smallest
+//     id at or above it and the smallest id below it. The last block to take
+//     the ticket (as csrc/log_mel.cu sums its partials) merges the lists one
+//     level a round (a warp max by redux.sync) into the k-th distinct value,
+//     then picks the token from each list's record at that level. No block
+//     waits on a grid barrier for the sampler, and no block runs it alone.
+// The step is one persistent cooperative kernel, one block an SM. The waits
+// between its phases are as narrow as the dependence:
+//   - the residual h and the activation pass between blocks as 32-bit words
+//     (tag << 16 | bf16 bits; the tag counts the buffer's writes): a reader
+//     spins on the words themselves until each carries the tag it expects,
+//     so the wait and the read are one trip to L2 and no counter is touched
+//     (rmsnorm before QKV / gate|up / head, the residual of wo / down, the
+//     activation of down);
+//   - the attention of head h waits on a counter for head h's QKV rows;
+//   - only wo, which needs every head's partials, waits on a grid barrier.
+// A half-layer entry point is a chain of two or three kernels launched with
+// programmatic dependent launch (griddepcontrol) on plain bf16 buffers.
+// Buffers another phase wrote are read with ld.global.cg or ld.relaxed.gpu,
+// never through L1. No float atomics: two runs give the same bits.
 //
 // Rounding points follow the reference: the residual is bf16 between phases,
 // q/k/v and logits are f32, the attention output and silu(g)*u are rounded
 // to bf16 before their projections, norms and softmax are f32; the current
 // token attends with its unrounded f32 k/v while the cache receives their
-// bf16 rounding. Sums run in another order than the plain version's (four
-// partial sums per 16-byte chunk, lanes, then splits): f32 rounding only.
-// Random bits come from Philox4x32-10 keyed by the step's seed, counter =
-// vocab id; the plain twin in ops/decode_step.py draws the same bits.
-//
-// int4 (BITS = 4): the TPU layout pairs output channels (c, c + C/2) in a
-// byte so that Mosaic can unpack without shifts. Here a byte holds two
-// consecutive contraction elements of one output-major row, both
-// offset-binary (value + 8; low nibble = even index), so a warp still
-// streams one contiguous row, now of C/2 bytes, 32 elements per 16-byte
-// load, and unpacks with a mask and a shift. Scales stay per output channel.
+// bf16 rounding. Random bits come from Philox4x32-10 keyed by the step's
+// seed, counter = vocab id; the plain twin in ops/decode_step.py draws the
+// same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,9 +106,15 @@ constexpr int ATTN_WARPS = 4;
 constexpr int MAX_SPLITS = 16;        // attention partials per head
 constexpr int SPLIT_KEYS = 24;        // live slots per split, until MAX_SPLITS caps it
 constexpr int PART_PAD = 4;           // a partial is acc[hd], m, l, 2 unused floats
-constexpr int SAMPLE_VPT = 32;        // logits per thread of a THREADS-wide block: V <= 8192
+constexpr int SAMPLE_ROWS = 32;       // logits a block keeps for the sampler: V <= 32 x (blocks - 1)
+constexpr int MAX_LISTS = 160;        // blocks whose lists one warp merges (5 a lane; an H100 has 132)
+constexpr int CAND_WORDS = 4 + SAMPLE_ROWS + 4 * SAMPLE_ROWS;   // a block's list: header, levels, records
+constexpr unsigned SPIN_LIMIT = 1u << 24;   // polls before a wait gives up and traps
+// words of the step's `bar` buffer: the write count of the tagged buffers
+// (kept across steps), then what the host zeroes before each step
+constexpr int BAR_EPOCH = 0, BAR_GRID = 1, BAR_TICKET = 2, BAR_WORDS = 3;
 
-enum Kind { QKV, GATE_UP, WO, DOWN };   // the speech head runs as QKV (norm, GEMV, f32 out)
+enum Kind { QKV, GATE_UP, WO, DOWN, HEAD };   // HEAD: QKV's arithmetic, logits kept for the sampler
 
 // Splits of n live slots: SPLIT_KEYS slots each until `cap` splits (at most
 // MAX_SPLITS), then the splits grow.
@@ -156,29 +168,107 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;" ::: "memory"); }
 
+__device__ __forceinline__ void spin_guard(unsigned& n) {
+  if (++n > SPIN_LIMIT) __trap();   // a wait that never ends fails the launch instead of hanging the card
+}
+
+// ---------------------------------------------------------------- tagged words
+
+__device__ __forceinline__ uint4 ld_relaxed4(const unsigned* p) {
+  uint4 v;
+  asm volatile("ld.relaxed.gpu.global.v4.u32 {%0,%1,%2,%3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The tag of a buffer's n-th write: never 0 (what a fresh buffer holds), and
+// never the tag of the write before.
+__device__ __forceinline__ unsigned write_tag(unsigned n) { return 1u + n % 65535u; }
+__device__ __forceinline__ unsigned tag_word(float v, unsigned tag) {
+  return (tag << 16) | (unsigned)__bfloat16_as_ushort(__float2bfloat16(v));
+}
+__device__ __forceinline__ float word_value(unsigned w) { return __uint_as_float(w << 16); }
+
+// Four tagged words v loaded from p (16-byte aligned) as floats: where one
+// does not carry `tag` yet, the four are read again until all do. A reader
+// issues all its loads first and settles them after, so that waiting costs
+// one trip to L2, not one a load.
+__device__ __forceinline__ void settle4(uint4 v, const unsigned* p, unsigned tag, float* f) {
+  unsigned n = 0;
+  while ((v.x >> 16) != tag || (v.y >> 16) != tag || (v.z >> 16) != tag || (v.w >> 16) != tag) {
+    spin_guard(n);
+    v = ld_relaxed4(p);
+  }
+  f[0] = word_value(v.x); f[1] = word_value(v.y); f[2] = word_value(v.z); f[3] = word_value(v.w);
+}
+
+// q, k, v of the step pass from the QKV phase to the attention as 64-bit
+// words (tag << 32 | f32 bits).
+__device__ __forceinline__ unsigned long long ld_relaxed64(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ float settle64(unsigned long long v, const unsigned long long* p, unsigned tag) {
+  unsigned n = 0;
+  while ((unsigned)(v >> 32) != tag) {
+    spin_guard(n);
+    v = ld_relaxed64(p);
+  }
+  return __uint_as_float((unsigned)v);
+}
+__device__ __forceinline__ void st_tagged64(unsigned long long* p, float x, unsigned tag) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(((unsigned long long)tag << 32) | __float_as_uint(x)) : "memory");
+}
+
 // ---------------------------------------------------------------- phase separators
 
 // Kernel chain: let the next kernel start now; wait for the previous kernel
 // (complete, its writes visible) before touching anything it wrote.
 struct ChainSync {
+  static constexpr bool EARLY_RESIDUAL = false;   // the kernel before the previous one may still run
   __device__ __forceinline__ void start() { asm volatile("griddepcontrol.launch_dependents;"); }
   __device__ __forceinline__ void arrive() {}
   __device__ __forceinline__ void wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+  __device__ __forceinline__ void input_ready() {}
+  __device__ __forceinline__ void mark_left() {}
 };
 
-// Persistent kernel: a barrier over all (co-resident) blocks on a counter
-// that the host zeroes before the launch, in two halves: `arrive` once the
-// block's part of the previous phase is written, `wait` before it reads what
-// others wrote. The next phase's weight loads go between the two, so the
-// arrival does not queue behind them. With `stamps` ([barrier, block, 2]
-// nanoseconds of %globaltimer) every block records when it arrived at and
-// when it left each barrier, for the phase breakdown of a step.
-struct GridSync {
+// The persistent step. A phase's wait is one of three kinds:
+//   - `grid`: a barrier over all (co-resident) blocks on the counter
+//     bar[BAR_GRID], in two halves: `arrive` once the block's part of the
+//     previous phase is written, `wait` before it reads what others wrote;
+//     the next phase's weight loads go between the two;
+//   - tagged input words: nothing to do; the prologue's reads spin
+//     (`mark_left` or `input_ready` marks the end of the wait).
+// With `stamps` ([wait, block, 2] nanoseconds of %globaltimer) every block
+// records when it arrived at each wait (its part of the previous phase
+// written) and when it left it, for the phase breakdown of a step.
+struct StepSync {
+  // wo's and down's residual rows were written phases before: read them
+  // before the wait (tagged words are checked where they are used)
+  static constexpr bool EARLY_RESIDUAL = true;
   unsigned* ctr;
   unsigned target;
   unsigned nblk;
   unsigned long long* stamps;
   int idx;
+  bool grid;
+  bool left;
   __device__ __forceinline__ void stamp(int which) {
     if (stamps != nullptr) {
       unsigned long long now;
@@ -187,24 +277,39 @@ struct GridSync {
     }
   }
   __device__ __forceinline__ void arrive() {
-    __syncthreads();
-    target += nblk;
-    if (threadIdx.x == 0) {
+    left = false;
+    __syncthreads();   // the block is done with the previous phase (and its shared memory)
+    if (grid) {
+      target += nblk;
+      if (threadIdx.x == 0) {
+        stamp(0);
+        __threadfence();
+        atomicAdd(ctr, 1u);
+      }
+    } else if (threadIdx.x == 0) {
       stamp(0);
-      __threadfence();
-      atomicAdd(ctr, 1u);
     }
   }
   __device__ __forceinline__ void wait() {
+    if (!grid) return;
     if (threadIdx.x == 0) {
-      unsigned seen;
-      do {
-        asm volatile("ld.global.acquire.gpu.u32 %0, [%1];" : "=r"(seen) : "l"(ctr) : "memory");
-      } while (seen < target);
+      unsigned n = 0;
+      while (ld_acquire(ctr) < target) spin_guard(n);
       stamp(1);
     }
-    ++idx;
+    left = true;
     __syncthreads();
+  }
+  // The block has read what the phase waits for (after a block barrier).
+  __device__ __forceinline__ void mark_left() {
+    if (!left && threadIdx.x == 0) stamp(1);
+    left = true;
+  }
+  // End of the phase's wait (after the prologue's block barrier, or at once
+  // where the block has nothing to read): stamps the leave if no wait did.
+  __device__ __forceinline__ void input_ready() {
+    mark_left();
+    ++idx;
   }
 };
 
@@ -222,19 +327,34 @@ __device__ __forceinline__ void unpack8(const int4& pk, float* f) {
 // ---------------------------------------------------------------- GEMV phases
 
 struct GemvArgs {
-  const int8_t* W;      // [R, C] at BITS, output-major
+  const int8_t* W;      // [R, C] at BITS, output-major (int4: mma fragment order, see pack4)
   const float* s;       // [R] per-row scales
   int R, C;
-  bf16* h;              // residual [D]: normalised by QKV/GATE_UP (D = C), updated by WO/DOWN (D = R)
-  const float* nw;      // norm weights [C]
+  const float* nw;      // norm weights [C] (QKV, GATE_UP, HEAD)
   float eps;
-  const int* tok;       // QKV of the first layer: the residual is emb[tok[0]] (copied to h), else null
-  const bf16* emb;
-  const bf16* xin;      // DOWN: bf16 [C]
+  // the residual: the vector QKV / GATE_UP / HEAD normalise, the rows WO /
+  // DOWN add to; plain bf16 (hin) or tagged words (hinx, with hin_tag)
+  const bf16* hin;
+  const unsigned* hinx;
+  unsigned hin_tag;
+  // WO / DOWN: the new residual rows, plain (hout) and / or tagged (houtx)
+  bf16* hout;
+  unsigned* houtx;
+  unsigned hout_tag;
+  // DOWN: the activation [C], plain (xin) or tagged (xinx)
+  const bf16* xin;
+  const unsigned* xinx;
+  unsigned xin_tag;
   const float* part;    // WO: attention partials [C / hd, MAX_SPLITS, hd + PART_PAD]
   int hd, nsplit;
-  float* out;           // QKV: f32 [R]
-  bf16* act;            // GATE_UP: bf16 [R / 2]
+  float* out;           // QKV, HEAD: f32 [R]
+  bf16* act;            // GATE_UP: [R / 2], plain or tagged (actx, act_tag)
+  unsigned* actx;
+  unsigned act_tag;
+  unsigned long long* outx;   // QKV in the step: out as tagged 64-bit words (out_tag) instead
+  unsigned out_tag;
+  float* slot_val;      // HEAD: the block's logits (SAMPLE_ROWS) in shared memory, and their ids
+  int* slot_id;
 };
 
 // The byte `sel` of `word` (0..255) as the float 2^23 + byte: one PRMT puts
@@ -245,10 +365,11 @@ __device__ __forceinline__ float byte_as_float(unsigned word) {
   return __uint_as_float(__byte_perm(0x4B000000u, word, 0x3214 + SEL));
 }
 
-// sum_e W[e] * x[e] over one 16-byte chunk (16 int8 or 32 int4 elements),
-// as four partial sums. Values become floats without an int-to-float
-// conversion: int8 is flipped to offset-binary (b + 128), int4 nibbles
-// already are (v + 8), and the offset leaves with the 2^23.
+// sum_e W[e] * x[e] over one 16-byte chunk (16 int8 or 32 int4 elements of
+// the plain byte layout), as four partial sums. Values become floats
+// without an int-to-float conversion: int8 is flipped to offset-binary
+// (b + 128), int4 nibbles already are (v + 8), and the offset leaves with
+// the 2^23.
 template <int BITS>
 __device__ __forceinline__ float chunk_dot(const int4& pk, const float* xv) {
   const unsigned wd[4] = {(unsigned)pk.x, (unsigned)pk.y, (unsigned)pk.z, (unsigned)pk.w};
@@ -282,47 +403,243 @@ __device__ __forceinline__ float chunk_dot(const int4& pk, const float* xv) {
   return (a[0] + a[1]) + (a[2] + a[3]);
 }
 
-// Where element i of the input vector lives in shared memory: a lane reads
-// chunk c = lane + 32 j of EPL elements four floats at a time, so the
-// vector is stored as [j][float4 of the chunk][lane][4] and each of those
-// reads is one contiguous 512-byte row of the 32 lanes (no bank conflicts).
-template <int EPL>
+// int8: where element i of the input vector lives in shared memory (f32).
+// A lane reads chunk c = lane + 32 j of 16 elements four floats at a time,
+// so the vector is stored as [j][float4 of the chunk][lane][4] and each of
+// those reads is one contiguous 512-byte row of the 32 lanes.
 __device__ __forceinline__ int xpos(int i) {
+  constexpr int EPL = 16;
   const int c = i / EPL, r = i % EPL;
   return (((c >> 5) * (EPL / 4) + (r >> 2)) << 7) + ((c & 31) << 2) + (r & 3);
 }
-// Floats of shared memory the vector takes (C rounded up to 32 chunks).
-__host__ __device__ __forceinline__ int xlen(int C, int epl) {
-  return ((C / epl + 31) / 32) * 32 * epl;
+// int4: the 32-bit word (a bf16 pair k, k + 1; k even) of the input vector
+// in B-fragment order: for tile kt (64 elements), lane group q = (k / 2) % 4
+// reads its b0, b1 of the tile's four k-steps as 8 consecutive words.
+__device__ __forceinline__ int frag_word(int k) {
+  const int kt = k >> 6, s = (k >> 4) & 3, h = (k >> 3) & 1, q = (k >> 1) & 3;
+  return (((kt << 2) + q) << 3) + (s << 1) + h;
+}
+// Floats of shared memory the input vector takes.
+__host__ __device__ __forceinline__ int xlen(int C, int bits) {
+  return bits == 8 ? ((C / 16 + 31) / 32) * 32 * 16 : C / 2;
 }
 
-// One GEMV phase over blocks bid, bid + nblk, ...: a block unit is
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+// Elements i..i+3 (i % 4 == 0, values already at bf16) into the vector.
+template <int BITS>
+__device__ __forceinline__ void put_x4(float* x_s, int i, float v0, float v1, float v2, float v3) {
+  if constexpr (BITS == 8) {
+    *reinterpret_cast<float4*>(x_s + xpos(i)) = make_float4(v0, v1, v2, v3);
+  } else {
+    unsigned* w = reinterpret_cast<unsigned*>(x_s);
+    w[frag_word(i)] = pack_bf16x2(v0, v1);
+    w[frag_word(i + 2)] = pack_bf16x2(v2, v3);
+  }
+}
+
+// Four residual elements i..i+3, plain or tagged: the load, then its values.
+__device__ __forceinline__ uint4 load_h4(const GemvArgs& a, int i) {
+  if (a.hinx != nullptr) return ld_relaxed4(a.hinx + i);
+  const uint2 v = __ldcg(reinterpret_cast<const uint2*>(a.hin + i));
+  return make_uint4(v.x, v.y, 0u, 0u);
+}
+__device__ __forceinline__ void settle_h4(const GemvArgs& a, int i, uint4 v, float* f) {
+  if (a.hinx != nullptr) {
+    settle4(v, a.hinx + i, a.hin_tag, f);
+  } else {
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const bf162*>(&v.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const bf162*>(&v.y));
+    f[0] = lo.x; f[1] = lo.y; f[2] = hi.x; f[3] = hi.y;
+  }
+}
+// A residual row, started before the dots: the raw word (tagged) or the
+// bf16 bits (plain); `res_value` finishes it where the epilogue needs it.
+__device__ __forceinline__ unsigned load_res(const GemvArgs& a, int r) {
+  return a.hinx != nullptr ? ld_relaxed(a.hinx + r) : (unsigned)__bfloat16_as_ushort(__ldcg(a.hin + r)) << 16;
+}
+__device__ __forceinline__ float res_value(const GemvArgs& a, int r, unsigned w) {
+  if (a.hinx == nullptr) return __uint_as_float(w);
+  unsigned n = 0;
+  while ((w >> 16) != a.hin_tag) {
+    spin_guard(n);
+    w = ld_relaxed(a.hinx + r);
+  }
+  return word_value(w);
+}
+__device__ __forceinline__ void store_h1(const GemvArgs& a, int r, float v) {
+  if (a.houtx != nullptr) st_relaxed(a.houtx + r, tag_word(v, a.hout_tag));
+  if (a.hout != nullptr) a.hout[r] = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store_act1(const GemvArgs& a, int i, float v) {
+  if (a.actx != nullptr) st_relaxed(a.actx + i, tag_word(v, a.act_tag));
+  else a.act[i] = __float2bfloat16(v);
+}
+
+// The prologue: the phase's input vector into shared memory at bf16.
+//   QKV, GATE_UP, HEAD: bf16(rmsnorm(h) * nw); WO: the merged attention
+//   partials; DOWN: the activation. `nw_s` is on its way by cp.async.
+constexpr int NORM_GROUPS = 2;   // four elements a group, in registers: widths up to 2048 in one pass
+constexpr int ACT_GROUPS = 2;    // eight elements a group: 4096 a round of loads
+template <int BITS, int KIND>
+__device__ __forceinline__ void input_prologue(const GemvArgs& a, float* x_s, float* red, const float* nw_s) {
+  const int C = a.C;
+  if constexpr (KIND == QKV || KIND == GATE_UP || KIND == HEAD) {
+    // the first NORM_GROUPS groups of a thread stay in registers; a wider
+    // vector reads the rest twice (once for the sum of squares)
+    const int span = NORM_GROUPS * 4 * blockDim.x;
+    float v[NORM_GROUPS][4];
+    uint4 raw[NORM_GROUPS];
+    float ss = 0.f;
+    for (int c0 = 0; c0 < C; c0 += span) {
+#pragma unroll
+      for (int g = 0; g < NORM_GROUPS; ++g) {   // every load in flight before the first is used
+        const int i = c0 + (threadIdx.x + g * blockDim.x) * 4;
+        if (i < C) raw[g] = load_h4(a, i);
+      }
+#pragma unroll
+      for (int g = 0; g < NORM_GROUPS; ++g) {
+        const int i = c0 + (threadIdx.x + g * blockDim.x) * 4;
+        if (i < C) {
+          settle_h4(a, i, raw[g], v[g]);
+          ss += v[g][0] * v[g][0] + v[g][1] * v[g][1] + v[g][2] * v[g][2] + v[g][3] * v[g][3];
+        }
+      }
+    }
+    cp_async_wait_all();
+    ss = block_sum(ss, red);   // its barriers also publish nw_s
+    const float inv = rsqrtf(ss / (float)C + a.eps);
+    for (int c0 = 0; c0 < C; c0 += span) {
+#pragma unroll
+      for (int g = 0; g < NORM_GROUPS; ++g) {
+        const int i = c0 + (threadIdx.x + g * blockDim.x) * 4;
+        if (i < C) {
+          if (c0 > 0) settle_h4(a, i, load_h4(a, i), v[g]);
+          put_x4<BITS>(x_s, i, bf16_round(v[g][0] * inv * nw_s[i]), bf16_round(v[g][1] * inv * nw_s[i + 1]),
+                       bf16_round(v[g][2] * inv * nw_s[i + 2]), bf16_round(v[g][3] * inv * nw_s[i + 3]));
+        }
+      }
+    }
+  } else if constexpr (KIND == DOWN) {   // eight elements a group, C % 16 == 0
+    for (int c0 = 0; c0 < C; c0 += ACT_GROUPS * 8 * blockDim.x) {
+    uint4 raw[ACT_GROUPS][2];
+#pragma unroll
+    for (int g = 0; g < ACT_GROUPS; ++g) {   // every load in flight before the first is used
+      const int i = c0 + (threadIdx.x + g * blockDim.x) * 8;
+      if (i < C) {
+        if (a.xinx != nullptr) {
+          raw[g][0] = ld_relaxed4(a.xinx + i);
+          raw[g][1] = ld_relaxed4(a.xinx + i + 4);
+        } else {
+          raw[g][0] = __ldcg(reinterpret_cast<const uint4*>(a.xin + i));
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < ACT_GROUPS; ++g) {
+      const int i = c0 + (threadIdx.x + g * blockDim.x) * 8;
+      if (i < C) {
+        float f[8];
+        if (a.xinx != nullptr) {
+          settle4(raw[g][0], a.xinx + i, a.xin_tag, f);
+          settle4(raw[g][1], a.xinx + i + 4, a.xin_tag, f + 4);
+        } else {
+          unpack8(*reinterpret_cast<const int4*>(&raw[g][0]), f);
+        }
+        put_x4<BITS>(x_s, i, f[0], f[1], f[2], f[3]);
+        put_x4<BITS>(x_s, i + 4, f[4], f[5], f[6], f[7]);
+      }
+    }
+    }
+  } else {   // WO: merge the (head, split) partials; four channels of one head per thread
+    const int stride = a.hd + PART_PAD;
+    for (int i = threadIdx.x * 4; i < C; i += blockDim.x * 4) {
+      const int hh = i / a.hd, e = i % a.hd;
+      const float* p0 = a.part + (size_t)hh * MAX_SPLITS * stride;
+      // eight splits a batch, each batch's loads started before their first use (one trip
+      // to L2 up to 8 splits, the step's), merged online into (M, L, A)
+      float M = NEG_INF, L = 0.f;
+      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s0 = 0; s0 < a.nsplit; s0 += 8) {
+        float2 ml[8];
+        float4 v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const bool in = s0 + k < a.nsplit;
+          ml[k] = in ? __ldcg(reinterpret_cast<const float2*>(p0 + (s0 + k) * stride + a.hd)) : make_float2(NEG_INF, 0.f);
+          v[k] = in ? __ldcg(reinterpret_cast<const float4*>(p0 + (s0 + k) * stride + e)) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        float Mb = M;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) Mb = fmaxf(Mb, ml[k].x);
+        const float r = expf(M - Mb);
+        L *= r; A.x *= r; A.y *= r; A.z *= r; A.w *= r;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if (s0 + k < a.nsplit) {
+            const float wgt = expf(ml[k].x - Mb);
+            L += ml[k].y * wgt;
+            A.x += v[k].x * wgt; A.y += v[k].y * wgt; A.z += v[k].z * wgt; A.w += v[k].w * wgt;
+          }
+        }
+        M = Mb;
+      }
+      put_x4<BITS>(x_s, i, bf16_round(A.x / L), bf16_round(A.y / L), bf16_round(A.z / L), bf16_round(A.w / L));
+    }
+  }
+}
+
+// The epilogue of one output row r (or, GATE_UP, output r from its gate
+// and up sums); `res`: WO / DOWN's residual row, `slot`: HEAD's place for
+// the logit in the block's list.
+template <int KIND>
+__device__ __forceinline__ void gemv_out(const GemvArgs& a, int r, float acc, float sc, float acc_u, float sc_u,
+                                         unsigned res, int slot) {
+  if constexpr (KIND == QKV || KIND == HEAD) {
+    const float y = acc * sc;
+    if (KIND == QKV && a.outx != nullptr) st_tagged64(a.outx + r, y, a.out_tag);
+    else a.out[r] = y;
+    if constexpr (KIND == HEAD) {
+      a.slot_val[slot] = y;
+      a.slot_id[slot] = r;
+    }
+  } else if constexpr (KIND == GATE_UP) {
+    const float g = acc * sc, u = acc_u * sc_u;
+    store_act1(a, r, g * (1.f / (1.f + expf(-g))) * u);
+  } else {
+    store_h1(a, r, res_value(a, r, res) + acc * sc);
+  }
+}
+
+// int8 GEMV phase over blocks bid, bid + nblk, ...: a block unit is
 // blockDim/32 warps, a warp owns ROWS weight rows (GATE_UP: ROWS/2 gate rows
-// and the ROWS/2 up rows F below them). smem: gemv_smem(C, BITS, phase
-// normalises) bytes.
-//   QKV:       out[r] = (W[r] . bf16(rmsnorm(h) * nw)) * s[r]
-//   GATE_UP:   act[i] = bf16(silu(g_i) * u_i), g_i / u_i = rows i and F + i
-//   WO:        h[r] = bf16(h[r] + (W[r] . bf16(merged attention)) * s[r])
-//   DOWN:      h[r] = bf16(h[r] + (W[r] . xin) * s[r])
-template <int BITS, int ROWS, int PF, int KIND, class Sync>
-__device__ __forceinline__ void gemv_phase(const GemvArgs& a, float* smem, int bid, int nblk,
-                                           Sync& sync) {
+// and the ROWS/2 up rows F below them).
+//   QKV / HEAD: out[r] = (W[r] . bf16(rmsnorm(h) * nw)) * s[r]
+//   GATE_UP:    act[i] = bf16(silu(g_i) * u_i), g_i / u_i = rows i and F + i
+//   WO:         h[r] = bf16(h[r] + (W[r] . bf16(merged attention)) * s[r])
+//   DOWN:       h[r] = bf16(h[r] + (W[r] . act) * s[r])
+template <int ROWS, int PF, int KIND, class Sync>
+__device__ __forceinline__ void gemv_phase(const GemvArgs& a, float* smem, int bid, int nblk, Sync& sync) {
   // PF: 16-byte loads per row and lane in flight before the wait
-  constexpr int EPL = 128 / BITS;         // elements per 16-byte load
+  constexpr int EPL = 16;                 // elements per 16-byte load
   constexpr int OPW = KIND == GATE_UP ? ROWS / 2 : ROWS;   // outputs per warp
   static_assert(KIND != GATE_UP || ROWS >= 2, "gate|up needs a gate row and an up row");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int nout = KIND == GATE_UP ? a.R / 2 : a.R;
   const int C = a.C;
   const int nchunks = C / EPL;
-  const size_t rb = (size_t)C * BITS / 8;
+  const size_t rb = (size_t)C;
   const int units = (nout + OPW * nwarps - 1) / (OPW * nwarps);
-  float* x_s = smem;        // the input vector, at xpos<EPL>(i)
-  float* red = smem + xlen(C, EPL);
-  float* nw_s = red + 32;   // norm weights (QKV, GATE_UP), in order
+  float* x_s = smem;        // the input vector, at xpos(i)
+  float* red = smem + xlen(C, 8);
+  float* nw_s = red + 32;   // norm weights (QKV, GATE_UP, HEAD), in order
 
   int4 w[ROWS][PF];
   float sv[ROWS];           // the rows' scales
+  unsigned res[ROWS];       // WO, DOWN: the residual rows (lane 0)
   auto row_of = [&](int o0, int r) -> int {
     if (KIND == GATE_UP) {
       const int i = min(o0 + (r % OPW), nout - 1);
@@ -346,99 +663,30 @@ __device__ __forceinline__ void gemv_phase(const GemvArgs& a, float* smem, int b
   int unit = bid;
   int o0 = (unit * nwarps + warp) * OPW;
   sync.arrive();
+  auto residual = [&](int o) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) res[r] = lane == 0 && o + r < nout ? load_res(a, o + r) : 0u;
+  };
   if (unit < units) {
     prefetch(o0);
-    if constexpr (KIND == QKV || KIND == GATE_UP) {   // constant too: fetch it now
+    if constexpr (KIND == QKV || KIND == GATE_UP || KIND == HEAD) {   // constant too: fetch it now
       for (int i = threadIdx.x * 4; i < C; i += blockDim.x * 4) cp_async16(nw_s + i, a.nw + i);
       cp_async_commit();
     }
   }
   sync.wait();
+  if (unit < units) input_prologue<8, KIND>(a, x_s, red, nw_s);
+  sync.input_ready();
   if (unit >= units) return;
-
-  // prologue: the input vector as f32 in shared memory
-  if constexpr (KIND == QKV || KIND == GATE_UP) {
-    const bf16* hsrc = a.h;
-    bool copy = false;
-    if (KIND == QKV && a.tok != nullptr) {
-      hsrc = a.emb + (size_t)__ldcg(a.tok) * C;
-      copy = bid == 0;
-    }
-    float ss = 0.f;
-#pragma unroll 4
-    for (int i = threadIdx.x * 2; i < C; i += blockDim.x * 2) {
-      const bf162 v = __ldcg(reinterpret_cast<const bf162*>(hsrc + i));
-      const float2 f = __bfloat1622float2(v);
-      *reinterpret_cast<float2*>(x_s + xpos<EPL>(i)) = f;
-      ss += f.x * f.x + f.y * f.y;
-      if (copy) *reinterpret_cast<bf162*>(a.h + i) = v;
-    }
-    cp_async_wait_all();
-    ss = block_sum(ss, red);   // its barriers also publish nw_s
-    const float inv = rsqrtf(ss / (float)C + a.eps);
-    for (int i = threadIdx.x * 2; i < C; i += blockDim.x * 2) {
-      float2* x2 = reinterpret_cast<float2*>(x_s + xpos<EPL>(i));
-      const float2 f = *x2;
-      *x2 = make_float2(bf16_round(f.x * inv * nw_s[i]), bf16_round(f.y * inv * nw_s[i + 1]));
-    }
-  } else if constexpr (KIND == DOWN) {
-#pragma unroll 2
-    for (int i = threadIdx.x * 8; i < C; i += blockDim.x * 8) {   // C % 16 == 0
-      float f[8];
-      unpack8(__ldcg(reinterpret_cast<const int4*>(a.xin + i)), f);
-      *reinterpret_cast<float4*>(x_s + xpos<EPL>(i)) = make_float4(f[0], f[1], f[2], f[3]);
-      *reinterpret_cast<float4*>(x_s + xpos<EPL>(i + 4)) = make_float4(f[4], f[5], f[6], f[7]);
-    }
-  } else {   // WO: merge the (head, split) partials; four channels of one head per thread
-    const int stride = a.hd + PART_PAD;
-    for (int i = threadIdx.x * 4; i < C; i += blockDim.x * 4) {
-      const int hh = i / a.hd, e = i % a.hd;
-      const float* p0 = a.part + (size_t)hh * MAX_SPLITS * stride;
-      // every load is started before its first use: two trips to L2, not two per split
-      float2 ml[MAX_SPLITS];
-#pragma unroll
-      for (int sp = 0; sp < MAX_SPLITS; ++sp)
-        ml[sp] = sp < a.nsplit ? __ldcg(reinterpret_cast<const float2*>(p0 + sp * stride + a.hd))
-                               : make_float2(NEG_INF, 0.f);
-      float M = NEG_INF;
-#pragma unroll
-      for (int sp = 0; sp < MAX_SPLITS; ++sp) M = fmaxf(M, ml[sp].x);
-      float L = 0.f;
-      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int s0 = 0; s0 < MAX_SPLITS; s0 += 8) {
-        if (s0 < a.nsplit) {
-          float4 v[8];
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            v[k] = s0 + k < a.nsplit ? __ldcg(reinterpret_cast<const float4*>(p0 + (s0 + k) * stride + e))
-                                     : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            if (s0 + k < a.nsplit) {
-              const float wgt = expf(ml[s0 + k].x - M);
-              L += ml[s0 + k].y * wgt;
-              A.x += v[k].x * wgt; A.y += v[k].y * wgt; A.z += v[k].z * wgt; A.w += v[k].w * wgt;
-            }
-          }
-        }
-      }
-      *reinterpret_cast<float4*>(x_s + xpos<EPL>(i)) =
-          make_float4(bf16_round(A.x / L), bf16_round(A.y / L), bf16_round(A.z / L), bf16_round(A.w / L));
-    }
-  }
   __syncthreads();
 
   for (;;) {
     if (o0 < nout) {
-      float acc[ROWS], res[ROWS];
+      float acc[ROWS];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        acc[r] = 0.f;
-        res[r] = 0.f;
-        if constexpr (KIND == WO || KIND == DOWN)   // the residual row, on its way during the dots
-          if (lane == 0 && o0 + r < nout) res[r] = __bfloat162float(__ldcg(a.h + o0 + r));
-      }
+      for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+      if constexpr (KIND == WO || KIND == DOWN)   // the residual rows, on their way during the dots
+        residual(o0);
 #pragma unroll
       for (int j = 0; j < PF; ++j) {
         const int c = lane + 32 * j;
@@ -450,7 +698,7 @@ __device__ __forceinline__ void gemv_phase(const GemvArgs& a, float* smem, int b
             xv[e] = x4.x; xv[e + 1] = x4.y; xv[e + 2] = x4.z; xv[e + 3] = x4.w;
           }
 #pragma unroll
-          for (int r = 0; r < ROWS; ++r) acc[r] += chunk_dot<BITS>(w[r][j], xv);
+          for (int r = 0; r < ROWS; ++r) acc[r] += chunk_dot<8>(w[r][j], xv);
         }
       }
       for (int c = lane + 32 * PF; c < nchunks; c += 32) {   // rows longer than the prefetch
@@ -460,34 +708,23 @@ __device__ __forceinline__ void gemv_phase(const GemvArgs& a, float* smem, int b
         float xv[EPL];
 #pragma unroll
         for (int e = 0; e < EPL; e += 4) {
-          const float4 x4 = *reinterpret_cast<const float4*>(x_s + xpos<EPL>(c * EPL + e));
+          const float4 x4 = *reinterpret_cast<const float4*>(x_s + xpos(c * EPL + e));
           xv[e] = x4.x; xv[e + 1] = x4.y; xv[e + 2] = x4.z; xv[e + 3] = x4.w;
         }
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r] += chunk_dot<BITS>(pk[r], xv);
+        for (int r = 0; r < ROWS; ++r) acc[r] += chunk_dot<8>(pk[r], xv);
       }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) acc[r] = warp_sum(acc[r]);
       if (lane == 0) {
-        if constexpr (KIND == QKV) {
+        if constexpr (KIND == GATE_UP) {
 #pragma unroll
-          for (int r = 0; r < ROWS; ++r)
-            if (o0 + r < nout) a.out[o0 + r] = acc[r] * sv[r];
-        } else if constexpr (KIND == GATE_UP) {
-#pragma unroll
-          for (int r = 0; r < OPW; ++r) {
-            const int i = o0 + r;
-            if (i < nout) {
-              const float g = acc[r] * sv[r];
-              const float u = acc[OPW + r] * sv[OPW + r];
-              a.act[i] = __float2bfloat16(g * (1.f / (1.f + expf(-g))) * u);
-            }
-          }
+          for (int r = 0; r < OPW; ++r)
+            if (o0 + r < nout) gemv_out<KIND>(a, o0 + r, acc[r], sv[r], acc[OPW + r], sv[OPW + r], 0u, 0);
         } else {
 #pragma unroll
           for (int r = 0; r < ROWS; ++r)
-            if (o0 + r < nout)
-              a.h[o0 + r] = __float2bfloat16(res[r] + acc[r] * sv[r]);
+            if (o0 + r < nout) gemv_out<KIND>(a, o0 + r, acc[r], sv[r], 0.f, 0.f, res[r], warp * ROWS + r);
         }
       }
     }
@@ -498,6 +735,196 @@ __device__ __forceinline__ void gemv_phase(const GemvArgs& a, float* smem, int b
   }
 }
 
+// mma.sync m16n8k16, bf16 in, f32 accumulate: d += A . B.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One lane's word of an int4 tile (8 offset-binary nibbles; see pack4) ->
+// its A fragment of one k-step as four bf16 pairs. Nibble t of the word
+// pairs with nibble t + 4: (w >> 4t) & 0x000F000F under 0x4300 (bf16 128,
+// whose last mantissa bit weighs 1) is the pair {128 + n_t, 128 + n_t+4};
+// one FMA (x 1 - 136) makes it {v_t, v_t+4} exactly.
+__device__ __forceinline__ void nibble_frag(unsigned w, unsigned (&fa)[4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const unsigned v = ((w >> (4 * t)) & 0x000F000Fu) | 0x43004300u;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(fa[t]) : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  }
+}
+
+// Row-groups of 16 rows in one int4 unit: QKV and the head take two
+// consecutive ones, gate|up two gate row-groups and the two up row-groups
+// F below them, wo and down one. At the flagship widths that leaves every
+// block at most one unit a phase on 132 SMs.
+template <int KIND>
+__host__ __device__ constexpr int unit_rgs() {
+  return KIND == GATE_UP ? 4 : (KIND == QKV || KIND == HEAD) ? 2 : 1;
+}
+// int4 units of a matrix of R rows (HEAD: and its tail of R % 16 plain rows).
+template <int KIND>
+__host__ __device__ __forceinline__ int units4(int R) {
+  const int nrg = R / 16;
+  if (KIND == GATE_UP) return nrg / 4;
+  return (nrg + unit_rgs<KIND>() - 1) / unit_rgs<KIND>() + (KIND == HEAD && R % 16 ? 1 : 0);
+}
+
+// int4 GEMV phase on the tensor cores. A unit's row-groups each get WARPS /
+// unit_rgs warps, which split the row-group's tiles of 64 contraction
+// elements (warp ks of them takes tiles ks, ks + that count, ...); each
+// warp's partial sums are summed in warp order in shared memory, and one
+// thread a row (gate|up: a gate row and its up row) applies the scales
+// and the epilogue. Units bid, bid + nblk, ...: the first MU of them, TPW
+// tiles a warp each, are loaded before the wait. HEAD's last unit may be
+// a tail of R % 16 rows, stored in the plain byte layout: one warp a row.
+template <int KIND, int MU, int TPW, class Sync>
+__device__ __forceinline__ void gemv4_phase(const GemvArgs& a, float* smem, int bid, int nblk, Sync& sync) {
+  constexpr int RG = unit_rgs<KIND>();
+  constexpr int NSL = WARPS / RG;                          // warps that split a row-group's tiles
+  constexpr int OUTS = KIND == GATE_UP ? 32 : 16 * RG;      // epilogue threads
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
+  const int C = a.C, nk = C >> 6, nrg = a.R >> 4, tail = a.R & 15;
+  const size_t rgb = (size_t)C * 8;                         // bytes of a row-group
+  const int hrg = nrg >> 1;                                 // GATE_UP: the first up row-group
+  const int nunits = units4<KIND>(a.R);
+  const int nfull = nunits - (KIND == HEAD && tail > 0 ? 1 : 0);   // units in fragment order
+  const int sel = warp / NSL, ks = warp % NSL;
+  // row-group `sl` of a unit (GATE_UP: 0, 1 gate, 2, 3 up)
+  auto rg_of = [&](int unit, int sl) {
+    return KIND == GATE_UP ? (sl >= 2 ? hrg : 0) + 2 * unit + (sl & 1) : RG * unit + sl;
+  };
+  float* x_s = smem;
+  const unsigned* xw = reinterpret_cast<const unsigned*>(smem);
+  float* red = smem + xlen(C, 4);
+  float* psum = red + 32;           // [WARPS][16] partial sums
+  float* nw_s = psum + WARPS * 16;  // norm weights (QKV, GATE_UP, HEAD)
+
+  int4 w[MU][TPW];
+  float sv[MU], su[MU];
+  unsigned rv[MU];   // WO, DOWN: the residual row (threads < 16)
+  const int8_t* wl = a.W + lane * 16;
+  auto load = [&](int unit, int4 (&wt)[TPW]) {
+    const int rg = rg_of(unit, sel);
+#pragma unroll
+    for (int t = 0; t < TPW; ++t) {
+      const int kt = ks + NSL * t;
+      wt[t] = unit < nfull && rg < nrg && kt < nk ? ld_weight(wl + (size_t)rg * rgb + (size_t)kt * 512)
+                                                   : make_int4(0, 0, 0, 0);
+    }
+  };
+  auto scales = [&](int unit, float& s0, float& s1) {
+    s0 = s1 = 0.f;
+    if (tid < OUTS) {
+      const int r = 16 * rg_of(unit, tid / 16) + tid % 16;
+      if (r < a.R) s0 = __ldg(a.s + r);
+      if (KIND == GATE_UP) s1 = __ldg(a.s + 16 * rg_of(unit, 2 + tid / 16) + tid % 16);
+    }
+  };
+  // the tile's four k-steps: B from the vector (the same 8 words for every
+  // lane of a lane group), A from the nibbles; even and odd k-steps in two
+  // accumulators
+  auto mma_tile = [&](float (&c)[2][4], const int4& q, int kt) {
+    const uint4* xb = reinterpret_cast<const uint4*>(xw + (((kt << 2) + (lane & 3)) << 3));
+    const uint4 b0 = xb[0], b1 = xb[1];
+    const unsigned bw[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    const unsigned qw[4] = {(unsigned)q.x, (unsigned)q.y, (unsigned)q.z, (unsigned)q.w};
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      unsigned fa[4];
+      nibble_frag(qw[s], fa);
+      mma_bf16(c[s & 1], fa, bw[2 * s], bw[2 * s + 1]);
+    }
+  };
+  auto process = [&](int m, int unit, const int4 (&wt)[TPW], float s0, float s1, unsigned res) {
+    if (unit >= nfull) {   // HEAD's tail: plain rows, one warp each
+      const int r = 16 * nrg + warp;
+      if (warp < tail) {
+        const unsigned short* xh = reinterpret_cast<const unsigned short*>(xw);
+        float acc = 0.f;
+        for (int c = lane; c < C / 32; c += 32) {
+          float xv[32];
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int k = 32 * c + e;
+            xv[e] = __uint_as_float((unsigned)xh[2 * frag_word(k & ~1) + (k & 1)] << 16);
+          }
+          acc += chunk_dot<4>(ld_weight(a.W + (size_t)r * (C / 2) + 16 * (size_t)c), xv);
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) gemv_out<KIND>(a, r, acc, __ldg(a.s + r), 0.f, 0.f, 0u, SAMPLE_ROWS * m + warp);
+      }
+      return;
+    }
+    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int t = 0; t < TPW; ++t)
+      if (ks + NSL * t < nk) mma_tile(c, wt[t], ks + NSL * t);
+    const int rg = rg_of(unit, sel);
+    for (int kt = ks + NSL * TPW; kt < nk && rg < nrg; kt += NSL)   // row-groups longer than the prefetch
+      mma_tile(c, ld_weight(wl + (size_t)rg * rgb + (size_t)kt * 512), kt);
+    if ((lane & 3) == 0) {   // c[.][0]: row lane / 4; c[.][2]: row lane / 4 + 8 (every column the same)
+      psum[warp * 16 + (lane >> 2)] = c[0][0] + c[1][0];
+      psum[warp * 16 + (lane >> 2) + 8] = c[0][2] + c[1][2];
+    }
+    __syncthreads();
+    if (tid < OUTS && rg_of(unit, tid / 16) < nrg) {
+      const int sl = tid / 16, r16 = tid % 16;
+      float acc = 0.f, acc_u = 0.f;
+#pragma unroll
+      for (int k = 0; k < NSL; ++k) acc += psum[(sl * NSL + k) * 16 + r16];
+      if constexpr (KIND == GATE_UP) {
+#pragma unroll
+        for (int k = 0; k < NSL; ++k) acc_u += psum[((2 + sl) * NSL + k) * 16 + r16];
+      }
+      gemv_out<KIND>(a, 16 * rg_of(unit, sl) + r16, acc, s0, acc_u, s1, res, SAMPLE_ROWS * m + tid);
+    }
+    __syncthreads();   // psum is written again by the next unit
+  };
+
+  sync.arrive();
+#pragma unroll
+  for (int m = 0; m < MU; ++m) {
+    const int unit = bid + m * nblk;
+    if (unit < nunits) {
+      load(unit, w[m]);
+      scales(unit, sv[m], su[m]);
+      rv[m] = 0u;
+      if constexpr ((KIND == WO || KIND == DOWN) && Sync::EARLY_RESIDUAL)
+        if (tid < 16) rv[m] = load_res(a, 16 * unit + tid);
+    }
+  }
+  if (bid < nunits) {
+    if constexpr (KIND == QKV || KIND == GATE_UP || KIND == HEAD) {   // constant too: fetch it now
+      for (int i = threadIdx.x * 4; i < C; i += blockDim.x * 4) cp_async16(nw_s + i, a.nw + i);
+      cp_async_commit();
+    }
+  }
+  sync.wait();
+  if (bid < nunits) input_prologue<4, KIND>(a, x_s, red, nw_s);
+  sync.input_ready();
+  if (bid >= nunits) return;
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < MU; ++m) {
+    const int unit = bid + m * nblk;
+    if (unit < nunits) {
+      if constexpr ((KIND == WO || KIND == DOWN) && !Sync::EARLY_RESIDUAL)
+        if (tid < 16) rv[m] = load_res(a, 16 * unit + tid);
+      process(m, unit, w[m], sv[m], su[m], rv[m]);
+    }
+  }
+  for (int m = MU, unit = bid + MU * nblk; unit < nunits; ++m, unit += nblk) {
+    int4 wt[TPW];
+    float s0, s1;
+    load(unit, wt);
+    scales(unit, s0, s1);
+    process(m, unit, wt, s0, s1, (KIND == WO || KIND == DOWN) && tid < 16 ? load_res(a, 16 * unit + tid) : 0u);
+  }
+}
+
 // ---------------------------------------------------------------- attention phase
 
 // Attention of one token over cache slots [off, t) and itself, as partials
@@ -505,11 +932,13 @@ __device__ __forceinline__ void gemv_phase(const GemvArgs& a, float* smem, int b
 // [3N] from the QKV phase; kc/vc bf16 [S, N], row t written by split 0;
 // part f32 [H, MAX_SPLITS, hd + PART_PAD]. hd / 8 lanes span one key row, so
 // hd is 8, 16, 32, 64, 128 or 256. smem: 3 hd + 4 + (blockDim / 32)(hd + 2)
-// floats.
+// floats. qkvx (the step): q, k, v as tagged words (qkv_tag), read as soon
+// as the head's own rows carry the tag, not after the whole QKV phase.
 template <class Sync>
 __device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, bf16* kc, bf16* vc,
                                            float* part, int H, int hd, int t, int off, int nsplit,
-                                           float scale, float* smem, int bid, int nblk, Sync& sync) {
+                                           float scale, float* smem, int bid, int nblk, Sync& sync,
+                                           const unsigned long long* qkvx = nullptr, unsigned qkv_tag = 0) {
   const int N = H * hd, half = hd / 2;
   const int n = max(t - off, 0);
   const int units = H * nsplit;
@@ -555,14 +984,29 @@ __device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, 
     for (int i = threadIdx.x; i < hd; i += blockDim.x) {
       const bool first = i < half;
       const int partner = first ? i + half : i - half;
+      const int at[5] = {base + i, base + partner, N + base + i, N + base + partner, 2 * N + base + i};
+      float x[5];   // q_i, q_partner and (split 0) k_i, k_partner, v_i
+      if (qkvx != nullptr) {
+        unsigned long long w[5];
+#pragma unroll
+        for (int j = 0; j < 5; ++j)
+          if (j < 2 || sp == 0) w[j] = ld_relaxed64(qkvx + at[j]);
+#pragma unroll
+        for (int j = 0; j < 5; ++j)
+          if (j < 2 || sp == 0) x[j] = settle64(w[j], qkvx + at[j], qkv_tag);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 5; ++j)
+          if (j < 2 || sp == 0) x[j] = __ldcg(qkv + at[j]);
+      }
       const float ang = pos * invf[first ? i : i - half];
       const float c = cosf(ang), sn = sinf(ang);
-      const float qi = __ldcg(qkv + base + i), qp = __ldcg(qkv + base + partner);
+      const float qi = x[0], qp = x[1];
       q_s[i] = first ? qi * c + (-qp) * sn : qi * c + qp * sn;
       if (sp == 0) {
-        const float ki = __ldcg(qkv + N + base + i), kp = __ldcg(qkv + N + base + partner);
+        const float ki = x[2], kp = x[3];
         const float kr = first ? ki * c + (-kp) * sn : ki * c + kp * sn;
-        const float vi = __ldcg(qkv + 2 * N + base + i);
+        const float vi = x[4];
         k_s[i] = kr;
         v_s[i] = vi;
         kc[(size_t)t * N + base + i] = __float2bfloat16(kr);
@@ -570,6 +1014,7 @@ __device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, 
       }
     }
     __syncthreads();
+    sync.mark_left();
     if (sp == 0 && warp == 0) {
       float cur = 0.f;
       for (int e = lane; e < hd; e += 32) cur += q_s[e] * k_s[e];
@@ -654,9 +1099,10 @@ __device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, 
       }
     }
   }
+  sync.input_ready();
 }
 
-// ---------------------------------------------------------------- sampler phase
+// ---------------------------------------------------------------- the sampler
 
 __device__ __forceinline__ uint32_t philox_c0(uint32_t ctr, uint32_t key) {
   uint32_t c0 = ctr, c1 = 0u, c2 = 0u, c3 = 0u, k0 = key, k1 = 0u;
@@ -674,6 +1120,15 @@ __device__ __forceinline__ uint32_t philox_c0(uint32_t ctr, uint32_t key) {
   return c0;
 }
 
+// Float order as unsigned order, for redux.sync.
+__device__ __forceinline__ unsigned float_order(float f) {
+  const unsigned b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ __forceinline__ float order_float(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
+}
+
 // The two largest distinct values of (a1 > a2) and (b1 > b2); -inf = none.
 __device__ __forceinline__ void merge_top2(float& a1, float& a2, float b1, float b2) {
   const float hi = fmaxf(a1, b1), lo_c = fminf(a1, b1);
@@ -683,144 +1138,261 @@ __device__ __forceinline__ void merge_top2(float& a1, float& a2, float b1, float
   a2 = lo;
 }
 
-// The block's two largest distinct values, to every thread, with one
-// barrier. `red`: 64 floats, not in use by another call in flight (callers
-// alternate two of them).
-__device__ void block_top2(float& h1, float& h2, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    merge_top2(h1, h2, __shfl_xor_sync(0xffffffffu, h1, o), __shfl_xor_sync(0xffffffffu, h2, o));
-  if (lane == 0) {
-    red[2 * warp] = h1;
-    red[2 * warp + 1] = h2;
-  }
-  __syncthreads();
-  h1 = red[2 * (lane % nw)];            // nw is a power of two: groups of nw lanes hold all warps
-  h2 = red[2 * (lane % nw) + 1];
-  for (int o = nw >> 1; o > 0; o >>= 1)
-    merge_top2(h1, h2, __shfl_xor_sync(0xffffffffu, h1, o), __shfl_xor_sync(0xffffffffu, h2, o));
+// (score, id) ranks above (os, oi): the larger score, then the smaller id.
+__device__ __forceinline__ bool ranks_above(float s, int i, float os, int oi) {
+  return s > os || (s == os && i < oi);
 }
 
-// Mask, temperature, top-k threshold, Gumbel-max; the picked id is the
-// smallest id at the maximum. The reference strips every value tied at the
-// running max k-1 times (stripped entries become -1e30) and takes the max of
-// the rest: that is the k-th largest distinct value d_k, or -1e30 where
-// fewer than k distinct values lie above it. Here each round strips the two
-// largest distinct values off the block with one barrier. One block of NT
-// threads; thread i owns logits i, i + NT, ... (VPT of them at most, V <= NT
-// * VPT) in registers. smem: 192 floats.
-template <int NT, int VPT>
-__device__ void sample_phase(const float* logits, int V, int pad_id, int bos_id, int eos_id,
-                             int suppress, int greedy, float temperature, int top_k, uint32_t seed,
-                             int* tok_out, float* smem) {
-  const int tid = threadIdx.x;
-  const float tdiv = fmaxf(temperature, 1e-6f);
-  const int nv = (V + NT - 1) / NT;   // logits a thread really holds; the loops below skip the rest
-  float y[VPT];
-#pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int i = tid + j * NT;
-    float v = -INFINITY;
-    if (i < V) {
-      const bool bad = i == pad_id || i == bos_id || (i == eos_id && suppress);
-      v = bad ? NEG_INF : __ldcg(logits + i);
-      if (!greedy) v = v / tdiv;
-    }
-    y[j] = v;
+struct SampleArgs {
+  int V, pad_id, bos_id, eos_id, suppress, greedy, top_k;
+  float temperature;
+  uint32_t seed;
+  unsigned* cand;       // [blocks, CAND_WORDS]: header (levels, best score, best id, smallest id), levels, records
+  int* tok_out;
+};
+
+// The block's part of the sampler, by warp 0, from the logits the head left
+// in `slot_val` / `slot_id` (id -1: empty). The reference masks, divides by
+// the temperature (sampled), strips every value tied at the running max
+// k - 1 times, keeps what is at or above the max of the rest (floored at
+// -1e30 for k >= 2), adds Gumbel noise where the value is above -5e29, and
+// takes the smallest id at the maximum. Per block: the logits sorted by
+// (value desc, id asc); level j = the j-th distinct value; its record:
+// the best (score, id) at or above it, the smallest id below it. Header:
+// the number of levels kept (at most k), the best (score, id) of all, the
+// smallest id of all.
+__device__ __noinline__ void sample_local(const SampleArgs& sa, const float* slot_val, const int* slot_id, int bid) {
+  const int lane = threadIdx.x & 31;
+  const int id0 = slot_id[lane];
+  const bool valid = id0 >= 0;
+  const float tdiv = fmaxf(sa.temperature, 1e-6f);
+  float y = -INFINITY;
+  int id = 0x7FFFFFFF - lane;   // unique keys for the sort; empty entries sort last
+  if (valid) {
+    const bool bad = id0 == sa.pad_id || id0 == sa.bos_id || (id0 == sa.eos_id && sa.suppress);
+    y = bad ? NEG_INF : slot_val[lane];
+    if (!sa.greedy) y = y / tdiv;
+    id = id0;
   }
-  if (!greedy) {
-    if (top_k > 0) {
-      float cur[VPT];
-#pragma unroll
-      for (int j = 0; j < VPT; ++j) cur[j] = y[j];
-      int round = 0;
-#pragma unroll 1
-      for (int left = top_k - 1; left > 0; left -= 2, ++round) {
-        float h1 = -INFINITY, h2 = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < VPT; ++j) {
-          if (j >= nv) break;
-          const float v = cur[j];
-          if (v > h1) {
-            h2 = h1;
-            h1 = v;
-          } else if (v < h1 && v > h2) {
-            h2 = v;
-          }
-        }
-        block_top2(h1, h2, smem + 64 * (round & 1));
-        const float cut = (left >= 2 && h2 > -INFINITY) ? h2 : h1;
-#pragma unroll
-        for (int j = 0; j < VPT; ++j)
-          if (j < nv && cur[j] >= cut) cur[j] = -INFINITY;
-      }
-      float thr = -INFINITY, unused = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < VPT; ++j) thr = fmaxf(thr, cur[j]);
-      block_top2(thr, unused, smem + 64 * (round & 1));
-      if (top_k >= 2) thr = fmaxf(thr, NEG_INF);
-#pragma unroll
-      for (int j = 0; j < VPT; ++j)
-        if (tid + j * NT < V && y[j] < thr) y[j] = NEG_INF;
-    }
-#pragma unroll
-    for (int j = 0; j < VPT; ++j) {
-      const int i = tid + j * NT;
-      if (i < V && y[j] > 0.5f * NEG_INF) {   // |noise| < 21: entries at -1e30 or below do not move
-        const uint32_t bits = philox_c0((uint32_t)i, seed) >> 8;
-        const float u = (float)bits * (1.f / 16777216.f) + 1e-9f;
-        y[j] = y[j] - logf(-logf(u));
-      }
-    }
-  }
-  // max value, smallest id at it
-  float bv = -INFINITY;
-  int bi = 0x7fffffff;
-#pragma unroll
-  for (int j = 0; j < VPT; ++j) {
-    const int i = tid + j * NT;
-    if (i < V && y[j] > bv) {   // ids rise with j: the first hit is the smallest
-      bv = y[j];
-      bi = i;
-    }
-  }
-  auto better = [](float v, int i, float ov, int oi) { return ov > v || (ov == v && oi < i); };
-  const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-    if (better(bv, bi, ov, oi)) { bv = ov; bi = oi; }
-  }
-  float* rv = smem + 128;
-  int* ri = reinterpret_cast<int*>(smem + 160);
-  if (lane == 0) {
-    rv[warp] = bv;
-    ri[warp] = bi;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    bv = lane < NT / 32 ? rv[lane] : -INFINITY;
-    bi = lane < NT / 32 ? ri[lane] : 0x7fffffff;
+  auto score_of = [&](float v, int i) {
+    if (sa.greedy || !(v > 0.5f * NEG_INF)) return v;   // |noise| < 21: entries at -1e30 or below do not move
+    const uint32_t bits = philox_c0((uint32_t)i, sa.seed) >> 8;
+    const float u = (float)bits * (1.f / 16777216.f) + 1e-9f;
+    return v - logf(-logf(u));
+  };
+  unsigned* rec = sa.cand + (size_t)bid * CAND_WORDS;
+  if (sa.greedy || sa.top_k <= 0) {   // no threshold: the block's best is all it sends
+    float bs = valid ? score_of(y, id) : -INFINITY;
+    int bi = valid ? id : 0x7FFFFFFF;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const float os = __shfl_xor_sync(0xffffffffu, bs, o);
       const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      if (better(bv, bi, ov, oi)) { bv = ov; bi = oi; }
+      if (ranks_above(os, oi, bs, bi)) { bs = os; bi = oi; }
     }
-    if (lane == 0) tok_out[0] = bi;
+    if (lane == 0) {
+      rec[0] = 0u;
+      rec[1] = __float_as_uint(bs);
+      rec[2] = (unsigned)bi;
+    }
+    return;
+  }
+  // bitonic sort over the warp: lane 0 ends with the largest value (smallest id among ties)
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const float oy = __shfl_xor_sync(0xffffffffu, y, j);
+      const int oi = __shfl_xor_sync(0xffffffffu, id, j);
+      const bool first_kept = ((lane & k) == 0) == ((lane & j) == 0);
+      const bool other_first = ranks_above(oy, oi, y, id);
+      if (first_kept == other_first) { y = oy; id = oi; }
+    }
+  }
+  const bool real = y > -INFINITY;
+  const float prev = __shfl_up_sync(0xffffffffu, y, 1);
+  const float next = __shfl_down_sync(0xffffffffu, y, 1);
+  const bool opens = real && (lane == 0 || y != prev);
+  const bool closes = real && (lane == 31 || y != next);
+  const int level = __popc(__ballot_sync(0xffffffffu, opens) & (0xffffffffu >> (31 - lane))) - 1;
+  // best (score, id) over lanes 0..lane
+  float bs = real ? score_of(y, id) : -INFINITY;
+  int bi = real ? id : 0x7FFFFFFF;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float os = __shfl_up_sync(0xffffffffu, bs, d);
+    const int oi = __shfl_up_sync(0xffffffffu, bi, d);
+    if (lane >= d && ranks_above(os, oi, bs, bi)) { bs = os; bi = oi; }
+  }
+  // smallest id over lanes lane+1..31
+  int below = __shfl_down_sync(0xffffffffu, real ? id : 0x7FFFFFFF, 1);
+  if (lane == 31) below = 0x7FFFFFFF;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_down_sync(0xffffffffu, below, d);
+    if (lane + d < 32) below = min(below, o);
+  }
+  const int all_min = min(__shfl_sync(0xffffffffu, below, 0), __shfl_sync(0xffffffffu, real ? id : 0x7FFFFFFF, 0));
+  const int nlev = min(__popc(__ballot_sync(0xffffffffu, opens)), sa.top_k);
+  const unsigned last_real = __ballot_sync(0xffffffffu, real);
+  const int top = last_real ? 31 - __clz(last_real) : 0;
+  const float best_s = __shfl_sync(0xffffffffu, bs, top);
+  const int best_i = __shfl_sync(0xffffffffu, bi, top);
+  if (closes && level < nlev) {
+    rec[4 + level] = __float_as_uint(y);
+    unsigned* r = rec + 4 + SAMPLE_ROWS + 4 * level;
+    r[0] = __float_as_uint(bs);
+    r[1] = (unsigned)bi;
+    r[2] = (unsigned)below;
+  }
+  if (lane == 0) {
+    rec[0] = (unsigned)nlev;
+    rec[1] = __float_as_uint(last_real ? best_s : -INFINITY);
+    rec[2] = (unsigned)(last_real ? best_i : 0x7FFFFFFF);
+    rec[3] = (unsigned)all_min;
+  }
+}
+
+// The last block: merge every block's list into the k-th distinct value,
+// threshold it as the reference does, and pick the token. smem: nblk *
+// (4 + SAMPLE_ROWS) words: each block's header and levels, loaded in one
+// trip to L2.
+__device__ __noinline__ void sample_merge(const SampleArgs& sa, int nblk, float* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool thresholded = !sa.greedy && sa.top_k > 0;
+  constexpr int Q = (4 + SAMPLE_ROWS) / 4;   // 16-byte pieces of a header and its levels
+  constexpr int PER = (MAX_LISTS * Q + THREADS - 1) / THREADS;
+  uint4* hl_s = reinterpret_cast<uint4*>(smem);
+  if (thresholded) {
+    uint4 v[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i < nblk * Q) v[j] = __ldcg(reinterpret_cast<const uint4*>(sa.cand + (size_t)(i / Q) * CAND_WORDS) + i % Q);
+    }
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i < nblk * Q) hl_s[i] = v[j];
+    }
+    __syncthreads();
+  }
+  if (warp != 0) return;
+  const unsigned* hl = reinterpret_cast<const unsigned*>(smem);   // [nblk][4 + SAMPLE_ROWS]
+  auto lev = [&](int b, int p) { return __uint_as_float(hl[b * (4 + SAMPLE_ROWS) + 4 + p]); };
+  constexpr int LPL = MAX_LISTS / 32;
+  float bs = -INFINITY;
+  int bi = 0x7FFFFFFF, below = 0x7FFFFFFF;
+  if (!thresholded) {
+    uint4 r[LPL];
+#pragma unroll
+    for (int j = 0; j < LPL; ++j)
+      if (lane + 32 * j < nblk) r[j] = __ldcg(reinterpret_cast<const uint4*>(sa.cand + (size_t)(lane + 32 * j) * CAND_WORDS));
+#pragma unroll
+    for (int j = 0; j < LPL; ++j) {
+      if (lane + 32 * j < nblk) {
+        const float s = __uint_as_float(r[j].y);
+        const int i = (int)r[j].z;
+        if (ranks_above(s, i, bs, bi)) { bs = s; bi = i; }
+      }
+    }
+  } else {
+    int pos[LPL], nl[LPL];
+    float h1[LPL], h2[LPL];   // each list's first two levels not yet taken
+#pragma unroll
+    for (int j = 0; j < LPL; ++j) {
+      const int b = lane + 32 * j;
+      nl[j] = b < nblk ? (int)hl[b * (4 + SAMPLE_ROWS)] : 0;
+      pos[j] = 0;
+      h1[j] = nl[j] > 0 ? lev(b, 0) : -INFINITY;
+      h2[j] = nl[j] > 1 ? lev(b, 1) : -INFINITY;
+    }
+    // a round takes the two largest distinct levels left over all lists (one
+    // where one is left to find): ceil(k / 2) rounds find the k-th
+    float dk = -INFINITY;
+    bool full = true;   // k levels found: each list's cursor counts its levels at or above dk
+    for (int left = sa.top_k; left > 0;) {
+      float a1 = -INFINITY, a2 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < LPL; ++j) merge_top2(a1, a2, h1[j], h2[j]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        merge_top2(a1, a2, __shfl_xor_sync(0xffffffffu, a1, o), __shfl_xor_sync(0xffffffffu, a2, o));
+      if (a1 == -INFINITY) {
+        full = false;
+        break;
+      }
+      const bool two = left >= 2 && a2 > -INFINITY;
+      dk = two ? a2 : a1;
+      left -= two ? 2 : 1;
+#pragma unroll
+      for (int j = 0; j < LPL; ++j) {
+        for (int step = 0; step < 2 && h1[j] >= dk; ++step) {
+          ++pos[j];
+          h1[j] = h2[j];
+          h2[j] = pos[j] + 1 < nl[j] ? lev(lane + 32 * j, pos[j] + 1) : -INFINITY;
+        }
+      }
+    }
+    const float thr = sa.top_k >= 2 ? fmaxf(dk, NEG_INF) : dk;
+    uint4 r[LPL];   // each list's record at its last level at or above thr (header: none), in one trip
+    int cnt[LPL];
+#pragma unroll
+    for (int j = 0; j < LPL; ++j) {
+      const int b = lane + 32 * j;
+      cnt[j] = pos[j];   // levels at or above dk (thr, unless the -1e30 floor raised it)
+      if (!full || thr != dk) {
+        cnt[j] = 0;
+        while (cnt[j] < nl[j] && lev(b, cnt[j]) >= thr) ++cnt[j];
+      }
+      if (b < nblk) {
+        const unsigned* rec = sa.cand + (size_t)b * CAND_WORDS;
+        r[j] = __ldcg(reinterpret_cast<const uint4*>(cnt[j] > 0 ? rec + 4 + SAMPLE_ROWS + 4 * (cnt[j] - 1) : rec));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < LPL; ++j) {
+      if (lane + 32 * j < nblk) {
+        if (cnt[j] > 0) {
+          const float s = __uint_as_float(r[j].x);
+          const int i = (int)r[j].y;
+          if (ranks_above(s, i, bs, bi)) { bs = s; bi = i; }
+          below = min(below, (int)r[j].z);
+        } else {
+          below = min(below, (int)r[j].w);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float os = __shfl_xor_sync(0xffffffffu, bs, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (ranks_above(os, oi, bs, bi)) { bs = os; bi = oi; }
+    below = min(below, __shfl_xor_sync(0xffffffffu, below, o));
+  }
+  if (lane == 0) {   // what fell below the threshold is -1e30 in the reference, with the smallest id
+    if (below != 0x7FFFFFFF && ranks_above(NEG_INF, below, bs, bi)) bi = below;
+    sa.tok_out[0] = bi;
   }
 }
 
 // ---------------------------------------------------------------- kernels of the chain
 
-template <int BITS, int ROWS, int KIND>
+template <int ROWS, int KIND>
 __global__ void __launch_bounds__(THREADS) gemv_kernel(GemvArgs a) {
   extern __shared__ __align__(16) float smem[];
   ChainSync sync;
   sync.start();
-  gemv_phase<BITS, ROWS, 8 / ROWS, KIND>(a, smem, blockIdx.x, gridDim.x, sync);
+  gemv_phase<ROWS, 8 / ROWS, KIND>(a, smem, blockIdx.x, gridDim.x, sync);
+}
+
+template <int KIND, int TPW>
+__global__ void __launch_bounds__(THREADS) gemv4_kernel(GemvArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  ChainSync sync;
+  sync.start();
+  gemv4_phase<KIND, 1, TPW>(a, smem, blockIdx.x, gridDim.x, sync);
 }
 
 __global__ void __launch_bounds__(32 * ATTN_WARPS)
@@ -837,9 +1409,10 @@ attn_kernel(const float* qkv, const float* invf, bf16* kc, bf16* vc, float* part
 struct DecodePlan {   // mirrored field by field in ops/decode_step.py
   const void *emb, *invf, *attn_norm, *wqkv, *wqs, *wo, *wos, *mlp_norm, *wgu, *wgus, *wd, *wds,
       *final_norm, *head, *head_s;
-  void *k_all, *v_all, *h, *qkv, *part, *act, *logits, *tok_out, *bar, *stamps;
+  void *k_all, *v_all, *h, *qkv, *part, *act, *logits, *tok_out, *bar, *stamps, *hx, *actx, *cand, *qkvx;
   int L, D, H, hd, F, V, S;
   int pad_id, bos_id, eos_id, greedy, top_k, bits;
+  int narrow;   // 1: the narrow waits; 0: a grid barrier before every phase, plain h and act
   float eps, scale, temperature;
 };
 
@@ -876,14 +1449,15 @@ struct Chain {
   }
 };
 
-// Input vector, reduction scratch and, where the phase normalises, the norm weights.
+// Input vector, reduction scratch, int4 partial sums and, where the phase
+// normalises, the norm weights.
 inline size_t gemv_smem(int C, int bits, bool norm) {
-  return (size_t)(xlen(C, 128 / bits) + 32 + (norm ? C : 0)) * sizeof(float);
+  return (size_t)(xlen(C, bits) + 32 + (bits == 4 ? WARPS * 16 : 0) + (norm ? C : 0)) * sizeof(float);
 }
 inline size_t attn_smem(int hd, int nwarps) { return (size_t)(3 * hd + 4 + nwarps * (hd + 2)) * sizeof(float); }
 
-// Rows a warp owns: as many as keep 8 loads a lane in flight, fewer while
-// the grid would leave SMs without a block.
+// int8: rows a warp owns: as many as keep 8 loads a lane in flight, fewer
+// while the grid would leave SMs without a block.
 inline int pick_rows(int total_rows, int nchunks, int min_rows) {
   const int J = (nchunks + 31) / 32;
   int rows = J >= 8 ? 1 : (J >= 4 ? 2 : (J >= 2 ? 4 : 8));
@@ -891,19 +1465,28 @@ inline int pick_rows(int total_rows, int nchunks, int min_rows) {
   return rows < min_rows ? min_rows : rows;
 }
 
-template <int BITS, int KIND>
-void launch_gemv(Chain& ch, const GemvArgs& a) {
-  constexpr int EPL = 128 / BITS;
+template <int KIND>
+void launch_gemv(Chain& ch, const GemvArgs& a, int bits) {
+  const bool norm = KIND == QKV || KIND == GATE_UP;
+  const size_t smem = gemv_smem(a.C, bits, norm);
+  if (bits == 4) {   // one unit a block
+    const int nsl = WARPS / unit_rgs<KIND>();
+    const int units = units4<KIND>(a.R);
+    const int tiles = (a.C / 64 + nsl - 1) / nsl;
+    auto k = tiles <= 1 ? gemv4_kernel<KIND, 1> : tiles <= 2 ? gemv4_kernel<KIND, 2>
+           : tiles <= 4 ? gemv4_kernel<KIND, 4> : gemv4_kernel<KIND, 8>;
+    ch.launch(k, units, THREADS, smem, a);
+    return;
+  }
   constexpr int MIN_ROWS = KIND == GATE_UP ? 2 : 1;
-  const int rows = pick_rows(a.R, a.C / EPL, MIN_ROWS);
+  const int rows = pick_rows(a.R, a.C / 16, MIN_ROWS);
   const int units = (a.R + rows * WARPS - 1) / (rows * WARPS);
-  const size_t smem = gemv_smem(a.C, BITS, KIND == QKV || KIND == GATE_UP);
   switch (rows) {
-    case 8: ch.launch(gemv_kernel<BITS, 8, KIND>, units, THREADS, smem, a); break;
-    case 4: ch.launch(gemv_kernel<BITS, 4, KIND>, units, THREADS, smem, a); break;
-    case 2: ch.launch(gemv_kernel<BITS, 2, KIND>, units, THREADS, smem, a); break;
+    case 8: ch.launch(gemv_kernel<8, KIND>, units, THREADS, smem, a); break;
+    case 4: ch.launch(gemv_kernel<4, KIND>, units, THREADS, smem, a); break;
+    case 2: ch.launch(gemv_kernel<2, KIND>, units, THREADS, smem, a); break;
     default:
-      if constexpr (KIND != GATE_UP) ch.launch(gemv_kernel<BITS, 1, KIND>, units, THREADS, smem, a);
+      if constexpr (KIND != GATE_UP) ch.launch(gemv_kernel<1, KIND>, units, THREADS, smem, a);
   }
 }
 
@@ -918,33 +1501,30 @@ inline GemvArgs gemv_args(const int8_t* W, const float* s, int R, int C) {
 
 // Attention half-layer: h <- h + wo . attn(rmsnorm(h)), cache row t written
 // in place. Scratch: qkv f32 [3N], part f32 [H, MAX_SPLITS, hd + PART_PAD].
-template <int BITS>
-void attn_half(Chain& ch, bf16* h, const float* nw, const int8_t* wqkv, const float* wqs,
+void attn_half(Chain& ch, int bits, bf16* h, const float* nw, const int8_t* wqkv, const float* wqs,
                const int8_t* wo, const float* wos, const float* invf, bf16* kc, bf16* vc,
-               float* qkv, float* part, int D, int H, int hd, int t, int off, float eps,
-               float scale) {
+               float* qkv, float* part, int D, int H, int hd, int t, int off, float eps, float scale) {
   const int N = H * hd;
   const int nsplit = attn_splits(t - off);
   GemvArgs a = gemv_args(wqkv, wqs, 3 * N, D);
-  a.h = h; a.nw = nw; a.eps = eps; a.out = qkv;
-  launch_gemv<BITS, QKV>(ch, a);
+  a.hin = h; a.nw = nw; a.eps = eps; a.out = qkv;
+  launch_gemv<QKV>(ch, a, bits);
   ch.launch(attn_kernel, H * nsplit, 32 * ATTN_WARPS, attn_smem(hd, ATTN_WARPS),
             qkv, invf, kc, vc, part, H, hd, t, off, nsplit, scale);
   GemvArgs o = gemv_args(wo, wos, D, N);
-  o.h = h; o.part = part; o.hd = hd; o.nsplit = nsplit;
-  launch_gemv<BITS, WO>(ch, o);
+  o.hin = h; o.hout = h; o.part = part; o.hd = hd; o.nsplit = nsplit;
+  launch_gemv<WO>(ch, o, bits);
 }
 
 // MLP half-layer: h <- h + down . (silu(g) * u). Scratch: act bf16 [F].
-template <int BITS>
-void mlp_half(Chain& ch, bf16* h, const float* nw, const int8_t* wgu, const float* wgus,
+void mlp_half(Chain& ch, int bits, bf16* h, const float* nw, const int8_t* wgu, const float* wgus,
               const int8_t* wd, const float* wds, bf16* act, int D, int F, float eps) {
   GemvArgs a = gemv_args(wgu, wgus, 2 * F, D);
-  a.h = h; a.nw = nw; a.eps = eps; a.act = act;
-  launch_gemv<BITS, GATE_UP>(ch, a);
+  a.hin = h; a.nw = nw; a.eps = eps; a.act = act;
+  launch_gemv<GATE_UP>(ch, a, bits);
   GemvArgs d = gemv_args(wd, wds, D, F);
-  d.h = h; d.xin = act;
-  launch_gemv<BITS, DOWN>(ch, d);
+  d.hin = h; d.hout = h; d.xin = act;
+  launch_gemv<DOWN>(ch, d, bits);
 }
 
 template <int BITS>
@@ -952,80 +1532,155 @@ __host__ __device__ __forceinline__ size_t row_bytes(int C) { return (size_t)C *
 
 // ---------------------------------------------------------------- persistent kernel
 
-// One block of THREADS an SM (what its registers allow); the rows a warp owns
-// in each phase are set so that the flagship widths give every block one
-// unit on 132 SMs; other widths and SM counts loop over units.
+// The phases of one step at one weight width: int8 rows a warp, int4 units
+// and tiles in flight, both set so that the flagship widths give every
+// block at most two units on 132 SMs and its loads in flight before each
+// wait; other widths and SM counts loop.
+template <int BITS, int KIND, class Sync>
+__device__ __forceinline__ void step_gemv(const GemvArgs& a, float* smem, int bid, int nblk, Sync& sync) {
+  if constexpr (BITS == 8) {
+    if constexpr (KIND == QKV || KIND == HEAD) gemv_phase<4, 2, KIND>(a, smem, bid, nblk, sync);
+    else if constexpr (KIND == WO) gemv_phase<1, 2, KIND>(a, smem, bid, nblk, sync);
+    else if constexpr (KIND == GATE_UP) gemv_phase<8, 2, KIND>(a, smem, bid, nblk, sync);
+    else gemv_phase<1, 8, KIND>(a, smem, bid, nblk, sync);
+  } else {
+    if constexpr (KIND == QKV || KIND == HEAD) gemv4_phase<KIND, 1, 4>(a, smem, bid, nblk, sync);
+    else if constexpr (KIND == WO) gemv4_phase<KIND, 1, 2>(a, smem, bid, nblk, sync);
+    else gemv4_phase<KIND, 1, 8>(a, smem, bid, nblk, sync);
+  }
+}
+
+// One block of THREADS an SM (what its registers allow), all co-resident.
 template <int BITS>
 __global__ void __launch_bounds__(THREADS)
 mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int suppress, int seed) {
   extern __shared__ __align__(16) float smem[];
-  GridSync sync{(unsigned*)p.bar, 0u, gridDim.x, (unsigned long long*)p.stamps, 0};
+  __shared__ float slot_val[SAMPLE_ROWS];
+  __shared__ int slot_id[SAMPLE_ROWS];
+  __shared__ int is_last;
+  unsigned* bar = (unsigned*)p.bar;
+  StepSync sync{bar + BAR_GRID, 0u, gridDim.x, (unsigned long long*)p.stamps, 0, false, false};
   const int bid = blockIdx.x, nblk = gridDim.x;
-  const int N = p.H * p.hd, D = p.D, F = p.F, S = p.S;
+  const int N = p.H * p.hd, D = p.D, F = p.F, S = p.S, L = p.L;
   const int nsplit = attn_splits(t - off, nblk / p.H);   // one (head, split) unit a block at most
+  const unsigned epoch = __ldcg(bar + BAR_EPOCH);        // steps this scratch has run: the tags' base
+  const unsigned* hx = (const unsigned*)p.hx;
+  const unsigned* actx = (const unsigned*)p.actx;
+  const bf16* emb_row = (const bf16*)p.emb + (size_t)__ldcg(tok_in) * D;
+  if (threadIdx.x < SAMPLE_ROWS) slot_id[threadIdx.x] = -1;
+  const bool narrow = p.narrow != 0;
   bf16* h = (bf16*)p.h;
-  for (int l = 0; l < p.L; ++l) {
-    const int8_t* wqkv = (const int8_t*)p.wqkv + (size_t)l * 3 * N * row_bytes<BITS>(D);
-    const int8_t* wo = (const int8_t*)p.wo + (size_t)l * D * row_bytes<BITS>(N);
-    const int8_t* wgu = (const int8_t*)p.wgu + (size_t)l * 2 * F * row_bytes<BITS>(D);
-    const int8_t* wd = (const int8_t*)p.wd + (size_t)l * D * row_bytes<BITS>(F);
+  unsigned* hxo = narrow ? (unsigned*)p.hx : nullptr;
+  // the residual as a phase reads it: tagged words with the tag of the
+  // write before (narrow), or plain h after a grid barrier
+  auto residual = [&](GemvArgs& x, int l, unsigned tag) {
+    if (l == 0) x.hin = emb_row;
+    else if (narrow) { x.hinx = hx; x.hin_tag = tag; }
+    else x.hin = h;
+  };
+  for (int l = 0; l < L; ++l) {
+    const unsigned h_in = write_tag(epoch * 2u * L + 2u * l - 1u);   // DOWN of layer l - 1
+    const unsigned h_mid = write_tag(epoch * 2u * L + 2u * l);       // WO of layer l
     GemvArgs a = {};
-    a.W = wqkv;
+    a.W = (const int8_t*)p.wqkv + (size_t)l * 3 * N * row_bytes<BITS>(D);
     a.s = (const float*)p.wqs + (size_t)l * 3 * N;
-    a.R = 3 * N; a.C = D; a.h = h; a.nw = (const float*)p.attn_norm + (size_t)l * D; a.eps = p.eps;
-    a.tok = l == 0 ? tok_in : nullptr; a.emb = (const bf16*)p.emb; a.out = (float*)p.qkv;
-    gemv_phase<BITS, 4, 2, QKV>(a, smem, bid, nblk, sync);
+    a.R = 3 * N; a.C = D; a.nw = (const float*)p.attn_norm + (size_t)l * D; a.eps = p.eps;
+    residual(a, l, h_in);
+    a.out = (float*)p.qkv;
+    const unsigned qkv_tag = write_tag(epoch * (unsigned)L + l);
+    if (narrow) { a.outx = (unsigned long long*)p.qkvx; a.out_tag = qkv_tag; }
+    sync.grid = !narrow && l > 0;
+    step_gemv<BITS, QKV>(a, smem, bid, nblk, sync);
+    sync.grid = !narrow;
     attn_phase((const float*)p.qkv, (const float*)p.invf, (bf16*)p.k_all + (size_t)l * S * N,
                (bf16*)p.v_all + (size_t)l * S * N, (float*)p.part, p.H, p.hd, t, off, nsplit,
-               p.scale, smem, bid, nblk, sync);
+               p.scale, smem, bid, nblk, sync, narrow ? (const unsigned long long*)p.qkvx : nullptr, qkv_tag);
     GemvArgs o = {};
-    o.W = wo;
+    o.W = (const int8_t*)p.wo + (size_t)l * D * row_bytes<BITS>(N);
     o.s = (const float*)p.wos + (size_t)l * D;
-    o.R = D; o.C = N; o.h = h; o.part = (const float*)p.part; o.hd = p.hd; o.nsplit = nsplit;
-    gemv_phase<BITS, 1, 2, WO>(o, smem, bid, nblk, sync);
+    o.R = D; o.C = N; o.part = (const float*)p.part; o.hd = p.hd; o.nsplit = nsplit;
+    residual(o, l, h_in);
+    if (narrow) { o.houtx = hxo; o.hout_tag = h_mid; }
+    else o.hout = h;
+    sync.grid = true;   // every head's partials
+    step_gemv<BITS, WO>(o, smem, bid, nblk, sync);
+    sync.grid = !narrow;
     GemvArgs g = {};
-    g.W = wgu;
+    g.W = (const int8_t*)p.wgu + (size_t)l * 2 * F * row_bytes<BITS>(D);
     g.s = (const float*)p.wgus + (size_t)l * 2 * F;
-    g.R = 2 * F; g.C = D; g.h = h; g.nw = (const float*)p.mlp_norm + (size_t)l * D; g.eps = p.eps;
-    g.act = (bf16*)p.act;
-    gemv_phase<BITS, 8, 2, GATE_UP>(g, smem, bid, nblk, sync);
+    g.R = 2 * F; g.C = D; g.nw = (const float*)p.mlp_norm + (size_t)l * D; g.eps = p.eps;
+    residual(g, l + 1, h_mid);
+    if (narrow) { g.actx = (unsigned*)p.actx; g.act_tag = write_tag(epoch * (unsigned)L + l); }
+    else g.act = (bf16*)p.act;
+    step_gemv<BITS, GATE_UP>(g, smem, bid, nblk, sync);
     GemvArgs d = {};
-    d.W = wd;
+    d.W = (const int8_t*)p.wd + (size_t)l * D * row_bytes<BITS>(F);
     d.s = (const float*)p.wds + (size_t)l * D;
-    d.R = D; d.C = F; d.h = h; d.xin = (const bf16*)p.act;
-    gemv_phase<BITS, 1, 8, DOWN>(d, smem, bid, nblk, sync);
+    d.R = D; d.C = F;
+    if (narrow) { d.xinx = actx; d.xin_tag = g.act_tag; }
+    else d.xin = (const bf16*)p.act;
+    residual(d, l + 1, h_mid);
+    if (narrow) { d.houtx = hxo; d.hout_tag = write_tag(epoch * 2u * L + 2u * l + 1u); }
+    if (!narrow || l == L - 1) d.hout = h;   // narrow: the last residual, for the caller
+    step_gemv<BITS, DOWN>(d, smem, bid, nblk, sync);
   }
-  GemvArgs a = {};   // the head runs the QKV phase's code (no token: the residual is h)
-  a.W = (const int8_t*)p.head; a.s = (const float*)p.head_s; a.R = p.V; a.C = D; a.h = h;
+  GemvArgs a = {};   // the head: the QKV phase's arithmetic, the block's logits kept for the sampler
+  a.W = (const int8_t*)p.head; a.s = (const float*)p.head_s; a.R = p.V; a.C = D;
+  residual(a, L, write_tag(epoch * 2u * L + 2u * L - 1u));
   a.nw = (const float*)p.final_norm; a.eps = p.eps; a.out = (float*)p.logits;
-  gemv_phase<BITS, 4, 2, QKV>(a, smem, bid, nblk, sync);
-  sync.arrive();
-  sync.wait();
-  if (bid == 0)
-    sample_phase<THREADS, SAMPLE_VPT>((const float*)p.logits, p.V, p.pad_id, p.bos_id, p.eos_id,
-                                       suppress, p.greedy, p.temperature, p.top_k, (uint32_t)seed,
-                                       (int*)p.tok_out, smem);
+  a.slot_val = slot_val; a.slot_id = slot_id;
+  step_gemv<BITS, HEAD>(a, smem, bid, nblk, sync);
+  sync.grid = false;
+
+  SampleArgs sa{p.V, p.pad_id, p.bos_id, p.eos_id, suppress, p.greedy, p.top_k, p.temperature,
+                (uint32_t)seed, (unsigned*)p.cand, (int*)p.tok_out};
+  __syncthreads();   // the block's logits are in slot_val
+  if (threadIdx.x < 32) sample_local(sa, slot_val, slot_id, bid);
   __syncthreads();
-  if (threadIdx.x == 0) sync.stamp(0);   // the step's end, in the slot after the last barrier
+  if (threadIdx.x == 0) {   // the ticket: the last block to take it merges
+    sync.stamp(0);
+    __threadfence();
+    is_last = atomicAdd(bar + BAR_TICKET, 1u) == (unsigned)nblk - 1;
+    if (is_last) __threadfence();
+    sync.stamp(1);
+  }
+  __syncthreads();
+  if (is_last) {
+    sample_merge(sa, nblk, smem);
+    if (threadIdx.x == 0) bar[BAR_EPOCH] = epoch + 1;   // the next step's tags
+  }
+  ++sync.idx;
+  if (threadIdx.x == 0) sync.stamp(0);   // the step's end, in the slot after the last wait
 }
 
 template <int BITS>
 int mega_persistent(const DecodePlan& p, const int* tok_in, int t, int off, int suppress, int seed,
                     cudaStream_t st) {
-  size_t smem = gemv_smem(p.D, BITS, true);   // also holds the sampler's 192 floats
+  const int nblk = sm_count();
+  if (nblk > MAX_LISTS || p.V > SAMPLE_ROWS * (nblk - 1)) return (int)cudaErrorInvalidValue;
+  size_t smem = gemv_smem(p.D, BITS, true);
   const size_t wide = gemv_smem(max(p.H * p.hd, p.F), BITS, false);
   if (wide > smem) smem = wide;
   if (attn_smem(p.hd, WARPS) > smem) smem = attn_smem(p.hd, WARPS);
+  const size_t merge = (size_t)nblk * (4 + SAMPLE_ROWS) * sizeof(float);
+  if (merge > smem) smem = merge;
+  static size_t smem_set = 0;   // above 48 KB a kernel must be allowed more dynamic shared memory
+  if (smem > 48 * 1024 && smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(mega_persistent_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
   int occ = 0;   // the grid is one block an SM, all co-resident
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &occ, mega_persistent_kernel<BITS>, THREADS, smem);
   if (e != cudaSuccess) return (int)e;
   if (occ < 1) return (int)cudaErrorLaunchOutOfResources;
-  e = cudaMemsetAsync(p.bar, 0, sizeof(unsigned), st);
+  e = cudaMemsetAsync((unsigned*)p.bar + BAR_GRID, 0, (BAR_WORDS - BAR_GRID) * sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
   DecodePlan pv = p;
   void* args[] = {&pv, &tok_in, &t, &off, &suppress, &seed};
-  e = cudaLaunchCooperativeKernel((void*)mega_persistent_kernel<BITS>, dim3(sm_count()),
+  e = cudaLaunchCooperativeKernel((void*)mega_persistent_kernel<BITS>, dim3(nblk),
                                   dim3(THREADS), args, smem, st);
   return (int)e;
 }
@@ -1033,15 +1688,21 @@ int mega_persistent(const DecodePlan& p, const int* tok_in, int t, int off, int 
 }  // namespace
 
 // All entry points: `bits` is 8 (int8 weights, one value a byte) or 4 (two
-// offset-binary values a byte along the contraction axis, low nibble = even
-// index); weights are output-major rows; every pointer is device memory on
+// offset-binary values a byte, rows in complete groups of 16 in mma
+// fragment order and the rest in plain byte order: ops/decode_step.py
+// pack4); weights are output-major rows; every pointer is device memory on
 // `stream`'s device; the return value is the first CUDA error (or
 // cudaErrorInvalidValue for another `bits`).
 
-// Attention partials per head that `part` buffers must hold, and the floats
-// of one partial beyond its hd channels.
+// Attention partials per head that `part` buffers must hold, the floats of
+// one partial beyond its hd channels, the words of a step's `bar` buffer,
+// the words of one block's sampler list, and the logits a block keeps for
+// the sampler.
 extern "C" int decode_max_splits() { return MAX_SPLITS; }
 extern "C" int decode_part_pad() { return PART_PAD; }
+extern "C" int decode_bar_words() { return BAR_WORDS; }
+extern "C" int decode_cand_words() { return CAND_WORDS; }
+extern "C" int decode_sample_rows() { return SAMPLE_ROWS; }
 
 // One attention half-layer. h bf16 [D] and the caches kc/vc bf16 [S, N]
 // (row t) are updated in place. wqkv [3N, D], wo [D, N]; scales f32 [3N],
@@ -1052,17 +1713,11 @@ extern "C" int attn_step(void* h, const void* nw, const void* wqkv, const void* 
                          void* vc, void* qkv, void* part, int D, int H, int hd, int S,
                          int t, int off, float eps, float scale, int bits, void* stream) {
   (void)S;
+  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
   Chain ch{(cudaStream_t)stream};
-  if (bits == 8)
-    attn_half<8>(ch, (bf16*)h, (const float*)nw, (const int8_t*)wqkv, (const float*)wqs,
-                 (const int8_t*)wo, (const float*)wos, (const float*)invf, (bf16*)kc, (bf16*)vc,
-                 (float*)qkv, (float*)part, D, H, hd, t, off, eps, scale);
-  else if (bits == 4)
-    attn_half<4>(ch, (bf16*)h, (const float*)nw, (const int8_t*)wqkv, (const float*)wqs,
-                 (const int8_t*)wo, (const float*)wos, (const float*)invf, (bf16*)kc, (bf16*)vc,
-                 (float*)qkv, (float*)part, D, H, hd, t, off, eps, scale);
-  else
-    return (int)cudaErrorInvalidValue;
+  attn_half(ch, bits, (bf16*)h, (const float*)nw, (const int8_t*)wqkv, (const float*)wqs,
+            (const int8_t*)wo, (const float*)wos, (const float*)invf, (bf16*)kc, (bf16*)vc,
+            (float*)qkv, (float*)part, D, H, hd, t, off, eps, scale);
   return (int)ch.err;
 }
 
@@ -1071,15 +1726,10 @@ extern "C" int attn_step(void* h, const void* nw, const void* wqkv, const void* 
 extern "C" int mlp_step(void* h, const void* nw, const void* wgu, const void* wgus,
                         const void* wd, const void* wds, void* act, int D, int F,
                         float eps, int bits, void* stream) {
+  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
   Chain ch{(cudaStream_t)stream};
-  if (bits == 8)
-    mlp_half<8>(ch, (bf16*)h, (const float*)nw, (const int8_t*)wgu, (const float*)wgus,
-                (const int8_t*)wd, (const float*)wds, (bf16*)act, D, F, eps);
-  else if (bits == 4)
-    mlp_half<4>(ch, (bf16*)h, (const float*)nw, (const int8_t*)wgu, (const float*)wgus,
-                (const int8_t*)wd, (const float*)wds, (bf16*)act, D, F, eps);
-  else
-    return (int)cudaErrorInvalidValue;
+  mlp_half(ch, bits, (bf16*)h, (const float*)nw, (const int8_t*)wgu, (const float*)wgus,
+           (const int8_t*)wd, (const float*)wds, (bf16*)act, D, F, eps);
   return (int)ch.err;
 }
 
@@ -1088,12 +1738,15 @@ extern "C" int mlp_step(void* h, const void* nw, const void* wgu, const void* wg
 // wo [L,D,N], wgu [L,2F,D] (gate rows then up rows), wd [L,D,F], head
 // [V,D]; scales f32 [L,3N], [L,D], [L,2F], [L,D], [V]; norms f32 [L,D] /
 // [D]; emb bf16 [V,D]; invf f32 [hd/2]. Caches k_all/v_all bf16 [L,S,N] are
-// updated in place at row t. Scratch: h bf16 [D] (holds the last layer's
+// updated in place at row t. Scratch: h bf16 [D] (the last layer's
 // residual on return), qkv f32 [3N], part f32 [H, MAX_SPLITS, hd +
-// PART_PAD], act bf16 [F], logits f32 [V], tok_out int32 [1], bar uint32
-// [1]; stamps is null or int64 [5 L + 3, SMs, 2] (when each block arrived
-// at and left each grid barrier, in ns). tok_in is int32 [1] on the device
-// (it may be tok_out).
+// PART_PAD], act bf16 [F] (unused by the step), logits f32 [V], tok_out
+// int32 [1], bar uint32 [BAR_WORDS], hx uint32 [D], actx uint32 [F], qkvx
+// uint64 [3N] (bar, hx, actx and qkvx zeroed once, when the scratch is
+// made), cand uint32
+// [SMs, CAND_WORDS]; stamps is null or int64 [5 L + 3, SMs, 2] (when each
+// block arrived at and left each wait, in ns). tok_in is int32 [1] on the
+// device (it may be tok_out). V <= SAMPLE_ROWS x (SMs - 1).
 extern "C" int mega_decode_step(const void* plan, const void* tok_in, int t, int off,
                                 int suppress, int seed, void* stream) {
   const DecodePlan& p = *(const DecodePlan*)plan;

@@ -1,8 +1,8 @@
 """B=1 decode of the speech-token LM: the CUDA kernels and their plain twins.
 
 Counterpart of the JAX ``ops/pallas_decode.py``: ``mega_decode_step`` (the
-whole step, int8 or int4 weights), ``attn_step`` and ``mlp_step`` (its two
-half-layers, int8). The kernels live in ``csrc/decode_step.cu``, one C
+whole step), ``attn_step`` and ``mlp_step`` (its two half-layers), each at
+int8 or int4 weights. The kernels live in ``csrc/decode_step.cu``, one C
 entry point per function, so one call here is one op. A CPU cache or
 residual takes the ``*_plain`` version, which rounds at the same points as
 the kernels; a CUDA one launches the kernels or raises. ``launches`` on each
@@ -10,20 +10,21 @@ wrapper counts launched ops (``mega_decode_step.launches`` the int8 steps,
 ``mega_decode_step.launches_int4`` the int4 steps).
 
 The kernels split the attention over the live cache slots into partials per
-(head, split) and merge them in the ``wo`` projection's prologue, and their
-sampler finds the top-k threshold two distinct values a round;
-``attn_vector_split_plain`` and ``topk_threshold_tiled`` are that arithmetic
-in plain PyTorch, held against ``attn_vector_plain`` and
-``topk_threshold_plain`` by the CPU tests.
+(head, split) and merge them in the ``wo`` projection's prologue; the int4
+dots run on the tensor cores, tile by tile, in their own order of f32 sums;
+the step's sampler keeps each block's distinct levels and merges them in
+the last block. ``attn_vector_split_plain``, ``matvec4_plain`` and
+``sample_merged_plain`` (``topk_threshold_merged``) are that arithmetic in
+plain PyTorch, held against ``attn_vector_plain``, the plain product and
+``sample_plain`` (``topk_threshold_plain``) by the CPU tests.
 
 Weights come from ``models/token_lm.mega_decode_params`` (output-major, one
 row per output channel) and ``unstack_decode_params`` (per-layer views of
-them). int4 rows hold two consecutive contraction elements a byte, both
-offset-binary (value + 8), the even index in the low nibble (``pack4`` /
-``unpack4``); the step tells the two widths apart by the rows' byte length.
-Both versions of the step draw their Gumbel noise from the same
-Philox4x32-10 stream (key = the step's seed, counter = vocab id), so a
-sampled step is reproducible across them.
+them). int4 bytes hold two offset-binary values (value + 8) in the order of
+the kernel's mma fragments (``pack4`` / ``unpack4``); the kernels tell the
+two widths apart by the rows' byte length. Both versions of the step draw
+their Gumbel noise from the same Philox4x32-10 stream (key = the step's
+seed, counter = vocab id), so a sampled step is reproducible across them.
 """
 
 from __future__ import annotations
@@ -38,11 +39,14 @@ from .cuda_build import check, forward_only, function
 
 NEG_INF = -1e30
 # A GEMV block keeps its input vector (and, where it normalises the
-# residual, the norm weights) as f32 in at most 48 KB of dynamic shared
-# memory; the sampler keeps 32 logits a thread in the registers of 256
-# threads. Beyond these sizes the wrapper raises.
+# residual, the norm weights) in at most 48 KB of dynamic shared memory; the
+# step's sampler keeps at most 32 logits a block (SAMPLE_ROWS), one block
+# an SM: the vocabulary is at most 32 x (SMs - 1) (4,192 on the 132 SMs of
+# an H100). Beyond these sizes the wrapper raises.
 SMEM_FLOATS = 48 * 1024 // 4 - 32
-MAX_VOCAB = 8192
+SAMPLE_ROWS = 32
+MAX_VOCAB = SAMPLE_ROWS * (132 - 1)
+TILE_ROWS, TILE_K = 16, 64   # an int4 row-group and its tiles of contraction elements
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # hd / 8 lanes span one cache row
 # The split rule of the plain split attention (``attn_splits``): the one the
 # kernels were written with. The buffers the kernels get are sized from the
@@ -61,22 +65,67 @@ WEIGHT_KEYS = ("wqkv", "wo", "wgu", "wd", "head")   # the streams that int4 pack
 # ----------------------------------------------------------------------------- int4
 
 
+def _tiled_rows(shape) -> int:
+    """Rows of a [..., R, C] matrix that ``pack4`` lays out in fragment
+    order: the complete row-groups of 16, where C is a multiple of 64."""
+    if len(shape) < 2 or shape[-1] % TILE_K:
+        return 0
+    return shape[-2] // TILE_ROWS * TILE_ROWS
+
+
 def pack4(q: torch.Tensor) -> torch.Tensor:
-    """Values in [-8, 7], [..., C] (C even) -> int8-typed bytes [..., C/2]:
-    byte j holds element 2j in its low nibble and 2j+1 in its high nibble,
-    both offset-binary (value + 8)."""
+    """Values in [-8, 7], [..., R, C] (C even) -> int8-typed bytes
+    [..., R, C/2], every value offset-binary (value + 8).
+
+    The plain byte order: byte j of a row holds element 2j in its low
+    nibble and 2j+1 in its high nibble. The kernel's order, for the rows of
+    complete row-groups of 16 where C is a multiple of 64 (the rest keep
+    the plain order): a row-group's 8 C bytes are tiles of 64 contraction
+    elements, 512 bytes each, in which lane L = 4 g + q of a warp holds 16
+    bytes, four words, word s the lane's A fragment of ``mma.m16n8k16`` for
+    k-step s: nibble t (bits 4t) of the word is row g + 8 (t & 1) of the
+    group, element 64 kt + 16 s + 8 ((t >> 1) & 1) + 2 q + (t >> 2)."""
     if q.shape[-1] % 2:
         raise ValueError(f"pack4: contraction width {q.shape[-1]} must be even")
-    u = (q.to(torch.int16) + 8).reshape(q.shape[:-1] + (q.shape[-1] // 2, 2))
-    byte = u[..., 0] | (u[..., 1] << 4)
+    u = q.to(torch.int16) + 8
+    byte = u[..., 0::2] | (u[..., 1::2] << 4)
+    rt = _tiled_rows(q.shape)
+    if rt:
+        lead, C = q.shape[:-2], q.shape[-1]
+        n = len(lead)
+        # rows (j, a, g), elements (kt, s, b, q, e) -> bytes (j, kt, g, q, s, e, b), nibbles a
+        t = u[..., :rt, :].reshape(*lead, rt // 16, 2, 8, C // 64, 4, 2, 4, 2)
+        t = t.permute(*range(n), n, n + 3, n + 2, n + 6, n + 4, n + 7, n + 5, n + 1)
+        byte = byte.clone()
+        byte[..., :rt, :] = (t[..., 0] | (t[..., 1] << 4)).reshape(*lead, rt, C // 2)
     return torch.where(byte > 127, byte - 256, byte).to(torch.int8)
 
 
 def unpack4(b: torch.Tensor) -> torch.Tensor:
-    """Inverse of ``pack4``: bytes [..., C/2] -> int8 values [..., C]."""
+    """Inverse of ``pack4``: bytes [..., R, C/2] -> int8 values [..., R, C]."""
     u = b.to(torch.int16) & 0xFF
-    q = torch.stack([(u & 15) - 8, (u >> 4) - 8], dim=-1)
-    return q.reshape(b.shape[:-1] + (2 * b.shape[-1],)).to(torch.int8)
+    C = 2 * b.shape[-1]
+    q = torch.stack([u & 15, u >> 4], dim=-1).reshape(b.shape[:-1] + (C,))
+    rt = _tiled_rows(q.shape)
+    if rt:
+        lead = b.shape[:-2]
+        n = len(lead)
+        t = u[..., :rt, :].reshape(*lead, rt // 16, C // 64, 8, 4, 4, 2, 2)
+        t = torch.stack([t & 15, t >> 4], dim=-1)       # (j, kt, g, q, s, e, b, a)
+        t = t.permute(*range(n), n, n + 7, n + 2, n + 1, n + 4, n + 6, n + 3, n + 5)
+        q = q.clone()
+        q[..., :rt, :] = t.reshape(*lead, rt, C)
+    return (q - 8).to(torch.int8)
+
+
+def _row_bits(what: str, name: str, w: torch.Tensor, C: int) -> int:
+    """8 or 4: the width of weight rows whose contraction width is C, read
+    from their byte length."""
+    if w.shape[-1] == C:
+        return 8
+    if 2 * w.shape[-1] == C:
+        return 4
+    raise ValueError(f"{what}: {name} rows of {w.shape[-1]} bytes fit neither int8 nor int4 at width {C}")
 
 
 def weight_bits(mp: Dict[str, torch.Tensor]) -> int:
@@ -136,39 +185,36 @@ def topk_threshold_plain(y: torch.Tensor, top_k: int) -> torch.Tensor:
     return cur.max()
 
 
-def _merge_top2(a: Tuple[float, float], b: Tuple[float, float]) -> Tuple[float, float]:
-    """The two largest distinct values of two such pairs (-inf = none)."""
-    hi, lo_c = max(a[0], b[0]), min(a[0], b[0])
-    lo = max(a[1], b[1])
-    if lo_c < hi:
-        lo = max(lo, lo_c)
-    return hi, lo
+def _block_levels(vals, top_k: int):
+    """One block's list, as the kernel's ``sample_local`` writes it: its
+    distinct values in descending order, at most ``top_k`` of them."""
+    return sorted(set(vals), reverse=True)[:top_k]
 
 
-def topk_threshold_tiled(y: torch.Tensor, top_k: int, n_threads: int = 1024) -> torch.Tensor:
-    """The same threshold the way the kernel's sampler finds it: thread i
-    holds y[i::n_threads]; a round takes each thread's two largest distinct
-    values, merges them over the block and strips both levels (one level in
-    a last odd round); after k-1 levels the block max is the k-th largest
-    distinct value, raised to -1e30 (what stripped entries hold in the
-    reference) when k >= 2."""
-    inf = float("inf")
-    tiles = [y[i::n_threads].tolist() for i in range(min(n_threads, y.shape[0]))]
-    left = top_k - 1
-    while left > 0:
-        top = (-inf, -inf)
-        for vals in tiles:
-            h1 = h2 = -inf
-            for v in vals:
-                if v > h1:
-                    h1, h2 = v, h1
-                elif h2 < v < h1:
-                    h2 = v
-            top = _merge_top2(top, (h1, h2))
-        cut = top[1] if left >= 2 and top[1] > -inf else top[0]
-        tiles = [[-inf if v >= cut else v for v in vals] for vals in tiles]
-        left -= 2
-    thr = max(max(vals) for vals in tiles)
+def _merged_kth(lists, top_k: int) -> float:
+    """The kernel's ``sample_merge``: a round takes the largest head of all
+    lists as the next distinct level and advances every list at it; the
+    k-th level (-inf where fewer than k exist)."""
+    pos = [0] * len(lists)
+    level = -float("inf")
+    for _ in range(top_k):
+        heads = [lv[p] if p < len(lv) else -float("inf") for lv, p in zip(lists, pos)]
+        level = max(heads, default=-float("inf"))
+        if level == -float("inf"):
+            break
+        pos = [p + (h == level) for p, h in zip(pos, heads)]
+    return level
+
+
+def topk_threshold_merged(y: torch.Tensor, top_k: int, rows: int = SAMPLE_ROWS) -> torch.Tensor:
+    """The same threshold the way the kernel's sampler finds it: blocks of
+    ``rows`` consecutive entries each keep their k largest distinct values,
+    the lists are merged into the k-th largest distinct value of all, and
+    that is raised to -1e30 (what stripped entries hold in the reference)
+    when k >= 2."""
+    vals = y.tolist()
+    lists = [_block_levels(vals[i:i + rows], top_k) for i in range(0, len(vals), rows)]
+    thr = _merged_kth(lists, top_k)
     if top_k >= 2:
         thr = max(thr, NEG_INF)
     return torch.tensor(thr, dtype=y.dtype, device=y.device)
@@ -204,6 +250,50 @@ def sample_plain(logits: torch.Tensor, **kw) -> int:
     return int(fid[y >= y.max()].min())
 
 
+def sample_merged_plain(
+    logits: torch.Tensor, *, pad_id: int, bos_id: int, eos_id: int, suppress: bool,
+    greedy: bool, temperature: float, top_k: int, seed: int, rows: int = SAMPLE_ROWS,
+) -> int:
+    """The step kernel's sampler as it runs: blocks of ``rows`` logits each
+    send a record, the last block merges them. A block's record: the best
+    (score, id) of all its entries and, with a top-k threshold, per
+    distinct level (at most k, descending) the best (score, id) at or above
+    it and the smallest id below it; the merge finds the k-th distinct
+    level of all blocks, thresholds it as the reference does, and takes
+    from each block the record of its last level at or above the
+    threshold: survivors keep their score, the rest count as -1e30.
+    Returns the token: the largest score, the smallest id among ties."""
+    V = logits.shape[0]
+    fid = torch.arange(V)
+    bad = (fid == pad_id) | (fid == bos_id) | ((fid == eos_id) & bool(suppress))
+    y = torch.where(bad, torch.full((V,), NEG_INF), logits.detach().float().cpu())
+    if not greedy:
+        y = y / np.float32(max(temperature, 1e-6))
+        u = torch.from_numpy(gumbel_uniform(seed, V))
+        noisy = torch.where(y > 0.5 * NEG_INF, y - torch.log(-torch.log(u)), y)
+    score = (y if greedy else noisy).tolist()
+    y = y.tolist()
+    best = lambda pairs: min(pairs, key=lambda p: (-p[0], p[1]))   # largest score, then smallest id
+    blocks = [range(i, min(V, i + rows)) for i in range(0, V, rows)]
+    if greedy or top_k <= 0:
+        return best([best([(score[i], i) for i in b]) for b in blocks])[1]
+    lists = [_block_levels([y[i] for i in b], top_k) for b in blocks]
+    thr = _merged_kth(lists, top_k)
+    if top_k >= 2:
+        thr = max(thr, NEG_INF)
+    cands = []
+    for b, levels in zip(blocks, lists):
+        kept = [lv for lv in levels if lv >= thr]
+        if kept:   # the block's record at its last level at or above the threshold
+            cands.append(best([(score[i], i) for i in b if y[i] >= kept[-1]]))
+            below = [i for i in b if y[i] < kept[-1]]
+        else:
+            below = list(b)
+        if below:
+            cands.append((NEG_INF, min(below)))
+    return best(cands)[1]
+
+
 def _rms_bf16(h: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """bf16(h * rsqrt(mean(h^2) + eps) * w), returned as f32."""
     return (h * torch.rsqrt((h * h).mean(-1, keepdim=True) + eps) * w).to(torch.bfloat16).float()
@@ -214,11 +304,47 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def head_logits_plain(h: torch.Tensor, mp: Dict[str, torch.Tensor], eps: float) -> torch.Tensor:
+def matvec_plain(w: torch.Tensor, x: torch.Tensor, slices: int = 8) -> torch.Tensor:
+    """The plain steps' product: int8-valued rows [R, C] . f32 x [C]."""
+    return w.float() @ x
+
+
+def matvec4_plain(w: torch.Tensor, x: torch.Tensor, slices: int = 8) -> torch.Tensor:
+    """The int4 kernel's product on int8-valued rows [R, C] (values in
+    [-8, 7]) and a bf16-valued x, in the kernel's order of f32 sums: a
+    row-group of 16 rows in tiles of 64 elements, four k-steps of 16 a tile;
+    one k-step is one mma (its 16 products are exact; their sum is taken
+    here in f64 and rounded once); ``slices`` warps take tiles kt = w, w +
+    slices, ... and add the even k-steps into one accumulator and the odd
+    ones into another, in tile order; a row's sum is the two accumulators'
+    sum, then the warps' in warp order. Rows past the last complete group
+    of 16 are the tail the kernel sums in f32 chunk by chunk (here: the
+    plain product)."""
+    R, C = w.shape
+    rt = _tiled_rows(w.shape)
+    out = w.float() @ x
+    if rt == 0:
+        return out
+    nk = C // TILE_K
+    steps = (w[:rt].double() * x.double()).reshape(rt, nk, 4, 16).sum(-1).float()
+    total = None
+    for ks in range(slices):
+        acc = [torch.zeros(rt, dtype=torch.float32, device=w.device) for _ in range(2)]
+        for kt in range(ks, nk, slices):
+            for st in range(4):
+                acc[st % 2] = acc[st % 2] + steps[:, kt, st]
+        part = acc[0] + acc[1]
+        total = part if total is None else total + part
+    out[:rt] = total
+    return out
+
+
+def head_logits_plain(h: torch.Tensor, mp: Dict[str, torch.Tensor], eps: float,
+                      matvec=matvec_plain) -> torch.Tensor:
     """Final rmsnorm + speech-head GEMV (int8-valued rows) of a residual h
     -> f32 logits [V]."""
     xn = _rms_bf16(h.float().reshape(-1), mp["final_norm"], eps)
-    return (mp["head"].float() @ xn) * mp["head_s"]
+    return matvec(mp["head"], xn) * mp["head_s"]
 
 
 def attn_splits(n: int, cap: int = MAX_SPLITS) -> int:
@@ -285,20 +411,21 @@ def attn_step_plain(
     wo: torch.Tensor, wos: torch.Tensor, invf: torch.Tensor,
     k_cache: torch.Tensor, v_cache: torch.Tensor, t: int, off: int, *,
     n_heads: int, head_dim: int, eps: float,
-    bounds: Optional[Sequence[Tuple[int, int]]] = None,
+    bounds: Optional[Sequence[Tuple[int, int]]] = None, matvec=matvec_plain,
 ) -> torch.Tensor:
     """Plain twin of the attention half-layer: h [1, D] bf16 -> new h
     [1, D] bf16; writes row t of k_cache/v_cache [S, H*hd] in place.
     Weights are int8-valued output-major rows (wqkv [3N, D], wo [D, N]).
     With ``bounds`` the attention is computed split by split
-    (``attn_vector_split_plain``), else in one piece."""
+    (``attn_vector_split_plain``), else in one piece; ``matvec`` is the
+    product (``matvec4_plain``: the int4 kernel's order of sums)."""
     H, hd = n_heads, head_dim
     N = H * hd
     hf = h.float().reshape(-1)
     ang = torch.tensor(float(max(t - off, 0)), device=h.device) * invf
     cos, sin = torch.cos(ang), torch.sin(ang)
     x = _rms_bf16(hf, attn_norm, eps)
-    qkv = (wqkv.float() @ x) * wqs
+    qkv = matvec(wqkv, x) * wqs
     q = _rope(qkv[:N].view(H, hd), cos, sin)
     k = _rope(qkv[N:2 * N].view(H, hd), cos, sin)
     v = qkv[2 * N:].view(H, hd)
@@ -309,22 +436,24 @@ def attn_step_plain(
     vec = attn_vector_plain(q, k, v, kc, vc) if bounds is None else \
         attn_vector_split_plain(q, k, v, kc, vc, bounds)
     attn = vec.reshape(N).to(torch.bfloat16).float()
-    return (hf + (wo.float() @ attn) * wos).to(torch.bfloat16)[None]
+    return (hf + matvec(wo, attn) * wos).to(torch.bfloat16)[None]
 
 
 def mlp_step_plain(
     h: torch.Tensor, mlp_norm: torch.Tensor, wgu: torch.Tensor, wgus: torch.Tensor,
-    wd: torch.Tensor, wds: torch.Tensor, *, eps: float,
+    wd: torch.Tensor, wds: torch.Tensor, *, eps: float, matvec=matvec_plain,
 ) -> torch.Tensor:
     """Plain twin of the MLP half-layer: h [1, D] bf16 -> new h [1, D] bf16.
-    wgu [2F, D] (gate rows then up rows) and wd [D, F] are int8-valued."""
+    wgu [2F, D] (gate rows then up rows) and wd [D, F] are int8-valued; the
+    kernels split a gate|up row-group's tiles over four warps, the others'
+    over eight (``matvec``'s ``slices``)."""
     F = wgu.shape[0] // 2
     hf = h.float().reshape(-1)
     x = _rms_bf16(hf, mlp_norm, eps)
-    gu = (wgu.float() @ x) * wgus
+    gu = matvec(wgu, x, 4) * wgus
     g, u = gu[:F], gu[F:]
     act = (g * torch.sigmoid(g) * u).to(torch.bfloat16).float()
-    return (hf + (wd.float() @ act) * wds).to(torch.bfloat16)[None]
+    return (hf + matvec(wd, act) * wds).to(torch.bfloat16)[None]
 
 
 def mega_decode_step_plain(
@@ -333,6 +462,7 @@ def mega_decode_step_plain(
     t: int, off: int, suppress: bool, seed: int, *,
     n_heads: int, head_dim: int, eps: float, pad_id: int, bos_id: int,
     eos_id: int, greedy: bool = True, temperature: float = 1.0, top_k: int = 0,
+    matvec=matvec_plain,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin of the CUDA step (same inputs, same rounding
     points): the embedding row, ``attn_step_plain`` and ``mlp_step_plain``
@@ -340,14 +470,14 @@ def mega_decode_step_plain(
     Updates k_all/v_all [L, S, H*hd] at row t in place; returns
     (h_last [1, D] bf16, next token [1] int32)."""
     mp = unpack_decode_params(mp)
-    kw = dict(n_heads=n_heads, head_dim=head_dim, eps=eps)
+    kw = dict(n_heads=n_heads, head_dim=head_dim, eps=eps, matvec=matvec)
     h = mp["emb"][int(tok_in.reshape(-1)[0])][None]
     for l in range(k_all.shape[0]):
         h = attn_step_plain(h, mp["attn_norm"][l], mp["wqkv"][l], mp["wqs"][l], mp["wo"][l],
                             mp["wos"][l], mp["invf"], k_all[l], v_all[l], t, off, **kw)
         h = mlp_step_plain(h, mp["mlp_norm"][l], mp["wgu"][l], mp["wgus"][l], mp["wd"][l],
-                           mp["wds"][l], eps=eps)
-    logits = head_logits_plain(h, mp, eps)
+                           mp["wds"][l], eps=eps, matvec=matvec)
+    logits = head_logits_plain(h, mp, eps, matvec)
     nxt = sample_plain(
         logits, pad_id=pad_id, bos_id=bos_id, eos_id=eos_id, suppress=suppress,
         greedy=greedy, temperature=temperature, top_k=top_k, seed=seed,
@@ -362,9 +492,10 @@ class _Plan(ctypes.Structure):
     """Field by field the ``DecodePlan`` of csrc/decode_step.cu."""
     _fields_ = ([(k, ctypes.c_void_p) for k in MP_KEYS]
                 + [(k, ctypes.c_void_p) for k in ("k_all", "v_all", "h", "qkv", "part", "act",
-                                                  "logits", "tok_out", "bar", "stamps")]
+                                                  "logits", "tok_out", "bar", "stamps", "hx", "actx",
+                                                  "cand", "qkvx")]
                 + [(k, ctypes.c_int) for k in ("L", "D", "H", "hd", "F", "V", "S", "pad_id", "bos_id",
-                                               "eos_id", "greedy", "top_k", "bits")]
+                                               "eos_id", "greedy", "top_k", "bits", "narrow")]
                 + [(k, ctypes.c_float) for k in ("eps", "scale", "temperature")])
 
 
@@ -374,45 +505,64 @@ class DecodeScratch(dict):
     constants of that step's params, cache and sampler, so later steps pass
     only what changes."""
 
-    def __init__(self, tensors):
+    def __init__(self, tensors, narrow: bool = True):
         super().__init__(tensors)
         self.plan = None      # (_Plan, address of it, pointers it was made from, constants)
+        self.narrow = narrow  # the narrow waits, or a grid barrier before every phase
+
+
+def _lib_int(name: str) -> int:
+    return function("decode_step", name, [])()
 
 
 def part_shape(n_heads: int, head_dim: int) -> Tuple[int, int, int]:
     """Shape of the attention partials buffer (f32) the built kernels take:
     per head, the most splits they make, each acc[hd], m, l and padding."""
-    max_splits, pad = (function("decode_step", name, [])() for name in
-                       ("decode_max_splits", "decode_part_pad"))
-    return (n_heads, max_splits, head_dim + pad)
+    return (n_heads, _lib_int("decode_max_splits"), head_dim + _lib_int("decode_part_pad"))
 
 
-def _scratch_spec(D: int, H: int, hd: int, F: int, V: int):
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+ZEROED = ("bar", "hx", "actx", "qkvx")   # zeroed once: the step's write counts and its tagged words
+
+
+def _scratch_spec(D: int, H: int, hd: int, F: int, V: int, sms: int):
+    i32 = torch.int32
     return {
         "h": ((1, D), torch.bfloat16), "qkv": ((3 * H * hd,), torch.float32),
         "part": (part_shape(H, hd), torch.float32), "act": ((F,), torch.bfloat16),
-        "logits": ((V,), torch.float32), "tok": ((1,), torch.int32), "bar": ((1,), torch.int32),
+        "logits": ((V,), torch.float32), "tok": ((1,), i32),
+        "bar": ((_lib_int("decode_bar_words"),), i32), "hx": ((D,), i32), "actx": ((F,), i32),
+        "qkvx": ((3 * H * hd,), torch.int64), "cand": ((sms, _lib_int("decode_cand_words")), i32),
     }
 
 
 def decode_scratch(mp: Dict[str, torch.Tensor], n_heads: int, head_dim: int,
-                   device, stamps: bool = False) -> DecodeScratch:
+                   device, stamps: bool = False, narrow: bool = True) -> DecodeScratch:
     """The step kernel's buffers on a CUDA device, to allocate once per
-    request and pass to every step: h [1, D] bf16, qkv f32, the attention
-    partials f32, act bf16, logits f32, tok [1] int32 and the grid barrier's
-    counter. The first step on it checks every tensor once and keeps the
-    plan here; a later step with other params, caches or sampler raises.
-    ``stamps`` adds an int64 buffer [5 L + 3, SMs, 2] in which every block of
-    the kernel records, in nanoseconds of the card's timer, when it arrived
-    at and when it left each grid barrier; the slot after the last barrier
-    holds the step's end."""
+    request and pass to every step: h [1, D] bf16 (the last residual),
+    qkv f32, the attention partials f32, act bf16 (the half-layers'),
+    logits f32, tok [1] int32; and, zeroed here, ``bar`` (the count of
+    steps run on this scratch, the grid barrier's counter and the
+    sampler's ticket), ``hx`` / ``actx`` / ``qkvx`` (the residual, the
+    activation and q, k, v as tagged words between the kernel's blocks);
+    ``cand`` (each block's sampler list). The first step on it checks every tensor
+    once and keeps the plan here; a later step with other params, caches or
+    sampler raises. ``stamps`` adds an int64 buffer [5 L + 3, SMs, 2] in
+    which every block of the kernel records, in nanoseconds of the card's
+    timer, when it arrived at and when it left the wait before each phase
+    (5 a layer, the head, the sampler's ticket); the last slot holds the
+    step's end. ``narrow=False`` puts a grid barrier before every phase
+    instead of the narrow waits (what they save, in the stamps)."""
     if torch.device(device).type != "cuda":
         raise ValueError(f"decode scratch: the kernels' buffers live on a CUDA device, not on {device}")
     weight_bits(mp)   # raises on rows that fit neither width
     spec = _scratch_spec(mp["emb"].shape[1], n_heads, head_dim,
-                         mp["wgu"].shape[1] // 2, mp["head"].shape[0])
-    scratch = DecodeScratch({k: torch.empty(shape, dtype=dt, device=device)
-                             for k, (shape, dt) in spec.items()})
+                         mp["wgu"].shape[1] // 2, mp["head"].shape[0], _sms(device))
+    scratch = DecodeScratch({k: (torch.zeros if k in ZEROED else torch.empty)(shape, dtype=dt, device=device)
+                             for k, (shape, dt) in spec.items()}, narrow)
     if stamps:
         scratch["stamps"] = torch.zeros(_stamps_shape(mp["wqkv"].shape[0], device), dtype=torch.int64,
                                         device=device)
@@ -420,9 +570,9 @@ def decode_scratch(mp: Dict[str, torch.Tensor], n_heads: int, head_dim: int,
 
 
 def _stamps_shape(n_layers: int, device) -> Tuple[int, int, int]:
-    """One slot per grid barrier (5 a layer, the head, the sampler) and one
+    """One slot per wait (5 a layer, the head, the sampler's ticket) and one
     for the step's end, per block (one block an SM), arrival and leave."""
-    return (5 * n_layers + 3, torch.cuda.get_device_properties(device).multi_processor_count, 2)
+    return (5 * n_layers + 3, _sms(device), 2)
 
 
 def _check_tensors(what: str, dev, want: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]]) -> None:
@@ -438,15 +588,16 @@ def _check_tensors(what: str, dev, want: Dict[str, Tuple[torch.Tensor, tuple, to
 
 def _width_fault(bits: int, hd: Optional[int] = None, **widths: int) -> Optional[str]:
     """Why the kernels cannot run these widths, or None: every contraction
-    width a warp streams in 16-byte loads, the head width the attention's
-    lanes span (where there is attention), and the shared-memory cap."""
-    mult = 16 * 8 // bits   # elements per 16-byte load
+    width a warp streams in 16-byte loads (int4: in tiles of 64), the head
+    width the attention's lanes span (where there is attention), and the
+    shared-memory cap."""
+    mult = 16 if bits == 8 else TILE_K
     bad = {k: v for k, v in widths.items() if v % mult}
     if bad:
         return f"{bad} must be multiples of {mult} at {bits} bits"
     if hd is not None and hd not in HEAD_DIMS:
         return f"head_dim {hd} not in {HEAD_DIMS}"
-    span = 32 * mult        # the vector is laid out in rows of 32 loads: lengths round up to them
+    span = 32 * 16          # the int8 vector is laid out in rows of 32 loads: lengths round up to them
     padded = {k: -(-v // span) * span for k, v in widths.items()}
     if max(padded.values()) > SMEM_FLOATS or padded["D"] + widths["D"] > SMEM_FLOATS:
         return f"widths {widths} beyond the kernel's shared-memory cap {SMEM_FLOATS}"
@@ -484,8 +635,9 @@ def _make_plan(mp, k_all, v_all, scratch: DecodeScratch, const: tuple):
     if N != H * hd:
         raise ValueError(f"{what}: cache width {N} != n_heads*head_dim {H * hd} (GQA is not supported)")
     _check_widths(what, bits, hd, D=D, N=N, F=F)
-    if V > MAX_VOCAB:
-        raise ValueError(f"{what}: vocab {V} beyond the sampler's {MAX_VOCAB}")
+    if V > SAMPLE_ROWS * (_sms(dev) - 1):
+        raise ValueError(f"{what}: vocab {V} beyond the sampler's {SAMPLE_ROWS} logits a block on "
+                         f"{_sms(dev)} SMs")
     i8, f32, bf = torch.int8, torch.float32, torch.bfloat16
     shapes = {
         "emb": ((V, D), bf), "invf": ((hd // 2,), f32),
@@ -500,7 +652,7 @@ def _make_plan(mp, k_all, v_all, scratch: DecodeScratch, const: tuple):
     want = {name: (mp[name], shape, dtype) for name, (shape, dtype) in shapes.items()}
     want["k_all"] = (k_all, (L, S, N), bf)
     want["v_all"] = (v_all, (L, S, N), bf)
-    for name, (shape, dtype) in _scratch_spec(D, H, hd, F, V).items():
+    for name, (shape, dtype) in _scratch_spec(D, H, hd, F, V, _sms(dev)).items():
         if name not in scratch:
             raise ValueError(f"{what}: scratch lacks {name!r} (make it with decode_scratch)")
         want[f"scratch {name}"] = (scratch[name], shape, dtype)
@@ -514,8 +666,10 @@ def _make_plan(mp, k_all, v_all, scratch: DecodeScratch, const: tuple):
                  logits=scratch["logits"].data_ptr(), tok_out=scratch["tok"].data_ptr(),
                  bar=scratch["bar"].data_ptr(),
                  stamps=scratch["stamps"].data_ptr() if "stamps" in scratch else None,
+                 hx=scratch["hx"].data_ptr(), actx=scratch["actx"].data_ptr(),
+                 cand=scratch["cand"].data_ptr(), qkvx=scratch["qkvx"].data_ptr(),
                  L=L, D=D, H=H, hd=hd, F=F, V=V, S=S, pad_id=pad_id, bos_id=bos_id, eos_id=eos_id,
-                 greedy=int(bool(greedy)), top_k=int(top_k), bits=bits,
+                 greedy=int(bool(greedy)), top_k=int(top_k), bits=bits, narrow=int(scratch.narrow),
                  eps=float(eps), scale=hd ** -0.5, temperature=float(temperature))
     return plan, ctypes.addressof(plan), _plan_pointers(mp, k_all, v_all, scratch), const
 
@@ -611,33 +765,36 @@ def attn_step(
     n_heads: int, head_dim: int, eps: float,
     scratch: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """One decode attention half-layer (int8 weights). Unlike the JAX
-    function, which returns new arrays, this one updates ``h`` and row ``t``
-    of the caches in place and returns ``h``. ``scratch`` may hold the
-    kernels' ``qkv`` f32 [3N] and ``part`` f32 ``part_shape(H, hd)`` buffers
-    (as ``decode_scratch`` makes them); they are allocated per call
-    otherwise."""
+    """One decode attention half-layer (int8 weights, or int4 ones as
+    ``pack4`` lays them out). Unlike the JAX function, which returns new
+    arrays, this one updates ``h`` and row ``t`` of the caches in place and
+    returns ``h``. ``scratch`` may hold the kernels' ``qkv`` f32 [3N] and
+    ``part`` f32 ``part_shape(H, hd)`` buffers (as ``decode_scratch`` makes
+    them); they are allocated per call otherwise."""
     kw = dict(n_heads=n_heads, head_dim=head_dim, eps=eps)
     forward_only("attn_step", h, attn_norm, wqkv, wqs, wo, wos, invf, k_cache, v_cache)
+    what = "attn_step"
+    D = h.shape[-1]
+    bits = _row_bits(what, "wqkv", wqkv, D)
     if h.device.type == "cpu":
+        if bits == 4:
+            wqkv, wo = unpack4(wqkv), unpack4(wo)
         h.copy_(attn_step_plain(h, attn_norm, wqkv, wqs, wo, wos, invf, k_cache, v_cache, t, off, **kw))
         return h
-    what = "attn_step"
     dev = h.device
     S, N = k_cache.shape
     H, hd = n_heads, head_dim
-    D = h.shape[-1]
     if N != H * hd:
         raise ValueError(f"{what}: cache width {N} != n_heads*head_dim {H * hd} (GQA is not supported)")
-    _check_widths(what, 8, hd, D=D, N=N)
+    _check_widths(what, bits, hd, D=D, N=N)
     f32, bf, i8 = torch.float32, torch.bfloat16, torch.int8
     qkv = scratch["qkv"] if scratch else torch.empty((3 * N,), dtype=f32, device=dev)
     pshape = part_shape(H, hd)
     part = scratch["part"] if scratch else torch.empty(pshape, dtype=f32, device=dev)
     _check_tensors(what, dev, {
         "h": (h, (1, D), bf), "attn_norm": (attn_norm, (D,), f32),
-        "wqkv": (wqkv, (3 * N, D), i8), "wqs": (wqs, (3 * N,), f32),
-        "wo": (wo, (D, N), i8), "wos": (wos, (D,), f32), "invf": (invf, (hd // 2,), f32),
+        "wqkv": (wqkv, (3 * N, D * bits // 8), i8), "wqs": (wqs, (3 * N,), f32),
+        "wo": (wo, (D, N * bits // 8), i8), "wos": (wos, (D,), f32), "invf": (invf, (hd // 2,), f32),
         "k_cache": (k_cache, (S, N), bf), "v_cache": (v_cache, (S, N), bf),
         "scratch qkv": (qkv, (3 * N,), f32), "scratch part": (part, pshape, f32),
     })
@@ -647,7 +804,7 @@ def attn_step(
         h.data_ptr(), attn_norm.data_ptr(), wqkv.data_ptr(), wqs.data_ptr(), wo.data_ptr(),
         wos.data_ptr(), invf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         qkv.data_ptr(), part.data_ptr(), D, H, hd, S, int(t), int(off), float(eps),
-        hd ** -0.5, 8, torch.cuda.current_stream(dev).cuda_stream)
+        hd ** -0.5, bits, torch.cuda.current_stream(dev).cuda_stream)
     check(rc, what)
     attn_step.launches += 1
     return h
@@ -667,27 +824,31 @@ def mlp_step(
     eps: float,
     scratch: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """One decode MLP half-layer (int8 weights); updates ``h`` in place and
-    returns it. ``scratch`` may hold the kernel's ``act`` bf16 [F] buffer."""
+    """One decode MLP half-layer (int8 weights, or int4 ones as ``pack4``
+    lays them out); updates ``h`` in place and returns it. ``scratch`` may
+    hold the kernel's ``act`` bf16 [F] buffer."""
     forward_only("mlp_step", h, mlp_norm, wgu, wgus, wd, wds)
+    what = "mlp_step"
+    D = h.shape[-1]
+    bits = _row_bits(what, "wgu", wgu, D)
     if h.device.type == "cpu":
+        if bits == 4:
+            wgu, wd = unpack4(wgu), unpack4(wd)
         h.copy_(mlp_step_plain(h, mlp_norm, wgu, wgus, wd, wds, eps=eps))
         return h
-    what = "mlp_step"
     dev = h.device
-    D = h.shape[-1]
-    F = wd.shape[-1]
-    _check_widths(what, 8, D=D, F=F)
+    F = wd.shape[-1] * 8 // bits
+    _check_widths(what, bits, D=D, F=F)
     f32, bf, i8 = torch.float32, torch.bfloat16, torch.int8
     act = scratch["act"] if scratch else torch.empty((F,), dtype=bf, device=dev)
     _check_tensors(what, dev, {
         "h": (h, (1, D), bf), "mlp_norm": (mlp_norm, (D,), f32),
-        "wgu": (wgu, (2 * F, D), i8), "wgus": (wgus, (2 * F,), f32),
-        "wd": (wd, (D, F), i8), "wds": (wds, (D,), f32), "scratch act": (act, (F,), bf),
+        "wgu": (wgu, (2 * F, D * bits // 8), i8), "wgus": (wgus, (2 * F,), f32),
+        "wd": (wd, (D, F * bits // 8), i8), "wds": (wds, (D,), f32), "scratch act": (act, (F,), bf),
     })
     rc = function("decode_step", "mlp_step", _MLP_ARGTYPES)(
         h.data_ptr(), mlp_norm.data_ptr(), wgu.data_ptr(), wgus.data_ptr(), wd.data_ptr(),
-        wds.data_ptr(), act.data_ptr(), D, F, float(eps), 8,
+        wds.data_ptr(), act.data_ptr(), D, F, float(eps), bits,
         torch.cuda.current_stream(dev).cuda_stream)
     check(rc, what)
     mlp_step.launches += 1

@@ -14,7 +14,7 @@ Phases (any failure exits non-zero):
    shapes the main paths give it, and time both (CUDA events), beside one
    library call where one computes the same function: flash attention (the
    prefill shape, a GQA batch and the embedder's hd = 128 geometry), the
-   decode step with int8 and with int4 weights (the int8 step's device time
+   decode step with int8 and with int4 weights (each step's device time
    is broken down by phase from the kernel's own barrier timestamps), its
    two half-layers
    (``attn_step``, ``mlp_step``, timed over all layers' weights in turn so
@@ -176,7 +176,10 @@ Phases (any failure exits non-zero):
 
 ``python3 chip_smoke.py --log-mel-only`` builds ``log_mel.cu`` alone, runs
 the log-mel part of phase 3 and stops without the last two lines: the short
-run for work on that kernel. ``--mesh-only`` builds every kernel and runs
+run for work on that kernel. ``--decode-only`` does the same for
+``decode_step.cu``: the decode step at both widths and the two half-layers,
+checked against their plain versions on the weights the full run draws,
+and the ``decode phases`` line (both widths by phase). ``--mesh-only`` builds every kernel and runs
 path N alone (its DB-served prompts featurized from synthetic wavs), also
 without the last two lines.
 
@@ -337,12 +340,14 @@ def flash_measure(q, k, v, off):
                 blocks=flash_attn.launch_blocks(B, T, H))
 
 
-def flash_case(B, T, H, K, hd, offsets, gen):
+def flash_inputs(B, T, H, K, hd, gen):
     dev = torch.device("cuda")
-    q = torch.randn((B, T, H, hd), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((B, T, K, hd), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((B, T, K, hd), generator=gen, device=dev).to(torch.bfloat16)
-    return flash_measure(q, k, v, torch.tensor(offsets, dtype=torch.int32, device=dev))
+    return tuple(torch.randn((B, T, n, hd), generator=gen, device=dev).to(torch.bfloat16) for n in (H, K, K))
+
+
+def flash_case(B, T, H, K, hd, offsets, gen):
+    q, k, v = flash_inputs(B, T, H, K, hd, gen)
+    return flash_measure(q, k, v, torch.tensor(offsets, dtype=torch.int32, device=q.device))
 
 
 # ----------------------------------------------------------------------------- decode step
@@ -472,10 +477,16 @@ def decode_case(cfg: Config, steps: int, gen, bits: int = 8):
     ms = time_ms(step, 100)
     host_ms = time_host_ms(step, 50)
     stamped = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev, stamps=True)
+    grid = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev, stamps=True, narrow=False)
+    grid_plain = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev, narrow=False)
     steps_of = dict(
-        step=step, stamps=stamped["stamps"],
+        step=step, stamps=stamped["stamps"], grid_stamps=grid["stamps"],
+        grid_step=lambda: decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, False, 7, **kw, **sampled,
+                                                       scratch=grid_plain),
         stamped=lambda: decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, False, 7, **kw, **sampled,
-                                                     scratch=stamped))
+                                                     scratch=stamped),
+        grid=lambda: decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, False, 7, **kw, **sampled,
+                                                  scratch=grid))
     plain_ms = time_ms(lambda: decode_step.mega_decode_step_plain(tin, mp_plain, k_plain, v_plain, t, off, False, 7, **kw, **sampled), 5, warmup=1)
     n_weights = L * (3 * N * D + D * N + 2 * F * D + D * F) + V * D
     scales = 4 * (L * (3 * N + D + 2 * F + D) + V) + 4 * (2 * L * D + D)
@@ -495,41 +506,41 @@ def decode_case(cfg: Config, steps: int, gen, bits: int = 8):
     return rec, mp, (k_kern, v_kern, t, off), steps_of
 
 
-LAYER_PHASES = ("qkv", "attention", "wo", "gate_up", "down")   # a layer's grid barriers, in order
+LAYER_PHASES = ("qkv", "attention", "wo", "gate_up", "down")   # a layer's waits, in order
 
 
 def barrier_times(step, stamps: torch.Tensor, n_layers: int, steps: int = 10) -> dict:
-    """Where the decode step's device time goes, from the timestamps its
-    blocks leave at every grid barrier (``decode_scratch(..., stamps=True)``;
-    ``step`` runs one step on that scratch): per phase, the microseconds
-    from the last block's arrival at the barrier before it to the median
-    block's leaving it (``barrier_us``: the barrier itself and whatever the
-    leaving poll queues behind) and from leaving it to the slowest block's
-    arrival at the next (``body_us``: prologue, dot products, epilogue);
-    means over the layers and over ``steps`` steps."""
+    """Where the decode step's device time goes on its critical path, from
+    the timestamps its blocks leave at every wait (``decode_scratch(...,
+    stamps=True)``; ``step`` runs one step on that scratch): per phase,
+    ``lap_us`` from the last block's arrival at the wait before it (its
+    part of the previous phase written) to the last block's arrival at the
+    wait after it, and ``work_us``, the slowest block's time from leaving
+    the wait (what it reads ready) to its next arrival; means over the
+    layers and over ``steps`` steps. The laps add up to ``step_us`` (last
+    arrival at the first wait to the last block's end); a lap less its
+    work is what the chain waited for beyond the slowest block's work."""
     step()
-    n_bar = 5 * n_layers + 2
+    n_bar = stamps.shape[0] - 1   # the last slot holds the step's end
     acc = np.zeros((2, n_bar))
     total = 0.0
     for _ in range(steps):
         step()
         torch.cuda.synchronize()
         st = stamps.cpu().numpy().astype(np.float64)
-        arrive, leave = st[:n_bar, :, 0], st[:n_bar, :, 1]
-        nxt = st[1:n_bar + 1, :, 0]
-        acc[0] += np.median(leave, axis=1) - arrive.max(axis=1)
+        arrive, leave, nxt = st[:n_bar, :, 0], st[:n_bar, :, 1], st[1:n_bar + 1, :, 0]
+        acc[0] += nxt.max(axis=1) - arrive.max(axis=1)
         acc[1] += (nxt - leave).max(axis=1)
-        total += st[n_bar, :, 0].max() - arrive[0].min()
+        total += st[n_bar, :, 0].max() - arrive[0].max()
     acc /= steps * 1e3
     rec = {}
     for i, name in enumerate(LAYER_PHASES):
         idx = np.arange(i, 5 * n_layers, 5)
-        rec[name] = dict(barrier_us=float(acc[0, idx].mean()), body_us=float(acc[1, idx].mean()))
+        rec[name] = dict(lap_us=float(acc[0, idx].mean()), work_us=float(acc[1, idx].mean()))
     for i, name in ((5 * n_layers, "head"), (5 * n_layers + 1, "sampler")):
-        rec[name] = dict(barrier_us=float(acc[0, i]), body_us=float(acc[1, i]))
+        rec[name] = dict(lap_us=float(acc[0, i]), work_us=float(acc[1, i]))
     rec["step_us"] = total / steps / 1e3
-    rec["barriers_us"] = float(acc[0].sum())
-    rec["bodies_us"] = float(acc[1].sum())
+    rec["layer_us"] = float(acc[0, :5 * n_layers].sum()) / n_layers
     return rec
 
 
@@ -600,6 +611,48 @@ def half_layer_case(cfg: Config, mp, cache, gen):
                  bound_by=m_by, h_max=m_scale, ms_one_layer=m_one))
 
 
+def decode_phase(cfg: Config, gen):
+    """The decode part of phase 3: the step at both widths and the two
+    half-layers held to their plain versions (each prints its line), the
+    widths timed in turns within one stretch, then each step by phase.
+    Returns the int8 and int4 records, the half-layers' and the phases'."""
+    tl = cfg.token_lm
+    dec, mp8, cache8, steps8 = decode_case(cfg, 16, gen)
+    print("decode int8", json.dumps(dec), flush=True)
+    attn_rec, mlp_rec = half_layer_case(cfg, mp8, cache8, gen)
+    print("attn_step", json.dumps(attn_rec), flush=True)
+    print("mlp_step", json.dumps(mlp_rec), flush=True)
+    del mp8, cache8
+    dec4, _, _, steps4 = decode_case(cfg, 16, gen, bits=4)
+    print("decode int4", json.dumps(dec4), flush=True)
+    turns = {8: 0.0, 4: 0.0, "grid8": 0.0, "grid4": 0.0}
+    for key, step in ((8, steps8["step"]), (4, steps4["step"]), ("grid8", steps8["grid_step"]),
+                      ("grid4", steps4["grid_step"]), ("grid4", steps4["grid_step"]),
+                      ("grid8", steps8["grid_step"]), (4, steps4["step"]), (8, steps8["step"])):
+        turns[key] += 0.5 * time_ms(step, 50)
+    phases = dict(
+        ms_in_turns_int8=turns[8], ms_in_turns_int4=turns[4], host_enqueue_ms=dec["host_enqueue_ms"],
+        ms_in_turns_grid_int8=turns["grid8"], ms_in_turns_grid_int4=turns["grid4"],
+        phases_us=barrier_times(steps8["stamped"], steps8["stamps"], tl.n_layers),
+        phases_us_int4=barrier_times(steps4["stamped"], steps4["stamps"], tl.n_layers),
+        grid_phases_us=barrier_times(steps8["grid"], steps8["grid_stamps"], tl.n_layers),
+        grid_phases_us_int4=barrier_times(steps4["grid"], steps4["grid_stamps"], tl.n_layers),
+        layers_as_half_layer_calls_ms=tl.n_layers * (attn_rec["ms"] + mlp_rec["ms"]),
+        attn_blocks=dec["attn_blocks"])
+    return dec, dec4, attn_rec, mlp_rec, phases
+
+
+def skip_draws_before_decode(cfg: Config, gen) -> None:
+    """Take from ``gen`` what phase 3's flash and log-mel cases take before
+    the decode case, so that ``--decode-only`` checks the weights and inputs
+    of the full run (the decode checks sit close to their tolerance)."""
+    tl = cfg.token_lm
+    flash_inputs(1, 256, tl.n_heads, tl.n_kv_heads, tl.head_dim, gen)
+    flash_inputs(2, 256, tl.n_heads, 4, tl.head_dim, gen)
+    for leg in ("16k", "24k"):
+        noise_frames(cfg.audio, leg, 2, 4, gen)
+
+
 # ----------------------------------------------------------------------------- log-mel
 
 
@@ -646,13 +699,18 @@ def kernel_device_ms(fn, name: str, calls: int = 20):
     return sum(us) / len(us) / 1e3 if us else "not measured"
 
 
+def noise_frames(audio, leg: str, B: int, seconds: int, gen) -> torch.Tensor:
+    sr, n_fft, hop, win, _, _ = log_mel_leg(audio, leg)
+    T = stft.num_frames(seconds * sr, n_fft, hop, win)
+    return torch.randn((B, T, win), generator=gen, device="cuda") * 0.1
+
+
 def log_mel_case(audio, leg: str, B: int, seconds: int, gen, iters: int = 200):
     """The fused log-mel kernel against its three-matmul plain version on
     white-noise frames (contiguous) of one prompt leg at one bucket."""
     dev = torch.device("cuda")
     sr, n_fft, hop, win, n_mels, fmax = log_mel_leg(audio, leg)
-    T = stft.num_frames(seconds * sr, n_fft, hop, win)
-    frames = torch.randn((B, T, win), generator=gen, device=dev) * 0.1
+    frames = noise_frames(audio, leg, B, seconds, gen)
     cos_b, sin_b = stft._dft_basis_on(dev, n_fft, win)
     fb = stft._mel_filterbank_on(dev, sr, n_fft, n_mels, 0.0, fmax)
     got = log_mel.fused_log_mel(frames, cos_b, sin_b, fb)
@@ -3715,13 +3773,14 @@ def main() -> int:
 
     only_log_mel = "--log-mel-only" in sys.argv[1:]
     only_mesh = "--mesh-only" in sys.argv[1:]
-    sources = ("log_mel",) if only_log_mel else cuda_build.KERNEL_SOURCES
+    only_decode = "--decode-only" in sys.argv[1:]
+    sources = ("log_mel",) if only_log_mel else ("decode_step",) if only_decode else cuda_build.KERNEL_SOURCES
     t0 = time.perf_counter()
     built = cuda_build.build(sources)
     print(f"build: {time.perf_counter() - t0:.1f} s {json.dumps(built)}", flush=True)
     for name in sources:
         for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -3736,6 +3795,11 @@ def main() -> int:
         print("log_mel 24k, worst error of the four checked cases", json.dumps(log_mel_phase(cfg, gen)))
         print("chip_smoke: --log-mel-only, the other phases and the main paths were not run")
         return 0
+    if only_decode:
+        skip_draws_before_decode(cfg, gen)
+        print("decode phases", json.dumps(decode_phase(cfg, gen)[-1]), flush=True)
+        print("chip_smoke: --decode-only, the other phases and the main paths were not run")
+        return 0
     tl = cfg.token_lm
     flash_main = flash_case(1, 256, tl.n_heads, tl.n_kv_heads, tl.head_dim, [62], gen)
     flash_gqa = flash_case(2, 256, tl.n_heads, 4, tl.head_dim, [0, 101], gen)
@@ -3746,25 +3810,10 @@ def main() -> int:
         print(f"flash {name}", json.dumps(r), flush=True)
         check(r["max_abs_err"] <= FLASH_ATOL, f"flash {name}: err {r['max_abs_err']} > {FLASH_ATOL}")
     mel24 = log_mel_phase(cfg, gen)
-    dec, mp8, cache8, steps8 = decode_case(cfg, 16, gen)
-    print("decode int8", json.dumps(dec), flush=True)
-    attn_rec, mlp_rec = half_layer_case(cfg, mp8, cache8, gen)
-    print("attn_step", json.dumps(attn_rec), flush=True)
-    print("mlp_step", json.dumps(mlp_rec), flush=True)
-    dec4, _, _, steps4 = decode_case(cfg, 16, gen, bits=4)
-    print("decode int4", json.dumps(dec4), flush=True)
-    # the two widths in turns within one stretch; then the int8 step by phase
-    turns = {8: 0.0, 4: 0.0}
-    for bits, steps in ((8, steps8), (4, steps4), (4, steps4), (8, steps8)):
-        turns[bits] += 0.5 * time_ms(steps["step"], 50)
-    layers_as_half_layers_ms = tl.n_layers * (attn_rec["ms"] + mlp_rec["ms"])
+    dec, dec4, attn_rec, mlp_rec, phases = decode_phase(cfg, gen)
     print("decode phases", json.dumps(dict(
-        ms_in_turns_int8=turns[8], ms_in_turns_int4=turns[4], host_enqueue_ms=dec["host_enqueue_ms"],
-        phases_us=barrier_times(steps8["stamped"], steps8["stamps"], tl.n_layers),
-        layers_as_half_layer_calls_ms=layers_as_half_layers_ms,
-        attn_blocks=dec["attn_blocks"], flash_blocks=flash_main["blocks"],
-        flash_ms=flash_main["ms"], flash_library_ms=flash_main["library_ms"])), flush=True)
-    del mp8, cache8, steps8, steps4
+        phases, flash_blocks=flash_main["blocks"], flash_ms=flash_main["ms"],
+        flash_library_ms=flash_main["library_ms"])), flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -3880,7 +3929,7 @@ def main() -> int:
     print("int4 vs int8", json.dumps(dict(
         engine_gb_int8=pa["engine_gb"], engine_gb_int4=pc["engine_gb"],
         decode_ms_per_step_int8=step8, decode_ms_per_step_int4=step4,
-        kernel_ms_int8=turns[8], kernel_ms_int4=turns[4])), flush=True)
+        kernel_ms_int8=phases["ms_in_turns_int8"], kernel_ms_int4=phases["ms_in_turns_int4"])), flush=True)
 
     def entry(name, source, replaces, launches, rec):
         return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,

@@ -431,6 +431,147 @@ def test_int4_values_and_scales_equal_jax_packer():
     assert torch.equal(decode_step.unpack4(decode_step.pack4(r)), r)
 
 
+# ------------------------------------------------- int4 on the tensor cores: the layout and the sums
+# The int4 kernels read pack4's mma fragment order and sum the exact bf16
+# products in their own f32 order (matvec4_plain); an f32 sum of C exact
+# products in any order lies within 2 C 2^-24 sum|w x| of the exact sum.
+
+
+@pytest.mark.parametrize("shape", [(2, 35, 128), (16, 64), (3, 5, 32), (40, 96), (10,)])
+def test_int4_fragment_layout_round_trips_and_places_every_nibble(shape):
+    """pack4 / unpack4 round-trip; in complete row-groups of 16 over a width
+    that is a multiple of 64, lane L = 4 g + q's word s of tile kt holds in
+    nibble t row g + 8 (t & 1), element 64 kt + 16 s + 8 ((t >> 1) & 1) +
+    2 q + (t >> 2) (its A fragment of k-step s); other rows and widths keep
+    the plain byte order (element 2j low, 2j + 1 high)."""
+    q = torch.randint(-8, 8, shape, generator=torch.Generator().manual_seed(len(shape))).to(torch.int8)
+    b = decode_step.pack4(q)
+    assert b.shape == shape[:-1] + (shape[-1] // 2,) and b.dtype == torch.int8
+    assert torch.equal(decode_step.unpack4(b), q)
+    u = (b.to(torch.int16) & 0xFF).reshape(-1, *b.shape[-2:]) if len(shape) > 1 else (b.to(torch.int16) & 0xFF)[None, None]
+    v = (q.to(torch.int16) + 8).reshape(-1, *q.shape[-2:]) if len(shape) > 1 else (q.to(torch.int16) + 8)[None, None]
+    C = shape[-1]
+    rt = (v.shape[1] // 16 * 16) if C % 64 == 0 else 0
+    for m in range(v.shape[0]):
+        for j in range(rt // 16):
+            grp = u[m, 16 * j:16 * j + 16].reshape(-1)
+            for kt in range(C // 64):
+                for L in range(32):
+                    g, qq = divmod(L, 4)
+                    for st in range(4):
+                        for t in range(8):
+                            byte = int(grp[kt * 512 + L * 16 + st * 4 + t // 2])
+                            row = 16 * j + g + 8 * (t & 1)
+                            k = 64 * kt + 16 * st + 8 * ((t >> 1) & 1) + 2 * qq + (t >> 2)
+                            assert (byte >> (4 * (t % 2))) & 15 == int(v[m, row, k])
+        plain = v[m, rt:, 0::2] | (v[m, rt:, 1::2] << 4)
+        assert torch.equal(u[m, rt:], plain)
+
+
+@pytest.mark.parametrize("R,C,slices", [(48, 64, 8), (35, 128, 8), (64, 256, 4), (19, 1024, 8)])
+def test_matvec4_kernel_order_matches_the_exact_product(R, C, slices):
+    """The kernel's order of f32 sums (mma k-steps, even / odd
+    accumulators, warps in order) and the plain f32 product, each within
+    the f32 bound of the exact sum; rows past the last group of 16 are the
+    plain product."""
+    rng = np.random.default_rng(R * C)
+    q = torch.from_numpy(rng.integers(-8, 8, (R, C)).astype(np.int8))
+    x = torch.from_numpy(rng.standard_normal(C).astype(np.float32)).to(torch.bfloat16).float()
+    exact = q.double() @ x.double()
+    bound = 2 * C * 2.0 ** -24 * (q.double().abs() @ x.double().abs())
+    got = decode_step.matvec4_plain(q, x, slices)
+    assert got.dtype == torch.float32
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    assert bool(((decode_step.matvec_plain(q, x).double() - exact).abs() <= bound).all())
+    tail = R // 16 * 16
+    assert torch.equal(got[tail:], decode_step.matvec_plain(q, x)[tail:])
+
+
+def test_int4_kernel_order_matches_plain_step_and_half_layers():
+    """The int4 step and its half-layers with the kernel's order of sums
+    (matvec4_plain) against the plain product, on the JAX-initialised tiny
+    LM re-quantized to int4; the half-layer wrappers take the packed rows.
+    Tolerances: the logits and qkv within the f32 bound; the bf16 residual
+    and cache rows within 2e-2 of max(|h|, 1) (a sum in another order may
+    flip one bf16 rounding); the greedy token equal."""
+    cfg, _, tp = _tiny_lm(11)
+    tcfg = tiny_config().token_lm
+    mp4 = tlm.mega_decode_params(tp, tcfg, bits=4)
+    mpu = decode_step.unpack_decode_params(mp4)
+    L, N, S, off, t = cfg.n_layers, cfg.dim, 40, 3, 29
+    rng = np.random.default_rng(11)
+    kc = torch.from_numpy((rng.standard_normal((L, S, N)) * 0.5).astype(np.float32)).to(torch.bfloat16)
+    vc = torch.from_numpy((rng.standard_normal((L, S, N)) * 0.5).astype(np.float32)).to(torch.bfloat16)
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=cfg.norm_eps)
+    tok = torch.tensor([7], dtype=torch.int32)
+    skw = dict(pad_id=tcfg.speech_pad, bos_id=tcfg.speech_bos, eos_id=tcfg.speech_eos)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    h_want, t_want = decode_step.mega_decode_step_plain(tok, mp4, k1, v1, t, off, False, 0, **kw, **skw)
+    h_got, t_got = decode_step.mega_decode_step_plain(tok, mp4, k2, v2, t, off, False, 0, **kw, **skw,
+                                                      matvec=decode_step.matvec4_plain)
+    scale = max(float(h_want.float().abs().max()), 1.0)
+    assert float((h_got.float() - h_want.float()).abs().max()) <= 2e-2 * scale
+    assert float((k2[:, t].float() - k1[:, t].float()).abs().max()) <= 2e-2 * scale
+    assert int(t_got[0]) == int(t_want[0])
+    logits = decode_step.head_logits_plain(h_want, mpu, cfg.norm_eps)
+    logits4 = decode_step.head_logits_plain(h_want, mpu, cfg.norm_eps, decode_step.matvec4_plain)
+    xn = (h_want.float() * torch.rsqrt((h_want.float() ** 2).mean() + cfg.norm_eps) * mpu["final_norm"])
+    xn = xn.reshape(-1).to(torch.bfloat16).float()
+    bound = 2 * cfg.dim * 2.0 ** -24 * ((mpu["head"].double().abs() @ xn.double().abs()) * mpu["head_s"].double())
+    assert bool(((logits4.double() - logits.double()).abs() <= 2 * bound).all())
+    # the half-layers: the wrappers on packed int4 rows (the CPU takes the plain product)
+    h0 = torch.from_numpy((rng.standard_normal((1, cfg.dim)) * 0.5).astype(np.float32)).to(torch.bfloat16)
+    a4 = (mp4["attn_norm"][1], mp4["wqkv"][1], mp4["wqs"][1], mp4["wo"][1], mp4["wos"][1], mp4["invf"])
+    au = (mpu["attn_norm"][1], mpu["wqkv"][1], mpu["wqs"][1], mpu["wo"][1], mpu["wos"][1], mpu["invf"])
+    k3, v3 = kc[1].clone(), vc[1].clone()
+    h = decode_step.attn_step(h0.clone(), *a4, k3, v3, t, off, **kw)
+    want = decode_step.attn_step_plain(h0, *au, kc[1].clone(), vc[1].clone(), t, off, **kw,
+                                       matvec=decode_step.matvec4_plain)
+    assert float((h.float() - want.float()).abs().max()) <= 2e-2 * max(float(want.float().abs().max()), 1.0)
+    m4 = (mp4["mlp_norm"][1], mp4["wgu"][1], mp4["wgus"][1], mp4["wd"][1], mp4["wds"][1])
+    mu = (mpu["mlp_norm"][1], mpu["wgu"][1], mpu["wgus"][1], mpu["wd"][1], mpu["wds"][1])
+    hm = decode_step.mlp_step(want.clone(), *m4, eps=cfg.norm_eps)
+    want_m = decode_step.mlp_step_plain(want, *mu, eps=cfg.norm_eps, matvec=decode_step.matvec4_plain)
+    assert float((hm.float() - want_m.float()).abs().max()) <= 2e-2 * max(float(want_m.float().abs().max()), 1.0)
+
+
+def _edge_tied_logits(seed, V, rows):
+    """Logits with ties across every block edge (the last entry of a block
+    and the first of the next) and a run of equal values over three
+    blocks."""
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal(V).astype(np.float32)
+    for e in range(rows, V, rows):
+        y[e] = y[e - 1]
+    top = float(np.sort(y)[-4])
+    y[max(0, rows - 2):min(V, 2 * rows + 2)] = top
+    return torch.from_numpy(y)
+
+
+@pytest.mark.parametrize("greedy,top_k", [(True, 0), (False, 0), (False, 1), (False, 2), (False, 5),
+                                          (False, 25), (False, 40)])
+@pytest.mark.parametrize("rows", [32, 16, 7, 3])
+def test_sample_merged_matches_sample_plain(greedy, top_k, rows):
+    """The step kernel's sampler (each block's list of at most k levels
+    with its records, then one merge) picks ``sample_plain``'s token:
+    ties at the k-th value, ties straddling block edges, k at or above
+    the logits a block holds (rows 3, 7), blocks whose every id is masked
+    (pad / BOS / EOS at the end of the vocabulary), fewer distinct values
+    than k, and temperatures that scale masked entries below and above
+    -1e30."""
+    V = 67
+    cases = [_tied_logits(s, V, min(max(top_k, 1), 40), tie) for s, tie in ((0, 1), (1, 3))]
+    cases += [_edge_tied_logits(s, V, rows) for s in (2, 3)]
+    cases.append(torch.from_numpy(np.repeat(np.float32([0.5, -1.0, 2.0]), [30, 30, 7])))
+    for logits in cases:
+        for temperature in (0.8, 1.5):
+            for suppress, seed in ((True, 5), (False, 6)):
+                kw = dict(pad_id=V - 1, bos_id=V - 3, eos_id=V - 2, suppress=suppress, greedy=greedy,
+                          temperature=temperature, top_k=top_k, seed=seed)
+                assert decode_step.sample_merged_plain(logits, **kw, rows=rows) == \
+                    decode_step.sample_plain(logits, **kw), (kw, rows)
+
+
 def test_generate_int4_matches_int8_on_four_bit_exact_weights():
     """Weights made 4-bit exact (q in [-7, 7], one 7 per output channel):
     the int4 decode must give the int8 decode's greedy tokens, in the port
@@ -563,12 +704,15 @@ def _tied_logits(seed, V, k, tie):
 
 
 @pytest.mark.parametrize("top_k", [1, 2, 5, 24, 25])
-@pytest.mark.parametrize("n_threads", [1024, 256, 7])
-def test_topk_threshold_tiled_matches_reference_with_ties(top_k, n_threads):
+@pytest.mark.parametrize("rows", [1024, 256, 7])
+def test_topk_threshold_tiled_matches_reference_with_ties(top_k, rows):
+    """The kernel's sampler threshold (blocks of ``rows`` logits, each
+    list at most k levels, one merge) on ties at and around the k-th
+    value."""
     for seed, tie in ((0, 1), (1, 3), (2, 6)):
         y = _tied_logits(seed, 515, top_k, tie)
         want = decode_step.topk_threshold_plain(y, top_k)
-        got = decode_step.topk_threshold_tiled(y, top_k, n_threads)
+        got = decode_step.topk_threshold_merged(y, top_k, rows)
         assert float(got) == float(want)
 
 
@@ -581,8 +725,8 @@ def test_topk_threshold_tiled_matches_reference_with_ties(top_k, n_threads):
 ], ids=["all-tied", "masked", "masked-below", "masked-above", "one-value"])
 def test_topk_threshold_tiled_degenerate_cases(values, top_k):
     y = torch.tensor(values, dtype=torch.float32)
-    for n_threads in (1, 2, 1024):
-        assert float(decode_step.topk_threshold_tiled(y, top_k, n_threads)) == \
+    for rows in (1, 2, 1024):
+        assert float(decode_step.topk_threshold_merged(y, top_k, rows)) == \
             float(decode_step.topk_threshold_plain(y, top_k))
 
 
@@ -594,11 +738,12 @@ def test_sample_with_tiled_threshold_matches_sample_plain(tie):
     kw = dict(pad_id=66, bos_id=64, eos_id=65, suppress=True, greedy=False,
               temperature=0.8, top_k=5, seed=11)
     want = decode_step.sample_scores_plain(logits, **kw)
-    got = decode_step.sample_scores_plain(logits, **kw, threshold=decode_step.topk_threshold_tiled)
+    got = decode_step.sample_scores_plain(logits, **kw, threshold=decode_step.topk_threshold_merged)
     assert torch.equal(got, want)
     assert int((want > -1e29).sum()) == 5 + tie - 1 + 1    # levels 0..4, level 0 and 4 tied
-    assert decode_step.sample_plain(logits, **kw, threshold=decode_step.topk_threshold_tiled) == \
+    assert decode_step.sample_plain(logits, **kw, threshold=decode_step.topk_threshold_merged) == \
         decode_step.sample_plain(logits, **kw)
+    assert decode_step.sample_merged_plain(logits, **kw) == decode_step.sample_plain(logits, **kw)
 
 
 def test_decode_scratch_is_for_the_card_only():
