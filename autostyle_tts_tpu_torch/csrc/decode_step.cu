@@ -928,28 +928,37 @@ __device__ __forceinline__ void gemv4_phase(const GemvArgs& a, float* smem, int 
 
 // ---------------------------------------------------------------- attention
 
-// One head's cache rows, read by a block's warps four 16-byte loads ahead:
-// hd / 8 lanes span one key row (so hd is 8, 16, 32, 64, 128 or 256), a
-// warp covers 32 / (hd / 8) keys a load and keeps two loads of K and two of
-// V in flight.
+// One head's cache rows (row j at kc + (off + j) * ld + base, global memory
+// or, SMEM, rows staged in shared memory), read by a block's warps four
+// 16-byte loads ahead: hd / 8 lanes span one key row (so hd is 8, 16, 32,
+// 64, 128 or 256), a warp covers 32 / (hd / 8) keys a load and keeps two
+// loads of K and two of V in flight.
+template <bool SMEM>
 struct KeyRows {
   const bf16 *kc, *vc;
-  int N, base, off, j1, g, dl, stride;
+  int ld, base, off, j1, g, dl, stride;
   int4 ka, kb, va, vb;
+  __device__ __forceinline__ int4 row(const bf16* c, int j) const {
+    const int4* p = reinterpret_cast<const int4*>(c + (size_t)(off + j) * ld + base + dl);
+    if constexpr (SMEM) return *p;
+    else return __ldcg(p);
+  }
   __device__ __forceinline__ void load(int jx) {
     const int ja = jx + g, jc = jx + stride + g;
     const int4 z = make_int4(0, 0, 0, 0);
-    ka = ja < j1 ? __ldcg(reinterpret_cast<const int4*>(kc + (size_t)(off + ja) * N + base + dl)) : z;
-    kb = jc < j1 ? __ldcg(reinterpret_cast<const int4*>(kc + (size_t)(off + jc) * N + base + dl)) : z;
-    va = ja < j1 ? __ldcg(reinterpret_cast<const int4*>(vc + (size_t)(off + ja) * N + base + dl)) : z;
-    vb = jc < j1 ? __ldcg(reinterpret_cast<const int4*>(vc + (size_t)(off + jc) * N + base + dl)) : z;
+    ka = ja < j1 ? row(kc, ja) : z;
+    kb = jc < j1 ? row(kc, jc) : z;
+    va = ja < j1 ? row(vc, ja) : z;
+    vb = jc < j1 ? row(vc, jc) : z;
   }
 };
 
-__device__ __forceinline__ KeyRows key_rows(const bf16* kc, const bf16* vc, int N, int base, int hd, int off, int j1) {
+template <bool SMEM = false>
+__device__ __forceinline__ KeyRows<SMEM> key_rows(const bf16* kc, const bf16* vc, int ld, int base, int hd, int off,
+                                                  int j1) {
   const int lane = threadIdx.x & 31, lpk = hd / 8, kpl = 32 / lpk;
-  return KeyRows{kc, vc, N, base, off, j1, lane / lpk, (lane % lpk) * 8, (int)(blockDim.x >> 5) * kpl,
-                 {}, {}, {}, {}};
+  return KeyRows<SMEM>{kc, vc, ld, base, off, j1, lane / lpk, (lane % lpk) * 8, (int)(blockDim.x >> 5) * kpl,
+                       {}, {}, {}, {}};
 }
 
 // Old cache rows [j0, j1) of a head do not depend on the previous phase:
@@ -988,8 +997,8 @@ __device__ __forceinline__ void rope_channel(int i, int hd, float pos, const flo
 // shuffles and over the block's warps in shared memory (`wp`: warps x (hd +
 // 2) floats); with `fold`, the current token (score cur_s[0], value v_s)
 // joins them. emit(e, A, M, L) takes channel e (threads e < hd).
-template <class Emit>
-__device__ __forceinline__ void attn_keys(KeyRows& keys, int jb, const float* q_s, const float* v_s,
+template <class Keys, class Emit>
+__device__ __forceinline__ void attn_keys(Keys& keys, int jb, const float* q_s, const float* v_s,
                                           const float* cur_s, float* wp, int hd, float scale, bool fold,
                                           Emit emit) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -1111,7 +1120,7 @@ __device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, 
     if (unit != bid) __syncthreads();
     const int hh = unit / nsplit, sp = unit % nsplit, base = hh * hd;
     const int j0 = sp * per, j1 = min(n, j0 + per);
-    KeyRows keys = key_rows(kc, vc, N, base, hd, off, j1);
+    auto keys = key_rows(kc, vc, N, base, hd, off, j1);
     const int jb = j0 + warp * kpl;
     keys.load(jb);
 
@@ -1152,10 +1161,11 @@ __device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, 
 }
 
 // int4, the narrow step: the block of head h (the last H blocks, one a
-// head) computes the head's q, k, v rows of wqkv (3 hd rows, in shared
-// memory `wsm` since the previous layer's down phase: head_weights) and its
-// whole attention, and writes the output, rounded to bf16, as tagged words
-// for wo: no other block waits for the QKV phase, and no split is merged.
+// head) computes the head's q, k, v rows of wqkv (3 hd rows) and its whole
+// attention, and writes the output, rounded to bf16, as tagged words for
+// wo: no other block waits for the QKV phase, and no split is merged. The
+// rows and the head's live cache rows wait in shared memory (`wsm`, from
+// head_stage, issued in the previous layer's down phase).
 // The head's row-groups' tiles are split over two warps each (warp pair
 // halves: even and odd tiles). Other blocks only mark the two waits. smem:
 // the GEMV's input vector and partial sums, then 3 hd + 4 + (blockDim / 32)
@@ -1168,6 +1178,8 @@ __device__ __forceinline__ void head_phase(const GemvArgs& a, const int8_t* wsm,
   const int hh = bid - (nblk - H), C = a.C, N = H * hd, n = max(t - off, 0);
   const bool mine = hh >= 0;
   const size_t rgb = (size_t)C * 8;
+  const bf16* ks = reinterpret_cast<const bf16*>(wsm + (size_t)3 * hd * C / 2);   // staged cache rows [n][hd]
+  const bf16* vs = ks + (size_t)n * hd;
   float* x_s = smem;
   const unsigned* xw = reinterpret_cast<const unsigned*>(smem);
   float* red = smem + xlen(C, 4);
@@ -1183,7 +1195,6 @@ __device__ __forceinline__ void head_phase(const GemvArgs& a, const int8_t* wsm,
   float sc = 0.f;
   if (mine) {
     if (tid < 3 * hd) sc = __ldg(a.s + (tid / hd) * N + hh * hd + tid % hd);
-    prefetch_keys(kc, vc, N, hh * hd, hd, off, 0, n);
     for (int i = tid * 4; i < C; i += blockDim.x * 4) cp_async16(nw_s + i, a.nw + i);
     cp_async_commit();
     input_prologue<4, QKV>(a, x_s, red, nw_s);   // its cp.async wait covers the head's weights too
@@ -1200,6 +1211,7 @@ __device__ __forceinline__ void head_phase(const GemvArgs& a, const int8_t* wsm,
     const int rg = u >> 1, half = u & 1;
     float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     const int8_t* wrg = wsm + (size_t)rg * rgb + lane * 16;
+#pragma unroll 4
     for (int kt = half; kt < nk; kt += 2) {
       const int4 q = *reinterpret_cast<const int4*>(wrg + (size_t)kt * 512);
       const uint4* xb = reinterpret_cast<const uint4*>(xw + (((kt << 2) + (lane & 3)) << 3));
@@ -1235,7 +1247,7 @@ __device__ __forceinline__ void head_phase(const GemvArgs& a, const int8_t* wsm,
   __syncthreads();
   sync.input_ready();
   if (warp == 0) current_score(q_s, k_s, cur_s, hd, scale);
-  KeyRows keys = key_rows(kc, vc, N, hh * hd, hd, off, n);
+  auto keys = key_rows<true>(ks, vs, hd, 0, hd, 0, n);
   const int jb = warp * (32 / (hd / 8));
   keys.load(jb);
   attn_keys(keys, jb, q_s, v_s, cur_s, wp, hd, scale, true, [&](int e, float A, float M, float L) {
@@ -1243,17 +1255,26 @@ __device__ __forceinline__ void head_phase(const GemvArgs& a, const int8_t* wsm,
   });
 }
 
-// The head blocks' next q, k, v rows into shared memory (cp.async, 16 bytes
-// a thread at a time): issued a phase or two before head_phase waits for it.
-__device__ __forceinline__ void head_weights(const int8_t* wqkv, int8_t* wsm, int H, int hd, int C, int bid,
-                                             int nblk) {
+// What a head block's next head_phase reads, into shared memory (cp.async,
+// 16 bytes a thread at a time; issued a phase or two before head_phase
+// waits for it): the head's q, k, v rows of wqkv, then its live cache rows
+// [off, t) of kc and vc (n rows of hd each).
+__device__ __forceinline__ void head_stage(const int8_t* wqkv, const bf16* kc, const bf16* vc, int8_t* wsm, int H,
+                                           int hd, int C, int t, int off, int bid, int nblk) {
   const int hh = bid - (nblk - H);
   if (hh < 0) return;
   const size_t part = (size_t)hd * C / 2;   // bytes of one head's q (k, v) rows
-  const int N = H * hd;
+  const int N = H * hd, n = max(t - off, 0);
   for (int j = 0; j < 3; ++j) {
     const int8_t* src = wqkv + ((size_t)j * N + (size_t)hh * hd) * C / 2;
     for (size_t i = threadIdx.x * 16; i < part; i += blockDim.x * 16) cp_async16(wsm + j * part + i, src + i);
+  }
+  bf16* ks = reinterpret_cast<bf16*>(wsm + 3 * part);
+  const int per = hd / 8;   // 16-byte pieces of a row
+  for (int i = threadIdx.x; i < 2 * n * per; i += blockDim.x) {
+    const int which = i / (n * per), r = (i / per) % n, c = i % per;
+    const bf16* src = (which ? vc : kc) + (size_t)(off + r) * N + hh * hd + c * 8;
+    cp_async16(ks + ((size_t)which * n + r) * hd + c * 8, src);
   }
   cp_async_commit();
 }
@@ -1729,7 +1750,9 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
   // q, k, v rows wait at this offset of shared memory
   const bool fused = wsm_offset > 0;
   int8_t* wsm = reinterpret_cast<int8_t*>(smem) + wsm_offset;
-  if (fused) head_weights((const int8_t*)p.wqkv, wsm, p.H, p.hd, D, bid, nblk);
+  if constexpr (BITS == 4)
+    if (fused) head_stage((const int8_t*)p.wqkv, (const bf16*)p.k_all, (const bf16*)p.v_all, wsm, p.H, p.hd, D, t,
+                          off, bid, nblk);
   const bool narrow = p.narrow != 0;
   bf16* h = (bf16*)p.h;
   unsigned* hxo = narrow ? (unsigned*)p.hx : nullptr;
@@ -1758,8 +1781,8 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
     residual(o, l, h_in);
     if (narrow) { o.houtx = hxo; o.hout_tag = h_mid; }
     else o.hout = h;
-    if (fused) {   // QKV and attention a head in one block; wo reads the output's tagged words
-      head_phase(a, wsm, (const float*)p.invf, kc, vc, p.H, p.hd, t, off, p.scale, (unsigned*)p.attnx, qkv_tag,
+    if (BITS == 4 && fused) {   // QKV and attention a head in one block; wo reads the output's tagged words
+      if constexpr (BITS == 4) head_phase(a, wsm, (const float*)p.invf, kc, vc, p.H, p.hd, t, off, p.scale, (unsigned*)p.attnx, qkv_tag,
                  smem, bid, nblk, sync);
       o.xinx = (const unsigned*)p.attnx;
       o.xin_tag = qkv_tag;
@@ -1792,8 +1815,10 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
     residual(d, l + 1, h_mid);
     if (narrow) { d.houtx = hxo; d.hout_tag = write_tag(epoch * 2u * L + 2u * l + 1u); }
     if (!narrow || l == L - 1) d.hout = h;   // narrow: the last residual, for the caller
-    if (fused && l + 1 < L)   // the next layer's q, k, v rows of the head blocks, while down runs
-      head_weights((const int8_t*)p.wqkv + (size_t)(l + 1) * 3 * N * row_bytes<BITS>(D), wsm, p.H, p.hd, D, bid, nblk);
+    if constexpr (BITS == 4)   // the head blocks' next rows, while down runs
+      if (fused && l + 1 < L)
+        head_stage((const int8_t*)p.wqkv + (size_t)(l + 1) * 3 * N * row_bytes<BITS>(D), kc + (size_t)S * N,
+                   vc + (size_t)S * N, wsm, p.H, p.hd, D, t, off, bid, nblk);
     step_gemv<BITS, DOWN>(d, smem, bid, nblk, sync);
   }
   GemvArgs a = {};   // the head: the QKV phase's arithmetic, the block's logits kept for the sampler
@@ -1841,7 +1866,7 @@ int mega_persistent(const DecodePlan& p, const int* tok_in, int t, int off, int 
   // int4 with the narrow waits: a head a block, its q, k, v rows (3 hd rows) in shared memory after the rest
   int wsm_offset = 0;
   smem = (smem + 15) / 16 * 16;
-  const size_t rows = (size_t)3 * p.hd * p.D / 2;
+  const size_t rows = (size_t)3 * p.hd * p.D / 2 + (size_t)2 * max(t - off, 0) * p.hd * sizeof(bf16);
   if (BITS == 4 && p.narrow && p.hd % 16 == 0 && p.H < nblk && smem + rows <= MAX_SMEM) {
     wsm_offset = (int)smem;
     smem += rows;
