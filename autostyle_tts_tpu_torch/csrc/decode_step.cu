@@ -110,7 +110,6 @@ constexpr int SAMPLE_ROWS = 32;       // logits a block keeps for the sampler: V
 constexpr int MAX_LISTS = 160;        // blocks whose lists one warp merges (5 a lane; an H100 has 132)
 constexpr int CAND_WORDS = 4 + SAMPLE_ROWS + 4 * SAMPLE_ROWS;   // a block's list: header, levels, records
 constexpr unsigned SPIN_LIMIT = 1u << 24;   // polls before a wait gives up and traps
-constexpr size_t MAX_SMEM = 226 * 1024;     // dynamic shared memory a block may have on sm_90 (227 KB less the static)
 // words of the step's `bar` buffer: the write count of the tagged buffers
 // (kept across steps), then what the host zeroes before each step
 constexpr int BAR_EPOCH = 0, BAR_GRID = 1, BAR_TICKET = 2, BAR_WORDS = 3;
@@ -524,7 +523,7 @@ __device__ __forceinline__ void input_prologue(const GemvArgs& a, float* x_s, fl
         }
       }
     }
-  } else if (KIND == DOWN || a.xinx != nullptr) {   // the activation (WO: the attention output), C % 16 == 0
+  } else if constexpr (KIND == DOWN) {   // eight elements a group, C % 16 == 0
     for (int c0 = 0; c0 < C; c0 += ACT_GROUPS * 8 * blockDim.x) {
     uint4 raw[ACT_GROUPS][2];
 #pragma unroll
@@ -926,183 +925,28 @@ __device__ __forceinline__ void gemv4_phase(const GemvArgs& a, float* smem, int 
   }
 }
 
-// ---------------------------------------------------------------- attention
-
-// One head's cache rows (row j at kc + (off + j) * ld + base, global memory
-// or, SMEM, rows staged in shared memory), read by a block's warps four
-// 16-byte loads ahead: hd / 8 lanes span one key row (so hd is 8, 16, 32,
-// 64, 128 or 256), a warp covers 32 / (hd / 8) keys a load and keeps two
-// loads of K and two of V in flight.
-template <bool SMEM>
-struct KeyRows {
-  const bf16 *kc, *vc;
-  int ld, base, off, j1, g, dl, stride;
-  int4 ka, kb, va, vb;
-  __device__ __forceinline__ int4 row(const bf16* c, int j) const {
-    const int4* p = reinterpret_cast<const int4*>(c + (size_t)(off + j) * ld + base + dl);
-    if constexpr (SMEM) return *p;
-    else return __ldcg(p);
-  }
-  __device__ __forceinline__ void load(int jx) {
-    const int ja = jx + g, jc = jx + stride + g;
-    const int4 z = make_int4(0, 0, 0, 0);
-    ka = ja < j1 ? row(kc, ja) : z;
-    kb = jc < j1 ? row(kc, jc) : z;
-    va = ja < j1 ? row(vc, ja) : z;
-    vb = jc < j1 ? row(vc, jc) : z;
-  }
-};
-
-template <bool SMEM = false>
-__device__ __forceinline__ KeyRows<SMEM> key_rows(const bf16* kc, const bf16* vc, int ld, int base, int hd, int off,
-                                                  int j1) {
-  const int lane = threadIdx.x & 31, lpk = hd / 8, kpl = 32 / lpk;
-  return KeyRows<SMEM>{kc, vc, ld, base, off, j1, lane / lpk, (lane % lpk) * 8, (int)(blockDim.x >> 5) * kpl,
-                       {}, {}, {}, {}};
-}
-
-// Old cache rows [j0, j1) of a head do not depend on the previous phase:
-// pull them into L2.
-__device__ __forceinline__ void prefetch_keys(const bf16* kc, const bf16* vc, int N, int base, int hd, int off,
-                                              int j0, int j1) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, lpk = hd / 8, kpl = 32 / lpk;
-  const int stride = (blockDim.x >> 5) * kpl, g = lane / lpk, dl = (lane % lpk) * 8;
-  for (int j = j0 + warp * kpl + g; j < j1; j += stride) {
-    prefetch_l2(kc + (size_t)(off + j) * N + base + dl);
-    prefetch_l2(vc + (size_t)(off + j) * N + base + dl);
-  }
-}
-
-// RoPE at position pos of channel i of q (and, with `kv`, of k, whose bf16
-// rounding goes to cache row t with v's); x = q_i, q_partner, k_i,
-// k_partner, v_i.
-__device__ __forceinline__ void rope_channel(int i, int hd, float pos, const float* invf, const float* x, bool kv,
-                                             float* q_s, float* k_s, float* v_s, bf16* krow, bf16* vrow) {
-  const int half = hd / 2;
-  const bool first = i < half;
-  const float ang = pos * invf[first ? i : i - half];
-  const float c = cosf(ang), sn = sinf(ang);
-  q_s[i] = first ? x[0] * c + (-x[1]) * sn : x[0] * c + x[1] * sn;
-  if (kv) {
-    const float kr = first ? x[2] * c + (-x[3]) * sn : x[2] * c + x[3] * sn;
-    k_s[i] = kr;
-    v_s[i] = x[4];
-    krow[i] = __float2bfloat16(kr);
-    vrow[i] = __float2bfloat16(x[4]);
-  }
-}
-
-// The keys [j0, j1) of `keys` (its first loads issued at jb) against q_s as
-// (acc[hd], m, l): a running max / sum a lane group, merged over the warp by
-// shuffles and over the block's warps in shared memory (`wp`: warps x (hd +
-// 2) floats); with `fold`, the current token (score cur_s[0], value v_s)
-// joins them. emit(e, A, M, L) takes channel e (threads e < hd).
-template <class Keys, class Emit>
-__device__ __forceinline__ void attn_keys(Keys& keys, int jb, const float* q_s, const float* v_s,
-                                          const float* cur_s, float* wp, int hd, float scale, bool fold,
-                                          Emit emit) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int lpk = hd / 8, g = keys.g, dl = keys.dl, stride = keys.stride, j1 = keys.j1;
-  float qv[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) qv[e] = q_s[dl + e];
-  float m = NEG_INF, l = 0.f, acc[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-  auto consume = [&](const int4& k4, const int4& v4, bool ok) {
-    float kf[8], vf[8];
-    unpack8(k4, kf);
-    unpack8(v4, vf);
-    float s = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) s += qv[e] * kf[e];
-    for (int o = lpk >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    s *= scale;
-    if (ok) {
-      const float mn = fmaxf(m, s);
-      const float al = expf(m - mn), p = expf(s - mn);
-      l = l * al + p;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = acc[e] * al + p * vf[e];
-      m = mn;
-    }
-  };
-  while (jb < j1) {   // warp-uniform
-    consume(keys.ka, keys.va, jb + g < j1);
-    consume(keys.kb, keys.vb, jb + stride + g < j1);
-    jb += 2 * stride;
-    if (jb < j1) keys.load(jb);
-  }
-  // the warp's lane groups, then the block's warps
-  for (int o = lpk; o < 32; o <<= 1) {
-    const float mo = __shfl_xor_sync(0xffffffffu, m, o);
-    const float lo = __shfl_xor_sync(0xffffffffu, l, o);
-    const float M = fmaxf(m, mo);
-    const float wa = expf(m - M), wb = expf(mo - M);
-    l = l * wa + lo * wb;
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      acc[e] = acc[e] * wa + __shfl_xor_sync(0xffffffffu, acc[e], o) * wb;
-    m = M;
-  }
-  if (lane < lpk) {
-    float* w0 = wp + warp * (hd + 2);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) w0[dl + e] = acc[e];
-    if (lane == 0) {
-      w0[hd] = m;
-      w0[hd + 1] = l;
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < hd; e += blockDim.x) {
-    float M = NEG_INF;
-    for (int wi = 0; wi < nwarps; ++wi) M = fmaxf(M, wp[wi * (hd + 2) + hd]);
-    float L = 0.f, A = 0.f;
-    for (int wi = 0; wi < nwarps; ++wi) {
-      const float wgt = expf(wp[wi * (hd + 2) + hd] - M);
-      L += wp[wi * (hd + 2) + hd + 1] * wgt;
-      A += wp[wi * (hd + 2) + e] * wgt;
-    }
-    if (fold) {   // the current token, from its f32 k and v
-      const float cur = cur_s[0];
-      const float M2 = fmaxf(M, cur);
-      const float wa = expf(M - M2), pc = expf(cur - M2);
-      L = L * wa + pc;
-      A = A * wa + pc * v_s[e];
-      M = M2;
-    }
-    emit(e, A, M, L);
-  }
-}
-
-// The current token's score against itself (warp 0), into cur_s[0].
-__device__ __forceinline__ void current_score(const float* q_s, const float* k_s, float* cur_s, int hd,
-                                              float scale) {
-  const int lane = threadIdx.x & 31;
-  float cur = 0.f;
-  for (int e = lane; e < hd; e += 32) cur += q_s[e] * k_s[e];
-  cur = warp_sum(cur) * scale;
-  if (lane == 0) cur_s[0] = cur;
-}
+// ---------------------------------------------------------------- attention phase
 
 // Attention of one token over cache slots [off, t) and itself, as partials
 // per (head, split); blocks bid, bid + nblk, ... take the units. qkv f32
 // [3N] from the QKV phase; kc/vc bf16 [S, N], row t written by split 0;
-// part f32 [H, MAX_SPLITS, hd + PART_PAD]. smem: 3 hd + 4 + (blockDim /
-// 32)(hd + 2) floats. qkvx (the step): q, k, v as tagged words (qkv_tag),
-// read as soon as the head's own rows carry the tag, not after the whole
-// QKV phase.
+// part f32 [H, MAX_SPLITS, hd + PART_PAD]. hd / 8 lanes span one key row, so
+// hd is 8, 16, 32, 64, 128 or 256. smem: 3 hd + 4 + (blockDim / 32)(hd + 2)
+// floats. qkvx (the step): q, k, v as tagged words (qkv_tag), read as soon
+// as the head's own rows carry the tag, not after the whole QKV phase.
 template <class Sync>
 __device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, bf16* kc, bf16* vc,
                                            float* part, int H, int hd, int t, int off, int nsplit,
                                            float scale, float* smem, int bid, int nblk, Sync& sync,
                                            const unsigned long long* qkvx = nullptr, unsigned qkv_tag = 0) {
-  const int N = H * hd;
+  const int N = H * hd, half = hd / 2;
   const int n = max(t - off, 0);
   const int units = H * nsplit;
   const int per = (n + nsplit - 1) / nsplit;
-  const int warp = threadIdx.x >> 5, kpl = 32 / (hd / 8);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int lpk = hd / 8, kpl = 32 / lpk;       // lanes per key, keys per warp-wide load
+  const int g = lane / lpk, dl = (lane % lpk) * 8;
+  const int stride = nwarps * kpl;              // keys per block-wide load
   float* q_s = smem;
   float* k_s = q_s + hd;
   float* v_s = k_s + hd;
@@ -1110,9 +954,12 @@ __device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, 
   float* wp = cur_s + 4;                        // [nwarps][hd + 2]
 
   sync.arrive();
-  if (bid < units) {
-    const int j0 = (bid % nsplit) * per;
-    prefetch_keys(kc, vc, N, (bid / nsplit) * hd, hd, off, j0, min(n, j0 + per));
+  if (bid < units) {   // old cache rows do not depend on the previous phase: pull them into L2
+    const int base = (bid / nsplit) * hd, j0 = (bid % nsplit) * per, j1 = min(n, j0 + per);
+    for (int j = j0 + warp * kpl + g; j < j1; j += stride) {
+      prefetch_l2(kc + (size_t)(off + j) * N + base + dl);
+      prefetch_l2(vc + (size_t)(off + j) * N + base + dl);
+    }
   }
   sync.wait();
 
@@ -1120,13 +967,23 @@ __device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, 
     if (unit != bid) __syncthreads();
     const int hh = unit / nsplit, sp = unit % nsplit, base = hh * hd;
     const int j0 = sp * per, j1 = min(n, j0 + per);
-    auto keys = key_rows(kc, vc, N, base, hd, off, j1);
-    const int jb = j0 + warp * kpl;
-    keys.load(jb);
+    int jb = j0 + warp * kpl;
+    int4 ka, kb, va, vb;
+    auto load = [&](int jx) {
+      const int ja = jx + g, jc = jx + stride + g;
+      const int4 z = make_int4(0, 0, 0, 0);
+      ka = ja < j1 ? __ldcg(reinterpret_cast<const int4*>(kc + (size_t)(off + ja) * N + base + dl)) : z;
+      kb = jc < j1 ? __ldcg(reinterpret_cast<const int4*>(kc + (size_t)(off + jc) * N + base + dl)) : z;
+      va = ja < j1 ? __ldcg(reinterpret_cast<const int4*>(vc + (size_t)(off + ja) * N + base + dl)) : z;
+      vb = jc < j1 ? __ldcg(reinterpret_cast<const int4*>(vc + (size_t)(off + jc) * N + base + dl)) : z;
+    };
+    load(jb);
 
     // RoPE at position max(t - off, 0); split 0 also ropes k and writes row t
+    const float pos = (float)n;
     for (int i = threadIdx.x; i < hd; i += blockDim.x) {
-      const int partner = i < hd / 2 ? i + hd / 2 : i - hd / 2;
+      const bool first = i < half;
+      const int partner = first ? i + half : i - half;
       const int at[5] = {base + i, base + partner, N + base + i, N + base + partner, 2 * N + base + i};
       float x[5];   // q_i, q_partner and (split 0) k_i, k_partner, v_i
       if (qkvx != nullptr) {
@@ -1142,141 +999,107 @@ __device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, 
         for (int j = 0; j < 5; ++j)
           if (j < 2 || sp == 0) x[j] = __ldcg(qkv + at[j]);
       }
-      rope_channel(i, hd, (float)n, invf, x, sp == 0, q_s, k_s, v_s, kc + (size_t)t * N + base,
-                   vc + (size_t)t * N + base);
+      const float ang = pos * invf[first ? i : i - half];
+      const float c = cosf(ang), sn = sinf(ang);
+      const float qi = x[0], qp = x[1];
+      q_s[i] = first ? qi * c + (-qp) * sn : qi * c + qp * sn;
+      if (sp == 0) {
+        const float ki = x[2], kp = x[3];
+        const float kr = first ? ki * c + (-kp) * sn : ki * c + kp * sn;
+        const float vi = x[4];
+        k_s[i] = kr;
+        v_s[i] = vi;
+        kc[(size_t)t * N + base + i] = __float2bfloat16(kr);
+        vc[(size_t)t * N + base + i] = __float2bfloat16(vi);
+      }
     }
     __syncthreads();
     sync.mark_left();
-    if (sp == 0 && warp == 0) current_score(q_s, k_s, cur_s, hd, scale);
+    if (sp == 0 && warp == 0) {
+      float cur = 0.f;
+      for (int e = lane; e < hd; e += 32) cur += q_s[e] * k_s[e];
+      cur = warp_sum(cur) * scale;
+      if (lane == 0) cur_s[0] = cur;
+    }
+    float qv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) qv[e] = q_s[dl + e];
+
+    float m = NEG_INF, l = 0.f, acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+    auto consume = [&](const int4& k4, const int4& v4, bool ok) {
+      float kf[8], vf[8];
+      unpack8(k4, kf);
+      unpack8(v4, vf);
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += qv[e] * kf[e];
+      for (int o = lpk >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      s *= scale;
+      if (ok) {
+        const float mn = fmaxf(m, s);
+        const float al = expf(m - mn), p = expf(s - mn);
+        l = l * al + p;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] = acc[e] * al + p * vf[e];
+        m = mn;
+      }
+    };
+    while (jb < j1) {   // warp-uniform
+      consume(ka, va, jb + g < j1);
+      consume(kb, vb, jb + stride + g < j1);
+      jb += 2 * stride;
+      if (jb < j1) load(jb);
+    }
+    // the warp's lane groups, then the block's warps
+    for (int o = lpk; o < 32; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m, o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l, o);
+      const float M = fmaxf(m, mo);
+      const float wa = expf(m - M), wb = expf(mo - M);
+      l = l * wa + lo * wb;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[e] = acc[e] * wa + __shfl_xor_sync(0xffffffffu, acc[e], o) * wb;
+      m = M;
+    }
+    if (lane < lpk) {
+      float* w0 = wp + warp * (hd + 2);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) w0[dl + e] = acc[e];
+      if (lane == 0) {
+        w0[hd] = m;
+        w0[hd + 1] = l;
+      }
+    }
+    __syncthreads();
     float* out = part + ((size_t)hh * MAX_SPLITS + sp) * (hd + PART_PAD);
-    attn_keys(keys, jb, q_s, v_s, cur_s, wp, hd, scale, sp == 0, [&](int e, float A, float M, float L) {
+    for (int e = threadIdx.x; e < hd; e += blockDim.x) {
+      float M = NEG_INF;
+      for (int wi = 0; wi < nwarps; ++wi) M = fmaxf(M, wp[wi * (hd + 2) + hd]);
+      float L = 0.f, A = 0.f;
+      for (int wi = 0; wi < nwarps; ++wi) {
+        const float wgt = expf(wp[wi * (hd + 2) + hd] - M);
+        L += wp[wi * (hd + 2) + hd + 1] * wgt;
+        A += wp[wi * (hd + 2) + e] * wgt;
+      }
+      if (sp == 0) {   // the current token, from its f32 k and v
+        const float cur = cur_s[0];
+        const float M2 = fmaxf(M, cur);
+        const float wa = expf(M - M2), pc = expf(cur - M2);
+        L = L * wa + pc;
+        A = A * wa + pc * v_s[e];
+        M = M2;
+      }
       out[e] = A;
       if (e == 0) {
         out[hd] = M;
         out[hd + 1] = L;
       }
-    });
-  }
-  sync.input_ready();
-}
-
-// int4, the narrow step: the block of head h (the last H blocks, one a
-// head) computes the head's q, k, v rows of wqkv (3 hd rows) and its whole
-// attention, and writes the output, rounded to bf16, as tagged words for
-// wo: no other block waits for the QKV phase, and no split is merged. The
-// rows and the head's live cache rows wait in shared memory (`wsm`, from
-// head_stage, issued in the previous layer's down phase).
-// The head's row-groups' tiles are split over two warps each (warp pair
-// halves: even and odd tiles). Other blocks only mark the two waits. smem:
-// the GEMV's input vector and partial sums, then 3 hd + 4 + (blockDim / 32)
-// (hd + 2) floats; `a` is the QKV GEMV's arguments.
-template <class Sync>
-__device__ __forceinline__ void head_phase(const GemvArgs& a, const int8_t* wsm, const float* invf, bf16* kc,
-                                           bf16* vc, int H, int hd, int t, int off, float scale, unsigned* attnx,
-                                           unsigned attn_tag, float* smem, int bid, int nblk, Sync& sync) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
-  const int hh = bid - (nblk - H), C = a.C, N = H * hd, n = max(t - off, 0);
-  const bool mine = hh >= 0;
-  const size_t rgb = (size_t)C * 8;
-  const bf16* ks = reinterpret_cast<const bf16*>(wsm + (size_t)3 * hd * C / 2);   // staged cache rows [n][hd]
-  const bf16* vs = ks + (size_t)n * hd;
-  float* x_s = smem;
-  const unsigned* xw = reinterpret_cast<const unsigned*>(smem);
-  float* red = smem + xlen(C, 4);
-  float* psum = red + 32;               // [(3 hd / 16) x 2][16] partial sums
-  float* nw_s = psum + 6 * hd;          // norm weights
-  float* q_s = nw_s + C;
-  float* k_s = q_s + hd;
-  float* v_s = k_s + hd;
-  float* cur_s = v_s + hd;
-  float* wp = cur_s + 4;                // [nwarps][hd + 2]
-
-  sync.arrive();
-  float sc = 0.f;
-  if (mine) {
-    if (tid < 3 * hd) sc = __ldg(a.s + (tid / hd) * N + hh * hd + tid % hd);
-    for (int i = tid * 4; i < C; i += blockDim.x * 4) cp_async16(nw_s + i, a.nw + i);
-    cp_async_commit();
-    input_prologue<4, QKV>(a, x_s, red, nw_s);   // its cp.async wait covers the head's weights too
-  }
-  sync.input_ready();
-  if (!mine) {   // the attention's wait: nothing for this block
-    sync.arrive();
-    sync.input_ready();
-    return;
-  }
-  __syncthreads();
-  const int nk = C >> 6, units = 3 * hd / 8;   // (row-group, half) pairs
-  for (int u = warp; u < units; u += blockDim.x >> 5) {
-    const int rg = u >> 1, half = u & 1;
-    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    const int8_t* wrg = wsm + (size_t)rg * rgb + lane * 16;
-#pragma unroll 4
-    for (int kt = half; kt < nk; kt += 2) {
-      const int4 q = *reinterpret_cast<const int4*>(wrg + (size_t)kt * 512);
-      const uint4* xb = reinterpret_cast<const uint4*>(xw + (((kt << 2) + (lane & 3)) << 3));
-      const uint4 b0 = xb[0], b1 = xb[1];
-      const unsigned bw[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      const unsigned qw[4] = {(unsigned)q.x, (unsigned)q.y, (unsigned)q.z, (unsigned)q.w};
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        unsigned fa[4];
-        nibble_frag(qw[s], fa);
-        mma_bf16(c[s & 1], fa, bw[2 * s], bw[2 * s + 1]);
-      }
-    }
-    if ((lane & 3) == 0) {
-      psum[u * 16 + (lane >> 2)] = c[0][0] + c[1][0];
-      psum[u * 16 + (lane >> 2) + 8] = c[0][2] + c[1][2];
     }
   }
-  __syncthreads();
-  if (tid < 3 * hd) {   // q, k, v of the head (row tid: part tid / hd, channel tid % hd), in wp until roped
-    const int rg = tid >> 4, r = tid & 15;
-    wp[tid] = (psum[(2 * rg) * 16 + r] + psum[(2 * rg + 1) * 16 + r]) * sc;
-  }
-  __syncthreads();
-  sync.arrive();      // the attention's wait: the head's q, k, v are in this block
-  bf16* krow = kc + (size_t)t * N + hh * hd;
-  bf16* vrow = vc + (size_t)t * N + hh * hd;
-  for (int i = tid; i < hd; i += blockDim.x) {
-    const int partner = i < hd / 2 ? i + hd / 2 : i - hd / 2;
-    const float x[5] = {wp[i], wp[partner], wp[hd + i], wp[hd + partner], wp[2 * hd + i]};
-    rope_channel(i, hd, (float)n, invf, x, true, q_s, k_s, v_s, krow, vrow);
-  }
-  __syncthreads();
   sync.input_ready();
-  if (warp == 0) current_score(q_s, k_s, cur_s, hd, scale);
-  auto keys = key_rows<true>(ks, vs, hd, 0, hd, 0, n);
-  const int jb = warp * (32 / (hd / 8));
-  keys.load(jb);
-  attn_keys(keys, jb, q_s, v_s, cur_s, wp, hd, scale, true, [&](int e, float A, float M, float L) {
-    st_relaxed(attnx + hh * hd + e, tag_word(A / L, attn_tag));
-  });
-}
-
-// What a head block's next head_phase reads, into shared memory (cp.async,
-// 16 bytes a thread at a time; issued a phase or two before head_phase
-// waits for it): the head's q, k, v rows of wqkv, then its live cache rows
-// [off, t) of kc and vc (n rows of hd each).
-__device__ __forceinline__ void head_stage(const int8_t* wqkv, const bf16* kc, const bf16* vc, int8_t* wsm, int H,
-                                           int hd, int C, int t, int off, int bid, int nblk) {
-  const int hh = bid - (nblk - H);
-  if (hh < 0) return;
-  const size_t part = (size_t)hd * C / 2;   // bytes of one head's q (k, v) rows
-  const int N = H * hd, n = max(t - off, 0);
-  for (int j = 0; j < 3; ++j) {
-    const int8_t* src = wqkv + ((size_t)j * N + (size_t)hh * hd) * C / 2;
-    for (size_t i = threadIdx.x * 16; i < part; i += blockDim.x * 16) cp_async16(wsm + j * part + i, src + i);
-  }
-  bf16* ks = reinterpret_cast<bf16*>(wsm + 3 * part);
-  const int per = hd / 8;   // 16-byte pieces of a row
-  for (int i = threadIdx.x; i < 2 * n * per; i += blockDim.x) {
-    const int which = i / (n * per), r = (i / per) % n, c = i % per;
-    const bf16* src = (which ? vc : kc) + (size_t)(off + r) * N + hh * hd + c * 8;
-    cp_async16(ks + ((size_t)which * n + r) * hd + c * 8, src);
-  }
-  cp_async_commit();
 }
 
 // ---------------------------------------------------------------- the sampler
@@ -1586,8 +1409,7 @@ attn_kernel(const float* qkv, const float* invf, bf16* kc, bf16* vc, float* part
 struct DecodePlan {   // mirrored field by field in ops/decode_step.py
   const void *emb, *invf, *attn_norm, *wqkv, *wqs, *wo, *wos, *mlp_norm, *wgu, *wgus, *wd, *wds,
       *final_norm, *head, *head_s;
-  void *k_all, *v_all, *h, *qkv, *part, *act, *logits, *tok_out, *bar, *stamps, *hx, *actx, *cand, *qkvx,
-      *attnx;
+  void *k_all, *v_all, *h, *qkv, *part, *act, *logits, *tok_out, *bar, *stamps, *hx, *actx, *cand, *qkvx;
   int L, D, H, hd, F, V, S;
   int pad_id, bos_id, eos_id, greedy, top_k, bits;
   int narrow;   // 1: the narrow waits; 0: a grid barrier before every phase, plain h and act
@@ -1731,7 +1553,7 @@ __device__ __forceinline__ void step_gemv(const GemvArgs& a, float* smem, int bi
 // One block of THREADS an SM (what its registers allow), all co-resident.
 template <int BITS>
 __global__ void __launch_bounds__(THREADS)
-mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int suppress, int seed, int wsm_offset) {
+mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int suppress, int seed) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float slot_val[SAMPLE_ROWS];
   __shared__ int slot_id[SAMPLE_ROWS];
@@ -1746,13 +1568,6 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
   const unsigned* actx = (const unsigned*)p.actx;
   const bf16* emb_row = (const bf16*)p.emb + (size_t)__ldcg(tok_in) * D;
   if (threadIdx.x < SAMPLE_ROWS) slot_id[threadIdx.x] = -1;
-  // wsm_offset > 0: QKV and attention run a head a block (head_phase), whose
-  // q, k, v rows wait at this offset of shared memory
-  const bool fused = wsm_offset > 0;
-  int8_t* wsm = reinterpret_cast<int8_t*>(smem) + wsm_offset;
-  if constexpr (BITS == 4)
-    if (fused) head_stage((const int8_t*)p.wqkv, (const bf16*)p.k_all, (const bf16*)p.v_all, wsm, p.H, p.hd, D, t,
-                          off, bid, nblk);
   const bool narrow = p.narrow != 0;
   bf16* h = (bf16*)p.h;
   unsigned* hxo = narrow ? (unsigned*)p.hx : nullptr;
@@ -1771,9 +1586,15 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
     a.s = (const float*)p.wqs + (size_t)l * 3 * N;
     a.R = 3 * N; a.C = D; a.nw = (const float*)p.attn_norm + (size_t)l * D; a.eps = p.eps;
     residual(a, l, h_in);
-    const unsigned qkv_tag = write_tag(epoch * (unsigned)L + l);   // q, k, v and the attention output
-    bf16* kc = (bf16*)p.k_all + (size_t)l * S * N;
-    bf16* vc = (bf16*)p.v_all + (size_t)l * S * N;
+    a.out = (float*)p.qkv;
+    const unsigned qkv_tag = write_tag(epoch * (unsigned)L + l);
+    if (narrow) { a.outx = (unsigned long long*)p.qkvx; a.out_tag = qkv_tag; }
+    sync.grid = !narrow && l > 0;
+    step_gemv<BITS, QKV>(a, smem, bid, nblk, sync);
+    sync.grid = !narrow;
+    attn_phase((const float*)p.qkv, (const float*)p.invf, (bf16*)p.k_all + (size_t)l * S * N,
+               (bf16*)p.v_all + (size_t)l * S * N, (float*)p.part, p.H, p.hd, t, off, nsplit,
+               p.scale, smem, bid, nblk, sync, narrow ? (const unsigned long long*)p.qkvx : nullptr, qkv_tag);
     GemvArgs o = {};
     o.W = (const int8_t*)p.wo + (size_t)l * D * row_bytes<BITS>(N);
     o.s = (const float*)p.wos + (size_t)l * D;
@@ -1781,21 +1602,7 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
     residual(o, l, h_in);
     if (narrow) { o.houtx = hxo; o.hout_tag = h_mid; }
     else o.hout = h;
-    if (BITS == 4 && fused) {   // QKV and attention a head in one block; wo reads the output's tagged words
-      if constexpr (BITS == 4) head_phase(a, wsm, (const float*)p.invf, kc, vc, p.H, p.hd, t, off, p.scale, (unsigned*)p.attnx, qkv_tag,
-                 smem, bid, nblk, sync);
-      o.xinx = (const unsigned*)p.attnx;
-      o.xin_tag = qkv_tag;
-    } else {
-      a.out = (float*)p.qkv;
-      if (narrow) { a.outx = (unsigned long long*)p.qkvx; a.out_tag = qkv_tag; }
-      sync.grid = !narrow && l > 0;
-      step_gemv<BITS, QKV>(a, smem, bid, nblk, sync);
-      sync.grid = !narrow;
-      attn_phase((const float*)p.qkv, (const float*)p.invf, kc, vc, (float*)p.part, p.H, p.hd, t, off, nsplit,
-                 p.scale, smem, bid, nblk, sync, narrow ? (const unsigned long long*)p.qkvx : nullptr, qkv_tag);
-      sync.grid = true;   // every head's partials
-    }
+    sync.grid = true;   // every head's partials
     step_gemv<BITS, WO>(o, smem, bid, nblk, sync);
     sync.grid = !narrow;
     GemvArgs g = {};
@@ -1815,10 +1622,6 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
     residual(d, l + 1, h_mid);
     if (narrow) { d.houtx = hxo; d.hout_tag = write_tag(epoch * 2u * L + 2u * l + 1u); }
     if (!narrow || l == L - 1) d.hout = h;   // narrow: the last residual, for the caller
-    if constexpr (BITS == 4)   // the head blocks' next rows, while down runs
-      if (fused && l + 1 < L)
-        head_stage((const int8_t*)p.wqkv + (size_t)(l + 1) * 3 * N * row_bytes<BITS>(D), kc + (size_t)S * N,
-                   vc + (size_t)S * N, wsm, p.H, p.hd, D, t, off, bid, nblk);
     step_gemv<BITS, DOWN>(d, smem, bid, nblk, sync);
   }
   GemvArgs a = {};   // the head: the QKV phase's arithmetic, the block's logits kept for the sampler
@@ -1861,16 +1664,6 @@ int mega_persistent(const DecodePlan& p, const int* tok_in, int t, int off, int 
   if (attn_smem(p.hd, WARPS) > smem) smem = attn_smem(p.hd, WARPS);
   const size_t merge = (size_t)nblk * (4 + SAMPLE_ROWS) * sizeof(float);
   if (merge > smem) smem = merge;
-  const size_t head = (size_t)(xlen(p.D, 4) + 32 + 6 * p.hd + p.D + 3 * p.hd + 4 + WARPS * (p.hd + 2)) * sizeof(float);
-  if (BITS == 4 && head > smem) smem = head;
-  // int4 with the narrow waits: a head a block, its q, k, v rows (3 hd rows) in shared memory after the rest
-  int wsm_offset = 0;
-  smem = (smem + 15) / 16 * 16;
-  const size_t rows = (size_t)3 * p.hd * p.D / 2 + (size_t)2 * max(t - off, 0) * p.hd * sizeof(bf16);
-  if (BITS == 4 && p.narrow && p.hd % 16 == 0 && p.H < nblk && smem + rows <= MAX_SMEM) {
-    wsm_offset = (int)smem;
-    smem += rows;
-  }
   static size_t smem_set = 0;   // above 48 KB a kernel must be allowed more dynamic shared memory
   if (smem > 48 * 1024 && smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(mega_persistent_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1886,7 +1679,7 @@ int mega_persistent(const DecodePlan& p, const int* tok_in, int t, int off, int 
   e = cudaMemsetAsync((unsigned*)p.bar + BAR_GRID, 0, (BAR_WORDS - BAR_GRID) * sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
   DecodePlan pv = p;
-  void* args[] = {&pv, &tok_in, &t, &off, &suppress, &seed, &wsm_offset};
+  void* args[] = {&pv, &tok_in, &t, &off, &suppress, &seed};
   e = cudaLaunchCooperativeKernel((void*)mega_persistent_kernel<BITS>, dim3(nblk),
                                   dim3(THREADS), args, smem, st);
   return (int)e;

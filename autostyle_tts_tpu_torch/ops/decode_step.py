@@ -493,7 +493,7 @@ class _Plan(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_void_p) for k in MP_KEYS]
                 + [(k, ctypes.c_void_p) for k in ("k_all", "v_all", "h", "qkv", "part", "act",
                                                   "logits", "tok_out", "bar", "stamps", "hx", "actx",
-                                                  "cand", "qkvx", "attnx")]
+                                                  "cand", "qkvx")]
                 + [(k, ctypes.c_int) for k in ("L", "D", "H", "hd", "F", "V", "S", "pad_id", "bos_id",
                                                "eos_id", "greedy", "top_k", "bits", "narrow")]
                 + [(k, ctypes.c_float) for k in ("eps", "scale", "temperature")])
@@ -525,7 +525,7 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-ZEROED = ("bar", "hx", "actx", "qkvx", "attnx")   # zeroed once: the step's write counts and tagged words
+ZEROED = ("bar", "hx", "actx", "qkvx")   # zeroed once: the step's write counts and its tagged words
 
 
 def _scratch_spec(D: int, H: int, hd: int, F: int, V: int, sms: int):
@@ -535,8 +535,7 @@ def _scratch_spec(D: int, H: int, hd: int, F: int, V: int, sms: int):
         "part": (part_shape(H, hd), torch.float32), "act": ((F,), torch.bfloat16),
         "logits": ((V,), torch.float32), "tok": ((1,), i32),
         "bar": ((_lib_int("decode_bar_words"),), i32), "hx": ((D,), i32), "actx": ((F,), i32),
-        "qkvx": ((3 * H * hd,), torch.int64), "attnx": ((H * hd,), i32),
-        "cand": ((sms, _lib_int("decode_cand_words")), i32),
+        "qkvx": ((3 * H * hd,), torch.int64), "cand": ((sms, _lib_int("decode_cand_words")), i32),
     }
 
 
@@ -669,7 +668,6 @@ def _make_plan(mp, k_all, v_all, scratch: DecodeScratch, const: tuple):
                  stamps=scratch["stamps"].data_ptr() if "stamps" in scratch else None,
                  hx=scratch["hx"].data_ptr(), actx=scratch["actx"].data_ptr(),
                  cand=scratch["cand"].data_ptr(), qkvx=scratch["qkvx"].data_ptr(),
-                 attnx=scratch["attnx"].data_ptr(),
                  L=L, D=D, H=H, hd=hd, F=F, V=V, S=S, pad_id=pad_id, bos_id=bos_id, eos_id=eos_id,
                  greedy=int(bool(greedy)), top_k=int(top_k), bits=bits, narrow=int(scratch.narrow),
                  eps=float(eps), scale=hd ** -0.5, temperature=float(temperature))
