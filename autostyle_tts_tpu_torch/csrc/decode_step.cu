@@ -15,23 +15,24 @@
 // What bounds it on the H100. Bytes, in principle: one step streams ~235 M
 // layer weights and ~4.2 M of speech head (252.6 MB at int8, 133.1 MB at
 // int4) and up to ~22 MB of bf16 cache (at the flagship width: L=14,
-// D=1024, F=4096, V=4099, S=392), 75 / 40 us at 3.35 TB/s. In practice the
-// step is a chain of 5 dependent phases a layer of 0.5-8 MB each, and what
-// it takes beyond its bytes is that chain's latency: per phase a wait for
-// what other blocks wrote (a grid-wide barrier cost ~1 us, 1.7-3.1 us where
-// the leaving poll queued behind the phase's weight loads), then a prologue
-// of one or two trips to L2 and the dot products. The parent of this design
-// measured (NVIDIA H100 80GB HBM3, 700 W): int4 302.8 us a step, 82.1 of it
-// in 72 barriers, 222.4 in phase bodies, 21.0 of those in a sampler that
-// ran on one SM; int8 313.7 = 107.0 + 198.3. PERF.md holds the split of
-// this design.
+// D=1024, F=4096, V=4099, S=392): 75 / 40 us at 3.35 TB/s. In practice the
+// step is a chain of 5 dependent phases a layer, and what it takes beyond
+// its bytes is the chain's latency: per phase a wait for what other blocks
+// wrote (one trip through L2 at the least, longer while the phase's weight
+// loads crowd the memory system), a prologue, the dot products and an
+// epilogue. Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+// scripts/time_decode_step.py), the int4 step spends ~17 us a layer, each
+// phase's lap (last arrival to last arrival) 2.9-4.0 us, of which the
+// slowest block's work is 1.3-2.9 us and the rest the wait; the head 5.7,
+// the sampler's merge 8.4. Its parent spent 19.9 us a layer and 22 us in a
+// sampler on one SM.
 //
 // Design. The TPU kernel runs its grid in order on one core and carries the
 // residual in VMEM between grid steps; blocks on the GPU run in parallel and
 // share nothing, so the step is split where a dependence crosses blocks.
 // Every phase is a __device__ function over (block id, block count) and a
 // `Sync` that separates it from the phase before:
-//   - GEMV phases: weights are output-major; the block starts its 16-byte
+//   - GEMV phases: weights are output-major; a block starts its 16-byte
 //     loads of every weight row it owns (the whole matrix is in flight
 //     across the grid), the rows' scales and (cp.async) the norm weights
 //     BEFORE it waits for the previous phase, because none of them depends
@@ -45,14 +46,20 @@
 //     of 16 rows is cut into tiles of 64 contraction elements, and one
 //     lane's 16 bytes of a tile are its A fragments of mma.sync.m16n8k16 for
 //     the tile's four k-steps, so a warp's 512-byte load is one tile, read
-//     once. A nibble becomes a bf16 by one LOP3 under the exponent of 128 and
-//     one packed bf16 FMA that takes the 128 + 8 offset off (two weights an
-//     instruction pair); int4 values and the bf16 input are exact, so every
-//     product equals the int8 path's and only the order of the f32 sums
-//     differs: two accumulators a warp (even and odd k-steps), then the warps
-//     that split a row-group's tiles in warp order, then the row's scale.
-//     B is the input vector in every column (the other seven columns repeat
-//     the first; the tensor cores are idle either way).
+//     once, already in the order the registers need (no shared-memory
+//     staging, no ldmatrix: the packer does the permutation once). A nibble
+//     becomes a bf16 by one LOP3 under the exponent of 128 and one packed
+//     bf16 FMA that takes the 128 + 8 offset off (two weights an
+//     instruction pair, against ~3.4 instructions a weight in f32); int4
+//     values and the bf16 input are exact, so every product equals the
+//     int8 path's and only the order of the f32 sums differs: two
+//     accumulators a warp (even and odd k-steps), then the warps that split
+//     a row-group's tiles in warp order, then the row's scale. B is the
+//     input vector in every column (the other seven columns repeat the
+//     first; at B=1 the tensor cores idle either way). A unit is two
+//     row-groups (QKV, the head), four (gate|up: two gate, two up) or one
+//     (wo, down), so that no block runs two units in turn at the flagship
+//     widths.
 //   - attention (attn_phase): a grid of (head, split), hd/8 lanes a key row,
 //     running (max, sum, acc) merged over lanes, warps, and in the wo
 //     phase's prologue over splits; split 0 ropes k, writes cache row t and
@@ -60,23 +67,29 @@
 //     length has no cap.
 //   - the sampler (sample_local, sample_merge): fused into the head. Each
 //     block keeps its (at most 32) logits in shared memory; one warp sorts
-//     them (bitonic, by value then id), and writes the block's distinct
-//     levels (at most k) with, per level, the best Gumbel score and smallest
-//     id at or above it and the smallest id below it. The last block to take
-//     the ticket (as csrc/log_mel.cu sums its partials) merges the lists one
-//     level a round (a warp max by redux.sync) into the k-th distinct value,
-//     then picks the token from each list's record at that level. No block
-//     waits on a grid barrier for the sampler, and no block runs it alone.
+//     them (bitonic, by value then id) and writes the block's distinct
+//     levels (at most k) with, per level, the best Gumbel score and the
+//     smallest id at or above it and the smallest id below it. The last
+//     block to take a ticket (as csrc/log_mel.cu sums its partials) merges
+//     the lists, two levels a round, into the k-th distinct value, then
+//     picks the token from each list's record at that level. No block waits
+//     on a grid barrier for the sampler, and no block runs it alone.
 // The step is one persistent cooperative kernel, one block an SM. The waits
 // between its phases are as narrow as the dependence:
 //   - the residual h and the activation pass between blocks as 32-bit words
-//     (tag << 16 | bf16 bits; the tag counts the buffer's writes): a reader
-//     spins on the words themselves until each carries the tag it expects,
-//     so the wait and the read are one trip to L2 and no counter is touched
-//     (rmsnorm before QKV / gate|up / head, the residual of wo / down, the
-//     activation of down);
-//   - the attention of head h waits on a counter for head h's QKV rows;
+//     (tag << 16 | bf16 bits; the tag counts the buffer's writes), q, k, v
+//     as 64-bit words (tag << 32 | f32 bits): a reader spins on the words
+//     themselves until each carries the tag it expects, so the wait and the
+//     read are one trip to L2 and no counter is touched (rmsnorm before QKV
+//     / gate|up / head, the residual of wo / down, the activation of down,
+//     and the attention of head h, which needs only head h's q, k, v);
 //   - only wo, which needs every head's partials, waits on a grid barrier.
+// Measured against a grid barrier before every phase (the same sums), the
+// narrow waits saved ~25 us of the int4 step and ~7 us of the int8 one.
+// Tried and measured slower (PERF.md): a block a head doing its QKV and
+// its whole attention (the key loop is latency-bound in one block);
+// prefetching the next layer's weights into L2; polling the tagged words
+// harder or with a pause.
 // A half-layer entry point is a chain of two or three kernels launched with
 // programmatic dependent launch (griddepcontrol) on plain bf16 buffers.
 // Buffers another phase wrote are read with ld.global.cg or ld.relaxed.gpu,
@@ -525,34 +538,34 @@ __device__ __forceinline__ void input_prologue(const GemvArgs& a, float* x_s, fl
     }
   } else if constexpr (KIND == DOWN) {   // eight elements a group, C % 16 == 0
     for (int c0 = 0; c0 < C; c0 += ACT_GROUPS * 8 * blockDim.x) {
-    uint4 raw[ACT_GROUPS][2];
+      uint4 raw[ACT_GROUPS][2];
 #pragma unroll
-    for (int g = 0; g < ACT_GROUPS; ++g) {   // every load in flight before the first is used
-      const int i = c0 + (threadIdx.x + g * blockDim.x) * 8;
-      if (i < C) {
-        if (a.xinx != nullptr) {
-          raw[g][0] = ld_relaxed4(a.xinx + i);
-          raw[g][1] = ld_relaxed4(a.xinx + i + 4);
-        } else {
-          raw[g][0] = __ldcg(reinterpret_cast<const uint4*>(a.xin + i));
+      for (int g = 0; g < ACT_GROUPS; ++g) {   // every load in flight before the first is used
+        const int i = c0 + (threadIdx.x + g * blockDim.x) * 8;
+        if (i < C) {
+          if (a.xinx != nullptr) {
+            raw[g][0] = ld_relaxed4(a.xinx + i);
+            raw[g][1] = ld_relaxed4(a.xinx + i + 4);
+          } else {
+            raw[g][0] = __ldcg(reinterpret_cast<const uint4*>(a.xin + i));
+          }
         }
       }
-    }
 #pragma unroll
-    for (int g = 0; g < ACT_GROUPS; ++g) {
-      const int i = c0 + (threadIdx.x + g * blockDim.x) * 8;
-      if (i < C) {
-        float f[8];
-        if (a.xinx != nullptr) {
-          settle4(raw[g][0], a.xinx + i, a.xin_tag, f);
-          settle4(raw[g][1], a.xinx + i + 4, a.xin_tag, f + 4);
-        } else {
-          unpack8(*reinterpret_cast<const int4*>(&raw[g][0]), f);
+      for (int g = 0; g < ACT_GROUPS; ++g) {
+        const int i = c0 + (threadIdx.x + g * blockDim.x) * 8;
+        if (i < C) {
+          float f[8];
+          if (a.xinx != nullptr) {
+            settle4(raw[g][0], a.xinx + i, a.xin_tag, f);
+            settle4(raw[g][1], a.xinx + i + 4, a.xin_tag, f + 4);
+          } else {
+            unpack8(*reinterpret_cast<const int4*>(&raw[g][0]), f);
+          }
+          put_x4<BITS>(x_s, i, f[0], f[1], f[2], f[3]);
+          put_x4<BITS>(x_s, i + 4, f[4], f[5], f[6], f[7]);
         }
-        put_x4<BITS>(x_s, i, f[0], f[1], f[2], f[3]);
-        put_x4<BITS>(x_s, i + 4, f[4], f[5], f[6], f[7]);
       }
-    }
     }
   } else {   // WO: merge the (head, split) partials; four channels of one head per thread
     const int stride = a.hd + PART_PAD;
@@ -1412,7 +1425,6 @@ struct DecodePlan {   // mirrored field by field in ops/decode_step.py
   void *k_all, *v_all, *h, *qkv, *part, *act, *logits, *tok_out, *bar, *stamps, *hx, *actx, *cand, *qkvx;
   int L, D, H, hd, F, V, S;
   int pad_id, bos_id, eos_id, greedy, top_k, bits;
-  int narrow;   // 1: the narrow waits; 0: a grid barrier before every phase, plain h and act
   float eps, scale, temperature;
 };
 
@@ -1568,60 +1580,52 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
   const unsigned* actx = (const unsigned*)p.actx;
   const bf16* emb_row = (const bf16*)p.emb + (size_t)__ldcg(tok_in) * D;
   if (threadIdx.x < SAMPLE_ROWS) slot_id[threadIdx.x] = -1;
-  const bool narrow = p.narrow != 0;
   bf16* h = (bf16*)p.h;
-  unsigned* hxo = narrow ? (unsigned*)p.hx : nullptr;
-  // the residual as a phase reads it: tagged words with the tag of the
-  // write before (narrow), or plain h after a grid barrier
+  unsigned* hxo = (unsigned*)p.hx;
+  // the residual as a phase reads it: layer 0's is the token's embedding
+  // row, later ones tagged words with the tag of the write before
   auto residual = [&](GemvArgs& x, int l, unsigned tag) {
     if (l == 0) x.hin = emb_row;
-    else if (narrow) { x.hinx = hx; x.hin_tag = tag; }
-    else x.hin = h;
+    else { x.hinx = hx; x.hin_tag = tag; }
   };
   for (int l = 0; l < L; ++l) {
     const unsigned h_in = write_tag(epoch * 2u * L + 2u * l - 1u);   // DOWN of layer l - 1
     const unsigned h_mid = write_tag(epoch * 2u * L + 2u * l);       // WO of layer l
+    const unsigned qkv_tag = write_tag(epoch * (unsigned)L + l);      // q, k, v and act of layer l
     GemvArgs a = {};
     a.W = (const int8_t*)p.wqkv + (size_t)l * 3 * N * row_bytes<BITS>(D);
     a.s = (const float*)p.wqs + (size_t)l * 3 * N;
     a.R = 3 * N; a.C = D; a.nw = (const float*)p.attn_norm + (size_t)l * D; a.eps = p.eps;
     residual(a, l, h_in);
-    a.out = (float*)p.qkv;
-    const unsigned qkv_tag = write_tag(epoch * (unsigned)L + l);
-    if (narrow) { a.outx = (unsigned long long*)p.qkvx; a.out_tag = qkv_tag; }
-    sync.grid = !narrow && l > 0;
+    a.outx = (unsigned long long*)p.qkvx; a.out_tag = qkv_tag;
     step_gemv<BITS, QKV>(a, smem, bid, nblk, sync);
-    sync.grid = !narrow;
-    attn_phase((const float*)p.qkv, (const float*)p.invf, (bf16*)p.k_all + (size_t)l * S * N,
+    attn_phase((const float*)nullptr, (const float*)p.invf, (bf16*)p.k_all + (size_t)l * S * N,
                (bf16*)p.v_all + (size_t)l * S * N, (float*)p.part, p.H, p.hd, t, off, nsplit,
-               p.scale, smem, bid, nblk, sync, narrow ? (const unsigned long long*)p.qkvx : nullptr, qkv_tag);
+               p.scale, smem, bid, nblk, sync, (const unsigned long long*)p.qkvx, qkv_tag);
     GemvArgs o = {};
     o.W = (const int8_t*)p.wo + (size_t)l * D * row_bytes<BITS>(N);
     o.s = (const float*)p.wos + (size_t)l * D;
     o.R = D; o.C = N; o.part = (const float*)p.part; o.hd = p.hd; o.nsplit = nsplit;
     residual(o, l, h_in);
-    if (narrow) { o.houtx = hxo; o.hout_tag = h_mid; }
-    else o.hout = h;
+    o.houtx = hxo; o.hout_tag = h_mid;
     sync.grid = true;   // every head's partials
     step_gemv<BITS, WO>(o, smem, bid, nblk, sync);
-    sync.grid = !narrow;
+    sync.grid = false;
     GemvArgs g = {};
     g.W = (const int8_t*)p.wgu + (size_t)l * 2 * F * row_bytes<BITS>(D);
     g.s = (const float*)p.wgus + (size_t)l * 2 * F;
     g.R = 2 * F; g.C = D; g.nw = (const float*)p.mlp_norm + (size_t)l * D; g.eps = p.eps;
     residual(g, l + 1, h_mid);
-    if (narrow) { g.actx = (unsigned*)p.actx; g.act_tag = write_tag(epoch * (unsigned)L + l); }
-    else g.act = (bf16*)p.act;
+    g.actx = (unsigned*)p.actx; g.act_tag = qkv_tag;
     step_gemv<BITS, GATE_UP>(g, smem, bid, nblk, sync);
     GemvArgs d = {};
     d.W = (const int8_t*)p.wd + (size_t)l * D * row_bytes<BITS>(F);
     d.s = (const float*)p.wds + (size_t)l * D;
     d.R = D; d.C = F;
-    if (narrow) { d.xinx = actx; d.xin_tag = g.act_tag; }
-    else d.xin = (const bf16*)p.act;
+    d.xinx = actx; d.xin_tag = qkv_tag;
     residual(d, l + 1, h_mid);
-    if (narrow) { d.houtx = hxo; d.hout_tag = write_tag(epoch * 2u * L + 2u * l + 1u); }
-    if (!narrow || l == L - 1) d.hout = h;   // narrow: the last residual, for the caller
+    d.houtx = hxo; d.hout_tag = write_tag(epoch * 2u * L + 2u * l + 1u);
+    if (l == L - 1) d.hout = h;   // the last residual, for the caller
     step_gemv<BITS, DOWN>(d, smem, bid, nblk, sync);
   }
   GemvArgs a = {};   // the head: the QKV phase's arithmetic, the block's logits kept for the sampler
@@ -1630,7 +1634,6 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
   a.nw = (const float*)p.final_norm; a.eps = p.eps; a.out = (float*)p.logits;
   a.slot_val = slot_val; a.slot_id = slot_id;
   step_gemv<BITS, HEAD>(a, smem, bid, nblk, sync);
-  sync.grid = false;
 
   SampleArgs sa{p.V, p.pad_id, p.bos_id, p.eos_id, suppress, p.greedy, p.top_k, p.temperature,
                 (uint32_t)seed, (unsigned*)p.cand, (int*)p.tok_out};

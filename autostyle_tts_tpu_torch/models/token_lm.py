@@ -146,8 +146,8 @@ def requantize4(q8: torch.Tensor, s8: torch.Tensor):
 def requantize_int4(mp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """int8 ``mega_decode_params`` -> the same dict with every weight
     stream (qkv, wo, gate|up, down, head) re-quantized to 4 bits and packed
-    two contraction elements a byte (``ops/decode_step.pack4``): half the
-    weight bytes per step. Embedding, norms and scales stay bf16 / f32. The
+    two values a byte, in the order of the step's mma fragments
+    (``ops/decode_step.pack4``): half the weight bytes per step. Embedding, norms and scales stay bf16 / f32. The
     port's own rule replaces the reference's lane rule: every contraction
     width must be even (the kernel asks for multiples of 32 on the card);
     anything else raises, nothing falls back to int8."""

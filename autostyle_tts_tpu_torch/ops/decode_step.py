@@ -192,9 +192,10 @@ def _block_levels(vals, top_k: int):
 
 
 def _merged_kth(lists, top_k: int) -> float:
-    """The kernel's ``sample_merge``: a round takes the largest head of all
-    lists as the next distinct level and advances every list at it; the
-    k-th level (-inf where fewer than k exist)."""
+    """The kernel's ``sample_merge``: level by level (the kernel takes two
+    a round), the largest head of all lists is the next distinct level and
+    every list at it advances; the k-th level (-inf where fewer than k
+    exist)."""
     pos = [0] * len(lists)
     level = -float("inf")
     for _ in range(top_k):
@@ -342,9 +343,10 @@ def matvec4_plain(w: torch.Tensor, x: torch.Tensor, slices: int = 8) -> torch.Te
 def head_logits_plain(h: torch.Tensor, mp: Dict[str, torch.Tensor], eps: float,
                       matvec=matvec_plain) -> torch.Tensor:
     """Final rmsnorm + speech-head GEMV (int8-valued rows) of a residual h
-    -> f32 logits [V]."""
+    -> f32 logits [V] (``matvec``: as ``attn_step_plain``'s; the int4 head
+    splits a row-group's tiles over four warps)."""
     xn = _rms_bf16(h.float().reshape(-1), mp["final_norm"], eps)
-    return matvec(mp["head"], xn) * mp["head_s"]
+    return matvec(mp["head"], xn, 4) * mp["head_s"]
 
 
 def attn_splits(n: int, cap: int = MAX_SPLITS) -> int:
@@ -418,14 +420,15 @@ def attn_step_plain(
     Weights are int8-valued output-major rows (wqkv [3N, D], wo [D, N]).
     With ``bounds`` the attention is computed split by split
     (``attn_vector_split_plain``), else in one piece; ``matvec`` is the
-    product (``matvec4_plain``: the int4 kernel's order of sums)."""
+    product (``matvec4_plain``: the int4 kernel's order of sums, a QKV
+    row-group's tiles over four warps, wo's over eight)."""
     H, hd = n_heads, head_dim
     N = H * hd
     hf = h.float().reshape(-1)
     ang = torch.tensor(float(max(t - off, 0)), device=h.device) * invf
     cos, sin = torch.cos(ang), torch.sin(ang)
     x = _rms_bf16(hf, attn_norm, eps)
-    qkv = matvec(wqkv, x) * wqs
+    qkv = matvec(wqkv, x, 4) * wqs
     q = _rope(qkv[:N].view(H, hd), cos, sin)
     k = _rope(qkv[N:2 * N].view(H, hd), cos, sin)
     v = qkv[2 * N:].view(H, hd)
@@ -445,12 +448,12 @@ def mlp_step_plain(
 ) -> torch.Tensor:
     """Plain twin of the MLP half-layer: h [1, D] bf16 -> new h [1, D] bf16.
     wgu [2F, D] (gate rows then up rows) and wd [D, F] are int8-valued; the
-    kernels split a gate|up row-group's tiles over four warps, the others'
+    int4 kernels split a gate|up row-group's tiles over two warps, down's
     over eight (``matvec``'s ``slices``)."""
     F = wgu.shape[0] // 2
     hf = h.float().reshape(-1)
     x = _rms_bf16(hf, mlp_norm, eps)
-    gu = matvec(wgu, x, 4) * wgus
+    gu = matvec(wgu, x, 2) * wgus
     g, u = gu[:F], gu[F:]
     act = (g * torch.sigmoid(g) * u).to(torch.bfloat16).float()
     return (hf + matvec(wd, act) * wds).to(torch.bfloat16)[None]
@@ -495,7 +498,7 @@ class _Plan(ctypes.Structure):
                                                   "logits", "tok_out", "bar", "stamps", "hx", "actx",
                                                   "cand", "qkvx")]
                 + [(k, ctypes.c_int) for k in ("L", "D", "H", "hd", "F", "V", "S", "pad_id", "bos_id",
-                                               "eos_id", "greedy", "top_k", "bits", "narrow")]
+                                               "eos_id", "greedy", "top_k", "bits")]
                 + [(k, ctypes.c_float) for k in ("eps", "scale", "temperature")])
 
 
@@ -505,10 +508,9 @@ class DecodeScratch(dict):
     constants of that step's params, cache and sampler, so later steps pass
     only what changes."""
 
-    def __init__(self, tensors, narrow: bool = True):
+    def __init__(self, tensors):
         super().__init__(tensors)
         self.plan = None      # (_Plan, address of it, pointers it was made from, constants)
-        self.narrow = narrow  # the narrow waits, or a grid barrier before every phase
 
 
 def _lib_int(name: str) -> int:
@@ -540,7 +542,7 @@ def _scratch_spec(D: int, H: int, hd: int, F: int, V: int, sms: int):
 
 
 def decode_scratch(mp: Dict[str, torch.Tensor], n_heads: int, head_dim: int,
-                   device, stamps: bool = False, narrow: bool = True) -> DecodeScratch:
+                   device, stamps: bool = False) -> DecodeScratch:
     """The step kernel's buffers on a CUDA device, to allocate once per
     request and pass to every step: h [1, D] bf16 (the last residual),
     qkv f32, the attention partials f32, act bf16 (the half-layers'),
@@ -554,15 +556,14 @@ def decode_scratch(mp: Dict[str, torch.Tensor], n_heads: int, head_dim: int,
     which every block of the kernel records, in nanoseconds of the card's
     timer, when it arrived at and when it left the wait before each phase
     (5 a layer, the head, the sampler's ticket); the last slot holds the
-    step's end. ``narrow=False`` puts a grid barrier before every phase
-    instead of the narrow waits (what they save, in the stamps)."""
+    step's end."""
     if torch.device(device).type != "cuda":
         raise ValueError(f"decode scratch: the kernels' buffers live on a CUDA device, not on {device}")
     weight_bits(mp)   # raises on rows that fit neither width
     spec = _scratch_spec(mp["emb"].shape[1], n_heads, head_dim,
                          mp["wgu"].shape[1] // 2, mp["head"].shape[0], _sms(device))
     scratch = DecodeScratch({k: (torch.zeros if k in ZEROED else torch.empty)(shape, dtype=dt, device=device)
-                             for k, (shape, dt) in spec.items()}, narrow)
+                             for k, (shape, dt) in spec.items()})
     if stamps:
         scratch["stamps"] = torch.zeros(_stamps_shape(mp["wqkv"].shape[0], device), dtype=torch.int64,
                                         device=device)
@@ -669,7 +670,7 @@ def _make_plan(mp, k_all, v_all, scratch: DecodeScratch, const: tuple):
                  hx=scratch["hx"].data_ptr(), actx=scratch["actx"].data_ptr(),
                  cand=scratch["cand"].data_ptr(), qkvx=scratch["qkvx"].data_ptr(),
                  L=L, D=D, H=H, hd=hd, F=F, V=V, S=S, pad_id=pad_id, bos_id=bos_id, eos_id=eos_id,
-                 greedy=int(bool(greedy)), top_k=int(top_k), bits=bits, narrow=int(scratch.narrow),
+                 greedy=int(bool(greedy)), top_k=int(top_k), bits=bits,
                  eps=float(eps), scale=hd ** -0.5, temperature=float(temperature))
     return plan, ctypes.addressof(plan), _plan_pointers(mp, k_all, v_all, scratch), const
 

@@ -477,16 +477,10 @@ def decode_case(cfg: Config, steps: int, gen, bits: int = 8):
     ms = time_ms(step, 100)
     host_ms = time_host_ms(step, 50)
     stamped = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev, stamps=True)
-    grid = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev, stamps=True, narrow=False)
-    grid_plain = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev, narrow=False)
     steps_of = dict(
-        step=step, stamps=stamped["stamps"], grid_stamps=grid["stamps"],
-        grid_step=lambda: decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, False, 7, **kw, **sampled,
-                                                       scratch=grid_plain),
+        step=step, stamps=stamped["stamps"],
         stamped=lambda: decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, False, 7, **kw, **sampled,
-                                                     scratch=stamped),
-        grid=lambda: decode_step.mega_decode_step(tin, mp, k_kern, v_kern, t, off, False, 7, **kw, **sampled,
-                                                  scratch=grid))
+                                                     scratch=stamped))
     plain_ms = time_ms(lambda: decode_step.mega_decode_step_plain(tin, mp_plain, k_plain, v_plain, t, off, False, 7, **kw, **sampled), 5, warmup=1)
     n_weights = L * (3 * N * D + D * N + 2 * F * D + D * F) + V * D
     scales = 4 * (L * (3 * N + D + 2 * F + D) + V) + 4 * (2 * L * D + D)
@@ -625,18 +619,13 @@ def decode_phase(cfg: Config, gen):
     del mp8, cache8
     dec4, _, _, steps4 = decode_case(cfg, 16, gen, bits=4)
     print("decode int4", json.dumps(dec4), flush=True)
-    turns = {8: 0.0, 4: 0.0, "grid8": 0.0, "grid4": 0.0}
-    for key, step in ((8, steps8["step"]), (4, steps4["step"]), ("grid8", steps8["grid_step"]),
-                      ("grid4", steps4["grid_step"]), ("grid4", steps4["grid_step"]),
-                      ("grid8", steps8["grid_step"]), (4, steps4["step"]), (8, steps8["step"])):
-        turns[key] += 0.5 * time_ms(step, 50)
+    turns = {8: 0.0, 4: 0.0}
+    for bits, steps in ((8, steps8), (4, steps4), (4, steps4), (8, steps8)):
+        turns[bits] += 0.5 * time_ms(steps["step"], 50)
     phases = dict(
         ms_in_turns_int8=turns[8], ms_in_turns_int4=turns[4], host_enqueue_ms=dec["host_enqueue_ms"],
-        ms_in_turns_grid_int8=turns["grid8"], ms_in_turns_grid_int4=turns["grid4"],
         phases_us=barrier_times(steps8["stamped"], steps8["stamps"], tl.n_layers),
         phases_us_int4=barrier_times(steps4["stamped"], steps4["stamps"], tl.n_layers),
-        grid_phases_us=barrier_times(steps8["grid"], steps8["grid_stamps"], tl.n_layers),
-        grid_phases_us_int4=barrier_times(steps4["grid"], steps4["grid_stamps"], tl.n_layers),
         layers_as_half_layer_calls_ms=tl.n_layers * (attn_rec["ms"] + mlp_rec["ms"]),
         attn_blocks=dec["attn_blocks"])
     return dec, dec4, attn_rec, mlp_rec, phases

@@ -267,32 +267,6 @@ def test_half_layer_kernels_match_plain_int4(cuda):
     assert (decode_step.attn_step.launches, decode_step.mlp_step.launches) == (na + 1, nm + 1)
 
 
-@pytest.mark.parametrize("bits", [8, 4])
-def test_decode_step_grid_waits_match_narrow(cuda, bits):
-    """The step with a grid barrier before every phase (``narrow=False``,
-    the baseline the narrow waits are measured against) computes the same
-    sums: the same residual, cache rows and tokens, bit for bit, over
-    steps that feed each other (the tags count the scratch's steps)."""
-    cfg = tiny_config().token_lm
-    g = torch.Generator(device=cuda).manual_seed(6)
-    mp = token_lm.mega_decode_params(quantize_tree(token_lm.init_params(cfg, g)), cfg, bits=bits)
-    L, N, S, off = cfg.n_layers, cfg.dim, 64, 4
-    k1 = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
-    v1 = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
-    k2, v2 = k1.clone(), v1.clone()
-    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=cfg.norm_eps, pad_id=cfg.speech_pad,
-              bos_id=cfg.speech_bos, eos_id=cfg.speech_eos, greedy=False, temperature=0.9, top_k=5)
-    narrow = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda)
-    grid = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda, narrow=False)
-    t1 = t2 = torch.tensor([3], dtype=torch.int32, device=cuda)
-    for i, t in enumerate(range(30, 38)):
-        h1, t1 = decode_step.mega_decode_step(t1, mp, k1, v1, t, off, i == 0, 40 + i, scratch=narrow, **kw)
-        h2, t2 = decode_step.mega_decode_step(t2, mp, k2, v2, t, off, i == 0, 40 + i, scratch=grid, **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(h1, h2) and int(t1[0]) == int(t2[0]), t
-    assert torch.equal(k1, k2) and torch.equal(v1, v2)
-
-
 def test_half_layer_kernels_raise_on_wrong_layout(cuda):
     cfg = tiny_config().token_lm
     D = cfg.dim
@@ -465,9 +439,7 @@ def test_decode_step_stamps_cover_every_barrier(cuda):
     kernel leaves an arrival and a later leave time at each of its 5 L + 2
     waits (5 a layer, the head, the sampler's ticket), in order, and the
     slot after them holds the step's end. Where the wait is a grid barrier
-    (the narrow waits: before wo; ``narrow=False``: every wait but the
-    first layer's qkv, which reads the embedding, and the ticket) nobody
-    leaves it before the last block arrived."""
+    (before wo) nobody leaves it before the last block arrived."""
     cfg = tiny_config().token_lm
     g = torch.Generator(device=cuda).manual_seed(9)
     mp = token_lm.mega_decode_params(quantize_tree(token_lm.init_params(cfg, g)), cfg)
@@ -476,19 +448,18 @@ def test_decode_step_stamps_cover_every_barrier(cuda):
     v = k.clone()
     tok = torch.tensor([3], dtype=torch.int32, device=cuda)
     n_bar = 5 * L + 2
-    for narrow in (True, False):
-        scratch = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda, stamps=True, narrow=narrow)
-        decode_step.mega_decode_step(tok, mp, k, v, 30, 4, False, 1, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
-                                     eps=cfg.norm_eps, pad_id=cfg.speech_pad, bos_id=cfg.speech_bos,
-                                     eos_id=cfg.speech_eos, scratch=scratch)
-        torch.cuda.synchronize()
-        st = scratch["stamps"].cpu()
-        assert st.shape[0] == n_bar + 1 and st.shape[2] == 2
-        arrive, leave = st[:n_bar, :, 0], st[:n_bar, :, 1]
-        assert bool((arrive > 0).all()) and bool((leave >= arrive).all())
-        assert bool((arrive[1:] >= leave[:-1]).all()) and bool((st[n_bar, :, 0] >= leave[-1]).all())
-        grid = [5 * l + 2 for l in range(L)] if narrow else list(range(1, n_bar - 1))
-        assert bool((leave[grid].min(dim=1).values >= arrive[grid].max(dim=1).values).all()), narrow
+    scratch = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda, stamps=True)
+    decode_step.mega_decode_step(tok, mp, k, v, 30, 4, False, 1, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+                                 eps=cfg.norm_eps, pad_id=cfg.speech_pad, bos_id=cfg.speech_bos,
+                                 eos_id=cfg.speech_eos, scratch=scratch)
+    torch.cuda.synchronize()
+    st = scratch["stamps"].cpu()
+    assert st.shape[0] == n_bar + 1 and st.shape[2] == 2
+    arrive, leave = st[:n_bar, :, 0], st[:n_bar, :, 1]
+    assert bool((arrive > 0).all()) and bool((leave >= arrive).all())
+    assert bool((arrive[1:] >= leave[:-1]).all()) and bool((st[n_bar, :, 0] >= leave[-1]).all())
+    grid = [5 * l + 2 for l in range(L)]
+    assert bool((leave[grid].min(dim=1).values >= arrive[grid].max(dim=1).values).all())
 
 
 @pytest.mark.parametrize("quant,kv_int8,kv_heads", [(False, False, 4), (True, True, 2)])
