@@ -261,7 +261,7 @@ struct ChainSync {
   __device__ __forceinline__ void mark_left() {}
 };
 
-// The persistent step. A phase's wait is one of three kinds:
+// The persistent step. A phase's wait is one of two kinds:
 //   - `grid`: a barrier over all (co-resident) blocks on the counter
 //     bar[BAR_GRID], in two halves: `arrive` once the block's part of the
 //     previous phase is written, `wait` before it reads what others wrote;
@@ -1422,7 +1422,7 @@ attn_kernel(const float* qkv, const float* invf, bf16* kc, bf16* vc, float* part
 struct DecodePlan {   // mirrored field by field in ops/decode_step.py
   const void *emb, *invf, *attn_norm, *wqkv, *wqs, *wo, *wos, *mlp_norm, *wgu, *wgus, *wd, *wds,
       *final_norm, *head, *head_s;
-  void *k_all, *v_all, *h, *qkv, *part, *act, *logits, *tok_out, *bar, *stamps, *hx, *actx, *cand, *qkvx;
+  void *k_all, *v_all, *h, *part, *logits, *tok_out, *bar, *stamps, *hx, *actx, *cand, *qkvx;
   int L, D, H, hd, F, V, S;
   int pad_id, bos_id, eos_id, greedy, top_k, bits;
   float eps, scale, temperature;
@@ -1742,14 +1742,13 @@ extern "C" int mlp_step(void* h, const void* nw, const void* wgu, const void* wg
 // [V,D]; scales f32 [L,3N], [L,D], [L,2F], [L,D], [V]; norms f32 [L,D] /
 // [D]; emb bf16 [V,D]; invf f32 [hd/2]. Caches k_all/v_all bf16 [L,S,N] are
 // updated in place at row t. Scratch: h bf16 [D] (the last layer's
-// residual on return), qkv f32 [3N], part f32 [H, MAX_SPLITS, hd +
-// PART_PAD], act bf16 [F] (unused by the step), logits f32 [V], tok_out
-// int32 [1], bar uint32 [BAR_WORDS], hx uint32 [D], actx uint32 [F], qkvx
-// uint64 [3N] (bar, hx, actx and qkvx zeroed once, when the scratch is
-// made), cand uint32
-// [SMs, CAND_WORDS]; stamps is null or int64 [5 L + 3, SMs, 2] (when each
-// block arrived at and left each wait, in ns). tok_in is int32 [1] on the
-// device (it may be tok_out). V <= SAMPLE_ROWS x (SMs - 1).
+// residual on return), part f32 [H, MAX_SPLITS, hd + PART_PAD], logits f32
+// [V], tok_out int32 [1], bar uint32 [BAR_WORDS], hx uint32 [D], actx
+// uint32 [F], qkvx uint64 [3N] (bar, hx, actx and qkvx zeroed once, when
+// the scratch is made), cand uint32 [SMs, CAND_WORDS]; stamps is null or
+// int64 [5 L + 3, SMs, 2] (when each block arrived at and left each wait,
+// in ns). tok_in is int32 [1] on the device (it may be tok_out). V <=
+// SAMPLE_ROWS x (SMs - 1).
 extern "C" int mega_decode_step(const void* plan, const void* tok_in, int t, int off,
                                 int suppress, int seed, void* stream) {
   const DecodePlan& p = *(const DecodePlan*)plan;

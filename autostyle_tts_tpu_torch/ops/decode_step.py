@@ -494,9 +494,8 @@ def mega_decode_step_plain(
 class _Plan(ctypes.Structure):
     """Field by field the ``DecodePlan`` of csrc/decode_step.cu."""
     _fields_ = ([(k, ctypes.c_void_p) for k in MP_KEYS]
-                + [(k, ctypes.c_void_p) for k in ("k_all", "v_all", "h", "qkv", "part", "act",
-                                                  "logits", "tok_out", "bar", "stamps", "hx", "actx",
-                                                  "cand", "qkvx")]
+                + [(k, ctypes.c_void_p) for k in ("k_all", "v_all", "h", "part", "logits", "tok_out", "bar",
+                                                  "stamps", "hx", "actx", "cand", "qkvx")]
                 + [(k, ctypes.c_int) for k in ("L", "D", "H", "hd", "F", "V", "S", "pad_id", "bos_id",
                                                "eos_id", "greedy", "top_k", "bits")]
                 + [(k, ctypes.c_float) for k in ("eps", "scale", "temperature")])
@@ -662,8 +661,7 @@ def _make_plan(mp, k_all, v_all, scratch: DecodeScratch, const: tuple):
     _check_tensors(what, dev, want)
     plan = _Plan(**{k: mp[k].data_ptr() for k in MP_KEYS},
                  k_all=k_all.data_ptr(), v_all=v_all.data_ptr(),
-                 h=scratch["h"].data_ptr(), qkv=scratch["qkv"].data_ptr(),
-                 part=scratch["part"].data_ptr(), act=scratch["act"].data_ptr(),
+                 h=scratch["h"].data_ptr(), part=scratch["part"].data_ptr(),
                  logits=scratch["logits"].data_ptr(), tok_out=scratch["tok"].data_ptr(),
                  bar=scratch["bar"].data_ptr(),
                  stamps=scratch["stamps"].data_ptr() if "stamps" in scratch else None,
