@@ -495,7 +495,7 @@ __device__ __forceinline__ void store_act1(const GemvArgs& a, int i, float v) {
 // The prologue: the phase's input vector into shared memory at bf16.
 //   QKV, GATE_UP, HEAD: bf16(rmsnorm(h) * nw); WO: the merged attention
 //   partials; DOWN: the activation. `nw_s` is on its way by cp.async.
-constexpr int NORM_GROUPS = 2;   // four elements a group, in registers: widths up to 2048 in one pass
+constexpr int NORM_GROUPS = 1;   // four elements a group, in registers: widths up to 1024 in one pass
 constexpr int ACT_GROUPS = 2;    // eight elements a group: 4096 a round of loads
 template <int BITS, int KIND>
 __device__ __forceinline__ void input_prologue(const GemvArgs& a, float* x_s, float* red, const float* nw_s) {
