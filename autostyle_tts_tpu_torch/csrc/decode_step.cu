@@ -84,8 +84,9 @@
 //     / gate|up / head, the residual of wo / down, the activation of down,
 //     and the attention of head h, which needs only head h's q, k, v);
 //   - only wo, which needs every head's partials, waits on a grid barrier.
-// Measured against a grid barrier before every phase (the same sums), the
-// narrow waits saved ~25 us of the int4 step and ~7 us of the int8 one.
+// Measured against a grid barrier before every phase (the same sums, three
+// calls), the narrow waits saved 22-25 us of the int4 step; the int8 one
+// gained 7 and 10 us and lost 4.
 // Tried and measured slower (PERF.md): a block a head doing its QKV and
 // its whole attention (the key loop is latency-bound in one block);
 // prefetching the next layer's weights into L2; polling the tagged words

@@ -700,6 +700,7 @@ def log_mel_case(audio, leg: str, B: int, seconds: int, gen, iters: int = 200):
     dev = torch.device("cuda")
     sr, n_fft, hop, win, n_mels, fmax = log_mel_leg(audio, leg)
     frames = noise_frames(audio, leg, B, seconds, gen)
+    T = frames.shape[1]
     cos_b, sin_b = stft._dft_basis_on(dev, n_fft, win)
     fb = stft._mel_filterbank_on(dev, sr, n_fft, n_mels, 0.0, fmax)
     got = log_mel.fused_log_mel(frames, cos_b, sin_b, fb)
@@ -2643,7 +2644,9 @@ def profile_speculative(eng: Engine, store: StyleStore) -> dict:
     for attempt in range(1, 4):
         torch.cuda.synchronize()
         clock = MarkedStopwatch(eng.device)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # device activity only (all this reads): a verify loop is ~190,000 device events, and late in a
+        # full run the profiler lost a mark of three such profiles that also held their host events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             spec = spec_decode(eng, TEXTS[0], store.meta[0]["text"], sty, tim, clock)
             torch.cuda.synchronize()
         evts = device_events(prof)
