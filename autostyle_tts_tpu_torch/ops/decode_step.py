@@ -207,6 +207,13 @@ def _merged_kth(lists, top_k: int) -> float:
     return level
 
 
+def _merged_threshold(lists, top_k: int) -> float:
+    """The k-th level of the lists, raised to -1e30 (what stripped entries
+    hold in the reference) when k >= 2."""
+    thr = _merged_kth(lists, top_k)
+    return max(thr, NEG_INF) if top_k >= 2 else thr
+
+
 def topk_threshold_merged(y: torch.Tensor, top_k: int, rows: int = SAMPLE_ROWS) -> torch.Tensor:
     """The same threshold the way the kernel's sampler finds it: blocks of
     ``rows`` consecutive entries each keep their k largest distinct values,
@@ -215,10 +222,7 @@ def topk_threshold_merged(y: torch.Tensor, top_k: int, rows: int = SAMPLE_ROWS) 
     when k >= 2."""
     vals = y.tolist()
     lists = [_block_levels(vals[i:i + rows], top_k) for i in range(0, len(vals), rows)]
-    thr = _merged_kth(lists, top_k)
-    if top_k >= 2:
-        thr = max(thr, NEG_INF)
-    return torch.tensor(thr, dtype=y.dtype, device=y.device)
+    return torch.tensor(_merged_threshold(lists, top_k), dtype=y.dtype, device=y.device)
 
 
 def sample_scores_plain(
@@ -279,9 +283,7 @@ def sample_merged_plain(
     if greedy or top_k <= 0:
         return best([best([(score[i], i) for i in b]) for b in blocks])[1]
     lists = [_block_levels([y[i] for i in b], top_k) for b in blocks]
-    thr = _merged_kth(lists, top_k)
-    if top_k >= 2:
-        thr = max(thr, NEG_INF)
+    thr = _merged_threshold(lists, top_k)
     cands = []
     for b, levels in zip(blocks, lists):
         kept = [lv for lv in levels if lv >= thr]
