@@ -47,7 +47,9 @@
 //     lane's 16 bytes of a tile are its A fragments of mma.sync.m16n8k16 for
 //     the tile's four k-steps, so a warp's 512-byte load is one tile, read
 //     once, already in the order the registers need (no shared-memory
-//     staging, no ldmatrix: the packer does the permutation once). A nibble
+//     staging, no ldmatrix: the packer does the permutation once; a width
+//     of 32 mod 64 ends each row-group with a half tile, two k-steps, 8
+//     bytes a lane). A nibble
 //     becomes a bf16 by one LOP3 under the exponent of 128 and one packed
 //     bf16 FMA that takes the 128 + 8 offset off (two weights an
 //     instruction pair, against ~3.4 instructions a weight in f32); int4
@@ -65,15 +67,18 @@
 //     phase's prologue over splits; split 0 ropes k, writes cache row t and
 //     folds in the current token's f32 k/v. No per-slot array: the cache
 //     length has no cap.
-//   - the sampler (sample_local, sample_merge): fused into the head. Each
-//     block keeps its (at most 32) logits in shared memory; one warp sorts
-//     them (bitonic, by value then id) and writes the block's distinct
+//   - the sampler (sample_local, sample_merge): fused into the head. A
+//     block keeps the logits of each of its head units (32 rows; int4: two
+//     row-groups, or the tail) in shared memory; a warp a unit sorts them
+//     (bitonic, by value then id) and writes the unit's list: its distinct
 //     levels (at most k) with, per level, the best Gumbel score and the
 //     smallest id at or above it and the smallest id below it. The last
 //     block to take a ticket (as csrc/log_mel.cu sums its partials) merges
 //     the lists, two levels a round, into the k-th distinct value, then
 //     picks the token from each list's record at that level. No block waits
-//     on a grid barrier for the sampler, and no block runs it alone.
+//     on a grid barrier for the sampler, and no block runs it alone. One
+//     warp merges up to 288 lists, so V <= 8192 on any SM count (a block
+//     holds more than one unit where the lists outnumber the SMs).
 // The step is one persistent cooperative kernel, one block an SM. The waits
 // between its phases are as narrow as the dependence:
 //   - the residual h and the activation pass between blocks as 32-bit words
@@ -120,9 +125,9 @@ constexpr int ATTN_WARPS = 4;
 constexpr int MAX_SPLITS = 16;        // attention partials per head
 constexpr int SPLIT_KEYS = 24;        // live slots per split, until MAX_SPLITS caps it
 constexpr int PART_PAD = 4;           // a partial is acc[hd], m, l, 2 unused floats
-constexpr int SAMPLE_ROWS = 32;       // logits a block keeps for the sampler: V <= 32 x (blocks - 1)
-constexpr int MAX_LISTS = 160;        // blocks whose lists one warp merges (5 a lane; an H100 has 132)
-constexpr int CAND_WORDS = 4 + SAMPLE_ROWS + 4 * SAMPLE_ROWS;   // a block's list: header, levels, records
+constexpr int SAMPLE_ROWS = 32;       // logits of one head unit, the sampler's list of them
+constexpr int MAX_LISTS = 288;        // lists one warp merges (9 a lane): V <= 8192 at either width
+constexpr int CAND_WORDS = 4 + SAMPLE_ROWS + 4 * SAMPLE_ROWS;   // a list: header, levels, records
 constexpr unsigned SPIN_LIMIT = 1u << 24;   // polls before a wait gives up and traps
 // words of the step's `bar` buffer: the write count of the tagged buffers
 // (kept across steps), then what the host zeroes before each step
@@ -367,7 +372,7 @@ struct GemvArgs {
   unsigned act_tag;
   unsigned long long* outx;   // QKV in the step: out as tagged 64-bit words (out_tag) instead
   unsigned out_tag;
-  float* slot_val;      // HEAD: the block's logits (SAMPLE_ROWS) in shared memory, and their ids
+  float* slot_val;      // HEAD: the block's logits (SAMPLE_ROWS a unit) in shared memory, and their ids
   int* slot_id;
 };
 
@@ -435,7 +440,7 @@ __device__ __forceinline__ int frag_word(int k) {
 }
 // Floats of shared memory the input vector takes.
 __host__ __device__ __forceinline__ int xlen(int C, int bits) {
-  return bits == 8 ? ((C / 16 + 31) / 32) * 32 * 16 : C / 2;
+  return bits == 8 ? ((C / 16 + 31) / 32) * 32 * 16 : (C + 63) / 64 * 32;   // int4: whole tiles
 }
 
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
@@ -674,7 +679,7 @@ __device__ __forceinline__ void gemv_phase(const GemvArgs& a, float* smem, int b
     }
   };
 
-  int unit = bid;
+  int unit = bid, m = 0;   // m: the block's unit index (HEAD: which of its lists)
   int o0 = (unit * nwarps + warp) * OPW;
   sync.arrive();
   auto residual = [&](int o) {
@@ -738,11 +743,13 @@ __device__ __forceinline__ void gemv_phase(const GemvArgs& a, float* smem, int b
         } else {
 #pragma unroll
           for (int r = 0; r < ROWS; ++r)
-            if (o0 + r < nout) gemv_out<KIND>(a, o0 + r, acc[r], sv[r], 0.f, 0.f, res[r], warp * ROWS + r);
+            if (o0 + r < nout)
+              gemv_out<KIND>(a, o0 + r, acc[r], sv[r], 0.f, 0.f, res[r], SAMPLE_ROWS * m + warp * ROWS + r);
         }
       }
     }
     unit += nblk;
+    ++m;
     if (unit >= units) break;
     o0 = (unit * nwarps + warp) * OPW;
     prefetch(o0);
@@ -788,7 +795,8 @@ __host__ __device__ __forceinline__ int units4(int R) {
 
 // int4 GEMV phase on the tensor cores. A unit's row-groups each get WARPS /
 // unit_rgs warps, which split the row-group's tiles of 64 contraction
-// elements (warp ks of them takes tiles ks, ks + that count, ...); each
+// elements (warp ks of them takes tiles ks, ks + that count, ...; where C
+// is 32 mod 64, the last tile is a half, two k-steps, 8 bytes a lane); each
 // warp's partial sums are summed in warp order in shared memory, and one
 // thread a row (gate|up: a gate row and its up row) applies the scales
 // and the epilogue. Units bid, bid + nblk, ...: the first MU of them, TPW
@@ -837,25 +845,27 @@ __device__ __forceinline__ void gemv4_phase(const GemvArgs& a, float* smem, int 
       if (KIND == GATE_UP) s1 = __ldg(a.s + 16 * rg_of(unit, 2 + tid / 16) + tid % 16);
     }
   };
-  // the tile's four k-steps: B from the vector (the same 8 words for every
-  // lane of a lane group), A from the nibbles; even and odd k-steps in two
-  // accumulators
-  auto mma_tile = [&](float (&c)[2][4], const int4& q, int kt) {
+  // the tile's four k-steps (the half tile's first two): B from the vector
+  // (the same 8 words for every lane of a lane group), A from the nibbles;
+  // even and odd k-steps in two accumulators
+  auto mma_tile = [&](float (&c)[2][4], const int4& q, int kt, int steps) {
     const uint4* xb = reinterpret_cast<const uint4*>(xw + (((kt << 2) + (lane & 3)) << 3));
     const uint4 b0 = xb[0], b1 = xb[1];
     const unsigned bw[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
     const unsigned qw[4] = {(unsigned)q.x, (unsigned)q.y, (unsigned)q.z, (unsigned)q.w};
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      unsigned fa[4];
-      nibble_frag(qw[s], fa);
-      mma_bf16(c[s & 1], fa, bw[2 * s], bw[2 * s + 1]);
+      if (s < steps) {
+        unsigned fa[4];
+        nibble_frag(qw[s], fa);
+        mma_bf16(c[s & 1], fa, bw[2 * s], bw[2 * s + 1]);
+      }
     }
   };
   auto process = [&](int m, int unit, const int4 (&wt)[TPW], float s0, float s1, unsigned res) {
     if (unit >= nfull) {   // HEAD's tail: plain rows, one warp each
-      const int r = 16 * nrg + warp;
-      if (warp < tail) {
+      for (int r16 = warp; r16 < tail; r16 += WARPS) {
+        const int r = 16 * nrg + r16;
         const unsigned short* xh = reinterpret_cast<const unsigned short*>(xw);
         float acc = 0.f;
         for (int c = lane; c < C / 32; c += 32) {
@@ -868,17 +878,21 @@ __device__ __forceinline__ void gemv4_phase(const GemvArgs& a, float* smem, int 
           acc += chunk_dot<4>(ld_weight(a.W + (size_t)r * (C / 2) + 16 * (size_t)c), xv);
         }
         acc = warp_sum(acc);
-        if (lane == 0) gemv_out<KIND>(a, r, acc, __ldg(a.s + r), 0.f, 0.f, 0u, SAMPLE_ROWS * m + warp);
+        if (lane == 0) gemv_out<KIND>(a, r, acc, __ldg(a.s + r), 0.f, 0.f, 0u, SAMPLE_ROWS * m + r16);
       }
       return;
     }
     float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int t = 0; t < TPW; ++t)
-      if (ks + NSL * t < nk) mma_tile(c, wt[t], ks + NSL * t);
+      if (ks + NSL * t < nk) mma_tile(c, wt[t], ks + NSL * t, 4);
     const int rg = rg_of(unit, sel);
     for (int kt = ks + NSL * TPW; kt < nk && rg < nrg; kt += NSL)   // row-groups longer than the prefetch
-      mma_tile(c, ld_weight(wl + (size_t)rg * rgb + (size_t)kt * 512), kt);
+      mma_tile(c, ld_weight(wl + (size_t)rg * rgb + (size_t)kt * 512), kt, 4);
+    if ((C & 32) && nk % NSL == ks && rg < nrg) {   // C = 32 mod 64: a half tile ends the row-group
+      const int2 q = __ldg(reinterpret_cast<const int2*>(a.W + (size_t)rg * rgb + (size_t)nk * 512 + lane * 8));
+      mma_tile(c, make_int4(q.x, q.y, 0, 0), nk, 2);
+    }
     if ((lane & 3) == 0) {   // c[.][0]: row lane / 4; c[.][2]: row lane / 4 + 8 (every column the same)
       psum[warp * 16 + (lane >> 2)] = c[0][0] + c[1][0];
       psum[warp * 16 + (lane >> 2) + 8] = c[0][2] + c[1][2];
@@ -1161,21 +1175,22 @@ struct SampleArgs {
   int V, pad_id, bos_id, eos_id, suppress, greedy, top_k;
   float temperature;
   uint32_t seed;
-  unsigned* cand;       // [blocks, CAND_WORDS]: header (levels, best score, best id, smallest id), levels, records
+  unsigned* cand;       // [lists, CAND_WORDS]: header (levels, best score, best id, smallest id), levels, records
   int* tok_out;
 };
 
-// The block's part of the sampler, by warp 0, from the logits the head left
-// in `slot_val` / `slot_id` (id -1: empty). The reference masks, divides by
-// the temperature (sampled), strips every value tied at the running max
-// k - 1 times, keeps what is at or above the max of the rest (floored at
-// -1e30 for k >= 2), adds Gumbel noise where the value is above -5e29, and
-// takes the smallest id at the maximum. Per block: the logits sorted by
+// One head unit's part of the sampler, by one warp, from the logits the
+// head left in `slot_val` / `slot_id` (id -1: empty), into list `list`.
+// The reference masks, divides by the temperature (sampled), strips every
+// value tied at the running max k - 1 times, keeps what is at or above the
+// max of the rest (floored at -1e30 for k >= 2), adds Gumbel noise where
+// the value is above -5e29, and takes the smallest id at the maximum. Per
+// unit: the logits sorted by
 // (value desc, id asc); level j = the j-th distinct value; its record:
 // the best (score, id) at or above it, the smallest id below it. Header:
 // the number of levels kept (at most k), the best (score, id) of all, the
 // smallest id of all.
-__device__ __noinline__ void sample_local(const SampleArgs& sa, const float* slot_val, const int* slot_id, int bid) {
+__device__ __noinline__ void sample_local(const SampleArgs& sa, const float* slot_val, const int* slot_id, int list) {
   const int lane = threadIdx.x & 31;
   const int id0 = slot_id[lane];
   const bool valid = id0 >= 0;
@@ -1194,8 +1209,8 @@ __device__ __noinline__ void sample_local(const SampleArgs& sa, const float* slo
     const float u = (float)bits * (1.f / 16777216.f) + 1e-9f;
     return v - logf(-logf(u));
   };
-  unsigned* rec = sa.cand + (size_t)bid * CAND_WORDS;
-  if (sa.greedy || sa.top_k <= 0) {   // no threshold: the block's best is all it sends
+  unsigned* rec = sa.cand + (size_t)list * CAND_WORDS;
+  if (sa.greedy || sa.top_k <= 0) {   // no threshold: the unit's best is all it sends
     float bs = valid ? score_of(y, id) : -INFINITY;
     int bi = valid ? id : 0x7FFFFFFF;
 #pragma unroll
@@ -1267,44 +1282,44 @@ __device__ __noinline__ void sample_local(const SampleArgs& sa, const float* slo
   }
 }
 
-// The last block: merge every block's list into the k-th distinct value,
-// threshold it as the reference does, and pick the token. smem: nblk *
-// (4 + SAMPLE_ROWS) words: each block's header and levels, loaded in one
-// trip to L2.
-__device__ __noinline__ void sample_merge(const SampleArgs& sa, int nblk, float* smem) {
+// The last block: merge the lists (one a head unit) into the k-th
+// distinct value, threshold it as the reference does, and pick the token;
+// LPL lists a lane (nlists <= 32 LPL). smem: nlists x (4 + SAMPLE_ROWS) words:
+// each list's header and levels, loaded in one trip to L2.
+template <int LPL>
+__device__ __noinline__ void sample_merge(const SampleArgs& sa, int nlists, float* smem) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool thresholded = !sa.greedy && sa.top_k > 0;
   constexpr int Q = (4 + SAMPLE_ROWS) / 4;   // 16-byte pieces of a header and its levels
-  constexpr int PER = (MAX_LISTS * Q + THREADS - 1) / THREADS;
+  constexpr int PER = (32 * LPL * Q + THREADS - 1) / THREADS;
   uint4* hl_s = reinterpret_cast<uint4*>(smem);
   if (thresholded) {
     uint4 v[PER];
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int i = threadIdx.x + j * THREADS;
-      if (i < nblk * Q) v[j] = __ldcg(reinterpret_cast<const uint4*>(sa.cand + (size_t)(i / Q) * CAND_WORDS) + i % Q);
+      if (i < nlists * Q) v[j] = __ldcg(reinterpret_cast<const uint4*>(sa.cand + (size_t)(i / Q) * CAND_WORDS) + i % Q);
     }
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const int i = threadIdx.x + j * THREADS;
-      if (i < nblk * Q) hl_s[i] = v[j];
+      if (i < nlists * Q) hl_s[i] = v[j];
     }
     __syncthreads();
   }
   if (warp != 0) return;
-  const unsigned* hl = reinterpret_cast<const unsigned*>(smem);   // [nblk][4 + SAMPLE_ROWS]
+  const unsigned* hl = reinterpret_cast<const unsigned*>(smem);   // [nlists][4 + SAMPLE_ROWS]
   auto lev = [&](int b, int p) { return __uint_as_float(hl[b * (4 + SAMPLE_ROWS) + 4 + p]); };
-  constexpr int LPL = MAX_LISTS / 32;
   float bs = -INFINITY;
   int bi = 0x7FFFFFFF, below = 0x7FFFFFFF;
   if (!thresholded) {
     uint4 r[LPL];
 #pragma unroll
     for (int j = 0; j < LPL; ++j)
-      if (lane + 32 * j < nblk) r[j] = __ldcg(reinterpret_cast<const uint4*>(sa.cand + (size_t)(lane + 32 * j) * CAND_WORDS));
+      if (lane + 32 * j < nlists) r[j] = __ldcg(reinterpret_cast<const uint4*>(sa.cand + (size_t)(lane + 32 * j) * CAND_WORDS));
 #pragma unroll
     for (int j = 0; j < LPL; ++j) {
-      if (lane + 32 * j < nblk) {
+      if (lane + 32 * j < nlists) {
         const float s = __uint_as_float(r[j].y);
         const int i = (int)r[j].z;
         if (ranks_above(s, i, bs, bi)) { bs = s; bi = i; }
@@ -1316,7 +1331,7 @@ __device__ __noinline__ void sample_merge(const SampleArgs& sa, int nblk, float*
 #pragma unroll
     for (int j = 0; j < LPL; ++j) {
       const int b = lane + 32 * j;
-      nl[j] = b < nblk ? (int)hl[b * (4 + SAMPLE_ROWS)] : 0;
+      nl[j] = b < nlists ? (int)hl[b * (4 + SAMPLE_ROWS)] : 0;
       pos[j] = 0;
       h1[j] = nl[j] > 0 ? lev(b, 0) : -INFINITY;
       h2[j] = nl[j] > 1 ? lev(b, 1) : -INFINITY;
@@ -1359,14 +1374,14 @@ __device__ __noinline__ void sample_merge(const SampleArgs& sa, int nblk, float*
         cnt[j] = 0;
         while (cnt[j] < nl[j] && lev(b, cnt[j]) >= thr) ++cnt[j];
       }
-      if (b < nblk) {
+      if (b < nlists) {
         const unsigned* rec = sa.cand + (size_t)b * CAND_WORDS;
         r[j] = __ldcg(reinterpret_cast<const uint4*>(cnt[j] > 0 ? rec + 4 + SAMPLE_ROWS + 4 * (cnt[j] - 1) : rec));
       }
     }
 #pragma unroll
     for (int j = 0; j < LPL; ++j) {
-      if (lane + 32 * j < nblk) {
+      if (lane + 32 * j < nlists) {
         if (cnt[j] > 0) {
           const float s = __uint_as_float(r[j].x);
           const int i = (int)r[j].y;
@@ -1551,6 +1566,7 @@ __host__ __device__ __forceinline__ size_t row_bytes(int C) { return (size_t)C *
 // wait; other widths and SM counts loop.
 template <int BITS, int KIND, class Sync>
 __device__ __forceinline__ void step_gemv(const GemvArgs& a, float* smem, int bid, int nblk, Sync& sync) {
+  static_assert(4 * WARPS == SAMPLE_ROWS && 16 * unit_rgs<HEAD>() == SAMPLE_ROWS, "a head unit is one list");
   if constexpr (BITS == 8) {
     if constexpr (KIND == QKV || KIND == HEAD) gemv_phase<4, 2, KIND>(a, smem, bid, nblk, sync);
     else if constexpr (KIND == WO) gemv_phase<1, 2, KIND>(a, smem, bid, nblk, sync);
@@ -1563,13 +1579,20 @@ __device__ __forceinline__ void step_gemv(const GemvArgs& a, float* smem, int bi
   }
 }
 
+// The sampler's lists: one a head unit (int8: 32 rows; int4: two
+// row-groups, and the tail of V % 16 rows).
+template <int BITS>
+__host__ __device__ __forceinline__ int head_lists(int V) {
+  return BITS == 8 ? (V + SAMPLE_ROWS - 1) / SAMPLE_ROWS : units4<HEAD>(V);
+}
+
 // One block of THREADS an SM (what its registers allow), all co-resident.
+// Dynamic shared memory: what the phases use, then from float `slot_base`
+// the logits of the block's head units and their ids (SAMPLE_ROWS each).
 template <int BITS>
 __global__ void __launch_bounds__(THREADS)
-mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int suppress, int seed) {
+mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int suppress, int seed, int slot_base) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ float slot_val[SAMPLE_ROWS];
-  __shared__ int slot_id[SAMPLE_ROWS];
   __shared__ int is_last;
   unsigned* bar = (unsigned*)p.bar;
   StepSync sync{bar + BAR_GRID, 0u, gridDim.x, (unsigned long long*)p.stamps, 0, false, false};
@@ -1580,7 +1603,6 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
   const unsigned* hx = (const unsigned*)p.hx;
   const unsigned* actx = (const unsigned*)p.actx;
   const bf16* emb_row = (const bf16*)p.emb + (size_t)__ldcg(tok_in) * D;
-  if (threadIdx.x < SAMPLE_ROWS) slot_id[threadIdx.x] = -1;
   bf16* h = (bf16*)p.h;
   unsigned* hxo = (unsigned*)p.hx;
   // the residual as a phase reads it: layer 0's is the token's embedding
@@ -1629,6 +1651,13 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
     if (l == L - 1) d.hout = h;   // the last residual, for the caller
     step_gemv<BITS, DOWN>(d, smem, bid, nblk, sync);
   }
+  // the block's head units' logits, past every phase's shared memory (the
+  // head's barriers order these stores before its own)
+  const int nlists = head_lists<BITS>(p.V);
+  const int my_lists = bid < nlists ? (nlists - bid + nblk - 1) / nblk : 0;   // units bid, bid + nblk, ...
+  float* slot_val = smem + slot_base;
+  int* slot_id = reinterpret_cast<int*>(slot_val + SAMPLE_ROWS * my_lists);
+  for (int i = threadIdx.x; i < SAMPLE_ROWS * my_lists; i += THREADS) slot_id[i] = -1;
   GemvArgs a = {};   // the head: the QKV phase's arithmetic, the block's logits kept for the sampler
   a.W = (const int8_t*)p.head; a.s = (const float*)p.head_s; a.R = p.V; a.C = D;
   residual(a, L, write_tag(epoch * 2u * L + 2u * L - 1u));
@@ -1639,7 +1668,8 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
   SampleArgs sa{p.V, p.pad_id, p.bos_id, p.eos_id, suppress, p.greedy, p.top_k, p.temperature,
                 (uint32_t)seed, (unsigned*)p.cand, (int*)p.tok_out};
   __syncthreads();   // the block's logits are in slot_val
-  if (threadIdx.x < 32) sample_local(sa, slot_val, slot_id, bid);
+  for (int j = threadIdx.x >> 5; j < my_lists; j += WARPS)
+    sample_local(sa, slot_val + SAMPLE_ROWS * j, slot_id + SAMPLE_ROWS * j, bid + j * nblk);
   __syncthreads();
   if (threadIdx.x == 0) {   // the ticket: the last block to take it merges
     sync.stamp(0);
@@ -1650,7 +1680,8 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
   }
   __syncthreads();
   if (is_last) {
-    sample_merge(sa, nblk, smem);
+    if (nlists <= 160) sample_merge<5>(sa, nlists, smem);
+    else sample_merge<MAX_LISTS / 32>(sa, nlists, smem);
     if (threadIdx.x == 0) bar[BAR_EPOCH] = epoch + 1;   // the next step's tags
   }
   ++sync.idx;
@@ -1660,14 +1691,16 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
 template <int BITS>
 int mega_persistent(const DecodePlan& p, const int* tok_in, int t, int off, int suppress, int seed,
                     cudaStream_t st) {
-  const int nblk = sm_count();
-  if (nblk > MAX_LISTS || p.V > SAMPLE_ROWS * (nblk - 1)) return (int)cudaErrorInvalidValue;
+  const int nblk = sm_count(), nlists = head_lists<BITS>(p.V);
+  if (nlists > MAX_LISTS) return (int)cudaErrorInvalidValue;
   size_t smem = gemv_smem(p.D, BITS, true);
   const size_t wide = gemv_smem(max(p.H * p.hd, p.F), BITS, false);
   if (wide > smem) smem = wide;
   if (attn_smem(p.hd, WARPS) > smem) smem = attn_smem(p.hd, WARPS);
-  const size_t merge = (size_t)nblk * (4 + SAMPLE_ROWS) * sizeof(float);
+  const size_t merge = (size_t)nlists * (4 + SAMPLE_ROWS) * sizeof(float);
   if (merge > smem) smem = merge;
+  int slot_base = (int)(smem / sizeof(float));   // then the head's logits and ids, past every phase's
+  smem += 2 * SAMPLE_ROWS * sizeof(float) * ((nlists + nblk - 1) / nblk);
   static size_t smem_set = 0;   // above 48 KB a kernel must be allowed more dynamic shared memory
   if (smem > 48 * 1024 && smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(mega_persistent_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1683,7 +1716,7 @@ int mega_persistent(const DecodePlan& p, const int* tok_in, int t, int off, int 
   e = cudaMemsetAsync((unsigned*)p.bar + BAR_GRID, 0, (BAR_WORDS - BAR_GRID) * sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
   DecodePlan pv = p;
-  void* args[] = {&pv, &tok_in, &t, &off, &suppress, &seed};
+  void* args[] = {&pv, &tok_in, &t, &off, &suppress, &seed, &slot_base};
   e = cudaLaunchCooperativeKernel((void*)mega_persistent_kernel<BITS>, dim3(nblk),
                                   dim3(THREADS), args, smem, st);
   return (int)e;
@@ -1700,13 +1733,13 @@ int mega_persistent(const DecodePlan& p, const int* tok_in, int t, int off, int 
 
 // Attention partials per head that `part` buffers must hold, the floats of
 // one partial beyond its hd channels, the words of a step's `bar` buffer,
-// the words of one block's sampler list, and the logits a block keeps for
-// the sampler.
+// the words of one sampler list, and the lists of a step's sampler at
+// vocabulary V and `bits`.
 extern "C" int decode_max_splits() { return MAX_SPLITS; }
 extern "C" int decode_part_pad() { return PART_PAD; }
 extern "C" int decode_bar_words() { return BAR_WORDS; }
 extern "C" int decode_cand_words() { return CAND_WORDS; }
-extern "C" int decode_sample_rows() { return SAMPLE_ROWS; }
+extern "C" int decode_sample_lists(int V, int bits) { return bits == 4 ? head_lists<4>(V) : head_lists<8>(V); }
 
 // One attention half-layer. h bf16 [D] and the caches kc/vc bf16 [S, N]
 // (row t) are updated in place. wqkv [3N, D], wo [D, N]; scales f32 [3N],
@@ -1746,10 +1779,10 @@ extern "C" int mlp_step(void* h, const void* nw, const void* wgu, const void* wg
 // residual on return), part f32 [H, MAX_SPLITS, hd + PART_PAD], logits f32
 // [V], tok_out int32 [1], bar uint32 [BAR_WORDS], hx uint32 [D], actx
 // uint32 [F], qkvx uint64 [3N] (bar, hx, actx and qkvx zeroed once, when
-// the scratch is made), cand uint32 [SMs, CAND_WORDS]; stamps is null or
+// the scratch is made), cand uint32 [decode_sample_lists(V, bits), CAND_WORDS]; stamps is null or
 // int64 [5 L + 3, SMs, 2] (when each block arrived at and left each wait,
-// in ns). tok_in is int32 [1] on the device (it may be tok_out). V <=
-// SAMPLE_ROWS x (SMs - 1).
+// in ns). tok_in is int32 [1] on the device (it may be tok_out). V <= 8192
+// (the sampler's lists at most MAX_LISTS).
 extern "C" int mega_decode_step(const void* plan, const void* tok_in, int t, int off,
                                 int suppress, int seed, void* stream) {
   const DecodePlan& p = *(const DecodePlan*)plan;

@@ -147,10 +147,12 @@ def requantize_int4(mp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """int8 ``mega_decode_params`` -> the same dict with every weight
     stream (qkv, wo, gate|up, down, head) re-quantized to 4 bits and packed
     two values a byte, in the order of the step's mma fragments
-    (``ops/decode_step.pack4``): half the weight bytes per step. Embedding, norms and scales stay bf16 / f32. The
-    port's own rule replaces the reference's lane rule: every contraction
-    width must be even (the kernel asks for multiples of 32 on the card);
-    anything else raises, nothing falls back to int8."""
+    (``ops/decode_step.pack4``): half the weight bytes per step. Embedding,
+    norms and scales stay bf16 / f32. The port's own rule replaces the
+    reference's lane rule: every contraction width must be even (the kernel
+    asks for multiples of 32 on the card: tiles of 64 contraction elements
+    and a half tile of 32); anything else raises, nothing falls back to
+    int8."""
     if weight_bits(mp) != 8:
         raise ValueError("requantize_int4: the params are packed already")
     out = dict(mp)

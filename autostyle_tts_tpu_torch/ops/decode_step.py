@@ -12,8 +12,8 @@ wrapper counts launched ops (``mega_decode_step.launches`` the int8 steps,
 The kernels split the attention over the live cache slots into partials per
 (head, split) and merge them in the ``wo`` projection's prologue; the int4
 dots run on the tensor cores, tile by tile, in their own order of f32 sums;
-the step's sampler keeps each block's distinct levels and merges them in
-the last block. ``attn_vector_split_plain``, ``matvec4_plain`` and
+the step's sampler keeps each head unit's distinct levels and merges them
+in the last block. ``attn_vector_split_plain``, ``matvec4_plain`` and
 ``sample_merged_plain`` (``topk_threshold_merged``) are that arithmetic in
 plain PyTorch, held against ``attn_vector_plain``, the plain product and
 ``sample_plain`` (``topk_threshold_plain``) by the CPU tests.
@@ -40,12 +40,13 @@ from .cuda_build import check, forward_only, function
 NEG_INF = -1e30
 # A GEMV block keeps its input vector (and, where it normalises the
 # residual, the norm weights) in at most 48 KB of dynamic shared memory; the
-# step's sampler keeps at most 32 logits a block (SAMPLE_ROWS), one block
-# an SM: the vocabulary is at most 32 x (SMs - 1) (4,192 on the 132 SMs of
-# an H100). Beyond these sizes the wrapper raises.
+# step's sampler keeps a list for each head unit of 32 logits (SAMPLE_ROWS;
+# int4: at most V / 32 + 2 of them) and merges at most 288 lists in one
+# warp: the vocabulary is at most 8192, whatever the card's SM count.
+# Beyond these sizes the wrapper raises.
 SMEM_FLOATS = 48 * 1024 // 4 - 32
 SAMPLE_ROWS = 32
-MAX_VOCAB = SAMPLE_ROWS * (132 - 1)
+MAX_VOCAB = 8192
 TILE_ROWS, TILE_K = 16, 64   # an int4 row-group and its tiles of contraction elements
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # hd / 8 lanes span one cache row
 # The split rule of the plain split attention (``attn_splits``): the one the
@@ -67,10 +68,33 @@ WEIGHT_KEYS = ("wqkv", "wo", "wgu", "wd", "head")   # the streams that int4 pack
 
 def _tiled_rows(shape) -> int:
     """Rows of a [..., R, C] matrix that ``pack4`` lays out in fragment
-    order: the complete row-groups of 16, where C is a multiple of 64."""
-    if len(shape) < 2 or shape[-1] % TILE_K:
+    order: the complete row-groups of 16, where C is a multiple of 32."""
+    if len(shape) < 2 or shape[-1] % (TILE_K // 2):
         return 0
     return shape[-2] // TILE_ROWS * TILE_ROWS
+
+
+def _frag_order(u: torch.Tensor, steps: int) -> torch.Tensor:
+    """Offset-binary values [..., rt, W] of complete row-groups, W a multiple
+    of 16 ``steps`` -> their bytes [..., rt / 16, 8 W] in fragment order,
+    tiles of ``steps`` k-steps of 16 elements (4: a tile, 2: a half tile)."""
+    lead, (rt, W) = u.shape[:-2], u.shape[-2:]
+    n = len(lead)
+    # rows (j, a, g), elements (kt, s, b, q, e) -> bytes (j, kt, g, q, s, e, b), nibbles a
+    t = u.reshape(*lead, rt // 16, 2, 8, W // (16 * steps), steps, 2, 4, 2)
+    t = t.permute(*range(n), n, n + 3, n + 2, n + 6, n + 4, n + 7, n + 5, n + 1)
+    return (t[..., 0] | (t[..., 1] << 4)).reshape(*lead, rt // 16, 8 * W)
+
+
+def _plain_order(b: torch.Tensor, steps: int) -> torch.Tensor:
+    """Inverse of ``_frag_order``: bytes [..., rt / 16, 8 W] -> offset-binary
+    values [..., rt, W]."""
+    lead, (nrg, nb) = b.shape[:-2], b.shape[-2:]
+    n, W = len(lead), nb // 8
+    t = b.reshape(*lead, nrg, W // (16 * steps), 8, 4, steps, 2, 2)
+    t = torch.stack([t & 15, t >> 4], dim=-1)       # (j, kt, g, q, s, e, b, a)
+    t = t.permute(*range(n), n, n + 7, n + 2, n + 1, n + 4, n + 6, n + 3, n + 5)
+    return t.reshape(*lead, nrg * 16, W)
 
 
 def pack4(q: torch.Tensor) -> torch.Tensor:
@@ -79,25 +103,26 @@ def pack4(q: torch.Tensor) -> torch.Tensor:
 
     The plain byte order: byte j of a row holds element 2j in its low
     nibble and 2j+1 in its high nibble. The kernel's order, for the rows of
-    complete row-groups of 16 where C is a multiple of 64 (the rest keep
+    complete row-groups of 16 where C is a multiple of 32 (the rest keep
     the plain order): a row-group's 8 C bytes are tiles of 64 contraction
     elements, 512 bytes each, in which lane L = 4 g + q of a warp holds 16
     bytes, four words, word s the lane's A fragment of ``mma.m16n8k16`` for
     k-step s: nibble t (bits 4t) of the word is row g + 8 (t & 1) of the
-    group, element 64 kt + 16 s + 8 ((t >> 1) & 1) + 2 q + (t >> 2)."""
+    group, element 64 kt + 16 s + 8 ((t >> 1) & 1) + 2 q + (t >> 2). Where C
+    is 32 mod 64 a half tile ends the row-group: 256 bytes, lane L's 8
+    bytes its words for k-steps 0 and 1."""
     if q.shape[-1] % 2:
         raise ValueError(f"pack4: contraction width {q.shape[-1]} must be even")
     u = q.to(torch.int16) + 8
     byte = u[..., 0::2] | (u[..., 1::2] << 4)
     rt = _tiled_rows(q.shape)
     if rt:
-        lead, C = q.shape[:-2], q.shape[-1]
-        n = len(lead)
-        # rows (j, a, g), elements (kt, s, b, q, e) -> bytes (j, kt, g, q, s, e, b), nibbles a
-        t = u[..., :rt, :].reshape(*lead, rt // 16, 2, 8, C // 64, 4, 2, 4, 2)
-        t = t.permute(*range(n), n, n + 3, n + 2, n + 6, n + 4, n + 7, n + 5, n + 1)
+        C, full = q.shape[-1], q.shape[-1] // TILE_K * TILE_K
+        parts = [_frag_order(u[..., :rt, :full], 4)] if full else []
+        if full < C:
+            parts.append(_frag_order(u[..., :rt, full:], 2))
         byte = byte.clone()
-        byte[..., :rt, :] = (t[..., 0] | (t[..., 1] << 4)).reshape(*lead, rt, C // 2)
+        byte[..., :rt, :] = torch.cat(parts, dim=-1).reshape(*q.shape[:-2], rt, C // 2)
     return torch.where(byte > 127, byte - 256, byte).to(torch.int8)
 
 
@@ -108,13 +133,13 @@ def unpack4(b: torch.Tensor) -> torch.Tensor:
     q = torch.stack([u & 15, u >> 4], dim=-1).reshape(b.shape[:-1] + (C,))
     rt = _tiled_rows(q.shape)
     if rt:
-        lead = b.shape[:-2]
-        n = len(lead)
-        t = u[..., :rt, :].reshape(*lead, rt // 16, C // 64, 8, 4, 4, 2, 2)
-        t = torch.stack([t & 15, t >> 4], dim=-1)       # (j, kt, g, q, s, e, b, a)
-        t = t.permute(*range(n), n, n + 7, n + 2, n + 1, n + 4, n + 6, n + 3, n + 5)
+        full = C // TILE_K * TILE_K
+        rg = u[..., :rt, :].reshape(*b.shape[:-2], rt // 16, 8 * C)
+        parts = [_plain_order(rg[..., :8 * full], 4)] if full else []
+        if full < C:
+            parts.append(_plain_order(rg[..., 8 * full:], 2))
         q = q.clone()
-        q[..., :rt, :] = t.reshape(*lead, rt, C)
+        q[..., :rt, :] = torch.cat(parts, dim=-1)
     return (q - 8).to(torch.int8)
 
 
@@ -328,14 +353,13 @@ def matvec4_plain(w: torch.Tensor, x: torch.Tensor, slices: int = 8) -> torch.Te
     out = w.float() @ x
     if rt == 0:
         return out
-    nk = C // TILE_K
-    steps = (w[:rt].double() * x.double()).reshape(rt, nk, 4, 16).sum(-1).float()
+    steps = (w[:rt].double() * x.double()).reshape(rt, C // 16, 16).sum(-1).float()
     total = None
     for ks in range(slices):
         acc = [torch.zeros(rt, dtype=torch.float32, device=w.device) for _ in range(2)]
-        for kt in range(ks, nk, slices):
-            for st in range(4):
-                acc[st % 2] = acc[st % 2] + steps[:, kt, st]
+        for kt in range(ks, -(-C // TILE_K), slices):
+            for st in range(min(4, C // 16 - 4 * kt)):   # a half tile at the end: two k-steps
+                acc[st % 2] = acc[st % 2] + steps[:, 4 * kt + st]
         part = acc[0] + acc[1]
         total = part if total is None else total + part
     out[:rt] = total
@@ -531,14 +555,15 @@ def _sms(device) -> int:
 ZEROED = ("bar", "hx", "actx", "qkvx")   # zeroed once: the step's write counts and its tagged words
 
 
-def _scratch_spec(D: int, H: int, hd: int, F: int, V: int, sms: int):
+def _scratch_spec(D: int, H: int, hd: int, F: int, V: int, bits: int):
     i32 = torch.int32
+    lists = function("decode_step", "decode_sample_lists", [ctypes.c_int, ctypes.c_int])(V, bits)
     return {
         "h": ((1, D), torch.bfloat16), "qkv": ((3 * H * hd,), torch.float32),
         "part": (part_shape(H, hd), torch.float32), "act": ((F,), torch.bfloat16),
         "logits": ((V,), torch.float32), "tok": ((1,), i32),
         "bar": ((_lib_int("decode_bar_words"),), i32), "hx": ((D,), i32), "actx": ((F,), i32),
-        "qkvx": ((3 * H * hd,), torch.int64), "cand": ((sms, _lib_int("decode_cand_words")), i32),
+        "qkvx": ((3 * H * hd,), torch.int64), "cand": ((lists, _lib_int("decode_cand_words")), i32),
     }
 
 
@@ -551,8 +576,8 @@ def decode_scratch(mp: Dict[str, torch.Tensor], n_heads: int, head_dim: int,
     steps run on this scratch, the grid barrier's counter and the
     sampler's ticket), ``hx`` / ``actx`` / ``qkvx`` (the residual, the
     activation and q, k, v as tagged words between the kernel's blocks);
-    ``cand`` (each block's sampler list). The first step on it checks every tensor
-    once and keeps the plan here; a later step with other params, caches or
+    ``cand`` (the sampler's lists, one a head unit of 32 logits). The
+    first step on it checks every tensor once and keeps the plan here; a later step with other params, caches or
     sampler raises. ``stamps`` adds an int64 buffer [5 L + 3, SMs, 2] in
     which every block of the kernel records, in nanoseconds of the card's
     timer, when it arrived at and when it left the wait before each phase
@@ -560,9 +585,8 @@ def decode_scratch(mp: Dict[str, torch.Tensor], n_heads: int, head_dim: int,
     step's end."""
     if torch.device(device).type != "cuda":
         raise ValueError(f"decode scratch: the kernels' buffers live on a CUDA device, not on {device}")
-    weight_bits(mp)   # raises on rows that fit neither width
     spec = _scratch_spec(mp["emb"].shape[1], n_heads, head_dim,
-                         mp["wgu"].shape[1] // 2, mp["head"].shape[0], _sms(device))
+                         mp["wgu"].shape[1] // 2, mp["head"].shape[0], weight_bits(mp))
     scratch = DecodeScratch({k: (torch.zeros if k in ZEROED else torch.empty)(shape, dtype=dt, device=device)
                              for k, (shape, dt) in spec.items()})
     if stamps:
@@ -588,12 +612,16 @@ def _check_tensors(what: str, dev, want: Dict[str, Tuple[torch.Tensor, tuple, to
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
 
 
-def _width_fault(bits: int, hd: Optional[int] = None, **widths: int) -> Optional[str]:
+def _width_fault(bits: int, hd: Optional[int] = None, V: Optional[int] = None, **widths: int) -> Optional[str]:
     """Why the kernels cannot run these widths, or None: every contraction
-    width a warp streams in 16-byte loads (int4: in tiles of 64), the head
-    width the attention's lanes span (where there is attention), and the
-    shared-memory cap."""
-    mult = 16 if bits == 8 else TILE_K
+    width a warp streams in 16-byte loads (int4: in tiles of 64 and a half
+    tile of 32), the head
+    width the attention's lanes span (where there is attention), the
+    shared-memory cap, and the vocabulary the step's sampler holds (where
+    there is one)."""
+    if V is not None and V > MAX_VOCAB:
+        return f"vocab {V} beyond the sampler's {MAX_VOCAB}"
+    mult = 16 if bits == 8 else TILE_K // 2
     bad = {k: v for k, v in widths.items() if v % mult}
     if bad:
         return f"{bad} must be multiples of {mult} at {bits} bits"
@@ -606,8 +634,9 @@ def _width_fault(bits: int, hd: Optional[int] = None, **widths: int) -> Optional
     return None
 
 
-def _check_widths(what: str, bits: int, hd: Optional[int] = None, **widths: int) -> None:
-    fault = _width_fault(bits, hd, **widths)
+def _check_widths(what: str, bits: int, hd: Optional[int] = None, V: Optional[int] = None,
+                  **widths: int) -> None:
+    fault = _width_fault(bits, hd, V, **widths)
     if fault:
         raise ValueError(f"{what}: {fault}")
 
@@ -619,8 +648,8 @@ def step_serves(*, dim: int, n_heads: int, n_kv_heads: int, head_dim: int, ffn_d
     its shared memory, and a vocabulary its sampler holds. The one rule the
     engine picks the decode kernel by (B=1, int8 weights) and the one
     ``_make_plan`` raises by."""
-    return (n_heads == n_kv_heads and vocab <= MAX_VOCAB
-            and _width_fault(bits, head_dim, D=dim, N=n_heads * head_dim, F=ffn_dim) is None)
+    return n_heads == n_kv_heads and _width_fault(bits, head_dim, vocab, D=dim, N=n_heads * head_dim,
+                                                  F=ffn_dim) is None
 
 
 def _make_plan(mp, k_all, v_all, scratch: DecodeScratch, const: tuple):
@@ -636,10 +665,7 @@ def _make_plan(mp, k_all, v_all, scratch: DecodeScratch, const: tuple):
     bits = weight_bits(mp)
     if N != H * hd:
         raise ValueError(f"{what}: cache width {N} != n_heads*head_dim {H * hd} (GQA is not supported)")
-    _check_widths(what, bits, hd, D=D, N=N, F=F)
-    if V > SAMPLE_ROWS * (_sms(dev) - 1):
-        raise ValueError(f"{what}: vocab {V} beyond the sampler's {SAMPLE_ROWS} logits a block on "
-                         f"{_sms(dev)} SMs")
+    _check_widths(what, bits, hd, V=V, D=D, N=N, F=F)
     i8, f32, bf = torch.int8, torch.float32, torch.bfloat16
     shapes = {
         "emb": ((V, D), bf), "invf": ((hd // 2,), f32),
@@ -654,7 +680,7 @@ def _make_plan(mp, k_all, v_all, scratch: DecodeScratch, const: tuple):
     want = {name: (mp[name], shape, dtype) for name, (shape, dtype) in shapes.items()}
     want["k_all"] = (k_all, (L, S, N), bf)
     want["v_all"] = (v_all, (L, S, N), bf)
-    for name, (shape, dtype) in _scratch_spec(D, H, hd, F, V, _sms(dev)).items():
+    for name, (shape, dtype) in _scratch_spec(D, H, hd, F, V, bits).items():
         if name not in scratch:
             raise ValueError(f"{what}: scratch lacks {name!r} (make it with decode_scratch)")
         want[f"scratch {name}"] = (scratch[name], shape, dtype)

@@ -15,12 +15,15 @@ makes them, then re-quantized) and times one decode state: slot 320 of
 It prints one JSON line: ms a step by CUDA events (100 steps, int8 and
 int4 in turns: 8, 4, 4, 8) and each width's phases from the kernel's own
 stamps (``decode_scratch(..., stamps=True)``; means over 10 steps). The
-card's name and power limit come first.
+weights, the timer and the phase split are ``chip_smoke.py``'s, from this
+checkout, for every checkout timed. The card's name and power limit come
+first.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -29,50 +32,15 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 
-def four_bit_exact(lm, QTensor):
-    """The int8 LM on 15 levels at the same absmax, one 7 per output
-    channel, so that the 4-bit re-quantization keeps it exactly."""
-    import torch
-
-    def fix(t):
-        q = torch.clamp(torch.round(t.q.float() * (7.0 / 127.0)), -7, 7).to(torch.int8)
-        q[..., 0, :] = 7
-        return QTensor(q=q, s=t.s * (127.0 / 7.0))
-    layers = {k: fix(v) if isinstance(v, QTensor) else v for k, v in lm["layers"].items()}
-    return dict(lm, layers=layers, speech_head=fix(lm["speech_head"]))
-
-
-def phases(step, stamps, n_layers: int, steps: int = 10) -> dict:
-    """Per phase (5 a layer, the head, the sampler), [lap, work] in µs:
-    from the last block's arrival at the wait before the phase to the last
-    block's arrival at the wait after it, and the slowest block's time
-    from leaving the wait to its next arrival; means over the layers and
-    over ``steps`` steps (``chip_smoke.barrier_times``). The laps add up
-    to ``step_us``."""
-    import numpy as np
-    import torch
-
-    step()
-    n_bar = stamps.shape[0] - 1
-    acc = np.zeros((2, n_bar))
-    total = 0.0
-    for _ in range(steps):
-        step()
-        torch.cuda.synchronize()
-        st = stamps.cpu().numpy().astype(np.float64)
-        arrive, leave, nxt = st[:n_bar, :, 0], st[:n_bar, :, 1], st[1:n_bar + 1, :, 0]
-        acc[0] += nxt.max(axis=1) - arrive.max(axis=1)
-        acc[1] += (nxt - leave).max(axis=1)
-        total += st[n_bar, :, 0].max() - arrive[0].max()
-    acc /= steps * 1e3
-    rec = {}
-    for i, name in enumerate(("qkv", "attention", "wo", "gate_up", "down")):
-        idx = np.arange(i, 5 * n_layers, 5)
-        rec[name] = [round(float(acc[0, idx].mean()), 3), round(float(acc[1, idx].mean()), 3)]
-    for i, name in ((5 * n_layers, "head"), (5 * n_layers + 1, "sampler")):
-        rec[name] = [round(float(acc[0, i]), 3), round(float(acc[1, i]), 3)]
-    rec["step_us"] = total / steps / 1e3
-    return rec
+def smoke():
+    """This checkout's ``chip_smoke.py`` as a module, its imports resolved on
+    ``sys.path`` (the checkout being timed): the one copy of the 4-bit-exact
+    weights, the CUDA-event timer and the phase split that the full run's
+    ``decode phases`` line uses."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def child(root: str) -> dict:
@@ -82,15 +50,16 @@ def child(root: str) -> dict:
     from autostyle_tts_tpu_torch.models import token_lm
     from autostyle_tts_tpu_torch.ops import cuda_build, decode_step
     from autostyle_tts_tpu_torch.utils.config import Config
-    from autostyle_tts_tpu_torch.weights import QTensor, quantize_tree
+    from autostyle_tts_tpu_torch.weights import quantize_tree
 
+    cs = smoke()
     cuda_build.build(("decode_step",))
     dev = torch.device("cuda")
     tl = Config().token_lm
     gen = torch.Generator(device="cuda").manual_seed(1234)
     lm = quantize_tree(token_lm.init_params(tl, gen))
     mps = {8: token_lm.mega_decode_params(lm, tl, bits=8),
-           4: token_lm.mega_decode_params(four_bit_exact(lm, QTensor), tl, bits=4)}
+           4: token_lm.mega_decode_params(cs.four_bit_exact(lm), tl, bits=4)}
     del lm
     L, N, P, off, t = tl.n_layers, tl.dim, 256, 100, 320
     S = 392
@@ -105,26 +74,14 @@ def child(root: str) -> dict:
         sc = decode_step.decode_scratch(mps[bits], tl.n_heads, tl.head_dim, dev, stamps=stamps)
         return sc, lambda: decode_step.mega_decode_step(tin, mps[bits], k, v, t, off, False, 7, **kw, scratch=sc)
 
-    def time_ms(fn, iters):
-        for _ in range(3):
-            fn()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / iters
-
     steps = {bits: stepper(bits)[1] for bits in (8, 4)}
     ms = {8: 0.0, 4: 0.0}
     for bits in (8, 4, 4, 8):
-        ms[bits] += 0.5 * time_ms(steps[bits], 50)
+        ms[bits] += 0.5 * cs.time_ms(steps[bits], 50)
     rec = dict(root=root, ms_int8=ms[8], ms_int4=ms[4])
     for bits in (8, 4):
         sc, fn = stepper(bits, stamps=True)
-        rec[f"phases_int{bits}"] = phases(fn, sc["stamps"], L)
+        rec[f"phases_int{bits}"] = cs.barrier_times(fn, sc["stamps"], L)
     return rec
 
 

@@ -157,6 +157,8 @@ def test_prefill_and_decode_share_one_int8_copy():
     ({}, False, True),
     ({"ffn_dim": 144}, False, True),                              # a multiple of 16, not of 512
     ({"ffn_dim": 144}, True, False),                              # int4 loads take 32 elements
+    ({"ffn_dim": 160}, True, True),                               # 32 mod 64: a half tile ends a row
+    ({"speech_vocab_size": 8192}, True, True),                    # the sampler's widest vocabulary
     ({"n_kv_heads": 2}, False, False),                            # GQA
     ({"dim": 96, "n_heads": 2, "n_kv_heads": 2}, False, False),   # head width 48
     ({"speech_vocab_size": 9000}, False, False),                  # beyond the sampler's vocabulary

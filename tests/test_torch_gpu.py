@@ -144,6 +144,44 @@ def test_decode_step_kernel_matches_plain(cuda, greedy, bits):
     assert getattr(decode_step.mega_decode_step, count) == n0 + 6 + len(slots)
 
 
+@pytest.mark.parametrize("vocab", [8185, 8192])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_decode_step_kernel_at_the_widest_vocabulary(cuda, bits, vocab):
+    """Beyond one head unit a block (more lists than SMs): every block keeps
+    a list for each of its units and one warp merges them all; 8185 leaves
+    int4 a unit of one row-group and a tail of 9 rows. The kernel's logits
+    against the plain head on its own residual, its token against the
+    plain sampler on its own logits (greedy, top-k 25 and top-k 200, which
+    reaches past the lists' first levels), its residual against the plain
+    step's."""
+    cfg = dataclasses.replace(tiny_config().token_lm, speech_vocab_size=vocab)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    mp = token_lm.mega_decode_params(quantize_tree(token_lm.init_params(cfg, g)), cfg, bits=bits)
+    mp_plain = decode_step.unpack_decode_params(mp)
+    L, N, S, off, t = cfg.n_layers, cfg.dim, 64, 2, 40
+    k1 = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    v1 = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    tok = torch.tensor([5], dtype=torch.int32, device=cuda)
+    ids = dict(pad_id=cfg.speech_pad, bos_id=cfg.speech_bos, eos_id=cfg.speech_eos)
+    for i, skw in enumerate((dict(greedy=True), dict(greedy=False, temperature=0.8, top_k=25),
+                             dict(greedy=False, temperature=1.3, top_k=200))):
+        skw = {"temperature": 1.0, "top_k": 0, **skw}
+        scratch = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda)
+        k2, v2 = k1.clone(), v1.clone()
+        hk, tk = decode_step.mega_decode_step(tok, mp, k1, v1, t, off, i == 0, 31 + i, n_heads=cfg.n_heads,
+                                              head_dim=cfg.head_dim, eps=cfg.norm_eps, **ids, **skw,
+                                              scratch=scratch)
+        hp, _ = decode_step.mega_decode_step_plain(tok, mp_plain, k2, v2, t, off, i == 0, 31 + i,
+                                                   n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+                                                   eps=cfg.norm_eps, **ids, **skw)
+        torch.cuda.synchronize()
+        assert (hk.float() - hp.float()).abs().max().item() <= 2e-2 * max(hp.float().abs().max().item(), 1.0)
+        logits = scratch["logits"]
+        assert (logits - decode_step.head_logits_plain(hk, mp_plain, cfg.norm_eps)).abs().max().item() <= 1e-4
+        want = decode_step.sample_plain(logits, suppress=i == 0, seed=31 + i, **ids, **skw)
+        assert int(tk[0]) == want, skw
+
+
 def test_decode_step_scratch_planned_for_other_tensors_raises(cuda):
     """A scratch keeps the plan of its first step: other params (a tensor
     replaced inside the same dict too), another cache, a replaced buffer or
@@ -265,6 +303,57 @@ def test_half_layer_kernels_match_plain_int4(cuda):
     torch.cuda.synchronize()
     assert (h.float() - want2.float()).abs().max().item() <= 2e-2 * max(want2.float().abs().max().item(), 1.0)
     assert (decode_step.attn_step.launches, decode_step.mlp_step.launches) == (na + 1, nm + 1)
+
+
+def test_int4_kernels_at_widths_32_mod_64(cuda):
+    """D = N = 96 and F = 160: every row-group of the int4 rows ends with a
+    half tile (two k-steps). The step, greedy and sampled, against the plain
+    step on the unpacked rows (residual, cache row, logits on its own
+    residual, the token on its own logits); the half-layers against theirs."""
+    cfg = dataclasses.replace(tiny_config().token_lm, dim=96, n_heads=3, n_kv_heads=3, ffn_dim=160)
+    assert decode_step.step_serves(dim=96, n_heads=3, n_kv_heads=3, head_dim=cfg.head_dim, ffn_dim=160,
+                                   vocab=cfg.speech_vocab_size, bits=4)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    mp = token_lm.mega_decode_params(quantize_tree(token_lm.init_params(cfg, g)), cfg, bits=4)
+    mp_plain = decode_step.unpack_decode_params(mp)
+    L, N, S, off, t = cfg.n_layers, cfg.dim, 64, 3, 41
+    k1 = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    v1 = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    tok = torch.tensor([9], dtype=torch.int32, device=cuda)
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=cfg.norm_eps)
+    ids = dict(pad_id=cfg.speech_pad, bos_id=cfg.speech_bos, eos_id=cfg.speech_eos)
+    for i, skw in enumerate((dict(greedy=True, temperature=1.0, top_k=0),
+                             dict(greedy=False, temperature=0.8, top_k=5))):
+        scratch = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda)
+        k2, v2 = k1.clone(), v1.clone()
+        hk, tk = decode_step.mega_decode_step(tok, mp, k1, v1, t, off, i == 0, 50 + i, **kw, **ids, **skw,
+                                              scratch=scratch)
+        hp, _ = decode_step.mega_decode_step_plain(tok, mp_plain, k2, v2, t, off, i == 0, 50 + i, **kw, **ids, **skw)
+        torch.cuda.synchronize()
+        scale = max(hp.float().abs().max().item(), 1.0)
+        assert (hk.float() - hp.float()).abs().max().item() <= 2e-2 * scale
+        assert (k1[:, t].float() - k2[:, t].float()).abs().max().item() <= 2e-2 * scale
+        logits = scratch["logits"]
+        assert (logits - decode_step.head_logits_plain(hk, mp_plain, cfg.norm_eps)).abs().max().item() <= 1e-4
+        assert int(tk[0]) == decode_step.sample_plain(logits, suppress=i == 0, seed=50 + i, **ids, **skw)
+    u = decode_step.unpack4
+    h0 = (torch.randn((1, cfg.dim), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    ka, va = k1[1].clone(), v1[1].clone()
+    kb, vb = ka.clone(), va.clone()
+    h = h0.clone()
+    decode_step.attn_step(h, mp["attn_norm"][1], mp["wqkv"][1], mp["wqs"][1], mp["wo"][1], mp["wos"][1],
+                          mp["invf"], ka, va, t, off, **kw)
+    want = decode_step.attn_step_plain(h0, mp["attn_norm"][1], u(mp["wqkv"][1]), mp["wqs"][1], u(mp["wo"][1]),
+                                       mp["wos"][1], mp["invf"], kb, vb, t, off, **kw)
+    torch.cuda.synchronize()
+    assert (h.float() - want.float()).abs().max().item() <= 2e-2 * max(want.float().abs().max().item(), 1.0)
+    h = want.clone()
+    decode_step.mlp_step(h, mp["mlp_norm"][1], mp["wgu"][1], mp["wgus"][1], mp["wd"][1], mp["wds"][1],
+                         eps=cfg.norm_eps)
+    want2 = decode_step.mlp_step_plain(want, mp["mlp_norm"][1], u(mp["wgu"][1]), mp["wgus"][1], u(mp["wd"][1]),
+                                       mp["wds"][1], eps=cfg.norm_eps)
+    torch.cuda.synchronize()
+    assert (h.float() - want2.float()).abs().max().item() <= 2e-2 * max(want2.float().abs().max().item(), 1.0)
 
 
 def test_half_layer_kernels_raise_on_wrong_layout(cuda):

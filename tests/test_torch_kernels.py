@@ -10,6 +10,8 @@ Tolerances:
   must be equal; every other cache row must be untouched.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ from autostyle_tts_tpu_torch.ops import decode_step
 from autostyle_tts_tpu_torch.ops.flash_attn import flash_attention
 from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig, sample, transform_logits
 from autostyle_tts_tpu_torch.utils.config import tiny_config
+from autostyle_tts_tpu_torch.weights import quantize_tree as tquantize_tree
 from autostyle_tts_tpu_torch.weights import tree_from_numpy
 
 # --------------------------------------------------------------------- flash
@@ -437,13 +440,15 @@ def test_int4_values_and_scales_equal_jax_packer():
 # products in any order lies within 2 C 2^-24 sum|w x| of the exact sum.
 
 
-@pytest.mark.parametrize("shape", [(2, 35, 128), (16, 64), (3, 5, 32), (40, 96), (10,)])
+@pytest.mark.parametrize("shape", [(2, 35, 128), (16, 64), (3, 5, 32), (40, 96), (10,), (2, 16, 160),
+                                   (17, 32), (16, 48)])
 def test_int4_fragment_layout_round_trips_and_places_every_nibble(shape):
     """pack4 / unpack4 round-trip; in complete row-groups of 16 over a width
-    that is a multiple of 64, lane L = 4 g + q's word s of tile kt holds in
+    that is a multiple of 32, lane L = 4 g + q's word s of tile kt holds in
     nibble t row g + 8 (t & 1), element 64 kt + 16 s + 8 ((t >> 1) & 1) +
-    2 q + (t >> 2) (its A fragment of k-step s); other rows and widths keep
-    the plain byte order (element 2j low, 2j + 1 high)."""
+    2 q + (t >> 2) (its A fragment of k-step s), 16 bytes a lane in a tile
+    and 8 in the half tile that ends a width of 32 mod 64; other rows and
+    widths keep the plain byte order (element 2j low, 2j + 1 high)."""
     q = torch.randint(-8, 8, shape, generator=torch.Generator().manual_seed(len(shape))).to(torch.int8)
     b = decode_step.pack4(q)
     assert b.shape == shape[:-1] + (shape[-1] // 2,) and b.dtype == torch.int8
@@ -451,16 +456,17 @@ def test_int4_fragment_layout_round_trips_and_places_every_nibble(shape):
     u = (b.to(torch.int16) & 0xFF).reshape(-1, *b.shape[-2:]) if len(shape) > 1 else (b.to(torch.int16) & 0xFF)[None, None]
     v = (q.to(torch.int16) + 8).reshape(-1, *q.shape[-2:]) if len(shape) > 1 else (q.to(torch.int16) + 8)[None, None]
     C = shape[-1]
-    rt = (v.shape[1] // 16 * 16) if C % 64 == 0 else 0
+    rt = (v.shape[1] // 16 * 16) if C % 32 == 0 else 0
     for m in range(v.shape[0]):
         for j in range(rt // 16):
             grp = u[m, 16 * j:16 * j + 16].reshape(-1)
-            for kt in range(C // 64):
+            for kt in range(-(-C // 64)):
+                steps = min(4, C // 16 - 4 * kt)
                 for L in range(32):
                     g, qq = divmod(L, 4)
-                    for st in range(4):
+                    for st in range(steps):
                         for t in range(8):
-                            byte = int(grp[kt * 512 + L * 16 + st * 4 + t // 2])
+                            byte = int(grp[kt * 512 + L * 4 * steps + st * 4 + t // 2])
                             row = 16 * j + g + 8 * (t & 1)
                             k = 64 * kt + 16 * st + 8 * ((t >> 1) & 1) + 2 * qq + (t >> 2)
                             assert (byte >> (4 * (t % 2))) & 15 == int(v[m, row, k])
@@ -468,7 +474,8 @@ def test_int4_fragment_layout_round_trips_and_places_every_nibble(shape):
         assert torch.equal(u[m, rt:], plain)
 
 
-@pytest.mark.parametrize("R,C,slices", [(48, 64, 8), (35, 128, 8), (64, 256, 4), (19, 1024, 8)])
+@pytest.mark.parametrize("R,C,slices", [(48, 64, 8), (35, 128, 8), (64, 256, 4), (19, 1024, 8),
+                                          (32, 96, 8), (16, 32, 4), (40, 160, 2)])
 def test_matvec4_kernel_order_matches_the_exact_product(R, C, slices):
     """The kernel's order of f32 sums (mma k-steps, even / odd
     accumulators, warps in order) and the plain f32 product, each within
@@ -706,9 +713,9 @@ def _tied_logits(seed, V, k, tie):
 @pytest.mark.parametrize("top_k", [1, 2, 5, 24, 25])
 @pytest.mark.parametrize("rows", [1024, 256, 7])
 def test_topk_threshold_tiled_matches_reference_with_ties(top_k, rows):
-    """The kernel's sampler threshold (blocks of ``rows`` logits, each
-    list at most k levels, one merge) on ties at and around the k-th
-    value."""
+    """The kernel's sampler threshold over tiles of ``rows`` logits (each
+    tile's list at most k levels, then one merge: ``topk_threshold_merged``)
+    on ties at and around the k-th value."""
     for seed, tie in ((0, 1), (1, 3), (2, 6)):
         y = _tied_logits(seed, 515, top_k, tie)
         want = decode_step.topk_threshold_plain(y, top_k)
@@ -724,6 +731,8 @@ def test_topk_threshold_tiled_matches_reference_with_ties(top_k, rows):
     ([3.0], 2),
 ], ids=["all-tied", "masked", "masked-below", "masked-above", "one-value"])
 def test_topk_threshold_tiled_degenerate_cases(values, top_k):
+    """The merged threshold over tiles of 1, 2 and 1024 logits on what the
+    reference treats apart: ties, masked and scaled masked entries."""
     y = torch.tensor(values, dtype=torch.float32)
     for rows in (1, 2, 1024):
         assert float(decode_step.topk_threshold_merged(y, top_k, rows)) == \
@@ -763,3 +772,33 @@ def test_decode_scratch_is_for_the_card_only():
 def test_attn_splits_cap(n, cap, want):
     """The whole step's kernel caps the splits at its blocks per head."""
     assert decode_step.attn_splits(n, cap) == want
+
+
+@pytest.mark.parametrize("sms", [108, 114, 132])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("vocab", [67, 4099, 8185, 8192, 8193])
+def test_step_serves_and_the_plan_take_one_rule(monkeypatch, sms, bits, vocab):
+    """``step_serves`` (by which the engine picks the decode kernel) and the
+    step's plan (which raises on what the kernel cannot run) agree on every
+    vocabulary, whatever the card's SM count: the sampler merges a list a
+    head unit, so its reach (8192) does not depend on the SMs."""
+    tcfg = dataclasses.replace(tiny_config().token_lm, speech_vocab_size=vocab)
+    lm = tquantize_tree(tlm.init_params(tcfg, torch.Generator().manual_seed(0)))
+    mp = tlm.mega_decode_params(lm, tcfg, bits=bits)
+
+    class Planned(Exception):
+        pass
+
+    def past_the_checks(*a, **k):
+        raise Planned
+
+    monkeypatch.setattr(decode_step, "_sms", lambda device: sms)
+    monkeypatch.setattr(decode_step, "_scratch_spec", past_the_checks)   # the built library's sizes
+    cache = torch.zeros((tcfg.n_layers, 8, tcfg.n_heads * tcfg.head_dim), dtype=torch.bfloat16)
+    const = (tcfg.n_heads, tcfg.head_dim, tcfg.norm_eps, tcfg.speech_pad, tcfg.speech_bos,
+             tcfg.speech_eos, False, 1.0, 25)
+    serves = decode_step.step_serves(dim=tcfg.dim, n_heads=tcfg.n_heads, n_kv_heads=tcfg.n_kv_heads,
+                                      head_dim=tcfg.head_dim, ffn_dim=tcfg.ffn_dim, vocab=vocab, bits=bits)
+    assert serves == (vocab <= decode_step.MAX_VOCAB == 8192)
+    with pytest.raises(Planned if serves else ValueError):
+        decode_step._make_plan(mp, cache, cache.clone(), decode_step.DecodeScratch({}), const)
