@@ -4,13 +4,14 @@
 // Replaces, of autostyle_tts_tpu/ops/pallas_decode.py:
 //   attn_step (_attn_kernel): rmsnorm, QKV GEMV, RoPE, cache row write at
 //     slot t, attention over [off, t) plus the current token, wo + residual
-//     ->  gemv_kernel<QKV>, attn_kernel, gemv_kernel<WO>;
+//     ->  attn_half_kernel (the device function attn_half);
 //   mlp_step (_mlp_kernel): rmsnorm, gate|up, silu(g)*u, down + residual
-//     ->  gemv_kernel<GATE_UP>, gemv_kernel<DOWN>;
+//     ->  mlp_half_kernel (mlp_half);
 //   mega_decode_step (_mega_kernel), int8 and int4: embedding row of the
-//     previous token, the L layers above, final rmsnorm, speech-head GEMV,
-//     pad/BOS (and EOS while `suppress`) masking, temperature, top-k with the
-//     reference's tie rule and a Gumbel-max sample.
+//     previous token, the L layers above (attn_half, mlp_half), final
+//     rmsnorm, speech-head GEMV, pad/BOS (and EOS while `suppress`)
+//     masking, temperature, top-k with the reference's tie rule and a
+//     Gumbel-max sample -> mega_persistent_kernel.
 //
 // What bounds it on the H100. Bytes, in principle: one step streams ~235 M
 // layer weights and ~4.2 M of speech head (252.6 MB at int8, 133.1 MB at
@@ -25,7 +26,10 @@
 // phase's lap (last arrival to last arrival) 2.9-4.0 us, of which the
 // slowest block's work is 1.3-2.9 us and the rest the wait; the head 5.7,
 // the sampler's merge 8.4. Its parent spent 19.9 us a layer and 22 us in a
-// sampler on one SM.
+// sampler on one SM. A half-layer call moves 5.1 / 12.6 MB at int8 (1.5 /
+// 3.8 us) and takes 11.6 / 11.3 us of device time (attention / MLP), 9.0 /
+// 7.7 of it from its last block's start to its end: a launch, then a chain
+// of three / two phases like the step's.
 //
 // Design. The TPU kernel runs its grid in order on one core and carries the
 // residual in VMEM between grid steps; blocks on the GPU run in parallel and
@@ -96,8 +100,16 @@
 // its whole attention (the key loop is latency-bound in one block);
 // prefetching the next layer's weights into L2; polling the tagged words
 // harder or with a pause.
-// A half-layer entry point is a chain of two or three kernels launched with
-// programmatic dependent launch (griddepcontrol) on plain bf16 buffers.
+// A half-layer is one persistent cooperative launch of its own on the same
+// device functions as the step's layer loop (attn_half: QKV, attention, the
+// grid barrier, wo; mlp_half: gate|up, down), so the three entry points run
+// one device code. Its residual is the caller's plain bf16 h, read by the
+// first phase and updated in place by the last; q, k, v and the activation
+// pass as tagged words of the scratch, with even tags counted from the
+// scratch's count of calls of that half (the step's are odd: the two may
+// share a scratch). The last block to take the call's ticket raises that
+// count and leaves the grid counter and the ticket at 0, so a call needs
+// no host operation besides its launch.
 // Buffers another phase wrote are read with ld.global.cg or ld.relaxed.gpu,
 // never through L1. No float atomics: two runs give the same bits.
 //
@@ -114,6 +126,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -121,7 +135,6 @@ typedef __nv_bfloat162 bf162;
 constexpr float NEG_INF = -1e30f;
 constexpr int WARPS = 8;              // GEMV block
 constexpr int THREADS = 32 * WARPS;
-constexpr int ATTN_WARPS = 4;
 constexpr int MAX_SPLITS = 16;        // attention partials per head
 constexpr int SPLIT_KEYS = 24;        // live slots per split, until MAX_SPLITS caps it
 constexpr int PART_PAD = 4;           // a partial is acc[hd], m, l, 2 unused floats
@@ -129,9 +142,13 @@ constexpr int SAMPLE_ROWS = 32;       // logits of one head unit, the sampler's 
 constexpr int MAX_LISTS = 288;        // lists one warp merges (9 a lane): V <= 8192 at either width
 constexpr int CAND_WORDS = 4 + SAMPLE_ROWS + 4 * SAMPLE_ROWS;   // a list: header, levels, records
 constexpr unsigned SPIN_LIMIT = 1u << 24;   // polls before a wait gives up and traps
-// words of the step's `bar` buffer: the write count of the tagged buffers
-// (kept across steps), then what the host zeroes before each step
-constexpr int BAR_EPOCH = 0, BAR_GRID = 1, BAR_TICKET = 2, BAR_WORDS = 3;
+// words of a scratch's `bar` buffer: the step's count of steps run (kept
+// across steps), its grid counter and ticket (zeroed by the host before each
+// step); then the half-layers' own, which no host operation touches: their
+// counts of attention and of MLP calls (the tags' base) and their grid
+// counter and ticket (left at 0 by the last block of each call)
+constexpr int BAR_EPOCH = 0, BAR_GRID = 1, BAR_TICKET = 2, BAR_ATTN_CALLS = 3, BAR_MLP_CALLS = 4,
+              BAR_HALF_GRID = 5, BAR_HALF_TICKET = 6, BAR_WORDS = 7;
 
 enum Kind { QKV, GATE_UP, WO, DOWN, HEAD };   // HEAD: QKV's arithmetic, logits kept for the sampler
 
@@ -213,9 +230,13 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   return v;
 }
 
-// The tag of a buffer's n-th write: never 0 (what a fresh buffer holds), and
-// never the tag of the write before.
-__device__ __forceinline__ unsigned write_tag(unsigned n) { return 1u + n % 65535u; }
+// The tag of a buffer's n-th write by the step (odd) or by a half-layer
+// (even): never 0 (what a fresh buffer holds), never the tag of the write
+// before, and never a tag of the other kind, so that the step and the
+// half-layers may share a scratch's q, k, v and activation words without
+// one reading the other's as fresh.
+__device__ __forceinline__ unsigned write_tag(unsigned n) { return 1u + 2u * (n % 32767u); }
+__device__ __forceinline__ unsigned half_tag(unsigned n) { return 2u + 2u * (n % 32767u); }
 __device__ __forceinline__ unsigned tag_word(float v, unsigned tag) {
   return (tag << 16) | (unsigned)__bfloat16_as_ushort(__float2bfloat16(v));
 }
@@ -256,18 +277,8 @@ __device__ __forceinline__ void st_tagged64(unsigned long long* p, float x, unsi
 
 // ---------------------------------------------------------------- phase separators
 
-// Kernel chain: let the next kernel start now; wait for the previous kernel
-// (complete, its writes visible) before touching anything it wrote.
-struct ChainSync {
-  static constexpr bool EARLY_RESIDUAL = false;   // the kernel before the previous one may still run
-  __device__ __forceinline__ void start() { asm volatile("griddepcontrol.launch_dependents;"); }
-  __device__ __forceinline__ void arrive() {}
-  __device__ __forceinline__ void wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
-  __device__ __forceinline__ void input_ready() {}
-  __device__ __forceinline__ void mark_left() {}
-};
-
-// The persistent step. A phase's wait is one of two kinds:
+// The persistent kernels (the step, the half-layers). A phase's wait is one
+// of two kinds:
 //   - `grid`: a barrier over all (co-resident) blocks on the counter
 //     bar[BAR_GRID], in two halves: `arrive` once the block's part of the
 //     previous phase is written, `wait` before it reads what others wrote;
@@ -276,11 +287,8 @@ struct ChainSync {
 //     (`mark_left` or `input_ready` marks the end of the wait).
 // With `stamps` ([wait, block, 2] nanoseconds of %globaltimer) every block
 // records when it arrived at each wait (its part of the previous phase
-// written) and when it left it, for the phase breakdown of a step.
+// written) and when it left it, for the phase breakdown of a kernel.
 struct StepSync {
-  // wo's and down's residual rows were written phases before: read them
-  // before the wait (tagged words are checked where they are used)
-  static constexpr bool EARLY_RESIDUAL = true;
   unsigned* ctr;
   unsigned target;
   unsigned nblk;
@@ -360,17 +368,14 @@ struct GemvArgs {
   bf16* hout;
   unsigned* houtx;
   unsigned hout_tag;
-  // DOWN: the activation [C], plain (xin) or tagged (xinx)
-  const bf16* xin;
-  const unsigned* xinx;
+  const unsigned* xinx; // DOWN: the activation [C] as tagged words (xin_tag)
   unsigned xin_tag;
   const float* part;    // WO: attention partials [C / hd, MAX_SPLITS, hd + PART_PAD]
   int hd, nsplit;
-  float* out;           // QKV, HEAD: f32 [R]
-  bf16* act;            // GATE_UP: [R / 2], plain or tagged (actx, act_tag)
-  unsigned* actx;
+  float* out;           // HEAD: f32 [R]
+  unsigned* actx;       // GATE_UP: the activation [R / 2] as tagged words (act_tag)
   unsigned act_tag;
-  unsigned long long* outx;   // QKV in the step: out as tagged 64-bit words (out_tag) instead
+  unsigned long long* outx;   // QKV: q, k, v [R] as tagged 64-bit words (out_tag)
   unsigned out_tag;
   float* slot_val;      // HEAD: the block's logits (SAMPLE_ROWS a unit) in shared memory, and their ids
   int* slot_id;
@@ -494,8 +499,7 @@ __device__ __forceinline__ void store_h1(const GemvArgs& a, int r, float v) {
   if (a.hout != nullptr) a.hout[r] = __float2bfloat16(v);
 }
 __device__ __forceinline__ void store_act1(const GemvArgs& a, int i, float v) {
-  if (a.actx != nullptr) st_relaxed(a.actx + i, tag_word(v, a.act_tag));
-  else a.act[i] = __float2bfloat16(v);
+  st_relaxed(a.actx + i, tag_word(v, a.act_tag));
 }
 
 // The prologue: the phase's input vector into shared memory at bf16.
@@ -549,12 +553,8 @@ __device__ __forceinline__ void input_prologue(const GemvArgs& a, float* x_s, fl
       for (int g = 0; g < ACT_GROUPS; ++g) {   // every load in flight before the first is used
         const int i = c0 + (threadIdx.x + g * blockDim.x) * 8;
         if (i < C) {
-          if (a.xinx != nullptr) {
-            raw[g][0] = ld_relaxed4(a.xinx + i);
-            raw[g][1] = ld_relaxed4(a.xinx + i + 4);
-          } else {
-            raw[g][0] = __ldcg(reinterpret_cast<const uint4*>(a.xin + i));
-          }
+          raw[g][0] = ld_relaxed4(a.xinx + i);
+          raw[g][1] = ld_relaxed4(a.xinx + i + 4);
         }
       }
 #pragma unroll
@@ -562,12 +562,8 @@ __device__ __forceinline__ void input_prologue(const GemvArgs& a, float* x_s, fl
         const int i = c0 + (threadIdx.x + g * blockDim.x) * 8;
         if (i < C) {
           float f[8];
-          if (a.xinx != nullptr) {
-            settle4(raw[g][0], a.xinx + i, a.xin_tag, f);
-            settle4(raw[g][1], a.xinx + i + 4, a.xin_tag, f + 4);
-          } else {
-            unpack8(*reinterpret_cast<const int4*>(&raw[g][0]), f);
-          }
+          settle4(raw[g][0], a.xinx + i, a.xin_tag, f);
+          settle4(raw[g][1], a.xinx + i + 4, a.xin_tag, f + 4);
           put_x4<BITS>(x_s, i, f[0], f[1], f[2], f[3]);
           put_x4<BITS>(x_s, i + 4, f[4], f[5], f[6], f[7]);
         }
@@ -617,14 +613,13 @@ __device__ __forceinline__ void input_prologue(const GemvArgs& a, float* x_s, fl
 template <int KIND>
 __device__ __forceinline__ void gemv_out(const GemvArgs& a, int r, float acc, float sc, float acc_u, float sc_u,
                                          unsigned res, int slot) {
-  if constexpr (KIND == QKV || KIND == HEAD) {
+  if constexpr (KIND == QKV) {
+    st_tagged64(a.outx + r, acc * sc, a.out_tag);
+  } else if constexpr (KIND == HEAD) {
     const float y = acc * sc;
-    if (KIND == QKV && a.outx != nullptr) st_tagged64(a.outx + r, y, a.out_tag);
-    else a.out[r] = y;
-    if constexpr (KIND == HEAD) {
-      a.slot_val[slot] = y;
-      a.slot_id[slot] = r;
-    }
+    a.out[r] = y;
+    a.slot_val[slot] = y;
+    a.slot_id[slot] = r;
   } else if constexpr (KIND == GATE_UP) {
     const float g = acc * sc, u = acc_u * sc_u;
     store_act1(a, r, g * (1.f / (1.f + expf(-g))) * u);
@@ -920,7 +915,7 @@ __device__ __forceinline__ void gemv4_phase(const GemvArgs& a, float* smem, int 
       load(unit, w[m]);
       scales(unit, sv[m], su[m]);
       rv[m] = 0u;
-      if constexpr ((KIND == WO || KIND == DOWN) && Sync::EARLY_RESIDUAL)
+      if constexpr (KIND == WO || KIND == DOWN)   // written phases before: read it before the wait
         if (tid < 16) rv[m] = load_res(a, 16 * unit + tid);
     }
   }
@@ -938,11 +933,7 @@ __device__ __forceinline__ void gemv4_phase(const GemvArgs& a, float* smem, int 
 #pragma unroll
   for (int m = 0; m < MU; ++m) {
     const int unit = bid + m * nblk;
-    if (unit < nunits) {
-      if constexpr ((KIND == WO || KIND == DOWN) && !Sync::EARLY_RESIDUAL)
-        if (tid < 16) rv[m] = load_res(a, 16 * unit + tid);
-      process(m, unit, w[m], sv[m], su[m], rv[m]);
-    }
+    if (unit < nunits) process(m, unit, w[m], sv[m], su[m], rv[m]);
   }
   for (int m = MU, unit = bid + MU * nblk; unit < nunits; ++m, unit += nblk) {
     int4 wt[TPW];
@@ -956,17 +947,16 @@ __device__ __forceinline__ void gemv4_phase(const GemvArgs& a, float* smem, int 
 // ---------------------------------------------------------------- attention phase
 
 // Attention of one token over cache slots [off, t) and itself, as partials
-// per (head, split); blocks bid, bid + nblk, ... take the units. qkv f32
-// [3N] from the QKV phase; kc/vc bf16 [S, N], row t written by split 0;
-// part f32 [H, MAX_SPLITS, hd + PART_PAD]. hd / 8 lanes span one key row, so
-// hd is 8, 16, 32, 64, 128 or 256. smem: 3 hd + 4 + (blockDim / 32)(hd + 2)
-// floats. qkvx (the step): q, k, v as tagged words (qkv_tag), read as soon
-// as the head's own rows carry the tag, not after the whole QKV phase.
+// per (head, split); blocks bid, bid + nblk, ... take the units. qkvx: q, k,
+// v [3N] from the QKV phase as tagged words (qkv_tag), read as soon as the
+// head's own rows carry the tag, not after the whole QKV phase; kc/vc bf16
+// [S, N], row t written by split 0; part f32 [H, MAX_SPLITS, hd +
+// PART_PAD]. hd / 8 lanes span one key row, so hd is 8, 16, 32, 64, 128 or
+// 256. smem: 3 hd + 4 + (blockDim / 32)(hd + 2) floats.
 template <class Sync>
-__device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, bf16* kc, bf16* vc,
-                                           float* part, int H, int hd, int t, int off, int nsplit,
-                                           float scale, float* smem, int bid, int nblk, Sync& sync,
-                                           const unsigned long long* qkvx = nullptr, unsigned qkv_tag = 0) {
+__device__ __forceinline__ void attn_phase(const unsigned long long* qkvx, unsigned qkv_tag, const float* invf,
+                                           bf16* kc, bf16* vc, float* part, int H, int hd, int t, int off,
+                                           int nsplit, float scale, float* smem, int bid, int nblk, Sync& sync) {
   const int N = H * hd, half = hd / 2;
   const int n = max(t - off, 0);
   const int units = H * nsplit;
@@ -1014,19 +1004,13 @@ __device__ __forceinline__ void attn_phase(const float* qkv, const float* invf, 
       const int partner = first ? i + half : i - half;
       const int at[5] = {base + i, base + partner, N + base + i, N + base + partner, 2 * N + base + i};
       float x[5];   // q_i, q_partner and (split 0) k_i, k_partner, v_i
-      if (qkvx != nullptr) {
-        unsigned long long w[5];
+      unsigned long long w[5];
 #pragma unroll
-        for (int j = 0; j < 5; ++j)
-          if (j < 2 || sp == 0) w[j] = ld_relaxed64(qkvx + at[j]);
+      for (int j = 0; j < 5; ++j)
+        if (j < 2 || sp == 0) w[j] = ld_relaxed64(qkvx + at[j]);
 #pragma unroll
-        for (int j = 0; j < 5; ++j)
-          if (j < 2 || sp == 0) x[j] = settle64(w[j], qkvx + at[j], qkv_tag);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 5; ++j)
-          if (j < 2 || sp == 0) x[j] = __ldcg(qkv + at[j]);
-      }
+      for (int j = 0; j < 5; ++j)
+        if (j < 2 || sp == 0) x[j] = settle64(w[j], qkvx + at[j], qkv_tag);
       const float ang = pos * invf[first ? i : i - half];
       const float c = cosf(ang), sn = sinf(ang);
       const float qi = x[0], qp = x[1];
@@ -1406,33 +1390,6 @@ __device__ __noinline__ void sample_merge(const SampleArgs& sa, int nlists, floa
   }
 }
 
-// ---------------------------------------------------------------- kernels of the chain
-
-template <int ROWS, int KIND>
-__global__ void __launch_bounds__(THREADS) gemv_kernel(GemvArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  ChainSync sync;
-  sync.start();
-  gemv_phase<ROWS, 8 / ROWS, KIND>(a, smem, blockIdx.x, gridDim.x, sync);
-}
-
-template <int KIND, int TPW>
-__global__ void __launch_bounds__(THREADS) gemv4_kernel(GemvArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  ChainSync sync;
-  sync.start();
-  gemv4_phase<KIND, 1, TPW>(a, smem, blockIdx.x, gridDim.x, sync);
-}
-
-__global__ void __launch_bounds__(32 * ATTN_WARPS)
-attn_kernel(const float* qkv, const float* invf, bf16* kc, bf16* vc, float* part, int H, int hd,
-            int t, int off, int nsplit, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  ChainSync sync;
-  sync.start();
-  attn_phase(qkv, invf, kc, vc, part, H, hd, t, off, nsplit, scale, smem, blockIdx.x, gridDim.x, sync);
-}
-
 // ---------------------------------------------------------------- host side
 
 struct DecodePlan {   // mirrored field by field in ops/decode_step.py
@@ -1454,29 +1411,6 @@ int sm_count() {
   return sms;
 }
 
-// Launches on one stream with programmatic dependent launch; the first
-// error sticks.
-struct Chain {
-  cudaStream_t st;
-  cudaError_t err = cudaSuccess;
-
-  template <class... P, class... A>
-  void launch(void (*kernel)(P...), int grid, int block, size_t smem, A... args) {
-    if (err != cudaSuccess) return;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(grid);
-    cfg.blockDim = dim3(block);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, kernel, P(args)...);
-  }
-};
-
 // Input vector, reduction scratch, int4 partial sums and, where the phase
 // normalises, the norm weights.
 inline size_t gemv_smem(int C, int bits, bool norm) {
@@ -1484,81 +1418,10 @@ inline size_t gemv_smem(int C, int bits, bool norm) {
 }
 inline size_t attn_smem(int hd, int nwarps) { return (size_t)(3 * hd + 4 + nwarps * (hd + 2)) * sizeof(float); }
 
-// int8: rows a warp owns: as many as keep 8 loads a lane in flight, fewer
-// while the grid would leave SMs without a block.
-inline int pick_rows(int total_rows, int nchunks, int min_rows) {
-  const int J = (nchunks + 31) / 32;
-  int rows = J >= 8 ? 1 : (J >= 4 ? 2 : (J >= 2 ? 4 : 8));
-  while (rows > min_rows && total_rows / rows < sm_count() * WARPS) rows /= 2;
-  return rows < min_rows ? min_rows : rows;
-}
-
-template <int KIND>
-void launch_gemv(Chain& ch, const GemvArgs& a, int bits) {
-  const bool norm = KIND == QKV || KIND == GATE_UP;
-  const size_t smem = gemv_smem(a.C, bits, norm);
-  if (bits == 4) {   // one unit a block
-    const int nsl = WARPS / unit_rgs<KIND>();
-    const int units = units4<KIND>(a.R);
-    const int tiles = (a.C / 64 + nsl - 1) / nsl;
-    auto k = tiles <= 1 ? gemv4_kernel<KIND, 1> : tiles <= 2 ? gemv4_kernel<KIND, 2>
-           : tiles <= 4 ? gemv4_kernel<KIND, 4> : gemv4_kernel<KIND, 8>;
-    ch.launch(k, units, THREADS, smem, a);
-    return;
-  }
-  constexpr int MIN_ROWS = KIND == GATE_UP ? 2 : 1;
-  const int rows = pick_rows(a.R, a.C / 16, MIN_ROWS);
-  const int units = (a.R + rows * WARPS - 1) / (rows * WARPS);
-  switch (rows) {
-    case 8: ch.launch(gemv_kernel<8, KIND>, units, THREADS, smem, a); break;
-    case 4: ch.launch(gemv_kernel<4, KIND>, units, THREADS, smem, a); break;
-    case 2: ch.launch(gemv_kernel<2, KIND>, units, THREADS, smem, a); break;
-    default:
-      if constexpr (KIND != GATE_UP) ch.launch(gemv_kernel<1, KIND>, units, THREADS, smem, a);
-  }
-}
-
-inline GemvArgs gemv_args(const int8_t* W, const float* s, int R, int C) {
-  GemvArgs a = {};
-  a.W = W;
-  a.s = s;
-  a.R = R;
-  a.C = C;
-  return a;
-}
-
-// Attention half-layer: h <- h + wo . attn(rmsnorm(h)), cache row t written
-// in place. Scratch: qkv f32 [3N], part f32 [H, MAX_SPLITS, hd + PART_PAD].
-void attn_half(Chain& ch, int bits, bf16* h, const float* nw, const int8_t* wqkv, const float* wqs,
-               const int8_t* wo, const float* wos, const float* invf, bf16* kc, bf16* vc,
-               float* qkv, float* part, int D, int H, int hd, int t, int off, float eps, float scale) {
-  const int N = H * hd;
-  const int nsplit = attn_splits(t - off);
-  GemvArgs a = gemv_args(wqkv, wqs, 3 * N, D);
-  a.hin = h; a.nw = nw; a.eps = eps; a.out = qkv;
-  launch_gemv<QKV>(ch, a, bits);
-  ch.launch(attn_kernel, H * nsplit, 32 * ATTN_WARPS, attn_smem(hd, ATTN_WARPS),
-            qkv, invf, kc, vc, part, H, hd, t, off, nsplit, scale);
-  GemvArgs o = gemv_args(wo, wos, D, N);
-  o.hin = h; o.hout = h; o.part = part; o.hd = hd; o.nsplit = nsplit;
-  launch_gemv<WO>(ch, o, bits);
-}
-
-// MLP half-layer: h <- h + down . (silu(g) * u). Scratch: act bf16 [F].
-void mlp_half(Chain& ch, int bits, bf16* h, const float* nw, const int8_t* wgu, const float* wgus,
-              const int8_t* wd, const float* wds, bf16* act, int D, int F, float eps) {
-  GemvArgs a = gemv_args(wgu, wgus, 2 * F, D);
-  a.hin = h; a.nw = nw; a.eps = eps; a.act = act;
-  launch_gemv<GATE_UP>(ch, a, bits);
-  GemvArgs d = gemv_args(wd, wds, D, F);
-  d.hin = h; d.hout = h; d.xin = act;
-  launch_gemv<DOWN>(ch, d, bits);
-}
-
 template <int BITS>
 __host__ __device__ __forceinline__ size_t row_bytes(int C) { return (size_t)C * BITS / 8; }
 
-// ---------------------------------------------------------------- persistent kernel
+// ---------------------------------------------------------------- the half-layers
 
 // The phases of one step at one weight width: int8 rows a warp, int4 units
 // and tiles in flight, both set so that the flagship widths give every
@@ -1579,6 +1442,121 @@ __device__ __forceinline__ void step_gemv(const GemvArgs& a, float* smem, int bi
   }
 }
 
+// Where a half-layer reads the residual h (plain bf16, or tagged words with
+// the tag of their write) and where it writes the new one (plain and / or
+// tagged).
+struct Residual {
+  const bf16* in;
+  const unsigned* inx;
+  unsigned in_tag;
+  bf16* out;
+  unsigned* outx;
+  unsigned out_tag;
+};
+
+__device__ __forceinline__ void read_residual(GemvArgs& a, const Residual& r) {
+  a.hin = r.in;
+  a.hinx = r.inx;
+  a.hin_tag = r.in_tag;
+}
+
+// Layer l's attention half over all blocks: QKV into the tagged q, k, v
+// words (tag), the attention partials, one grid barrier, wo + residual.
+template <int BITS>
+__device__ __forceinline__ void attn_half(const DecodePlan& p, int l, const Residual& r, unsigned tag, int t,
+                                          int off, int nsplit, float* smem, int bid, int nblk, StepSync& sync) {
+  const int N = p.H * p.hd, D = p.D;
+  GemvArgs a = {};
+  a.W = (const int8_t*)p.wqkv + (size_t)l * 3 * N * row_bytes<BITS>(D);
+  a.s = (const float*)p.wqs + (size_t)l * 3 * N;
+  a.R = 3 * N; a.C = D; a.nw = (const float*)p.attn_norm + (size_t)l * D; a.eps = p.eps;
+  read_residual(a, r);
+  a.outx = (unsigned long long*)p.qkvx; a.out_tag = tag;
+  step_gemv<BITS, QKV>(a, smem, bid, nblk, sync);
+  attn_phase((const unsigned long long*)p.qkvx, tag, (const float*)p.invf, (bf16*)p.k_all + (size_t)l * p.S * N,
+             (bf16*)p.v_all + (size_t)l * p.S * N, (float*)p.part, p.H, p.hd, t, off, nsplit, p.scale,
+             smem, bid, nblk, sync);
+  GemvArgs o = {};
+  o.W = (const int8_t*)p.wo + (size_t)l * D * row_bytes<BITS>(N);
+  o.s = (const float*)p.wos + (size_t)l * D;
+  o.R = D; o.C = N; o.part = (const float*)p.part; o.hd = p.hd; o.nsplit = nsplit;
+  read_residual(o, r);
+  o.hout = r.out; o.houtx = r.outx; o.hout_tag = r.out_tag;
+  sync.grid = true;   // every head's partials
+  step_gemv<BITS, WO>(o, smem, bid, nblk, sync);
+  sync.grid = false;
+}
+
+// Layer l's MLP half over all blocks: gate|up into the tagged activation
+// words (tag), down + residual.
+template <int BITS>
+__device__ __forceinline__ void mlp_half(const DecodePlan& p, int l, const Residual& r, unsigned tag,
+                                         float* smem, int bid, int nblk, StepSync& sync) {
+  const int D = p.D, F = p.F;
+  GemvArgs g = {};
+  g.W = (const int8_t*)p.wgu + (size_t)l * 2 * F * row_bytes<BITS>(D);
+  g.s = (const float*)p.wgus + (size_t)l * 2 * F;
+  g.R = 2 * F; g.C = D; g.nw = (const float*)p.mlp_norm + (size_t)l * D; g.eps = p.eps;
+  read_residual(g, r);
+  g.actx = (unsigned*)p.actx; g.act_tag = tag;
+  step_gemv<BITS, GATE_UP>(g, smem, bid, nblk, sync);
+  GemvArgs d = {};
+  d.W = (const int8_t*)p.wd + (size_t)l * D * row_bytes<BITS>(F);
+  d.s = (const float*)p.wds + (size_t)l * D;
+  d.R = D; d.C = F;
+  d.xinx = (const unsigned*)p.actx; d.xin_tag = tag;
+  read_residual(d, r);
+  d.hout = r.out; d.houtx = r.outx; d.hout_tag = r.out_tag;
+  step_gemv<BITS, DOWN>(d, smem, bid, nblk, sync);
+}
+
+// The end of a half-layer call: the last block to take the ticket leaves
+// the call's words as the next call needs them (no grid counter or ticket
+// left over, the next call's tags). Every block read the call count before
+// its work and, where there is one, passed the grid barrier before its
+// ticket, so none reads a word this block resets.
+__device__ __forceinline__ void half_call_done(unsigned* bar, int calls_word, StepSync& sync) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (atomicAdd(bar + BAR_HALF_TICKET, 1u) == sync.nblk - 1) {
+      bar[BAR_HALF_GRID] = 0u;
+      bar[BAR_HALF_TICKET] = 0u;
+      atomicAdd(bar + calls_word, 1u);
+    }
+    sync.stamp(0);   // the call's end, in the slot after the last wait
+  }
+}
+
+// One half-layer a launch, one block of THREADS an SM, all co-resident, on
+// a plan of one layer (L = 1): the residual is the plain bf16 h, read by
+// the first phase and updated in place by the last. A block's first read
+// of h happens before any block writes it: wo writes after the grid
+// barrier, down once the whole activation is in, which every block that
+// read h for gate|up wrote after reading it.
+template <int BITS>
+__global__ void __launch_bounds__(THREADS) attn_half_kernel(DecodePlan p, int t, int off) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned* bar = (unsigned*)p.bar;
+  StepSync sync{bar + BAR_HALF_GRID, 0u, gridDim.x, (unsigned long long*)p.stamps, 0, false, false};
+  const unsigned tag = half_tag(__ldcg(bar + BAR_ATTN_CALLS));
+  const Residual r{(const bf16*)p.h, nullptr, 0u, (bf16*)p.h, nullptr, 0u};
+  attn_half<BITS>(p, 0, r, tag, t, off, attn_splits(t - off, gridDim.x / p.H), smem, blockIdx.x, gridDim.x, sync);
+  half_call_done(bar, BAR_ATTN_CALLS, sync);
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(THREADS) mlp_half_kernel(DecodePlan p) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned* bar = (unsigned*)p.bar;
+  StepSync sync{bar + BAR_HALF_GRID, 0u, gridDim.x, (unsigned long long*)p.stamps, 0, false, false};
+  const unsigned tag = half_tag(__ldcg(bar + BAR_MLP_CALLS));
+  const Residual r{(const bf16*)p.h, nullptr, 0u, (bf16*)p.h, nullptr, 0u};
+  mlp_half<BITS>(p, 0, r, tag, smem, blockIdx.x, gridDim.x, sync);
+  half_call_done(bar, BAR_MLP_CALLS, sync);
+}
+
+// ---------------------------------------------------------------- the step
+
 // The sampler's lists: one a head unit (int8: 32 rows; int4: two
 // row-groups, and the tail of V % 16 rows).
 template <int BITS>
@@ -1597,59 +1575,23 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
   unsigned* bar = (unsigned*)p.bar;
   StepSync sync{bar + BAR_GRID, 0u, gridDim.x, (unsigned long long*)p.stamps, 0, false, false};
   const int bid = blockIdx.x, nblk = gridDim.x;
-  const int N = p.H * p.hd, D = p.D, F = p.F, S = p.S, L = p.L;
+  const int D = p.D, L = p.L;
   const int nsplit = attn_splits(t - off, nblk / p.H);   // one (head, split) unit a block at most
   const unsigned epoch = __ldcg(bar + BAR_EPOCH);        // steps this scratch has run: the tags' base
   const unsigned* hx = (const unsigned*)p.hx;
-  const unsigned* actx = (const unsigned*)p.actx;
   const bf16* emb_row = (const bf16*)p.emb + (size_t)__ldcg(tok_in) * D;
-  bf16* h = (bf16*)p.h;
   unsigned* hxo = (unsigned*)p.hx;
-  // the residual as a phase reads it: layer 0's is the token's embedding
-  // row, later ones tagged words with the tag of the write before
-  auto residual = [&](GemvArgs& x, int l, unsigned tag) {
-    if (l == 0) x.hin = emb_row;
-    else { x.hinx = hx; x.hin_tag = tag; }
-  };
   for (int l = 0; l < L; ++l) {
+    // the residual between the halves as tagged words, each write with the
+    // tag of its count; layer 0 reads the token's embedding row
     const unsigned h_in = write_tag(epoch * 2u * L + 2u * l - 1u);   // DOWN of layer l - 1
     const unsigned h_mid = write_tag(epoch * 2u * L + 2u * l);       // WO of layer l
+    const unsigned h_out = write_tag(epoch * 2u * L + 2u * l + 1u);  // DOWN of layer l
     const unsigned qkv_tag = write_tag(epoch * (unsigned)L + l);      // q, k, v and act of layer l
-    GemvArgs a = {};
-    a.W = (const int8_t*)p.wqkv + (size_t)l * 3 * N * row_bytes<BITS>(D);
-    a.s = (const float*)p.wqs + (size_t)l * 3 * N;
-    a.R = 3 * N; a.C = D; a.nw = (const float*)p.attn_norm + (size_t)l * D; a.eps = p.eps;
-    residual(a, l, h_in);
-    a.outx = (unsigned long long*)p.qkvx; a.out_tag = qkv_tag;
-    step_gemv<BITS, QKV>(a, smem, bid, nblk, sync);
-    attn_phase((const float*)nullptr, (const float*)p.invf, (bf16*)p.k_all + (size_t)l * S * N,
-               (bf16*)p.v_all + (size_t)l * S * N, (float*)p.part, p.H, p.hd, t, off, nsplit,
-               p.scale, smem, bid, nblk, sync, (const unsigned long long*)p.qkvx, qkv_tag);
-    GemvArgs o = {};
-    o.W = (const int8_t*)p.wo + (size_t)l * D * row_bytes<BITS>(N);
-    o.s = (const float*)p.wos + (size_t)l * D;
-    o.R = D; o.C = N; o.part = (const float*)p.part; o.hd = p.hd; o.nsplit = nsplit;
-    residual(o, l, h_in);
-    o.houtx = hxo; o.hout_tag = h_mid;
-    sync.grid = true;   // every head's partials
-    step_gemv<BITS, WO>(o, smem, bid, nblk, sync);
-    sync.grid = false;
-    GemvArgs g = {};
-    g.W = (const int8_t*)p.wgu + (size_t)l * 2 * F * row_bytes<BITS>(D);
-    g.s = (const float*)p.wgus + (size_t)l * 2 * F;
-    g.R = 2 * F; g.C = D; g.nw = (const float*)p.mlp_norm + (size_t)l * D; g.eps = p.eps;
-    residual(g, l + 1, h_mid);
-    g.actx = (unsigned*)p.actx; g.act_tag = qkv_tag;
-    step_gemv<BITS, GATE_UP>(g, smem, bid, nblk, sync);
-    GemvArgs d = {};
-    d.W = (const int8_t*)p.wd + (size_t)l * D * row_bytes<BITS>(F);
-    d.s = (const float*)p.wds + (size_t)l * D;
-    d.R = D; d.C = F;
-    d.xinx = actx; d.xin_tag = qkv_tag;
-    residual(d, l + 1, h_mid);
-    d.houtx = hxo; d.hout_tag = write_tag(epoch * 2u * L + 2u * l + 1u);
-    if (l == L - 1) d.hout = h;   // the last residual, for the caller
-    step_gemv<BITS, DOWN>(d, smem, bid, nblk, sync);
+    const Residual ra{l == 0 ? emb_row : nullptr, l == 0 ? nullptr : hx, h_in, nullptr, hxo, h_mid};
+    attn_half<BITS>(p, l, ra, qkv_tag, t, off, nsplit, smem, bid, nblk, sync);
+    const Residual rm{nullptr, hx, h_mid, l == L - 1 ? (bf16*)p.h : nullptr, hxo, h_out};   // the last, also for the caller
+    mlp_half<BITS>(p, l, rm, qkv_tag, smem, bid, nblk, sync);
   }
   // the block's head units' logits, past every phase's shared memory (the
   // head's barriers order these stores before its own)
@@ -1660,7 +1602,7 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
   for (int i = threadIdx.x; i < SAMPLE_ROWS * my_lists; i += THREADS) slot_id[i] = -1;
   GemvArgs a = {};   // the head: the QKV phase's arithmetic, the block's logits kept for the sampler
   a.W = (const int8_t*)p.head; a.s = (const float*)p.head_s; a.R = p.V; a.C = D;
-  residual(a, L, write_tag(epoch * 2u * L + 2u * L - 1u));
+  a.hinx = hx; a.hin_tag = write_tag(epoch * 2u * L + 2u * L - 1u);
   a.nw = (const float*)p.final_norm; a.eps = p.eps; a.out = (float*)p.logits;
   a.slot_val = slot_val; a.slot_id = slot_id;
   step_gemv<BITS, HEAD>(a, smem, bid, nblk, sync);
@@ -1688,6 +1630,60 @@ mega_persistent_kernel(DecodePlan p, const int* tok_in, int t, int off, int supp
   if (threadIdx.x == 0) sync.stamp(0);   // the step's end, in the slot after the last wait
 }
 
+// ---------------------------------------------------------------- launches
+
+// A persistent kernel's grid: one block an SM, all co-resident. Allows the
+// kernel `smem` bytes of dynamic shared memory where that is above the
+// default 48 KB (`allowed`: what it was allowed so far) and checks that a
+// block fits an SM.
+template <class... P>
+cudaError_t fit_one_block_an_sm(void (*kernel)(P...), size_t smem, size_t& allowed) {
+  if (smem > 48 * 1024 && smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    allowed = smem;
+  }
+  int occ = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS, smem);
+  if (e != cudaSuccess) return e;
+  return occ < 1 ? cudaErrorLaunchOutOfResources : cudaSuccess;
+}
+
+// Dynamic shared memory of each half-layer kernel: the largest of its phases'.
+template <int BITS>
+size_t attn_half_smem(const DecodePlan& p) {
+  return std::max({gemv_smem(p.D, BITS, true), gemv_smem(p.H * p.hd, BITS, false), attn_smem(p.hd, WARPS)});
+}
+template <int BITS>
+size_t mlp_half_smem(const DecodePlan& p) {
+  return std::max(gemv_smem(p.D, BITS, true), gemv_smem(p.F, BITS, false));
+}
+
+template <int BITS>
+cudaError_t fit_half_layers(const DecodePlan& p) {
+  static size_t attn_allowed = 0, mlp_allowed = 0;
+  const cudaError_t e = fit_one_block_an_sm(attn_half_kernel<BITS>, attn_half_smem<BITS>(p), attn_allowed);
+  if (e != cudaSuccess) return e;
+  return fit_one_block_an_sm(mlp_half_kernel<BITS>, mlp_half_smem<BITS>(p), mlp_allowed);
+}
+
+// A launch the kernel was not fitted to (fit_half_layers) fails and returns its error.
+template <int BITS>
+cudaError_t launch_attn_half(const DecodePlan& p, int t, int off, cudaStream_t st) {
+  DecodePlan pv = p;
+  void* args[] = {&pv, &t, &off};
+  return cudaLaunchCooperativeKernel((void*)attn_half_kernel<BITS>, dim3(sm_count()), dim3(THREADS), args,
+                                     attn_half_smem<BITS>(p), st);
+}
+
+template <int BITS>
+cudaError_t launch_mlp_half(const DecodePlan& p, cudaStream_t st) {
+  DecodePlan pv = p;
+  void* args[] = {&pv};
+  return cudaLaunchCooperativeKernel((void*)mlp_half_kernel<BITS>, dim3(sm_count()), dim3(THREADS), args,
+                                     mlp_half_smem<BITS>(p), st);
+}
+
 template <int BITS>
 int mega_persistent(const DecodePlan& p, const int* tok_in, int t, int off, int suppress, int seed,
                     cudaStream_t st) {
@@ -1701,19 +1697,10 @@ int mega_persistent(const DecodePlan& p, const int* tok_in, int t, int off, int 
   if (merge > smem) smem = merge;
   int slot_base = (int)(smem / sizeof(float));   // then the head's logits and ids, past every phase's
   smem += 2 * SAMPLE_ROWS * sizeof(float) * ((nlists + nblk - 1) / nblk);
-  static size_t smem_set = 0;   // above 48 KB a kernel must be allowed more dynamic shared memory
-  if (smem > 48 * 1024 && smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(mega_persistent_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
-  int occ = 0;   // the grid is one block an SM, all co-resident
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, mega_persistent_kernel<BITS>, THREADS, smem);
+  static size_t allowed = 0;
+  cudaError_t e = fit_one_block_an_sm(mega_persistent_kernel<BITS>, smem, allowed);
   if (e != cudaSuccess) return (int)e;
-  if (occ < 1) return (int)cudaErrorLaunchOutOfResources;
-  e = cudaMemsetAsync((unsigned*)p.bar + BAR_GRID, 0, (BAR_WORDS - BAR_GRID) * sizeof(unsigned), st);
+  e = cudaMemsetAsync((unsigned*)p.bar + BAR_GRID, 0, (BAR_TICKET + 1 - BAR_GRID) * sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
   DecodePlan pv = p;
   void* args[] = {&pv, &tok_in, &t, &off, &suppress, &seed, &slot_base};
@@ -1732,7 +1719,7 @@ int mega_persistent(const DecodePlan& p, const int* tok_in, int t, int off, int 
 // cudaErrorInvalidValue for another `bits`).
 
 // Attention partials per head that `part` buffers must hold, the floats of
-// one partial beyond its hd channels, the words of a step's `bar` buffer,
+// one partial beyond its hd channels, the words of a scratch's `bar` buffer,
 // the words of one sampler list, and the lists of a step's sampler at
 // vocabulary V and `bits`.
 extern "C" int decode_max_splits() { return MAX_SPLITS; }
@@ -1741,33 +1728,39 @@ extern "C" int decode_bar_words() { return BAR_WORDS; }
 extern "C" int decode_cand_words() { return CAND_WORDS; }
 extern "C" int decode_sample_lists(int V, int bits) { return bits == 4 ? head_lists<4>(V) : head_lists<8>(V); }
 
-// One attention half-layer. h bf16 [D] and the caches kc/vc bf16 [S, N]
-// (row t) are updated in place. wqkv [3N, D], wo [D, N]; scales f32 [3N],
-// [D]; nw f32 [D]; invf f32 [hd/2]; scratch qkv f32 [3N], part f32
-// [H, MAX_SPLITS, hd + PART_PAD].
-extern "C" int attn_step(void* h, const void* nw, const void* wqkv, const void* wqs,
-                         const void* wo, const void* wos, const void* invf, void* kc,
-                         void* vc, void* qkv, void* part, int D, int H, int hd, int S,
-                         int t, int off, float eps, float scale, int bits, void* stream) {
-  (void)S;
-  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
-  Chain ch{(cudaStream_t)stream};
-  attn_half(ch, bits, (bf16*)h, (const float*)nw, (const int8_t*)wqkv, (const float*)wqs,
-            (const int8_t*)wo, (const float*)wos, (const float*)invf, (bf16*)kc, (bf16*)vc,
-            (float*)qkv, (float*)part, D, H, hd, t, off, eps, scale);
-  return (int)ch.err;
+// The half-layers run on a plan of one layer (L = 1): attn_norm [D], wqkv
+// [3N, D], wqs [3N], wo [D, N], wos [D], mlp_norm [D], wgu [2F, D] (gate
+// rows then up rows), wgus [2F], wd [D, F], wds [D]; invf f32 [hd/2];
+// k_all / v_all the layer's caches bf16 [S, N] (row t written in place);
+// h bf16 [D], the residual, updated in place. Scratch: part f32 [H,
+// MAX_SPLITS, hd + PART_PAD], bar uint32 [BAR_WORDS], qkvx uint64 [3N],
+// actx uint32 [F] (bar, qkvx and actx zeroed once, when the scratch is
+// made; a decode step's scratch serves, before, after or between steps);
+// stamps null or int64 [4, SMs, 2] (each block's arrival at and leave from
+// each of the call's waits, then its end, in ns). The other fields are not
+// read. `half_layers_fit` once a plan, before its first call: it allows the
+// kernels their shared memory and checks that one block an SM fits.
+extern "C" int half_layers_fit(const void* plan) {
+  const DecodePlan& p = *(const DecodePlan*)plan;
+  if (p.bits == 8) return (int)fit_half_layers<8>(p);
+  if (p.bits == 4) return (int)fit_half_layers<4>(p);
+  return (int)cudaErrorInvalidValue;
 }
 
-// One MLP half-layer. h bf16 [D] is updated in place. wgu [2F, D] (gate
-// rows then up rows), wd [D, F]; scales f32 [2F], [D]; scratch act bf16 [F].
-extern "C" int mlp_step(void* h, const void* nw, const void* wgu, const void* wgus,
-                        const void* wd, const void* wds, void* act, int D, int F,
-                        float eps, int bits, void* stream) {
-  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
-  Chain ch{(cudaStream_t)stream};
-  mlp_half(ch, bits, (bf16*)h, (const float*)nw, (const int8_t*)wgu, (const float*)wgus,
-           (const int8_t*)wd, (const float*)wds, (bf16*)act, D, F, eps);
-  return (int)ch.err;
+// One attention half-layer: h <- h + wo . attn(rmsnorm(h)), cache row t.
+extern "C" int attn_half_step(const void* plan, int t, int off, void* stream) {
+  const DecodePlan& p = *(const DecodePlan*)plan;
+  if (p.bits == 8) return (int)launch_attn_half<8>(p, t, off, (cudaStream_t)stream);
+  if (p.bits == 4) return (int)launch_attn_half<4>(p, t, off, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One MLP half-layer: h <- h + down . (silu(g) * u).
+extern "C" int mlp_half_step(const void* plan, void* stream) {
+  const DecodePlan& p = *(const DecodePlan*)plan;
+  if (p.bits == 8) return (int)launch_mlp_half<8>(p, (cudaStream_t)stream);
+  if (p.bits == 4) return (int)launch_mlp_half<4>(p, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // One decode step over a plan (the checked pointers and constants of one

@@ -20,8 +20,9 @@ row and reads the step's tokens to the host to stop once every row has
 emitted EOS. With a dict of ``mega_decode_params`` (B=1) it is one
 decode-step op per token, which samples in its kernel, and one host read of
 the token for the EOS check. With a list of ``unstack_decode_params`` it is
-an ``attn_step`` and an ``mlp_step`` per layer and token, the speech head in
-plain PyTorch and the host sampler. ``lm_loss`` is the training objective.
+an attention and an MLP half-layer per layer and token (one op each, on a
+plan of the layers made once a request), the speech head in plain PyTorch
+and the host sampler. ``lm_loss`` is the training objective.
 
 Under an active mesh (``parallel/``) ``build_prefix``, the prefill and the
 scanned decode run on this rank's slices: ``tok_emb`` / ``speech_emb``
@@ -40,8 +41,8 @@ from typing import Dict, Generator, List, NamedTuple, Optional, Tuple, Union
 import torch
 
 from ..ops.attention import apply_rope, causal_mask, quantize_kv, rope_inv_freq, rope_table
-from ..ops.decode_step import (WEIGHT_KEYS, attn_step, decode_scratch, mega_decode_step,
-                               mlp_step, pack4, part_shape, weight_bits)
+from ..ops.decode_step import (WEIGHT_KEYS, decode_scratch, half_layer_scratch, layers_planned,
+                               mega_decode_step, pack4, plan_half_layers, weight_bits)
 from ..ops.sampling import SamplerConfig, sample, transform_logits
 from ..utils.config import TokenLMConfig, TransformerConfig
 from ..utils.timing import Stopwatch
@@ -487,35 +488,31 @@ def _decode_layers(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, 
     """The per-layer flavour: token i is sampled on the host from the
     previous logits (the caller's generator is the random stream), then the
     layers run it at cache slot P + i and the head gives the next logits.
-    After EOS nothing more runs."""
+    The layers are planned once (``plan_half_layers``, over one residual
+    buffer and, on the card, one scratch), so a half-layer is one planned
+    call. After EOS nothing more runs."""
     dev = k_all.device
     eos = cfg.speech_eos
     if len(decode_params) != ccfg.n_layers:
         raise ValueError(f"decode_params has {len(decode_params)} layers, the LM {ccfg.n_layers}")
     invf = rope_inv_freq(ccfg.head_dim, ccfg.rope_theta, device=dev)
     emb = params["speech_emb"]
-    kw = dict(n_heads=ccfg.n_heads, head_dim=ccfg.head_dim, eps=ccfg.norm_eps)
     toks: List[int] = []
     cur_logits = next_logits
-    lw0 = decode_params[0]
+    h = torch.empty((1, ccfg.dim), dtype=torch.bfloat16, device=dev)   # the residual the layers update
     scratch = None     # the kernels' buffers; the plain half-layers (a CPU cache) take none
     if dev.type == "cuda":
-        scratch = {"qkv": torch.empty((lw0["wqkv"].shape[0],), dtype=torch.float32, device=dev),
-                   "part": torch.empty(part_shape(ccfg.n_heads, ccfg.head_dim), dtype=torch.float32,
-                                       device=dev),
-                   "act": torch.empty((lw0["wd"].shape[1],), dtype=torch.bfloat16, device=dev)}
+        scratch = half_layer_scratch(ccfg.dim, ccfg.n_heads, ccfg.head_dim, ccfg.ffn_dim, dev)
+    plan = plan_half_layers(h, decode_params, invf, k_all, v_all, n_heads=ccfg.n_heads,
+                            head_dim=ccfg.head_dim, eps=ccfg.norm_eps, scratch=scratch)
     for i in range(max_new_tokens):
         tok = sample(_mask_logits(cur_logits, cfg, i < min_tokens), sampler, generator)
         toks.append(int(tok[0]))
         yield toks[-1:]
         if toks[-1] == eos:
             break
-        h = emb[toks[-1]].to(torch.bfloat16)[None].contiguous()
-        for l, lw in enumerate(decode_params):
-            attn_step(h, lw["attn_norm"], lw["wqkv"], lw["wqs"], lw["wo"], lw["wos"], invf,
-                      k_all[l], v_all[l], P + i, off0, scratch=scratch, **kw)
-            mlp_step(h, lw["mlp_norm"], lw["wgu"], lw["wgus"], lw["wd"], lw["wds"],
-                     eps=ccfg.norm_eps, scratch=scratch)
+        h.copy_(emb[toks[-1]][None])
+        layers_planned(plan, P + i, off0, ccfg.n_layers)
         hf = core.rmsnorm(h, params["final_norm"], ccfg.norm_eps)
         cur_logits = core.matmul_any(hf, params["speech_head"])
     return _from_list(toks, cfg, max_new_tokens, dev, steps=sum(1 for t in toks if t != eos))

@@ -3,11 +3,21 @@
 Counterpart of the JAX ``ops/pallas_decode.py``: ``mega_decode_step`` (the
 whole step), ``attn_step`` and ``mlp_step`` (its two half-layers), each at
 int8 or int4 weights. The kernels live in ``csrc/decode_step.cu``, one C
-entry point per function, so one call here is one op. A CPU cache or
-residual takes the ``*_plain`` version, which rounds at the same points as
-the kernels; a CUDA one launches the kernels or raises. ``launches`` on each
-wrapper counts launched ops (``mega_decode_step.launches`` the int8 steps,
-``mega_decode_step.launches_int4`` the int4 steps).
+entry point per function, each one persistent cooperative launch, so one
+call here is one op. A CPU cache or residual takes the ``*_plain`` version,
+which rounds at the same points as the kernels; a CUDA one launches the
+kernels or raises. ``launches`` on each wrapper counts launched ops
+(``mega_decode_step.launches`` the int8 steps,
+``mega_decode_step.launches_int4`` the int4 steps; a planned half-layer
+counts on ``attn_step`` / ``mlp_step``).
+
+``attn_step`` and ``mlp_step`` check every tensor on every call, for
+one-off callers. A decode loop plans its layers once instead
+(``plan_half_layers``): the checked pointers and constants of every
+layer's two half-layers over one residual, one cache and one scratch
+(``half_layer_scratch``), so that a call (``attn_step_planned``,
+``mlp_step_planned``, ``layers_planned`` for a whole token) is one ctypes
+call with ``t`` and ``off``.
 
 The kernels split the attention over the live cache slots into partials per
 (head, split) and merge them in the ``wo`` projection's prologue; the int4
@@ -55,12 +65,14 @@ HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # hd / 8 lanes span one cache row
 SPLIT_KEYS = 24     # slots per split ...
 MAX_SPLITS = 16     # ... until this many splits; then the splits grow
 _STEP_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_ATTN_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
-                  + [ctypes.c_int, ctypes.c_void_p])
-_MLP_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ATTN_HALF_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_MLP_HALF_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p]
 MP_KEYS = ("emb", "invf", "attn_norm", "wqkv", "wqs", "wo", "wos", "mlp_norm",
            "wgu", "wgus", "wd", "wds", "final_norm", "head", "head_s")
 WEIGHT_KEYS = ("wqkv", "wo", "wgu", "wd", "head")   # the streams that int4 packs
+ATTN_KEYS = ("attn_norm", "wqkv", "wqs", "wo", "wos")   # a layer's weights, in the half-layers' order
+MLP_KEYS = ("mlp_norm", "wgu", "wgus", "wd", "wds")
+HALF_STAMP_SLOTS = 4   # a half-layer call's waits (at most 3) and its end
 
 
 # ----------------------------------------------------------------------------- int4
@@ -376,9 +388,10 @@ def head_logits_plain(h: torch.Tensor, mp: Dict[str, torch.Tensor], eps: float,
 
 
 def attn_splits(n: int, cap: int = MAX_SPLITS) -> int:
-    """Splits the kernels cut n live slots into: the half-layer kernels cap
-    them at MAX_SPLITS, the whole step's kernel at its blocks per head (SMs
-    // heads), so that a block has one (head, split) at most."""
+    """Splits the kernels cut n live slots into: at most MAX_SPLITS, and in
+    the kernels (the step, the attention half-layer) at most their blocks per
+    head (SMs // heads, the ``cap``), so that a block has one (head, split)
+    at most."""
     return min(MAX_SPLITS, max(1, cap), max(1, -(-n // SPLIT_KEYS)))
 
 
@@ -552,18 +565,22 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-ZEROED = ("bar", "hx", "actx", "qkvx")   # zeroed once: the step's write counts and its tagged words
+ZEROED = ("bar", "hx", "actx", "qkvx")   # zeroed once: the write counts and the tagged words
+
+
+def _half_scratch_spec(H: int, hd: int, F: int):
+    """The half-layers' buffers (a decode step's scratch holds them too)."""
+    return {"part": (part_shape(H, hd), torch.float32), "bar": ((_lib_int("decode_bar_words"),), torch.int32),
+            "qkvx": ((3 * H * hd,), torch.int64), "actx": ((F,), torch.int32)}
 
 
 def _scratch_spec(D: int, H: int, hd: int, F: int, V: int, bits: int):
     i32 = torch.int32
     lists = function("decode_step", "decode_sample_lists", [ctypes.c_int, ctypes.c_int])(V, bits)
     return {
-        "h": ((1, D), torch.bfloat16), "qkv": ((3 * H * hd,), torch.float32),
-        "part": (part_shape(H, hd), torch.float32), "act": ((F,), torch.bfloat16),
-        "logits": ((V,), torch.float32), "tok": ((1,), i32),
-        "bar": ((_lib_int("decode_bar_words"),), i32), "hx": ((D,), i32), "actx": ((F,), i32),
-        "qkvx": ((3 * H * hd,), torch.int64), "cand": ((lists, _lib_int("decode_cand_words")), i32),
+        "h": ((1, D), torch.bfloat16), "logits": ((V,), torch.float32), "tok": ((1,), i32),
+        "hx": ((D,), i32), "cand": ((lists, _lib_int("decode_cand_words")), i32),
+        **_half_scratch_spec(H, hd, F),
     }
 
 
@@ -571,13 +588,15 @@ def decode_scratch(mp: Dict[str, torch.Tensor], n_heads: int, head_dim: int,
                    device, stamps: bool = False) -> DecodeScratch:
     """The step kernel's buffers on a CUDA device, to allocate once per
     request and pass to every step: h [1, D] bf16 (the last residual),
-    qkv f32, the attention partials f32, act bf16 (the half-layers'),
-    logits f32, tok [1] int32; and, zeroed here, ``bar`` (the count of
-    steps run on this scratch, the grid barrier's counter and the
-    sampler's ticket), ``hx`` / ``actx`` / ``qkvx`` (the residual, the
+    the attention partials f32, logits f32, tok [1] int32; and, zeroed
+    here, ``bar`` (the count of steps run on this scratch, the grid
+    barrier's counter and the sampler's ticket, and the half-layers' own
+    counts and counters), ``hx`` / ``actx`` / ``qkvx`` (the residual, the
     activation and q, k, v as tagged words between the kernel's blocks);
-    ``cand`` (the sampler's lists, one a head unit of 32 logits). The
-    first step on it checks every tensor once and keeps the plan here; a later step with other params, caches or
+    ``cand`` (the sampler's lists, one a head unit of 32 logits). It
+    serves the half-layers too (``half_layer_scratch``'s buffers), before,
+    after or between steps. The first step on it checks every tensor once
+    and keeps the plan here; a later step with other params, caches or
     sampler raises. ``stamps`` adds an int64 buffer [5 L + 3, SMs, 2] in
     which every block of the kernel records, in nanoseconds of the card's
     timer, when it arrived at and when it left the wait before each phase
@@ -776,6 +795,200 @@ mega_decode_step.launches = 0
 mega_decode_step.launches_int4 = 0
 
 
+def half_layer_scratch(dim: int, n_heads: int, head_dim: int, ffn_dim: int, device) -> Dict[str, torch.Tensor]:
+    """The half-layer kernels' buffers on a CUDA device, to allocate once per
+    request and pass to every call (or to ``plan_half_layers``): the
+    attention partials f32; and, zeroed here, ``bar`` (each half's count of
+    calls, which its tags count from, and their grid counter and ticket)
+    and ``qkvx`` / ``actx`` (q, k, v and the activation as tagged words
+    between the kernels' blocks). A ``decode_scratch`` holds the same
+    buffers and serves as well."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"half-layer scratch: the kernels' buffers live on a CUDA device, not on {device}")
+    return {k: (torch.zeros if k in ZEROED else torch.empty)(shape, dtype=dt, device=device)
+            for k, (shape, dt) in _half_scratch_spec(n_heads, head_dim, ffn_dim).items()}
+
+
+def _layer_plan(what: str, h, lw, invf, kc, vc, scratch, stamps, *, n_heads: int, head_dim: int, eps: float,
+                kinds=("attn", "mlp")) -> "_Plan":
+    """Check every tensor and width of one layer's half-layers of ``kinds``
+    once (the weights in ``lw``, the residual h, the caches and invf for
+    the attention, the scratch's buffers and the stamps) and pack the
+    pointers into a ``_Plan`` of one layer, as the C entry points take it."""
+    attn, mlp = "attn" in kinds, "mlp" in kinds
+    names = (ATTN_KEYS if attn else ()) + (MLP_KEYS if mlp else ())
+    missing = [k for k in names if k not in lw]
+    if missing:
+        raise ValueError(f"{what}: the layer lacks {missing}")
+    D = h.shape[-1]
+    H, hd = n_heads, head_dim
+    first = "wqkv" if attn else "wgu"
+    bits = _row_bits(what, first, lw[first], D)
+    i8, f32, bf = torch.int8, torch.float32, torch.bfloat16
+    want = {"h": (h, (1, D), bf)}
+    widths = dict(D=D)
+    S = N = F = 0
+    if attn:
+        if kc.dim() != 2:
+            raise ValueError(f"{what}: k_cache must be [S, N], got {tuple(kc.shape)}")
+        S, N = kc.shape
+        if N != H * hd:
+            raise ValueError(f"{what}: cache width {N} != n_heads*head_dim {H * hd} (GQA is not supported)")
+        widths["N"] = N
+        want.update({
+            "attn_norm": (lw["attn_norm"], (D,), f32), "wqkv": (lw["wqkv"], (3 * N, D * bits // 8), i8),
+            "wqs": (lw["wqs"], (3 * N,), f32), "wo": (lw["wo"], (D, N * bits // 8), i8),
+            "wos": (lw["wos"], (D,), f32), "invf": (invf, (hd // 2,), f32),
+            "k_cache": (kc, (S, N), bf), "v_cache": (vc, (S, N), bf)})
+    if mlp:
+        F = lw["wd"].shape[-1] * 8 // bits
+        widths["F"] = F
+        want.update({
+            "mlp_norm": (lw["mlp_norm"], (D,), f32), "wgu": (lw["wgu"], (2 * F, D * bits // 8), i8),
+            "wgus": (lw["wgus"], (2 * F,), f32), "wd": (lw["wd"], (D, F * bits // 8), i8),
+            "wds": (lw["wds"], (D,), f32)})
+    _check_widths(what, bits, hd if attn else None, **widths)
+    dev = h.device
+    if scratch is not None:
+        spec = _half_scratch_spec(H, hd, F)
+        for name in (("part", "qkvx") if attn else ()) + (("actx",) if mlp else ()) + ("bar",):
+            if name not in scratch:
+                raise ValueError(f"{what}: scratch lacks {name!r} (make it with half_layer_scratch or decode_scratch)")
+            want[f"scratch {name}"] = (scratch[name], *spec[name])
+    if stamps is not None:
+        if dev.type != "cuda":
+            raise ValueError(f"{what}: stamps are the kernels' timestamps, on a CUDA device")
+        want["stamps"] = (stamps, (HALF_STAMP_SLOTS, _sms(dev), 2), torch.int64)
+    _check_tensors(what, dev, want)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    buf = lambda name: ptr(scratch.get(name)) if scratch is not None else None
+    return _Plan(**{k: ptr(lw.get(k)) if k in names else None for k in ATTN_KEYS + MLP_KEYS},
+                 invf=ptr(invf) if attn else None, k_all=ptr(kc) if attn else None,
+                 v_all=ptr(vc) if attn else None, h=ptr(h), part=buf("part"), bar=buf("bar"),
+                 qkvx=buf("qkvx"), actx=buf("actx"), stamps=ptr(stamps),
+                 L=1, D=D, H=H, hd=hd, F=F, S=S, bits=bits, eps=float(eps),
+                 scale=float(hd) ** -0.5 if hd else 0.0)
+
+
+_FITTED = set()   # (device, bits, D, N, hd, F): widths the half-layer kernels were fitted to
+
+
+def _fit(plan: "_Plan", what: str) -> None:
+    """Allow the half-layer kernels their shared memory at the plan's
+    widths and check that one block an SM fits (the cooperative grid),
+    once a device and widths; raises otherwise: there is nothing else to
+    run."""
+    key = (torch.cuda.current_device(), plan.bits, plan.D, plan.H * plan.hd, plan.hd, plan.F)
+    if key not in _FITTED:
+        check(function("decode_step", "half_layers_fit", [ctypes.c_void_p])(ctypes.addressof(plan)), what)
+        _FITTED.add(key)
+
+
+class HalfLayerPlan:
+    """Every layer's two half-layers over one residual ``h`` [1, D] bf16
+    (updated in place by every call), one cache and one scratch, checked
+    once (``plan_half_layers``). On the card: a ``_Plan`` a layer for the C
+    entry points, which a call takes with PyTorch's current stream of the
+    plan's device; on the CPU: the plain half-layers' arguments (int4 rows
+    unpacked once). It holds every tensor it was made from, so no pointer
+    it keeps goes stale."""
+
+    def __init__(self, h: torch.Tensor, n_layers: int, S: int, cards=None, plain=None, keep=()):
+        self.h = h
+        self.n_layers = n_layers
+        self.S = S
+        self.cards = cards    # [(_Plan, its address)] a layer (CUDA)
+        self.plain = plain    # [(attention args, MLP args)] a layer (CPU)
+        self.keep = keep
+        if cards is not None:   # what a call needs besides its plan, looked up once
+            self.attn_fn = function("decode_step", "attn_half_step", _ATTN_HALF_ARGTYPES)
+            self.mlp_fn = function("decode_step", "mlp_half_step", _MLP_HALF_ARGTYPES)
+            index = h.device.index if h.device.index is not None else torch.cuda.current_device()
+            self.stream = lambda: torch._C._cuda_getCurrentRawStream(index)   # the current stream's handle
+
+
+def plan_half_layers(
+    h: torch.Tensor,                       # [1, D] bf16, the residual every call updates in place
+    layers: Sequence[Dict[str, torch.Tensor]],   # per-layer weights (unstack_decode_params), int8 or int4
+    invf: torch.Tensor,                    # [hd/2] f32
+    k_all: torch.Tensor,                   # [L, S, H*hd] bf16, row t of layer l written by its call
+    v_all: torch.Tensor,
+    *,
+    n_heads: int, head_dim: int, eps: float,
+    scratch: Optional[Dict[str, torch.Tensor]] = None,   # half_layer_scratch / decode_scratch (the card)
+    stamps: Optional[torch.Tensor] = None,               # int64 [HALF_STAMP_SLOTS, SMs, 2] (the card)
+) -> HalfLayerPlan:
+    """Check every layer's weights, the residual, the caches, the scratch
+    and the widths once, for a decode loop that then calls
+    ``attn_step_planned`` / ``mlp_step_planned`` (or ``layers_planned``)
+    with only a layer, ``t`` and ``off``. A CUDA plan needs a scratch;
+    ``stamps`` has every block of a call's kernel record when it arrived at
+    and left each of its waits (3 for the attention, 2 for the MLP) and
+    then its end, in ns of the card's timer. Raises, naming the tensor, on
+    anything the kernels cannot take."""
+    what = "plan_half_layers"
+    forward_only(what, h, invf, k_all, v_all, *(t for lw in layers for t in lw.values()))
+    L = len(layers)
+    if L == 0 or k_all.dim() != 3 or k_all.shape[0] != L or tuple(v_all.shape) != tuple(k_all.shape):
+        raise ValueError(f"{what}: k_all / v_all must be [{L}, S, N] for {L} layers, "
+                         f"got {tuple(k_all.shape)} / {tuple(v_all.shape)}")
+    dev = k_all.device
+    if dev.type == "cuda" and scratch is None:
+        raise ValueError(f"{what}: the kernels need a scratch (half_layer_scratch or decode_scratch)")
+    kw = dict(n_heads=n_heads, head_dim=head_dim, eps=eps)
+    plans = [_layer_plan(f"{what}: layer {l}", h, lw, invf, k_all[l], v_all[l], scratch, stamps, **kw)
+             for l, lw in enumerate(layers)]
+    keep = (h, invf, k_all, v_all, scratch, stamps, [dict(lw) for lw in layers])
+    if dev.type != "cuda":
+        unpack = (lambda w: unpack4(w)) if plans[0].bits == 4 else (lambda w: w)
+        plain = [((lw["attn_norm"], unpack(lw["wqkv"]), lw["wqs"], unpack(lw["wo"]), lw["wos"], invf,
+                   k_all[l], v_all[l]),
+                  (lw["mlp_norm"], unpack(lw["wgu"]), lw["wgus"], unpack(lw["wd"]), lw["wds"]))
+                 for l, lw in enumerate(layers)]
+        return HalfLayerPlan(h, L, k_all.shape[1], plain=(plain, kw), keep=keep)
+    _fit(plans[0], what)
+    return HalfLayerPlan(h, L, k_all.shape[1], cards=[(p, ctypes.addressof(p)) for p in plans], keep=keep)
+
+
+def attn_step_planned(plan: HalfLayerPlan, l: int, t: int, off: int) -> torch.Tensor:
+    """Layer l's attention half-layer on a plan: ``plan.h`` and row t of
+    the layer's caches updated in place; returns ``plan.h``."""
+    if not 0 <= off <= t < plan.S:
+        raise ValueError(f"attn_step: need 0 <= off ({off}) <= t ({t}) < S ({plan.S})")
+    if plan.plain is not None:
+        layers, kw = plan.plain
+        plan.h.copy_(attn_step_plain(plan.h, *layers[l][0], t, off, **kw))
+        return plan.h
+    check(plan.attn_fn(plan.cards[l][1], t, off, plan.stream()), "attn_step")
+    attn_step.launches += 1
+    return plan.h
+
+
+def mlp_step_planned(plan: HalfLayerPlan, l: int) -> torch.Tensor:
+    """Layer l's MLP half-layer on a plan: ``plan.h`` updated in place;
+    returns it."""
+    if plan.plain is not None:
+        layers, kw = plan.plain
+        plan.h.copy_(mlp_step_plain(plan.h, *layers[l][1], eps=kw["eps"]))
+        return plan.h
+    check(plan.mlp_fn(plan.cards[l][1], plan.stream()), "mlp_step")
+    mlp_step.launches += 1
+    return plan.h
+
+
+def layers_planned(plan: HalfLayerPlan, t: int, off: int, n_layers: int) -> torch.Tensor:
+    """One token through every layer of a plan (``plan.h`` holds its input
+    row): the attention then the MLP half-layer, layer by layer; returns
+    ``plan.h``. Raises where the plan holds another number of layers than
+    ``n_layers``, the LM's."""
+    if plan.n_layers != n_layers:
+        raise ValueError(f"layers_planned: the plan holds {plan.n_layers} layers, the LM {n_layers}")
+    for l in range(n_layers):
+        attn_step_planned(plan, l, t, off)
+        mlp_step_planned(plan, l)
+    return plan.h
+
+
 def attn_step(
     h: torch.Tensor,           # [1, D] bf16 residual, UPDATED IN PLACE
     attn_norm: torch.Tensor,   # [D] f32
@@ -795,9 +1008,10 @@ def attn_step(
     """One decode attention half-layer (int8 weights, or int4 ones as
     ``pack4`` lays them out). Unlike the JAX function, which returns new
     arrays, this one updates ``h`` and row ``t`` of the caches in place and
-    returns ``h``. ``scratch`` may hold the kernels' ``qkv`` f32 [3N] and
-    ``part`` f32 ``part_shape(H, hd)`` buffers (as ``decode_scratch`` makes
-    them); they are allocated per call otherwise."""
+    returns ``h``. Every tensor is checked on every call (a loop plans its
+    layers once: ``plan_half_layers``). ``scratch``: the kernel's buffers
+    (``half_layer_scratch`` or ``decode_scratch``); zeroed ones are
+    allocated per call otherwise."""
     kw = dict(n_heads=n_heads, head_dim=head_dim, eps=eps)
     forward_only("attn_step", h, attn_norm, wqkv, wqs, wo, wos, invf, k_cache, v_cache)
     what = "attn_step"
@@ -808,33 +1022,12 @@ def attn_step(
             wqkv, wo = unpack4(wqkv), unpack4(wo)
         h.copy_(attn_step_plain(h, attn_norm, wqkv, wqs, wo, wos, invf, k_cache, v_cache, t, off, **kw))
         return h
-    dev = h.device
-    S, N = k_cache.shape
-    H, hd = n_heads, head_dim
-    if N != H * hd:
-        raise ValueError(f"{what}: cache width {N} != n_heads*head_dim {H * hd} (GQA is not supported)")
-    _check_widths(what, bits, hd, D=D, N=N)
-    f32, bf, i8 = torch.float32, torch.bfloat16, torch.int8
-    qkv = scratch["qkv"] if scratch else torch.empty((3 * N,), dtype=f32, device=dev)
-    pshape = part_shape(H, hd)
-    part = scratch["part"] if scratch else torch.empty(pshape, dtype=f32, device=dev)
-    _check_tensors(what, dev, {
-        "h": (h, (1, D), bf), "attn_norm": (attn_norm, (D,), f32),
-        "wqkv": (wqkv, (3 * N, D * bits // 8), i8), "wqs": (wqs, (3 * N,), f32),
-        "wo": (wo, (D, N * bits // 8), i8), "wos": (wos, (D,), f32), "invf": (invf, (hd // 2,), f32),
-        "k_cache": (k_cache, (S, N), bf), "v_cache": (v_cache, (S, N), bf),
-        "scratch qkv": (qkv, (3 * N,), f32), "scratch part": (part, pshape, f32),
-    })
-    if not (0 <= off <= t < S):
-        raise ValueError(f"{what}: need 0 <= off ({off}) <= t ({t}) < S ({S})")
-    rc = function("decode_step", "attn_step", _ATTN_ARGTYPES)(
-        h.data_ptr(), attn_norm.data_ptr(), wqkv.data_ptr(), wqs.data_ptr(), wo.data_ptr(),
-        wos.data_ptr(), invf.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        qkv.data_ptr(), part.data_ptr(), D, H, hd, S, int(t), int(off), float(eps),
-        hd ** -0.5, bits, torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, what)
-    attn_step.launches += 1
-    return h
+    if scratch is None:
+        scratch = half_layer_scratch(D, n_heads, head_dim, 0, h.device)
+    lw = dict(attn_norm=attn_norm, wqkv=wqkv, wqs=wqs, wo=wo, wos=wos)
+    plan = _layer_plan(what, h, lw, invf, k_cache, v_cache, scratch, None, kinds=("attn",), **kw)
+    _fit(plan, what)
+    return attn_step_planned(HalfLayerPlan(h, 1, plan.S, cards=[(plan, ctypes.addressof(plan))]), 0, t, off)
 
 
 attn_step.launches = 0
@@ -852,8 +1045,8 @@ def mlp_step(
     scratch: Optional[Dict[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One decode MLP half-layer (int8 weights, or int4 ones as ``pack4``
-    lays them out); updates ``h`` in place and returns it. ``scratch`` may
-    hold the kernel's ``act`` bf16 [F] buffer."""
+    lays them out); updates ``h`` in place and returns it. Every tensor is
+    checked on every call. ``scratch``: as ``attn_step``'s."""
     forward_only("mlp_step", h, mlp_norm, wgu, wgus, wd, wds)
     what = "mlp_step"
     D = h.shape[-1]
@@ -863,23 +1056,13 @@ def mlp_step(
             wgu, wd = unpack4(wgu), unpack4(wd)
         h.copy_(mlp_step_plain(h, mlp_norm, wgu, wgus, wd, wds, eps=eps))
         return h
-    dev = h.device
-    F = wd.shape[-1] * 8 // bits
-    _check_widths(what, bits, D=D, F=F)
-    f32, bf, i8 = torch.float32, torch.bfloat16, torch.int8
-    act = scratch["act"] if scratch else torch.empty((F,), dtype=bf, device=dev)
-    _check_tensors(what, dev, {
-        "h": (h, (1, D), bf), "mlp_norm": (mlp_norm, (D,), f32),
-        "wgu": (wgu, (2 * F, D * bits // 8), i8), "wgus": (wgus, (2 * F,), f32),
-        "wd": (wd, (D, F * bits // 8), i8), "wds": (wds, (D,), f32), "scratch act": (act, (F,), bf),
-    })
-    rc = function("decode_step", "mlp_step", _MLP_ARGTYPES)(
-        h.data_ptr(), mlp_norm.data_ptr(), wgu.data_ptr(), wgus.data_ptr(), wd.data_ptr(),
-        wds.data_ptr(), act.data_ptr(), D, F, float(eps), bits,
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, what)
-    mlp_step.launches += 1
-    return h
+    if scratch is None:
+        scratch = half_layer_scratch(D, 0, 0, wd.shape[-1] * 8 // bits, h.device)
+    lw = dict(mlp_norm=mlp_norm, wgu=wgu, wgus=wgus, wd=wd, wds=wds)
+    plan = _layer_plan(what, h, lw, None, None, None, scratch, None, n_heads=0, head_dim=0, eps=eps,
+                       kinds=("mlp",))
+    _fit(plan, what)
+    return mlp_step_planned(HalfLayerPlan(h, 1, 0, cards=[(plan, ctypes.addressof(plan))]), 0)
 
 
 mlp_step.launches = 0

@@ -16,10 +16,11 @@ Phases (any failure exits non-zero):
    prefill shape, a GQA batch and the embedder's hd = 128 geometry), the
    decode step with int8 and with int4 weights (each step's device time
    is broken down by phase from the kernel's own barrier timestamps), its
-   two half-layers
-   (``attn_step``, ``mlp_step``, timed over all layers' weights in turn so
-   they stream from device memory) and the fused log-mel at both prompt
-   shapes;
+   two half-layers at both widths (``attn_step``, ``mlp_step``, one
+   persistent launch each: timed per call over all layers' weights in turn
+   so they stream from device memory, planned and public, by CUDA events,
+   host enqueue and the profiler's device time, and by phase from their
+   kernels' stamps) and the fused log-mel at both prompt shapes;
 4. drive the main paths at the flagship configuration with an int8 token
    LM and random weights from a seeded generator, the kernels' launch counts
    set to 0 before each path and read after it:
@@ -28,8 +29,8 @@ Phases (any failure exits non-zero):
       ``Engine.inference_tts_with_st``, then one request with raw wavs, one
       through ``inference_zero_shot`` and one registered speaker through
       ``inference_sft``; every wav is checked;
-   B. one ``generate_speech`` in the per-layer flavour (``attn_step`` /
-      ``mlp_step`` per layer and token) for 32 tokens;
+   B. one ``generate_speech`` in the per-layer flavour (a planned
+      ``attn_step`` / ``mlp_step`` per layer and token) for 32 tokens;
    C. a second engine with ``quantize_lm_int4`` and two requests;
    D. a flagship batch: ``synthesize_batch`` over 8 DB-served rows of path
       A's store through the scanned decode (int8 KV cache, ``sdpa_quant``;
@@ -177,9 +178,10 @@ Phases (any failure exits non-zero):
 ``python3 chip_smoke.py --log-mel-only`` builds ``log_mel.cu`` alone, runs
 the log-mel part of phase 3 and stops without the last two lines: the short
 run for work on that kernel. ``--decode-only`` does the same for
-``decode_step.cu``: the decode step at both widths and the two half-layers,
-checked against their plain versions on the weights the full run draws,
-and the ``decode phases`` line (both widths by phase). ``--mesh-only`` builds every kernel and runs
+``decode_step.cu``: the decode step and the two half-layers at both widths,
+checked against their plain versions on the weights the full run draws
+and timed (the ``attn_step`` / ``mlp_step`` lines, each half-layer also by
+phase), and the ``decode phases`` line (both widths by phase). ``--mesh-only`` builds every kernel and runs
 path N alone (its DB-served prompts featurized from synthetic wavs), also
 without the last two lines.
 
@@ -494,8 +496,7 @@ def decode_case(cfg: Config, steps: int, gen, bits: int = 8):
                library_ms=None, bound_ms=b, bound_by=by, bits=bits, steps=steps, decisive=checked,
                h_max=h_scale, head_logits_err=head_err, logits_err_vs_plain_step=logit_err,
                bytes_per_step=nbytes, cache_slots=S, t=t, live_keys=n_keys,
-               attn_blocks=dict(half_layer=tl.n_heads * decode_step.attn_splits(n_keys),
-                                step=tl.n_heads * decode_step.attn_splits(n_keys, sms // tl.n_heads)),
+               attn_blocks=tl.n_heads * decode_step.attn_splits(n_keys, sms // tl.n_heads),   # step and half-layer
                host_enqueue_ms=host_ms)
     return rec, mp, (k_kern, v_kern, t, off), steps_of
 
@@ -503,47 +504,151 @@ def decode_case(cfg: Config, steps: int, gen, bits: int = 8):
 LAYER_PHASES = ("qkv", "attention", "wo", "gate_up", "down")   # a layer's waits, in order
 
 
+def wait_laps(call, stamps: torch.Tensor, n_waits: int, calls: int = 10):
+    """Where a persistent kernel's device time goes on its critical path,
+    from the timestamps its blocks leave at every wait (``call`` runs the
+    kernel once on ``stamps``: [n_waits + 1, blocks, 2], arrival and leave,
+    the last slot the block's end): per wait, the lap from the last
+    block's arrival at it to the last block's arrival at the next (a
+    block's arrival: its part of the phase before written) and the slowest
+    block's work from leaving it to its next arrival, in us, means over
+    ``calls`` calls; and the call's us from the last arrival at the first
+    wait to the last block's end, then from the first arrival there."""
+    call()
+    acc = np.zeros((2, n_waits))
+    total = span = 0.0
+    for _ in range(calls):
+        call()
+        torch.cuda.synchronize()
+        st = stamps.cpu().numpy().astype(np.float64)
+        arrive, leave, nxt = st[:n_waits, :, 0], st[:n_waits, :, 1], st[1:n_waits + 1, :, 0]
+        acc[0] += nxt.max(axis=1) - arrive.max(axis=1)
+        acc[1] += (nxt - leave).max(axis=1)
+        total += st[n_waits, :, 0].max() - arrive[0].max()
+        span += st[n_waits, :, 0].max() - arrive[0].min()
+    acc /= calls * 1e3
+    return acc[0], acc[1], total / calls / 1e3, span / calls / 1e3
+
+
 def barrier_times(step, stamps: torch.Tensor, n_layers: int, steps: int = 10) -> dict:
     """Where the decode step's device time goes on its critical path, from
     the timestamps its blocks leave at every wait (``decode_scratch(...,
-    stamps=True)``; ``step`` runs one step on that scratch): per phase,
-    ``lap_us`` from the last block's arrival at the wait before it (its
-    part of the previous phase written) to the last block's arrival at the
-    wait after it, and ``work_us``, the slowest block's time from leaving
-    the wait (what it reads ready) to its next arrival; means over the
-    layers and over ``steps`` steps. The laps add up to ``step_us`` (last
-    arrival at the first wait to the last block's end); a lap less its
-    work is what the chain waited for beyond the slowest block's work."""
-    step()
-    n_bar = stamps.shape[0] - 1   # the last slot holds the step's end
-    acc = np.zeros((2, n_bar))
-    total = 0.0
-    for _ in range(steps):
-        step()
-        torch.cuda.synchronize()
-        st = stamps.cpu().numpy().astype(np.float64)
-        arrive, leave, nxt = st[:n_bar, :, 0], st[:n_bar, :, 1], st[1:n_bar + 1, :, 0]
-        acc[0] += nxt.max(axis=1) - arrive.max(axis=1)
-        acc[1] += (nxt - leave).max(axis=1)
-        total += st[n_bar, :, 0].max() - arrive[0].max()
-    acc /= steps * 1e3
+    stamps=True)``; ``step`` runs one step on that scratch; ``wait_laps``):
+    per phase ``lap_us`` and ``work_us``, means over the layers and over
+    ``steps`` steps. The laps add up to ``step_us`` (last arrival at the
+    first wait to the last block's end); a lap less its work is what the
+    chain waited for beyond the slowest block's work."""
+    lap, work, total, _ = wait_laps(step, stamps, stamps.shape[0] - 1, steps)
     rec = {}
     for i, name in enumerate(LAYER_PHASES):
         idx = np.arange(i, 5 * n_layers, 5)
-        rec[name] = dict(lap_us=float(acc[0, idx].mean()), work_us=float(acc[1, idx].mean()))
+        rec[name] = dict(lap_us=float(lap[idx].mean()), work_us=float(work[idx].mean()))
     for i, name in ((5 * n_layers, "head"), (5 * n_layers + 1, "sampler")):
-        rec[name] = dict(lap_us=float(acc[0, i]), work_us=float(acc[1, i]))
-    rec["step_us"] = total / steps / 1e3
-    rec["layer_us"] = float(acc[0, :5 * n_layers].sum()) / n_layers
+        rec[name] = dict(lap_us=float(lap[i]), work_us=float(work[i]))
+    rec["step_us"] = total
+    rec["layer_us"] = float(lap[:5 * n_layers].sum()) / n_layers
     return rec
 
 
-def half_layer_case(cfg: Config, mp, cache, gen):
+# a layer's weights, in the half-layers' order (decode_step's own, which the older checkouts that
+# scripts/time_decode_step.py times against do not have)
+ATTN_KEYS = ("attn_norm", "wqkv", "wqs", "wo", "wos")
+MLP_KEYS = ("mlp_norm", "wgu", "wgus", "wd", "wds")
+
+
+def per_call_device_us(fn, calls: int):
+    """(device microseconds, kernels) per call of fn() over ``calls`` calls,
+    from torch.profiler: the sum of every device event's duration (kernels,
+    copies, fills), whatever the host needs to enqueue them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evts = device_events(prof)
+    if not evts:
+        return "not measured", "not measured"
+    return sum(u for _, u, _ in evts) / calls, len(evts) / calls
+
+
+def half_layer_times(tl, mp, cache, rounds: int = 20) -> dict:
+    """``attn_step`` and ``mlp_step`` per call over all L layers' weights
+    and caches in turn (more than the L2 holds, so they stream from device
+    memory as in a step; each call adds to one residual in place: the
+    values move, the bytes streamed do not): through the public wrappers on
+    one decode scratch and, where the package has them, through a plan of
+    the L layers (``plan_half_layers``). Each record: ``ms`` (CUDA events
+    over ``rounds`` rounds of the L layers), ``host_enqueue_us`` (the host's
+    time to enqueue a call), ``device_us`` and ``kernels_per_call`` (the
+    profiler: the sum of the call's device events)."""
+    dev = torch.device("cuda")
+    k_all, v_all, t, off = cache
+    L = tl.n_layers
+    kw = dict(n_heads=tl.n_heads, head_dim=tl.head_dim, eps=tl.norm_eps)
+    scratch = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev)
+    layers = [{k: mp[k][l] for k in ATTN_KEYS + MLP_KEYS} for l in range(L)]
+    h = (torch.randn((1, tl.dim), device=dev) * 0.5).to(torch.bfloat16)
+    calls = {
+        "attn_step": {"public": lambda l: decode_step.attn_step(
+            h, *(layers[l][k] for k in ATTN_KEYS), mp["invf"],
+            k_all[l], v_all[l], t, off, scratch=scratch, **kw)},
+        "mlp_step": {"public": lambda l: decode_step.mlp_step(
+            h, *(layers[l][k] for k in MLP_KEYS), eps=tl.norm_eps,
+            scratch=scratch)},
+    }
+    if hasattr(decode_step, "plan_half_layers"):
+        plan = decode_step.plan_half_layers(h, layers, mp["invf"], k_all, v_all, scratch=scratch, **kw)
+        calls["attn_step"]["planned"] = lambda l: decode_step.attn_step_planned(plan, l, t, off)
+        calls["mlp_step"]["planned"] = lambda l: decode_step.mlp_step_planned(plan, l)
+    out = {}
+    for name, ways in calls.items():
+        for way, fn in ways.items():
+            layer = itertools.cycle(range(L))
+            call = lambda: fn(next(layer))
+            device_us, kernels = per_call_device_us(call, 2 * L)
+            out.setdefault(name, {})[way] = dict(
+                ms=time_ms(call, rounds * L, warmup=L), host_enqueue_us=1e3 * time_host_ms(call, rounds * L, warmup=L),
+                device_us=device_us, kernels_per_call=kernels)
+    return out
+
+
+def half_layer_laps(tl, mp, cache, calls: int = 10) -> dict:
+    """Each half-layer by phase, from its kernel's own stamps (a plan of the
+    L layers with ``stamps``; layer 0, as ``barrier_times`` reads the
+    step's): per phase ``lap_us`` (last arrival at the wait before it to
+    last arrival after it; the first wait's arrival is a block's start) and
+    ``work_us`` (the slowest block's time from leaving the wait to its next
+    arrival); ``call_us`` from the last block's start to the last block's
+    end, ``span_us`` from the first block's start; means over ``calls``."""
+    dev = torch.device("cuda")
+    k_all, v_all, t, off = cache
+    kw = dict(n_heads=tl.n_heads, head_dim=tl.head_dim, eps=tl.norm_eps)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stamps = torch.zeros((decode_step.HALF_STAMP_SLOTS, sms, 2), dtype=torch.int64, device=dev)
+    layers = [{k: mp[k][l] for k in ATTN_KEYS + MLP_KEYS} for l in range(tl.n_layers)]
+    h = (torch.randn((1, tl.dim), device=dev) * 0.5).to(torch.bfloat16)
+    plan = decode_step.plan_half_layers(h, layers, mp["invf"], k_all, v_all, **kw, stamps=stamps,
+                                        scratch=decode_step.half_layer_scratch(tl.dim, tl.n_heads, tl.head_dim,
+                                                                               tl.ffn_dim, dev))
+    out = {}
+    for name, waits, call in (("attn_step", ("qkv", "attention", "wo"), lambda: decode_step.attn_step_planned(plan, 0, t, off)),
+                              ("mlp_step", ("gate_up", "down"), lambda: decode_step.mlp_step_planned(plan, 0))):
+        lap, work, call_us, span_us = wait_laps(call, stamps, len(waits), calls)
+        out[name] = dict({w: dict(lap_us=float(lap[i]), work_us=float(work[i])) for i, w in enumerate(waits)},
+                         call_us=call_us, span_us=span_us)
+    return out
+
+
+def half_layer_case(cfg: Config, mp, cache, gen, bits: int = 8):
     """``attn_step`` and ``mlp_step`` on layer 0's views of the decode
-    case's int8 weights and its cache state, each against its plain
-    version from the same residual; timed over all layers' weights and
-    caches in turn (more than the L2 holds, so they stream from device
-    memory as in a step) and, under ``ms_one_layer``, on layer 0 alone."""
+    case's weights (int8, or int4 in ``pack4``'s order) and its cache
+    state, each against its plain version from the same residual (the
+    cache rows other than t untouched); then per call over all layers in
+    turn (``half_layer_times``: the kernels' ``ms`` is the planned call's)
+    and by phase (``half_layer_laps``)."""
     dev = torch.device("cuda")
     tl = cfg.token_lm
     k_all, v_all, t, off = cache
@@ -551,65 +656,61 @@ def half_layer_case(cfg: Config, mp, cache, gen):
     kw = dict(n_heads=tl.n_heads, head_dim=tl.head_dim, eps=tl.norm_eps)
     scratch = decode_step.decode_scratch(mp, tl.n_heads, tl.head_dim, dev)
     h0 = (torch.randn((1, D), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-    a_args = (mp["attn_norm"][0], mp["wqkv"][0], mp["wqs"][0], mp["wo"][0], mp["wos"][0], mp["invf"])
-    m_args = (mp["mlp_norm"][0], mp["wgu"][0], mp["wgus"][0], mp["wd"][0], mp["wds"][0])
+    u = decode_step.unpack4 if bits == 4 else (lambda w: w)
+    a_args = [mp[k][0] for k in ATTN_KEYS] + [mp["invf"]]
+    m_args = [mp[k][0] for k in MLP_KEYS]
+    a_plain_args = [u(w) if k in ("wqkv", "wo") else w for k, w in zip(ATTN_KEYS, a_args)] + [mp["invf"]]
+    m_plain_args = [u(w) if k in ("wgu", "wd") else w for k, w in zip(MLP_KEYS, m_args)]
     k1, v1 = k_all[0].clone(), v_all[0].clone()
     k2, v2 = k1.clone(), v1.clone()
     h = h0.clone()
     decode_step.attn_step(h, *a_args, k1, v1, t, off, scratch=scratch, **kw)
-    want = decode_step.attn_step_plain(h0, *a_args, k2, v2, t, off, **kw)
+    want = decode_step.attn_step_plain(h0, *a_plain_args, k2, v2, t, off, **kw)
     torch.cuda.synchronize()
     scale = max(float(want.float().abs().max()), 1.0)
     a_err = max(float((h.float() - want.float()).abs().max()),
                 float((k1[t].float() - k2[t].float()).abs().max()),
                 float((v1[t].float() - v2[t].float()).abs().max()))
-    check(a_err <= DECODE_RTOL * scale, f"attn_step err {a_err} (max|h| {scale})")
+    check(a_err <= DECODE_RTOL * scale, f"attn_step ({bits} bits) err {a_err} (max|h| {scale})")
     rest = torch.arange(k1.shape[0], device=dev) != t
-    check(torch.equal(k1[rest], k2[rest]) and torch.equal(v1[rest], v2[rest]), "attn_step wrote outside its row")
+    check(torch.equal(k1[rest], k2[rest]) and torch.equal(v1[rest], v2[rest]),
+          f"attn_step ({bits} bits) wrote outside its row")
     hm = want.clone()
     decode_step.mlp_step(hm, *m_args, eps=tl.norm_eps, scratch=scratch)
-    want_m = decode_step.mlp_step_plain(want, *m_args, eps=tl.norm_eps)
+    want_m = decode_step.mlp_step_plain(want, *m_plain_args, eps=tl.norm_eps)
     torch.cuda.synchronize()
     m_scale = max(float(want_m.float().abs().max()), 1.0)
     m_err = float((hm.float() - want_m.float()).abs().max())
-    check(m_err <= DECODE_RTOL * m_scale, f"mlp_step err {m_err} (max|h| {m_scale})")
+    check(m_err <= DECODE_RTOL * m_scale, f"mlp_step ({bits} bits) err {m_err} (max|h| {m_scale})")
 
-    # each timed call adds to the same residual in place: the values move,
-    # the bytes streamed per call do not
-    a_one = time_ms(lambda: decode_step.attn_step(h, *a_args, k1, v1, t, off, scratch=scratch, **kw), 200)
-    m_one = time_ms(lambda: decode_step.mlp_step(hm, *m_args, eps=tl.norm_eps, scratch=scratch), 200)
-    L = tl.n_layers
-    a_all = [(mp["attn_norm"][l], mp["wqkv"][l], mp["wqs"][l], mp["wo"][l], mp["wos"][l], mp["invf"])
-             for l in range(L)]
-    m_all = [(mp["mlp_norm"][l], mp["wgu"][l], mp["wgus"][l], mp["wd"][l], mp["wds"][l]) for l in range(L)]
-    la, lm = itertools.cycle(range(L)), itertools.cycle(range(L))
-
-    def attn_next():
-        l = next(la)
-        decode_step.attn_step(h, *a_all[l], k_all[l], v_all[l], t, off, scratch=scratch, **kw)
-
-    a_ms = time_ms(attn_next, 20 * L, warmup=L)
-    m_ms = time_ms(lambda: decode_step.mlp_step(hm, *m_all[next(lm)], eps=tl.norm_eps, scratch=scratch),
-                   20 * L, warmup=L)
-    a_plain = time_ms(lambda: decode_step.attn_step_plain(h0, *a_args, k2, v2, t, off, **kw), 20)
-    m_plain = time_ms(lambda: decode_step.mlp_step_plain(want, *m_args, eps=tl.norm_eps), 20)
+    times = half_layer_times(tl, mp, cache)
+    laps = half_layer_laps(tl, mp, cache)
+    a_plain = time_ms(lambda: decode_step.attn_step_plain(h0, *a_plain_args, k2, v2, t, off, **kw), 20)
+    m_plain = time_ms(lambda: decode_step.mlp_step_plain(want, *m_plain_args, eps=tl.norm_eps), 20)
     n_keys = t - off
-    a_bytes = (3 * N * D + D * N) + 4 * (3 * N + D) + 4 * D + 2 * tl.head_dim + 2 * 2 * D \
+    a_bytes = (3 * N * D + D * N) * bits // 8 + 4 * (3 * N + D) + 4 * D + 2 * tl.head_dim + 2 * 2 * D \
         + 2 * n_keys * N * 2 + 2 * N * 2
     a_b, a_by = bound_ms(a_bytes, 2 * (3 * N * D + D * N) + 4 * N * (n_keys + 1), INT8_OP_PER_S)
-    m_bytes = 3 * F * D + 4 * (2 * F + D) + 4 * D + 2 * 2 * D
+    m_bytes = 3 * F * D * bits // 8 + 4 * (2 * F + D) + 4 * D + 2 * 2 * D
     m_b, m_by = bound_ms(m_bytes, 2 * 3 * F * D, INT8_OP_PER_S)
-    return (dict(max_abs_err=a_err, ms=a_ms, plain_ms=a_plain, library_ms=None, bound_ms=a_b,
-                 bound_by=a_by, h_max=scale, t=t, live_keys=n_keys, ms_one_layer=a_one),
-            dict(max_abs_err=m_err, ms=m_ms, plain_ms=m_plain, library_ms=None, bound_ms=m_b,
-                 bound_by=m_by, h_max=m_scale, ms_one_layer=m_one))
+
+    def rec(name, err, h_max, plain_ms, b, by, **extra):
+        planned = times[name]["planned"]
+        return dict(max_abs_err=err, ms=planned["ms"], plain_ms=plain_ms, library_ms=None, bound_ms=b, bound_by=by,
+                    bits=bits, h_max=h_max, device_us=planned["device_us"],
+                    host_enqueue_us=planned["host_enqueue_us"], launches_per_call=planned["kernels_per_call"],
+                    public=times[name]["public"], phases_us=laps[name], **extra)
+
+    return (rec("attn_step", a_err, scale, a_plain, a_b, a_by, t=t, live_keys=n_keys),
+            rec("mlp_step", m_err, m_scale, m_plain, m_b, m_by))
 
 
 def decode_phase(cfg: Config, gen):
     """The decode part of phase 3: the step at both widths and the two
-    half-layers held to their plain versions (each prints its line), the
-    widths timed in turns within one stretch, then each step by phase.
-    Returns the int8 and int4 records, the half-layers' and the phases'."""
+    half-layers at both widths held to their plain versions (each prints
+    its line), the widths timed in turns within one stretch, then each step
+    by phase. Returns the int8 and int4 records, the int8 half-layers' and
+    the phases'."""
     tl = cfg.token_lm
     dec, mp8, cache8, steps8 = decode_case(cfg, 16, gen)
     print("decode int8", json.dumps(dec), flush=True)
@@ -617,8 +718,15 @@ def decode_phase(cfg: Config, gen):
     print("attn_step", json.dumps(attn_rec), flush=True)
     print("mlp_step", json.dumps(mlp_rec), flush=True)
     del mp8, cache8
-    dec4, _, _, steps4 = decode_case(cfg, 16, gen, bits=4)
+    dec4, mp4, cache4, steps4 = decode_case(cfg, 16, gen, bits=4)
     print("decode int4", json.dumps(dec4), flush=True)
+    # a generator of its own: the later phases draw from `gen` what they drew before
+    attn4, mlp4 = half_layer_case(cfg, mp4, cache4, torch.Generator(device="cuda").manual_seed(1236), bits=4)
+    print("attn_step int4", json.dumps(attn4), flush=True)
+    print("mlp_step int4", json.dumps(mlp4), flush=True)
+    del mp4, cache4
+    attn_rec["max_abs_err"] = max(attn_rec["max_abs_err"], attn4["max_abs_err"])   # the worst of both widths
+    mlp_rec["max_abs_err"] = max(mlp_rec["max_abs_err"], mlp4["max_abs_err"])
     turns = {8: 0.0, 4: 0.0}
     for bits, steps in ((8, steps8), (4, steps4), (4, steps4), (8, steps8)):
         turns[bits] += 0.5 * time_ms(steps["step"], 50)

@@ -14,10 +14,17 @@ makes them, then re-quantized) and times one decode state: slot 320 of
 392, 220 live keys, top-k 25 sampling (``chip_smoke.py``'s timing state).
 It prints one JSON line: ms a step by CUDA events (100 steps, int8 and
 int4 in turns: 8, 4, 4, 8) and each width's phases from the kernel's own
-stamps (``decode_scratch(..., stamps=True)``; means over 10 steps). The
-weights, the timer and the phase split are ``chip_smoke.py``'s, from this
-checkout, for every checkout timed. The card's name and power limit come
-first.
+stamps (``decode_scratch(..., stamps=True)``; means over 10 steps); the two
+half-layers (``attn_step``, ``mlp_step``) at both widths, per call over
+all 14 layers in turn (``chip_smoke.half_layer_times``: CUDA-event ms,
+host enqueue and profiler device microseconds, kernels a call; public and,
+where the checkout has them, planned calls, and their phases from the
+kernels' stamps, ``chip_smoke.half_layer_laps``); and the per-layer decode
+flavour's ms a token (``generate_speech_from_ids`` with per-layer decode
+params, 32 tokens, top-k 25 sampling, three runs: chip_smoke.py's path B
+on a bare LM). The weights, the timers and the phase split are
+``chip_smoke.py``'s, from this checkout, for every checkout timed. The
+card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -49,18 +56,20 @@ def child(root: str) -> dict:
 
     from autostyle_tts_tpu_torch.models import token_lm
     from autostyle_tts_tpu_torch.ops import cuda_build, decode_step
+    from autostyle_tts_tpu_torch.ops.sampling import SamplerConfig
     from autostyle_tts_tpu_torch.utils.config import Config
+    from autostyle_tts_tpu_torch.utils.timing import Stopwatch
     from autostyle_tts_tpu_torch.weights import quantize_tree
 
     cs = smoke()
-    cuda_build.build(("decode_step",))
+    cuda_build.build(("decode_step", "flash_attn"))
     dev = torch.device("cuda")
     tl = Config().token_lm
     gen = torch.Generator(device="cuda").manual_seed(1234)
     lm = quantize_tree(token_lm.init_params(tl, gen))
     mps = {8: token_lm.mega_decode_params(lm, tl, bits=8),
            4: token_lm.mega_decode_params(cs.four_bit_exact(lm), tl, bits=4)}
-    del lm
+    lm = token_lm.share_decode_weights(lm, mps[8])   # the per-layer flavour's views of the int8 rows
     L, N, P, off, t = tl.n_layers, tl.dim, 256, 100, 320
     S = 392
     k = torch.zeros((L, S, N), dtype=torch.bfloat16, device=dev)
@@ -82,6 +91,24 @@ def child(root: str) -> dict:
     for bits in (8, 4):
         sc, fn = stepper(bits, stamps=True)
         rec[f"phases_int{bits}"] = cs.barrier_times(fn, sc["stamps"], L)
+    for bits in (8, 4):
+        rec[f"half_layers_int{bits}"] = cs.half_layer_times(tl, mps[bits], (k, v, t, off))
+        if hasattr(decode_step, "plan_half_layers"):   # one kernel a half-layer, with stamps
+            rec[f"half_layer_phases_int{bits}"] = cs.half_layer_laps(tl, mps[bits], (k, v, t, off))
+    layers = token_lm.unstack_decode_params(lm, tl)
+    text = torch.randint(16, 200, (1, 64), generator=gen, device=dev).to(torch.int32)
+    sty = torch.randint(0, 4000, (1, 150), generator=gen, device=dev).to(torch.int32)
+    spk = torch.randn((1, tl.spk_dim), generator=gen, device=dev)
+    per_token = []
+    for run in range(3):
+        clock = Stopwatch(dev)
+        out = token_lm.generate_speech_from_ids(
+            lm, tl, text, torch.tensor([64], device=dev), sty, torch.tensor([150], device=dev), spk,
+            torch.Generator(device="cuda").manual_seed(run), max_new_tokens=32, decode_params=layers,
+            sampler=SamplerConfig(temperature=1.0, top_k=25), min_tokens=32, clock=clock)
+        assert int(out.lengths[0]) == 32
+        per_token.append(clock.ms["decode"] / 32)
+    rec["per_layer_decode_ms_per_token"] = per_token
     return rec
 
 

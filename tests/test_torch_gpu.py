@@ -215,11 +215,11 @@ def test_decode_step_scratch_planned_for_other_tensors_raises(cuda):
     with pytest.raises(ValueError, match="planned for other"):
         decode_step.mega_decode_step(tok, mp, k, v, 7, 0, False, 3, scratch=scratch,
                                      **dict(kw, greedy=False, top_k=5))
-    old = scratch["act"]
-    scratch["act"] = torch.empty_like(old)  # a buffer replaced after the first step
+    old = scratch["actx"]
+    scratch["actx"] = torch.zeros_like(old)  # a buffer replaced after the first step
     with pytest.raises(ValueError, match="planned for other"):
         decode_step.mega_decode_step(tok, mp, k, v, 7, 0, False, 3, scratch=scratch, **kw)
-    scratch["act"] = old
+    scratch["actx"] = old
     with pytest.raises(ValueError, match="off"):
         decode_step.mega_decode_step(tok, mp, k, v, S, 0, False, 3, scratch=scratch, **kw)
     bad = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda)
@@ -369,6 +369,147 @@ def test_half_layer_kernels_raise_on_wrong_layout(cuda):
     with pytest.raises(ValueError, match="wgu"):
         decode_step.mlp_step(h, z(D), z(D, 2 * cfg.ffn_dim, dt=torch.int8), z(2 * cfg.ffn_dim),
                              z(D, cfg.ffn_dim, dt=torch.int8), z(D), eps=1e-5)
+
+
+def _half_layer_lm(cuda, bits, seed):
+    """A tiny LM's decode params at ``bits`` (the plain half-layers take
+    the unpacked int4 rows), its per-layer views and caches with live rows."""
+    cfg = tiny_config().token_lm
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mp = token_lm.mega_decode_params(quantize_tree(token_lm.init_params(cfg, g)), cfg, bits=bits)
+    layers = [{k: mp[k][l] for k in decode_step.ATTN_KEYS + decode_step.MLP_KEYS} for l in range(cfg.n_layers)]
+    L, N, S = cfg.n_layers, cfg.dim, 96
+    k = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    v = (torch.randn((L, S, N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    return cfg, g, mp, layers, k, v
+
+
+def _plain_layer(lw, bits):
+    u = decode_step.unpack4 if bits == 4 else (lambda w: w)
+    return ([u(lw[k]) if k in ("wqkv", "wo") else lw[k] for k in decode_step.ATTN_KEYS],
+            [u(lw[k]) if k in ("wgu", "wd") else lw[k] for k in decode_step.MLP_KEYS])
+
+
+def _close(got, want):
+    return (got.float() - want.float()).abs().max().item() <= 2e-2 * max(want.float().abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_half_layers_many_calls_on_one_scratch_match_plain(cuda, bits):
+    """Many successive half-layer calls on one scratch, every layer in turn
+    over 20 tokens (each call's tags counted from the scratch's own count
+    of calls, never a word of the call before), each against its plain
+    version from the kernel's own input: the residual, the cache row t,
+    the rows it must not touch."""
+    cfg, g, mp, layers, k1, v1 = _half_layer_lm(cuda, bits, 11)
+    k2, v2 = k1.clone(), v1.clone()
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=cfg.norm_eps)
+    h = torch.empty((1, cfg.dim), dtype=torch.bfloat16, device=cuda)
+    scratch = decode_step.half_layer_scratch(cfg.dim, cfg.n_heads, cfg.head_dim, cfg.ffn_dim, cuda)
+    plan = decode_step.plan_half_layers(h, layers, mp["invf"], k1, v1, scratch=scratch, **kw)
+    plain = [_plain_layer(lw, bits) for lw in layers]
+    na, nm = decode_step.attn_step.launches, decode_step.mlp_step.launches
+    off, tokens = 5, 20
+    for i in range(tokens):
+        t = 40 + i
+        h.copy_((torch.randn((1, cfg.dim), generator=g, device=cuda) * 0.5).to(torch.bfloat16))
+        for l in range(cfg.n_layers):
+            h0 = h.clone()
+            decode_step.attn_step_planned(plan, l, t, off)
+            want = decode_step.attn_step_plain(h0, *plain[l][0], mp["invf"], k2[l], v2[l], t, off, **kw)
+            torch.cuda.synchronize()
+            assert _close(h, want) and _close(k1[l, t], k2[l, t]) and _close(v1[l, t], v2[l, t])
+            k2[l, t], v2[l, t] = k1[l, t], v1[l, t]      # the next token attends to the kernel's rows
+            h0 = h.clone()
+            decode_step.mlp_step_planned(plan, l)
+            want = decode_step.mlp_step_plain(h0, *plain[l][1], eps=cfg.norm_eps)
+            torch.cuda.synchronize()
+            assert _close(h, want)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)     # nothing outside the rows written
+    n = tokens * cfg.n_layers
+    assert (decode_step.attn_step.launches, decode_step.mlp_step.launches) == (na + n, nm + n)
+    assert int(scratch["bar"][3]) == n and int(scratch["bar"][4]) == n   # each half's count of calls
+    assert int(scratch["bar"][5]) == 0 and int(scratch["bar"][6]) == 0   # grid counter and ticket left at 0
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_half_layers_interleaved_with_decode_steps_on_a_shared_scratch(cuda, bits):
+    """The repeated-tag hazard: decode steps and half-layer calls (planned
+    and public) take turns on one decode scratch, whose q, k, v and
+    activation words both write. The steps give the tokens, residuals and
+    caches of steps on a scratch of their own, bit for bit; each
+    half-layer call matches its plain version."""
+    cfg, g, mp, layers, k_step, v_step = _half_layer_lm(cuda, bits, 12)
+    k_ref, v_ref = k_step.clone(), v_step.clone()
+    k_half, v_half = k_step.clone(), v_step.clone()
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=cfg.norm_eps)
+    skw = dict(pad_id=cfg.speech_pad, bos_id=cfg.speech_bos, eos_id=cfg.speech_eos, greedy=False,
+               temperature=0.8, top_k=5)
+    shared = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda)
+    own = decode_step.decode_scratch(mp, cfg.n_heads, cfg.head_dim, cuda)
+    h = torch.empty((1, cfg.dim), dtype=torch.bfloat16, device=cuda)
+    plan = decode_step.plan_half_layers(h, layers, mp["invf"], k_half, v_half, scratch=shared, **kw)
+    plain = [_plain_layer(lw, bits) for lw in layers]
+    tok_a = tok_b = torch.tensor([3], dtype=torch.int32, device=cuda)
+    off = 4
+    for i in range(12):
+        t = 30 + i
+        ha, tok_a = decode_step.mega_decode_step(tok_a, mp, k_step, v_step, t, off, False, 9 + i,
+                                                 scratch=shared, **kw, **skw)
+        hb, tok_b = decode_step.mega_decode_step(tok_b, mp, k_ref, v_ref, t, off, False, 9 + i,
+                                                 scratch=own, **kw, **skw)
+        torch.cuda.synchronize()
+        assert int(tok_a[0]) == int(tok_b[0]) and torch.equal(ha, hb)
+        for l in range(cfg.n_layers):
+            h.copy_((torch.randn((1, cfg.dim), generator=g, device=cuda) * 0.5).to(torch.bfloat16))
+            h0, kp, vp = h.clone(), k_half[l].clone(), v_half[l].clone()
+            if (i + l) % 2:
+                decode_step.attn_step_planned(plan, l, t, off)
+            else:
+                decode_step.attn_step(h, *(layers[l][k] for k in decode_step.ATTN_KEYS), mp["invf"], k_half[l],
+                                      v_half[l], t, off, scratch=shared, **kw)
+            want = decode_step.attn_step_plain(h0, *plain[l][0], mp["invf"], kp, vp, t, off, **kw)
+            torch.cuda.synchronize()
+            assert _close(h, want) and _close(k_half[l, t], kp[t])
+            h0 = h.clone()
+            if (i + l) % 2:
+                decode_step.mlp_step_planned(plan, l)
+            else:
+                decode_step.mlp_step(h, *(layers[l][k] for k in decode_step.MLP_KEYS), eps=cfg.norm_eps,
+                                     scratch=shared)
+            want = decode_step.mlp_step_plain(h0, *plain[l][1], eps=cfg.norm_eps)
+            torch.cuda.synchronize()
+            assert _close(h, want)
+    assert torch.equal(k_step, k_ref) and torch.equal(v_step, v_ref)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_planned_half_layers_equal_the_public_calls_bit_for_bit(cuda, bits):
+    """A planned call and a public call on the same inputs (each on a
+    scratch of its own) give the same residual and cache rows, bit for
+    bit: one kernel, one order of sums."""
+    cfg, g, mp, layers, k1, v1 = _half_layer_lm(cuda, bits, 13)
+    k2, v2 = k1.clone(), v1.clone()
+    kw = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=cfg.norm_eps)
+    h = torch.empty((1, cfg.dim), dtype=torch.bfloat16, device=cuda)
+    plan = decode_step.plan_half_layers(
+        h, layers, mp["invf"], k1, v1, **kw,
+        scratch=decode_step.half_layer_scratch(cfg.dim, cfg.n_heads, cfg.head_dim, cfg.ffn_dim, cuda))
+    hp = torch.empty_like(h)
+    for i in range(4):
+        t, off = 50 + i, 2 * i
+        h.copy_((torch.randn((1, cfg.dim), generator=g, device=cuda) * 0.5).to(torch.bfloat16))
+        hp.copy_(h)
+        decode_step.layers_planned(plan, t, off, cfg.n_layers)
+        for l, lw in enumerate(layers):
+            decode_step.attn_step(hp, *(lw[k] for k in decode_step.ATTN_KEYS), mp["invf"], k2[l], v2[l], t, off,
+                                  **kw)
+            decode_step.mlp_step(hp, *(lw[k] for k in decode_step.MLP_KEYS), eps=cfg.norm_eps)
+        torch.cuda.synchronize()
+        assert torch.equal(h, hp)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    with pytest.raises(ValueError, match="plan holds 2 layers"):
+        decode_step.layers_planned(plan, 60, 0, cfg.n_layers + 1)
 
 
 def test_generate_list_flavour_matches_mega_greedy(cuda):

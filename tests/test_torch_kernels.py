@@ -309,6 +309,101 @@ def test_half_layers_non_cpu_tensor_never_falls_back():
                               torch.zeros((8, 64), device="meta"), 1, 0, n_heads=4, head_dim=16, eps=1e-5)
 
 
+_LIB = {"decode_max_splits": 16, "decode_part_pad": 4, "decode_bar_words": 7}   # what the built library says
+
+
+def _plan_inputs(bits, seed=21):
+    """A tiny LM's per-layer decode weights at ``bits``, a residual, caches
+    and (CPU tensors of the kernels' shapes) a half-layer scratch."""
+    cfg = tiny_config().token_lm
+    mp = tlm.mega_decode_params(tquantize_tree(tlm.init_params(cfg, torch.Generator().manual_seed(seed))), cfg,
+                                bits=bits)
+    layers = [{k: mp[k][l] for k in decode_step.ATTN_KEYS + decode_step.MLP_KEYS} for l in range(cfg.n_layers)]
+    g = torch.Generator().manual_seed(seed + 1)
+    k = (torch.randn((cfg.n_layers, 40, cfg.dim), generator=g) * 0.5).to(torch.bfloat16)
+    v = (torch.randn((cfg.n_layers, 40, cfg.dim), generator=g) * 0.5).to(torch.bfloat16)
+    h = (torch.randn((1, cfg.dim), generator=g) * 0.5).to(torch.bfloat16)
+    scratch = {name: torch.zeros(shape, dtype=dt) for name, (shape, dt) in
+               decode_step._half_scratch_spec(cfg.n_heads, cfg.head_dim, cfg.ffn_dim).items()}
+    return cfg, dict(h=h, layers=layers, invf=mp["invf"], k_all=k, v_all=v, scratch=scratch,
+                     kw=dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, eps=cfg.norm_eps))
+
+
+def _swap(where, name, make):
+    where[name] = make(where[name])
+
+
+PLAN_FAULTS = {   # what the kernels cannot take, and the name the plan's error gives it
+    "h f32": (lambda c: _swap(c, "h", lambda t: t.float()), "h must be"),
+    "wqkv f32": (lambda c: _swap(c["layers"][1], "wqkv", lambda t: t.float()), "layer 1: wqkv must be"),
+    "wqkv input-major": (lambda c: _swap(c["layers"][0], "wqkv", lambda t: t.t().contiguous()), "wqkv rows"),
+    "wo short": (lambda c: _swap(c["layers"][0], "wo", lambda t: t[:-1]), "layer 0: wo must be"),
+    "wqs short": (lambda c: _swap(c["layers"][1], "wqs", lambda t: t[:-1]), "layer 1: wqs must be"),
+    "attn_norm strided": (lambda c: _swap(c["layers"][0], "attn_norm", lambda t: t.repeat(2)[::2]),
+                          "attn_norm must be contiguous"),
+    "wgus bf16": (lambda c: _swap(c["layers"][1], "wgus", lambda t: t.bfloat16()), "layer 1: wgus must be"),
+    "wds missing": (lambda c: c["layers"][0].pop("wds"), r"lacks \['wds'\]"),
+    "ffn width": (lambda c: [_swap(lw, k, lambda t: t[..., :-8] if k == "wd" else t[:-16])
+                             for lw in c["layers"] for k in ("wd", "wgu", "wgus")], "must be multiples of"),
+    "invf short": (lambda c: _swap(c, "invf", lambda t: t[:-1]), "invf must be"),
+    "k_all layers": (lambda c: _swap(c, "k_all", lambda t: t[:1]), "k_all / v_all must be"),
+    "v_all slots": (lambda c: _swap(c, "v_all", lambda t: t[:, :-8]), "k_all / v_all must be"),
+    "GQA cache": (lambda c: [_swap(c, k, lambda t: t[..., :32].contiguous()) for k in ("k_all", "v_all")],
+                  "cache width 32"),
+    "scratch qkvx int32": (lambda c: _swap(c["scratch"], "qkvx", lambda t: t.int()), "scratch qkvx must be"),
+    "scratch part short": (lambda c: _swap(c["scratch"], "part", lambda t: t[:, :1].contiguous()),
+                           "scratch part must be"),
+    "scratch actx short": (lambda c: _swap(c["scratch"], "actx", lambda t: t[:-1]), "scratch actx must be"),
+    "scratch without bar": (lambda c: c["scratch"].pop("bar"), "scratch lacks 'bar'"),
+}
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("fault", [None, *PLAN_FAULTS])
+def test_half_layer_plan_checks_every_tensor_once(monkeypatch, fault, bits):
+    """``plan_half_layers`` checks every layer's weights, the residual, the
+    caches, the widths and the scratch at plan time and names what the
+    kernels cannot take; what it passes, it plans (on the CPU, for the
+    plain half-layers)."""
+    monkeypatch.setattr(decode_step, "_lib_int", _LIB.__getitem__)
+    cfg, c = _plan_inputs(bits)
+    if fault is None:
+        plan = decode_step.plan_half_layers(c["h"], c["layers"], c["invf"], c["k_all"], c["v_all"],
+                                            scratch=c["scratch"], **c["kw"])
+        assert plan.n_layers == cfg.n_layers and plan.cards is None and plan.h is c["h"]
+        return
+    mutate, match = PLAN_FAULTS[fault]
+    mutate(c)
+    with pytest.raises(ValueError, match=match):
+        decode_step.plan_half_layers(c["h"], c["layers"], c["invf"], c["k_all"], c["v_all"],
+                                     scratch=c["scratch"], **c["kw"])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_layers_planned_matches_the_public_half_layers_and_refuses_another_layer_count(monkeypatch, bits):
+    """A planned loop runs every layer of a plan as the public half-layers
+    do (on the CPU both are the plain versions: bit for bit, residual and
+    cache rows), and refuses a plan made for another number of layers."""
+    monkeypatch.setattr(decode_step, "_lib_int", _LIB.__getitem__)
+    cfg, c = _plan_inputs(bits, seed=22)
+    h, k, v = c["h"], c["k_all"], c["v_all"]
+    hp, kp, vp = h.clone(), k.clone(), v.clone()
+    plan = decode_step.plan_half_layers(h, c["layers"], c["invf"], k, v, **c["kw"])
+    for t in (20, 21):
+        decode_step.layers_planned(plan, t, 3, cfg.n_layers)
+        for l, lw in enumerate(c["layers"]):
+            decode_step.attn_step(hp, *(lw[n] for n in decode_step.ATTN_KEYS), c["invf"], kp[l], vp[l], t, 3,
+                                  **c["kw"])
+            decode_step.mlp_step(hp, *(lw[n] for n in decode_step.MLP_KEYS), eps=cfg.norm_eps)
+        assert torch.equal(h, hp) and torch.equal(k, kp) and torch.equal(v, vp)
+    with pytest.raises(ValueError, match="plan holds 2 layers, the LM 3"):
+        decode_step.layers_planned(plan, 22, 3, cfg.n_layers + 1)
+    with pytest.raises(ValueError, match="t"):
+        decode_step.attn_step_planned(plan, 0, 40, 3)    # t past the cache's slots
+    with pytest.raises(ValueError, match="k_all / v_all must be"):   # caches of another layer count
+        decode_step.plan_half_layers(h, c["layers"][:1], c["invf"], k, v, **c["kw"])
+
+
 def _generate_inputs(cfg, seed):
     rng = np.random.default_rng(seed)
     text = rng.integers(16, 200, (1, 10)).astype(np.int32)
@@ -357,13 +452,13 @@ def test_list_flavour_stops_at_eos_and_draws_from_the_generator(monkeypatch):
     _, _, tp = _tiny_lm(4)
     layers = tlm.unstack_decode_params(tp, cfg)
     slots = []
-    real = decode_step.attn_step
+    real = decode_step.attn_step_planned
 
-    def spy(h, *a, **kw):
-        slots.append(a[8])
-        return real(h, *a, **kw)
+    def spy(plan, l, t, off):   # the loop's attention half-layers, on its plan of the layers
+        slots.append(t)
+        return real(plan, l, t, off)
 
-    monkeypatch.setattr(tlm, "attn_step", spy)
+    monkeypatch.setattr(decode_step, "attn_step_planned", spy)
     script = iter([5, 7, cfg.speech_eos])
     suppressed = []
 
@@ -712,7 +807,7 @@ def _tied_logits(seed, V, k, tie):
 
 @pytest.mark.parametrize("top_k", [1, 2, 5, 24, 25])
 @pytest.mark.parametrize("rows", [1024, 256, 7])
-def test_topk_threshold_tiled_matches_reference_with_ties(top_k, rows):
+def test_topk_threshold_merged_matches_reference_with_ties(top_k, rows):
     """The kernel's sampler threshold over tiles of ``rows`` logits (each
     tile's list at most k levels, then one merge: ``topk_threshold_merged``)
     on ties at and around the k-th value."""
@@ -730,7 +825,7 @@ def test_topk_threshold_tiled_matches_reference_with_ties(top_k, rows):
     ([2.0, 1.0, -6.7e29, -6.7e29], 3),              # ... and above it (temperature > 1)
     ([3.0], 2),
 ], ids=["all-tied", "masked", "masked-below", "masked-above", "one-value"])
-def test_topk_threshold_tiled_degenerate_cases(values, top_k):
+def test_topk_threshold_merged_degenerate_cases(values, top_k):
     """The merged threshold over tiles of 1, 2 and 1024 logits on what the
     reference treats apart: ties, masked and scaled masked entries."""
     y = torch.tensor(values, dtype=torch.float32)
