@@ -42,7 +42,7 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--demo", action="store_true", help="demo geometry (~15M-parameter stack)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--profile", action="store_true",
-                   help="print the last request's per-stage milliseconds at exit")
+                   help="print the last request's per-stage milliseconds and its span tree at exit")
     p.add_argument("--dp", type=int, default=0,
                    help="shard request batches over N ranks (data axis); 0 = one process")
     p.add_argument("--tp", type=int, default=1,
@@ -134,9 +134,22 @@ def build_engine(args):
     params = engine_params(args, cfg, dev) if args.checkpoint else None
     engine = Engine(cfg, params=params, seed=args.seed, device=None if mesh else dev, mesh=mesh)
     if getattr(args, "profile", False):
-        atexit.register(lambda: print("\n-- last request's stage timing (ms) --\n"
-                                      + json.dumps(engine.last_timings)))
+        atexit.register(print_profile, engine)
     return engine
+
+
+def print_profile(engine) -> None:
+    """``--profile``: the last request's stage milliseconds, then its span
+    tree (``utils/timing.py``: ms, self, host and wait ms, counters, the
+    decode ``path``), then the process's last DB search (its ``rows``, ``k``
+    and ``queries``) where it made one."""
+    from ..utils.timing import format_tree, spans
+
+    print("\n-- last request's stage timing (ms) --\n" + json.dumps(engine.last_timings))
+    print("-- last request's spans (ms) --\n" + format_tree(engine.last_trace))
+    searches = [s for s in spans() if s.name == "db_search"]
+    if searches:
+        print("-- last DB search (ms) --\n" + format_tree(searches[-1:]))
 
 
 def build_training_engine(args):

@@ -119,10 +119,12 @@ class CosyEngine:
 
     @contextmanager
     def _span(self, name: str):
-        """Time a stage into ``last_timings[name]`` (ms, synchronized)."""
+        """Time a stage into ``last_timings[name]`` (ms, until the device
+        has finished it)."""
         clock = Stopwatch(self.device)
         with clock.span(name):
             yield
+            clock.wait()
         self.last_timings[name] = clock.ms[name]
 
     # -------------------------------------------------------------- stages

@@ -45,6 +45,7 @@ from ..ops.decode_step import (WEIGHT_KEYS, decode_scratch, half_layer_scratch, 
                                mega_decode_step, pack4, plan_half_layers, weight_bits)
 from ..ops.sampling import SamplerConfig, sample, transform_logits
 from ..utils.config import TokenLMConfig, TransformerConfig
+from ..utils.device import upload
 from ..utils.timing import Stopwatch
 from ..weights import QTensor, normal, truncated_normal
 from . import transformer as core
@@ -316,8 +317,13 @@ def start_decode(
     decode-step op per token; a list (``unstack_decode_params``) runs the
     per-layer ``attn_step`` / ``mlp_step`` pair with the plain head and the
     host sampler. A dict with a top-p sampler, no ``decode_params`` or
-    ``fused=False`` take the scanned decode (``_decode_scan``). The loop
-    holds no span of ``clock`` across its yields: the caller times it.
+    ``fused=False`` take the scanned decode (``_decode_scan``). The prefill
+    ends on a wait of ``clock``. The loop holds no span of ``clock`` across
+    its yields: the caller times it. Inside the caller's span the loop
+    reads its tokens through ``clock`` (``token_reads``, waits of the span)
+    and counts its ``steps`` there, with the decode path it takes (attribute
+    ``path``: ``int8`` / ``int4`` for the decode step, ``layers``,
+    ``scanned``; ``kv_int8``).
     ``rows`` (start, total): the prefix holds rows start.. of a batch of
     ``total``, whose sampling noise the scanned decode draws whole."""
     ccfg = core_config(cfg)
@@ -339,7 +345,9 @@ def start_decode(
         hidden = core.forward(params, ccfg, inputs_embeds=prefix.embeds, positions=pos,
                               offset=offset, cache=cache)
         next_logits = core.head_logits(hidden[:, -1], params["speech_head"], cfg.speech_vocab_size)
-    kw = dict(P=P, max_new_tokens=max_new_tokens, sampler=sampler, min_tokens=min_tokens)
+        clock.count("rows", P)
+        clock.wait()
+    kw = dict(P=P, max_new_tokens=max_new_tokens, sampler=sampler, min_tokens=min_tokens, clock=clock)
     if not kernels:
         return _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, rows=rows, **kw)
     if rows is not None:
@@ -349,7 +357,7 @@ def start_decode(
     v_all = cache["v"].view(L, S_max, -1)
     loop = _decode_mega if isinstance(decode_params, dict) else _decode_layers
     return loop(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator,
-                off0=int(offset[0]), **kw)
+                off0=clock.read(offset[0].item), **kw)
 
 
 def take(loop: DecodeLoop, n: int) -> Tuple[List[List[int]], Optional["SpeechGen"]]:
@@ -394,11 +402,13 @@ def generate_speech(
                         decode_params=decode_params, sampler=sampler, min_tokens=min_tokens,
                         kv_int8=kv_int8, fused=fused, clock=clock, rows=rows)
     with clock.span("decode"):
-        return finish(loop)
+        gen = finish(loop)
+        clock.wait()
+    return gen
 
 
 def _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, *, P,
-                 max_new_tokens, sampler, min_tokens, rows=None) -> DecodeLoop:
+                 max_new_tokens, sampler, min_tokens, clock, rows=None) -> DecodeLoop:
     """The reference's scanned decode, one host iteration a step: sample
     token i of every row from the previous logits (rows already done emit
     pad), yield the row's tokens (the one device read of the step), then
@@ -419,6 +429,7 @@ def _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, *, P,
     head, emb = params["speech_head"], params["speech_emb"]
     cur = next_logits
     steps = 0
+    clock.count("steps", 0, dict(path="scanned", kv_int8="k_scale" in cache))
     for i in range(max_new_tokens):
         masked = _mask_logits(cur, cfg, i < min_tokens)
         tok = sample(masked, sampler, generator) if draw_rows is None else sample(masked, sampler, generator,
@@ -428,7 +439,7 @@ def _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, *, P,
         gen_len += (~done & ~is_eos).to(torch.int32)
         done |= is_eos
         toks[:, i] = tok
-        drawn = tok.tolist()
+        drawn = clock.read(tok.tolist, "token_reads")
         yield drawn
         # a row that is not done draws neither pad nor, unless it ends, EOS
         if all(t in (eos, padt) for t in drawn):
@@ -439,6 +450,7 @@ def _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, *, P,
                               cache=cache, cache_start=P + i)
         cur = core.head_logits(hidden[:, 0], head, cfg.speech_vocab_size)
         steps += 1
+        clock.count("steps")
     return SpeechGen(tokens=toks, lengths=gen_len, decode_steps=steps)
 
 
@@ -447,22 +459,23 @@ def _from_list(toks: List[int], cfg: TokenLMConfig, max_new_tokens: int, dev, st
     gen_len = sum(1 for t in toks if t != cfg.speech_eos)
     out = torch.full((1, max_new_tokens), cfg.speech_pad, dtype=torch.int32)
     out[0, : len(toks)] = torch.tensor(toks, dtype=torch.int32)
-    return SpeechGen(tokens=out.to(dev), lengths=torch.tensor([gen_len], dtype=torch.int32, device=dev),
+    return SpeechGen(tokens=upload(out, dev), lengths=upload(torch.tensor([gen_len], dtype=torch.int32), dev),
                      decode_steps=steps)
 
 
 def _decode_mega(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator, *,
-                 P, off0, max_new_tokens, sampler, min_tokens) -> DecodeLoop:
+                 P, off0, max_new_tokens, sampler, min_tokens, clock) -> DecodeLoop:
     """Token 0 from the prefill logits through ``sample``; tokens 1.. from
     the decode step, which samples in its kernel: the step for token i feeds
     token i-1 at cache slot P + i - 1. The steps' seeds are drawn from
     ``generator`` at once, before token 1, as ``max_new_tokens`` values."""
     dev = k_all.device
     eos = cfg.speech_eos
+    clock.count("steps", 0, dict(path=f"int{weight_bits(decode_params)}", kv_int8=False))
     tok = sample(_mask_logits(next_logits, cfg, 0 < min_tokens), sampler, generator)
-    seeds = torch.randint(0, 2 ** 31 - 1, (max_new_tokens,), generator=generator,
-                          device=dev).tolist()
-    toks = [int(tok[0])]
+    seeds = clock.read(torch.randint(0, 2 ** 31 - 1, (max_new_tokens,), generator=generator,
+                                     device=dev).tolist)
+    toks = [clock.read(tok.item, "token_reads")]
     yield toks[-1:]
     tok_prev = tok.to(torch.int32).reshape(1)
     # the kernel's buffers and plan; the plain step (a CPU cache) takes none
@@ -477,14 +490,15 @@ def _decode_mega(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, ge
             greedy=sampler.greedy, temperature=sampler.temperature,
             top_k=sampler.top_k, scratch=scratch,
         )
-        toks.append(int(tok_prev[0]))
+        clock.count("steps")
+        toks.append(clock.read(tok_prev.item, "token_reads"))
         yield toks[-1:]
         i += 1
     return _from_list(toks, cfg, max_new_tokens, dev, steps=len(toks) - 1)
 
 
 def _decode_layers(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, generator, *,
-                   P, off0, max_new_tokens, sampler, min_tokens) -> DecodeLoop:
+                   P, off0, max_new_tokens, sampler, min_tokens, clock) -> DecodeLoop:
     """The per-layer flavour: token i is sampled on the host from the
     previous logits (the caller's generator is the random stream), then the
     layers run it at cache slot P + i and the head gives the next logits.
@@ -505,14 +519,16 @@ def _decode_layers(params, decode_params, cfg, ccfg, k_all, v_all, next_logits, 
         scratch = half_layer_scratch(ccfg.dim, ccfg.n_heads, ccfg.head_dim, ccfg.ffn_dim, dev)
     plan = plan_half_layers(h, decode_params, invf, k_all, v_all, n_heads=ccfg.n_heads,
                             head_dim=ccfg.head_dim, eps=ccfg.norm_eps, scratch=scratch)
+    clock.count("steps", 0, dict(path="layers", kv_int8=False))
     for i in range(max_new_tokens):
         tok = sample(_mask_logits(cur_logits, cfg, i < min_tokens), sampler, generator)
-        toks.append(int(tok[0]))
+        toks.append(clock.read(tok.item, "token_reads"))
         yield toks[-1:]
         if toks[-1] == eos:
             break
         h.copy_(emb[toks[-1]][None])
         layers_planned(plan, P + i, off0, ccfg.n_layers)
+        clock.count("steps")
         hf = core.rmsnorm(h, params["final_norm"], ccfg.norm_eps)
         cur_logits = core.matmul_any(hf, params["speech_head"])
     return _from_list(toks, cfg, max_new_tokens, dev, steps=sum(1 for t in toks if t != eos))
@@ -612,7 +628,8 @@ def generate_speech_spec(
     earns the bonus token), so each token's law is the standard sampled
     path's; ``generator`` is the random stream. The loop runs on the host:
     each iteration reads the accepted count, the tokens kept and the EOS
-    flag in one ``tolist``, and nothing else."""
+    flag in one read of ``clock`` (a token read of the "decode" span, which
+    counts the verifies as ``steps``), and nothing else."""
     ccfg = core_config(cfg)
     B, P, _ = prefix.embeds.shape
     if B != 1:
@@ -648,7 +665,7 @@ def generate_speech_spec(
         hidden = core.forward(params, ccfg, inputs_embeds=prefix.embeds, positions=pos,
                               offset=offset, cache=cache)
         g0 = draw(masked(core.matmul_any(hidden[:, -1], head), 0))[0]
-        g0_h, w = torch.stack([g0, style_len[0].to(torch.int32)]).tolist()
+        g0_h, w = clock.read(torch.stack([g0, style_len[0].to(torch.int32)]).tolist)
     slot = torch.arange(S_max, device=dev)
     valid = slot >= offset.long()[0]
     vj = torch.arange(cfg.speech_vocab_size, device=dev)
@@ -663,6 +680,7 @@ def generate_speech_spec(
     w += n_gen
     pending, t_cache, n_verify = g0.reshape(1), P, 0
     with clock.span("decode"):
+        clock.count("steps", 0, {"path": "speculative", "kv_int8": kv_int8})
         while not done and n_gen < max_new_tokens:
             d = _lookup_draft(ctx, w, gamma)
             ids = torch.cat([pending, d]).long()
@@ -695,7 +713,8 @@ def generate_speech_spec(
                                                   torch.full_like(gvec, padt))
             ctx[w : w + Q] = torch.where(qj < n_keep, gvec, torch.zeros_like(gvec))
             pending = gvec[a].reshape(1)
-            a_h, keep_h, eos_h = torch.stack([a, n_keep, any_eos.long()]).tolist()
+            a_h, keep_h, eos_h = clock.read(torch.stack([a, n_keep, any_eos.long()]).tolist, "token_reads")
+            clock.count("steps")
             n_gen += keep_h
             w += keep_h
             done = bool(eos_h)

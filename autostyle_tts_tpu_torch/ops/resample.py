@@ -16,6 +16,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.device import upload
+
 
 def _kaiser_beta(att_db: float) -> float:
     if att_db > 50:
@@ -93,9 +95,9 @@ def resample(x: torch.Tensor, sr_in: int, sr_out: int) -> torch.Tensor:
     Hp, B, W, t_out, Q, pad_l, pad_r = _polyphase_plan(up, down, t_in)
     lead = x.shape[:-1]
     xp = torch.nn.functional.pad(x.reshape(-1, t_in), (pad_l, pad_r))
-    idx = torch.from_numpy(_window_index(B, W, Q, down, pad_l)).to(x.device)
+    idx = upload(torch.from_numpy(_window_index(B, W, Q, down, pad_l)), x.device)
     windows = xp[:, idx]                                   # [N, Q, up, W]
-    y = torch.einsum("nqrt,rt->nqr", windows.float(), torch.from_numpy(Hp).to(x.device))
+    y = torch.einsum("nqrt,rt->nqr", windows.float(), upload(torch.from_numpy(Hp), x.device))
     y = y.reshape(-1, Q * up)[:, :t_out]
     return y.reshape(lead + (t_out,)).to(x.dtype)
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import upload
 from .log_mel import fused_log_mel
 
 
@@ -112,7 +113,7 @@ def _reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     lead, T = x.shape[:-1], x.shape[-1]
     if pad >= T:
         idx = np.pad(np.arange(T), (pad, pad), mode="reflect")
-        return x[..., torch.from_numpy(idx).to(x.device)]
+        return x[..., upload(torch.from_numpy(idx), x.device)]
     y = F.pad(x.reshape(-1, 1, T), (pad, pad), mode="reflect")
     return y.reshape(lead + (y.shape[-1],))
 
@@ -220,7 +221,7 @@ def istft_overlap_add(
     r_chunks = n_fft // hop
     F = spec_r.shape[-2]
     dev = spec_r.device
-    cos_b, msin_b = (torch.from_numpy(b).to(dev) for b in _istft_basis(n_fft))
+    cos_b, msin_b = (upload(torch.from_numpy(b), dev) for b in _istft_basis(n_fft))
     frames = spec_r.float() @ cos_b + spec_i.float() @ msin_b     # [..., F, n_fft]
     lead = frames.shape[:-2]
     L = (F + r_chunks - 1) * hop
@@ -228,7 +229,7 @@ def istft_overlap_add(
     for r in range(r_chunks):
         seg = frames[..., :, r * hop : (r + 1) * hop].reshape(lead + (F * hop,))
         out[..., r * hop : r * hop + F * hop] += seg
-    env = torch.from_numpy(_ola_envelope(F, n_fft, hop)).to(dev)
+    env = upload(torch.from_numpy(_ola_envelope(F, n_fft, hop)), dev)
     out = out / torch.clamp(env, min=1e-8)
     start = (n_fft - hop) // 2
     return out[..., start : start + F * hop]

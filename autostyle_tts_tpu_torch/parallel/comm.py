@@ -21,10 +21,11 @@ tensors for both. bf16 / f16 tensors are reduced in f32. At a
 model axis of 1 (no active mesh, or ``model == 1``) every function is the
 identity and never reaches ``torch.distributed``.
 
-The active mesh is the one of the innermost ``with mesh:`` block. A
-mesh's ``stats`` count the collectives called on its groups and the host
-milliseconds spent inside those calls (a gloo call returns when its data
-is back on the device, an NCCL call once it is enqueued).
+The active mesh is the one of the innermost ``with mesh:`` block. Each
+collective adds to counters of the innermost open span of the process
+(``utils/timing.py``): ``collectives``, one a call, and
+``collective_ms``, the host milliseconds inside it (a gloo call returns
+when its data is back on the device, an NCCL call once it is enqueued).
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ from typing import List, Optional
 
 import torch
 import torch.distributed as dist
+
+from ..utils import timing
 
 _ACTIVE: Optional[object] = None
 
@@ -62,25 +65,20 @@ def model_rank() -> int:
     return 0 if _ACTIVE is None else _ACTIVE.model_rank
 
 
-def _count(mesh, t0: float) -> None:
-    mesh.stats["calls"] += 1
-    mesh.stats["ms"] += (time.perf_counter() - t0) * 1e3
-
-
-def _all_reduce(x: torch.Tensor, mesh, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     wide = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x.clone()
     t0 = time.perf_counter()
     dist.all_reduce(wide, group=group)
-    _count(mesh, t0)
+    timing.tally(collectives=1, collective_ms=(time.perf_counter() - t0) * 1e3)
     return wide.to(x.dtype)
 
 
-def _all_gather(x: torch.Tensor, mesh, group, size: int) -> List[torch.Tensor]:
+def _all_gather(x: torch.Tensor, group, size: int) -> List[torch.Tensor]:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(size)]
     t0 = time.perf_counter()
     dist.all_gather(parts, x, group=group)
-    _count(mesh, t0)
+    timing.tally(collectives=1, collective_ms=(time.perf_counter() - t0) * 1e3)
     return parts
 
 
@@ -92,13 +90,13 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad, ctx.mesh, ctx.mesh.model_group), None
+        return _all_reduce(grad, ctx.mesh.model_group), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
-        return _all_reduce(x, mesh, mesh.model_group)
+        return _all_reduce(x, mesh.model_group)
 
     @staticmethod
     def backward(ctx, grad):
@@ -109,7 +107,7 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, mesh):
         ctx.dim, ctx.rank, ctx.n = dim, mesh.model_rank, x.shape[dim]
-        return torch.cat(_all_gather(x, mesh, mesh.model_group, mesh.model), dim=dim)
+        return torch.cat(_all_gather(x, mesh.model_group, mesh.model), dim=dim)
 
     @staticmethod
     def backward(ctx, grad):
@@ -141,7 +139,7 @@ def reduce_data(x: torch.Tensor, mesh=None) -> torch.Tensor:
     mesh = mesh or _ACTIVE
     if mesh is None or mesh.data == 1:
         return x
-    return _all_reduce(x, mesh, mesh.data_group)
+    return _all_reduce(x, mesh.data_group)
 
 
 def reduce_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -149,7 +147,7 @@ def reduce_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
     mesh = mesh or _ACTIVE
     if mesh is None or mesh.model == 1:
         return x
-    return _all_reduce(x, mesh, mesh.model_group)
+    return _all_reduce(x, mesh.model_group)
 
 
 def gather_rows(x: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -162,11 +160,11 @@ def gather_rows(x: torch.Tensor, mesh=None) -> torch.Tensor:
     if mesh is None or mesh.data == 1:
         return x
     dims = torch.tensor([x.shape[0], x.shape[1]], dtype=torch.int64, device=x.device)
-    sizes = _all_gather(dims, mesh, mesh.data_group, mesh.data)
+    sizes = _all_gather(dims, mesh.data_group, mesh.data)
     n_max = max(int(s[0]) for s in sizes)
     w_max = max(int(s[1]) for s in sizes)
     pad = x.new_zeros((n_max, w_max, *x.shape[2:]))
     pad[: x.shape[0], : x.shape[1]] = x
-    parts = _all_gather(pad, mesh, mesh.data_group, mesh.data)
+    parts = _all_gather(pad, mesh.data_group, mesh.data)
     return torch.cat([p[: int(s[0])] for p, s in zip(parts, sizes)], dim=0)
 

@@ -58,8 +58,6 @@ class Mesh:
     backend: str
     data_group: Optional[dist.ProcessGroup] = None
     model_group: Optional[dist.ProcessGroup] = None
-    # collectives called on this mesh's groups and the host ms inside them (parallel.comm)
-    stats: Dict[str, float] = field(default_factory=lambda: {"calls": 0, "ms": 0.0})
     _entered: List[object] = field(default_factory=list, repr=False)
 
     @property

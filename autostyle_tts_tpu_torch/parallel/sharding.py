@@ -233,7 +233,7 @@ def gather_params(mesh, tree: Any, like: Any, heads: Optional[Tuple[int, int]] =
     def one(key, t):
         if lay[key] is None:
             return t
-        return join(comm._all_gather(t, mesh, mesh.model_group, mesh.model), lay[key])
+        return join(comm._all_gather(t, mesh.model_group, mesh.model), lay[key])
 
     return _map_keys(one, tree)
 

@@ -57,7 +57,7 @@ import json
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,8 +71,8 @@ from ..parallel import comm
 from ..parallel.sharding import abstract, batch_sharding, gather_params, shard_params
 from ..retrieval.store import StyleStore
 from ..utils.config import Config
-from ..utils.device import DeviceLike, resolve_device
-from ..utils.timing import Stopwatch
+from ..utils.device import DeviceLike, resolve_device, upload
+from ..utils.timing import Span, Stopwatch
 from ..weights import init_params, quantize_tree, to_device
 
 TEXT_BUCKETS = (32, 64, 128, 256, 512)
@@ -129,36 +129,44 @@ def mel_body(
     spk: torch.Tensor,             # [B, spk_dim]
     generator: Optional[torch.Generator],
     noise: Optional[torch.Tensor] = None,
+    clock: Optional[Stopwatch] = None,
 ):
-    """Flow-conditioning assembly + CFM solve -> (mel [B, F, M], tok_lens)."""
+    """Flow-conditioning assembly (``clock``'s span ``cfm.cond``) + CFM
+    solve (``cfm.solve``, counting ``euler_steps`` and ``frames``) ->
+    (mel [B, F, M], tok_lens)."""
     up = cfg.cfm.upsample
     B, fp_w = prompt_tokens.shape
     max_new = gen_tokens.shape[1]
     T_all = fp_w + max_new
     n_frames = T_all * up
     dev = prompt_tokens.device
-    p_lens = p_lens.long()
-    j = torch.arange(T_all, device=dev)[None, :]
-    in_prompt = j < p_lens[:, None]
-    tok_lens = p_lens + gen_lens.long()
-    from_prompt = torch.gather(prompt_tokens.long(), 1, torch.clamp(j, 0, fp_w - 1).expand(B, -1))
-    from_gen = torch.gather(gen_tokens.long(), 1, torch.clamp(j - p_lens[:, None], 0, max_new - 1))
-    zero = torch.zeros_like(from_gen)
-    tokens = torch.where(in_prompt, from_prompt,
-                         torch.where(j < tok_lens[:, None], from_gen, zero))
-    cond = cfm.upsample_tokens(cfm_p, tokens, up, cfg.cfm.token_vocab_size)
-    fr = torch.arange(n_frames, device=dev)[None, :]
-    frame_mask = (fr < tok_lens[:, None] * up).float()
-    pmask = (fr < torch.minimum(p_lens[:, None] * up, mel_lens.long()[:, None])).float()
-    M = cfg.cfm.n_mels
-    take = min(prompt_mel.shape[1], n_frames)
-    pm = torch.zeros((B, n_frames, M), dtype=prompt_mel.dtype, device=dev)
-    pm[:, :take] = prompt_mel[:, :take]
-    pm = pm * pmask[..., None]
-    mel = cfm.sample_mel(
-        cfm_p, cfg.cfm, generator, cond, spk, pm, pmask, frame_mask,
-        use_cfg=cfg.cfm.use_cfg, noise=noise,
-    )
+    clock = clock or Stopwatch(dev)
+    with clock.open("cfm.cond"):
+        p_lens = p_lens.long()
+        j = torch.arange(T_all, device=dev)[None, :]
+        in_prompt = j < p_lens[:, None]
+        tok_lens = p_lens + gen_lens.long()
+        from_prompt = torch.gather(prompt_tokens.long(), 1, torch.clamp(j, 0, fp_w - 1).expand(B, -1))
+        from_gen = torch.gather(gen_tokens.long(), 1, torch.clamp(j - p_lens[:, None], 0, max_new - 1))
+        zero = torch.zeros_like(from_gen)
+        tokens = torch.where(in_prompt, from_prompt,
+                             torch.where(j < tok_lens[:, None], from_gen, zero))
+        cond = cfm.upsample_tokens(cfm_p, tokens, up, cfg.cfm.token_vocab_size)
+        fr = torch.arange(n_frames, device=dev)[None, :]
+        frame_mask = (fr < tok_lens[:, None] * up).float()
+        pmask = (fr < torch.minimum(p_lens[:, None] * up, mel_lens.long()[:, None])).float()
+        M = cfg.cfm.n_mels
+        take = min(prompt_mel.shape[1], n_frames)
+        pm = torch.zeros((B, n_frames, M), dtype=prompt_mel.dtype, device=dev)
+        pm[:, :take] = prompt_mel[:, :take]
+        pm = pm * pmask[..., None]
+    with clock.open("cfm.solve"):
+        mel = cfm.sample_mel(
+            cfm_p, cfg.cfm, generator, cond, spk, pm, pmask, frame_mask,
+            use_cfg=cfg.cfm.use_cfg, noise=noise,
+        )
+        clock.count("euler_steps", cfg.cfm.n_steps)
+        clock.count("frames", B * n_frames)
     return mel, tok_lens
 
 
@@ -211,33 +219,39 @@ def stream_window(
     clock = clock or Stopwatch(dev)
     gl, em, npp, nm = (x.long().reshape(-1, 1) for x in (gen_len, emitted, n_p, n_mel))
     with clock.span("cfm"):
-        n_chunk = torch.clamp(gl - em, max=chunk)
-        slot = torch.arange(W, device=dev)[None, :]
-        ctx_lo = fp_w + chunk - torch.clamp(em, max=chunk)
-        # slot fp_w + chunk + (i - emitted) holds generated token i
-        gidx = slot - (fp_w + chunk) + em
-        from_gen = torch.gather(gen_tokens.long(), 1, torch.clamp(gidx, 0, gen_tokens.shape[1] - 1))
-        from_prompt = torch.gather(prompt_tokens.long(), 1, torch.clamp(slot, 0, fp_w - 1).expand(B, W))
-        in_tail = (slot >= ctx_lo) & (gidx < em + n_chunk) & (slot >= fp_w)
-        zero = torch.zeros_like(from_gen)
-        tokens = torch.where(slot < npp, from_prompt, torch.where(in_tail, from_gen, zero))
-        fr = torch.arange(W * up, device=dev)[None, :]
-        sl = fr // up
-        in_ctx = (sl >= ctx_lo) & (sl < fp_w + chunk)
-        pmask = ((fr < nm) | in_ctx).float()
-        fmask = ((fr < npp * up) | in_ctx | ((sl >= fp_w + chunk) & (sl < fp_w + chunk + n_chunk))).float()
-        pm = torch.zeros((B, W * up, M), dtype=torch.float32, device=dev)
-        pm[:, : fp_w * up] = prompt_mel * (torch.arange(fp_w * up, device=dev)[None, :, None] < nm[:, :, None])
-        pm[:, fp_w * up : (fp_w + chunk) * up] = mel_ctx
-        pm = pm * pmask[..., None]
-        pos = torch.where(fr < fp_w * up, fr, torch.clamp((npp + em - chunk) * up + fr - fp_w * up, min=0))
-        cond = cfm.upsample_tokens(params.cfm, tokens, up, cfg.cfm.token_vocab_size)
-        mel = cfm.sample_mel(params.cfm, cfg.cfm, generator, cond, spk, pm, pmask, fmask,
-                             use_cfg=cfg.cfm.use_cfg, positions=pos, noise=noise)
+        with clock.open("cfm.cond"):
+            n_chunk = torch.clamp(gl - em, max=chunk)
+            slot = torch.arange(W, device=dev)[None, :]
+            ctx_lo = fp_w + chunk - torch.clamp(em, max=chunk)
+            # slot fp_w + chunk + (i - emitted) holds generated token i
+            gidx = slot - (fp_w + chunk) + em
+            from_gen = torch.gather(gen_tokens.long(), 1, torch.clamp(gidx, 0, gen_tokens.shape[1] - 1))
+            from_prompt = torch.gather(prompt_tokens.long(), 1, torch.clamp(slot, 0, fp_w - 1).expand(B, W))
+            in_tail = (slot >= ctx_lo) & (gidx < em + n_chunk) & (slot >= fp_w)
+            zero = torch.zeros_like(from_gen)
+            tokens = torch.where(slot < npp, from_prompt, torch.where(in_tail, from_gen, zero))
+            fr = torch.arange(W * up, device=dev)[None, :]
+            sl = fr // up
+            in_ctx = (sl >= ctx_lo) & (sl < fp_w + chunk)
+            pmask = ((fr < nm) | in_ctx).float()
+            fmask = ((fr < npp * up) | in_ctx | ((sl >= fp_w + chunk) & (sl < fp_w + chunk + n_chunk))).float()
+            pm = torch.zeros((B, W * up, M), dtype=torch.float32, device=dev)
+            pm[:, : fp_w * up] = prompt_mel * (torch.arange(fp_w * up, device=dev)[None, :, None] < nm[:, :, None])
+            pm[:, fp_w * up : (fp_w + chunk) * up] = mel_ctx
+            pm = pm * pmask[..., None]
+            pos = torch.where(fr < fp_w * up, fr, torch.clamp((npp + em - chunk) * up + fr - fp_w * up, min=0))
+            cond = cfm.upsample_tokens(params.cfm, tokens, up, cfg.cfm.token_vocab_size)
+        with clock.open("cfm.solve"):
+            mel = cfm.sample_mel(params.cfm, cfg.cfm, generator, cond, spk, pm, pmask, fmask,
+                                 use_cfg=cfg.cfm.use_cfg, positions=pos, noise=noise)
+            clock.count("euler_steps", cfg.cfm.n_steps)
+            clock.count("frames", B * W * up)
+        clock.wait()
     lo = (fp_w + chunk) * up
     with clock.span("vocoder"):
-        wav = vocoder.apply(params.vocoder, cfg.vocoder, mel)[:, lo * hop : (lo + chunk * up) * hop]
-    return wav.float(), mel[:, lo : lo + chunk * up]
+        wav = vocoder.apply(params.vocoder, cfg.vocoder, mel)[:, lo * hop : (lo + chunk * up) * hop].float()
+        clock.wait()
+    return wav, mel[:, lo : lo + chunk * up]
 
 
 def featurize(
@@ -354,8 +368,9 @@ class Engine:
             raise ValueError(f"token_lm.text_vocab_size={cfg.token_lm.text_vocab_size} < "
                              f"frontend vocab {need_vocab}")
         # per-stage milliseconds of the last request (featurize when a
-        # prompt came as a wav, prefill, decode, cfm, vocoder)
+        # prompt came as a wav, prefill, decode, cfm, vocoder): its phase spans
         self.last_timings: Dict[str, float] = {}
+        self.last_trace: List[Span] = []          # every span of the last request (utils/timing.py)
         self.last_decode_steps = 0      # decode steps, or verify forwards of a speculative request
         self.last_spec: Optional[Dict[str, int]] = None   # {"n_verify", "n_commit"} of a speculative request
         self.last_gen_len = 0
@@ -367,8 +382,9 @@ class Engine:
     def prompt_features(self, wavs_16k: Sequence[np.ndarray],
                         clock: Optional[Stopwatch] = None) -> List[PromptFeatures]:
         """Featurize a batch of 16 kHz prompt wavs: padded to one length
-        bucket, one device batch, one host fetch. ``clock`` (a request's
-        stopwatch) gets the time under its ``featurize`` span."""
+        bucket, one device batch, one host fetch (the read of the
+        ``featurize`` span). ``clock`` is the request's trace; without one
+        the call is a request of its own."""
         a = self.cfg.audio
         (wavs_16k,), n_real = self._pad_batch(list(wavs_16k))
         wavs = [np.asarray(w, np.float32).reshape(-1) for w in wavs_16k]
@@ -378,8 +394,7 @@ class Engine:
         for i, w in enumerate(wavs):
             batch[i, : min(len(w), T)] = w[:T]
         rows = self._rows(len(wavs))
-        clock = clock or Stopwatch(self.device)
-        with clock.span("featurize"), self._on_mesh():
+        with self._request(clock) as clock, clock.span("featurize"), self._on_mesh():
             tokens, _, spk, mel24 = featurize(
                 self.params, self.cfg, self._tensor(batch[rows], torch.float32),
                 self._tensor(lens[rows], torch.int32))
@@ -387,7 +402,7 @@ class Engine:
             B = tokens.shape[0]
             flat = torch.cat([tokens.float().reshape(B, -1), spk.float().reshape(B, -1),
                               mel24.float().reshape(B, -1)], dim=1)
-            flat = self._gather(flat, rows, len(wavs)).cpu().numpy()
+            flat = clock.read(self._gather(flat, rows, len(wavs)).cpu).numpy()
         n_t, n_s = tokens[0].numel(), spk[0].numel()
         tokens_h = flat[:, :n_t].astype(np.int32).reshape(-1, *tokens.shape[1:])
         spk_h = flat[:, n_t : n_t + n_s].reshape(-1, *spk.shape[1:])
@@ -435,7 +450,7 @@ class Engine:
     # ------------------------------------------------------------------ synthesis
 
     def _tensor(self, a, dtype) -> torch.Tensor:
-        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+        return upload(torch.tensor(np.asarray(a), dtype=dtype), self.device)
 
     def set_module(self, name: str, tree: Dict) -> None:
         """Serve ``tree`` (one module's full weights) as ``name``: cut for
@@ -459,6 +474,21 @@ class Engine:
         """The engine's mesh as the active one (``with``), or nothing."""
         return nullcontext() if self.mesh is None else self.mesh
 
+    @contextmanager
+    def _request(self, clock: Optional[Stopwatch] = None):
+        """The trace a call runs under (``with``): ``clock`` where the call
+        is part of a request, else a new request's ``Stopwatch`` with its
+        root span ``request`` open; its spans become ``last_trace``."""
+        if clock is not None:
+            yield clock
+            return
+        clock = Stopwatch(self.device)
+        try:
+            with clock.open("request"):
+                yield clock
+        finally:
+            self.last_trace = clock.spans
+
     def _rows(self, n: int) -> slice:
         """The rows of an n-row batch this rank computes (all of them
         without a mesh, or when n does not split over the data axis)."""
@@ -477,15 +507,15 @@ class Engine:
         pad = self.dp - n % self.dp
         return tuple(list(l) + [l[0]] * pad for l in lists), n
 
-    def _lm_generator(self) -> torch.Generator:
+    def _lm_generator(self, clock: Stopwatch) -> torch.Generator:
         """The random stream of one request's LM: a generator seeded by one
         draw of the engine's. A stream draws its windows' CFM noise from
         the engine's generator while the LM is still drawing tokens, and
         its tokens are still those the same request draws unstreamed from
         the same engine state (the reference gives its LM a key of its own
-        for the same reason)."""
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.generator, device=self.device))
-        return torch.Generator(device=self.device).manual_seed(seed)
+        for the same reason). The draw is read through ``clock``."""
+        draw = torch.randint(0, 2 ** 62, (1,), generator=self.generator, device=self.device)
+        return torch.Generator(device=self.device).manual_seed(clock.read(draw.item))
 
     def _lm_inputs(self, texts: Sequence[str], style_texts: Sequence[str],
                    style_feats: Sequence[PromptFeatures], max_seconds: float, rows: slice = slice(None)):
@@ -532,7 +562,7 @@ class Engine:
         split = rows.stop - rows.start < B
         if gamma > 0 and B == 1 and self._mega_params is None and self.mesh is None:
             spec = token_lm.generate_speech_spec_from_ids(
-                self.params.token_lm, self.cfg.token_lm, *ids, spk, self._lm_generator(),
+                self.params.token_lm, self.cfg.token_lm, *ids, spk, self._lm_generator(clock),
                 max_new_tokens=max_new, gamma=gamma, kv_int8=kv_int8,
                 sampler=SamplerConfig(temperature=1.0, top_k=25), clock=clock,
             )
@@ -540,7 +570,7 @@ class Engine:
             return token_lm.SpeechGen(tokens=spec.tokens, lengths=spec.lengths,
                                       decode_steps=spec.n_verify), max_new
         gen = token_lm.generate_speech_from_ids(
-            self.params.token_lm, self.cfg.token_lm, *ids, spk, self._lm_generator(),
+            self.params.token_lm, self.cfg.token_lm, *ids, spk, self._lm_generator(clock),
             max_new_tokens=max_new, decode_params=self._mega_params if B == 1 else None,
             kv_int8=kv_int8, clock=clock, rows=(rows.start, B) if split else None,
         )
@@ -565,7 +595,7 @@ class Engine:
         ``flow_feats`` the speaker identity. ``clock`` may already hold the
         request's ``featurize`` span. Under a mesh a data rank computes its
         rows (``_rows``) and the wavs of every row are gathered."""
-        with self._on_mesh():
+        with self._on_mesh(), self._request(clock) as clock:
             return self._synthesize_rows(texts, style_texts, style_feats, flow_feats, max_seconds,
                                          lm_tokens_override, cfm_noise, clock)
 
@@ -577,7 +607,6 @@ class Engine:
         rows = self._rows(B)
         up, hop, M = cfg.cfm.upsample, cfg.audio.hop_length, cfg.cfm.n_mels
         i32, f32 = torch.int32, torch.float32
-        clock = clock or Stopwatch(self.device)
         spk = self._tensor(np.stack([f.spk for f in flow_feats])[rows], f32)
         steps = 0
         if lm_tokens_override is None:
@@ -613,8 +642,9 @@ class Engine:
             mel, _ = mel_body(
                 self.params.cfm, cfg, self._tensor(ptok[rows], i32), self._tensor(p_lens[rows], i32),
                 gen_tokens, gen_lens, self._tensor(pmel[rows], f32), self._tensor(mel_lens[rows], i32),
-                spk, self.generator, noise=noise,
+                spk, self.generator, noise=noise, clock=clock,
             )
+            clock.wait()
         with clock.span("vocoder"):
             wav = vocoder.apply(self.params.vocoder, cfg.vocoder, mel)
             # each row's generated region slid to offset 0, its sample count
@@ -623,7 +653,7 @@ class Engine:
                    + torch.arange(max_new * up * hop, device=self.device)[None, :])
             n_out = gen_lens.to(f32)[:, None] * (up * hop)
             host = torch.cat([torch.gather(wav.float(), 1, idx), n_out], dim=1)
-            host = self._gather(host, rows, B).cpu().numpy()
+            host = clock.read(self._gather(host, rows, B).cpu).numpy()
         n_samples = host[:, -1].astype(np.int64)
         wavs = [host[i, : n_samples[i]] for i in range(B)]
         self.last_timings = dict(clock.ms)
@@ -665,9 +695,11 @@ class Engine:
         (the prompts share one bucket): row b has generated ``tokens[b]``
         and rendered ``emitted[b]`` of them. The noise is one draw of the
         engine's generator for the call, or ``noise`` [B, W * up, M].
-        One host fetch. -> (each row's new samples, f32 numpy; the rows'
+        One host fetch, a read of ``clock`` (the stream's trace, or one of
+        the call's own). -> (each row's new samples, f32 numpy; the rows'
         mel chunks, the next ``mel_ctx``)."""
         up, hop = self.cfg.cfm.upsample, self.cfg.audio.hop_length
+        clock = clock or Stopwatch(self.device)
         B = len(tokens)
         buf = np.zeros((B, max(max(len(t) for t in tokens), 1)), np.int32)
         for b, t in enumerate(tokens):
@@ -681,7 +713,7 @@ class Engine:
                 self._tensor([p.n_mel for p in prompts], i32), torch.cat([p.spk for p in prompts]),
                 mel_ctx, self.generator, chunk=chunk,
                 noise=None if noise is None else self._tensor(noise, torch.float32), clock=clock)
-        host = wav.cpu().numpy()
+        host = clock.read(wav.cpu).numpy()
         n = [min(chunk, len(t) - e) * up * hop for t, e in zip(tokens, emitted)]
         return [host[b, : n[b]] for b in range(B)], mel_chunk
 
@@ -724,7 +756,7 @@ class Engine:
             ids, max_new = self._lm_inputs([text], [style_text], [style_feat], max_seconds)
             with self._on_mesh():
                 prefix = token_lm.build_prefix_padded(self.params.token_lm, tl, *ids, prompt.spk)
-                loop = token_lm.start_decode(self.params.token_lm, tl, prefix, self._lm_generator(),
+                loop = token_lm.start_decode(self.params.token_lm, tl, prefix, self._lm_generator(clock),
                                              max_new_tokens=max_new, decode_params=self._mega_params,
                                              kv_int8=bool(getattr(cfg, "quantize_lm_kv_int8", False)),
                                              clock=clock)
@@ -735,6 +767,7 @@ class Engine:
                     new = [s[0] for s in steps]
                     if tl.speech_eos in new:     # the loop ends at EOS: collect its result
                         new, gen = new[: new.index(tl.speech_eos)], gen or token_lm.finish(loop)
+                    clock.wait()
                 yield new, gen is not None
             decode_steps = gen.decode_steps
 
@@ -761,16 +794,17 @@ class Engine:
 
     def _one(self, text: str, style_text: str, style, timbre, stream: bool,
              max_seconds: float, cfm_noise=None) -> Iterator[Dict[str, np.ndarray]]:
+        """One B=1 request under one trace (a stream's holds its chunks)."""
         t0 = time.perf_counter()
-        clock = Stopwatch(self.device)
-        sty, tim = self._resolve_prompts([style, timbre], clock)
-        if stream:
-            for wav in self._synthesize_stream(text, style_text, sty, tim, max_seconds=max_seconds,
-                                               cfm_noise=cfm_noise, clock=clock, t0=t0):
-                yield {"tts_speech": wav[None, :]}
-            return
-        wav = self._synthesize([text], [style_text], [sty], [tim], max_seconds=max_seconds,
-                               cfm_noise=cfm_noise, clock=clock)[0]
+        with self._request() as clock:
+            sty, tim = self._resolve_prompts([style, timbre], clock)
+            if stream:
+                for wav in self._synthesize_stream(text, style_text, sty, tim, max_seconds=max_seconds,
+                                                   cfm_noise=cfm_noise, clock=clock, t0=t0):
+                    yield {"tts_speech": wav[None, :]}
+                return
+            wav = self._synthesize([text], [style_text], [sty], [tim], max_seconds=max_seconds,
+                                   cfm_noise=cfm_noise, clock=clock)[0]
         yield {"tts_speech": wav[None, :]}
 
     def inference_zero_shot(
@@ -840,15 +874,15 @@ class Engine:
         prompt's identity, no LM. Either argument may be a 16 kHz wav or
         its precomputed ``PromptFeatures``."""
         t0 = time.perf_counter()
-        clock = Stopwatch(self.device)
-        src, prm = self._resolve_prompts([source_speech_16k, prompt_speech_16k], clock)
-        if stream:
-            for wav in self._synthesize_stream("", "", None, prm, lm_tokens_override=src.tokens,
-                                               cfm_noise=cfm_noise, clock=clock, t0=t0):
-                yield {"tts_speech": wav[None, :]}
-            return
-        wav = self._synthesize([""], [""], [prm], [prm], lm_tokens_override=[src.tokens],
-                               cfm_noise=cfm_noise, clock=clock)[0]
+        with self._request() as clock:
+            src, prm = self._resolve_prompts([source_speech_16k, prompt_speech_16k], clock)
+            if stream:
+                for wav in self._synthesize_stream("", "", None, prm, lm_tokens_override=src.tokens,
+                                                   cfm_noise=cfm_noise, clock=clock, t0=t0):
+                    yield {"tts_speech": wav[None, :]}
+                return
+            wav = self._synthesize([""], [""], [prm], [prm], lm_tokens_override=[src.tokens],
+                                   cfm_noise=cfm_noise, clock=clock)[0]
         yield {"tts_speech": wav[None, :]}
 
     def synthesize_from_tokens(self, reqs: List[Dict], max_seconds: float = 20.0,
@@ -880,10 +914,10 @@ class Engine:
         (tts_texts, style_texts, style_wavs, timbre_wavs), n = self._pad_batch(
             list(tts_texts), list(style_texts), list(style_wavs), list(timbre_wavs))
         B = len(tts_texts)
-        clock = Stopwatch(self.device)
-        feats = self._resolve_prompts(list(style_wavs) + list(timbre_wavs), clock)
-        return self._synthesize(tts_texts, style_texts, feats[:B], feats[B:],
-                                max_seconds=max_seconds, cfm_noise=cfm_noise, clock=clock)[:n]
+        with self._request() as clock:
+            feats = self._resolve_prompts(list(style_wavs) + list(timbre_wavs), clock)
+            return self._synthesize(tts_texts, style_texts, feats[:B], feats[B:],
+                                    max_seconds=max_seconds, cfm_noise=cfm_noise, clock=clock)[:n]
 
 
 # ----------------------------------------------------------------------------- multi-device dry run

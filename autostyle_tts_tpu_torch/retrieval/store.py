@@ -20,6 +20,7 @@ import torch
 
 from ..ops.topk import cosine_topk, l2_normalize
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.timing import Stopwatch
 
 PathLike = Union[str, Path]
 
@@ -79,40 +80,54 @@ class StyleStore:
         valid[: self.capacity] = self.valid
         self.capacity, self.db, self.valid = new_capacity, db, valid
 
+    def _fetch_topk(self, queries: np.ndarray, k: int, mask: Optional[np.ndarray]):
+        """A callable that fetches the top-k of [Q, dim] ``queries`` (already
+        enqueued on the device) as numpy (scores [Q, k], row indices [Q, k])."""
+        q = torch.tensor(np.atleast_2d(np.asarray(queries, np.float32)), device=self.device)
+        m = None if mask is None else torch.tensor(np.asarray(mask), device=self.device)
+        scores, idx = cosine_topk(q, self.db, self.valid, k, m)
+        return lambda: (scores.cpu().numpy(), idx.cpu().numpy().astype(np.int32))
+
     def search_arrays(
         self, queries: np.ndarray, k: int, mask: Optional[np.ndarray] = None
     ) -> Tuple[np.ndarray, np.ndarray]:
         """[Q, dim] -> (scores [Q, k], row indices [Q, k]) as numpy."""
-        q = torch.tensor(np.atleast_2d(np.asarray(queries, np.float32)), device=self.device)
-        m = None if mask is None else torch.tensor(np.asarray(mask), device=self.device)
-        scores, idx = cosine_topk(q, self.db, self.valid, k, m)
-        return scores.cpu().numpy(), idx.cpu().numpy().astype(np.int32)
+        return self._fetch_topk(queries, k, mask)()
 
     def search(
         self, queries: np.ndarray, k: int = 1, speaker: Optional[str] = None
     ) -> List[List[SearchHit]]:
-        """Search with the metadata join and an optional speaker filter."""
-        mask = None
-        if speaker is not None:
-            mask = np.zeros((self.capacity,), bool)
-            for i, m in enumerate(self.meta):
-                mask[i] = m.get("speaker") == speaker
-        scores, idx = self.search_arrays(queries, k, mask)
-        out: List[List[SearchHit]] = []
-        for qi in range(scores.shape[0]):
-            hits = []
-            for ki in range(k):
-                row, sc = int(idx[qi, ki]), float(scores[qi, ki])
-                if row >= len(self.meta) or sc <= -1e29:
-                    continue
-                m = self.meta[row]
-                hits.append(SearchHit(
-                    index=row, distance=sc, file_id=str(m.get("file_id", "")),
-                    text=str(m.get("text", m.get("zh_text", ""))),
-                    extras={k2: v for k2, v in m.items() if k2 not in ("file_id", "text")},
-                ))
-            out.append(hits)
-        return out
+        """Search with the metadata join and an optional speaker filter, as
+        a trace of its own: span ``db_search`` with counters ``rows`` (rows
+        scanned, the store's capacity), ``k`` and ``queries`` (``--profile``
+        prints the last one); its wait is the top-k fetch."""
+        clock = Stopwatch(self.device)
+        with clock.open("db_search"):
+            queries = np.atleast_2d(np.asarray(queries, np.float32))
+            clock.count("rows", self.capacity)
+            clock.count("k", k)
+            clock.count("queries", queries.shape[0])
+            mask = None
+            if speaker is not None:
+                mask = np.zeros((self.capacity,), bool)
+                for i, m in enumerate(self.meta):
+                    mask[i] = m.get("speaker") == speaker
+            scores, idx = clock.read(self._fetch_topk(queries, k, mask))
+            out: List[List[SearchHit]] = []
+            for qi in range(scores.shape[0]):
+                hits = []
+                for ki in range(k):
+                    row, sc = int(idx[qi, ki]), float(scores[qi, ki])
+                    if row >= len(self.meta) or sc <= -1e29:
+                        continue
+                    m = self.meta[row]
+                    hits.append(SearchHit(
+                        index=row, distance=sc, file_id=str(m.get("file_id", "")),
+                        text=str(m.get("text", m.get("zh_text", ""))),
+                        extras={k2: v for k2, v in m.items() if k2 not in ("file_id", "text")},
+                    ))
+                out.append(hits)
+            return out
 
     def save(self, path: PathLike) -> None:
         base = str(path).removesuffix(".npz")

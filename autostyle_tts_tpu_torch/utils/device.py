@@ -21,3 +21,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(a: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Host tensor ``a`` on ``device``, without blocking the host: to a card
+    it goes through pinned memory as an asynchronous copy (a plain
+    ``.to(device)`` from pageable memory waits until the card has finished
+    the work queued before it)."""
+    if device.type != "cuda":
+        return a.to(device)
+    return a.pin_memory().to(device, non_blocking=True)

@@ -220,7 +220,7 @@ from autostyle_tts_tpu_torch.pipeline.simeval import SpeakerScorer, token_round_
 from autostyle_tts_tpu_torch.pipeline.stream_serve import StreamingScheduler
 from autostyle_tts_tpu_torch.retrieval.store import StyleStore
 from autostyle_tts_tpu_torch.train import lora_sft
-from autostyle_tts_tpu_torch.utils import hf_convert, rng
+from autostyle_tts_tpu_torch.utils import hf_convert, rng, timing
 from autostyle_tts_tpu_torch.utils.audio_io import read_wav, write_wav
 from autostyle_tts_tpu_torch.utils.config import CFMConfig, Config, VocoderConfig, demo_config
 from autostyle_tts_tpu_torch.utils.synth_release import SynthGeometry, build_release_dir
@@ -2726,8 +2726,8 @@ def profile_request(eng: Engine, style, timbre):
 
 class MarkedStopwatch(Stopwatch):
     """A ``Stopwatch`` that launches a spin kernel at both edges of each
-    span, inside the span's synchronization: on a profile's device timeline
-    (one stream) each span's device work lies between two marks."""
+    span's body: on a profile's device timeline (one stream) each span's
+    device work lies between two marks."""
 
     @contextmanager
     def span(self, name: str):
@@ -3521,14 +3521,18 @@ N_MAX_SECONDS = 2.5    # path N's requests: a 64-token generation bucket (ranks 
 
 
 def rank_counts(fn, mesh):
-    """Run ``fn`` with the kernels' counts set to 0 and the mesh's
-    collective stats cleared -> (its result, the counts, the collectives'
-    calls and host ms)."""
+    """Run ``fn`` under a span, with the kernels' counts set to 0 -> (its
+    result, the counts, the collectives' calls and host ms: the counters
+    of the spans that closed meanwhile, each collective counted on its
+    innermost span)."""
     reset_counts()
-    mesh.stats.update(calls=0, ms=0.0)
-    out = fn()
+    t0 = time.perf_counter()
+    with Stopwatch(mesh.device).open("rank"):
+        out = fn()
     torch.cuda.synchronize()
-    return out, read_counts(), dict(mesh.stats)
+    done = [s for s in timing.spans() if s.t0 >= t0]
+    return out, read_counts(), {"calls": sum(s.counters.get("collectives", 0) for s in done),
+                                "ms": sum(s.counters.get("collective_ms", 0.0) for s in done)}
 
 
 def greedy_mesh_tokens(eng: Engine, feats, max_new: int = 64):

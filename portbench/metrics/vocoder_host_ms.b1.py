@@ -1,0 +1,9 @@
+"""Mean host milliseconds of the ``vocoder`` span: its length less its wait on
+the device (the wav's fetch), from the program's span log (requests the
+profiler did not cover)."""
+
+from portbench.bench.spans import mean_host_ms
+
+
+def read(run):
+    return mean_host_ms(run, "vocoder")

@@ -56,9 +56,11 @@ from autostyle_tts_tpu.utils.config import tiny_config
 from autostyle_tts_tpu_torch.cli import (basic, export_engine, insert_embeddings, score_similarity, search,
                                          search_embeddings, search_json, serve, tts_for_dialog, tts_from_lines,
                                          tts_with_rag, tts_with_style_and_timbre, vc_from_dir, vc_from_dir_seed)
+from autostyle_tts_tpu_torch.cli import common as tcommon
 from autostyle_tts_tpu_torch.cli.common import add_common_args, build_engine
 from autostyle_tts_tpu_torch.ops import sampling as tsampling
 from autostyle_tts_tpu_torch.pipeline.engine import EngineParams
+from autostyle_tts_tpu_torch.retrieval.store import StyleStore
 from autostyle_tts_tpu_torch.utils.audio_io import write_wav
 from autostyle_tts_tpu_torch.utils.config import tiny_config as ttiny_config
 from autostyle_tts_tpu_torch.weights import _flat_keys, load_npz, load_tree
@@ -384,3 +386,36 @@ def test_parse_timbre_map(tmp_path):
     spec = tmp_path / "t.json"
     spec.write_text(json.dumps({"w2": "/c.wav"}))
     assert tts_with_rag.parse_timbre_map(str(spec)) == {"w2": "/c.wav"}
+
+
+def test_cli_profile_prints_the_last_request_span_tree(monkeypatch, capsys):
+    """``--profile`` registers an exit hook that prints the last request's
+    stage milliseconds and its span tree: each span's ms, self, host and
+    wait ms, counters and the decode path; then the last DB search with
+    its counters."""
+    hooks = []
+    monkeypatch.setattr(tcommon.atexit, "register", lambda fn, *a: hooks.append((fn, a)))
+    p = argparse.ArgumentParser()
+    add_common_args(p)
+    eng = build_engine(p.parse_args(["--tiny", "--profile"] + CPU))
+    t = np.arange(SR) / SR
+    wav = (0.4 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    store = StyleStore(dim=4, capacity=8, device="cpu")
+    store.insert(np.eye(4, dtype=np.float32), [{"file_id": str(i)} for i in range(4)])
+    store.search(np.eye(4, dtype=np.float32)[:3], k=2)
+    next(eng.inference_zero_shot("hello there", "", wav, max_seconds=1))
+    (fn, args), = hooks
+    fn(*args)
+    out = capsys.readouterr().out
+    out, search = out.split("-- last DB search (ms) --\n")
+    assert search.splitlines()[1].split()[0] == "db_search"
+    assert "rows=8 k=2 queries=3" in search.splitlines()[1]
+    timings, tree = out.split("-- last request's spans (ms) --\n")
+    assert json.loads(timings.strip().splitlines()[-1]) == eng.last_timings
+    rows = tree.strip().splitlines()
+    assert rows[0].split() == ["span", "ms", "self", "host", "wait"]
+    names = [r.split()[0] for r in rows[1:]]
+    assert names == ["request", "featurize", "prefill", "decode", "cfm", "cfm.cond", "cfm.solve", "vocoder"]
+    decode = rows[1 + names.index("decode")]
+    assert f"steps={eng.last_decode_steps}" in decode and "path=scanned" in decode and "token_reads=" in decode
+    assert all(len(r.split()) >= 5 for r in rows[1:])

@@ -248,6 +248,16 @@ def test_sft_step_dp2_tp2_matches_unsharded_and_jax(four):
             np.testing.assert_allclose(r["sft_lora"]["layers"][name], want.numpy(), atol=1e-5, err_msg=name)
 
 
+def test_engine_collectives_count_on_their_spans(four):
+    """dp 4: featurize and the vocoder gather the batch's rows over the
+    data group (the rows' widths, then the rows); each collective counts
+    on the innermost span open around it, with its host milliseconds."""
+    for r in four["got"]:
+        counted = {name: (n, ms) for name, n, ms in r["engine_collectives"] if n}
+        assert set(counted) == {"featurize", "vocoder"}, counted
+        assert all(n == 2 and ms > 0 for n, ms in counted.values()), counted
+
+
 def test_shard_then_gather_is_bitwise(four):
     assert all(r["round_trip"] for r in four["got"])
 

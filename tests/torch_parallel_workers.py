@@ -35,9 +35,13 @@ def _tensors(*arrays):
 
 
 def _engine_batch(case, mesh):
+    """The mesh engine's batch -> (wavs, the data axis, each span of its
+    trace as (name, collectives, collective_ms))."""
     cfg = tiny_config()
     eng = Engine(cfg, seed=case["seed"], device="cpu", mesh=mesh)
-    return eng.synthesize_batch(case["texts"], case["styles"], case["sty"], case["tim"]), eng.dp
+    wavs = eng.synthesize_batch(case["texts"], case["styles"], case["sty"], case["tim"])
+    coll = [(s.name, s.counters.get("collectives", 0), s.counters.get("collective_ms", 0.0)) for s in eng.last_trace]
+    return wavs, eng.dp, coll
 
 
 def eight_ranks(emb, gen, flow, eng):
@@ -76,7 +80,7 @@ def eight_ranks(emb, gen, flow, eng):
                              torch.zeros((n, F)), torch.ones((n, F)), use_cfg=True, noise=noise[rows])
         out["cfm"] = comm.gather_rows(mel).numpy()
 
-    out["engine"], out["engine_dp"] = _engine_batch(eng, make_mesh(2, 4, device="cpu"))
+    out["engine"], out["engine_dp"], _ = _engine_batch(eng, make_mesh(2, 4, device="cpu"))
     return out
 
 
@@ -86,8 +90,8 @@ def four_ranks(eng, ragged, sft, tmp):
     gather_params, the dcp checkpoint saved at tp 2 and restored at tp 1,
     tp 2 and tp 4."""
     out = {}
-    out["engine"], out["engine_dp"] = _engine_batch(eng, make_mesh(4, 1, device="cpu"))
-    out["ragged"], _ = _engine_batch(ragged, make_mesh(4, 1, device="cpu"))
+    out["engine"], out["engine_dp"], out["engine_collectives"] = _engine_batch(eng, make_mesh(4, 1, device="cpu"))
+    out["ragged"], _, _ = _engine_batch(ragged, make_mesh(4, 1, device="cpu"))
 
     mesh = make_mesh(2, 2, device="cpu")
     cfg, tcfg = TransformerConfig(**sft["cfg"]), TrainConfig(**sft["tcfg"])
