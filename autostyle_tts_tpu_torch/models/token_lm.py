@@ -17,7 +17,8 @@ audio while the LM goes on; ``generate_speech`` runs it to its end. The
 scanned decode (any B, GQA, dense or int8 weights, a bf16 or int8 KV
 cache, any sampler) runs the transformer core one token a step for every
 row and reads the step's tokens to the host to stop once every row has
-emitted EOS. With a dict of ``mega_decode_params`` (B=1) it is one
+emitted EOS; on a card its step (``ScanStep``) is a CUDA graph, captured
+once per shape and set of weights and replayed once a step. With a dict of ``mega_decode_params`` (B=1) it is one
 decode-step op per token, which samples in its kernel, and one host read of
 the token for the EOS check. With a list of ``unstack_decode_params`` it is
 an attention and an MLP half-layer per layer and token (one op each, on a
@@ -36,7 +37,8 @@ tokens are those the whole batch draws on one device.
 
 from __future__ import annotations
 
-from typing import Dict, Generator, List, NamedTuple, Optional, Tuple, Union
+import weakref
+from typing import Callable, Dict, Generator, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -44,6 +46,7 @@ from ..ops.attention import apply_rope, causal_mask, quantize_kv, rope_inv_freq,
 from ..ops.decode_step import (WEIGHT_KEYS, decode_scratch, half_layer_scratch, layers_planned,
                                mega_decode_step, pack4, plan_half_layers, weight_bits)
 from ..ops.sampling import SamplerConfig, sample, transform_logits
+from ..parallel import comm
 from ..utils.config import TokenLMConfig, TransformerConfig
 from ..utils.device import upload
 from ..utils.timing import Stopwatch
@@ -323,7 +326,10 @@ def start_decode(
     reads its tokens through ``clock`` (``token_reads``, waits of the span)
     and counts its ``steps`` there, with the decode path it takes (attribute
     ``path``: ``int8`` / ``int4`` for the decode step, ``layers``,
-    ``scanned``; ``kv_int8``).
+    ``scanned``; ``kv_int8``). The scanned decode also sets ``graph``
+    (whether its step is a kept CUDA graph: on a card with a model axis of
+    1, ``graph_step``) and counts ``graph_replays`` and ``graph_captures``;
+    the prefill of such a loop writes into the kept step's cache.
     ``rows`` (start, total): the prefix holds rows start.. of a batch of
     ``total``, whose sampling noise the scanned decode draws whole."""
     ccfg = core_config(cfg)
@@ -338,8 +344,14 @@ def start_decode(
     clock = clock or Stopwatch(dev)
     S_max = -(-(P + max_new_tokens + 1) // 8) * 8
     with clock.span("prefill"):
-        cache = core.make_cache(ccfg, B, S_max, dev, quantized=kv_int8 and not kernels,
-                                n_kv_heads=core.local_heads(params, ccfg)[1])
+        n_kv = core.local_heads(params, ccfg)[1]
+        step = None
+        if not kernels and graph_step_fits(dev):
+            step = graph_step(params, cfg, ccfg, B, S_max, kv_int8, n_kv, dev)
+        if step is not None:
+            cache = step.cache
+        else:
+            cache = core.make_cache(ccfg, B, S_max, dev, quantized=kv_int8 and not kernels, n_kv_heads=n_kv)
         offset = (P - prefix.length).to(torch.int32)
         pos = torch.clamp(torch.arange(P, device=dev)[None, :] - offset[:, None], min=0)
         hidden = core.forward(params, ccfg, inputs_embeds=prefix.embeds, positions=pos,
@@ -349,7 +361,10 @@ def start_decode(
         clock.wait()
     kw = dict(P=P, max_new_tokens=max_new_tokens, sampler=sampler, min_tokens=min_tokens, clock=clock)
     if not kernels:
-        return _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, rows=rows, **kw)
+        step = step or ScanStep(params, cfg, ccfg, cache)
+        loop = _decode_scan(step, cfg, next_logits, generator, offset, rows=rows, **kw)
+        step.hold(loop)
+        return loop
     if rows is not None:
         raise ValueError("the decode kernels serve a whole batch of one; rows are the scanned decode's")
     L = ccfg.n_layers
@@ -407,51 +422,226 @@ def generate_speech(
     return gen
 
 
-def _decode_scan(params, cfg, ccfg, cache, next_logits, generator, offset, *, P,
+def _decode_scan(step: "ScanStep", cfg, next_logits, generator, offset, *, P,
                  max_new_tokens, sampler, min_tokens, clock, rows=None) -> DecodeLoop:
     """The reference's scanned decode, one host iteration a step: sample
     token i of every row from the previous logits (rows already done emit
     pad), yield the row's tokens (the one device read of the step), then
-    run the core on them at cache slot P + i under the mask of the row's
-    valid slots, and take the head's f32 logits. The loop ends after
-    ``max_new_tokens`` steps or once every row is done; ``decode_steps``
-    counts the core's runs. ``rows``: see ``start_decode``."""
+    run ``step`` on them at cache slot P + i (``ScanStep``: the core under
+    the mask of the row's valid slots and the head's f32 logits). The loop
+    ends after ``max_new_tokens`` steps or once every row is done;
+    ``decode_steps`` counts the core's runs. ``rows``: see ``start_decode``.
+    The sampler, its random stream and the early stop stay on the host's
+    side of the step. Once ``step`` has its CUDA graph, the replay for
+    token i is enqueued before token i is read (the read waits for the
+    draw only), so the card runs the step while the host reads, yields
+    and draws; a loop that stops on EOS leaves that last replay unread and
+    uncounted."""
     B = next_logits.shape[0]
     draw_rows = None if rows is None else (rows[0], rows[0] + B, rows[1])
     dev = next_logits.device
     eos, padt = cfg.speech_eos, cfg.speech_pad
-    S_max = cache["k"].shape[2]
-    slot = torch.arange(S_max, device=dev)
-    valid = slot[None, :] >= offset.long()[:, None]
     toks = torch.full((B, max_new_tokens), padt, dtype=torch.int32, device=dev)
     gen_len = torch.zeros((B,), dtype=torch.int32, device=dev)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    head, emb = params["speech_head"], params["speech_emb"]
+    step.offset.copy_(offset)
     cur = next_logits
     steps = 0
-    clock.count("steps", 0, dict(path="scanned", kv_int8="k_scale" in cache))
-    for i in range(max_new_tokens):
-        masked = _mask_logits(cur, cfg, i < min_tokens)
-        tok = sample(masked, sampler, generator) if draw_rows is None else sample(masked, sampler, generator,
-                                                                                 rows=draw_rows)
-        tok = torch.where(done, torch.full_like(tok, padt), tok)
-        is_eos = tok == eos
-        gen_len += (~done & ~is_eos).to(torch.int32)
-        done |= is_eos
-        toks[:, i] = tok
-        drawn = clock.read(tok.tolist, "token_reads")
-        yield drawn
-        # a row that is not done draws neither pad nor, unless it ends, EOS
-        if all(t in (eos, padt) for t in drawn):
-            break
-        mask = (valid & (slot[None, :] <= P + i))[:, None, None, :]
-        hidden = core.forward(params, ccfg, inputs_embeds=core.embed(emb, tok, cfg.speech_vocab_size)[:, None, :],
-                              positions=(P + i - offset.long())[:, None], mask=mask,
-                              cache=cache, cache_start=P + i)
-        cur = core.head_logits(hidden[:, 0], head, cfg.speech_vocab_size)
-        steps += 1
-        clock.count("steps")
+    clock.count("steps", 0, dict(path="scanned", kv_int8="k_scale" in step.cache, graph=step.capturable))
+    clock.count("graph_replays", 0)
+    clock.count("graph_captures", 0)
+    try:
+        for i in range(max_new_tokens):
+            masked = _mask_logits(cur, cfg, i < min_tokens)
+            tok = sample(masked, sampler, generator) if draw_rows is None else sample(masked, sampler, generator,
+                                                                                     rows=draw_rows)
+            tok = torch.where(done, torch.full_like(tok, padt), tok)
+            is_eos = tok == eos
+            gen_len += (~done & ~is_eos).to(torch.int32)
+            done |= is_eos
+            toks[:, i] = tok
+            ahead = step.graph is not None
+            if ahead:
+                drawn = clock.read(step.replay_ahead(tok, P + i), "token_reads")
+                cur = step.out
+            else:
+                drawn = clock.read(tok.tolist, "token_reads")
+            yield drawn
+            # a row that is not done draws neither pad nor, unless it ends, EOS
+            if all(t in (eos, padt) for t in drawn):
+                break
+            if ahead:
+                clock.count("graph_replays")
+            else:
+                step.set_inputs(tok, P + i)
+                if step.capturable:
+                    cur = step.capture()
+                    clock.count("graph_captures")
+                else:
+                    cur = step.forward()
+            steps += 1
+            clock.count("steps")
+    finally:
+        step.release()
     return SpeechGen(tokens=toks, lengths=gen_len, decode_steps=steps)
+
+
+# ----------------------------------------------------------------------- the scanned step
+
+
+MAX_KEPT_STEPS = 8     # captured scanned steps kept; a new shape drops the oldest idle one
+GRAPH_SLOTS = 512      # a captured step's cache length is a multiple of this: fewer shapes, fewer captures
+
+
+class ScanStep:
+    """The model part of one scanned decode step, over buffers that keep
+    their addresses: the speech embedding of ``tok`` [B], the core with
+    every row's new key and value at cache slot ``at`` [B] (RoPE position
+    ``at - offset``, attention over the row's slots ``offset .. at``), and
+    the speech head's f32 logits. The loop writes ``tok`` and ``at`` before
+    each step and ``offset`` once. ``forward()`` runs it eagerly; a
+    ``capturable`` step (``graph_step``) runs it once eagerly and records it
+    as a CUDA graph (``capture()``), after which ``replay_ahead`` runs it
+    and leaves the logits in ``out``. Slots past ``at`` may hold an
+    earlier loop's keys: their attention weight is exactly 0."""
+
+    def __init__(self, params: Params, cfg: TokenLMConfig, ccfg: TransformerConfig,
+                 cache: Dict[str, torch.Tensor], capturable: bool = False, key: tuple = ()):
+        B, S = cache["k"].shape[1:3]
+        dev = cache["k"].device
+        self.params, self.cfg, self.ccfg, self.cache = params, cfg, ccfg, cache
+        self.capturable, self.key = capturable, key
+        self.tok = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.at = torch.zeros((B,), dtype=torch.long, device=dev)
+        self.offset = torch.zeros((B,), dtype=torch.long, device=dev)
+        self.slot = torch.arange(S, device=dev)
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.out: Optional[torch.Tensor] = None
+        self.host_tok: Optional[torch.Tensor] = None          # pinned: where a replay's tokens are read
+        self.copied: Optional["torch.cuda.Event"] = None
+        self._owner: Optional[weakref.ref] = None
+
+    def set_inputs(self, tok: torch.Tensor, at: int) -> None:
+        self.tok.copy_(tok)
+        self.at.fill_(at)
+
+    def replay_ahead(self, tok: torch.Tensor, at: int) -> Callable[[], List[int]]:
+        """Enqueue ``tok``'s copy to the host, then the graph's replay on
+        it at slot ``at`` (logits in ``out``); returns the read of ``tok``,
+        which waits for the copy and not for the replay."""
+        self.host_tok.copy_(tok, non_blocking=True)
+        self.copied.record()
+        self.set_inputs(tok, at)
+        self.graph.replay()
+
+        def fetch() -> List[int]:
+            self.copied.synchronize()
+            return self.host_tok.tolist()
+        return fetch
+
+    def forward(self) -> torch.Tensor:
+        """The step, eagerly: the f32 logits [B, V] of the tokens in ``tok``."""
+        cfg, p = self.cfg, self.params
+        mask = ((self.slot[None, :] >= self.offset[:, None]) & (self.slot[None, :] <= self.at[:, None]))
+        with torch.no_grad():
+            hidden = core.forward(p, self.ccfg,
+                                  inputs_embeds=core.embed(p["speech_emb"], self.tok, cfg.speech_vocab_size)[:, None, :],
+                                  positions=(self.at - self.offset)[:, None], mask=mask[:, None, None, :],
+                                  cache=self.cache, cache_start=self.at)
+            return core.head_logits(hidden[:, 0], p["speech_head"], cfg.speech_vocab_size)
+
+    def capture(self) -> torch.Tensor:
+        """Run the step eagerly (its logits are returned), then record it as
+        ``graph`` on a side stream (recording runs nothing)."""
+        dev = self.slot.device
+        cur = torch.cuda.current_stream(dev)
+        side = _CAPTURE_STREAMS.get(str(dev))
+        if side is None:
+            side = _CAPTURE_STREAMS[str(dev)] = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            logits = self.forward()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.out = self.forward()
+            finally:
+                graph.capture_end()
+        cur.wait_stream(side)
+        logits.record_stream(cur)
+        self.host_tok = torch.empty(self.tok.shape, dtype=self.tok.dtype, pin_memory=True)
+        self.copied = torch.cuda.Event()
+        self.graph = graph
+        return logits
+
+    def hold(self, loop: DecodeLoop) -> None:
+        """Mark the step as ``loop``'s until the loop ends or is dropped."""
+        self._owner = weakref.ref(loop)
+
+    def release(self) -> None:
+        self._owner = None
+
+    @property
+    def idle(self) -> bool:
+        return self._owner is None or self._owner() is None
+
+
+_KEPT_STEPS: List[ScanStep] = []     # oldest first
+_CAPTURE_STREAMS: Dict[str, "torch.cuda.Stream"] = {}    # one side stream a card records every graph on
+
+
+def graph_step_fits(dev: torch.device) -> bool:
+    """Whether the scanned step can be a CUDA graph here: on a card, with
+    no collective inside the step (a model axis of 1; a data axis only
+    touches the sampler, which stays outside the graph)."""
+    return dev.type == "cuda" and comm.model_size() == 1
+
+
+def _weights_key(params: Params) -> tuple:
+    """Where every tensor of ``params`` lies (address, shape, strides,
+    dtype): a graph reads the weights at the addresses it was recorded with."""
+    out: list = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            out.append((x.data_ptr(), tuple(x.shape), x.stride(), x.dtype))
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                out.append(k)
+                walk(x[k])
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+
+    walk(params)
+    return tuple(out)
+
+
+def graph_step(params: Params, cfg: TokenLMConfig, ccfg: TransformerConfig, B: int, S_max: int,
+               kv_int8: bool, n_kv: int, dev: torch.device) -> Optional[ScanStep]:
+    """An idle captured step for (B, S_max rounded up to ``GRAPH_SLOTS``,
+    the cache's dtype, the weights' addresses, the configs), kept across
+    loops: the one kept if there is one, else a new one with a zeroed
+    cache (captured at its first step), dropping the oldest idle step when
+    ``MAX_KEPT_STEPS`` are kept. None when every kept step is held by a live
+    loop: the caller takes the eager step."""
+    S = -(-S_max // GRAPH_SLOTS) * GRAPH_SLOTS
+    key = (B, S, bool(kv_int8), n_kv, dev, ccfg, cfg.speech_vocab_size, _weights_key(params))
+    for step in _KEPT_STEPS:
+        if step.key == key and step.idle:
+            _KEPT_STEPS.remove(step)
+            _KEPT_STEPS.append(step)
+            step.params = params
+            return step
+    if len(_KEPT_STEPS) >= MAX_KEPT_STEPS:
+        idle = [s for s in _KEPT_STEPS if s.idle]
+        if not idle:
+            return None
+        _KEPT_STEPS.remove(idle[0])
+    cache = core.make_cache(ccfg, B, S, dev, quantized=kv_int8, n_kv_heads=n_kv)
+    step = ScanStep(params, cfg, ccfg, cache, capturable=True, key=key)
+    _KEPT_STEPS.append(step)
+    return step
 
 
 def _from_list(toks: List[int], cfg: TokenLMConfig, max_new_tokens: int, dev, steps: int) -> SpeechGen:

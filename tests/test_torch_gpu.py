@@ -13,7 +13,10 @@ two layers, and the same greedy and sampled token (int8 and int4); one
 half-layer's residual within 2e-2 of max(|h|, 1); the fused log-mel within
 1e-3 in log units of the three-matmul version (split-TF32 products at f32
 level, sums in another order), bit for bit the same from one call to the next;
-the scanned decode's greedy tokens equal to the CPU run's; the transposed
+the scanned decode's greedy tokens equal to the CPU run's; its captured
+step's replays the eager step's tokens and logits within 1e-5 of their
+largest value at flagship widths (int8, the int4 engine's int8 views and
+packed int4), two interleaved loops each their own run's; the transposed
 conv within 1e-4 of the CPU's (cuDNN, TF32 off); a streamed request's
 tokens equal to the same request's unstreamed, through the decode kernel;
 a continuous batch's admission prefill (B=4 at T=384, per-row offsets)
@@ -718,6 +721,103 @@ def test_scanned_decode_on_card_matches_cpu(cuda, quant, kv_int8, kv_heads):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def _flagship_lm(cuda, weights: str):
+    """The token LM at its flagship widths (1024 x 14, FFN 4096, 4,099
+    speech tokens), random at fan-in scale: ``int8`` as the int8 engine
+    serves it, ``int4-engine`` as the int4 engine's batches read it (views
+    of the decode step's int8 copy), ``int4-packed`` every projection as
+    packed int4."""
+    from autostyle_tts_tpu_torch.pipeline.engine import _prepare_lm
+    from autostyle_tts_tpu_torch.utils.config import TokenLMConfig
+
+    cfg = TokenLMConfig()
+    lm = token_lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(11))
+    if weights == "int4-packed":
+        return quantize_tree(lm, bits=4), cfg
+    ecfg = tiny_config()
+    ecfg.token_lm, ecfg.quantize_lm_int8, ecfg.quantize_lm_int4 = cfg, True, weights == "int4-engine"
+    return _prepare_lm(lm, ecfg)[0], cfg
+
+
+def _batch_inputs(cuda, cfg, B, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randint(16, 200, (B, 96), generator=g, device=cuda, dtype=torch.int32),
+            torch.randint(20, 97, (B,), generator=g, device=cuda),
+            torch.randint(0, 4096, (B, 64), generator=g, device=cuda, dtype=torch.int32),
+            torch.randint(10, 65, (B,), generator=g, device=cuda),
+            torch.randn((B, cfg.spk_dim), generator=g, device=cuda))
+
+
+def _scanned(lm, cfg, inputs, seed, monkeypatch, cuda, eager=False, steps=64):
+    """(SpeechGen, each step's logits, the decode span) of a scanned decode
+    on fresh kept steps: through the captured step, or with ``eager`` the
+    same step run eagerly at every step (its capture never made)."""
+    from autostyle_tts_tpu_torch.utils.timing import Stopwatch
+
+    seen = []
+    mask = token_lm._mask_logits
+    with monkeypatch.context() as m:
+        m.setattr(token_lm, "_KEPT_STEPS", [])
+        m.setattr(token_lm, "_mask_logits", lambda logits, *a: seen.append(logits.clone()) or mask(logits, *a))
+        if eager:
+            m.setattr(token_lm.ScanStep, "capture", lambda self: self.forward())
+        clock = Stopwatch(cuda)
+        with clock.open("request"):
+            gen = token_lm.generate_speech_from_ids(lm, cfg, *inputs, torch.Generator(device=cuda).manual_seed(seed),
+                                                    max_new_tokens=steps, kv_int8=True, min_tokens=steps, clock=clock)
+    return gen, seen, [s for s in clock.spans if s.name == "decode"][0]
+
+
+@pytest.mark.parametrize("weights", ["int8", "int4-engine", "int4-packed"])
+def test_scanned_graph_matches_eager_step_at_flagship_widths(cuda, weights, monkeypatch):
+    """B=8, int8 KV cache, 64 steps from one seed: the captured step's
+    replays give the eager step's tokens, and logits within 1e-5 of their
+    largest |value| at every step; the decode span counts one capture and
+    a replay for every other step."""
+    lm, cfg = _flagship_lm(cuda, weights)
+    inputs = _batch_inputs(cuda, cfg, 8, 5)
+    want, want_logits, eager = _scanned(lm, cfg, inputs, 9, monkeypatch, cuda, eager=True)
+    got, got_logits, span = _scanned(lm, cfg, inputs, 9, monkeypatch, cuda)
+    assert torch.equal(got.tokens, want.tokens) and torch.equal(got.lengths, want.lengths)
+    assert got.decode_steps == want.decode_steps == 64
+    assert len(got_logits) == len(want_logits) == 64
+    for i, (a, b) in enumerate(zip(got_logits, want_logits)):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item(), i
+    assert span.attrs["graph"] and eager.attrs["graph"]
+    assert span.counters["graph_captures"] == 1 and span.counters["graph_replays"] == 63
+
+
+def test_interleaved_scanned_loops_on_card_keep_their_own_steps(cuda, monkeypatch):
+    """Two live loops of one shape, advanced in turns, hold two kept steps
+    and give each the tokens it gives alone; a fresh step's cache starts
+    zeroed (finite scales) and stays finite."""
+    lm, cfg = _flagship_lm(cuda, "int8")
+    ins = [_batch_inputs(cuda, cfg, 8, s) for s in (21, 22)]
+    monkeypatch.setattr(token_lm, "_KEPT_STEPS", [])
+    fresh = token_lm.graph_step(lm, cfg, token_lm.core_config(cfg), 8, 600, True, cfg.n_kv_heads, cuda)
+    assert all(bool(torch.isfinite(t.float()).all()) and not bool(t.any()) for t in fresh.cache.values())
+    token_lm._KEPT_STEPS.clear()
+    kw = dict(max_new_tokens=48, kv_int8=True, min_tokens=48)
+    alone = [token_lm.generate_speech_from_ids(lm, cfg, *x, torch.Generator(device=cuda).manual_seed(s), **kw)
+             for x, s in zip(ins, (1, 2))]
+    loops = []
+    for x, s in zip(ins, (1, 2)):
+        pre = token_lm.pad_prefix(token_lm.build_prefix(lm, cfg, *x))
+        loops.append(token_lm.start_decode(lm, cfg, pre, torch.Generator(device=cuda).manual_seed(s), **kw))
+    held = [s for s in token_lm._KEPT_STEPS if not s.idle]
+    assert len(held) == 2 and held[0] is not held[1]
+    gens = [None, None]
+    while None in gens:
+        for j, loop in enumerate(loops):
+            if gens[j] is None:
+                _, gens[j] = token_lm.take(loop, 1)
+    for g, a in zip(gens, alone):
+        assert torch.equal(g.tokens, a.tokens) and g.decode_steps == a.decode_steps
+    for step in token_lm._KEPT_STEPS:
+        assert step.idle and step.graph is not None
+        assert all(bool(torch.isfinite(step.cache[n]).all()) for n in ("k_scale", "v_scale"))
 
 
 @pytest.mark.parametrize("kernel,stride", [(10, 5), (8, 4), (6, 3), (4, 2)])

@@ -258,6 +258,16 @@ def test_engine_collectives_count_on_their_spans(four):
         assert all(n == 2 and ms > 0 for n, ms in counted.values()), counted
 
 
+def test_scanned_decode_keeps_the_eager_step_on_a_model_axis(four):
+    """dp 2 x tp 2: the scanned decode's span says its step ran eagerly
+    (``graph`` false, no replay, no capture), as it does on a model axis
+    anywhere: the step's collectives cannot be captured."""
+    for r in four["got"]:
+        attrs, counters = r["tp2_decode"]
+        assert attrs["path"] == "scanned" and attrs["graph"] is False
+        assert counters["steps"] > 0 and counters["graph_replays"] == counters["graph_captures"] == 0
+
+
 def test_shard_then_gather_is_bitwise(four):
     assert all(r["round_trip"] for r in four["got"])
 

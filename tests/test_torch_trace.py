@@ -127,7 +127,8 @@ def test_batch_span_tree(drawn):
     dec = names["decode"]
     assert dec.counters["steps"] == eng.last_decode_steps > 0
     assert dec.counters["token_reads"] == len(drawn) and all(len(d) == 2 for d in drawn)
-    assert dec.attrs == {"path": "scanned", "kv_int8": True}
+    assert dec.attrs == {"path": "scanned", "kv_int8": True, "graph": False}
+    assert dec.counters["graph_replays"] == dec.counters["graph_captures"] == 0
     # the request holds its phases' waits and its own read, the LM's seed
     req = names["request"]
     assert req.wait_ms >= sum(names[p].wait_ms for p in PHASES | {"featurize"})
@@ -152,7 +153,8 @@ def test_decode_path_attribute(path, drawn):
                                                 decode_params=decode_params, kv_int8=path == "scanned", clock=clock)
     dec = [s for s in clock.spans if s.name == "decode"]
     assert len(dec) == 1
-    assert dec[0].attrs == {"path": path, "kv_int8": path == "scanned"}
+    want = {"path": path, "kv_int8": path == "scanned"}
+    assert dec[0].attrs == (dict(want, graph=False) if path == "scanned" else want)
     assert dec[0].counters["steps"] == gen.decode_steps > 0
     assert dec[0].counters["token_reads"] == len(drawn)
 

@@ -44,6 +44,14 @@ def _engine_batch(case, mesh):
     return wavs, eng.dp, coll
 
 
+def _decode_span(case, mesh):
+    """(attributes, counters) of the decode span of the mesh engine's batch."""
+    eng = Engine(tiny_config(), seed=case["seed"], device="cpu", mesh=mesh)
+    eng.synthesize_batch(case["texts"], case["styles"], case["sty"], case["tim"])
+    dec = [s for s in eng.last_trace if s.name == "decode"][0]
+    return dict(dec.attrs), dict(dec.counters)
+
+
 def eight_ranks(emb, gen, flow, eng):
     """The 8-rank contracts of ``tests/test_multichip.py``: the TP embed at
     dp 2 x tp 4, the greedy generate at dp 8, the CFM sample at dp 4 x tp
@@ -86,12 +94,13 @@ def eight_ranks(emb, gen, flow, eng):
 
 def four_ranks(eng, ragged, sft, tmp):
     """The 4-rank contracts: the engine at dp 4, a ragged batch of 3 at dp
-    4, the SFT step at dp 2 x tp 2 (loss, updated LoRA), shard_params ->
-    gather_params, the dcp checkpoint saved at tp 2 and restored at tp 1,
-    tp 2 and tp 4."""
+    4, the decode span of a batch at dp 2 x tp 2, the SFT step at dp 2 x
+    tp 2 (loss, updated LoRA), shard_params -> gather_params, the dcp
+    checkpoint saved at tp 2 and restored at tp 1, tp 2 and tp 4."""
     out = {}
     out["engine"], out["engine_dp"], out["engine_collectives"] = _engine_batch(eng, make_mesh(4, 1, device="cpu"))
     out["ragged"], _, _ = _engine_batch(ragged, make_mesh(4, 1, device="cpu"))
+    out["tp2_decode"] = _decode_span(ragged, make_mesh(2, 2, device="cpu"))
 
     mesh = make_mesh(2, 2, device="cpu")
     cfg, tcfg = TransformerConfig(**sft["cfg"]), TrainConfig(**sft["tcfg"])
