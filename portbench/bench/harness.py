@@ -1,5 +1,7 @@
-"""One run of one cell: set-up, warm-up, the window, the metrics, then the
-correctness check once the program's state is freed."""
+"""One run of one cell: the program's set-up and warm-up, the window, the
+metrics, then the correctness check once the program's state is freed.
+The program (``programs/<kind>.py``) and the loop (``loops/<kind>.py``)
+are found by the configuration's and the mix's names for them."""
 
 from __future__ import annotations
 
@@ -8,38 +10,27 @@ import sys
 import time
 from typing import Dict
 
+import numpy as np
 import torch
 
-from . import check, host
+from . import host
 from .readers import reader
-from .serve import Session
+from .spec import loop_of, program_of
 from .window import measure
-
-FORBIDDEN = {"jax", "jaxlib", "flax", "autostyle_tts_tpu", "chip_smoke", "benchmarks"}
-
-
-def forbidden_modules() -> list:
-    """Top-level names (before the first dot, compared whole) of loaded
-    modules that no run may hold: JAX, the JAX package, the old benchmark."""
-    return sorted({m.split(".")[0] for m in list(sys.modules)} & FORBIDDEN)
 
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, t_process: float, device="cuda") -> Dict:
     dev = torch.device(device)
     on_card = dev.type == "cuda"
+    program = program_of(cell.cfg)
     t0 = time.perf_counter()
     split = {"start": t0 - t_process}        # imports, argument parsing
     if on_card:
-        from autostyle_tts_tpu_torch.ops import cuda_build
-
         torch.empty(0, device=dev)
         torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        split["cuda_context"] = t1 - t0
-        built = cuda_build.build()           # all the port's kernels at once: nvcc only where a library is missing
-        split["kernel_builds"] = time.perf_counter() - t1
-        split["compiled"] = sorted(built)
-    sess = Session(cell.cfg, cell.mix, seed, dev)
+        split["cuda_context"] = time.perf_counter() - t0
+    split.update(program.prepare(dev))
+    sess = program.Session(cell.cfg, cell.mix, seed, dev)
     split.update(sess.setup_times)
     t2 = time.perf_counter()
     sess.warm_up()
@@ -52,6 +43,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, t_process: float, dev
     else:
         run = measure(sess, seconds, t_process, trace=False)
     gc.unfreeze()
+    run.program = program
     run.host["gpu"] = host.gpu_state() if on_card else {}     # the card's clocks as the window closed
     if on_card:
         torch.cuda.synchronize()
@@ -61,33 +53,29 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, t_process: float, dev
         v = reader(m["name"])(run)
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
-    path = check.decode_path(sess)
+    args = program.reference_args(sess)
     sess.close()
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    ref = check.Reference(cell.cfg, seed, dev, **path)
-    nums = check.numbers(sess, run, ref)
-    limits = cell.limits()
-    compared = check.compare(nums, limits)
-    rows = [r for r in run.records if not r.get("failed")]
-    targets = [t for r in rows for t in (r["targets"] if "targets" in r else [r["target"]])]
-    lens = [g for r in rows for g in (r["gen_lens"] if "gen_lens" in r else [r["gen_len"]])]
-    early = sum(1 for g, t in zip(lens, targets) if g < t)
-    attempted = len(targets) + len(run.failures) * cell.mix["batch"]
-    print(f"portbench: {cell.name} seed {seed}: {attempted} requests, {len(run.failures)} failed, "
-          f"{early} drew EOS before their target ({100.0 * early / max(len(lens), 1):.1f}%), "
+    ref = program.Reference(cell.cfg, seed, dev, **args)
+    nums = program.numbers(sess, run, ref)
+    compared = compare(nums, cell.limits())
+    attempted, failed = loop_of(cell.mix).tally(run)
+    print(f"portbench: {cell.name} seed {seed}: {attempted} requests, {failed} failed, "
           f"window {run.window_s:.3f} s, setup {run.setup_s:.3f} s", file=sys.stderr)
+    for line in getattr(program, "describe", lambda r: [])(run):
+        print(f"portbench: {line}", file=sys.stderr)
     split = {k: (round(v, 4) if isinstance(v, float) else v) for k, v in split.items()}
     print(f"portbench: setup split (s): {split}", file=sys.stderr)
     print(f"portbench: host over the window: {run.host}", file=sys.stderr)
-    print(f"portbench: decode-step launches in the window by width: {run.launches}", file=sys.stderr)
+    print(f"portbench: program counters over the window: {run.counters}", file=sys.stderr)
     for f in run.failures[:5]:
         print(f"portbench: failed: {f}", file=sys.stderr)
     result = {
-        "correct": bool(check.passed(compared) and not run.failures),
+        "correct": bool(passed(compared) and not run.failures),
         "attempted": attempted,
-        "failed": len(run.failures) * cell.mix["batch"],
+        "failed": failed,
         "metrics": metrics,
         "device": {"platform": "gpu" if on_card else "cpu",
                    "kind": torch.cuda.get_device_name(dev) if on_card else "cpu",
@@ -103,6 +91,18 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, t_process: float, dev
     result["_nums"] = nums
     result["_session"] = sess
     return result
+
+
+def compare(nums: Dict[str, float], limits: Dict[str, float]) -> Dict[str, Dict]:
+    """Each number beside its limit; a number without a limit, or a
+    limit without its number, fails."""
+    names = sorted(set(nums) | set(limits))
+    return {n: {"value": nums.get(n), "limit": limits.get(n)} for n in names}
+
+
+def passed(compared: Dict[str, Dict]) -> bool:
+    return all(v["value"] is not None and v["limit"] is not None and np.isfinite(v["value"])
+               and v["value"] <= v["limit"] for v in compared.values())
 
 
 def public(result: Dict) -> Dict:

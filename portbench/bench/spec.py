@@ -1,19 +1,40 @@
 """``BENCHMARK.json`` and the files it names: a cell's configuration, its
-traffic mix, its metrics and its limits, each found by name."""
+traffic mix, its metrics and its limits, each found by name; and the
+program a configuration drives and the loop a mix runs, each found by file
+(``programs/<kind>.py``, ``loops/<kind>.py``)."""
 
 from __future__ import annotations
 
+import importlib
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
+DEFAULT_PROGRAM = "tts"
 
 
 def load_json(path: Path) -> Dict:
     with open(path, encoding="utf-8") as f:
         return json.load(f)
+
+
+def _module(folder: str, kind: str) -> ModuleType:
+    if not kind.isidentifier() or not (BENCH_DIR / folder / f"{kind}.py").exists():
+        raise SystemExit(f"portbench: no {folder}/{kind}.py")
+    return importlib.import_module(f"{BENCH_DIR.name}.{folder}.{kind}")
+
+
+def program_of(cfg: Dict) -> ModuleType:
+    """The program module a configuration file names (``"program"``)."""
+    return _module("programs", cfg.get("program", DEFAULT_PROGRAM))
+
+
+def loop_of(mix: Dict) -> ModuleType:
+    """The loop module a traffic mix names (``"loop"``)."""
+    return _module("loops", mix["loop"])
 
 
 class Cell:
@@ -40,10 +61,3 @@ class Cell:
     def limits(self) -> Dict[str, float]:
         path = BENCH_DIR / "limits" / f"{self.name}.json"
         return {k: float(v["limit"]) for k, v in load_json(path).items()} if path.exists() else {}
-
-
-def port_config(cfg: Dict):
-    """The port's ``Config`` of a configuration file (its other keys ignored)."""
-    from autostyle_tts_tpu_torch.utils.config import from_dict
-
-    return from_dict(cfg)

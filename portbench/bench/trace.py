@@ -4,7 +4,9 @@ CUDA activity only) reduced to what the per-layer metrics read.
 The host clock and the trace's clock are tied by a marker: a spin kernel
 launched right after a synchronize, at a known host time. Device events
 are placed on the host clock through it (to within a launch latency), so
-an idle gap can be named by the span the host was in.
+an idle gap can be named by the span the host was in. The reduction keeps
+the device events on the host clock and the traced part's spans, for
+readers that count events inside spans of a name.
 """
 
 from __future__ import annotations
@@ -80,12 +82,9 @@ class Tracer:
             where = [s for s in spans if s[1] <= mid <= s[2]]
             name = where[-1][0] if where else "host between spans"
             idle[name] = idle.get(name, 0.0) + (g1 - g0)
-        decode = [(a, b) for n, a, b in spans if n == "decode"]
-        in_decode = sum(1 for n, t, _ in ev if not n.startswith("Memcpy") and not n.startswith("Memset")
-                        and any(a <= t <= b for a, b in decode))
         return {
-            "window_s": window, "busy_s": busy, "kernel_s": by_name, "events": len(ev),
-            "kernels_in_decode": in_decode,
+            "window_s": window, "busy_s": busy, "kernel_s": by_name,
+            "events": ev, "spans": list(spans),
             "device_ops": sorted(([n, s] for n, s in by_name.items()), key=lambda x: -x[1])[:10],
             "idle_gaps": sorted(([n, s] for n, s in idle.items()), key=lambda x: -x[1])[:10],
         }

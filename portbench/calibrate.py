@@ -20,17 +20,17 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def readings(cell, seed: int, seconds: float, control: bool, device="cuda") -> dict:
-    from portbench.bench import check
     from portbench.bench.harness import run_cell
+    from portbench.bench.spec import program_of
 
     t0 = time.perf_counter()
     res = run_cell(cell, seed, seconds, False, t0, device=device)
     out = {"workload": cell.name, "seed": seed, "program": res["_nums"], "correct": res["correct"],
            "requests": res["attempted"], "seconds": time.perf_counter() - t0}
     if control:
-        path = check.decode_path(res["_session"])
-        ref = check.Reference(cell.cfg, seed, device, control=True, **path)
-        out["control"] = check.numbers(res["_session"], res["_run"], ref)
+        program = program_of(cell.cfg)
+        ref = program.Reference(cell.cfg, seed, device, control=True, **program.reference_args(res["_session"]))
+        out["control"] = program.numbers(res["_session"], res["_run"], ref)
     return out
 
 

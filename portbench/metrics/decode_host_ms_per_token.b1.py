@@ -7,4 +7,4 @@ from portbench.bench.spans import host_ms_per_step
 
 
 def read(run):
-    return host_ms_per_step(run)
+    return host_ms_per_step(run, "decode")

@@ -3,7 +3,8 @@ of each launch in the traced requests (``counts.decode_step`` at the
 launch's live keys) over the device time of ``mega_persistent_kernel``."""
 
 from portbench import counts
-from portbench.bench.readers import device_share, rows
+from portbench.bench.readers import device_share
+from portbench.programs.tts import rows
 
 BITS = 8
 

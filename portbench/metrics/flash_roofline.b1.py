@@ -3,7 +3,8 @@ prefills: one launch a layer over the real prompt rows (``counts.flash``)
 over the device time of ``flash_fwd_kernel``."""
 
 from portbench import counts
-from portbench.bench.readers import device_share, rows
+from portbench.bench.readers import device_share
+from portbench.programs.tts import rows
 
 
 def read(run):

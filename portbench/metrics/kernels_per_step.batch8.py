@@ -1,11 +1,10 @@
 """CUDA kernels launched inside the traced batches' decode spans, per
 scanned decode step (device trace)."""
 
-from portbench.bench.readers import done
+from portbench.bench.readers import done, kernels_in
 
 
 def read(run):
-    if run.trace is None:
-        return None
+    n = kernels_in(run, "decode")
     steps = sum(r["steps"] for r in done(run, traced=True))
-    return run.trace["kernels_in_decode"] / steps if steps else None
+    return n / steps if n is not None and steps else None

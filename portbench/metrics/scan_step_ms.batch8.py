@@ -5,4 +5,4 @@ from portbench.bench.readers import per_step
 
 
 def read(run):
-    return per_step(run)
+    return per_step(run, "decode")

@@ -1,34 +1,72 @@
-"""Drive one cell: set-up, warm-up, the measured window and its traced part.
+"""The ``tts`` program: the port's style-DB TTS engine
+(``autostyle_tts_tpu_torch``), the program of every configuration that
+names none (``programs/__init__.py`` lists what a program provides).
 
 The program is driven only through its public entry points:
 ``StyleStore.search``, ``Engine.prompt_features_from_store``,
-``Engine.inference_tts_with_st`` (B=1) and ``Engine.synthesize_batch``
-(batches). ``Taps`` records what the timed path produced for the check
-(the LM's tokens, a request's prompt features) without changing it.
+``Engine.inference_tts_with_st`` (B=1, whole or ``stream=True``) and
+``Engine.synthesize_batch`` (batches). ``Taps`` records what the timed
+path produced for the check (the LM's tokens, a request's prompt features)
+without changing it. Its weights are ``tts_weights``; its comparison with
+``reference/tts.py`` is ``tts_check``.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from contextlib import contextmanager
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..reference.tts import GEN_BUCKETS, TOKEN_BUCKETS, bucket
+from .. import counts
+from ..reference.tts import GEN_BUCKETS, TOKEN_BUCKETS, bucket, encode_text
 from ..traffic.generator import Traffic
-from . import weights
-from .spec import port_config
+from .tts_check import Reference, decode_path, numbers, served_tokens  # noqa: F401  the program's check
+from .tts_weights import draw, specs  # noqa: F401  the program's weights
+
+reference_args = decode_path
+
+
+def port_config(cfg: Dict):
+    """The port's ``Config`` of a configuration file (its other keys ignored)."""
+    from autostyle_tts_tpu_torch.utils.config import from_dict
+
+    return from_dict(cfg)
+
+
+def prepare(device) -> Dict:
+    """The port's CUDA kernels, all at once (nvcc only where a library is
+    missing): their seconds and the libraries compiled."""
+    if torch.device(device).type != "cuda":
+        return {}
+    from autostyle_tts_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    built = cuda_build.build()
+    return {"kernel_builds": time.perf_counter() - t0, "compiled": sorted(built)}
+
+
+def span_log() -> Optional[List]:
+    """The port's log of its finished spans, or None where it keeps none."""
+    try:
+        from autostyle_tts_tpu_torch.utils.timing import spans
+    except ImportError:
+        return None
+    return spans()
 
 
 class Taps:
     """Observers on the program's outputs. While ``on``, every
     ``SpeechGen`` the engine's token LM returns, the decode path each call
     asked for, and every list of prompt features the engine makes are kept
-    (device tensors are not read until the window has closed)."""
+    (device tensors are not read until the window has closed); for a
+    stream (``stream``), the decode path each started decode loop asked
+    for (``starts``) and the tokens its loop handed out (``drawn``)."""
 
-    def __init__(self, eng):
+    def __init__(self, eng, stream: bool = False):
         from autostyle_tts_tpu_torch.models import token_lm
 
         self.mod, self.eng = token_lm, eng
@@ -36,7 +74,10 @@ class Taps:
         self.gens: List = []
         self.paths: List[Dict] = []
         self.feats: List = []
+        self.starts: List[Dict] = []
+        self.drawn: List[int] = []
         self._gen = token_lm.generate_speech_from_ids
+        self._start, self._take = token_lm.start_decode, token_lm.take
         self._feat = eng.prompt_features
 
         def gen(*a, **k):
@@ -46,6 +87,17 @@ class Taps:
                 self.paths.append(decode_path_of(k))
             return out
 
+        def start(*a, **k):
+            if self.on:
+                self.starts.append(decode_path_of(k))
+            return self._start(*a, **k)
+
+        def take(*a, **k):
+            steps, gen = self._take(*a, **k)
+            if self.on:
+                self.drawn += [int(s[0]) for s in steps]
+            return steps, gen
+
         def feat(*a, **k):
             out = self._feat(*a, **k)
             if self.on:
@@ -53,18 +105,25 @@ class Taps:
             return out
 
         token_lm.generate_speech_from_ids = gen
+        if stream:
+            token_lm.start_decode, token_lm.take = start, take
         eng.prompt_features = feat
+
+    def clear(self) -> None:
+        for kept in (self.gens, self.paths, self.feats, self.starts, self.drawn):
+            kept.clear()
 
     def remove(self) -> None:
         self.mod.generate_speech_from_ids = self._gen
+        self.mod.start_decode, self.mod.take = self._start, self._take
         del self.eng.prompt_features
 
 
 def decode_path_of(kwargs: Dict) -> Dict:
-    """The decode path a call of ``generate_speech_from_ids`` asks for: the
-    decode-step kernel at its weights' width (``bits``) where it passes the
-    step's params, else the scanned decode (``bits`` None) with or without
-    an int8 KV cache."""
+    """The decode path a call of ``generate_speech_from_ids`` (or a
+    stream's ``start_decode``) asks for: the decode-step kernel at its
+    weights' width (``bits``) where it passes the step's params, else the
+    scanned decode (``bits`` None) with or without an int8 KV cache."""
     from autostyle_tts_tpu_torch.ops.decode_step import weight_bits
 
     dp = kwargs.get("decode_params")
@@ -123,7 +182,7 @@ class Session:
         t0 = time.perf_counter()
         self.pcfg = port_config(cfg)
         self.traffic = Traffic(mix, seed, cfg["audio"]["prompt_sample_rate"])
-        tree = weights.draw(cfg, seed, self.device)
+        tree = draw(cfg, seed, self.device)
         self._sync()
         t1 = time.perf_counter()
         self.eng = Engine(self.pcfg, params=EngineParams(**tree), seed=self.seed, device=self.device)
@@ -131,7 +190,7 @@ class Session:
         self._sync()
         t2 = time.perf_counter()
         self.setup_times.update(weights=t1 - t0, engine=t2 - t1)
-        self.taps = Taps(self.eng)
+        self.taps = Taps(self.eng, stream="stream" in mix)
         self.spans = SpanLog()
         self.up, self.hop = cfg["cfm"]["upsample"], cfg["audio"]["hop_length"]
         self.sr = cfg["audio"]["sample_rate"]
@@ -151,8 +210,13 @@ class Session:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def requests(self):
+        """The traffic's requests in arrival order (prompts "wav": from the
+        session's pool)."""
+        return self.traffic.requests(self.pool)
+
     @staticmethod
-    def launches() -> Dict[str, int]:
+    def counters() -> Dict[str, int]:
         """The program's own counts of decode-step kernel launches, by
         weight width (a step on the CPU runs the plain twin and counts none)."""
         from autostyle_tts_tpu_torch.ops.decode_step import mega_decode_step
@@ -183,30 +247,32 @@ class Session:
     def _noise(self, slot: int, rows: int, fp_w: int, max_new: int) -> np.ndarray:
         return self.noise[slot % len(self.noise), :rows, : (fp_w + max_new) * self.up]
 
-    def serve_one(self, req) -> Dict:
-        """One B=1 request, timed from the client's call to the wav on the host."""
+    def _prompts(self, req, t0: float, kept: Dict):
+        """A B=1 request's prompts: the DB's top-2 rows (searched here, the
+        search timed from ``t0``) or its own wavs -> (style, timbre,
+        style text, timbre tokens, search ms)."""
+        if self.store is None:
+            hop_tok = self.cfg["audio"]["prompt_hop_length"] * int(np.prod(self.cfg["speech_tokenizer"]["strides"]))
+            sty, tim = req.wavs
+            return sty, tim, "", max(1, len(tim) // hop_tok), None
+        hits = self.store.search(req.query[None], k=self.mix["db"]["top_k"])[0]
+        ts = time.perf_counter()
+        self.spans.add("db search", t0, ts)
+        sty, tim = self.eng.prompt_features_from_store(self.store, [hits[0].index, hits[1].index])
+        kept.update(hits=[(h.index, h.distance) for h in hits], feats=(sty, tim))
+        return sty, tim, hits[0].text, len(tim.tokens), (ts - t0) * 1e3
+
+    def serve_one(self, req, j) -> Dict:
+        """One B=1 request, timed from the client's call to the wav on the
+        host: ``wall_ms``, ``search_ms``, the engine's ``timings``, decode
+        ``steps``, ``gen_len``, ``useful_s`` (seconds of audio up to the
+        request's target) and, under ``kept``, what the check reads."""
         eng, kept = self.eng, {}
-        self.taps.gens.clear()
-        self.taps.paths.clear()
-        self.taps.feats.clear()
+        self.taps.clear()
         max_seconds = req.target / self.mix["token_rate"]
         max_new = bucket(req.target, GEN_BUCKETS)
         t0 = time.perf_counter()
-        search_ms = None
-        if self.store is not None:
-            hits = self.store.search(req.query[None], k=self.mix["db"]["top_k"])[0]
-            ts = time.perf_counter()
-            search_ms = (ts - t0) * 1e3
-            self.spans.add("db search", t0, ts)
-            sty, tim = eng.prompt_features_from_store(self.store, [hits[0].index, hits[1].index])
-            style_text = hits[0].text
-            n_tim = len(tim.tokens)
-            kept["hits"] = [(h.index, h.distance) for h in hits]
-        else:
-            sty, tim = req.wavs
-            style_text = ""
-            hop_tok = self.cfg["audio"]["prompt_hop_length"] * int(np.prod(self.cfg["speech_tokenizer"]["strides"]))
-            n_tim = max(1, len(tim) // hop_tok)
+        sty, tim, style_text, n_tim, search_ms = self._prompts(req, t0, kept)
         fp_w = bucket(n_tim, TOKEN_BUCKETS)
         noise = self._noise(req.index, 1, fp_w, max_new)
         wav = next(eng.inference_tts_with_st(req.text, style_text, sty, tim, max_seconds=max_seconds,
@@ -215,18 +281,60 @@ class Session:
         kept.update(gens=list(self.taps.gens), paths=list(self.taps.paths), feat_out=list(self.taps.feats))
         kept.update(text=req.text, style_text=style_text, fp_w=fp_w, max_new=max_new, noise_slot=req.index,
                     wav=wav, query=req.query, wavs=req.wavs)
-        if self.store is not None:
-            kept["feats"] = (sty, tim)
         return dict(i=req.index, target=req.target, t0=t0, t1=t1, wall_ms=(t1 - t0) * 1e3, search_ms=search_ms,
                     timings=dict(eng.last_timings), steps=eng.last_decode_steps, gen_len=eng.last_gen_len,
                     samples=len(wav), useful_s=min(len(wav), req.target * self.up * self.hop) / self.sr,
                     kept=kept)
 
+    def stream_noise(self, slot: int, n_tim: int, max_new: int) -> List[np.ndarray]:
+        """The CFM noise of each window a stream can render ([1, W * up,
+        M], W = fp_w + 2 * chunk): window k of request ``slot`` reads bank
+        entry (slot + k) mod the bank, from frame k * W * up (wrapped)."""
+        st = self.mix["stream"]
+        chunk = st["chunk_tokens"]
+        fp_w = bucket(min(n_tim, st["prompt_tokens"]), TOKEN_BUCKETS)
+        width = (fp_w + 2 * chunk) * self.up
+        frames = self.noise.shape[2]
+        out = []
+        for k in range(math.ceil(max_new / chunk)):
+            off = (k * width) % (frames - width + 1)
+            out.append(self.noise[(slot + k) % len(self.noise), :1, off: off + width])
+        return out
+
+    def serve_stream(self, req, j) -> Dict:
+        """One B=1 request streamed (``stream=True``), the client taking
+        its chunks as they come: ``ttfa_ms`` from the client's call (the
+        DB search included) to the first chunk's samples on the host,
+        ``wall_ms`` to the last one's; the engine's render time of each
+        window (``chunk_ms``); the rest as ``serve_one``."""
+        eng, kept = self.eng, {}
+        self.taps.clear()
+        max_seconds = req.target / self.mix["token_rate"]
+        max_new = bucket(req.target, GEN_BUCKETS)
+        t0 = time.perf_counter()
+        sty, tim, style_text, n_tim, search_ms = self._prompts(req, t0, kept)
+        noise = self.stream_noise(req.index, n_tim, max_new)
+        chunks, ttfa = [], None
+        for out in eng.inference_tts_with_st(req.text, style_text, sty, tim, stream=True,
+                                             max_seconds=max_seconds, cfm_noise=noise):
+            chunks.append(out["tts_speech"][0])
+            ttfa = (time.perf_counter() - t0) * 1e3 if ttfa is None else ttfa
+        t1 = time.perf_counter()
+        n = sum(len(c) for c in chunks)
+        kept.update(drawn=list(self.taps.drawn), paths=list(self.taps.starts), feat_out=list(self.taps.feats))
+        kept.update(text=req.text, style_text=style_text, max_new=max_new, noise_slot=req.index, n_tim=n_tim,
+                    chunks=chunks, query=req.query, wavs=req.wavs)
+        return dict(i=req.index, target=req.target, t0=t0, t1=t1, wall_ms=(t1 - t0) * 1e3, ttfa_ms=ttfa,
+                    search_ms=search_ms, chunk_ms=list(eng.last_chunk_ms), timings=dict(eng.last_timings),
+                    steps=eng.last_decode_steps, gen_len=eng.last_gen_len, samples=n,
+                    useful_s=min(n, req.target * self.up * self.hop) / self.sr, kept=kept)
+
     def serve_batch(self, reqs, j: int) -> Dict:
-        """One batch of the backlog: the DB searches, then one ``synthesize_batch``."""
+        """One batch of the backlog: the DB searches, then one
+        ``synthesize_batch``; the record as ``serve_one``'s, with each
+        row's ``targets`` and ``gen_lens``."""
         eng, B = self.eng, len(reqs)
-        self.taps.gens.clear()
-        self.taps.paths.clear()
+        self.taps.clear()
         max_target = max(r.target for r in reqs)
         max_new = bucket(max_target, GEN_BUCKETS)
         t0 = time.perf_counter()
@@ -251,11 +359,26 @@ class Session:
 
     # ------------------------------------------------------------------ warm-up
 
+    def _warm_streams(self, pairs, texts) -> int:
+        """A streamed request at every generation bucket with the widest
+        prompt, and at the shortest with each other prompt: a stream's
+        windows share one shape (the flow prompt is cut to the mix's
+        ``prompt_tokens``), its prefill and decode loop vary with the
+        prompt and the generation bucket."""
+        pairs = sorted(pairs, key=lambda p: len(getattr(p[0], "tokens", p[0])))
+        plan = [(g, pairs[-1]) for g in GEN_BUCKETS] + [(GEN_BUCKETS[0], p) for p in pairs[:-1]]
+        for g, (sty, tim, st) in plan:
+            for _ in self.eng.inference_tts_with_st(texts(g), st, sty, tim, stream=True,
+                                                    max_seconds=g / self.mix["token_rate"]):
+                pass
+        return len(plan)
+
     def warm_up(self) -> int:
         """Every shape the traffic uses, before the clock: each generation
         bucket, each flow-prompt bucket the prompts reach (B=1: one request
-        a pair; batches: one short batch a prompt bucket, then the CFM and
-        vocoder of every generation bucket through ``synthesize_from_tokens``).
+        a pair, or ``_warm_streams`` where the traffic streams; batches:
+        one short batch a prompt bucket, then the CFM and vocoder of every
+        generation bucket through ``synthesize_from_tokens``).
         Returns the requests made."""
         rng = self.traffic.rng(12)
         texts = lambda n: self.traffic.text(rng, self.traffic.n_words(n / self.mix["token_rate"]), 300)  # noqa: E731
@@ -271,6 +394,8 @@ class Session:
                 sr = self.cfg["audio"]["prompt_sample_rate"]
                 by_bucket = {bucket(len(w), tuple(sr * s for s in (1, 2, 4, 8, 16, 30))): w for w in self.pool}
                 pairs = [(w, w.copy(), "") for w in by_bucket.values()]
+            if "stream" in self.mix:
+                return self._warm_streams(pairs, texts)
             for g in GEN_BUCKETS:
                 for sty, tim, st in pairs:
                     next(self.eng.inference_tts_with_st(texts(g), st, sty, tim, max_seconds=g / self.mix["token_rate"]))
@@ -289,3 +414,40 @@ class Session:
                                                  for x in f])
                 made += 1
         return made
+
+
+# ---------------------------------------------------------------------- what the readers take of a record
+
+
+def rows(rec: Dict) -> List[tuple]:
+    """(prefix length, tokens generated, flow-prompt tokens, decode steps)
+    of each row of a record, at their real lengths."""
+    k = rec["kept"]
+    if "texts" in k:       # a batch
+        out = []
+        for b, (sty, tim) in enumerate(k["feats"]):
+            n_pre = _prefix_len(k["texts"][b], k["style_texts"][b], len(sty.tokens))
+            g = rec["gen_lens"][b]
+            out.append((n_pre, g, len(tim.tokens), g))
+        return out
+    sty, tim = k["feats"] if "feats" in k else k["feat_out"][0]
+    return [(_prefix_len(k["text"], k["style_text"], len(sty.tokens)), rec["gen_len"], len(tim.tokens), rec["steps"])]
+
+
+def _prefix_len(text: str, style_text: str, n_style: int) -> int:
+    full = (style_text + " " + text).strip() if style_text else text
+    return 2 + len(encode_text(full)) + min(n_style, 256)
+
+
+def flops(cfg: Dict, rec: Dict) -> float:
+    """Model FLOPs of a record's rows at their real lengths (``counts.request_flops``)."""
+    return sum(counts.request_flops(cfg, n_pre, g, n_p) for n_pre, g, n_p, _ in rows(rec))
+
+
+def describe(run) -> List[str]:
+    """How many finished rows drew EOS before their target."""
+    recs = [r for r in run.records if not r.get("failed")]
+    targets = [t for r in recs for t in (r["targets"] if "targets" in r else [r["target"]])]
+    lens = [g for r in recs for g in (r["gen_lens"] if "gen_lens" in r else [r["gen_len"]])]
+    early = sum(1 for g, t in zip(lens, targets) if g < t)
+    return [f"{early} of {len(lens)} rows drew EOS before their target ({100.0 * early / max(len(lens), 1):.1f}%)"]

@@ -11,6 +11,10 @@ Numbers compared (each against its cell's limit, ``limits/<cell>.json``):
   prefill, every decode step and the sampler's masks.
 - ``wav_rel_err``: the worst relative L2 distance between a served wav
   and the reference's CFM and vocoder on the same tokens, prompt and noise.
+- ``chunks_rel_err`` (streams): the same of a stream's joined chunks
+  against the reference's render of the same windows
+  (``reference/tts_stream.py``) on the same tokens, prompt and noise; a
+  chunk missing or added changes the length and reads infinite.
 - ``off_path``: the window's decode calls that left the path the
   configuration states (``decode`` in its file; ``off_path``, below): an
   exact comparison, limit 0.
@@ -39,8 +43,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..reference import tts
-from . import weights
+from ..reference import tts, tts_stream
+from .tts_weights import draw
 
 VQ_TIE = 1.0    # VQ score units (2 h.c - |c|^2): a frame whose top-2 scores lie this close is a near-tie
 
@@ -50,7 +54,7 @@ class Reference:
 
     def __init__(self, cfg: Dict, seed: int, device, decode_bits: int, kv_int8_gen: bool, control: bool = False):
         self.cfg, self.device = cfg, torch.device(device)
-        self.tree = weights.draw(cfg, seed, self.device)
+        self.tree = draw(cfg, seed, self.device)
         self.ref = tts.Numerics()
         self.num = tts.Numerics(control=control)
         self.control = control
@@ -86,9 +90,18 @@ class Reference:
         args = (feat.tokens, feat.mel24, self._t(feat.spk), served, self._t(noise), fp_w, max_new)
         ref = tts.served_wav(self.tree, self.cfg, self.ref, *args)
         got = tts.served_wav(self.tree, self.cfg, self.num, *args) if self.control else self._t(wav)
-        if got.shape != ref.shape:
-            return float("inf")
-        return float(torch.linalg.norm(got - ref) / torch.clamp(torch.linalg.norm(ref), min=1e-12))
+        return _rel_err(got, ref)
+
+    def chunks_err(self, feat, served: List[int], chunks: List[np.ndarray], noises: List[np.ndarray],
+                   stream: Dict) -> float:
+        """A stream's joined chunks against the reference's render of its
+        windows (``stream``: the mix's ``chunk_tokens`` and ``prompt_tokens``)."""
+        args = (feat.tokens, feat.mel24, self._t(feat.spk), served, [self._t(n[0]) for n in noises],
+                stream["chunk_tokens"], stream["prompt_tokens"])
+        ref = torch.cat(tts_stream.render(self.tree, self.cfg, self.ref, *args))
+        got = (torch.cat(tts_stream.render(self.tree, self.cfg, self.num, *args)) if self.control
+               else self._t(np.concatenate(chunks) if chunks else np.zeros(0, np.float32)))
+        return _rel_err(got, ref)
 
     # ------------------------------------------------------------------ featurize
 
@@ -136,12 +149,24 @@ class Reference:
         return err
 
 
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Relative L2 distance; infinite where the lengths differ."""
+    if got.shape != ref.shape:
+        return float("inf")
+    return float(torch.linalg.norm(got - ref) / torch.clamp(torch.linalg.norm(ref), min=1e-12))
+
+
 def served_tokens(gen, row: int, eos: int) -> List[int]:
     """A row's drawn tokens from the LM's ``SpeechGen``: those before EOS,
     and EOS where it was drawn."""
     toks = gen.tokens[row].tolist()
     n = int(gen.lengths[row])
     return toks[: n + 1] if n < len(toks) and toks[n] == eos else toks[:n]
+
+
+def streamed_tokens(drawn: List[int], eos: int) -> List[int]:
+    """A stream's drawn tokens up to EOS, and EOS where it was drawn."""
+    return drawn[: drawn.index(eos) + 1] if eos in drawn else list(drawn)
 
 
 def sample(records: List[Dict], n: int, seed: int) -> List[Dict]:
@@ -166,7 +191,7 @@ def numbers(session, run, ref: Reference) -> Dict[str, float]:
 def _numbers(session, run, ref: Reference) -> Dict[str, float]:
     cfg, mix = session.cfg, session.mix
     eos = cfg["token_lm"]["speech_vocab_size"] - 2
-    out: Dict[str, float] = {"lm_gap": 0.0, "wav_rel_err": 0.0}
+    out: Dict[str, float] = {"lm_gap": 0.0}
     if mix["batch"] == 1:
         recs = sample(run.records, mix["check"]["requests"], session.seed)
         units = [(r["kept"], 0) for r in recs]
@@ -178,23 +203,27 @@ def _numbers(session, run, ref: Reference) -> Dict[str, float]:
     queries, hits = [], []
     for kept, b in units:
         batched = mix["batch"] > 1
-        gen = kept["gens"][0]
-        served = served_tokens(gen, b, eos)
+        streamed = "chunks" in kept
+        served = streamed_tokens(kept["drawn"], eos) if streamed else served_tokens(kept["gens"][0], b, eos)
         if batched:
             sty, tim = kept["feats"][b]
-            text, style_text, wav = kept["texts"][b], kept["style_texts"][b], kept["wavs"][b]
-        elif "feats" in kept:
-            (sty, tim), text, style_text, wav = kept["feats"], kept["text"], kept["style_text"], kept["wav"]
+            text, style_text = kept["texts"][b], kept["style_texts"][b]
         else:
-            sty, tim = kept["feat_out"][0]
-            text, style_text, wav = kept["text"], kept["style_text"], kept["wav"]
+            sty, tim = kept["feats"] if "feats" in kept else kept["feat_out"][0]
+            text, style_text = kept["text"], kept["style_text"]
         if "hits" in kept:
             queries.append(kept["queries"][b] if batched else kept["query"])
             hits.append(kept["hits"][b] if batched else kept["hits"])
         out["lm_gap"] = max(out["lm_gap"], ref.lm_gap(text, style_text, sty.tokens, tim.spk, served))
         gen_toks = served[:-1] if served and served[-1] == eos else served
+        if streamed:
+            noises = session.stream_noise(kept["noise_slot"], kept["n_tim"], kept["max_new"])
+            out["chunks_rel_err"] = max(out.get("chunks_rel_err", 0.0),
+                                        ref.chunks_err(tim, gen_toks, kept["chunks"], noises, mix["stream"]))
+            continue
+        wav = kept["wavs"][b] if batched else kept["wav"]
         noise = session.noise[kept["noise_slot"] % len(session.noise), b, : (kept["fp_w"] + kept["max_new"]) * session.up]
-        out["wav_rel_err"] = max(out["wav_rel_err"],
+        out["wav_rel_err"] = max(out.get("wav_rel_err", 0.0),
                                  ref.wav_err(tim, gen_toks, wav, noise, kept["fp_w"], kept["max_new"]))
     out["off_path"] = float(off_path(session, run))
     if hits:
@@ -259,18 +288,6 @@ def off_path(session, run) -> int:
     n += sum(1 for r in recs if len(r["kept"]["paths"]) != 1)
     if session.device.type == "cuda":
         steps = sum(r["steps"] for r in recs) if kernel else 0
-        for bits, count in run.launches.items():
+        for bits, count in run.counters.items():
             n += abs(count - steps) if kernel and bits == str(want["bits"]) else count
     return n
-
-
-def compare(nums: Dict[str, float], limits: Dict[str, float]) -> Dict[str, Dict]:
-    """Each number beside its limit; a number without a limit, or a
-    limit without its number, fails."""
-    names = sorted(set(nums) | set(limits))
-    return {n: {"value": nums.get(n), "limit": limits.get(n)} for n in names}
-
-
-def passed(compared: Dict[str, Dict]) -> bool:
-    return all(v["value"] is not None and v["limit"] is not None and np.isfinite(v["value"])
-               and v["value"] <= v["limit"] for v in compared.values())

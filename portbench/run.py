@@ -20,6 +20,13 @@ import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "autostyle_tts_tpu", "chip_smoke", "benchmarks"}
+
+
+def forbidden_modules() -> list:
+    """Top-level names (before the first dot, compared whole) of loaded
+    modules that no run may hold: JAX, the JAX package, the old benchmark."""
+    return sorted({m.split(".")[0] for m in list(sys.modules)} & FORBIDDEN)
 
 
 def main() -> int:
@@ -37,7 +44,7 @@ def main() -> int:
 
     torch.set_num_threads(1)
 
-    from portbench.bench.harness import compared_lines, forbidden_modules, public, run_cell
+    from portbench.bench.harness import compared_lines, public, run_cell
     from portbench.bench.spec import Cell
 
     cell = Cell(args.workload)

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench.bench import check
+from portbench.programs import tts as program
 from portbench.bench.harness import run_cell
 from portbench.tests.tiny import TinyCell
 
@@ -34,9 +34,9 @@ def sound_limits(traffic: str, int4: bool = False) -> dict:
 @pytest.mark.parametrize("traffic", ["b1-db", "b1-wav", "batch8"])
 def test_control_reads_above_the_program(traffic):
     res = run_cell(TinyCell(traffic), SEED, 1.5, False, 0.0, device="cpu")
-    path = check.decode_path(res["_session"])
-    ctl = check.numbers(res["_session"], res["_run"], check.Reference(res["_session"].cfg, SEED, "cpu",
-                                                                      control=True, **path))
+    args = program.reference_args(res["_session"])
+    ctl = program.numbers(res["_session"], res["_run"], program.Reference(res["_session"].cfg, SEED, "cpu",
+                                                                          control=True, **args))
     prog = res["_nums"]
     for k in ("lm_gap", "wav_rel_err", "spk_err", "mel_err") + (("search_err",) if traffic != "b1-wav" else ()):
         assert ctl[k] > 3 * max(prog[k], FLOOR[k] / 4), (k, prog[k], ctl[k])
@@ -46,8 +46,6 @@ def plant(monkeypatch, fault: str) -> None:
     """Break the program underneath the harness, where it produces its answer."""
     from autostyle_tts_tpu_torch.models import token_lm
     from autostyle_tts_tpu_torch.pipeline.engine import Engine
-
-    from portbench.bench import serve
 
     if fault == "token":              # a token altered where it is drawn: BOS, which is never served
         gen0 = token_lm.generate_speech_from_ids
@@ -86,7 +84,7 @@ def plant(monkeypatch, fault: str) -> None:
 
         monkeypatch.setattr(Engine, "synthesize_batch", batch)
     elif fault in ("int8_step", "bf16_kv"):   # the program leaves the decode path its configuration states
-        config0 = serve.port_config
+        config0 = program.port_config
 
         def config(cfg):
             c = config0(cfg)
@@ -96,7 +94,7 @@ def plant(monkeypatch, fault: str) -> None:
                 c.quantize_lm_kv_int8 = False
             return c
 
-        monkeypatch.setattr(serve, "port_config", config)
+        monkeypatch.setattr(program, "port_config", config)
     else:
         raise ValueError(fault)
 

@@ -11,6 +11,7 @@ from types import SimpleNamespace
 import pytest
 
 from portbench.bench.readers import reader
+from portbench.programs import tts
 
 NAME = "scan_graph_share.batch8"
 
@@ -18,7 +19,7 @@ NAME = "scan_graph_share.batch8"
 def _run():
     """Two batches outside the traced part and one inside it."""
     recs = [dict(i=0, t0=0.0, t1=10.0), dict(i=1, t0=10.0, t1=20.0), dict(i=2, t0=20.0, t1=30.0)]
-    return SimpleNamespace(records=recs, traced={1})
+    return SimpleNamespace(records=recs, traced={1}, program=tts)
 
 
 def _span(t0, t1, name="decode", **counters):

@@ -10,7 +10,7 @@ from pathlib import Path
 
 import pytest
 
-from portbench.bench.harness import FORBIDDEN, forbidden_modules
+from portbench.run import FORBIDDEN, forbidden_modules
 
 BENCH = Path(__file__).resolve().parents[1]
 

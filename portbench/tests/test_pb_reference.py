@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench.bench import weights
+from portbench.programs import tts_weights as weights
 from portbench.reference import tts
 from portbench.tests.tiny import TinyCell, tiny_cfg
 from portbench.traffic.generator import Traffic, synthetic_wav
@@ -25,7 +25,7 @@ def few_threads():
 @pytest.fixture(scope="module")
 def engine():
     from autostyle_tts_tpu_torch.pipeline.engine import Engine, EngineParams
-    from portbench.bench.spec import port_config
+    from portbench.programs.tts import port_config
 
     cfg = tiny_cfg()
     tree = weights.draw(cfg, 11, "cpu")
@@ -70,8 +70,7 @@ def test_featurize_matches_the_port(engine):
 
 def test_wav_and_tokens_match_the_port(engine):
     cfg, tree, eng = engine
-    from portbench.bench.check import served_tokens
-    from portbench.bench.serve import Taps
+    from portbench.programs.tts import Taps, served_tokens
 
     sr = cfg["audio"]["prompt_sample_rate"]
     rng = np.random.default_rng(8)

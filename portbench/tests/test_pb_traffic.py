@@ -92,15 +92,18 @@ class _Batches:
     """A stand-in for a session serving batches that take ``seconds`` each."""
 
     def __init__(self, m, seconds):
-        from portbench.bench.serve import SpanLog
+        from portbench.programs.tts import SpanLog
 
         self.mix, self.cfg, self.pool = m, {}, None
         self.traffic = Traffic(m, 4)
         self.seconds, self.served = seconds, []
         self.taps, self.spans = SpanLog(), SpanLog()
 
+    def requests(self):
+        return self.traffic.requests(self.pool)
+
     @staticmethod
-    def launches():
+    def counters():
         return {"8": 0, "4": 0}
 
     def serve_batch(self, reqs, j):
@@ -121,4 +124,4 @@ def test_a_batch_window_holds_whole_blocks(seconds, blocks):
     run = measure(sess, seconds, 0.0, trace=False)
     assert len(run.records) == blocks * m["window_units"]
     assert sorted(sess.served) == sorted([512, 512, 256, 256] * blocks)
-    assert run.window_s >= seconds and run.launches == {"8": 0, "4": 0} and "proc_cores" in run.host
+    assert run.window_s >= seconds and run.counters == {"8": 0, "4": 0} and "proc_cores" in run.host
