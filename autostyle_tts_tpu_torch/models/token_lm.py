@@ -552,26 +552,10 @@ class ScanStep:
 
     def capture(self) -> torch.Tensor:
         """Run the step eagerly (its logits are returned), then record it as
-        ``graph`` on a side stream (recording runs nothing)."""
-        dev = self.slot.device
-        cur = torch.cuda.current_stream(dev)
-        side = _CAPTURE_STREAMS.get(str(dev))
-        if side is None:
-            side = _CAPTURE_STREAMS[str(dev)] = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            logits = self.forward()
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self.out = self.forward()
-            finally:
-                graph.capture_end()
-        cur.wait_stream(side)
-        logits.record_stream(cur)
+        ``graph`` (``record``)."""
+        logits, self.graph, self.out = record(self.slot.device, self.forward, self.forward)
         self.host_tok = torch.empty(self.tok.shape, dtype=self.tok.dtype, pin_memory=True)
         self.copied = torch.cuda.Event()
-        self.graph = graph
         return logits
 
     def hold(self, loop: DecodeLoop) -> None:
@@ -590,6 +574,35 @@ _KEPT_STEPS: List[ScanStep] = []     # oldest first
 _CAPTURE_STREAMS: Dict[str, "torch.cuda.Stream"] = {}    # one side stream a card records every graph on
 
 
+def capture_stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The side stream every CUDA graph of the card ``dev`` is recorded on."""
+    side = _CAPTURE_STREAMS.get(str(dev))
+    if side is None:
+        side = _CAPTURE_STREAMS[str(dev)] = torch.cuda.Stream(dev)
+    return side
+
+
+def record(dev: torch.device, warm: Callable[[], object], fn: Callable[[], object]):
+    """Run ``warm()`` eagerly, then record ``fn()`` as a CUDA graph, both on
+    the capture stream of the card ``dev`` (recording runs nothing). ->
+    (``warm``'s result, usable on the current stream; the graph; ``fn``'s
+    result, the buffers every replay rewrites)."""
+    cur, side = torch.cuda.current_stream(dev), capture_stream(dev)
+    side.wait_stream(cur)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        eager = warm()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    cur.wait_stream(side)
+    for t in eager if isinstance(eager, tuple) else (eager,):
+        t.record_stream(cur)
+    return eager, graph, out
+
+
 def graph_step_fits(dev: torch.device) -> bool:
     """Whether the scanned step can be a CUDA graph here: on a card, with
     no collective inside the step (a model axis of 1; a data axis only
@@ -597,7 +610,7 @@ def graph_step_fits(dev: torch.device) -> bool:
     return dev.type == "cuda" and comm.model_size() == 1
 
 
-def _weights_key(params: Params) -> tuple:
+def weights_key(params: Params) -> tuple:
     """Where every tensor of ``params`` lies (address, shape, strides,
     dtype): a graph reads the weights at the addresses it was recorded with."""
     out: list = []
@@ -626,7 +639,7 @@ def graph_step(params: Params, cfg: TokenLMConfig, ccfg: TransformerConfig, B: i
     ``MAX_KEPT_STEPS`` are kept. None when every kept step is held by a live
     loop: the caller takes the eager step."""
     S = -(-S_max // GRAPH_SLOTS) * GRAPH_SLOTS
-    key = (B, S, bool(kv_int8), n_kv, dev, ccfg, cfg.speech_vocab_size, _weights_key(params))
+    key = (B, S, bool(kv_int8), n_kv, dev, ccfg, cfg.speech_vocab_size, weights_key(params))
     for step in _KEPT_STEPS:
         if step.key == key and step.idle:
             _KEPT_STEPS.remove(step)

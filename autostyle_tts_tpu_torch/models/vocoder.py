@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..ops.conv import (conv1d, conv1d_init, conv_transpose1d, conv_transpose1d_init,
                         layer_norm, layer_norm_init)
-from ..ops.stft import istft_overlap_add, log_mel_spectrogram_plain, power_spectrogram
+from ..ops.stft import istft_constants, istft_overlap_add, log_mel_spectrogram_plain, power_spectrogram
 from ..utils.config import VocoderConfig
 from ..weights import uniform
 
@@ -74,6 +74,13 @@ def apply(params: Params, cfg: VocoderConfig, mel: torch.Tensor) -> torch.Tensor
         h = acc / len(up["mrf"])
     wav = torch.tanh(conv1d(F.leaky_relu(h, 0.1), params["post"]))
     return wav[..., 0]
+
+
+def constants(cfg: VocoderConfig, n_frames: int, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The tensors ``apply`` reads at ``n_frames`` frames besides its
+    params and input (the iSTFT kind's kept bases and envelope), which a
+    CUDA graph of it has to hold."""
+    return istft_constants(device, n_frames, cfg.istft_n_fft, cfg.istft_hop) if _is_istft(cfg) else ()
 
 
 def total_upsample(cfg: VocoderConfig) -> int:

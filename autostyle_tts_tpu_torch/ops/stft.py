@@ -209,6 +209,25 @@ def _ola_envelope(n_frames: int, n_fft: int, hop: int) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=8)
+def _istft_basis_on(device: torch.device, n_fft: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return tuple(upload(torch.from_numpy(b), device) for b in _istft_basis(n_fft))
+
+
+@functools.lru_cache(maxsize=32)
+def _ola_envelope_on(device: torch.device, n_frames: int, n_fft: int, hop: int) -> torch.Tensor:
+    """The overlap-added squared window, floored at 1e-8, on ``device``."""
+    return upload(torch.from_numpy(np.maximum(_ola_envelope(n_frames, n_fft, hop), np.float32(1e-8))), device)
+
+
+def istft_constants(device: torch.device, n_frames: int, n_fft: int, hop: int) -> Tuple[torch.Tensor, ...]:
+    """What ``istft_overlap_add`` reads besides its input, kept on
+    ``device`` per (device, n_fft) and (device, frames, n_fft, hop): the
+    synthesis bases (cos, -sin) and the floored envelope. A CUDA graph
+    that replays the iSTFT holds them, since the caches may drop them."""
+    return _istft_basis_on(device, n_fft) + (_ola_envelope_on(device, n_frames, n_fft, hop),)
+
+
 def istft_overlap_add(
     spec_r: torch.Tensor,   # [..., F, n_bins]
     spec_i: torch.Tensor,
@@ -221,7 +240,7 @@ def istft_overlap_add(
     r_chunks = n_fft // hop
     F = spec_r.shape[-2]
     dev = spec_r.device
-    cos_b, msin_b = (upload(torch.from_numpy(b), dev) for b in _istft_basis(n_fft))
+    cos_b, msin_b, env = istft_constants(dev, F, n_fft, hop)
     frames = spec_r.float() @ cos_b + spec_i.float() @ msin_b     # [..., F, n_fft]
     lead = frames.shape[:-2]
     L = (F + r_chunks - 1) * hop
@@ -229,7 +248,6 @@ def istft_overlap_add(
     for r in range(r_chunks):
         seg = frames[..., :, r * hop : (r + 1) * hop].reshape(lead + (F * hop,))
         out[..., r * hop : r * hop + F * hop] += seg
-    env = upload(torch.from_numpy(_ola_envelope(F, n_fft, hop)), dev)
-    out = out / torch.clamp(env, min=1e-8)
+    out = out / env
     start = (n_fft - hop) // 2
     return out[..., start : start + F * hop]

@@ -29,7 +29,8 @@ With ``stream=True`` each ``inference_*`` entry point yields the audio a
 chunk at a time (``_synthesize_stream``): the LM's decode loop hands out
 its tokens as it draws them and ``stream_window`` renders one CFM +
 vocoder window per chunk; ``render_windows`` renders the windows of many
-streams in one call (``pipeline/stream_serve.py``).
+streams in one call (``pipeline/stream_serve.py``), on a card as the
+replay of a kept ``WindowGraph``.
 
 The engine returns f32 wavs. The STYLE prompt drives the LM prosody prefix;
 the TIMBRE prompt supplies the speaker embedding and the flow prompt
@@ -184,11 +185,80 @@ class StreamPrompt(NamedTuple):
 
 
 STREAM_PROMPT_TOKENS = 64    # a stream's windows in-paint against the prompt's last 64 tokens
+# a stream prompt's widths: its last STREAM_PROMPT_TOKENS tokens bucketed
+STREAM_BUCKETS = tuple(b for b in TOKEN_BUCKETS if b <= _bucket(STREAM_PROMPT_TOKENS, TOKEN_BUCKETS))
+# a window graph's row counts: B rows replay the graph of the next one up (rows past B
+# repeat row 0 and are dropped); a window of more rows runs eagerly
+WINDOW_ROWS = (1, 2, 4, 8)
+# captured window renders an engine keeps, every key of one chunk size and one set of
+# weights (a row count for each prompt width); a new key drops the oldest
+MAX_KEPT_WINDOWS = len(WINDOW_ROWS) * len(STREAM_BUCKETS)
+
+
+def _window_mel(
+    params: "EngineParams", cfg: Config, tok, gen_len, emitted, prompt_tokens, n_p, prompt_mel, n_mel, spk,
+    mel_ctx, generator: Optional[torch.Generator], *, chunk: int, noise: Optional[torch.Tensor],
+    clock: Optional[Stopwatch],
+) -> torch.Tensor:
+    """A window's flow conditioning (span ``cfm.cond``) and CFM solve
+    (``cfm.solve``; no spans without ``clock``) -> mel [B, W * up, M]
+    (``stream_window``'s arguments)."""
+    up, M = cfg.cfm.upsample, cfg.cfm.n_mels
+    B, fp_w = prompt_tokens.shape
+    W = fp_w + 2 * chunk
+    dev = prompt_tokens.device
+    gl, em, npp, nm = (x.long().reshape(-1, 1) for x in (gen_len, emitted, n_p, n_mel))
+    with clock.open("cfm.cond") if clock else nullcontext():
+        n_chunk = torch.clamp(gl - em, max=chunk)
+        slot = torch.arange(W, device=dev)[None, :]
+        ctx_lo = fp_w + chunk - torch.clamp(em, max=chunk)
+        # slot fp_w + chunk + (i - emitted) holds generated token i: column slot - fp_w of ``tok``
+        gidx = slot - (fp_w + chunk) + em
+        from_gen = torch.gather(tok.long(), 1, torch.clamp(slot - fp_w, 0, 2 * chunk - 1).expand(B, W))
+        from_prompt = torch.gather(prompt_tokens.long(), 1, torch.clamp(slot, 0, fp_w - 1).expand(B, W))
+        in_tail = (slot >= ctx_lo) & (gidx < em + n_chunk) & (slot >= fp_w)
+        zero = torch.zeros_like(from_gen)
+        tokens = torch.where(slot < npp, from_prompt, torch.where(in_tail, from_gen, zero))
+        fr = torch.arange(W * up, device=dev)[None, :]
+        sl = fr // up
+        in_ctx = (sl >= ctx_lo) & (sl < fp_w + chunk)
+        pmask = ((fr < nm) | in_ctx).float()
+        fmask = ((fr < npp * up) | in_ctx | ((sl >= fp_w + chunk) & (sl < fp_w + chunk + n_chunk))).float()
+        pm = torch.zeros((B, W * up, M), dtype=torch.float32, device=dev)
+        pm[:, : fp_w * up] = prompt_mel * (torch.arange(fp_w * up, device=dev)[None, :, None] < nm[:, :, None])
+        pm[:, fp_w * up : (fp_w + chunk) * up] = mel_ctx
+        pm = pm * pmask[..., None]
+        pos = torch.where(fr < fp_w * up, fr, torch.clamp((npp + em - chunk) * up + fr - fp_w * up, min=0))
+        cond = cfm.upsample_tokens(params.cfm, tokens, up, cfg.cfm.token_vocab_size)
+    with clock.open("cfm.solve") if clock else nullcontext():
+        return cfm.sample_mel(params.cfm, cfg.cfm, generator, cond, spk, pm, pmask, fmask,
+                              use_cfg=cfg.cfm.use_cfg, positions=pos, noise=noise)
+
+
+def _window_wav(params: "EngineParams", cfg: Config, mel: torch.Tensor, *, fp_w: int, chunk: int):
+    """The vocoder over a window's mel and the chunk's cut -> (samples [B,
+    chunk * up * hop], the mel chunk [B, chunk * up, M], a view of ``mel``)."""
+    up, hop = cfg.cfm.upsample, cfg.audio.hop_length
+    lo = (fp_w + chunk) * up
+    wav = vocoder.apply(params.vocoder, cfg.vocoder, mel)[:, lo * hop : (lo + chunk * up) * hop].float()
+    return wav, mel[:, lo : lo + chunk * up]
+
+
+def _count_window(clock: Stopwatch, cfg: Config, frames: int, graph: bool, replayed: bool) -> None:
+    """A window's counters on its innermost open span: ``graph`` (a kept
+    ``WindowGraph`` serves it), ``graph_replays`` (1 where a replay did),
+    ``graph_captures`` (1 where it ran eagerly and recorded); on ``cfm``
+    (``frames`` > 0) also the solve's ``euler_steps`` and ``frames``."""
+    if frames:
+        clock.count("euler_steps", cfg.cfm.n_steps)
+        clock.count("frames", frames)
+    clock.count("graph_replays", int(replayed), dict(graph=graph))
+    clock.count("graph_captures", int(graph and not replayed))
 
 
 def stream_window(
     params: "EngineParams", cfg: Config,
-    gen_tokens: torch.Tensor,      # [B, W_g] each row's generated tokens so far
+    gen_tokens: torch.Tensor,      # [B, 2 * chunk] the row's tokens emitted - chunk .. emitted + chunk, 0 past its ends
     gen_len: torch.Tensor,         # [B] tokens the row has (emitted ones included)
     emitted: torch.Tensor,         # [B] tokens already rendered
     prompt_tokens: torch.Tensor,   # [B, fp_w]
@@ -200,58 +270,112 @@ def stream_window(
     generator: Optional[torch.Generator],
     *, chunk: int, noise: Optional[torch.Tensor] = None, clock: Optional[Stopwatch] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Render the next chunk of each row of a stream: the CFM solves one
-    ``[prompt | ctx | chunk]`` window of ``W = fp_w + 2 * chunk`` tokens,
-    the vocoder renders it, and the chunk is cut out. The context holds
-    the row's ``min(chunk, emitted)`` previous tokens right-aligned against
-    the chunk, with the previous chunk's mel in-painted under them; frame
-    positions are absolute (the chunk starts at frame (n_p + emitted) *
-    up, where the whole-utterance solve puts it), so seams line up. The
-    chunk holds ``min(chunk, gen_len - emitted)`` tokens. ``noise``
-    [B, W * up, M] replaces the draw from ``generator``. -> (samples
-    [B, chunk * up * hop] f32, of which each row's first
-    n_chunk * up * hop are its audio; the mel chunk [B, chunk * up, M],
-    the row's next ``mel_ctx``)."""
-    up, hop, M = cfg.cfm.upsample, cfg.audio.hop_length, cfg.cfm.n_mels
+    """Render the next chunk of each row of a stream, eagerly: the CFM
+    solves one ``[prompt | ctx | chunk]`` window of ``W = fp_w + 2 *
+    chunk`` tokens, the vocoder renders it, and the chunk is cut out. The
+    context holds the row's ``min(chunk, emitted)`` previous tokens
+    right-aligned against the chunk, with the previous chunk's mel
+    in-painted under them; frame positions are absolute (the chunk starts
+    at frame (n_p + emitted) * up, where the whole-utterance solve puts
+    it), so seams line up. The chunk holds ``min(chunk, gen_len -
+    emitted)`` tokens. ``noise`` [B, W * up, M] replaces the draw from
+    ``generator``. The ``vocoder`` span ends on the samples' fetch. ->
+    (samples [B, chunk * up * hop] f32 on the host, of which each row's
+    first n_chunk * up * hop are its audio; the mel chunk [B, chunk * up,
+    M], the row's next ``mel_ctx``). ``WindowGraph`` replays the same
+    work on a card."""
     B, fp_w = prompt_tokens.shape
-    W = fp_w + 2 * chunk
-    dev = prompt_tokens.device
-    clock = clock or Stopwatch(dev)
-    gl, em, npp, nm = (x.long().reshape(-1, 1) for x in (gen_len, emitted, n_p, n_mel))
+    clock = clock or Stopwatch(prompt_tokens.device)
     with clock.span("cfm"):
-        with clock.open("cfm.cond"):
-            n_chunk = torch.clamp(gl - em, max=chunk)
-            slot = torch.arange(W, device=dev)[None, :]
-            ctx_lo = fp_w + chunk - torch.clamp(em, max=chunk)
-            # slot fp_w + chunk + (i - emitted) holds generated token i
-            gidx = slot - (fp_w + chunk) + em
-            from_gen = torch.gather(gen_tokens.long(), 1, torch.clamp(gidx, 0, gen_tokens.shape[1] - 1))
-            from_prompt = torch.gather(prompt_tokens.long(), 1, torch.clamp(slot, 0, fp_w - 1).expand(B, W))
-            in_tail = (slot >= ctx_lo) & (gidx < em + n_chunk) & (slot >= fp_w)
-            zero = torch.zeros_like(from_gen)
-            tokens = torch.where(slot < npp, from_prompt, torch.where(in_tail, from_gen, zero))
-            fr = torch.arange(W * up, device=dev)[None, :]
-            sl = fr // up
-            in_ctx = (sl >= ctx_lo) & (sl < fp_w + chunk)
-            pmask = ((fr < nm) | in_ctx).float()
-            fmask = ((fr < npp * up) | in_ctx | ((sl >= fp_w + chunk) & (sl < fp_w + chunk + n_chunk))).float()
-            pm = torch.zeros((B, W * up, M), dtype=torch.float32, device=dev)
-            pm[:, : fp_w * up] = prompt_mel * (torch.arange(fp_w * up, device=dev)[None, :, None] < nm[:, :, None])
-            pm[:, fp_w * up : (fp_w + chunk) * up] = mel_ctx
-            pm = pm * pmask[..., None]
-            pos = torch.where(fr < fp_w * up, fr, torch.clamp((npp + em - chunk) * up + fr - fp_w * up, min=0))
-            cond = cfm.upsample_tokens(params.cfm, tokens, up, cfg.cfm.token_vocab_size)
-        with clock.open("cfm.solve"):
-            mel = cfm.sample_mel(params.cfm, cfg.cfm, generator, cond, spk, pm, pmask, fmask,
-                                 use_cfg=cfg.cfm.use_cfg, positions=pos, noise=noise)
-            clock.count("euler_steps", cfg.cfm.n_steps)
-            clock.count("frames", B * W * up)
+        mel = _window_mel(params, cfg, gen_tokens, gen_len, emitted, prompt_tokens, n_p, prompt_mel, n_mel, spk,
+                          mel_ctx, generator, chunk=chunk, noise=noise, clock=clock)
+        _count_window(clock, cfg, mel.shape[0] * mel.shape[1], False, False)
         clock.wait()
-    lo = (fp_w + chunk) * up
     with clock.span("vocoder"):
-        wav = vocoder.apply(params.vocoder, cfg.vocoder, mel)[:, lo * hop : (lo + chunk * up) * hop].float()
-        clock.wait()
-    return wav, mel[:, lo : lo + chunk * up]
+        wav, mel_chunk = _window_wav(params, cfg, mel, fp_w=fp_w, chunk=chunk)
+        _count_window(clock, cfg, 0, False, False)
+        return clock.read(wav.cpu), mel_chunk
+
+
+class WindowGraph:
+    """``stream_window`` on one card for up to B rows (a ``WINDOW_ROWS``
+    count) over buffers that keep their addresses: ``block`` [B, 2 * chunk
+    + 4] int32 (each row's token slice, then gen_len, emitted, n_p,
+    n_mel), the prompt tokens, mel and speaker vector, the mel context and
+    the noise. Its first window runs eagerly and then records two CUDA
+    graphs (``token_lm.record``): the CFM part (conditioning and solve) in
+    the ``cfm`` span, the vocoder and the chunk's cut in the ``vocoder``
+    span. Every later window copies its inputs in and replays them; both
+    spans count ``graph_replays`` and ``graph_captures``. A window of
+    fewer rows fills the rest with its row 0 and keeps its own rows of the
+    result. The samples are fetched before the call returns and the mel
+    chunk is a copy, so a later replay overwrites nothing a caller holds."""
+
+    def __init__(self, key: tuple, B: int, chunk: int, prompt: StreamPrompt, cfg: Config):
+        up, M = cfg.cfm.upsample, cfg.cfm.n_mels
+        fp_w = prompt.tokens.shape[1]
+        dev = prompt.tokens.device
+        self.key, self.chunk, self.fp_w = key, chunk, fp_w
+        self.block = torch.zeros((B, 2 * chunk + 4), dtype=torch.int32, device=dev)
+        self.ptok = torch.zeros((B, fp_w), dtype=torch.int32, device=dev)
+        self.pmel = torch.zeros((B, fp_w * up, M), dtype=torch.float32, device=dev)
+        self.spk = torch.zeros((B, prompt.spk.shape[1]), dtype=torch.float32, device=dev)
+        self.ctx = torch.zeros((B, chunk * up, M), dtype=torch.float32, device=dev)
+        self.noise = torch.zeros((B, (fp_w + 2 * chunk) * up, M), dtype=torch.float32, device=dev)
+        self.cfm_graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.vocoder_graph: Optional["torch.cuda.CUDAGraph"] = None     # set once both are recorded
+        self.mel = self.wav = self.mel_chunk = None       # the graphs' outputs
+        self.consts: tuple = ()                            # what the vocoder graph reads besides its weights
+
+    def _mel(self, params: "EngineParams", cfg: Config, clock: Optional[Stopwatch]) -> torch.Tensor:
+        c, b = self.chunk, self.block
+        return _window_mel(params, cfg, b[:, : 2 * c], b[:, 2 * c], b[:, 2 * c + 1], self.ptok, b[:, 2 * c + 2],
+                           self.pmel, b[:, 2 * c + 3], self.spk, self.ctx, None, chunk=c, noise=self.noise,
+                           clock=clock)
+
+    def render(self, params: "EngineParams", cfg: Config, block: np.ndarray, prompts: Sequence[StreamPrompt],
+               mel_ctx: torch.Tensor, noise, generator: Optional[torch.Generator], clock: Stopwatch):
+        """One window of ``len(prompts)`` rows: ``block`` the host's int32
+        block, ``noise`` None (one draw of ``generator``, the call
+        ``sample_mel`` makes) or [B, W * up, M] on the host. -> as
+        ``stream_window``."""
+        dev = self.block.device
+        B, rows = len(prompts), self.block.shape[0]
+        frames = self.noise.shape[0] * self.noise.shape[1]
+        pad = [prompts[0]] * (rows - B)
+        with clock.span("cfm"):
+            block = np.concatenate([block] + [block[:1]] * (rows - B))
+            self.block.copy_(torch.from_numpy(block).pin_memory(), non_blocking=True)
+            torch.cat([p.tokens for p in (*prompts, *pad)], out=self.ptok)
+            torch.cat([p.mel for p in (*prompts, *pad)], out=self.pmel)
+            torch.cat([p.spk for p in (*prompts, *pad)], out=self.spk)
+            self.ctx[:B].copy_(mel_ctx)
+            if noise is None:
+                self.noise[:B].copy_(torch.randn((B,) + self.noise.shape[1:], generator=generator, device=dev,
+                                                 dtype=torch.float32))
+            else:
+                host = torch.from_numpy(np.ascontiguousarray(np.asarray(noise), dtype=np.float32))
+                self.noise[:B].copy_(host.pin_memory(), non_blocking=True)
+            replay = self.vocoder_graph is not None
+            if replay:
+                self.cfm_graph.replay()
+            else:
+                mel, self.cfm_graph, self.mel = token_lm.record(
+                    dev, lambda: self._mel(params, cfg, clock), lambda: self._mel(params, cfg, None))
+            _count_window(clock, cfg, frames, True, replay)
+            clock.wait()
+        with clock.span("vocoder"):
+            if replay:
+                self.vocoder_graph.replay()
+                wav, mel_chunk = self.wav, self.mel_chunk
+            else:
+                self.consts = vocoder.constants(cfg.vocoder, mel.shape[1], dev)    # made on this stream, held
+                (wav, mel_chunk), graph, (self.wav, self.mel_chunk) = token_lm.record(
+                    dev, lambda: _window_wav(params, cfg, mel, fp_w=self.fp_w, chunk=self.chunk),
+                    lambda: _window_wav(params, cfg, self.mel, fp_w=self.fp_w, chunk=self.chunk))
+                self.vocoder_graph = graph     # from here on the window replays
+            _count_window(clock, cfg, 0, True, replay)
+            return clock.read(wav[:B].cpu), mel_chunk[:B].clone()
 
 
 def featurize(
@@ -376,6 +500,7 @@ class Engine:
         self.last_gen_len = 0
         self.last_gen_lens: List[int] = []
         self.last_chunk_ms: List[float] = []      # a stream's render time of each chunk
+        self._windows: List[WindowGraph] = []     # kept stream-window graphs, oldest first
 
     # ------------------------------------------------------------------ prompts
 
@@ -688,32 +813,65 @@ class Engine:
             n_p=n_p, n_mel=n_mel, spk=self._tensor(flow_feat.spk[None], torch.float32))
         return flow_feat._stream_dev
 
+    def _window_graph(self, B: int, prompt: StreamPrompt, chunk: int) -> Optional[WindowGraph]:
+        """The kept ``WindowGraph`` for a window of B rows (key: B rounded up
+        to a ``WINDOW_ROWS`` count, the prompt's key (fp_w, upsample,
+        n_mels, device), chunk, hop, the CFM and vocoder configs and where
+        their weights lie, read on every window), made where none is kept,
+        the oldest dropped past ``MAX_KEPT_WINDOWS``; None (the eager
+        window) off a card, under a mesh or past the largest row count."""
+        if self.mesh is not None or not token_lm.graph_step_fits(self.device) or B > WINDOW_ROWS[-1]:
+            return None
+        cfg, p = self.cfg, self.params
+        key = (_bucket(B, WINDOW_ROWS), prompt.key, chunk, cfg.audio.hop_length, cfg.cfm, cfg.vocoder,
+               token_lm.weights_key(p.cfm), token_lm.weights_key(p.vocoder))
+        for win in self._windows:
+            if win.key == key:
+                self._windows.remove(win)
+                self._windows.append(win)
+                return win
+        if len(self._windows) >= MAX_KEPT_WINDOWS:
+            self._windows.pop(0)
+        self._windows.append(WindowGraph(key, key[0], chunk, prompt, cfg))
+        return self._windows[-1]
+
     def render_windows(self, tokens: Sequence[Sequence[int]], emitted: Sequence[int],
                        prompts: Sequence[StreamPrompt], mel_ctx: torch.Tensor, chunk: int,
                        noise=None, clock: Optional[Stopwatch] = None):
-        """The next chunk of each of B streams in one ``stream_window`` call
-        (the prompts share one bucket): row b has generated ``tokens[b]``
-        and rendered ``emitted[b]`` of them. The noise is one draw of the
-        engine's generator for the call, or ``noise`` [B, W * up, M].
-        One host fetch, a read of ``clock`` (the stream's trace, or one of
-        the call's own). -> (each row's new samples, f32 numpy; the rows'
-        mel chunks, the next ``mel_ctx``)."""
+        """The next chunk of each of B streams in one window (the prompts
+        share one bucket): row b has generated ``tokens[b]`` and rendered
+        ``emitted[b]`` of them. The window reads each row's tokens
+        ``emitted - chunk .. emitted + chunk`` and its lengths as one int32
+        block, one copy to the device. The noise is one draw of the
+        engine's generator for the call, or ``noise`` [B, W * up, M]. On a
+        card without a mesh, up to ``WINDOW_ROWS[-1]`` rows, the window is
+        a kept ``WindowGraph``'s replay (its first window records it),
+        elsewhere ``stream_window``. One
+        host fetch, a read of ``clock`` (the stream's trace, or one of the
+        call's own). -> (each row's new samples, f32 numpy; the rows' mel
+        chunks, the next ``mel_ctx``, a tensor of their own)."""
         up, hop = self.cfg.cfm.upsample, self.cfg.audio.hop_length
         clock = clock or Stopwatch(self.device)
         B = len(tokens)
-        buf = np.zeros((B, max(max(len(t) for t in tokens), 1)), np.int32)
-        for b, t in enumerate(tokens):
-            buf[b, : len(t)] = t
-        i32 = torch.int32
-        with self._on_mesh():
-            wav, mel_chunk = stream_window(
-                self.params, self.cfg, self._tensor(buf, i32), self._tensor([len(t) for t in tokens], i32),
-                self._tensor(emitted, i32), torch.cat([p.tokens for p in prompts]),
-                self._tensor([p.n_p for p in prompts], i32), torch.cat([p.mel for p in prompts]),
-                self._tensor([p.n_mel for p in prompts], i32), torch.cat([p.spk for p in prompts]),
-                mel_ctx, self.generator, chunk=chunk,
-                noise=None if noise is None else self._tensor(noise, torch.float32), clock=clock)
-        host = clock.read(wav.cpu).numpy()
+        block = np.zeros((B, 2 * chunk + 4), np.int32)
+        for b, (t, e) in enumerate(zip(tokens, emitted)):
+            lo = max(e - chunk, 0)
+            seg = t[lo : e + chunk]
+            block[b, lo - (e - chunk) : lo - (e - chunk) + len(seg)] = seg
+            block[b, 2 * chunk :] = (len(t), e, prompts[b].n_p, prompts[b].n_mel)
+        win = self._window_graph(B, prompts[0], chunk)
+        if win is not None:
+            wav, mel_chunk = win.render(self.params, self.cfg, block, prompts, mel_ctx, noise, self.generator, clock)
+        else:
+            with self._on_mesh():
+                blk = self._tensor(block, torch.int32)
+                c = 2 * chunk
+                wav, mel_chunk = stream_window(
+                    self.params, self.cfg, blk[:, :c], blk[:, c], blk[:, c + 1], torch.cat([p.tokens for p in prompts]),
+                    blk[:, c + 2], torch.cat([p.mel for p in prompts]), blk[:, c + 3],
+                    torch.cat([p.spk for p in prompts]), mel_ctx, self.generator, chunk=chunk,
+                    noise=None if noise is None else self._tensor(noise, torch.float32), clock=clock)
+        host = wav.numpy()
         n = [min(chunk, len(t) - e) * up * hop for t, e in zip(tokens, emitted)]
         return [host[b, : n[b]] for b in range(B)], mel_chunk
 

@@ -94,6 +94,33 @@ def test_istft_overlap_add_matches(n_fft, hop):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("n_fft,hop,frames", [(128, 32, 11), (1920, 480, 192)])
+def test_istft_kept_constants_equal_host_uploads(n_fft, hop, frames, monkeypatch):
+    """The bases and the envelope kept on the device give exactly what the
+    same constants built on the host and uploaded in the call give, and a
+    second call of the same size uploads nothing."""
+    rng = np.random.default_rng(6)
+    n_bins = n_fft // 2 + 1
+    sr, si = (_t(rng.standard_normal((2, frames, n_bins)).astype(np.float32)) for _ in range(2))
+    cos_b, msin_b = (torch.from_numpy(b) for b in tstft._istft_basis(n_fft))
+    frames_t = sr @ cos_b + si @ msin_b
+    out = torch.zeros((2, (frames + n_fft // hop - 1) * hop))
+    for r in range(n_fft // hop):
+        out[:, r * hop : r * hop + frames * hop] += frames_t[:, :, r * hop : (r + 1) * hop].reshape(2, -1)
+    out = out / torch.clamp(torch.from_numpy(tstft._ola_envelope(frames, n_fft, hop)), min=1e-8)
+    want = out[:, (n_fft - hop) // 2 : (n_fft - hop) // 2 + frames * hop]
+    tstft._istft_basis_on.cache_clear()
+    tstft._ola_envelope_on.cache_clear()
+    uploads = []
+    upload = tstft.upload
+    monkeypatch.setattr(tstft, "upload", lambda a, dev: uploads.append(a.shape) or upload(a, dev))
+    first = tstft.istft_overlap_add(sr, si, n_fft, hop)
+    assert len(uploads) == 3
+    second = tstft.istft_overlap_add(sr, si, n_fft, hop)
+    assert len(uploads) == 3
+    assert torch.equal(first, want) and torch.equal(second, want)
+
+
 def _istft_cfg():
     c = jtiny()
     return dataclasses.replace(c.vocoder, kind="istft", istft_hop=c.audio.hop_length,

@@ -19,6 +19,14 @@ largest value at flagship widths (int8, the int4 engine's int8 views and
 packed int4), two interleaved loops each their own run's; the transposed
 conv within 1e-4 of the CPU's (cuDNN, TF32 off); a streamed request's
 tokens equal to the same request's unstreamed, through the decode kernel;
+a stream's windows replayed from a kept graph equal to the eager render
+(the same kernels on the same inputs), chunk by chunk, also for two
+scheduler sessions replayed in turns (and a mel context left as a view of
+the graph's output caught there), with no sync inside a replayed window
+but the clock's; an eight-slot scheduler over two prompt widths replaying
+after one warm-up, each chunk equal to the warm-up's and within 2e-3 of
+the eager render's (which runs B rows where the graph runs the next row
+count: another GEMM shape);
 a continuous batch's admission prefill (B=4 at T=384, per-row offsets)
 within two bf16 ulps of the plain attention on every layer's inputs; the
 flash kernel at the RAG embedder's shapes (H=24, K=8, hd=128: right-padded
@@ -33,6 +41,7 @@ CPU's largest component.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -874,6 +883,262 @@ def test_streamed_tokens_equal_unstreamed_through_the_decode_kernel(cuda):
     assert n1 > n0 and decode_step.mega_decode_step.launches - n1 == n1 - n0
     assert len(seen) == 2 and torch.equal(seen[0].tokens, seen[1].tokens)
     assert sum(c.shape[1] for c in chunks) == wav["tts_speech"].shape[1] and len(chunks) > 1
+
+
+def _stream_engine(cuda, seed=4):
+    """A tiny engine on the card with the serving configurations' kinds (a
+    bf16 CFM trunk, the iSTFT vocoder) and every CFM layer contributing
+    (the zero-initialized modulation and output projection filled)."""
+    cfg = tiny_config()
+    cfg.cfm = dataclasses.replace(cfg.cfm, dtype="bfloat16")
+    cfg.vocoder = dataclasses.replace(cfg.vocoder, kind="istft", istft_hop=cfg.audio.hop_length,
+                                      istft_n_fft=4 * cfg.audio.hop_length, istft_channels=32, istft_blocks=2)
+    eng = Engine(cfg, seed=seed, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = eng.params.cfm
+    c["layers"]["mod"].copy_(torch.randn(c["layers"]["mod"].shape, generator=g, device=cuda) * 0.05)
+    c["out_proj"].copy_(torch.randn(c["out_proj"].shape, generator=g, device=cuda) * 0.1)
+    return eng
+
+
+def _feat(cfg, n, seed):
+    r = np.random.default_rng(seed)
+    return PromptFeatures(tokens=r.integers(0, 64, n).astype(np.int32),
+                          spk=r.standard_normal(cfg.speaker.emb_dim).astype(np.float32),
+                          mel24=r.standard_normal((2 * n, cfg.cfm.n_mels)).astype(np.float32))
+
+
+def _window_noise(eng, prm, n_windows, seed):
+    """One [1, W * up, M] noise array a window of a stream on ``prm``."""
+    cfg = eng.cfg
+    W = eng._flow_stream_dev(prm).key[0] + 2 * max(8, (2 * cfg.token_lm.token_rate) // 3)
+    r = np.random.default_rng(seed)
+    return [r.standard_normal((1, W * cfg.cfm.upsample, cfg.cfm.n_mels)).astype(np.float32) for _ in range(n_windows)]
+
+
+WINDOW_ATOL = 0.0     # a replayed window's samples against the eager one's: the same kernels on the same inputs
+
+
+@pytest.mark.parametrize("noise", ["given", "drawn"])
+def test_stream_window_replays_match_eager_render(cuda, noise, monkeypatch):
+    """A voice-conversion stream of 9 windows on the card, rendered eagerly
+    and then by the kept window graph (its first window eager, recorded,
+    the rest replays) from the same generator state: each chunk within
+    ``WINDOW_ATOL`` of the eager one, whether the noise is given or drawn
+    from the engine's generator (outside the graph, the draw the eager
+    solve makes); the trace counts one capture and then one replay a
+    window on both spans."""
+    eng = _stream_engine(cuda)
+    src, prm = _feat(eng.cfg, 140, 1), _feat(eng.cfg, 40, 2)
+    noises = _window_noise(eng, prm, 9, 3) if noise == "given" else None
+    state = eng.generator.get_state()
+    with monkeypatch.context() as m:
+        m.setattr(Engine, "_window_graph", lambda self, *a: None)
+        want = [c["tts_speech"] for c in eng.inference_vc(src, prm, stream=True, cfm_noise=noises)]
+    assert eng._windows == []
+    eng.generator.set_state(state)
+    got = [c["tts_speech"] for c in eng.inference_vc(src, prm, stream=True, cfm_noise=noises)]
+    assert len(got) == len(want) == 9
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.isfinite(g).all()
+        assert np.abs(g - w).max() <= WINDOW_ATOL
+    assert len(eng._windows) == 1 and eng._windows[0].vocoder_graph is not None
+    for name in ("cfm", "vocoder"):
+        spans = [s for s in eng.last_trace if s.name == name]
+        assert [s.counters["graph_captures"] for s in spans] == [1] + [0] * 8
+        assert [s.counters["graph_replays"] for s in spans] == [0] + [1] * 8
+        assert all(s.attrs["graph"] for s in spans)
+    cfms = [s for s in eng.last_trace if s.name == "cfm"]
+    assert all(s.counters["euler_steps"] == eng.cfg.cfm.n_steps for s in cfms)
+    children = [s.parent for s in eng.last_trace if s.name in ("cfm.cond", "cfm.solve")]
+    assert children == [cfms[0].id] * 2
+
+
+def test_second_stream_reuses_the_kept_window_graph(cuda):
+    """A second stream of the same key (another source, prompt and noise)
+    records nothing: every window of it is a replay."""
+    eng = _stream_engine(cuda)
+    prm = _feat(eng.cfg, 40, 2)
+    list(eng.inference_vc(_feat(eng.cfg, 60, 1), prm, stream=True))
+    kept = list(eng._windows)
+    prm2 = _feat(eng.cfg, 50, 5)
+    chunks = list(eng.inference_vc(_feat(eng.cfg, 90, 4), prm2, stream=True,
+                                   cfm_noise=_window_noise(eng, prm2, 6, 6)))
+    assert len(chunks) == 6 and eng._windows == kept
+    for s in eng.last_trace:
+        if s.name in ("cfm", "vocoder"):
+            assert s.counters["graph_captures"] == 0 and s.counters["graph_replays"] == 1
+
+
+def _chunks_of_interleaved_sessions(eng, feats, style):
+    """Two ``StreamingScheduler``s on ``eng``, one session each on
+    ``feats[j]``, stepped in turns: each session's chunk samples."""
+    from autostyle_tts_tpu_torch.pipeline.stream_serve import StreamingScheduler
+
+    schs = [StreamingScheduler(eng, slots=1, max_seconds=2.0, p_max=128, sampler=SamplerConfig(greedy=True))
+            for _ in feats]
+    sids = [sch.submit({"text": f"session {i} speaks", "style_text": "st", "style_feat": style,
+                        "flow_feat": f, "max_tokens": 48}) for i, (sch, f) in enumerate(zip(schs, feats))]
+    out = [[], []]
+    for _ in range(200):
+        if all(sch.idle for sch in schs):
+            break
+        for j, sch in enumerate(schs):
+            out[j] += [ev.wav for ev in sch.step() if ev.session == sids[j] and ev.kind == "chunk"]
+    return out
+
+
+@pytest.mark.parametrize("fault", [None, "mel_chunk_view"])
+def test_interleaved_scheduler_sessions_keep_their_own_mel_context(cuda, monkeypatch, fault):
+    """Two ``StreamingScheduler``s on one engine, one session each, stepped
+    in turns: their windows share one kept graph, replayed for one session
+    between two windows of the other. Each session's chunks equal, within
+    ``WINDOW_ATOL``, those of the same turns rendered eagerly from the same
+    generator state. With the fault planted (a replay hands back its mel
+    chunk as a view of the graph's output, not a copy) the other session's
+    replay overwrites that view before it is read as the next context, and
+    the same comparison fails."""
+    from autostyle_tts_tpu_torch.pipeline.engine import WindowGraph
+
+    eng = _stream_engine(cuda)
+    feats = [_feat(eng.cfg, 40, 7), _feat(eng.cfg, 48, 8)]
+    style = _feat(eng.cfg, 12, 10)
+    list(eng.inference_vc(_feat(eng.cfg, 40, 9), feats[0], stream=True))     # records the graph
+    state = eng.generator.get_state()
+    with monkeypatch.context() as m:
+        m.setattr(Engine, "_window_graph", lambda self, *a: None)
+        want = _chunks_of_interleaved_sessions(eng, feats, style)
+    if fault == "mel_chunk_view":
+        render = WindowGraph.render
+
+        def aliased(self, params, cfg, block, prompts, *a, **k):
+            replay = self.vocoder_graph is not None
+            wav, mel_chunk = render(self, params, cfg, block, prompts, *a, **k)
+            return wav, (self.mel_chunk[: len(prompts)] if replay else mel_chunk)
+        monkeypatch.setattr(WindowGraph, "render", aliased)
+    eng.generator.set_state(state)
+    got = _chunks_of_interleaved_sessions(eng, feats, style)
+    for g, w in zip(got, want):
+        assert len(g) == len(w) >= 2 and all(a.shape == b.shape for a, b in zip(g, w))
+    diff = max(np.abs(a - b).max() for g, w in zip(got, want) for a, b in zip(g, w))
+    if fault is None:
+        assert diff <= WINDOW_ATOL
+    else:
+        assert diff > 1e-2, diff
+
+
+def test_eight_slot_scheduler_replays_after_warm_up(cuda, monkeypatch):
+    """A ``StreamingScheduler`` of 8 slots over 16 sessions on prompts of
+    both stream widths (32 and 64 tokens), sessions of several lengths, so
+    its windows come in many row counts. The row count is rounded up to a
+    ``WINDOW_ROWS`` count, so every key fits the kept graphs: after one
+    warm-up pass the same pass records nothing (every window a replay) and
+    its chunks equal the warm-up's (whose first window of a key ran
+    eagerly on the same buffers). Both are within 2e-3 of the eager render
+    of the same turns, which runs the window at B rows (another GEMM shape
+    than the graph's rounded-up count, bf16 trunk)."""
+    from autostyle_tts_tpu_torch.pipeline import engine as engine_mod
+    from autostyle_tts_tpu_torch.pipeline.stream_serve import StreamingScheduler
+    from autostyle_tts_tpu_torch.utils import timing
+
+    eng = _stream_engine(cuda)
+    style = _feat(eng.cfg, 12, 10)
+    feats = [_feat(eng.cfg, (20, 40)[i % 2], 30 + i) for i in range(16)]
+    widths = {eng._flow_stream_dev(f).key[0] for f in feats}
+    assert widths == set(engine_mod.STREAM_BUCKETS)
+
+    def run():
+        sch = StreamingScheduler(eng, slots=8, max_seconds=2.0, p_max=128, sampler=SamplerConfig(greedy=True))
+        sids = [sch.submit({"text": f"session {i} says a few words", "style_text": "st", "style_feat": style,
+                            "flow_feat": f, "max_tokens": 24 + 8 * (i % 5)}) for i, f in enumerate(feats)]
+        t0 = time.perf_counter()
+        events = sch.run()
+        wins = [s for s in timing.spans() if s.name == "cfm" and s.t0 >= t0]
+        return [[ev.wav for ev in events[sid] if ev.kind == "chunk"] for sid in sids], wins
+
+    state = eng.generator.get_state()
+    with monkeypatch.context() as m:
+        m.setattr(Engine, "_window_graph", lambda self, *a: None)
+        want, _ = run()
+    eng.generator.set_state(state)
+    warm, wins = run()
+    assert 0 < sum(s.counters["graph_captures"] for s in wins) <= engine_mod.MAX_KEPT_WINDOWS
+    rows = {int(s.counters["frames"]) for s in wins}
+    assert len(rows) >= 3, rows          # several row counts (frames = rows x W x up)
+    eng.generator.set_state(state)
+    got, wins = run()
+    assert wins and all(s.counters["graph_replays"] == 1 and s.counters["graph_captures"] == 0 for s in wins)
+    assert len(eng._windows) <= engine_mod.MAX_KEPT_WINDOWS
+    assert sum(len(g) for g in got) > len(got)
+    for g, w, e in zip(got, warm, want):
+        assert len(g) == len(w) == len(e) >= 1
+        for a, b, c in zip(g, w, e):
+            assert a.shape == b.shape == c.shape and np.array_equal(a, b)
+            assert np.abs(a - c).max() <= 2e-3, np.abs(a - c).max()
+
+
+def test_window_graph_only_on_a_card_without_a_mesh(cuda, monkeypatch):
+    """The window is a kept graph on a card without a mesh, and eager on a
+    CPU engine of the same weights or under a mesh."""
+    eng = _stream_engine(cuda)
+    prompt = eng._flow_stream_dev(_feat(eng.cfg, 40, 2))
+    assert eng._window_graph(1, prompt, 16) is not None
+    cpu = Engine(eng.cfg, params=eng.params, device="cpu")
+    assert cpu._window_graph(1, cpu._flow_stream_dev(_feat(eng.cfg, 40, 2)), 16) is None
+    chunks = list(cpu.inference_vc(_feat(eng.cfg, 40, 1), _feat(eng.cfg, 40, 2), stream=True))
+    assert chunks and cpu._windows == []
+    monkeypatch.setattr(eng, "mesh", object())
+    assert eng._window_graph(1, prompt, 16) is None
+
+
+def test_no_sync_inside_a_replayed_window(cuda, monkeypatch):
+    """Under torch's sync debug mode, replayed windows (noise given and
+    drawn) block the host only through the clock: its wait at the end of
+    ``cfm`` and the samples' read at the end of ``vocoder``."""
+    import traceback
+    import warnings
+
+    from autostyle_tts_tpu_torch.utils import timing
+    from autostyle_tts_tpu_torch.utils.timing import Stopwatch
+
+    eng = _stream_engine(cuda)
+    src, prm = _feat(eng.cfg, 80, 1), _feat(eng.cfg, 40, 2)
+    list(eng.inference_vc(src, prm, stream=True))       # records the graph
+
+    def quiet(f):
+        def run(*a, **k):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return f(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("warn")
+        return run
+
+    monkeypatch.setattr(Stopwatch, "read", quiet(Stopwatch.read))
+    monkeypatch.setattr(Stopwatch, "wait", quiet(Stopwatch.wait))
+    found = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            ours = [f for f in traceback.extract_stack() if "autostyle_tts_tpu_torch" in f.filename]
+            at = f"{ours[-1].filename}:{ours[-1].lineno}" if ours else f"{filename}:{lineno}"
+            found.append((tuple(s.name for s in timing._OPEN), at))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            list(eng.inference_vc(src, prm, stream=True, cfm_noise=_window_noise(eng, prm, 5, 3)))
+            list(eng.inference_vc(src, prm, stream=True))
+            torch.ones(1, device=cuda).item()     # a sync outside every span: seen
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert found and found[-1][0] == ()
+    hidden = sorted({(names[-1], at) for names, at in found if {"cfm", "vocoder"} & set(names)})
+    assert not hidden, "syncs inside a window (innermost span, call site):\n" + "\n".join(
+        f"{n} {at}" for n, at in hidden)
+    assert all(s.counters["graph_replays"] == 1 for s in eng.last_trace if s.name == "cfm")
 
 
 def test_admission_prefill_flash_matches_plain(cuda):

@@ -13,6 +13,9 @@ Tolerances:
   each window handed the JAX key's noise: atol 1e-3 on every chunk (f16 on
   the JAX side), which holds the seams and the mel context carried from
   window to window;
+- a window read from each row's fixed ``[emitted - chunk, emitted +
+  chunk)`` token slice against the same window read from the whole
+  growing buffer (the arithmetic is the same): exactly equal;
 - the same request streamed and not streamed from the same generator
   state (the default sampler, temperature 1 and top-k 25): the same tokens,
   exactly, on the decode step (int8 LM, its plain version here) and on the
@@ -69,6 +72,17 @@ def _chunk(cfg):
 # ----------------------------------------------------------------------- the window body
 
 
+def _token_slice(gen, emitted, chunk):
+    """Each row's generated tokens ``emitted - chunk .. emitted + chunk``
+    ([B, 2 * chunk], zero outside the row's buffer): what a window reads."""
+    out = np.zeros((len(gen), 2 * chunk), np.int32)
+    for b, e in enumerate(emitted):
+        for c in range(2 * chunk):
+            if 0 <= e - chunk + c < gen.shape[1]:
+                out[b, c] = gen[b, e - chunk + c]
+    return out
+
+
 @pytest.mark.parametrize("rows", [
     [(40, 0, 20, 40)],                                     # (gen_len, emitted, n_p, n_mel)
     [(40, 16, 32, 64), (20, 16, 7, 10), (33, 32, 25, 50)],
@@ -94,14 +108,144 @@ def test_stream_window_matches_jax(engines, rows):
     W = fp_w + 2 * chunk
     noise = torch.from_numpy(np.array(jax.random.normal(key, (B, W * up, M), jnp.float32)))
     t = torch.from_numpy
-    wav, mel = tengine.stream_window(teng.params, cfg, t(gen), t(gl), t(em), t(ptok), t(n_p), t(pmel),
-                                     t(n_mel), t(spk), t(ctx), None, chunk=chunk, noise=noise)
+    wav, mel = tengine.stream_window(teng.params, cfg, t(_token_slice(gen, em, chunk)), t(gl), t(em), t(ptok),
+                                     t(n_p), t(pmel), t(n_mel), t(spk), t(ctx), None, chunk=chunk, noise=noise)
     n_c = np.minimum(chunk, gl - em)
     np.testing.assert_array_equal(vals[:, 0], n_c)
     for b in range(B):
         n = n_c[b] * up * hop
         np.testing.assert_allclose(wav[b, :n].numpy(), jwav[b, :n].astype(np.float32), atol=1e-3, rtol=0)
     np.testing.assert_allclose(mel.numpy(), np.asarray(jmel), atol=1e-4, rtol=0)
+
+
+def _growing_window(params, cfg, gen_tokens, gen_len, emitted, prompt_tokens, n_p, prompt_mel, n_mel, spk,
+                    mel_ctx, *, chunk, noise):
+    """The window as it read each row's whole token buffer ([B, W_g],
+    token i at column i), before it read a fixed slice: the reference the
+    slice has to reproduce exactly."""
+    from autostyle_tts_tpu_torch.models import cfm, vocoder
+
+    up, hop, M = cfg.cfm.upsample, cfg.audio.hop_length, cfg.cfm.n_mels
+    B, fp_w = prompt_tokens.shape
+    W = fp_w + 2 * chunk
+    gl, em, npp, nm = (x.long().reshape(-1, 1) for x in (gen_len, emitted, n_p, n_mel))
+    n_chunk = torch.clamp(gl - em, max=chunk)
+    slot = torch.arange(W)[None, :]
+    ctx_lo = fp_w + chunk - torch.clamp(em, max=chunk)
+    gidx = slot - (fp_w + chunk) + em
+    from_gen = torch.gather(gen_tokens.long(), 1, torch.clamp(gidx, 0, gen_tokens.shape[1] - 1))
+    from_prompt = torch.gather(prompt_tokens.long(), 1, torch.clamp(slot, 0, fp_w - 1).expand(B, W))
+    in_tail = (slot >= ctx_lo) & (gidx < em + n_chunk) & (slot >= fp_w)
+    tokens = torch.where(slot < npp, from_prompt, torch.where(in_tail, from_gen, torch.zeros_like(from_gen)))
+    fr = torch.arange(W * up)[None, :]
+    sl = fr // up
+    in_ctx = (sl >= ctx_lo) & (sl < fp_w + chunk)
+    pmask = ((fr < nm) | in_ctx).float()
+    fmask = ((fr < npp * up) | in_ctx | ((sl >= fp_w + chunk) & (sl < fp_w + chunk + n_chunk))).float()
+    pm = torch.zeros((B, W * up, M), dtype=torch.float32)
+    pm[:, : fp_w * up] = prompt_mel * (torch.arange(fp_w * up)[None, :, None] < nm[:, :, None])
+    pm[:, fp_w * up : (fp_w + chunk) * up] = mel_ctx
+    pm = pm * pmask[..., None]
+    pos = torch.where(fr < fp_w * up, fr, torch.clamp((npp + em - chunk) * up + fr - fp_w * up, min=0))
+    cond = cfm.upsample_tokens(params.cfm, tokens, up, cfg.cfm.token_vocab_size)
+    mel = cfm.sample_mel(params.cfm, cfg.cfm, None, cond, spk, pm, pmask, fmask, use_cfg=cfg.cfm.use_cfg,
+                         positions=pos, noise=noise)
+    lo = (fp_w + chunk) * up
+    wav = vocoder.apply(params.vocoder, cfg.vocoder, mel)[:, lo * hop : (lo + chunk * up) * hop].float()
+    return wav, mel[:, lo : lo + chunk * up]
+
+
+@pytest.mark.parametrize("rows", [
+    [(16, 0)],                # (tokens so far, emitted): the first window
+    [(60, 32)],               # a middle window, tokens past the chunk already drawn
+    [(53, 48)],               # the last, short window
+    [(40, 16), (21, 8)],      # two rows at different emitted, one with less context than a chunk
+])
+def test_token_slice_window_equals_growing_buffer(engines, rows):
+    """``render_windows`` reads each row's ``[emitted - chunk, emitted +
+    chunk)`` tokens as a fixed [B, 2 * chunk] slice: the window it renders
+    equals, exactly, the window read from the row's whole growing buffer
+    (the same noise, eagerly on the CPU)."""
+    _, eng = engines
+    cfg = eng.cfg
+    up, hop, M = cfg.cfm.upsample, cfg.audio.hop_length, cfg.cfm.n_mels
+    chunk = _chunk(cfg)
+    rng = np.random.default_rng(31 + len(rows))
+    tokens = [list(rng.integers(0, 64, n)) for n, _ in rows]
+    emitted = [e for _, e in rows]
+    prompts = [eng._flow_stream_dev(eng.prompt_features([_wav(40 + b)])[0]) for b in range(len(rows))]
+    assert len({p.key for p in prompts}) == 1
+    fp_w = prompts[0].key[0]
+    mel_ctx = torch.from_numpy(rng.standard_normal((len(rows), chunk * up, M)).astype(np.float32))
+    noise = rng.standard_normal((len(rows), (fp_w + 2 * chunk) * up, M)).astype(np.float32)
+    wavs, mel_chunk = eng.render_windows(tokens, emitted, prompts, mel_ctx, chunk, noise=noise)
+    buf = np.zeros((len(rows), max(len(t) for t in tokens)), np.int32)
+    for b, t in enumerate(tokens):
+        buf[b, : len(t)] = t
+    t32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    want, want_mel = _growing_window(
+        eng.params, cfg, torch.from_numpy(buf), t32([len(t) for t in tokens]), t32(emitted),
+        torch.cat([p.tokens for p in prompts]), t32([p.n_p for p in prompts]), torch.cat([p.mel for p in prompts]),
+        t32([p.n_mel for p in prompts]), torch.cat([p.spk for p in prompts]), mel_ctx, chunk=chunk,
+        noise=torch.from_numpy(noise))
+    for b, (t, e) in enumerate(zip(tokens, emitted)):
+        n = min(chunk, len(t) - e) * up * hop
+        assert wavs[b].shape == (n,)
+        np.testing.assert_array_equal(wavs[b], want[b, :n].numpy())
+    assert torch.equal(mel_chunk, want_mel)
+
+
+def test_cpu_engine_renders_windows_eagerly(engines):
+    """Off a card the window is ``stream_window``, eager: no kept graph, and
+    each window's ``cfm`` span keeps its children and counts no replay or
+    capture (``graph`` false), as its ``vocoder`` span does."""
+    _, eng = engines
+    chunks = list(eng.inference_vc(_wav(50, seconds=2.0), _wav(51), stream=True))
+    assert len(chunks) > 1 and eng._windows == []
+    trace = eng.last_trace
+    cfms = [s for s in trace if s.name == "cfm"]
+    assert len(cfms) == len(chunks) == len([s for s in trace if s.name == "vocoder"])
+    for s in cfms + [s for s in trace if s.name == "vocoder"]:
+        assert s.counters["graph_replays"] == 0 and s.counters["graph_captures"] == 0
+        assert s.attrs["graph"] is False
+    assert all(s.counters["euler_steps"] == eng.cfg.cfm.n_steps and s.counters["frames"] > 0 for s in cfms)
+    ids = {s.id for s in cfms}
+    assert sum(s.name in ("cfm.cond", "cfm.solve") and s.parent in ids for s in trace) == 2 * len(cfms)
+
+
+def test_window_graph_keys_fit_the_kept_graphs(engines, monkeypatch):
+    """The window graphs a scheduler can ask for (1 to 8 due sessions on
+    prompts of either stream width) are keyed on the row count rounded up
+    to a ``WINDOW_ROWS`` count, so all of them fit in ``MAX_KEPT_WINDOWS``:
+    a second sweep in another order finds each one kept. A window of more
+    rows is eager; a weight rebound inside the served tree (not only a new
+    tree) gives another key. Run on the CPU engine with the card check
+    forced (nothing is recorded here)."""
+    _, eng = engines
+    monkeypatch.setattr(tlm, "graph_step_fits", lambda dev: True)
+    monkeypatch.setattr(eng, "_windows", [])
+    chunk = _chunk(eng.cfg)
+    rng = np.random.default_rng(5)
+    feats = [tengine.PromptFeatures(tokens=rng.integers(0, 64, n).astype(np.int32),
+                                    spk=rng.standard_normal(eng.cfg.speaker.emb_dim).astype(np.float32),
+                                    mel24=rng.standard_normal((2 * n, eng.cfg.cfm.n_mels)).astype(np.float32))
+             for n in (20, 40, 90)]
+    prompts = [eng._flow_stream_dev(f) for f in feats]
+    assert sorted({p.key[0] for p in prompts}) == list(tengine.STREAM_BUCKETS) == [32, 64]
+    first = {}
+    for B in range(1, 9):
+        for p in prompts:
+            win = eng._window_graph(B, p, chunk)
+            assert win.block.shape[0] in tengine.WINDOW_ROWS and B <= win.block.shape[0] < 2 * B
+            first[B, p.key] = win
+    assert len(eng._windows) == tengine.MAX_KEPT_WINDOWS == len({id(w) for w in first.values()})
+    for B, key in reversed(list(first)):
+        assert eng._window_graph(B, next(p for p in prompts if p.key == key), chunk) is first[B, key]
+    assert eng._window_graph(9, prompts[0], chunk) is None
+    out_proj = eng.params.cfm["out_proj"]
+    monkeypatch.setitem(eng.params.cfm, "out_proj", out_proj.clone())
+    moved = eng._window_graph(1, prompts[0], chunk)
+    assert moved is not first[1, prompts[0].key] and len(eng._windows) == tengine.MAX_KEPT_WINDOWS
 
 
 # ----------------------------------------------------------------------- the JAX stream contracts
